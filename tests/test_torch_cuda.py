@@ -1,0 +1,98 @@
+"""Kernel tests of youtu_rag_tpu_torch that need an NVIDIA GPU.
+
+They carry the ``cuda`` marker and skip on hosts without CUDA. The file
+imports nothing of JAX, so on the card it runs without the JAX package:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from youtu_rag_tpu_torch.core.config import IndexConfig
+from youtu_rag_tpu_torch.core.types import Chunk
+from youtu_rag_tpu_torch.index import DeviceVectorIndex
+from youtu_rag_tpu_torch.ops.topk import NEG_INF, topk_pruned, topk_pruned_reference
+
+TOL = 1e-4  # unit vectors; f32 sums in another order than cuBLAS
+N = 4096
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def make_inputs(q, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[101:105] = x[3]  # exact ties
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    qs[0] = x[3]
+    bias = np.zeros(N, np.float32)
+    bias[::5] = NEG_INF
+    bias[7::13] = -np.inf
+    return qs, x, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 50, 128])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_kernel_matches_plain_version(cuda_device, q, k):
+    qs, x, bias = make_inputs(q, 256, seed=q + k)
+    args = (torch.from_numpy(qs).to(cuda_device),
+            torch.from_numpy(x).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda_device), k)
+    before = topk_pruned.launches
+    s, i = topk_pruned(*args)
+    torch.cuda.synchronize()
+    assert topk_pruned.launches == before + 1
+    ws, wi = topk_pruned_reference(*args)
+    s, i, ws, wi = (t.cpu().numpy() for t in (s, i, ws, wi))
+    for a in range(q):
+        n = int((ws[a] > NEG_INF / 2).sum())
+        assert int((s[a] > NEG_INF / 2).sum()) == n
+        np.testing.assert_allclose(s[a, :n], ws[a, :n], atol=TOL)
+        assert set(i[a, :n].tolist()) == set(wi[a, :n].tolist())
+    assert i[0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_out_of_contract(cuda_device):
+    qs, x, bias = make_inputs(3, 128, seed=0)
+    xd = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
+    with pytest.raises(ValueError):
+        topk_pruned(qd, xd, bd, 129)
+    with pytest.raises(ValueError):
+        topk_pruned(qd, xd.float(), bd, 10)
+    with pytest.raises(ValueError):
+        topk_pruned(torch.zeros(65, 128, device=cuda_device), xd, bd, 10)
+    with pytest.raises(ValueError):
+        topk_pruned(qd, xd, bd.cpu(), 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cosine", "l2", "ip"])
+def test_cuda_index_answers_like_cpu_index(cuda_device, metric):
+    rng = np.random.default_rng(0)
+    embs = rng.standard_normal((700, 96)).astype(np.float32)
+    chunks = [Chunk(f"c{i}", f"d{i % 7}", "", i, {"idx": i}) for i in range(700)]
+    cfg = IndexConfig(metric=metric, min_capacity=256, block_rows=128)
+    gpu, cpu = DeviceVectorIndex(96, cfg, device=cuda_device), DeviceVectorIndex(96, cfg, device="cpu")
+    for ix in (gpu, cpu):
+        ix.add(chunks, embs)
+        ix.delete([f"c{i}" for i in range(0, 700, 9)])
+    q = rng.standard_normal((70, 96)).astype(np.float32)  # > 64: two kernel launches
+    before = topk_pruned.launches
+    for filters in (None, {"idx": {"$lt": 300}}):
+        got, want = gpu.search(q, 50, filters), cpu.search(q, 50, filters)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=TOL)
+            assert all(a.id == b.id or abs(sa - sb) <= TOL for (a, sa), (b, sb) in zip(g, w))
+    assert topk_pruned.launches == before + 4
