@@ -247,21 +247,45 @@ def small_corpus(seed: int) -> tuple[int, float]:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: CUDA events around a burst of back-to-back
+    calls (so the host's enqueue overlaps the card's work), divided by the
+    burst length; the median over bursts. The 1.61 GB index is 32x the
+    50 MB L2, so every call reads it from HBM."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for _ in range(bursts):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(burst):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / burst)
     return statistics.median(times)
+
+
+def profile_split(fn, calls: int = 10) -> None:
+    """Device time per call of each kernel ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.count >= calls:
+            rows.append((us / calls, e.key))
+    print("device time per call: " + "; ".join(
+        f"{name.replace('(anonymous namespace)::', '').split('(')[0].split('<')[0][:48]} {us / 1e3:.4f} ms"
+        for us, name in sorted(rows, reverse=True)[:4]))
 
 
 def full_size(seed: int, rows: int, part: str) -> dict:
@@ -322,6 +346,11 @@ def full_size(seed: int, rows: int, part: str) -> dict:
         def lib_call():
             return torch.topk(torch.mm(q16, x.T).float() + b, k)
     library_ms = time_ms(lib_call)
+
+    profile_split(lambda: topk_pruned(qdev, x, b, k))
+    sweep = {kk: time_ms(lambda: topk_pruned(qdev, x, b, kk)) for kk in (1, 50, 128)}
+    print("topk_pruned at other k (ms/batch): "
+          + ", ".join(f"k={kk} {t:.4f}" for kk, t in sweep.items()))
 
     nbytes = rows * d * 2 + rows * 4 + qn * d * 4 + qn * k * 8
     flops = 2 * qn * rows * d

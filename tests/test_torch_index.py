@@ -18,7 +18,7 @@ from youtu_rag_tpu.index.metadata import MetadataSchema as JaxSchema
 from youtu_rag_tpu.index.numpy_ref import NumpyVectorIndex
 from youtu_rag_tpu_torch.core.config import IndexConfig
 from youtu_rag_tpu_torch.core.types import Chunk
-from youtu_rag_tpu_torch.index import DeviceVectorIndex, index_from_numpy, index_to_numpy
+from youtu_rag_tpu_torch.index import DeviceVectorIndex, index_from_numpy
 from youtu_rag_tpu_torch.index.filters import compile_filter
 from youtu_rag_tpu_torch.index.metadata import MetadataSchema
 
@@ -216,10 +216,18 @@ def test_index_from_numpy_answers_like_the_jax_index(metric):
     q = vectors(11, 5)
     for filters in (None, {"idx": {"$lt": 150}}, {"source": {"$regex": "A$"}}):
         assert_same_hits(port.search(q, 10, filters), t.jax.search(q, 10, filters, backend="xla"))
-    port.add(chunks(Chunk, 20, "docC"), vectors(12, 20))  # keeps working after import
-    assert port.count() == t.jax.count() + 20
-    again = index_from_numpy(index_to_numpy(port), device="cpu")
-    assert_same_hits(again.search(q, 10), port.search(q, 10))
+    # both keep working the same after the import
+    port.add(chunks(Chunk, 20, "docC"), vectors(12, 20))
+    t.jax.add(chunks(JaxChunk, 20, "docC"), vectors(12, 20))
+    port.delete(["docC-3", "docA-1"])
+    t.jax.delete(["docC-3", "docA-1"])
+    assert port.count() == t.jax.count()
+    assert_same_hits(port.search(q, 10), t.jax.search(q, 10, backend="xla"))
+
+
+def test_ivf_kind_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeviceVectorIndex(D, IndexConfig(kind="ivf"), device="cpu")
 
 
 def test_quantized_tiers_raise():

@@ -147,6 +147,45 @@ def test_warmup_propagates_search_failures(kbs, monkeypatch):
         asyncio.run(port.warmup())
 
 
+def test_search_coalescer_merges_concurrent_searches(corpus):
+    """Concurrent single-query searches inside the window share one index
+    search and get the same hits as one-by-one searches."""
+    from youtu_rag_tpu_torch.core.config import VectorStoreConfig
+
+    cfg = RAGConfig(name="co", vector_store=VectorStoreConfig(coalesce_window_ms=20.0))
+    kb = KnowledgeBase("co", cfg, device="cpu")
+    asyncio.run(kb.build_files(sorted(str(p) for p in corpus.iterdir())))
+    embs = kb.embedder.embed_batch([q for q, _ in QUERIES])
+
+    async def burst():
+        return await asyncio.gather(*(kb.store.search(e.tolist(), top_k=5) for e in embs))
+
+    before = dict(kb.store._coalescer().stats)
+    got = asyncio.run(burst())
+    stats = kb.store._search_coalescer.stats
+    assert stats["queries"] - before["queries"] == len(QUERIES)
+    assert stats["dispatches"] - before["dispatches"] < len(QUERIES)
+    for e, hits in zip(embs, got):
+        want = kb.store.index.search(e, top_k=5)[0]
+        assert [c.id for c, _ in hits] == [c.id for c, _ in want]
+
+
+def test_coalescing_embedder_merges_concurrent_calls():
+    from youtu_rag_tpu_torch.core.config import EmbeddingConfig
+    from youtu_rag_tpu_torch.models.embedder import CoalescingEmbedder
+
+    emb = EmbedderFactory.create(EmbeddingConfig(provider="hash", coalesce_window_ms=20.0))
+    assert isinstance(emb, CoalescingEmbedder)
+    texts = [q for q, _ in QUERIES]
+
+    async def burst():
+        return await asyncio.gather(*(emb.embed_query(t) for t in texts))
+
+    got = asyncio.run(burst())
+    np.testing.assert_array_equal(np.asarray(got, np.float32), HashEmbedder(256).embed_batch(texts))
+    assert emb.stats["items"] == len(texts) and emb.stats["dispatches"] < len(texts)
+
+
 def run_cli(corpus, *extra):
     return subprocess.run(
         [sys.executable, "-m", "youtu_rag_tpu_torch.cli_chat", "--paths", str(corpus),

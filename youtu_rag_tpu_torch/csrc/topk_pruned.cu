@@ -264,28 +264,32 @@ topk_scan_kernel(const __nv_bfloat16* __restrict__ queries,  // [q, d]
 }
 
 // One warp per query: merge n_cta sorted lists of k into the top k.
-// Shared memory: per list its head position.
+// Shared memory: per list its position and its current head (score, row).
 __global__ void __launch_bounds__(32)
 topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
                   float* __restrict__ out_s, int* __restrict__ out_i,
                   int q, int k, int n_cta) {
-  extern __shared__ int head[];
+  extern __shared__ __align__(16) unsigned char msmem[];
+  int* pos = reinterpret_cast<int*>(msmem);
+  float* head_s = reinterpret_cast<float*>(pos + n_cta);
+  int* head_i = reinterpret_cast<int*>(head_s + n_cta);
   const int lane = threadIdx.x;
   const int qi = blockIdx.x;
-  for (int l = lane; l < n_cta; l += 32) head[l] = 0;
-  __syncwarp();
+  // list l belongs to lane l % 32, which alone reads and writes its entries
+  for (int l = lane; l < n_cta; l += 32) {
+    size_t off = ((size_t)l * q + qi) * k;
+    pos[l] = 0;
+    head_s[l] = cand_s[off];
+    head_i[l] = cand_i[off];
+  }
 
-  // lane-local best over the lists it owns (l = lane, lane + 32, ...)
   auto local_best = [&](float& bs, int& bi, int& bl) {
     bs = -INFINITY;
     bi = 0x7fffffff;
     bl = 0x7fffffff;
     for (int l = lane; l < n_cta; l += 32) {
-      int p = head[l];
-      if (p >= k) continue;
-      size_t off = ((size_t)l * q + qi) * k + p;
-      float s = cand_s[off];
-      int i = cand_i[off];
+      float s = head_s[l];
+      int i = head_i[l];
       if (better(s, i, bs, bi) || (s == bs && i == bi && l < bl)) {
         bs = s;
         bi = i;
@@ -316,7 +320,15 @@ topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand
       out_i[(size_t)qi * k + t] = bi;
     }
     if (bl < n_cta && lane == bl % 32) {
-      head[bl] += 1;
+      int p = ++pos[bl];
+      if (p < k) {
+        size_t off = ((size_t)bl * q + qi) * k + p;
+        head_s[bl] = cand_s[off];
+        head_i[bl] = cand_i[off];
+      } else {
+        head_s[bl] = -INFINITY;
+        head_i[bl] = 0x7fffffff;
+      }
       local_best(ls, li, ll);
     }
     __syncwarp();
@@ -357,7 +369,8 @@ int topk_pruned_launch(const void* queries, const void* x, const void* bias,
       q, n, d, k, rows_per_cta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  topk_merge_kernel<<<q, 32, n_cta * sizeof(int), st>>>(
+  size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
+  topk_merge_kernel<<<q, 32, merge_smem, st>>>(
       static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
       static_cast<float*>(out_s), static_cast<int*>(out_i), q, k, n_cta);
   return (int)cudaGetLastError();

@@ -1,7 +1,7 @@
 from .metadata import MetadataSchema, MISSING_I32
 from .filters import CompiledFilter, compile_filter, FilterError
 from .device_index import DeviceVectorIndex
-from .convert import index_from_numpy, index_to_numpy
+from .convert import index_from_numpy
 
 __all__ = [
     "CompiledFilter",
@@ -11,5 +11,4 @@ __all__ = [
     "MetadataSchema",
     "compile_filter",
     "index_from_numpy",
-    "index_to_numpy",
 ]

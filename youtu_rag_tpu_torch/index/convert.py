@@ -1,15 +1,15 @@
 """Carry an index's state across as numpy arrays.
 
 ``index_from_numpy`` builds the port's ``DeviceVectorIndex`` from the
-arrays of an index of the JAX package (or of this one), so both answer the
-same queries identically. The state is a dict:
+arrays of an index of the JAX package, so both answer the same queries
+identically. The state is a dict:
 
 - ``dim``, ``metric``: the index's width and metric;
 - ``vectors``: f32 ``[capacity, d_pad]`` holding the stored (bf16) values;
 - ``bias``: f32 ``[capacity]``; ``cols``: int32 ``[capacity, C]``;
 - ``chunks``: one entry per appended row, ``None`` for a tombstone, else a
-  chunk object or a dict with ``id``, ``document_id``, ``content``,
-  ``chunk_index`` and ``metadata``;
+  chunk object with ``id``, ``document_id``, ``content``, ``chunk_index``
+  and ``metadata`` (the JAX package's ``Chunk`` qualifies);
 - ``size``, ``live_count``, ``capacity``;
 - ``schema``: ``MetadataSchema.to_dict()`` (key → slot and type).
 
@@ -33,27 +33,18 @@ _CHUNK_FIELDS = ("id", "document_id", "content", "chunk_index", "metadata")
 
 
 def _chunk(c: Any) -> Chunk | None:
-    if c is None:
-        return None
-    if isinstance(c, dict):
-        return Chunk(*(c[f] for f in _CHUNK_FIELDS))
-    return Chunk(*(getattr(c, f) for f in _CHUNK_FIELDS))
+    return None if c is None else Chunk(*(getattr(c, f) for f in _CHUNK_FIELDS))
 
 
-def index_from_numpy(state: dict, config: IndexConfig | None = None,
-                     device: str | torch.device | None = None) -> DeviceVectorIndex:
-    """Build a port index holding exactly ``state``'s rows."""
-    cfg = config or IndexConfig(metric=state["metric"])
-    if cfg.metric != state["metric"]:
-        raise ValueError(f"config metric {cfg.metric!r} != state metric {state['metric']!r}")
+def index_from_numpy(state: dict, device: str | torch.device | None = None) -> DeviceVectorIndex:
+    """Build a bf16 port index holding exactly ``state``'s rows."""
+    schema = MetadataSchema.from_dict(state["schema"])
+    cfg = IndexConfig(metric=state["metric"], max_metadata_columns=schema.max_columns)
     idx = DeviceVectorIndex(int(state["dim"]), cfg, device=device)
     cap = int(state["capacity"])
     vectors = np.array(state["vectors"], np.float32)  # a writable copy
     if vectors.shape != (cap, idx.d_pad):
         raise ValueError(f"vectors {vectors.shape} != ({cap}, {idx.d_pad})")
-    schema = MetadataSchema.from_dict(state["schema"])
-    if schema.max_columns != idx.schema.max_columns:
-        raise ValueError(f"schema has {schema.max_columns} columns, config {idx.schema.max_columns}")
     with idx._lock:
         idx.capacity = cap
         idx._vectors = torch.from_numpy(vectors).to(idx.device).to(idx._store_dtype)
@@ -65,20 +56,3 @@ def index_from_numpy(state: dict, config: IndexConfig | None = None,
         idx.schema = schema
         idx._rebuild_host_maps()
     return idx
-
-
-def index_to_numpy(index: DeviceVectorIndex) -> dict:
-    """The state ``index_from_numpy`` takes, read from a port index."""
-    with index._lock:
-        return {
-            "dim": index.dim,
-            "metric": index.metric,
-            "vectors": index._vectors.float().cpu().numpy(),
-            "bias": index._bias.cpu().numpy(),
-            "cols": index._cols.cpu().numpy(),
-            "chunks": list(index._chunks),
-            "size": index.size,
-            "live_count": index.live_count,
-            "capacity": index.capacity,
-            "schema": index.schema.to_dict(),
-        }

@@ -18,7 +18,8 @@ CUDA index, its plain version on a CPU index. There is no size threshold
 that sends small indexes elsewhere.
 
 Not ported yet (ROADMAP Queue A 3, Queue B 2-3 and 7-9): AOT tier warming,
-the append pacing probe, IVF, and the int8/int4 storage tiers. The array
+the append pacing probe, IVF and the int8/int4 storage tiers (the last two
+raise ``NotImplementedError`` rather than silently storing bf16). The array
 updates that JAX writes as donated jit kernels are in-place tensor writes
 here; searches run under the index lock and on the same stream, so a
 search never observes half an append.
@@ -73,6 +74,10 @@ class DeviceVectorIndex:
 
     def _reset(self) -> None:
         """(Re)initialize all index state in place (never the lock)."""
+        if self.config.kind != "flat":
+            raise NotImplementedError(
+                f"kind={self.config.kind!r}: IVF is not ported yet (ROADMAP Queue A 9); use 'flat'"
+            )
         if self.config.storage_dtype not in _STORE_DTYPES:
             raise NotImplementedError(
                 f"storage_dtype={self.config.storage_dtype!r}: the int8/int4 storage "
@@ -95,8 +100,6 @@ class DeviceVectorIndex:
         self._chunks: list[Chunk | None] = []
         self._id_to_row: dict[str, int] = {}
         self._doc_rows: dict[str, list[int]] = {}
-        # signature → canonical CompiledFilter (one compiled tree per shape)
-        self._filter_cache: dict[str, CompiledFilter] = {}
 
     # -- mutation ----------------------------------------------------------
 
@@ -139,7 +142,8 @@ class DeviceVectorIndex:
         if n == 0:
             return []
         embeddings = np.asarray(embeddings, np.float32)
-        assert embeddings.shape == (n, self.dim), (embeddings.shape, n, self.dim)
+        if embeddings.shape != (n, self.dim):
+            raise ValueError(f"embeddings {embeddings.shape} != ({n}, {self.dim})")
 
         # -- host prep (no lock): pow2 bucket, as the JAX index pads -------
         bucket = _pow2_at_least(n, 64)
@@ -309,7 +313,8 @@ class DeviceVectorIndex:
         q = np.asarray(query_embeddings, np.float32)
         if q.ndim == 1:
             q = q[None, :]
-        assert q.shape[1] == self.dim, (q.shape, self.dim)
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise ValueError(f"queries {q.shape} do not have width {self.dim}")
         n_q = q.shape[0]
         # pow2 query bucket, as the JAX index pads: the kernel sees the
         # same query counts on both sides; padding rows are sliced off
@@ -327,10 +332,7 @@ class DeviceVectorIndex:
             k_eff = min(top_k, max(self.live_count, 1))
             if filters:
                 try:
-                    compiled = compile_filter(filters, self.schema)
-                    filt = self._filter_cache.setdefault(compiled.signature(), compiled)
-                    consts = torch.as_tensor(compiled.consts, device=self.device)
-                    bias = _filter_bias(cols, bias, consts, filt)
+                    bias = _filter_bias(cols, bias, compile_filter(filters, self.schema))
                 except FilterError:
                     # host fallback: explicit bias from raw metadata
                     hb = np.full(self.capacity, NEG_INF, np.float32)
@@ -394,9 +396,8 @@ class DeviceVectorIndex:
                 yield c
 
 
-def _filter_bias(cols: torch.Tensor, bias: torch.Tensor, consts: torch.Tensor,
-                 filt: CompiledFilter) -> torch.Tensor:
+def _filter_bias(cols: torch.Tensor, bias: torch.Tensor, filt: CompiledFilter) -> torch.Tensor:
     """Join a compiled metadata mask into the additive bias. A row already
     at NEG_INF that the filter also drops overflows to -inf, as in JAX."""
-    drop = torch.full_like(bias, NEG_INF).masked_fill_(filt.mask(cols, consts), 0.0)
+    drop = torch.full_like(bias, NEG_INF).masked_fill_(filt.mask(cols), 0.0)
     return bias + drop

@@ -15,8 +15,8 @@ Compilation target: ``mask(cols: int32[N, C]) -> bool[N]``, elementwise
 torch ops over the index's metadata columns on their device. The filter's
 structure is fixed at compile time and named by ``signature()`` — a
 canonical string of (slot, op) pairs; the constants travel separately as
-an int32 vector, so filters of the same *shape* share one compiled tree.
-A copy of ``youtu_rag_tpu/index/filters.py`` with the mask in torch.
+an int32 vector. A copy of ``youtu_rag_tpu/index/filters.py`` with the
+mask in torch.
 
 Keys that are not device-encoded (beyond the column budget, or needing
 ``$regex``-like semantics) raise ``FilterError``; callers fall back to the
@@ -67,11 +67,9 @@ class CompiledFilter:
     def signature(self) -> str:
         return self._signature
 
-    def mask(self, cols: torch.Tensor, consts: torch.Tensor | None = None) -> torch.Tensor:
-        """Evaluate to bool[N]. ``cols`` is int32 [N, C]. ``consts`` passes
-        another query's constants for the same signature (defaults to this
-        filter's own, moved to ``cols``' device)."""
-        c = consts if consts is not None else torch.as_tensor(self.consts, device=cols.device)
+    def mask(self, cols: torch.Tensor) -> torch.Tensor:
+        """Evaluate to bool[N] on ``cols``' device. ``cols`` is int32 [N, C]."""
+        c = torch.as_tensor(self.consts, device=cols.device)
         pos = [0]
 
         def take(n):

@@ -24,7 +24,6 @@ from typing import Any
 from ..utils.hashing import stable_hash32
 
 MISSING_I32 = -(2**31)
-_I32_MAX = 2**31 - 1
 
 # per-key value type tags
 T_STR, T_NUM, T_BOOL = "str", "num", "bool"

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import asyncio
 import time
-from typing import Any, Callable
+from typing import Callable
 
 from ..core.config import KnowledgeBuilderConfig
 from ..core.types import (

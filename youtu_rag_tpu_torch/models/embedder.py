@@ -1,9 +1,9 @@
 """Embedders + factory.
 
 The port's counterpart of ``youtu_rag_tpu/models/embedder.py`` for the
-hash provider: ``HashEmbedder`` on its pure-Python path (which the JAX
-package documents as byte-identical to its native C kernel,
-``native/fasthash.c``), the ``CoalescingEmbedder`` wrapper, and
+hash provider: ``HashEmbedder`` on the JAX package's pure-Python path
+(bit-equal to it; the JAX package's native C kernel, ``native/fasthash.c``,
+normalizes within 1 ulp of it), the ``CoalescingEmbedder`` wrapper, and
 ``EmbedderFactory``. The encoder providers (``tpu``, remote services)
 raise until their slice lands (ROADMAP Queue A 7).
 """
@@ -18,9 +18,6 @@ import numpy as np
 
 from ..core.config import EmbeddingConfig
 from ..core.types import BaseEmbedder
-from ..utils.log import get_logger
-
-logger = get_logger("models.embedder")
 
 
 _FNV_OFFSET = 14695981039346656037

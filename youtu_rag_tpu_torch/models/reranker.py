@@ -32,7 +32,7 @@ class LexicalReranker(BaseReranker):
 
     def __init__(self, k1: float = 1.5, b: float = 0.75):
         self.k1, self.b = k1, b
-        self._tok = HashTokenizer(vocab_size=2**30, max_length=8192)
+        self._tok = HashTokenizer(vocab_size=2**30)
 
     def score(self, query: str, docs: list[str]) -> list[float]:
         q_terms = set(self._tok.tokenize(query))

@@ -9,49 +9,22 @@ from __future__ import annotations
 
 import re
 
-import numpy as np
-
 from ..utils.hashing import stable_hash64
 
 _WORD_RE = re.compile(r"[A-Za-z0-9_]+|[一-鿿]|[^\sA-Za-z0-9_]")
 
-PAD_ID = 0
-CLS_ID = 1
-SEP_ID = 2
-_N_SPECIAL = 4
+_N_SPECIAL = 4  # ids 0-3: pad, cls, sep, unk
 
 
 class HashTokenizer:
-    """Lowercased word/CJK-char tokenization with hashed ids.
+    """Lowercased word/CJK-char tokenization with hashed ids (4.. = hash
+    buckets; 0-3 stay reserved as in the JAX package)."""
 
-    ids: 0=pad, 1=cls, 2=sep, 3=unk(reserved), 4.. = hash buckets."""
-
-    def __init__(self, vocab_size: int = 32768, max_length: int = 512):
+    def __init__(self, vocab_size: int = 32768):
         assert vocab_size > _N_SPECIAL
         self.vocab_size = vocab_size
-        self.max_length = max_length
 
     def tokenize(self, text: str) -> list[int]:
         n_buckets = self.vocab_size - _N_SPECIAL
         words = _WORD_RE.findall(text.lower())
         return [_N_SPECIAL + (stable_hash64(w) % n_buckets) for w in words]
-
-    def encode(self, text: str, max_length: int | None = None) -> list[int]:
-        """[CLS] tokens [SEP], truncated to max_length."""
-        max_length = max_length or self.max_length
-        toks = self.tokenize(text)[: max_length - 2]
-        return [CLS_ID] + toks + [SEP_ID]
-
-    def batch(
-        self, texts: list[str], max_length: int | None = None, pad_to: int | None = None
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Encode + pad a batch. Returns (ids [B, T] int32, mask [B, T] f32)."""
-        max_length = max_length or self.max_length
-        seqs = [self.encode(t, max_length) for t in texts]
-        t = pad_to or max(len(s) for s in seqs)
-        ids = np.full((len(seqs), t), PAD_ID, np.int32)
-        mask = np.zeros((len(seqs), t), np.float32)
-        for i, s in enumerate(seqs):
-            ids[i, : len(s)] = s
-            mask[i, : len(s)] = 1.0
-        return ids, mask

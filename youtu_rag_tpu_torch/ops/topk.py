@@ -61,7 +61,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def scan_ctas(n: int, device: torch.device) -> int:
+def _scan_ctas(n: int, device: torch.device) -> int:
     """Row-range CTAs of the scan kernel: two per SM, at least 512 rows each."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(2 * sms, -(-n // 512)))
@@ -98,7 +98,7 @@ def topk_pruned(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tenso
 
     lib = _library()
     dev = database.device
-    n_cta = scan_ctas(n, dev)
+    n_cta = _scan_ctas(n, dev)
     q16 = queries.to(torch.bfloat16).contiguous()
     cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)

@@ -1,4 +1,4 @@
-from .store import TorchVectorStore, VectorStoreFactory
+from .store import TorchVectorStore
 from .retriever import VectorRetriever, HybridRetriever
 from .context import ContextAssembler
 
@@ -7,5 +7,4 @@ __all__ = [
     "HybridRetriever",
     "TorchVectorStore",
     "VectorRetriever",
-    "VectorStoreFactory",
 ]

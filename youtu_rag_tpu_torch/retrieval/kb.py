@@ -17,12 +17,9 @@ from ..core.types import Document, RetrievalResult
 from ..ingest.builder import KnowledgeBuilder
 from ..models.embedder import EmbedderFactory
 from ..models.reranker import RerankerFactory
-from ..utils.log import get_logger
 from .context import ContextAssembler
 from .retriever import HybridRetriever, VectorRetriever
-from .store import TorchVectorStore, VectorStoreFactory
-
-logger = get_logger("retrieval.kb")
+from .store import TorchVectorStore
 
 
 class KnowledgeBase:
@@ -32,9 +29,7 @@ class KnowledgeBase:
                  device: str | torch.device | None = None):
         self.name = name
         self.config = config or RAGConfig(name=name)
-        self.store: TorchVectorStore = VectorStoreFactory.create(
-            self.config.vector_store, device=device
-        )
+        self.store = TorchVectorStore(self.config.vector_store, device=device)
         self.embedder = EmbedderFactory.create(self.config.knowledge_builder.embedding)
         self.reranker = RerankerFactory.create(self.config.reranker)
         self.retriever = VectorRetriever(

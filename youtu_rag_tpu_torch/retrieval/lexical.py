@@ -40,7 +40,7 @@ from __future__ import annotations
 from collections import Counter
 from collections.abc import Mapping
 from math import log
-from typing import Any, Callable, Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 
@@ -136,7 +136,7 @@ class LexicalInvertedIndex:
     def __init__(self, k1: float = 1.5, b: float = 0.75):
         self.k1 = k1
         self.b = b
-        self._tok = HashTokenizer(vocab_size=2**30, max_length=1 << 20)
+        self._tok = HashTokenizer(vocab_size=2**30)
         self._postings: dict[int, _Posting] = {}
         # row tables: chunk id ↔ int row; dead rows stay None until compact
         self._cid_of: list[str | None] = []
@@ -308,12 +308,6 @@ class LexicalInvertedIndex:
         )
         return scores, cand, q_terms
 
-    def _score_candidates(self, query: str) -> tuple[dict[str, float], set[int]]:
-        """Compatibility shape: {chunk_id: score} for every chunk sharing a
-        query term, plus the query's term-id set."""
-        scores, cand, q_terms = self._score_rows(query)
-        return {self._cid_of[r]: float(scores[r]) for r in cand}, q_terms
-
     def _rank(
         self,
         row_scores: np.ndarray,
@@ -437,10 +431,3 @@ class LexicalInvertedIndex:
             return []
         scored = self.score_chunks(query, rare_cids)
         return sorted(scored.items(), key=lambda kv: (-kv[1], kv[0]))[:limit]
-
-    def stats(self) -> dict[str, Any]:
-        return {
-            "documents": self._n_live,
-            "terms": len(self._postings),
-            "total_tokens": self._total_len,
-        }

@@ -24,9 +24,6 @@ from ..core.config import VectorStoreConfig
 from ..core.types import BaseVectorStore, Chunk, HealthStatus
 from ..index.device_index import DeviceVectorIndex
 from ..utils.device import resolve_device
-from ..utils.log import get_logger
-
-logger = get_logger("retrieval.store")
 
 
 class TorchVectorStore(BaseVectorStore):
@@ -142,12 +139,6 @@ class TorchVectorStore(BaseVectorStore):
         if self._lexical is not None:
             self._lexical.delete(chunk_ids)
 
-    async def update_metadata(self, chunk_ids: list[str], metadatas: list[dict]) -> int:
-        """Metadata-only update (no re-embedding); see DeviceVectorIndex."""
-        if self._index is None:
-            return 0
-        return self._index.update_metadata(chunk_ids, metadatas)
-
     async def delete_by_document_id(self, document_id: str) -> int:
         if self._index is None:
             return 0
@@ -163,38 +154,11 @@ class TorchVectorStore(BaseVectorStore):
     async def count(self) -> int:
         return 0 if self._index is None else self._index.count()
 
-    async def count_by_document(self, document_id: str) -> int:
-        return 0 if self._index is None else self._index.count_by_document(document_id)
-
     async def clear(self) -> None:
         if self._index is not None:
             self._index.clear()
         if self._lexical is not None:
             self._lexical.clear()
-
-    def rebuild_lexical(self) -> None:
-        """Repopulate the inverted index from live chunks (snapshot
-        restore, or flipping ``lexical_index`` on for an existing KB)."""
-        if self.config.lexical_index and self._lexical is None:
-            from .lexical import LexicalInvertedIndex
-
-            self._lexical = LexicalInvertedIndex()
-        if self._lexical is not None and self._index is not None:
-            self._lexical.rebuild(self._index.iter_live())
-
-    async def lexical_search(
-        self,
-        query: str,
-        top_k: int = 10,
-        filters: dict[str, Any] | None = None,
-    ) -> list[tuple[Chunk, float]]:
-        """Corpus-level BM25 hits as (chunk, score); [] when disabled."""
-        if self._lexical is None or self._index is None:
-            return []
-        hits = self._lexical.search(
-            query, top_k=top_k, predicate=self._filter_predicate(filters)
-        )
-        return self._resolve_lexical_hits(hits)
 
     async def lexical_search_bundle(
         self,
@@ -228,25 +192,6 @@ class TorchVectorStore(BaseVectorStore):
 
         return predicate
 
-    async def rare_term_search(
-        self,
-        query: str,
-        filters: dict[str, Any] | None = None,
-        max_df: int = 3,
-        limit: int = 8,
-    ) -> list[tuple[Chunk, float]]:
-        """Exact-identifier matches (see LexicalInvertedIndex.rare_term_matches)."""
-        if self._lexical is None or self._index is None:
-            return []
-        hits = self._resolve_lexical_hits(
-            self._lexical.rare_term_matches(query, max_df=max_df, limit=limit * 2)
-        )
-        if filters:
-            from ..index.filters import host_eval
-
-            hits = [(c, s) for c, s in hits if host_eval(filters, c.metadata)]
-        return hits[:limit]
-
     def _resolve_lexical_hits(
         self, hits: list[tuple[str, float]]
     ) -> list[tuple[Chunk, float]]:
@@ -256,63 +201,6 @@ class TorchVectorStore(BaseVectorStore):
             if c is not None:  # tombstoned between postings and fetch
                 out.append((c, score))
         return out
-
-    # -- extras used by toolkits/monitoring --------------------------------
-
-    async def get_by_filter(
-        self,
-        filters: dict[str, Any],
-        limit: int | None = 1000,
-        offset: int = 0,
-        text: str | None = None,
-    ) -> list[Chunk]:
-        """Host-side metadata scan (ref analog: chroma collection.get with
-        where-clauses). Used for summary-index listing and memory fetches.
-
-        Pagination pushdown: ``offset``/``text`` evaluate in the streaming
-        pass, so a page view materializes at most ``limit`` chunks and the
-        scan stops as soon as the page fills (a 10M-chunk KB no longer
-        pulls every match to serve one SPA page). ``limit=None`` keeps the
-        scan-everything behavior."""
-        chunks, _ = await self.scan_page(
-            filters, limit=limit, offset=offset, text=text, with_count=False
-        )
-        return chunks
-
-    async def scan_page(
-        self,
-        filters: dict[str, Any] | None,
-        limit: int | None = 50,
-        offset: int = 0,
-        text: str | None = None,
-        with_count: bool = True,
-    ) -> tuple[list[Chunk], int]:
-        """One streaming pass → (page, matched). With ``with_count`` the
-        scan continues past the page to report the exact match count (the
-        SPA pagination header); without it the iteration stops the moment
-        the page fills — O(limit) materialization either way."""
-        from ..index.filters import host_eval
-
-        if self._index is None:
-            return [], 0
-        text_l = text.lower() if text else None
-        out: list[Chunk] = []
-        matched = 0
-        for c in self._index.iter_live():
-            if filters and not host_eval(filters, c.metadata):
-                continue
-            if text_l is not None and text_l not in c.content.lower():
-                continue
-            if matched >= offset and (limit is None or len(out) < limit):
-                out.append(c)
-            matched += 1
-            if (
-                not with_count
-                and limit is not None
-                and len(out) >= limit
-            ):
-                break
-        return out, matched
 
     async def health(self) -> HealthStatus:
         n = await self.count()
@@ -330,7 +218,7 @@ class TorchVectorStore(BaseVectorStore):
 class _SearchCoalescer:
     """Merges concurrent search calls into one fused kernel launch.
 
-    Same mechanics as CoalescingEmbedder (models/embedder.py:319): callers
+    Same mechanics as CoalescingEmbedder (models/embedder.py): callers
     enqueue (queries, key, future); a lazily-started worker waits
     ``window_ms`` after the first arrival, groups waiters by
     (top_k, filter-signature) — different filters compile different bias
@@ -405,12 +293,3 @@ class _SearchCoalescer:
                     if not it[3].done():
                         it[3].set_result(hits[row : row + k])
                     row += k
-
-
-class VectorStoreFactory:
-    """Backend dispatch (ref: utu/rag/storage/__init__.py)."""
-
-    @staticmethod
-    def create(config: VectorStoreConfig | None = None, dim: int | None = None,
-               device: str | torch.device | None = None) -> TorchVectorStore:
-        return TorchVectorStore(config, dim=dim, device=device)

@@ -1,3 +1,3 @@
-from .tracer import Span, Tracer, get_tracer, setup_tracing
+from .tracer import Span, Tracer, get_tracer
 
-__all__ = ["Span", "Tracer", "get_tracer", "setup_tracing"]
+__all__ = ["Span", "Tracer", "get_tracer"]

@@ -47,11 +47,6 @@ class SpanProcessor(Protocol):
     def on_span_end(self, span: Span) -> None: ...
 
 
-class ConsoleProcessor:
-    def on_span_end(self, span: Span) -> None:
-        logger.debug("span %s/%s %s %.1fms", span.kind, span.name, span.trace_id, span.duration_ms)
-
-
 class Tracer:
     def __init__(self):
         self.processors: list[SpanProcessor] = []
@@ -108,12 +103,3 @@ _GLOBAL = Tracer()
 
 def get_tracer() -> Tracer:
     return _GLOBAL
-
-
-def setup_tracing(console: bool = False) -> Tracer:
-    """Install processors (console logging only in this port)."""
-    t = get_tracer()
-    t.processors.clear()
-    if console:
-        t.add_processor(ConsoleProcessor())
-    return t
