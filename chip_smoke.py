@@ -112,6 +112,8 @@ def kernel_cases(seed: int) -> float:
 
     cases = [(c, "mixed") for c in KERNEL_CASES]
     cases += [((8, 256, 4096, 10), "all_masked"), ((64, 768, 65536, 128), "all_masked")]
+    # row counts that split into CTA ranges, 128-row tiles and 4-row groups unevenly
+    cases += [((8, 768, 100003, 50), "mixed"), ((3, 256, 4099, 128), "mixed")]
     for (q, d, n, k), kind in cases:
         x = unit(n, d)
         x[100:110] = x[5]  # duplicated rows: exact ties
@@ -180,7 +182,7 @@ def write_corpus(root: str, seed: int) -> None:
     rng = np.random.default_rng(seed)
     for name, text in TOPICS.items():
         body = text
-        if name != "tpu.md":  # the SKILL demo file stays as it is
+        if name != "tpu.md":  # the CLI demo file stays as it is
             for _ in range(3):  # ~3 chunks per file, so the KB holds > 50 chunks
                 words = rng.choice(FILLER, size=160)
                 body += "\n\n" + " ".join(words) + "."

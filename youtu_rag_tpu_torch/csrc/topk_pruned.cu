@@ -15,18 +15,25 @@
 //
 // Design. The TPU grid runs in order, so its pruned kernel carries one
 // running top-k across all blocks. Hopper CTAs run at the same time, so:
-//  1. topk_scan_kernel: CTA b owns a contiguous row range. Its 8 warps
-//     each walk groups of R = 4 rows of that range. The query tile (8
-//     queries) sits in shared memory as f32. Each lane reads 16-byte
-//     chunks of the 4 rows (coalesced across the warp), accumulates the
-//     4 x 8 partial dots, and a transposing butterfly (31 shuffles) leaves
-//     lane L holding the full score of (row L/8, query L%8).
-//     Each warp keeps its own sorted top-k per query in shared memory. A
-//     score that cannot beat the current k-th entry skips insertion: the
-//     per-row form of the TPU kernel's block prune. After warm-up almost
-//     no row inserts, so the loop is a pure streaming read of the index.
-//     At the end warp j merges the 8 warps' lists of query j into the
-//     CTA's candidates [n_cta, q, k].
+//  1. topk_scan_kernel: CTA b owns a contiguous row range and keeps one
+//     sorted top-k list per query of its query tile (8 queries) in shared
+//     memory. It walks the range in tiles of 128 rows:
+//     - scoring: each of the 8 warps takes 4 groups of R = 4 rows. The
+//       query tile sits in shared memory as f32. Each lane reads 16-byte
+//       chunks of the 4 rows (coalesced across the warp), accumulates the
+//       4 x 8 partial dots, and a transposing butterfly (31 shuffles)
+//       leaves lane L holding the full score of (row L/8, query L%8),
+//       which goes into a shared score tile (double-buffered, so one
+//       __syncthreads per tile separates scoring from selection);
+//     - selection: warp j alone owns the list of query j. It adds the bias
+//       (loaded at the start of the tile) to its query's 128 scores, and a
+//       score that cannot beat the list's current k-th entry skips
+//       insertion: the per-row form of the TPU kernel's block prune. After
+//       warm-up almost no row inserts, so the loop is a streaming read of
+//       the index. One list per query over the CTA's whole range (not one
+//       per warp) keeps the warp-serial insertions few: about
+//       k(1 + ln(rows/k)) per list.
+//     At the end warp j writes its list as the CTA's candidates [n_cta, q, k].
 //  2. topk_merge_kernel: one warp per query merges the n_cta sorted
 //     candidate lists into [q, k] with the same (score desc, row asc)
 //     order, so the result equals a stable descending sort.
@@ -41,13 +48,17 @@
 namespace {
 
 constexpr int kWarps = 8;        // warps per scan CTA
-constexpr int kQT = 8;           // queries per tile
+constexpr int kQT = 8;           // queries per tile; warp j selects query j
 constexpr int kR = 4;            // rows per warp step (kR * kQT == 32 lanes)
+constexpr int kSteps = 4;        // warp steps per row tile
+constexpr int kTile = kWarps * kR * kSteps;  // rows scored between barriers
 constexpr int kMaxK = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min (NEG_INF)
 
 static_assert(kR * kQT == 32, "one score per lane after the butterfly");
+static_assert(kQT == kWarps, "one selecting warp per query of the tile");
+static_assert(kTile % 32 == 0, "selection reads the tile 32 rows at a time");
 
 // (as, ai) ranks before (bs, bi): higher score, then lower row.
 __device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
@@ -109,9 +120,9 @@ __device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float& lo, float& hi) 
   hi = __uint_as_float(w & 0xffff0000u);
 }
 
-// Shared memory: q_tile f32 [kQT, d], then per warp kQT lists of k
-// scores and k rows.
-__global__ void __launch_bounds__(kWarps * 32)
+// Shared memory: q_tile f32 [kQT, d], score tiles f32 [2, kQT, kTile],
+// then per query a list of k scores and k rows.
+__global__ void __launch_bounds__(kWarps * 32, 2)
 topk_scan_kernel(const __nv_bfloat16* __restrict__ queries,  // [q, d]
                  const __nv_bfloat16* __restrict__ x,        // [n, d]
                  const float* __restrict__ bias,             // [n]
@@ -120,8 +131,9 @@ topk_scan_kernel(const __nv_bfloat16* __restrict__ queries,  // [q, d]
                  int q, int n, int d, int k, int rows_per_cta) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* list_s = qs + kQT * d;
-  int* list_i = reinterpret_cast<int*>(list_s + kWarps * kQT * k);
+  float* tiles = qs + kQT * d;
+  float* list_s = tiles + 2 * kQT * kTile;
+  int* list_i = reinterpret_cast<int*>(list_s + kQT * k);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -134,131 +146,117 @@ topk_scan_kernel(const __nv_bfloat16* __restrict__ queries,  // [q, d]
     int j = e / d;
     qs[e] = j < q_valid ? __bfloat162float(queries[(size_t)(q0 + j) * d + e % d]) : 0.f;
   }
-  for (int e = threadIdx.x; e < kWarps * kQT * k; e += blockDim.x) {
+  for (int e = threadIdx.x; e < kQT * k; e += blockDim.x) {
     list_s[e] = kNegInf;
     list_i[e] = 0;
   }
   __syncthreads();
 
-  float* my_s = list_s + warp * kQT * k;
-  int* my_i = list_i + warp * kQT * k;
+  // this warp's list: query q0 + warp; (thr_s, thr_i) mirrors its entry k-1
+  float* my_s = list_s + warp * k;
+  int* my_i = list_i + warp * k;
+  float thr_s = kNegInf;
+  int thr_i = 0;
+  const bool selects = warp < q_valid;
   const int row_begin = cta * rows_per_cta;
   const int row_end = min(n, row_begin + rows_per_cta);
   const int n_chunks = d / 8;  // 16-byte chunks per row
-  const int my_j = lane % kQT;
-  const int my_r = lane / kQT;
 
-  for (int row0 = row_begin + warp * kR; row0 < row_end; row0 += kWarps * kR) {
-    float acc[kR * kQT];
+  int buf = 0;
+  for (int tile0 = row_begin; tile0 < row_end; tile0 += kTile, buf ^= 1) {
+    float* tile = tiles + buf * kQT * kTile;  // [kQT, kTile]
+    // the bias of the rows this lane selects, loaded now so that its
+    // latency hides under the scoring loads
+    float tile_bias[kTile / 32];
 #pragma unroll
-    for (int v = 0; v < kR * kQT; ++v) acc[v] = 0.f;
+    for (int c = 0; c < kTile / 32; ++c) {
+      const int row = tile0 + c * 32 + lane;
+      tile_bias[c] = selects && row < row_end ? bias[row] : 0.f;
+    }
+    for (int step = 0; step < kSteps; ++step) {
+      const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
+      const int row0 = tile0 + r0;
+      float acc[kR * kQT];
+#pragma unroll
+      for (int v = 0; v < kR * kQT; ++v) acc[v] = 0.f;
 
-    for (int c = lane; c < n_chunks; c += 32) {
-      uint4 xv[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        int row = row0 + r;
-        xv[r] = row < row_end
-                    ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * d) + c)
-                    : make_uint4(0, 0, 0, 0);
-      }
-      float xf[kR][8];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        bf16x2_to_f32(xv[r].x, xf[r][0], xf[r][1]);
-        bf16x2_to_f32(xv[r].y, xf[r][2], xf[r][3]);
-        bf16x2_to_f32(xv[r].z, xf[r][4], xf[r][5]);
-        bf16x2_to_f32(xv[r].w, xf[r][6], xf[r][7]);
-      }
-#pragma unroll
-      for (int j = 0; j < kQT; ++j) {
-        const float4* qp = reinterpret_cast<const float4*>(qs + j * d + c * 8);
-        float4 a = qp[0], b = qp[1];
+      for (int c = lane; c < n_chunks && row0 < row_end; c += 32) {
+        uint4 xv[kR];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
-          float t = acc[r * kQT + j];
-          t = fmaf(a.x, xf[r][0], t);
-          t = fmaf(a.y, xf[r][1], t);
-          t = fmaf(a.z, xf[r][2], t);
-          t = fmaf(a.w, xf[r][3], t);
-          t = fmaf(b.x, xf[r][4], t);
-          t = fmaf(b.y, xf[r][5], t);
-          t = fmaf(b.z, xf[r][6], t);
-          t = fmaf(b.w, xf[r][7], t);
-          acc[r * kQT + j] = t;
+          int row = row0 + r;
+          xv[r] = row < row_end
+                      ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * d) + c)
+                      : make_uint4(0, 0, 0, 0);
+        }
+        float xf[kR][8];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          bf16x2_to_f32(xv[r].x, xf[r][0], xf[r][1]);
+          bf16x2_to_f32(xv[r].y, xf[r][2], xf[r][3]);
+          bf16x2_to_f32(xv[r].z, xf[r][4], xf[r][5]);
+          bf16x2_to_f32(xv[r].w, xf[r][6], xf[r][7]);
+        }
+#pragma unroll
+        for (int j = 0; j < kQT; ++j) {
+          const float4* qp = reinterpret_cast<const float4*>(qs + j * d + c * 8);
+          float4 a = qp[0], b = qp[1];
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            float t = acc[r * kQT + j];
+            t = fmaf(a.x, xf[r][0], t);
+            t = fmaf(a.y, xf[r][1], t);
+            t = fmaf(a.z, xf[r][2], t);
+            t = fmaf(a.w, xf[r][3], t);
+            t = fmaf(b.x, xf[r][4], t);
+            t = fmaf(b.y, xf[r][5], t);
+            t = fmaf(b.z, xf[r][6], t);
+            t = fmaf(b.w, xf[r][7], t);
+            acc[r * kQT + j] = t;
+          }
         }
       }
+
+      // transposing butterfly: lane L ends with the warp sum of acc[L]
+      butterfly_step<16>(acc, lane);
+      butterfly_step<8>(acc, lane);
+      butterfly_step<4>(acc, lane);
+      butterfly_step<2>(acc, lane);
+      butterfly_step<1>(acc, lane);
+      tile[(lane % kQT) * kTile + r0 + lane / kQT] = acc[0];
     }
+    // the tile is complete; the other buffer is free for the next tile,
+    // whose scoring starts only after every warp passed this barrier, that
+    // is, after every warp finished selecting from it
+    __syncthreads();
 
-    // transposing butterfly: lane L ends with the warp sum of acc[L]
-    butterfly_step<16>(acc, lane);
-    butterfly_step<8>(acc, lane);
-    butterfly_step<4>(acc, lane);
-    butterfly_step<2>(acc, lane);
-    butterfly_step<1>(acc, lane);
-
-    const int row = row0 + my_r;
-    const bool ok = row < row_end && my_j < q_valid;
-    const float s = ok ? acc[0] + bias[row] : 0.f;
-    bool want = ok && better(s, row, my_s[my_j * k + k - 1], my_i[my_j * k + k - 1]);
-    unsigned pending = __ballot_sync(kFull, want);
-    while (pending) {
-      int src = __ffs(pending) - 1;
-      float ss = __shfl_sync(kFull, s, src);
-      int rr = __shfl_sync(kFull, row, src);
-      int jj = src % kQT;
-      warp_insert(my_s + jj * k, my_i + jj * k, k, ss, rr, lane);
-      pending &= pending - 1;
-      // the k-th entry of query jj moved: re-check its other candidates
-      bool keep = !(my_j == jj) ||
-                  better(s, row, my_s[jj * k + k - 1], my_i[jj * k + k - 1]);
-      pending &= __ballot_sync(kFull, keep);
+    if (selects) {
+#pragma unroll
+      for (int c = 0; c < kTile / 32; ++c) {
+        const int row = tile0 + c * 32 + lane;
+        const bool ok = row < row_end;
+        const float s = ok ? tile[warp * kTile + c * 32 + lane] + tile_bias[c] : 0.f;
+        unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
+        while (pending) {
+          int src = __ffs(pending) - 1;
+          float ss = __shfl_sync(kFull, s, src);
+          int rr = __shfl_sync(kFull, row, src);
+          warp_insert(my_s, my_i, k, ss, rr, lane);
+          thr_s = my_s[k - 1];
+          thr_i = my_i[k - 1];
+          pending &= pending - 1;
+          // entry k-1 moved: drop the candidates that no longer beat it
+          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
+        }
+      }
     }
   }
-  __syncthreads();
 
-  // warp j merges the kWarps sorted lists of query j (lanes 0..7 hold heads)
-  const int j = warp;
-  if (j < q_valid) {
-    int pos = 0;
-    float hs = -INFINITY;
-    int hi = 0x7fffffff;
-    const float* ws = list_s + lane * kQT * k + j * k;
-    const int* wi = list_i + lane * kQT * k + j * k;
-    if (lane < kWarps) {
-      hs = ws[0];
-      hi = wi[0];
-    }
-    size_t out = ((size_t)cta * q + q0 + j) * k;
-    for (int t = 0; t < k; ++t) {
-      float bs = hs;
-      int bi = hi, bl = lane;
-#pragma unroll
-      for (int o = 4; o >= 1; o >>= 1) {
-        float os = __shfl_xor_sync(kFull, bs, o);
-        int oi = __shfl_xor_sync(kFull, bi, o);
-        int ol = __shfl_xor_sync(kFull, bl, o);
-        if (better(os, oi, bs, bi) || (os == bs && oi == bi && ol < bl)) {
-          bs = os;
-          bi = oi;
-          bl = ol;
-        }
-      }
-      bl = __shfl_sync(kFull, bl, 0);
-      if (lane == 0) {
-        cand_s[out + t] = bs;
-        cand_i[out + t] = bi;
-      }
-      if (lane == bl) {
-        ++pos;
-        if (pos < k) {
-          hs = ws[pos];
-          hi = wi[pos];
-        } else {
-          hs = -INFINITY;
-          hi = 0x7fffffff;
-        }
-      }
+  if (selects) {
+    size_t out = ((size_t)cta * q + q0 + warp) * k;
+    for (int t = lane; t < k; t += 32) {
+      cand_s[out + t] = my_s[t];
+      cand_i[out + t] = my_i[t];
     }
   }
 }
@@ -345,7 +343,7 @@ const char* topk_pruned_error_string(int err) {
 
 // Shared memory bytes the scan kernel needs for width d and top-k k.
 int topk_pruned_smem_bytes(int d, int k) {
-  return (int)(sizeof(float) * kQT * d + (sizeof(float) + sizeof(int)) * kWarps * kQT * k);
+  return (int)(sizeof(float) * (kQT * d + 2 * kQT * kTile) + (sizeof(float) + sizeof(int)) * kQT * k);
 }
 
 // Launch both kernels on `stream`. Returns cudaGetLastError() (0 = ok) or
@@ -361,7 +359,6 @@ int topk_pruned_launch(const void* queries, const void* x, const void* bias,
       topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int rows_per_cta = (n + n_cta - 1) / n_cta;
-  rows_per_cta = (rows_per_cta + kR - 1) / kR * kR;
   dim3 grid(n_cta, (q + kQT - 1) / kQT);
   topk_scan_kernel<<<grid, kWarps * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(queries), static_cast<const __nv_bfloat16*>(x),

@@ -17,7 +17,7 @@ Every search goes through ``ops.topk.topk_pruned``: the CUDA kernel on a
 CUDA index, its plain version on a CPU index. There is no size threshold
 that sends small indexes elsewhere.
 
-Not ported yet (ROADMAP Queue A 3, Queue B 2-3 and 7-9): AOT tier warming,
+Not ported yet (ROADMAP Queue A 3, Queue B 2-3 and 9-11): AOT tier warming,
 the append pacing probe, IVF and the int8/int4 storage tiers (the last two
 raise ``NotImplementedError`` rather than silently storing bf16). The array
 updates that JAX writes as donated jit kernels are in-place tensor writes
