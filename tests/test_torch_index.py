@@ -6,6 +6,9 @@ hits agree in order with scores within 1e-4; the numpy reference keeps its
 queries in f32 and agrees to bf16 precision (as the JAX tests hold it).
 """
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -223,6 +226,49 @@ def test_index_from_numpy_answers_like_the_jax_index(metric):
     t.jax.delete(["docC-3", "docA-1"])
     assert port.count() == t.jax.count()
     assert_same_hits(port.search(q, 10), t.jax.search(q, 10, backend="xla"))
+
+
+def test_threads_add_delete_and_search_keep_the_index_whole():
+    """Writers append and delete while readers search, under a short switch
+    interval: no search returns a duplicate or a non-finite score, and
+    after the joins every live row is counted and finds itself."""
+    idx = DeviceVectorIndex(D, IndexConfig(min_capacity=128, block_rows=64), device="cpu")
+    embs = vectors(0, 420)
+    idx.add(chunks(Chunk, 20, "seed"), embs[:20])
+    errors = []
+
+    def writer(w):
+        for b in range(20):  # 100 rows per writer, in small appends
+            lo = 20 + (w * 20 + b) * 5
+            idx.add(chunks(Chunk, 5, f"w{w}", start=lo), embs[lo : lo + 5])
+        if w % 2:
+            idx.delete_by_document_id(f"w{w}")
+
+    def reader(seed):
+        q = vectors(100 + seed, 2)
+        for _ in range(30):
+            for hits in idx.search(q, 10):
+                ids = [c.id for c, _ in hits]
+                if len(set(ids)) != len(ids) or not all(np.isfinite(s) for _, s in hits):
+                    errors.append(ids)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=writer, args=(w,)) for w in range(4)]
+        threads += [threading.Thread(target=reader, args=(r,)) for r in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    live = [c.id for c in idx.iter_live()]
+    assert idx.count() == len(live) == 20 + 2 * 100
+    own = embs[[int(cid.rsplit("-", 1)[1]) for cid in live]]  # ids end in their row of embs
+    assert [hits[0][0].id for hits in idx.search(own, 1)] == live
 
 
 def test_ivf_kind_raises():
