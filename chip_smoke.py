@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (youtu_rag_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1048576]
+    python3 chip_smoke.py [--seed 0]
 
 Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
-  2. build: compiles every kernel of the path from csrc/ (one nvcc each,
-     all at once) and prints ptxas' register and shared-memory report;
+  2. build: compiles the path's kernel from csrc/ and prints ptxas'
+     register and shared-memory report;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, over the shapes and edge cases listed in KERNEL_CASES;
   4. main path, small corpus: about 20 markdown files through the port's
@@ -18,7 +18,10 @@ Phases; any failure exits non-zero before the result lines:
      through ``add``, searched with q = 8, k = 10, checked against the
      plain version, and timed with CUDA events beside its HBM bound, the
      plain version and a one-call PyTorch yardstick;
-  6. one JSON line with every kernel's launches, error and times;
+  6. one JSON line, {"kernels": [{"name": ..., "route", "source",
+     "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+     "bound_by", "library_ms"}, ...]}: one entry per kernel, so later
+     slices add theirs to the same list;
   7. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4 and 5
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 TOL = 1e-4  # unit vectors, f32 sums in another order than cuBLAS
+ROWS = 1 << 20  # the full-size index: 1,048,576 × 768 bf16, 1.61 GB
 HBM_PEAK = {"sxm": 3.35e12, "pcie": 2.0e12}  # bytes/s, NVIDIA data sheets
 BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}  # dense tensor-core flop/s
 
@@ -290,13 +294,13 @@ def profile_split(fn, calls: int = 10) -> None:
         for us, name in sorted(rows, reverse=True)[:4]))
 
 
-def full_size(seed: int, rows: int, part: str) -> dict:
+def full_size(seed: int, part: str) -> dict:
     from youtu_rag_tpu_torch.core.config import IndexConfig
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
     from youtu_rag_tpu_torch.ops.topk import topk_pruned, topk_pruned_reference
 
-    d, qn, k, batch = 768, 8, 10, 65536
+    rows, d, qn, k, batch = ROWS, 768, 8, 10, 65536
     rng = np.random.default_rng(seed)
     index = DeviceVectorIndex(d, IndexConfig(storage_dtype="bfloat16", metric="cosine"), device="cuda")
     index.reserve(rows)
@@ -372,7 +376,6 @@ def full_size(seed: int, rows: int, part: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows", type=int, default=1 << 20)
     args = ap.parse_args()
 
     phase("1 environment")
@@ -390,10 +393,9 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    built = _build.build(["topk_pruned"], verbose=True)
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
-    for k, v in built.items():
-        print("\n".join(line for line in v["log"].splitlines() if "registers" in line or "stack" in line))
+    built = _build.build("topk_pruned", verbose=True)
+    print(f"built topk_pruned in {time.perf_counter() - t0:.1f} s")
+    print("\n".join(line for line in built["log"].splitlines() if "registers" in line or "stack" in line))
 
     phase("3 kernel vs plain")
     err3 = kernel_cases(args.seed)
@@ -402,7 +404,7 @@ def main() -> int:
     launches4, err4 = small_corpus(args.seed)
 
     phase("5 main path, full size")
-    full = full_size(args.seed, args.rows, part)
+    full = full_size(args.seed, part)
 
     phase("6 summary")
     kernels = [{

@@ -271,6 +271,21 @@ def test_threads_add_delete_and_search_keep_the_index_whole():
     assert [hits[0][0].id for hits in idx.search(own, 1)] == live
 
 
+def test_top_k_at_the_kernel_limit_matches_jax():
+    t = Trio("cosine")
+    t.add(300, seed=1)
+    t.check(vectors(2, 3), top_k=128)
+
+
+@pytest.mark.parametrize("top_k", [0, 129, 200])
+def test_top_k_outside_the_kernel_range_raises_on_the_cpu_too(top_k):
+    """A CPU index refuses the k a CUDA index's kernel cannot take."""
+    idx = DeviceVectorIndex(D, IndexConfig(min_capacity=256), device="cpu")
+    idx.add(chunks(Chunk, 300), vectors(1, 300))
+    with pytest.raises(ValueError, match="top_k"):
+        idx.search(vectors(2, 2), top_k=top_k)
+
+
 def test_ivf_kind_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DeviceVectorIndex(D, IndexConfig(kind="ivf"), device="cpu")

@@ -17,7 +17,9 @@ FORBIDDEN = {"jax", "jaxlib", "youtu_rag_tpu"}
 
 
 def port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # _build/ holds build outputs (gitignored), not the package's sources
+    sources = [p for p in PORT.rglob("*.py") if "_build" not in p.relative_to(PORT).parts]
+    return sorted(sources) + [REPO / "chip_smoke.py"]
 
 
 def imported_roots(path: Path) -> set[str]:

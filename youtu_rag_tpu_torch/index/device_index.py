@@ -35,7 +35,7 @@ import torch
 
 from ..core.config import IndexConfig
 from ..core.types import Chunk
-from ..ops.topk import MAX_Q, NEG_INF, topk_pruned
+from ..ops.topk import MAX_K, MAX_Q, NEG_INF, topk_pruned
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from .filters import CompiledFilter, FilterError, compile_filter, host_eval
@@ -309,7 +309,11 @@ class DeviceVectorIndex:
         """Batched top-k search. Returns per-query (chunk, similarity) lists.
 
         Filters compile to a device mask joined into the bias; filters that
-        do not compile fall back to a host pre-filter over raw metadata."""
+        do not compile fall back to a host pre-filter over raw metadata.
+        ``top_k`` must lie in 1..MAX_K on every device, the CUDA kernel's
+        range, so a CPU index refuses what a CUDA index would."""
+        if not 1 <= top_k <= MAX_K:
+            raise ValueError(f"top_k={top_k} outside 1..{MAX_K}, the most the top-k kernel keeps")
         q = np.asarray(query_embeddings, np.float32)
         if q.ndim == 1:
             q = q[None, :]

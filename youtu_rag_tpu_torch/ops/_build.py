@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/<name>-<hash>.so``. The hash
 covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library already built. Several sources build in
-parallel, one nvcc process each.
+unchanged one loads the library already built.
 """
 
 from __future__ import annotations
@@ -52,31 +51,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names: list[str], verbose: bool = False) -> dict[str, dict]:
-    """Compile every source in ``names`` that is not built yet, all nvcc
-    processes at once. Returns {name: {"path", "seconds", "log"}}; ``log``
-    holds ptxas' register and shared-memory report when ``verbose``.
-    Raises RuntimeError with the compiler's output if a build fails."""
+def build(name: str, verbose: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` unless it is built already (``verbose``
+    always compiles). Returns {"path", "seconds", "log"}; ``log`` holds
+    ptxas' register and shared-memory report when ``verbose``.
+    Raises RuntimeError with the compiler's output if the build fails."""
+    lib = library_path(name)
+    if lib.exists() and not verbose:
+        return {"path": str(lib), "seconds": 0.0, "log": "cached"}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: dict[str, dict] = {}
-    procs = []
-    for name in names:
-        lib = library_path(name)
-        if lib.exists() and not verbose:
-            out[name] = {"path": str(lib), "seconds": 0.0, "log": "cached"}
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs.append((name, lib, tmp, time.perf_counter(),
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    for name, lib, tmp, t0, proc in procs:
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-        out[name] = {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
-    return out
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    log = proc.stdout.decode(errors="replace")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -86,6 +79,6 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = library_path(name)
             if not path.exists():
-                build([name])
+                build(name)
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
