@@ -13,7 +13,17 @@ import torch
 from youtu_rag_tpu_torch.core.config import IndexConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.index import DeviceVectorIndex
-from youtu_rag_tpu_torch.ops.topk import NEG_INF, topk_pruned, topk_pruned_reference
+from youtu_rag_tpu_torch.ops.topk import (
+    NEG_INF,
+    quantize_rows_int4,
+    quantize_rows_int8,
+    topk_int4_pruned,
+    topk_int4_pruned_reference,
+    topk_int8_pruned,
+    topk_int8_pruned_reference,
+    topk_pruned,
+    topk_pruned_reference,
+)
 
 TOL = 1e-4  # unit vectors; f32 sums in another order than cuBLAS
 N = 4096
@@ -41,7 +51,7 @@ def make_inputs(q, d, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 10, 50, 128])
+@pytest.mark.parametrize("k", [1, 10, 50, 128, 256, 1024])
 @pytest.mark.parametrize("q", [1, 8, 64])
 def test_kernel_matches_plain_version(cuda_device, q, k):
     qs, x, bias = make_inputs(q, 256, seed=q + k)
@@ -68,13 +78,90 @@ def test_kernel_rejects_out_of_contract(cuda_device):
     xd = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
     qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
     with pytest.raises(ValueError):
-        topk_pruned(qd, xd, bd, 129)
+        topk_pruned(qd, xd, bd, 1025)
     with pytest.raises(ValueError):
         topk_pruned(qd, xd.float(), bd, 10)
     with pytest.raises(ValueError):
         topk_pruned(torch.zeros(65, 128, device=cuda_device), xd, bd, 10)
     with pytest.raises(ValueError):
         topk_pruned(qd, xd, bd.cpu(), 10)
+
+
+QUANT = {
+    "int8": (quantize_rows_int8, topk_int8_pruned, topk_int8_pruned_reference),
+    "int4": (quantize_rows_int4, topk_int4_pruned, topk_int4_pruned_reference),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+@pytest.mark.parametrize("k", [1, 10, 50, 128, 256, 1024])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_quantized_kernel_is_bit_equal_to_plain_version(cuda_device, tier, q, k):
+    """The same quantized tensors through kernel and plain version: equal
+    rows and bit-equal scores on live slots (exact integer dots and the
+    same op-by-op f32 epilogue leave nothing to tolerate)."""
+    quantize, kernel, plain = QUANT[tier]
+    qs, x, bias = make_inputs(q, 512, seed=q * 7 + k)
+    xq, xs = quantize(torch.from_numpy(x).to(cuda_device))
+    args = (torch.from_numpy(qs).to(cuda_device), xq, xs, torch.from_numpy(bias).to(cuda_device), k)
+    before = kernel.launches
+    s, i = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ws, wi = plain(*args)
+    s, i, ws, wi = (t.cpu().numpy() for t in (s, i, ws, wi))
+    for a in range(q):
+        n = int((ws[a] > NEG_INF / 2).sum())
+        assert int((s[a] > NEG_INF / 2).sum()) == n
+        np.testing.assert_array_equal(s[a, :n].view(np.uint32), ws[a, :n].view(np.uint32))
+        np.testing.assert_array_equal(i[a, :n], wi[a, :n])
+    assert i[0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_quantized_kernel_rejects_out_of_contract(cuda_device, tier):
+    quantize, kernel, _ = QUANT[tier]
+    qs, x, bias = make_inputs(3, 256, seed=0)
+    xq, xs = quantize(torch.from_numpy(x).to(cuda_device))
+    qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
+    with pytest.raises(ValueError):
+        kernel(qd, xq, xs, bd, 1025)
+    with pytest.raises(ValueError):
+        kernel(qd, xq.float(), xs, bd, 10)
+    with pytest.raises(ValueError):
+        kernel(qd, xq[:, :64].contiguous(), xs, bd, 10)  # width off the 128 grid
+    with pytest.raises(ValueError):
+        kernel(qd, xq, xs.double(), bd, 10)
+    with pytest.raises(ValueError):
+        kernel(torch.zeros(65, 256, device=cuda_device), xq, xs, bd, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["cosine", "l2", "ip"])
+@pytest.mark.parametrize("tier", [("int8", 4.0), ("int4", 4.0), ("int4", 0.0)],
+                         ids=["int8", "int4-rerank", "int4-raw"])
+def test_quantized_cuda_index_answers_like_cpu_index(cuda_device, tier, metric):
+    """Bit-equal kernels: the CUDA and CPU indexes return the same chunks
+    with the same scores, through each tier's kernel."""
+    storage_dtype, mult = tier
+    kernel = QUANT[storage_dtype][1]
+    rng = np.random.default_rng(1)
+    embs = rng.standard_normal((700, 96)).astype(np.float32)
+    chunks = [Chunk(f"c{i}", f"d{i % 7}", "", i, {"idx": i}) for i in range(700)]
+    cfg = IndexConfig(metric=metric, min_capacity=256, block_rows=128,
+                      storage_dtype=storage_dtype, int4_rerank_multiplier=mult)
+    gpu, cpu = DeviceVectorIndex(96, cfg, device=cuda_device), DeviceVectorIndex(96, cfg, device="cpu")
+    for ix in (gpu, cpu):
+        ix.add(chunks, embs)
+        ix.delete([f"c{i}" for i in range(0, 700, 9)])
+    q = rng.standard_normal((70, 96)).astype(np.float32)  # > 64: two kernel launches
+    before = kernel.launches
+    for filters, top_k in ((None, 10), ({"idx": {"$lt": 300}}, 50), (None, 300)):
+        got, want = gpu.search(q, top_k, filters), cpu.search(q, top_k, filters)
+        assert [[(c.id, s) for c, s in h] for h in got] == [[(c.id, s) for c, s in h] for h in want]
+    assert kernel.launches == before + 6
 
 
 @pytest.mark.cuda

@@ -1,9 +1,13 @@
 """The port's DeviceVectorIndex (on the CPU) against the JAX package's
 DeviceVectorIndex (xla backend) and NumpyVectorIndex.
 
-Both device indexes score ``f32(bf16 q) · f32(bf16 x)`` in f32, so their
-hits agree in order with scores within 1e-4; the numpy reference keeps its
-queries in f32 and agrees to bf16 precision (as the JAX tests hold it).
+Both bf16 device indexes score ``f32(bf16 q) · f32(bf16 x)`` in f32, so
+their hits agree in order with scores within 1e-4; the numpy reference
+keeps its queries in f32 and agrees to bf16 precision (as the JAX tests
+hold it). The int8 and int4 tiers store byte-equal arrays (vectors, scales
+and the int4 host shadow) after the same operations and return the same
+chunks with scores within 1e-5 (exact integer dots; XLA may contract the
+f32 epilogue into an FMA).
 """
 
 import sys
@@ -273,11 +277,21 @@ def test_threads_add_delete_and_search_keep_the_index_whole():
 
 def test_top_k_at_the_kernel_limit_matches_jax():
     t = Trio("cosine")
-    t.add(300, seed=1)
-    t.check(vectors(2, 3), top_k=128)
+    t.add(1100, seed=1)
+    t.check(vectors(2, 3), top_k=1024)
 
 
-@pytest.mark.parametrize("top_k", [0, 129, 200])
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "int8", "int4"])
+def test_top_k_1024_answers(storage_dtype):
+    idx = DeviceVectorIndex(D, IndexConfig(min_capacity=2048, storage_dtype=storage_dtype),
+                            device="cpu")
+    idx.add(chunks(Chunk, 1100), vectors(1, 1100))
+    hits = idx.search(vectors(2, 2), top_k=1024)
+    assert [len(h) for h in hits] == [1024, 1024]
+    assert all(len({c.id for c, _ in h}) == 1024 for h in hits)
+
+
+@pytest.mark.parametrize("top_k", [0, 1025, 2000])
 def test_top_k_outside_the_kernel_range_raises_on_the_cpu_too(top_k):
     """A CPU index refuses the k a CUDA index's kernel cannot take."""
     idx = DeviceVectorIndex(D, IndexConfig(min_capacity=256), device="cpu")
@@ -291,14 +305,150 @@ def test_ivf_kind_raises():
         DeviceVectorIndex(D, IndexConfig(kind="ivf"), device="cpu")
 
 
-def test_quantized_tiers_raise():
-    for dtype in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DeviceVectorIndex(D, IndexConfig(storage_dtype=dtype), device="cpu")
-
-
 def test_float32_storage_searches_in_bf16():
     t = Trio("cosine", storage_dtype="float32")
     t.add(300, seed=1)
     assert t.port._vectors.dtype == torch.float32
     t.check(vectors(2, 4))
+
+
+# ---------------------------------------------------------------------------
+# int8 / int4 storage tiers
+# ---------------------------------------------------------------------------
+
+QTOL = 1e-5
+# (storage_dtype, int4_rerank_multiplier): int4 with and without the host re-rank
+QUANT_TIERS = [("int8", 4.0), ("int4", 4.0), ("int4", 0.0)]
+QUANT_IDS = ["int8", "int4-rerank", "int4-raw"]
+
+
+def assert_same_quant_hits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], rtol=0, atol=QTOL)
+        for (gc, gs), (wc, ws) in zip(g, w):
+            assert gc.id == wc.id or abs(gs - ws) <= QTOL
+
+
+class QuantDuo:
+    """The same operations on a quantized JAX index and the port's."""
+
+    def __init__(self, metric, storage_dtype, mult, **cfg):
+        kw = dict(metric=metric, min_capacity=256, block_rows=128, storage_dtype=storage_dtype,
+                  int4_rerank_multiplier=mult, **cfg)
+        self.jax = JaxIndex(D, JaxIndexConfig(**kw))
+        self.port = DeviceVectorIndex(D, IndexConfig(**kw), device="cpu")
+
+    def add(self, n, seed, doc="docA", start=0):
+        embs = vectors(seed, n)
+        self.jax.add(chunks(JaxChunk, n, doc, start), embs)
+        rows = self.port.add(chunks(Chunk, n, doc, start), embs)
+        self.assert_same_state()
+        return rows
+
+    def call(self, name, *args):
+        out = [getattr(ix, name)(*args) for ix in (self.jax, self.port)]
+        assert out[0] == out[1], (name, out)
+        self.assert_same_state()
+        return out[1]
+
+    def assert_same_state(self):
+        j, p = self.jax, self.port
+        assert (p.capacity, p.size, p.live_count, p.d_pad) == (j.capacity, j.size, j.live_count, j.d_pad)
+        np.testing.assert_array_equal(p._vectors.numpy(), np.asarray(j._vectors))
+        np.testing.assert_array_equal(p._scales.numpy().view(np.uint32),
+                                      np.asarray(j._scales).view(np.uint32))
+        np.testing.assert_array_equal(p._bias.numpy(), np.asarray(j._bias))
+        assert (p._host_q8 is None) == (j._host_q8 is None)
+        if j._host_q8 is not None:
+            np.testing.assert_array_equal(p._host_q8, j._host_q8)
+            np.testing.assert_array_equal(p._host_s8.view(np.uint32), j._host_s8.view(np.uint32))
+
+    def check(self, queries, top_k=10, filters=None):
+        got = self.port.search(queries, top_k=top_k, filters=filters)
+        assert_same_quant_hits(got, self.jax.search(queries, top_k=top_k, filters=filters,
+                                                    backend="xla"))
+        return got
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("tier", QUANT_TIERS, ids=QUANT_IDS)
+def test_quantized_tier_matches_jax(metric, tier):
+    """add, re-add, delete, filters, growth, compact and clear."""
+    t = QuantDuo(metric, *tier, auto_compact_ratio=0.0)
+    assert t.port._vectors.dtype == torch.int8
+    # int8 pads d = 64 to 128; int4 pads it to 256 and packs it into 128 bytes
+    assert t.port._vectors.shape[1] == t.jax._vec_cols == 128
+    assert t.port.d_pad == (128 if tier[0] == "int8" else 256)
+    assert t.add(200, seed=1) == list(range(200))
+    q = vectors(3, 6)
+    t.check(q)
+    t.check(q[0])  # a single 1-D query
+    t.check(q, top_k=50)
+    t.add(40, seed=5, start=10)  # re-add ids docA-10..49 with new vectors
+    assert t.call("count") == 200
+    t.check(q)
+    t.call("delete", [f"docA-{i}" for i in range(0, 200, 3)])
+    for filters in ({"idx": {"$gte": 100}}, {"tag": {"$in": ["red", "green"]}},
+                    {"source": {"$regex": "^doc"}}):
+        t.check(q, filters=filters)
+    t.add(700, seed=2, doc="docB")  # a 1024-row bucket: growth past 256 rows
+    assert t.port.capacity == t.jax.capacity == 2048
+    t.check(q, top_k=20)
+    t.call("delete", [f"docB-{i}" for i in range(0, 700, 2)])
+    t.jax.compact()
+    t.port.compact()
+    t.assert_same_state()
+    assert t.port.size == t.jax.size
+    t.check(q)
+    t.call("clear")
+    assert t.port.count() == 0 and t.port.search(q, 5) == [[] for _ in range(6)]
+
+
+@pytest.mark.parametrize("tier", QUANT_TIERS, ids=QUANT_IDS)
+def test_quantized_dequantized_views_match_jax(tier):
+    t = QuantDuo("cosine", *tier)
+    t.add(300, seed=1)
+    np.testing.assert_array_equal(t.port.dequantized_vectors().numpy(),
+                                  np.asarray(t.jax.dequantized_vectors()))
+    np.testing.assert_array_equal(t.port.dequantized_rows(10, 64).numpy(),
+                                  np.asarray(t.jax.dequantized_rows(10, 64)))
+    rows = np.asarray([5, 0, 299, 17])
+    np.testing.assert_array_equal(t.port.dequantize_take(rows).numpy(),
+                                  np.asarray(t.jax.dequantize_take(rows)))
+    got, n = t.port.dequantize_take_padded(rows)
+    want, n_jax = t.jax.dequantize_take_padded(rows)
+    assert n == n_jax == 4 and got.shape == want.shape == (4096, t.port.d_pad)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # nbytes leaves out the scales, as the JAX index counts
+    assert t.port.nbytes() == t.jax.nbytes() == t.port.capacity * (t.port._vec_cols + 16 * 4 + 4)
+
+
+def quant_state(index: JaxIndex) -> dict:
+    """What a quantized JAX index holder exports for ``index_from_numpy``."""
+    state = jax_state(index)
+    state.update(
+        storage_dtype=index.config.storage_dtype,
+        int4_rerank_multiplier=index.config.int4_rerank_multiplier,
+        vectors=np.asarray(index._vectors),
+        scales=np.asarray(index._scales),
+    )
+    if index._host_q8 is not None:
+        state.update(host_q8=index._host_q8, host_s8=index._host_s8)
+    return state
+
+
+@pytest.mark.parametrize("tier", QUANT_TIERS, ids=QUANT_IDS)
+def test_index_from_numpy_carries_the_quantized_tiers(tier):
+    t = QuantDuo("cosine", *tier)
+    t.add(300, seed=1)
+    t.call("delete", [f"docA-{i}" for i in range(0, 300, 4)])
+    port = index_from_numpy(quant_state(t.jax), device="cpu")
+    t.port = port
+    t.assert_same_state()
+    q = vectors(11, 5)
+    for filters in (None, {"idx": {"$lt": 150}}):
+        t.check(q, filters=filters)
+    t.add(20, seed=12, doc="docC")
+    t.check(q)

@@ -35,7 +35,8 @@ def imported_roots(path: Path) -> set[str]:
 def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
     assert "youtu_rag_tpu_torch/ops/topk.py" in names
-    assert (PORT / "csrc" / "topk_pruned.cu").exists()
+    for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh"):
+        assert (PORT / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -1,0 +1,435 @@
+// Exact masked top-k selection shared by the port's scan kernels, for
+// Hopper (sm_90a). Included by topk_pruned.cu (bf16), topk_int8_pruned.cu
+// and topk_int4_pruned.cu; only the scoring differs between them, and each
+// source passes it in as a Scorer (see the contract below).
+//
+// Contract of every kernel built from this header (the TPU kernels'):
+//   result = the k best (score desc, row asc) per query, as
+//            (f32 scores [q, k], int32 rows [q, k]);
+//   slots that no live row fills keep the initial entry (NEG_INF, row 0),
+//   as the TPU kernels' running top-k starts from (NEG_INF, 0). A row whose
+//   bias is NEG_INF scores NEG_INF exactly (a small product added to the
+//   float32 minimum rounds back to it) and never enters a list: only a
+//   strictly better entry displaces one.
+//
+// Design. The TPU grid runs in order, so its pruned kernels carry one
+// running top-k across all blocks. Hopper CTAs run at the same time, so:
+//  1. topk_scan_kernel: CTA b owns a contiguous row range and keeps one
+//     sorted top-k list per query of its query tile (8 queries) in shared
+//     memory. It walks the range in tiles of 128 rows:
+//     - scoring (Scorer::group): each of the 8 warps takes 4 groups of
+//       R = 4 rows; each lane reads 16-byte chunks of the 4 rows
+//       (coalesced across the warp) and accumulates the 4 x 8 partial dots;
+//       a transposing butterfly (31 shuffles) leaves lane L holding the
+//       full dot of (row L/8, query L%8), which goes into a shared score
+//       tile (double-buffered, so one __syncthreads per tile separates
+//       scoring from selection);
+//     - selection: warp j alone owns the list of query j. It finishes its
+//       query's 128 scores (the bias and, for the quantized tiers, the
+//       scales, all loaded at the start of the tile so that their latency
+//       hides under the scoring loads), and a score that cannot beat the
+//       list's current k-th entry skips insertion: the per-row form of the
+//       TPU kernels' block prune. After warm-up almost no row inserts, so
+//       the loop is a streaming read of the index.
+//     At the end warp j writes its list as the CTA's candidates [n_cta, q, k].
+//  2. topk_merge_kernel: one warp per query merges the n_cta sorted
+//     candidate lists into [q, k] with the same (score desc, row asc)
+//     order, so the result equals a stable descending sort.
+// Queries are covered in tiles of 8 by the grid's second dimension; each
+// tile reads the index again (q = 64 reads it 8 times).
+//
+// Two k classes. Up to kSmallK = 128 an insertion stages the shifted list
+// entries in registers (kSmallK / 32 per lane). Above it, up to kMaxK =
+// 1024 (the JAX kernels' limit at the default block_rows), the lists stay
+// in dynamic shared memory as before (8 queries x k x 8 B = 64 KB at
+// k = 1024) and an insertion shifts them through shared memory, 32 entries
+// at a time from the top, so no register array grows with k.
+//
+// A Scorer provides:
+//   static constexpr bool kScaled;      // score = f32(acc) * (qs * xs) + bias
+//   static bool width_ok(int d);        // d is the unpacked width
+//   static size_t q_bytes(int d);       // shared bytes of the query tile
+//   __device__ static void load_queries(unsigned char* qt, const void* queries,
+//                                       int q0, int q_valid, int d);
+//   __device__ static float group(const unsigned char* qt, const void* x,
+//                                 int row0, int row_end, int d, int lane);
+// group returns the lane's dot of (row row0 + lane/8, query lane%8) as f32,
+// before the scales and the bias.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kWarps = 8;        // warps per scan CTA
+constexpr int kQT = 8;           // queries per tile; warp j selects query j
+constexpr int kR = 4;            // rows per warp step (kR * kQT == 32 lanes)
+constexpr int kSteps = 4;        // warp steps per row tile
+constexpr int kTile = kWarps * kR * kSteps;  // rows scored between barriers
+constexpr int kSmallK = 128;     // largest k whose insert stages in registers
+constexpr int kMaxK = 1024;
+constexpr int kMaxQ = 64;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min (NEG_INF)
+
+static_assert(kR * kQT == 32, "one score per lane after the butterfly");
+static_assert(kQT == kWarps, "one selecting warp per query of the tile");
+static_assert(kTile % 32 == 0, "selection reads the tile 32 rows at a time");
+
+// (as, ai) ranks before (bs, bi): higher score, then lower row.
+__device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
+  return as > bs || (as == bs && ai < bi);
+}
+
+// Insert (s, row) into the sorted list (ls, li) of length k <= kSmallK. The
+// caller guarantees that (s, row) beats entry k-1. All 32 lanes take part.
+__device__ __forceinline__ void warp_insert(float* ls, int* li, int k, float s,
+                                            int row, int lane) {
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    int i = base + lane;
+    bool b = i < k && better(ls[i], li[i], s, row);
+    pos += __popc(__ballot_sync(kFull, b));
+  }
+  float vs[kSmallK / 32];
+  int vi[kSmallK / 32];
+#pragma unroll
+  for (int t = 0; t < kSmallK / 32; ++t) {
+    int i = t * 32 + lane;
+    if (i > pos && i < k) {
+      vs[t] = ls[i - 1];
+      vi[t] = li[i - 1];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < kSmallK / 32; ++t) {
+    int i = t * 32 + lane;
+    if (i > pos && i < k) {
+      ls[i] = vs[t];
+      li[i] = vi[t];
+    }
+  }
+  if (lane == 0) {
+    ls[pos] = s;
+    li[pos] = row;
+  }
+  __syncwarp();
+}
+
+// The same for kSmallK < k <= kMaxK: the position scan stops at the first
+// 32-entry chunk that holds a worse entry, and entries [pos, k-1) move up
+// by one through shared memory, top chunk first (a chunk reads entries
+// i-1 before the chunk below overwrites them).
+__device__ __forceinline__ void warp_insert_smem(float* ls, int* li, int k, float s,
+                                                 int row, int lane) {
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int i = base + lane;
+    const unsigned b = __ballot_sync(kFull, i < k && better(ls[i], li[i], s, row));
+    pos += __popc(b);
+    if (b != kFull) break;
+  }
+  for (int base = ((k - 1) / 32) * 32; base + 31 > pos; base -= 32) {
+    const int i = base + lane;
+    const bool mv = i > pos && i < k;
+    float v = 0.f;
+    int vi = 0;
+    if (mv) {
+      v = ls[i - 1];
+      vi = li[i - 1];
+    }
+    __syncwarp();
+    if (mv) {
+      ls[i] = v;
+      li[i] = vi;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    ls[pos] = s;
+    li[pos] = row;
+  }
+  __syncwarp();
+}
+
+// One step of the transposing butterfly over 2*H values per lane: lanes
+// with bit H set keep the upper half, the others the lower half, and each
+// adds its partner's copy of the half it keeps.
+template <int H, typename T>
+__device__ __forceinline__ void butterfly_step(T* acc, int lane) {
+  const bool upper = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    T send = upper ? acc[i] : acc[i + H];
+    T keep = upper ? acc[i + H] : acc[i];
+    acc[i] = keep + __shfl_xor_sync(kFull, send, H);
+  }
+}
+
+// Lane L ends with the warp sum of acc[L] over all 32 lanes' copies.
+template <typename T>
+__device__ __forceinline__ void butterfly(T* acc, int lane) {
+  butterfly_step<16>(acc, lane);
+  butterfly_step<8>(acc, lane);
+  butterfly_step<4>(acc, lane);
+  butterfly_step<2>(acc, lane);
+  butterfly_step<1>(acc, lane);
+}
+
+template <class Scorer>
+__host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
+  return Scorer::q_bytes(d) + sizeof(float) * 2 * kQT * kTile +
+         (sizeof(float) + sizeof(int)) * (size_t)kQT * k;
+}
+
+// Shared memory: the Scorer's query tile, score tiles f32 [2, kQT, kTile],
+// then per query a list of k scores and k rows.
+template <class Scorer, bool kBigK>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
+                 const float* __restrict__ qscale,    // [q] (kScaled only)
+                 const void* __restrict__ x,          // [n, row bytes]
+                 const float* __restrict__ xscale,    // [n] (kScaled only)
+                 const float* __restrict__ bias,      // [n]
+                 float* __restrict__ cand_s,          // [n_cta, q, k]
+                 int* __restrict__ cand_i,            // [n_cta, q, k]
+                 int q, int n, int d, int k, int rows_per_cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qt = smem;
+  float* tiles = reinterpret_cast<float*>(smem + Scorer::q_bytes(d));
+  float* list_s = tiles + 2 * kQT * kTile;
+  int* list_i = reinterpret_cast<int*>(list_s + kQT * k);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int cta = blockIdx.x;
+  const int q0 = blockIdx.y * kQT;
+  const int q_valid = min(kQT, q - q0);
+
+  Scorer::load_queries(qt, queries, q0, q_valid, d);
+  for (int e = threadIdx.x; e < kQT * k; e += blockDim.x) {
+    list_s[e] = kNegInf;
+    list_i[e] = 0;
+  }
+  __syncthreads();
+
+  // this warp's list: query q0 + warp; (thr_s, thr_i) mirrors its entry k-1
+  float* my_s = list_s + warp * k;
+  int* my_i = list_i + warp * k;
+  float thr_s = kNegInf;
+  int thr_i = 0;
+  const bool selects = warp < q_valid;
+  float qs_w = 0.f;
+  if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
+  const int row_begin = cta * rows_per_cta;
+  const int row_end = min(n, row_begin + rows_per_cta);
+
+  int buf = 0;
+  for (int tile0 = row_begin; tile0 < row_end; tile0 += kTile, buf ^= 1) {
+    float* tile = tiles + buf * kQT * kTile;  // [kQT, kTile]
+    // the bias (and scale) of the rows this lane selects, loaded now so
+    // that their latency hides under the scoring loads
+    float tile_bias[kTile / 32];
+    float tile_xs[kTile / 32];
+#pragma unroll
+    for (int c = 0; c < kTile / 32; ++c) {
+      const int row = tile0 + c * 32 + lane;
+      tile_bias[c] = selects && row < row_end ? bias[row] : 0.f;
+      if constexpr (Scorer::kScaled) tile_xs[c] = selects && row < row_end ? xscale[row] : 0.f;
+    }
+    for (int step = 0; step < kSteps; ++step) {
+      const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
+      const float v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
+      tile[(lane % kQT) * kTile + r0 + lane / kQT] = v;
+    }
+    // the tile is complete; the other buffer is free for the next tile,
+    // whose scoring starts only after every warp passed this barrier, that
+    // is, after every warp finished selecting from it
+    __syncthreads();
+
+    if (selects) {
+#pragma unroll
+      for (int c = 0; c < kTile / 32; ++c) {
+        const int row = tile0 + c * 32 + lane;
+        const bool ok = row < row_end;
+        float s = 0.f;
+        if (ok) {
+          const float t = tile[warp * kTile + c * 32 + lane];
+          if constexpr (Scorer::kScaled)
+            // the TPU kernels' epilogue, rounded op by op (no contraction)
+            s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, tile_xs[c])), tile_bias[c]);
+          else
+            s = t + tile_bias[c];
+        }
+        unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
+        while (pending) {
+          int src = __ffs(pending) - 1;
+          float ss = __shfl_sync(kFull, s, src);
+          int rr = __shfl_sync(kFull, row, src);
+          if constexpr (kBigK)
+            warp_insert_smem(my_s, my_i, k, ss, rr, lane);
+          else
+            warp_insert(my_s, my_i, k, ss, rr, lane);
+          thr_s = my_s[k - 1];
+          thr_i = my_i[k - 1];
+          pending &= pending - 1;
+          // entry k-1 moved: drop the candidates that no longer beat it
+          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
+        }
+      }
+    }
+  }
+
+  if (selects) {
+    size_t out = ((size_t)cta * q + q0 + warp) * k;
+    for (int t = lane; t < k; t += 32) {
+      cand_s[out + t] = my_s[t];
+      cand_i[out + t] = my_i[t];
+    }
+  }
+}
+
+// One warp per query: merge n_cta sorted lists of k into the top k.
+// Shared memory: per list its position and its current head (score, row).
+__global__ void __launch_bounds__(32)
+topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
+                  float* __restrict__ out_s, int* __restrict__ out_i,
+                  int q, int k, int n_cta) {
+  extern __shared__ __align__(16) unsigned char msmem[];
+  int* pos = reinterpret_cast<int*>(msmem);
+  float* head_s = reinterpret_cast<float*>(pos + n_cta);
+  int* head_i = reinterpret_cast<int*>(head_s + n_cta);
+  const int lane = threadIdx.x;
+  const int qi = blockIdx.x;
+  // list l belongs to lane l % 32, which alone reads and writes its entries
+  for (int l = lane; l < n_cta; l += 32) {
+    size_t off = ((size_t)l * q + qi) * k;
+    pos[l] = 0;
+    head_s[l] = cand_s[off];
+    head_i[l] = cand_i[off];
+  }
+
+  auto local_best = [&](float& bs, int& bi, int& bl) {
+    bs = -INFINITY;
+    bi = 0x7fffffff;
+    bl = 0x7fffffff;
+    for (int l = lane; l < n_cta; l += 32) {
+      float s = head_s[l];
+      int i = head_i[l];
+      if (better(s, i, bs, bi) || (s == bs && i == bi && l < bl)) {
+        bs = s;
+        bi = i;
+        bl = l;
+      }
+    }
+  };
+
+  float ls;
+  int li, ll;
+  local_best(ls, li, ll);
+  for (int t = 0; t < k; ++t) {
+    float bs = ls;
+    int bi = li, bl = ll;
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) {
+      float os = __shfl_xor_sync(kFull, bs, o);
+      int oi = __shfl_xor_sync(kFull, bi, o);
+      int ol = __shfl_xor_sync(kFull, bl, o);
+      if (better(os, oi, bs, bi) || (os == bs && oi == bi && ol < bl)) {
+        bs = os;
+        bi = oi;
+        bl = ol;
+      }
+    }
+    if (lane == 0) {
+      out_s[(size_t)qi * k + t] = bs;
+      out_i[(size_t)qi * k + t] = bi;
+    }
+    if (bl < n_cta && lane == bl % 32) {
+      int p = ++pos[bl];
+      if (p < k) {
+        size_t off = ((size_t)bl * q + qi) * k + p;
+        head_s[bl] = cand_s[off];
+        head_i[bl] = cand_i[off];
+      } else {
+        head_s[bl] = -INFINITY;
+        head_i[bl] = 0x7fffffff;
+      }
+      local_best(ls, li, ll);
+    }
+    __syncwarp();
+  }
+}
+
+typedef void (*ScanKernel)(const void*, const float*, const void*, const float*, const float*,
+                           float*, int*, int, int, int, int, int);
+
+template <class Scorer>
+ScanKernel scan_kernel_for(int k) {
+  return k <= kSmallK ? topk_scan_kernel<Scorer, false> : topk_scan_kernel<Scorer, true>;
+}
+
+// Scan CTAs that fit on one SM for width d and top-k k (the register cap
+// of __launch_bounds__ allows 2), or minus a CUDA error code.
+template <class Scorer>
+int scan_ctas_per_sm(int d, int k) {
+  ScanKernel kern = scan_kernel_for<Scorer>(k);
+  int smem = (int)scan_smem_bytes<Scorer>(d, k);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kWarps * 32, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
+}
+
+// Launch the scan and the merge on `stream`. Returns cudaGetLastError()
+// (0 = ok) or cudaErrorInvalidValue for shapes outside the contract.
+template <class Scorer>
+int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
+                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
+                int q, int n, int d, int k, int n_cta, void* stream) {
+  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || !Scorer::width_ok(d) || n < k || n_cta < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  ScanKernel kern = scan_kernel_for<Scorer>(k);
+  int smem = (int)scan_smem_bytes<Scorer>(d, k);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int rows_per_cta = (n + n_cta - 1) / n_cta;
+  dim3 grid(n_cta, (q + kQT - 1) / kQT);
+  kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
+                                        static_cast<float*>(cand_s), static_cast<int*>(cand_i),
+                                        q, n, d, k, rows_per_cta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
+  topk_merge_kernel<<<q, 32, merge_smem, st>>>(
+      static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
+      static_cast<float*>(out_s), static_cast<int*>(out_i), q, k, n_cta);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each source defines its C interface with this macro: <name>_launch,
+// <name>_ctas_per_sm and <name>_error_string.
+#define TOPK_C_INTERFACE(NAME, SCORER)                                                        \
+  extern "C" {                                                                                \
+  const char* NAME##_error_string(int err) {                                                  \
+    return cudaGetErrorString(static_cast<cudaError_t>(err));                                 \
+  }                                                                                           \
+  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER>(d, k); }            \
+  int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
+                    const void* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,   \
+                    int q, int n, int d, int k, int n_cta, void* stream) {                    \
+    return topk_launch<SCORER>(queries, static_cast<const float*>(qscale), x,                 \
+                               static_cast<const float*>(xscale),                             \
+                               static_cast<const float*>(bias), cand_s, cand_i, out_s, out_i, \
+                               q, n, d, k, n_cta, stream);                                    \
+  }                                                                                           \
+  }

@@ -5,7 +5,14 @@ arrays of an index of the JAX package, so both answer the same queries
 identically. The state is a dict:
 
 - ``dim``, ``metric``: the index's width and metric;
-- ``vectors``: f32 ``[capacity, d_pad]`` holding the stored (bf16) values;
+- ``storage_dtype`` (default ``"bfloat16"``) and ``int4_rerank_multiplier``
+  (default 4.0): the index's storage tier;
+- ``vectors``: the stored rows, ``[capacity, d_pad]`` f32 holding the
+  stored (bf16) values; for int8 the raw int8 ``[capacity, d_pad]``, for
+  int4 the raw packed nibbles ``[capacity, d_pad/2]``;
+- ``scales``: f32 ``[capacity]`` (int8 and int4 only);
+- ``host_q8`` int8 ``[capacity, d_pad]`` and ``host_s8`` f32 ``[capacity]``:
+  the int4 re-rank's host shadow (int4 with a multiplier above 1 only);
 - ``bias``: f32 ``[capacity]``; ``cols``: int32 ``[capacity, C]``;
 - ``chunks``: one entry per appended row, ``None`` for a tombstone, else a
   chunk object with ``id``, ``document_id``, ``content``, ``chunk_index``
@@ -36,18 +43,37 @@ def _chunk(c: Any) -> Chunk | None:
     return None if c is None else Chunk(*(getattr(c, f) for f in _CHUNK_FIELDS))
 
 
+def _array(state: dict, key: str, dtype, shape: tuple) -> np.ndarray:
+    a = np.array(state[key], dtype)  # a writable copy
+    if a.shape != shape:
+        raise ValueError(f"{key} {a.shape} != {shape}")
+    return a
+
+
 def index_from_numpy(state: dict, device: str | torch.device | None = None) -> DeviceVectorIndex:
-    """Build a bf16 port index holding exactly ``state``'s rows."""
+    """Build a port index of ``state``'s storage tier holding exactly its rows."""
     schema = MetadataSchema.from_dict(state["schema"])
-    cfg = IndexConfig(metric=state["metric"], max_metadata_columns=schema.max_columns)
+    cfg = IndexConfig(metric=state["metric"], max_metadata_columns=schema.max_columns,
+                      storage_dtype=state.get("storage_dtype", "bfloat16"),
+                      int4_rerank_multiplier=state.get("int4_rerank_multiplier", 4.0))
     idx = DeviceVectorIndex(int(state["dim"]), cfg, device=device)
     cap = int(state["capacity"])
-    vectors = np.array(state["vectors"], np.float32)  # a writable copy
-    if vectors.shape != (cap, idx.d_pad):
-        raise ValueError(f"vectors {vectors.shape} != ({cap}, {idx.d_pad})")
+    if idx._quant:
+        vectors = torch.from_numpy(_array(state, "vectors", np.int8, (cap, idx._vec_cols)))
+        scales = torch.from_numpy(_array(state, "scales", np.float32, (cap,))).to(idx.device)
+    else:
+        vectors = torch.from_numpy(_array(state, "vectors", np.float32, (cap, idx.d_pad)))
+        scales = None
+    if idx._host_rerank:
+        host_q8 = _array(state, "host_q8", np.int8, (cap, idx.d_pad))
+        host_s8 = _array(state, "host_s8", np.float32, (cap,))
     with idx._lock:
         idx.capacity = cap
-        idx._vectors = torch.from_numpy(vectors).to(idx.device).to(idx._store_dtype)
+        # f32 → bf16 rounds to nearest even, as jnp.asarray does
+        idx._vectors = vectors.to(idx.device).to(idx._store_dtype)
+        idx._scales = scales
+        if idx._host_rerank:
+            idx._host_q8, idx._host_s8 = host_q8, host_s8
         idx._bias = torch.from_numpy(np.array(state["bias"], np.float32)).to(idx.device)
         idx._cols = torch.from_numpy(np.array(state["cols"], np.int32)).to(idx.device)
         idx._chunks = [_chunk(c) for c in state["chunks"]]

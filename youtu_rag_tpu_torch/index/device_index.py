@@ -2,7 +2,12 @@
 ``youtu_rag_tpu/index/device_index.py::DeviceVectorIndex`` in PyTorch.
 
 - vectors live in a device tensor ``[capacity, d_pad]`` (bf16 by default),
-  L2-normalized at insert for cosine so score == inner product;
+  L2-normalized at insert for cosine so score == inner product. The int8
+  tier stores symmetric per-row int8 with f32 scales; the int4 tier packs
+  two columns per byte (``[capacity, d_pad/2]``, ``d_pad`` a multiple of
+  256) with f32 scales and, when ``int4_rerank_multiplier > 1``, keeps an
+  int8 shadow copy in host RAM that re-ranks the kernel's over-fetched
+  candidates (ScaNN-style);
 - liveness and the l2 norm term are one additive float32 bias per row:
   0 for live rows, ``NEG_INF`` for tombstones and padding, and
   ``-||x||²`` for the l2 metric, whose queries are doubled so that
@@ -13,16 +18,21 @@
 - capacity grows by powers of two; chunk contents and metadata stay on
   the host (row ↔ chunk id maps).
 
-Every search goes through ``ops.topk.topk_pruned``: the CUDA kernel on a
-CUDA index, its plain version on a CPU index. There is no size threshold
-that sends small indexes elsewhere.
+Every search goes through the top-k wrapper of its storage tier
+(``ops.topk.topk_pruned``, ``topk_int8_pruned`` or ``topk_int4_pruned``):
+the CUDA kernel on a CUDA index, its plain version on a CPU index. There is
+no size threshold that sends small indexes elsewhere.
 
-Not ported yet (ROADMAP Queue A 3, Queue B 2-3 and 9-11): AOT tier warming,
-the append pacing probe, IVF and the int8/int4 storage tiers (the last two
-raise ``NotImplementedError`` rather than silently storing bf16). The array
-updates that JAX writes as donated jit kernels are in-place tensor writes
-here; searches run under the index lock and on the same stream, so a
-search never observes half an append.
+Facts of the JAX index that this one copies on purpose: ``compact()`` (and
+``persistence.load_index``) rebuild the int4 host shadow from the
+int4-dequantized vectors, so after either the re-rank sees int4 precision
+only; ``nbytes()`` leaves out the scales.
+
+Not ported yet (ROADMAP Queue A 3 and 9, Queue B 9-11): AOT tier warming,
+the append pacing probe and IVF (which raises ``NotImplementedError``). The
+array updates that JAX writes as donated jit kernels are in-place tensor
+writes here; searches run under the index lock and on the same stream, so
+a search never observes half an append.
 """
 
 from __future__ import annotations
@@ -35,7 +45,15 @@ import torch
 
 from ..core.config import IndexConfig
 from ..core.types import Chunk
-from ..ops.topk import MAX_K, MAX_Q, NEG_INF, topk_pruned
+from ..ops.topk import (
+    MAX_K,
+    MAX_Q,
+    NEG_INF,
+    topk_int4_pruned,
+    topk_int8_pruned,
+    topk_pruned,
+    unpack_int4,
+)
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from .filters import CompiledFilter, FilterError, compile_filter, host_eval
@@ -44,7 +62,12 @@ from .metadata import MISSING_I32, MetadataSchema
 logger = get_logger("index.device")
 
 _LANE = 128
-_STORE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_STORE_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "int8": torch.int8,  # symmetric per-row quantization + f32 scales
+    "int4": torch.int8,  # packed nibbles (ops.topk.quantize_rows_int4)
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -78,20 +101,30 @@ class DeviceVectorIndex:
             raise NotImplementedError(
                 f"kind={self.config.kind!r}: IVF is not ported yet (ROADMAP Queue A 9); use 'flat'"
             )
-        if self.config.storage_dtype not in _STORE_DTYPES:
-            raise NotImplementedError(
-                f"storage_dtype={self.config.storage_dtype!r}: the int8/int4 storage "
-                "tiers are not ported yet (ROADMAP Queue B 2-3); use 'bfloat16' or 'float32'"
-            )
         self.metric = self.config.metric
-        self.d_pad = _round_up(self.dim, _LANE)
+        self._int8 = self.config.storage_dtype == "int8"
+        self._int4 = self.config.storage_dtype == "int4"
+        self._quant = self._int8 or self._int4
+        # int4 packs two columns per byte, so the PACKED width (d_pad/2)
+        # must stay a multiple of 128: pad d to 2 x 128
+        self.d_pad = _round_up(self.dim, 2 * _LANE if self._int4 else _LANE)
+        self._vec_cols = self.d_pad // 2 if self._int4 else self.d_pad
         self._store_dtype = _STORE_DTYPES[self.config.storage_dtype]
         self.capacity = _pow2_at_least(self.config.min_capacity, self.config.block_rows)
         self.size = 0  # rows ever appended (including tombstones)
         self.live_count = 0
         self.schema = MetadataSchema(max_columns=self.config.max_metadata_columns)
-        self._vectors = torch.zeros((self.capacity, self.d_pad), dtype=self._store_dtype,
+        self._vectors = torch.zeros((self.capacity, self._vec_cols), dtype=self._store_dtype,
                                     device=self.device)
+        self._scales = (torch.zeros(self.capacity, dtype=torch.float32, device=self.device)
+                        if self._quant else None)
+        # int4 two-stage search: an int8 shadow copy in HOST RAM re-ranks
+        # the kernel's candidates (d bytes/row of host memory, no device
+        # memory; IndexConfig.int4_rerank_multiplier)
+        self._host_rerank = self._int4 and self.config.int4_rerank_multiplier > 1
+        self._host_q8 = (np.zeros((self.capacity, self.d_pad), np.int8)
+                         if self._host_rerank else None)
+        self._host_s8 = np.zeros(self.capacity, np.float32) if self._host_rerank else None
         self._cols = torch.full((self.capacity, self.schema.max_columns), MISSING_I32,
                                 dtype=torch.int32, device=self.device)
         self._bias = torch.full((self.capacity,), NEG_INF, dtype=torch.float32,
@@ -113,8 +146,15 @@ class DeviceVectorIndex:
         pad = new_cap - self.capacity
         self._vectors = torch.cat([
             self._vectors,
-            torch.zeros((pad, self.d_pad), dtype=self._store_dtype, device=self.device),
+            torch.zeros((pad, self._vec_cols), dtype=self._store_dtype, device=self.device),
         ])
+        if self._quant:
+            self._scales = torch.cat([
+                self._scales, torch.zeros(pad, dtype=torch.float32, device=self.device)
+            ])
+        if self._host_q8 is not None:
+            self._host_q8 = np.concatenate([self._host_q8, np.zeros((pad, self.d_pad), np.int8)])
+            self._host_s8 = np.concatenate([self._host_s8, np.zeros(pad, np.float32)])
         self._cols = torch.cat([
             self._cols,
             torch.full((pad, self.schema.max_columns), MISSING_I32, dtype=torch.int32,
@@ -158,13 +198,32 @@ class DeviceVectorIndex:
             cols = np.asarray([self.schema.encode_row(c.metadata) for c in chunks], np.int32)
         cpad = np.full((bucket, self.schema.max_columns), MISSING_I32, np.int32)
         cpad[:n] = cols
+        if self._int8:
+            amax = np.maximum(np.abs(vpad).max(axis=1), 1e-12)
+            spad = (amax / 127.0).astype(np.float32)
+            host_vec = np.clip(np.round(vpad / spad[:, None]), -127, 127).astype(np.int8)
+        elif self._int4:
+            # packed nibbles: byte j = col j (low) | col j + d_pad/2 (high),
+            # as ops.topk.quantize_rows_int4 / unpack_int4
+            amax = np.maximum(np.abs(vpad).max(axis=1), 1e-12)
+            spad = (amax / 7.0).astype(np.float32)
+            q4 = np.clip(np.round(vpad / spad[:, None]), -7, 7).astype(np.int32)
+            half = self.d_pad // 2
+            host_vec = ((q4[:, :half] & 0xF) | ((q4[:, half:] & 0xF) << 4)).astype(
+                np.uint8).view(np.int8)
+            if self._host_rerank:
+                s8pad = (amax / 127.0).astype(np.float32)
+                q8pad = np.clip(np.round(vpad / s8pad[:, None]), -127, 127).astype(np.int8)
+        else:
+            host_vec = vpad
         new_chunks = [
             Chunk(c.id, c.document_id, c.content, c.chunk_index, c.metadata) for c in chunks
         ]
         # f32 → store dtype rounds to nearest even, as jnp.asarray does
-        dev_vec = torch.from_numpy(vpad).to(self.device).to(self._store_dtype)
+        dev_vec = torch.from_numpy(host_vec).to(self.device).to(self._store_dtype)
         dev_cols = torch.from_numpy(cpad).to(self.device)
         dev_bias = torch.from_numpy(bpad).to(self.device)
+        dev_scales = torch.from_numpy(spad).to(self.device) if self._quant else None
 
         slice_rows = self.config.append_slice_rows or bucket
         with self._lock:
@@ -190,6 +249,11 @@ class DeviceVectorIndex:
                 self._vectors[start : start + s_n] = dev_vec[sl]
                 self._cols[start : start + s_n] = dev_cols[sl]
                 self._bias[start : start + s_n] = dev_bias[sl]
+                if self._quant:
+                    self._scales[start : start + s_n] = dev_scales[sl]
+                if self._host_rerank:
+                    self._host_q8[start : start + s_n] = q8pad[sl]
+                    self._host_s8[start : start + s_n] = s8pad[sl]
                 for i in range(real):
                     c = new_chunks[offset + i]
                     row = start + i
@@ -290,8 +354,15 @@ class DeviceVectorIndex:
             if not live:
                 self._reset()
                 return
-            rows = torch.as_tensor([r for r, _ in live], device=self.device)
-            vecs = self._vectors[rows, : self.dim].float().cpu().numpy()
+            rows = np.asarray([r for r, _ in live])
+            # through the dequantized view, as the JAX index: a quantized
+            # index re-quantizes its own dequantized rows (and the int4
+            # shadow is rebuilt from int4 precision)
+            vecs = np.empty((len(rows), self.dim), np.float32)
+            step = 1 << 20  # bounded device memory: the f32 view is 4x int8
+            for i in range(0, len(rows), step):
+                part = rows[i : i + step]
+                vecs[i : i + len(part)] = self.dequantize_take(part)[:, : self.dim].cpu().numpy()
             chunks = [c for _, c in live]
             schema = self.schema
             self._reset()
@@ -311,7 +382,12 @@ class DeviceVectorIndex:
         Filters compile to a device mask joined into the bias; filters that
         do not compile fall back to a host pre-filter over raw metadata.
         ``top_k`` must lie in 1..MAX_K on every device, the CUDA kernel's
-        range, so a CPU index refuses what a CUDA index would."""
+        range, so a CPU index refuses what a CUDA index would.
+
+        int4 with the host re-rank asks the kernel for
+        ``pow2_at_least(ceil(k * int4_rerank_multiplier), 16)`` candidates
+        (at most the live count, as JAX) and re-scores them from the int8
+        shadow; unlike JAX, that candidate count stops at MAX_K."""
         if not 1 <= top_k <= MAX_K:
             raise ValueError(f"top_k={top_k} outside 1..{MAX_K}, the most the top-k kernel keeps")
         q = np.asarray(query_embeddings, np.float32)
@@ -334,6 +410,17 @@ class DeviceVectorIndex:
         with self._lock:
             vectors, cols, bias = self._vectors, self._cols, self._bias
             k_eff = min(top_k, max(self.live_count, 1))
+            # int4 two-stage: ask the packed kernel for a pow2-bucketed
+            # candidate multiple, re-rank on the host from the int8 shadow
+            k_req = k_eff
+            host_rr = self._host_rerank
+            if host_rr:
+                mult = self.config.int4_rerank_multiplier
+                k2 = _pow2_at_least(max(int(np.ceil(k_eff * mult)), k_eff), 16)
+                if self.live_count < k2:
+                    k2 = 1 << max(self.live_count.bit_length() - 1, 0)
+                k_req = min(max(k2, k_eff), MAX_K)
+                hq8, hs8 = self._host_q8, self._host_s8
             if filters:
                 try:
                     bias = _filter_bias(cols, bias, compile_filter(filters, self.schema))
@@ -346,13 +433,15 @@ class DeviceVectorIndex:
                     ]
                     hb[keep] = 0.0
                     bias = bias + torch.from_numpy(hb).to(self.device)
-            scores, rows = self._run_search(queries, vectors, bias, k_eff)
+            scores, rows = self._run_search(queries, vectors, self._scales, bias, k_req)
             # reference capture, not a copy: structural mutations replace
             # the list; add() appends and delete() writes None, both benign
             chunks_snapshot = self._chunks
 
         scores = scores.cpu().numpy()[:n_q]
         rows = rows.cpu().numpy()[:n_q]
+        if host_rr and k_req > k_eff:
+            scores, rows = self._host_rerank_candidates(qpad[:n_q], scores, rows, hq8, hs8, k_eff)
         out: list[list[tuple[Chunk, float]]] = []
         for qi in range(scores.shape[0]):
             hits: list[tuple[Chunk, float]] = []
@@ -366,17 +455,83 @@ class DeviceVectorIndex:
             out.append(hits)
         return out
 
+    def _host_rerank_candidates(self, qpad, scores, rows, hq8, hs8, k: int):
+        """Re-score int4 candidates from the host int8 shadow copy.
+
+        The kernel over-fetches mult*k candidates from packed nibbles; this
+        second stage removes most of the int4 quantization rank error for a
+        tiny host GEMM (k2 x d per query). qpad is the metric-adjusted query
+        (cosine: normalized; l2: pre-doubled, norm term re-added here)."""
+        n_q = rows.shape[0]
+        out_s = np.full((n_q, k), NEG_INF, np.float32)
+        out_r = np.zeros((n_q, k), np.int32)
+        for qi in range(n_q):
+            valid = scores[qi] > NEG_INF / 2
+            r = rows[qi][valid]
+            if r.size == 0:
+                continue
+            v = hq8[r].astype(np.float32) * hs8[r][:, None]
+            s = v @ qpad[qi]
+            if self.metric == "l2":
+                s = s - np.sum(v * v, axis=1)
+            order = np.argsort(-s, kind="stable")[:k]
+            out_s[qi, : order.size] = s[order]
+            out_r[qi, : order.size] = r[order]
+        return out_s, out_r
+
     def _run_search(self, queries: torch.Tensor, vectors: torch.Tensor,
-                    bias: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The kernel takes at most MAX_Q queries per launch; bigger
-        batches launch once per MAX_Q-query tile. f32 storage is searched
-        in bf16, as the JAX kernels cast it."""
-        x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
-        parts = [topk_pruned(queries[i : i + MAX_Q], x, bias, k)
-                 for i in range(0, queries.shape[0], MAX_Q)]
+                    scales: torch.Tensor | None, bias: torch.Tensor,
+                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Dispatch to the storage tier's kernel. It takes at most MAX_Q
+        queries per launch; bigger batches launch once per MAX_Q-query
+        tile. f32 storage is searched in bf16, as the JAX kernels cast it."""
+        if self._quant:
+            kernel = topk_int4_pruned if self._int4 else topk_int8_pruned
+            args = (vectors, scales, bias, k)
+        else:
+            kernel = topk_pruned
+            x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
+            args = (x, bias, k)
+        parts = [kernel(queries[i : i + MAX_Q], *args) for i in range(0, queries.shape[0], MAX_Q)]
         if len(parts) == 1:
             return parts[0]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    # -- dequantized views ---------------------------------------------------
+
+    def _dequantize(self, vectors: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
+        if self._int4:
+            return unpack_int4(vectors).float() * scales[:, None]
+        if self._int8:
+            return vectors.float() * scales[:, None]
+        return vectors.float()
+
+    def dequantized_vectors(self) -> torch.Tensor:
+        """f32 view of the stored vectors ``[capacity, d_pad]`` (4x the int8
+        bytes; use ``dequantized_rows`` or ``dequantize_take`` at scale)."""
+        return self._dequantize(self._vectors, self._scales)
+
+    def dequantized_rows(self, start: int, count: int) -> torch.Tensor:
+        """f32 view of rows [start, start + count)."""
+        sl = slice(start, start + count)
+        return self._dequantize(self._vectors[sl], None if self._scales is None else self._scales[sl])
+
+    def dequantize_take(self, rows) -> torch.Tensor:
+        """f32 gather of an arbitrary row subset."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        scales = None if self._scales is None else self._scales[idx]
+        return self._dequantize(self._vectors[idx], scales)
+
+    def dequantize_take_padded(self, rows: np.ndarray) -> tuple[torch.Tensor, int]:
+        """``dequantize_take`` over a gather index padded to a pow2 bucket
+        (at least 4096, repeating the first row), as the JAX index pads
+        it. Returns (padded [B, d_pad] f32, n_valid)."""
+        rows = np.asarray(rows, np.int64)
+        n = len(rows)
+        bucket = _pow2_at_least(max(n, 1), 4096)
+        if bucket > n:
+            rows = np.concatenate([rows, np.full(bucket - n, rows[0] if n else 0, np.int64)])
+        return self.dequantize_take(rows), n
 
     # -- introspection -----------------------------------------------------
 
@@ -392,6 +547,8 @@ class DeviceVectorIndex:
         return len(self._doc_rows.get(document_id, ()))
 
     def nbytes(self) -> int:
+        """Device bytes of vectors, filter columns and bias; the scales are
+        left out, as the JAX index counts."""
         return sum(t.numel() * t.element_size() for t in (self._vectors, self._cols, self._bias))
 
     def iter_live(self):

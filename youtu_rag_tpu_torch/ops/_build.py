@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/<name>-<hash>.so``. The hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library already built.
+covers the source, every ``csrc`` header it includes and the flags, so an
+edited source or header rebuilds and an unchanged one loads the library
+already built.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,25 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, transitively."""
+    out = [CSRC_DIR / f"{name}.cu"]
+    for path in out:
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep not in out:
+                out.append(dep)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> dict:

@@ -2,11 +2,14 @@
 retriever + builder, plus a process-wide registry.
 
 The port's counterpart of ``youtu_rag_tpu/retrieval/kb.py`` for the
-retrieval path. The staged builder agent, tables, the build manifest and
-``save``/``load`` wait for later slices (ROADMAP Queue A 6 and 10)."""
+retrieval path, with its snapshots (``save``/``load``, the same layout as
+the JAX package's). The staged builder agent, tables and the attached build
+manifest wait for a later slice (ROADMAP Queue A 10)."""
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -81,6 +84,43 @@ class KnowledgeBase:
         **kwargs,
     ) -> list[RetrievalResult]:
         return await self.retriever.retrieve(query, top_k=top_k, filters=filters, **kwargs)
+
+    def save(self, directory: str) -> dict[str, Any]:
+        """Snapshot the KB: index arrays + chunks + schema (``index.npz`` /
+        ``index.json``) and ``kb.json`` with its name and config. Atomic
+        per artifact."""
+        from ..index.persistence import save_index
+
+        d = Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        if self.store._index is None:
+            raise RuntimeError("empty knowledge base; nothing to snapshot")
+        save_index(self.store._index, d / "index")
+        tmp = d / "kb.json.tmp"
+        tmp.write_text(json.dumps({"name": self.name, "config": self.config.model_dump()}))
+        tmp.replace(d / "kb.json")
+        return {"directory": str(d), "chunks": self.store._index.count()}
+
+    def load(self, directory: str) -> dict[str, Any]:
+        """Restore a snapshot into this KB, on the KB's own device
+        (replaces current contents). The index keeps the snapshot's own
+        config (its storage tier included); the snapshot's width must match
+        this KB's embedder."""
+        from ..index.persistence import load_index
+
+        d = Path(directory)
+        idx = load_index(d / "index", device=self.device)
+        emb_dim = getattr(self.embedder, "dimension", None)
+        if emb_dim and emb_dim != idx.dim:
+            raise ValueError(
+                f"snapshot dimension {idx.dim} != embedder dimension {emb_dim}; "
+                "restore into a KB configured with the matching embedding model"
+            )
+        self.store._index = idx
+        self.store._dim = idx.dim
+        # snapshots carry no postings: repopulate BM25 from live chunks
+        self.store.rebuild_lexical()
+        return {"directory": str(d), "chunks": idx.count()}
 
     async def stats(self) -> dict[str, Any]:
         return {

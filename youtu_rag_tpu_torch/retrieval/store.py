@@ -160,6 +160,16 @@ class TorchVectorStore(BaseVectorStore):
         if self._lexical is not None:
             self._lexical.clear()
 
+    def rebuild_lexical(self) -> None:
+        """Repopulate the inverted index from live chunks (snapshot
+        restore, or flipping ``lexical_index`` on for an existing KB)."""
+        if self.config.lexical_index and self._lexical is None:
+            from .lexical import LexicalInvertedIndex
+
+            self._lexical = LexicalInvertedIndex()
+        if self._lexical is not None and self._index is not None:
+            self._lexical.rebuild(self._index.iter_live())
+
     async def lexical_search_bundle(
         self,
         query: str,
