@@ -6,32 +6,51 @@
 Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
-  2. build: compiles the path's three kernels from csrc/ at once (one nvcc
-     per source) and prints each build's time and ptxas' register and
+  2. build: compiles the path's four kernel sources from csrc/ at once (one
+     nvcc per source) and prints each build's time and ptxas' register and
      spill report;
-  3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card, over the shapes and edge cases of KERNEL_CASES (k up to 1024):
-     bf16 within TOL, int8 and int4 bit-equal on the same quantized tensors;
+  3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
+     version on the card, over the shapes and edge cases of KERNEL_CASES
+     (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
+     quantized tensors;
+  3b. kernel vs plain, attention: blockwise (T 256, 512, 4096) and flash
+     (T 4224, 8192) against their plain versions, hd 64 and 128, bf16 and
+     f32, with padded keys and a batch row whose every key is masked,
+     within ATTN_TOL; any NaN fails;
   4. main path, small corpus: about 20 markdown files through the port's
      KnowledgeBase (hash embedder → device index → kernel → retrievers)
      as three KBs, one per storage tier (bf16, int8, int4), each checked
      for the intended top documents and against the same KB on the CPU;
      the int4 hybrid query asks its kernel for k = 256; the int4 KB is
      then saved and loaded into a fresh CUDA KB, which answers the same;
+  4b. main path, small corpus, encoder (provider "tpu"): (a) the default
+     full-width encoder (768 x 12 layers, seeded, attention_impl "pallas")
+     through a CUDA KB of the phase-4 corpus and three exact-identifier
+     documents, held to the same KB on the CPU (the kernels' plain
+     versions) by ENC_TOL; blockwise launches a multiple of 12; (b) the
+     committed yrt_tiny_lex as its config says (no attention launches),
+     ranking the exact-identifier documents, then served with "pallas",
+     which must give the same top documents;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
      re-ranks them on the host), checked against the plain versions on the
      same device tensors, and timed with CUDA events beside their bounds,
      the plain versions and a one-call PyTorch yardstick where one exists;
+  5b. main path, full size, encoder: the default encoder embeds 128 texts
+     at T = 512 (embeddings/s, the forward's device time and its split by
+     kernel), and the same encoder with max_len 8192 embeds two long
+     documents at T = 8192 (flash); each kernel, on the last layer's
+     tensors of its run, is held against its plain version and timed
+     beside its bound, its plain version and scaled_dot_product_attention;
   6. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
      "bound_by", "library_ms"}, ...]}: one entry per kernel;
   7. the last line: {"ok": true, "device": {...}}.
 
-The main path's launch counts are set to 0 just before phases 4 and 5
-drive it and read just after; launches made to compare or time a kernel
-are not counted.
+The main path's launch counts are set to 0 just before phases 4, 4b (a),
+5 and 5b drive it and read just after; launches made to compare or time a
+kernel are not counted.
 """
 
 from __future__ import annotations
@@ -57,11 +76,15 @@ BF16_PEAK = {"sxm": 989e12, "pcie": 756e12}  # dense tensor-core flop/s
 INT8_PEAK = {"sxm": 1979e12, "pcie": 1513e12}  # dense tensor-core op/s
 TIERS = ("bfloat16", "int8", "int4")
 KERNEL_NAMES = {"bfloat16": "topk_pruned", "int8": "topk_int8_pruned", "int4": "topk_int4_pruned"}
+ATTENTION_NAMES = ("blockwise_attention", "flash_attention")
 REPLACES = {  # the pallas_call of each TPU kernel
     "topk_pruned": "youtu_rag_tpu/ops/topk.py:299",
     "topk_int8_pruned": "youtu_rag_tpu/ops/topk.py:494",
     "topk_int4_pruned": "youtu_rag_tpu/ops/topk.py:665",
+    "blockwise_attention": "youtu_rag_tpu/ops/attention.py:80",
+    "flash_attention": "youtu_rag_tpu/ops/attention.py:307",
 }
+SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "attention")
 
 
 def phase(name: str) -> None:
@@ -84,13 +107,27 @@ def ops():
     }
 
 
+def attention_ops():
+    """The attention kernels by name: (wrapper, plain version)."""
+    from youtu_rag_tpu_torch.ops import attention as a
+
+    return {"blockwise_attention": (a.blockwise_attention, a.blockwise_attention_reference),
+            "flash_attention": (a.flash_attention, a.flash_attention_reference)}
+
+
 def reset_launches() -> None:
     for wrapper, _, _ in ops().values():
+        wrapper.launches = 0
+    for wrapper, _ in attention_ops().values():
         wrapper.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {tier: wrapper.launches for tier, (wrapper, _, _) in ops().items()}
+
+
+def attention_counts() -> dict[str, int]:
+    return {name: wrapper.launches for name, (wrapper, _) in attention_ops().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -111,12 +148,12 @@ def build_all() -> None:
             done[name] = e
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=run, args=(n,)) for n in KERNEL_NAMES.values()]
+    threads = [threading.Thread(target=run, args=(n,)) for n in SOURCES]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
-    for name in KERNEL_NAMES.values():
+    for name in SOURCES:
         got = done[name]
         if isinstance(got, BaseException):
             raise SystemExit(f"FAIL: build of {name}: {got}")
@@ -237,6 +274,63 @@ def kernel_cases(seed: int) -> dict[str, float]:
         torch.cuda.synchronize()
     print(f"kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels ok, max_abs_err "
           + ", ".join(f"{KERNEL_NAMES[t]} {e}" for t, e in max_err.items()))
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# 3b. kernel vs plain, attention
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [
+    (name, t, hd, dtype)
+    for name, ts in (("blockwise_attention", (256, 512, 4096)), ("flash_attention", (4224, 8192)))
+    for t in ts
+    for hd in (64, 128)
+    for dtype in (torch.bfloat16, torch.float32)
+]
+
+
+def attention_inputs(b: int, h: int, t: int, hd: int, dtype, g):
+    """q, k, v on the card and the encoder's -1e9 padding bias: row 0
+    padded past t/2 + 3, the last batch row fully masked."""
+    q, k, v = (torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype) for _ in range(3))
+    mask = torch.ones(b, t, device="cuda")
+    mask[0, t // 2 + 3 :] = 0
+    mask[-1] = 0
+    return q, k, v, (1.0 - mask) * -1e9
+
+
+def compare_attention(got, want, what: str) -> float:
+    """ATTN_TOL: bf16 within one bf16 ulp of the output (rtol 2^-7, atol
+    2^-10 near zero): sums in another order, and flash's 64-key tiles
+    against the JAX key blocks the plain version follows, move a value
+    across a bf16 rounding; f32 within 1e-5 (the kernel splits each f32
+    operand into three bf16 terms and sums the products in another order).
+    Any NaN fails. Returns the max abs error."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype or shape")
+    g, w = got.float(), want.float()
+    rtol, atol = (2**-7, 2**-10) if got.dtype == torch.bfloat16 else (1e-5, 1e-5)
+    bad = (g - w).abs() > atol + rtol * w.abs()
+    err = float((g - w).abs().max())
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} outputs beyond tolerance, max {err}")
+    return err
+
+
+def attention_cases(seed: int) -> dict[str, float]:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kernels = attention_ops()
+    max_err = dict.fromkeys(kernels, 0.0)
+    for name, t, hd, dtype in ATTN_CASES:
+        kernel, plain = kernels[name]
+        args = attention_inputs(3, 2, t, hd, dtype, g)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        what = f"{name} T={t} hd={hd} {str(dtype)[6:]}"
+        max_err[name] = max(max_err[name], compare_attention(got, want, what))
+    print(f"attention kernel vs plain: {len(ATTN_CASES)} cases ok, max_abs_err "
+          + ", ".join(f"{n} {e}" for n, e in max_err.items()))
     return max_err
 
 
@@ -411,6 +505,157 @@ def small_corpus(seed: int) -> tuple[dict[str, int], dict[str, float]]:
 
 
 # ---------------------------------------------------------------------------
+# 4b. main path, small corpus, encoder
+# ---------------------------------------------------------------------------
+
+WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "benchmarks", "models", "yrt_tiny_lex")
+ENC_TOL = 3e-2  # the JAX package's bf16 encoder tolerance (tests/ops/test_attention.py:41)
+IDENTIFIER_DOCS = {  # tests/models/test_weights_dir.py:34-45, in its ranking order
+    "kl4407.md": "Maintenance log for unit KL-4407. The inventory tag recorded for "
+                 "unit KL-4407 is 88213.",
+    "qx9911.md": "Maintenance log for unit QX-9911. The inventory tag recorded for "
+                 "unit QX-9911 is 55120.",
+    "glacier_survey.md": "An unrelated paragraph about glacier hydrology field surveys.",
+}
+IDENTIFIER_QUERY = "What is the inventory tag recorded for KL-4407?"
+
+
+def encoder_config(name: str, weights_dir: str | None = None):
+    from youtu_rag_tpu_torch.core.config import EmbeddingConfig, RAGConfig
+
+    cfg = RAGConfig(name=name)
+    cfg.knowledge_builder.embedding = EmbeddingConfig(provider="tpu", weights_dir=weights_dir)
+    return cfg
+
+
+def serve_with(kb, embedder) -> None:
+    """Put ``embedder`` in every part of ``kb`` that embeds (a CPU twin
+    that runs the kernels' plain versions; a re-serve with "pallas")."""
+    for part in (kb, kb.retriever, kb.hybrid_retriever, kb.builder):
+        part.embedder = embedder
+
+
+def stored_vectors(kb) -> dict[str, np.ndarray]:
+    index = kb.store.index
+    return {cid: index._vectors[row].float().cpu().numpy() for cid, row in index._id_to_row.items()}
+
+
+def identifier_order(kb) -> list[str]:
+    """The identifier documents in the order the KB ranks them for the
+    identifier query (dense, top 50; a document it does not return is last)."""
+    hits = asyncio.run(kb.retriever.retrieve(IDENTIFIER_QUERY, top_k=50, similarity_threshold=0.0))
+    ranked = [h.chunk.document_id for h in hits if h.chunk.document_id in IDENTIFIER_DOCS]
+    return list(dict.fromkeys(ranked + list(IDENTIFIER_DOCS)))
+
+
+def check_encoder_answers(got, ref, what: str) -> float:
+    """ENC_TOL rule: finite scores; per query the same top chunk, or one the
+    reference ranks in its top 5 within ENC_TOL of its top score (a
+    near-tie bf16 rounding can swap); the scores of equal ranks within
+    ENC_TOL. Returns the max score difference."""
+    err = 0.0
+    for (query, _), hits, ref_hits in zip(QUERIES + [HYBRID_QUERY], got, ref):
+        check(len(hits) > 0 and all(np.isfinite(r.score) for r in hits), f"{what}: {query!r}")
+        ref_scores = {r.chunk.id: r.score for r in ref_hits}
+        top = hits[0].chunk.id
+        check(top == ref_hits[0].chunk.id
+              or (top in ref_scores and ref_hits[0].score - ref_scores[top] <= ENC_TOL),
+              f"{what}: {query!r} top chunk {top} is not the reference's {ref_hits[0].chunk.id}")
+        err = max(err, max(abs(a.score - b.score) for a, b in zip(hits, ref_hits)))
+    check(err <= ENC_TOL, f"{what}: scores differ by {err}")
+    return err
+
+
+def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
+    """4b: (a) the default full-width encoder, (b) yrt_tiny_lex. Returns
+    ((a)'s embedder and main-path launch counts, the max differences)."""
+    import dataclasses
+
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    errs = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        write_corpus(root, seed)
+        for name, text in IDENTIFIER_DOCS.items():
+            with open(os.path.join(root, name), "w") as f:
+                f.write(text)
+        files = sorted(os.path.join(root, f) for f in os.listdir(root))
+
+        # (a) the default encoder through a CUDA KB, against its CPU twin
+        t0 = time.perf_counter()
+        kb = KnowledgeBase("smoke-enc", encoder_config("smoke-enc"), device="cuda")
+        cfg = kb.embedder.cfg
+        check(cfg == EncoderConfig(attention_impl="pallas"),
+              f"the CUDA KB's default encoder is {cfg}")
+        reset_launches()
+        status, got = asyncio.run(_drive_kb(kb, files))
+        order = identifier_order(kb)
+        torch.cuda.synchronize()
+        counts = attention_counts()
+        t_card = time.perf_counter() - t0
+        check(status.status == "completed" and not status.errors, f"build failed: {status.errors}")
+        print(f"(a) default encoder {cfg.d_model} x {cfg.n_layers} layers on CUDA: "
+              f"{status.total_chunks} chunks, launches {counts}, topk {launch_counts()}, "
+              f"{t_card:.1f} s")
+        n_bw = counts["blockwise_attention"]
+        check(n_bw > 0 and n_bw % cfg.n_layers == 0 and counts["flash_attention"] == 0,
+              f"(a) attention launches {counts}: want blockwise a positive multiple of "
+              f"{cfg.n_layers}, no flash")
+        main_counts = counts
+        t0 = time.perf_counter()
+        twin = KnowledgeBase("smoke-enc-cpu", encoder_config("smoke-enc-cpu"), device="cpu")
+        serve_with(twin, TorchEmbedder(config=cfg, params=kb.embedder.params, device="cpu"))
+        _, ref = asyncio.run(_drive_kb(twin, files))
+        print(f"  CPU twin (the kernels' plain versions): {time.perf_counter() - t0:.1f} s")
+        for (query, _), hits in zip(QUERIES + [HYBRID_QUERY], got):
+            print(f"  {query!r} -> {hits[0].chunk.document_id} ({hits[0].score:.4f})")
+        vecs, ref_vecs = stored_vectors(kb), stored_vectors(twin)
+        check(vecs.keys() == ref_vecs.keys(), "(a) the CUDA and CPU KBs hold different chunks")
+        emb_err = max(float(np.abs(v - ref_vecs[c]).max()) for c, v in vecs.items())
+        check(emb_err <= ENC_TOL, f"(a) stored embeddings differ by {emb_err} > {ENC_TOL}")
+        errs["a"] = max(emb_err, check_encoder_answers(got, ref, "(a) CUDA vs CPU"))
+        print(f"  embeddings within {emb_err:.3g} of the CPU twin's, answers within the rule; "
+              f"identifier order {order} (CPU {identifier_order(twin)})")
+
+        # (b) yrt_tiny_lex as its config says, then through the kernels
+        yrt = KnowledgeBase("smoke-yrt", encoder_config("smoke-yrt", WEIGHTS), device="cuda")
+        check(yrt.embedder.cfg.attention_impl == "xla", "yrt_tiny_lex is not served as 'xla'")
+        reset_launches()
+        status, got = asyncio.run(_drive_kb(yrt, files))
+        order = identifier_order(yrt)
+        torch.cuda.synchronize()
+        counts = attention_counts()
+        check(sum(counts.values()) == 0, f"(b) yrt_tiny_lex as 'xla' launched attention: {counts}")
+        check(order == list(IDENTIFIER_DOCS), f"(b) identifier ranking {order}")
+        twin = KnowledgeBase("smoke-yrt-cpu", encoder_config("smoke-yrt-cpu", WEIGHTS), device="cpu")
+        _, ref = asyncio.run(_drive_kb(twin, files))
+        errs["b"] = check_encoder_answers(got, ref, "(b) CUDA vs CPU")
+        print(f"(b) yrt_tiny_lex ({yrt.embedder.cfg.attention_impl}): {status.total_chunks} chunks, "
+              f"identifier order {order}, same answers as the CPU KB")
+        pallas = TorchEmbedder(config=dataclasses.replace(yrt.embedder.cfg, attention_impl="pallas"),
+                               params=yrt.embedder.params, device="cuda")
+        again = KnowledgeBase("smoke-yrt-pallas", encoder_config("smoke-yrt-pallas", WEIGHTS),
+                              device="cuda")
+        serve_with(again, pallas)
+        before = attention_counts()["blockwise_attention"]
+        _, got2 = asyncio.run(_drive_kb(again, files))
+        order2 = identifier_order(again)
+        torch.cuda.synchronize()
+        n_bw = attention_counts()["blockwise_attention"] - before
+        check(n_bw > 0, "(b) yrt_tiny_lex with 'pallas' never launched blockwise_attention")
+        check([h[0].chunk.document_id for h in got2] == [h[0].chunk.document_id for h in got],
+              "(b) 'pallas' and 'xla' serving give other top documents")
+        check(order2 == list(IDENTIFIER_DOCS), f"(b) 'pallas' identifier ranking {order2}")
+        errs["b"] = max(errs["b"], check_encoder_answers(got2, got, "(b) pallas vs xla"))
+        print(f"  served again with 'pallas': {n_bw} blockwise launches, same top documents "
+              f"and identifier order")
+    return {"embedder": kb.embedder, "launches": main_counts}, errs
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -437,8 +682,9 @@ def time_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_split(fn, calls: int = 10) -> None:
-    """Device time per call of each kernel ``fn`` launches (torch.profiler)."""
+def profile_split(fn, calls: int = 10, top: int = 4) -> None:
+    """Device time per call of the ``top`` kernels ``fn`` launches, and of
+    all of them (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -447,14 +693,16 @@ def profile_split(fn, calls: int = 10) -> None:
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # an operator's row repeats its kernels' time
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0 and e.count >= calls:
             rows.append((us / calls, e.key))
-    print("  device time per call: " + "; ".join(
+    print(f"  device time per call: {sum(us for us, _ in rows) / 1e3:.4f} ms in all; " + "; ".join(
         f"{name.replace('(anonymous namespace)::', '').split('(')[0].split('<')[0][:48]} {us / 1e3:.4f} ms"
-        for us, name in sorted(rows, reverse=True)[:4]))
+        for us, name in sorted(rows, reverse=True)[:top]))
 
 
 def bound(tier: str, part: str, n: int, d: int, qn: int, k: int) -> tuple[float, str]:
@@ -515,10 +763,12 @@ def full_size(seed: int, part: str) -> dict[str, dict]:
     rows, d, qn, top_k, batch = ROWS, 768, 8, 10, 65536
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
-    vecs = np.empty((rows, d), np.float32)
-    for start in range(0, rows, batch):  # one set of unit vectors for the three tiers
-        v = rng.standard_normal((batch, d), dtype=np.float32)
-        vecs[start : start + batch] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    # one set of unit vectors for the three tiers, drawn on the card (a
+    # host draw took ~19 s) and handed to ``add`` as numpy
+    v = torch.randn(rows, d, generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    vecs = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+    del v
     chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
     queries = rng.standard_normal((qn, d), dtype=np.float32)
     queries[0] = vecs[rows // 2]  # a stored row: top-1 known
@@ -601,6 +851,121 @@ def full_size(seed: int, part: str) -> dict[str, dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 5b. main path at full size, encoder
+# ---------------------------------------------------------------------------
+
+
+class LastCall:
+    """Stands in for an attention wrapper in the encoder module and keeps
+    the inputs of its last call (the kernel still counts its launches)."""
+
+    def __init__(self, fn):
+        self.fn, self.args = fn, None
+
+    def __call__(self, q, k, v, bias):
+        self.args = (q, k, v, bias)
+        return self.fn(q, k, v, bias)
+
+
+def drive_capturing(embedder, texts: list[str], name: str):
+    """``embedder.embed_batch(texts)`` with the launch counts set to 0 just
+    before and read just after; returns (embeddings, counts, the last
+    ``name`` call's inputs)."""
+    import youtu_rag_tpu_torch.models.encoder as encoder
+
+    spy = LastCall(getattr(encoder, name))
+    setattr(encoder, name, spy)
+    try:
+        reset_launches()
+        emb = embedder.embed_batch(texts)
+        torch.cuda.synchronize()
+        counts = attention_counts()
+    finally:
+        setattr(encoder, name, spy.fn)
+    return emb, counts, spy.args
+
+
+def attention_bound(part: str, b: int, h: int, t: int, hd: int) -> tuple[float, str]:
+    """The larger of 4·B·H·T²·hd operations at the bf16 tensor-core peak
+    and the bytes moved once (q, k, v read, the output written, bf16; the
+    f32 bias read) at the HBM rate. Returns (ms, "bytes" or "operations")."""
+    ops_ms = 4 * b * h * t * t * hd / BF16_PEAK[part] * 1e3
+    bytes_ms = (4 * b * h * t * hd * 2 + b * t * 4) / HBM_PEAK[part] * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def time_attention(name: str, args, part: str) -> dict:
+    """Check the kernel on the main path's tensors, then time it, its plain
+    version and scaled_dot_product_attention with the additive mask."""
+    kernel, plain = attention_ops()[name]
+    b, h, t, hd = args[0].shape
+    err = compare_attention(kernel(*args), plain(*args), f"{name} on the main path's tensors")
+    ms = time_ms(lambda: kernel(*args))
+    plain_ms = time_ms(lambda: plain(*args), bursts=3, burst=3, warmup=1)
+    q, k, v, bias = args
+    mask = bias.to(q.dtype)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    bms, by = attention_bound(part, b, h, t, hd)
+    tflops = 4 * b * h * t * t * hd / ms / 1e9
+    print(f"  {name} [{b}, {h}, {t}, {hd}] {str(q.dtype)[6:]}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), "
+          f"bound {bms:.4f} ms ({by}); plain {plain_ms:.4f} ms; library {library_ms:.4f} ms "
+          f"[scaled_dot_product_attention, additive mask]; max_abs_err {err}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def encoder_full_size(seed: int, part: str, embedder) -> dict[str, dict]:
+    import dataclasses
+
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import encode_tokens
+
+    rng = np.random.default_rng(seed)
+    words = np.array(FILLER + [w.strip(".,;?!#").lower() for t in TOPICS.values() for w in t.split()])
+    cfg = embedder.cfg
+    out = {}
+
+    # the default encoder: 128 texts, 300 to 600 words (truncated to 512 tokens)
+    texts = [" ".join(rng.choice(words, size=int(n))) for n in rng.integers(300, 600, 128)]
+    embedder.embed_batch(texts[:8])  # warm-up
+    t0 = time.perf_counter()
+    emb, counts, args = drive_capturing(embedder, texts, "blockwise_attention")
+    wall = time.perf_counter() - t0
+    check(emb.shape == (128, cfg.embed_dim) and np.isfinite(emb).all(), "forward: bad embeddings")
+    check(np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-3), "forward: not unit vectors")
+    check(counts == {"blockwise_attention": cfg.n_layers, "flash_attention": 0},
+          f"forward at T = 512: launches {counts}")
+    check(tuple(args[0].shape) == (128, cfg.n_heads, 512, cfg.head_dim), f"shape {args[0].shape}")
+    ids, mask = embedder.tokenizer.batch(texts)
+    ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    fwd_ms = time_ms(lambda: encode_tokens(embedder.params, ids_d, mask_d, cfg),
+                     bursts=3, burst=3, warmup=1)
+    print(f"encoder forward B = 128, T = {ids.shape[1]}: {fwd_ms:.4f} ms device "
+          f"({128 / fwd_ms * 1e3:.1f} embeddings/s); embed_batch wall {wall * 1e3:.1f} ms "
+          f"({128 / wall:.1f} embeddings/s, host tokenization included); launches {counts}")
+    profile_split(lambda: encode_tokens(embedder.params, ids_d, mask_d, cfg), calls=1, top=8)
+    out["blockwise_attention"] = {"launches": counts["blockwise_attention"],
+                                  **time_attention("blockwise_attention", args, part)}
+    del args
+
+    # the same encoder with max_len 8192: two 8000-word documents → T = 8192, flash
+    long_cfg = dataclasses.replace(cfg, max_len=8192, attention_impl="pallas")
+    long_emb = TorchEmbedder(config=long_cfg, params=embedder.params, device="cuda")
+    docs = [" ".join(rng.choice(words, size=8000)) for _ in range(2)]
+    emb, counts, args = drive_capturing(long_emb, docs, "flash_attention")
+    check(emb.shape == (2, cfg.embed_dim) and np.isfinite(emb).all(), "long documents: bad embeddings")
+    check(counts == {"blockwise_attention": 0, "flash_attention": cfg.n_layers},
+          f"forward at T = 8192: launches {counts}")
+    check(args[0].shape[2] == 8192, f"flash shape {args[0].shape}")
+    print(f"long documents, T = 8192, batch bucket {args[0].shape[0]}: launches {counts}")
+    args = tuple(x[:2].contiguous() for x in args)  # the two documents: B = 2
+    out["flash_attention"] = {"launches": counts["flash_attention"],
+                              **time_attention("flash_attention", args, part)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -615,20 +980,30 @@ def main() -> int:
     print(smi)
     name = torch.cuda.get_device_name(0)
     part = "pcie" if "pcie" in name.lower() else "sxm"
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name} ({part})")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name} ({part}); "
+          f"{os.cpu_count()} host cores, {torch.get_num_threads()} torch threads")
     t_start = time.perf_counter()
 
     phase("2 build")
     build_all()
 
-    phase("3 kernel vs plain")
+    phase("3 kernel vs plain, top-k")
     err3 = kernel_cases(args.seed)
+
+    phase("3b kernel vs plain, attention")
+    err3b = attention_cases(args.seed)
 
     phase("4 main path, small corpus")
     launches4, err4 = small_corpus(args.seed)
 
+    phase("4b main path, small corpus, encoder")
+    enc, err4b = encoder_corpus(args.seed)
+
     phase("5 main path, full size")
     full = full_size(args.seed, part)
+
+    phase("5b main path, full size, encoder")
+    enc_full = encoder_full_size(args.seed, part, enc["embedder"])
 
     phase("6 summary")
     kernels = []
@@ -647,6 +1022,22 @@ def main() -> int:
             "bound_by": f["bound_by"],
             "library_ms": f["library_ms"],
         })
+    for kname in ATTENTION_NAMES:
+        f = enc_full[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "youtu_rag_tpu_torch/csrc/attention.cu",
+            "replaces": REPLACES[kname],
+            "launches": enc["launches"][kname] + f["launches"],
+            "max_abs_err": max(err3b[kname], f["err"]),
+            "ms": f["ms"],
+            "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"],
+        })
+    print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

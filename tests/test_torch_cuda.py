@@ -13,6 +13,12 @@ import torch
 from youtu_rag_tpu_torch.core.config import IndexConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.index import DeviceVectorIndex
+from youtu_rag_tpu_torch.ops.attention import (
+    blockwise_attention,
+    blockwise_attention_reference,
+    flash_attention,
+    flash_attention_reference,
+)
 from youtu_rag_tpu_torch.ops.topk import (
     NEG_INF,
     quantize_rows_int4,
@@ -183,3 +189,101 @@ def test_cuda_index_answers_like_cpu_index(cuda_device, metric):
             np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=TOL)
             assert all(a.id == b.id or abs(sa - sb) <= TOL for (a, sa), (b, sb) in zip(g, w))
     assert topk_pruned.launches == before + 4
+
+
+ATTENTION = {"blockwise": (blockwise_attention, blockwise_attention_reference),
+             "flash": (flash_attention, flash_attention_reference)}
+
+
+def attention_inputs(b, h, t, hd, dtype, device, seed=0):
+    """q, k, v on the card and the encoder's -1e9 bias: row 0 padded past
+    t/2 + 3, the last batch row fully masked."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, t, hd, generator=g, device=device).to(dtype) for _ in range(3))
+    mask = torch.ones(b, t, device=device)
+    mask[0, t // 2 + 3 :] = 0
+    mask[-1] = 0
+    return q, k, v, (1.0 - mask) * -1e9
+
+
+def assert_attention_close(got, want):
+    """bf16: one bf16 ulp of the output (sums in another order, and flash's
+    64-key tiles against JAX's key blocks, move a value across a bf16
+    rounding); f32: the kernel's three-term bf16 split of each operand
+    keeps ~f32 products, summed in another order."""
+    if got.dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-10)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [256, 1024])
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_attention_kernel_matches_plain_version(cuda_device, kind, t, hd, dtype):
+    kernel, plain = ATTENTION[kind]
+    args = attention_inputs(3, 2, t, hd, dtype, cuda_device, seed=t + hd)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape and torch.isfinite(got).all()
+    assert_attention_close(got, plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_attention_kernel_reads_strided_heads(cuda_device, kind):
+    """The encoder hands the kernel [B, T, H, hd] projections viewed as
+    [B, H, T, hd]; the kernel reads them through their strides."""
+    kernel, _ = ATTENTION[kind]
+    q, k, v, bias = attention_inputs(2, 4, 512, 64, torch.bfloat16, cuda_device)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(kernel(*views, bias), kernel(q, k, v, bias), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_attention_kernel_rejects_out_of_contract(cuda_device, kind):
+    kernel, _ = ATTENTION[kind]
+    q, k, v, bias = attention_inputs(2, 2, 256, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError):
+        kernel(q[..., :32], k[..., :32], v[..., :32], bias)
+    with pytest.raises(ValueError):
+        kernel(q[:, :, :128], k[:, :, :128], v[:, :, :128], bias[:, :128])
+    with pytest.raises(ValueError):
+        kernel(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError):
+        kernel(q, k, v, bias.cpu())
+
+
+@pytest.mark.cuda
+def test_committed_encoder_on_the_card_ranks_like_the_cpu(cuda_device):
+    """yrt_tiny_lex served through the blockwise kernel on the card ranks
+    the exact-identifier documents as on the CPU, with embeddings within
+    3e-2 (the JAX package's bf16 encoder tolerance)."""
+    import dataclasses
+    import pathlib
+
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+
+    weights = pathlib.Path(__file__).parents[1] / "benchmarks" / "models" / "yrt_tiny_lex"
+    docs = ["Maintenance log for unit KL-4407. The inventory tag recorded for unit KL-4407 is "
+            "88213. " + "Routine inspection notes follow. " * 40,
+            "Maintenance log for unit QX-9911. The inventory tag recorded for unit QX-9911 is "
+            "55120. " + "Routine inspection notes follow. " * 40,
+            "An unrelated paragraph about glacier hydrology field surveys. " * 30]
+    query = "What is the inventory tag recorded for KL-4407?"
+    cpu = TorchEmbedder.from_weights_dir(weights, device="cpu")
+    card = TorchEmbedder(config=dataclasses.replace(cpu.cfg, attention_impl="pallas"),
+                         params=cpu.params, device=cuda_device)
+    before = blockwise_attention.launches
+    got = card.embed_batch(docs + [query])
+    assert blockwise_attention.launches - before == cpu.cfg.n_layers  # the T = 256 batch
+    want = cpu.embed_batch(docs + [query])
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
+    scores = got[:3] @ got[3]
+    assert scores[0] > scores[1] > scores[2]

@@ -34,8 +34,10 @@ def imported_roots(path: Path) -> set[str]:
 
 def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
-    assert "youtu_rag_tpu_torch/ops/topk.py" in names
-    for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh"):
+    for module in ("ops/topk.py", "ops/attention.py", "models/encoder.py", "models/convert.py"):
+        assert f"youtu_rag_tpu_torch/{module}" in names
+    for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
+                "attention.cu"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -76,12 +78,13 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from youtu_rag_tpu_torch.index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
     from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
     from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
     from youtu_rag_tpu_torch.utils.device import resolve_device
 
     for make in (lambda: resolve_device(None), lambda: DeviceVectorIndex(8),
-                 lambda: TorchVectorStore(), lambda: KnowledgeBase("x")):
+                 lambda: TorchVectorStore(), lambda: KnowledgeBase("x"), TorchEmbedder):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert DeviceVectorIndex(8, device="cpu").device.type == "cpu"

@@ -4,7 +4,10 @@ Both build the same corpus with the hash embedder; dense and hybrid
 retrieval return the same chunks in the same order with scores within
 1e-4 (bf16 index, f32 sums in another order), and within 1e-5 on the int8
 and int4 tiers (exact integer dots). Snapshots written by either package
-load in the other and answer the same."""
+load in the other and answer the same. With the trained encoder
+(``provider="tpu"``, the committed ``yrt_tiny_lex``) both return the same
+top documents, with scores within 3e-2 (the JAX package's bf16 encoder
+tolerance: the two frameworks round bf16 at other places)."""
 
 import asyncio
 import os
@@ -27,6 +30,8 @@ from youtu_rag_tpu_torch.retrieval.kb import GLOBAL_KB_REGISTRY, KBRegistry, Kno
 
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(REPO, "benchmarks", "models", "yrt_tiny_lex")
+ENCODER_TOL = 3e-2
 
 DOCS = {
     "tpu.md": "# TPU\nHBM bandwidth on v5e is ~820 GB/s.\n",
@@ -258,11 +263,71 @@ def test_unported_providers_raise():
     from youtu_rag_tpu_torch.core.config import EmbeddingConfig, RerankerConfig
     from youtu_rag_tpu_torch.models.reranker import RerankerFactory
 
-    with pytest.raises(NotImplementedError):
-        EmbedderFactory.create(EmbeddingConfig(provider="tpu"))
+    with pytest.raises(NotImplementedError, match="pretrained_dir"):
+        EmbedderFactory.create(EmbeddingConfig(provider="tpu", pretrained_dir="/nowhere"),
+                               device="cpu")
+    for provider in ("openai", "service"):
+        with pytest.raises(NotImplementedError, match=provider):
+            EmbedderFactory.create(EmbeddingConfig(provider=provider, base_url="http://x"))
     with pytest.raises(NotImplementedError):
         RerankerFactory.create(RerankerConfig(provider="tpu"))
     assert RerankerFactory.create(RerankerConfig(provider="none")) is None
+
+
+def tpu_config(cls, name):
+    cfg = cls(name=name)
+    cfg.knowledge_builder.embedding = cfg.knowledge_builder.embedding.model_copy(
+        update={"provider": "tpu", "weights_dir": WEIGHTS})
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def encoder_kbs(corpus):
+    files = sorted(str(p) for p in corpus.iterdir())
+    port = KnowledgeBase("port", tpu_config(RAGConfig, "enc"), device="cpu")
+    jax_kb = JaxKB("jax", tpu_config(JaxRAGConfig, "enc"))
+    ps = asyncio.run(port.build_files(files))
+    js = asyncio.run(jax_kb.build_files(files))
+    assert ps.total_chunks == js.total_chunks > len(DOCS)
+    return port, jax_kb
+
+
+def test_encoder_kb_serves_the_committed_model(encoder_kbs):
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+
+    port, jax_kb = encoder_kbs
+    assert isinstance(port.embedder, TorchEmbedder) and port.embedder.device.type == "cpu"
+    assert port.embedder.dimension == jax_kb.embedder.dimension == 1152
+    assert port.store.index.dim == 1152
+
+
+@pytest.mark.parametrize("hybrid", [False, True], ids=["dense", "hybrid"])
+def test_encoder_kb_returns_the_jax_kb_top_documents(encoder_kbs, hybrid):
+    port, jax_kb = encoder_kbs
+    for query, _ in QUERIES:
+        if hybrid:
+            got = asyncio.run(port.hybrid_retriever.retrieve(query, top_k=5))
+            want = asyncio.run(jax_kb.hybrid_retriever.retrieve(query, top_k=5))
+        else:
+            got = asyncio.run(port.retriever.retrieve(query, top_k=5, similarity_threshold=0.0))
+            want = asyncio.run(jax_kb.retriever.retrieve(query, top_k=5,
+                                                        similarity_threshold=0.0))
+        assert got[0].chunk.id == want[0].chunk.id
+        assert got[0].chunk.document_id == want[0].chunk.document_id
+        if not hybrid:  # fused scores are rank-based; dense ones are cosines
+            np.testing.assert_allclose([r.score for r in got], [r.score for r in want],
+                                       rtol=0, atol=ENCODER_TOL)
+
+
+def test_torch_embedder_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from youtu_rag_tpu_torch.core.config import EmbeddingConfig
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    for make in (TorchEmbedder, lambda: EmbedderFactory.create(EmbeddingConfig(provider="tpu")),
+                 lambda: TorchEmbedder.from_weights_dir(WEIGHTS)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_warmup_propagates_search_failures(kbs, monkeypatch):
@@ -316,15 +381,19 @@ def test_coalescing_embedder_merges_concurrent_calls():
 
 
 def run_cli(corpus, *extra):
+    if "--provider" not in extra:
+        extra = ("--provider", "hash", *extra)
     return subprocess.run(
         [sys.executable, "-m", "youtu_rag_tpu_torch.cli_chat", "--paths", str(corpus),
-         "--provider", "hash", "--device", "cpu", *extra],
+         "--device", "cpu", *extra],
         input="what bandwidth does v5e HBM have?\n", capture_output=True, text=True,
         cwd=REPO, timeout=120,
     )
 
 
-@pytest.mark.parametrize("extra", [(), ("--hybrid",)], ids=["dense", "hybrid"])
+@pytest.mark.parametrize("extra", [(), ("--hybrid",),
+                                   ("--provider", "tpu", "--weights-dir", WEIGHTS)],
+                         ids=["dense", "hybrid", "encoder"])
 def test_cli_answers_from_tpu_md(corpus, extra):
     out = run_cli(corpus, *extra)
     assert out.returncode == 0, out.stderr

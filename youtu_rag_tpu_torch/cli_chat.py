@@ -5,6 +5,8 @@ each query read from standard input:
 
     python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --provider hash
     python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --hybrid --device cpu
+    python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --provider tpu \
+        --weights-dir benchmarks/models/yrt_tiny_lex
 
 The KB runs on the CUDA card unless ``--device`` names another device.
 Agentic mode (an LLM answering through KB-search tools) waits for the
@@ -22,8 +24,12 @@ import sys
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m youtu_rag_tpu_torch.cli_chat")
     p.add_argument("--paths", nargs="+", required=True, help="files/dirs/globs to index")
-    p.add_argument("--provider", default="hash", choices=["hash"],
-                   help="embedding provider (only 'hash' is ported)")
+    p.add_argument("--provider", default="hash", choices=["hash", "tpu"],
+                   help="embedding provider: 'hash', or 'tpu' for the repo's encoder "
+                   "on the KB's device (the remote providers are not ported)")
+    p.add_argument("--weights-dir", default=None,
+                   help="provider tpu: train_embedder output dir (e.g. the committed "
+                   "benchmarks/models/yrt_tiny_lex lexical-residual encoder)")
     p.add_argument("--top-k", type=int, default=5)
     p.add_argument("--hybrid", action="store_true", help="dense+BM25 RRF fusion retrieval")
     p.add_argument("--device", default=None,
@@ -49,7 +55,8 @@ async def main(argv=None) -> None:
     from .retrieval.kb import GLOBAL_KB_REGISTRY, KnowledgeBase
 
     cfg = RAGConfig(name="cli")
-    cfg.knowledge_builder.embedding = EmbeddingConfig(provider=args.provider)
+    cfg.knowledge_builder.embedding = EmbeddingConfig(provider=args.provider,
+                                                      weights_dir=args.weights_dir)
     kb = KnowledgeBase("cli", cfg, device=args.device)
     GLOBAL_KB_REGISTRY.register(kb)
 

@@ -1,23 +1,37 @@
 """Embedders + factory.
 
-The port's counterpart of ``youtu_rag_tpu/models/embedder.py`` for the
-hash provider: ``HashEmbedder`` on the JAX package's pure-Python path
-(bit-equal to it; the JAX package's native C kernel, ``native/fasthash.c``,
-normalizes within 1 ulp of it), the ``CoalescingEmbedder`` wrapper, and
-``EmbedderFactory``. The encoder providers (``tpu``, remote services)
-raise until their slice lands (ROADMAP Queue A 7).
+The port's counterpart of ``youtu_rag_tpu/models/embedder.py``:
+``HashEmbedder`` on the JAX package's pure-Python path (bit-equal to it;
+the JAX package's native C kernel, ``native/fasthash.c``, normalizes within
+1 ulp of it), ``TorchEmbedder`` (the encoder on the card, the ``tpu``
+provider's counterpart of ``TpuEmbedder``), the ``CoalescingEmbedder``
+wrapper, and ``EmbedderFactory``. Pretrained BERT-family checkpoints
+(``pretrained_dir``), WordPiece vocabularies and the remote providers raise
+until their slice lands (ROADMAP Queue A 8).
 """
 
 from __future__ import annotations
 
 import asyncio
 import math
+import os
 import re
 
 import numpy as np
+import torch
 
 from ..core.config import EmbeddingConfig
 from ..core.types import BaseEmbedder
+from ..utils.device import resolve_device
+from .convert import encoder_params_from_numpy
+from .encoder import (
+    EncoderConfig,
+    encode_tokens,
+    init_encoder_params,
+    load_encoder_config,
+    load_params_npz,
+)
+from .tokenizer import HashTokenizer
 
 
 _FNV_OFFSET = 14695981039346656037
@@ -146,21 +160,118 @@ class CoalescingEmbedder(BaseEmbedder):
         return (await self.embed_texts([query]))[0]
 
 
-class EmbedderFactory:
-    """Provider dispatch. Only ``hash`` is ported; every other provider
-    raises until the encoder slice lands."""
+class TorchEmbedder(BaseEmbedder):
+    """The encoder forward on ``device`` (``None`` → the CUDA card),
+    batched with padding to power-of-two buckets: lengths from 16 up to
+    ``max_len``, batches of at least 8 (``TpuEmbedder`` without its
+    meshes). Without ``params`` the encoder starts from seed 0."""
+
+    def __init__(self, config: EncoderConfig | None = None, params: dict | None = None,
+                 batch_size: int = 128, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        # the serving default: the kernels on the card (blockwise from T =
+        # 256; shorter buckets take plain attention either way), plain
+        # attention elsewhere, as TpuEmbedder picks Pallas on a TPU only
+        self.cfg = config or EncoderConfig(
+            attention_impl="pallas" if self.device.type == "cuda" else "xla")
+        if params is None:
+            params = init_encoder_params(self.cfg, torch.Generator().manual_seed(0))
+        self.params = _to_device(params, self.device)
+        self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
+        self.batch_size = batch_size
+
+    @classmethod
+    def from_weights_dir(cls, weights_dir, **kwargs) -> "TorchEmbedder":
+        """Serve a ``scripts/train_embedder.py`` output directory
+        (``encoder_params.npz`` + ``encoder_config.json``), such as the
+        committed ``benchmarks/models/yrt_tiny_lex``, with its config as
+        written (its ``attention_impl`` included)."""
+        d = os.fspath(weights_dir)
+        if os.path.exists(os.path.join(d, "vocab.txt")):
+            raise NotImplementedError(
+                f"{d} has a vocab.txt: WordPiece tokenization is not ported yet "
+                "(ROADMAP Queue A 8)"
+            )
+        cfg = load_encoder_config(os.path.join(d, "encoder_config.json"))
+        # checked against the config's shapes; keys it does not read are dropped
+        params = encoder_params_from_numpy(load_params_npz(os.path.join(d, "encoder_params.npz")),
+                                           cfg)
+        return cls(config=cfg, params=params, **kwargs)
+
+    @property
+    def dimension(self) -> int:
+        return self.cfg.embed_dim
 
     @staticmethod
-    def create(config: EmbeddingConfig | None = None) -> BaseEmbedder:
+    def _bucket(n: int, floor: int) -> int:
+        b = floor
+        while b < n:
+            b *= 2
+        return b
+
+    def embed_batch(self, texts: list[str]) -> np.ndarray:
+        """Synchronous batched embed → [n, embed_dim] f32, L2-normalized."""
+        out = np.zeros((len(texts), self.dimension), np.float32)
+        for i in range(0, len(texts), self.batch_size):
+            chunk = texts[i : i + self.batch_size]
+            out[i : i + len(chunk)] = self._embed_short(chunk)
+        return out
+
+    def _embed_short(self, batch: list[str]) -> np.ndarray:
+        ids, mask = self.tokenizer.batch(batch)
+        t_b = min(self._bucket(ids.shape[1], 16), self.cfg.max_len)
+        n_b = self._bucket(len(batch), 8)
+        ids_p = np.zeros((n_b, t_b), np.int32)
+        mask_p = np.zeros((n_b, t_b), np.float32)
+        ids_p[: len(batch), : min(ids.shape[1], t_b)] = ids[:, :t_b]
+        mask_p[: len(batch), : min(mask.shape[1], t_b)] = mask[:, :t_b]
+        emb, _ = encode_tokens(self.params, torch.from_numpy(ids_p).to(self.device),
+                               torch.from_numpy(mask_p).to(self.device), self.cfg)
+        return emb[: len(batch)].cpu().numpy()
+
+    async def embed_texts(self, texts: list[str]) -> list[list[float]]:
+        return self.embed_batch(texts).tolist()
+
+    async def embed_query(self, query: str) -> list[float]:
+        return self.embed_batch([query])[0].tolist()
+
+
+def _to_device(tree: dict, device: torch.device) -> dict:
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device, torch.float32)
+            for k, v in tree.items()}
+
+
+class EmbedderFactory:
+    """Provider dispatch (the JAX factory's). ``hash`` and ``tpu`` (the
+    encoder on ``device``, or a ``weights_dir``) are served;
+    ``pretrained_dir``, ``auto`` and the remote providers raise until their
+    slice lands."""
+
+    @staticmethod
+    def create(config: EmbeddingConfig | None = None,
+               device: str | torch.device | None = None) -> BaseEmbedder:
         config = config or EmbeddingConfig()
-        if config.provider != "hash":
-            raise NotImplementedError(
-                f"embedding provider {config.provider!r} is not ported yet "
-                "(ROADMAP Queue A 7); use provider='hash'"
-            )
-        inner = HashEmbedder(dim=config.dimensions or 256)
+        inner = EmbedderFactory._create_inner(config, device)
         if config.coalesce_window_ms > 0:
             return CoalescingEmbedder(
                 inner, window_ms=config.coalesce_window_ms, max_batch=config.batch_size
             )
         return inner
+
+    @staticmethod
+    def _create_inner(config: EmbeddingConfig, device) -> BaseEmbedder:
+        provider = config.provider
+        if provider == "hash":
+            return HashEmbedder(dim=config.dimensions or 256)
+        if provider == "tpu" and not config.pretrained_dir:
+            if config.weights_dir:
+                return TorchEmbedder.from_weights_dir(
+                    config.weights_dir, batch_size=config.batch_size, device=device
+                )
+            return TorchEmbedder(batch_size=config.batch_size, device=device)
+        what = ("pretrained_dir (BERT-family checkpoints)" if provider == "tpu"
+                else f"provider {provider!r}")
+        raise NotImplementedError(
+            f"embedding {what} is not ported yet (ROADMAP Queue A 8); "
+            "use provider='hash' or 'tpu' with the repo's encoder"
+        )

@@ -33,7 +33,8 @@ class KnowledgeBase:
         self.name = name
         self.config = config or RAGConfig(name=name)
         self.store = TorchVectorStore(self.config.vector_store, device=device)
-        self.embedder = EmbedderFactory.create(self.config.knowledge_builder.embedding)
+        self.embedder = EmbedderFactory.create(self.config.knowledge_builder.embedding,
+                                               device=self.store.device)
         self.reranker = RerankerFactory.create(self.config.reranker)
         self.retriever = VectorRetriever(
             self.store, self.embedder, self.config.retriever, reranker=self.reranker
