@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
-  2. build: compiles the path's four kernel sources from csrc/ at once (one
+  2. build: compiles the path's five kernel sources from csrc/ at once (one
      nvcc per source) and prints each build's time and ptxas' register and
      spill report;
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
@@ -17,12 +17,23 @@ Phases; any failure exits non-zero before the result lines:
      (T 4224, 8192) against their plain versions, hd 64 and 128, bf16 and
      f32, with padded keys and a batch row whose every key is masked,
      within ATTN_TOL; any NaN fails;
+  3c. kernel vs plain, IVF: each IVF kernel against its plain version over
+     IVF_CASES (k 1 to 1024, q 1 to 64, block_rows 64, 1024 and 4096) and
+     the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
+     n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
+     TOL, int8 and int4 bit-equal;
   4. main path, small corpus: about 20 markdown files through the port's
      KnowledgeBase (hash embedder → device index → kernel → retrievers)
      as three KBs, one per storage tier (bf16, int8, int4), each checked
      for the intended top documents and against the same KB on the CPU;
      the int4 hybrid query asks its kernel for k = 256; the int4 KB is
      then saved and loaded into a fresh CUDA KB, which answers the same;
+  4c. main path, small corpus, IVF: the phase-4 corpus through a CUDA KB per
+     tier with block_rows 64 and ``build_ivf()``: the intended top
+     documents, the same top documents as the CPU twin, IVF launches and no
+     brute launch; each IVF call of the path held against its plain
+     version; then save and load into a fresh CUDA KB that builds IVF
+     again and answers the same;
   4b. main path, small corpus, encoder (provider "tpu"): (a) the default
      full-width encoder (768 x 12 layers, seeded, attention_impl "pallas")
      through a CUDA KB of the phase-4 corpus and three exact-identifier
@@ -37,6 +48,16 @@ Phases; any failure exits non-zero before the result lines:
      re-ranks them on the host), checked against the plain versions on the
      same device tensors, and timed with CUDA events beside their bounds,
      the plain versions and a one-call PyTorch yardstick where one exists;
+  5c. main path, full size, IVF: ``configs/rag/ivf_int8.yaml``'s index
+     settings (block_rows 1024, n_lists 1024, n_probe 64, adaptive margin
+     0.15, recall target 0.95) over 1,048,576 × 768 clustered unit vectors
+     drawn on the card (``scripts/bench_scale.py``'s generator: 1024
+     centers, spread 0.7), one index per tier: ``build_ivf`` timed, a
+     q = 8, top_k = 10 search checked against the plain version on the same
+     plan, recall@10 against the brute kernel, the IVF kernel timed beside
+     its bound (the probed bytes), its plain version and the brute kernel,
+     the search's device time split by torch.profiler; then again with the
+     adaptive margin off (a fixed n_probe 64 plan);
   5b. main path, full size, encoder: the default encoder embeds 128 texts
      at T = 512 (embeddings/s, the forward's device time and its split by
      kernel), and the same encoder with max_len 8192 embeds two long
@@ -49,8 +70,8 @@ Phases; any failure exits non-zero before the result lines:
   7. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-5 and 5b drive it and read just after; launches made to compare or time a
-kernel are not counted.
+4c, 5, 5c and 5b drive it and read just after; launches made to compare or
+time a kernel are not counted. Every phase prints its wall time.
 """
 
 from __future__ import annotations
@@ -77,17 +98,29 @@ INT8_PEAK = {"sxm": 1979e12, "pcie": 1513e12}  # dense tensor-core op/s
 TIERS = ("bfloat16", "int8", "int4")
 KERNEL_NAMES = {"bfloat16": "topk_pruned", "int8": "topk_int8_pruned", "int4": "topk_int4_pruned"}
 ATTENTION_NAMES = ("blockwise_attention", "flash_attention")
+IVF_NAMES = {"bfloat16": "ivf_topk_dma", "int8": "ivf_topk_int8_dma", "int4": "ivf_topk_int4_dma"}
 REPLACES = {  # the pallas_call of each TPU kernel
     "topk_pruned": "youtu_rag_tpu/ops/topk.py:299",
     "topk_int8_pruned": "youtu_rag_tpu/ops/topk.py:494",
     "topk_int4_pruned": "youtu_rag_tpu/ops/topk.py:665",
     "blockwise_attention": "youtu_rag_tpu/ops/attention.py:80",
     "flash_attention": "youtu_rag_tpu/ops/attention.py:307",
+    "ivf_topk_dma": "youtu_rag_tpu/ops/ivf.py:461",
+    "ivf_topk_int8_dma": "youtu_rag_tpu/ops/ivf.py:527",
+    "ivf_topk_int4_dma": "youtu_rag_tpu/ops/ivf.py:596",
 }
-SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "attention")
+SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention")
+
+_phase_t0: list[tuple[str, float]] = []
 
 
 def phase(name: str) -> None:
+    """Start a phase; prints the wall time of the one before."""
+    now = time.perf_counter()
+    if _phase_t0:
+        prev, t0 = _phase_t0[-1]
+        print(f"-- phase {prev}: {now - t0:.1f} s wall", flush=True)
+    _phase_t0.append((name.split()[0], now))
     print(f"== {name}", flush=True)
 
 
@@ -115,8 +148,20 @@ def attention_ops():
             "flash_attention": (a.flash_attention, a.flash_attention_reference)}
 
 
+def ivf_ops():
+    """The port's IVF kernels by tier: (wrapper, plain version, quantizer)."""
+    from youtu_rag_tpu_torch.ops import ivf as v
+    from youtu_rag_tpu_torch.ops import topk as t
+
+    return {
+        "bfloat16": (v.ivf_topk_dma, v.ivf_topk_dma_reference, None),
+        "int8": (v.ivf_topk_int8_dma, v.ivf_topk_int8_dma_reference, t.quantize_rows_int8),
+        "int4": (v.ivf_topk_int4_dma, v.ivf_topk_int4_dma_reference, t.quantize_rows_int4),
+    }
+
+
 def reset_launches() -> None:
-    for wrapper, _, _ in ops().values():
+    for wrapper, _, _ in [*ops().values(), *ivf_ops().values()]:
         wrapper.launches = 0
     for wrapper, _ in attention_ops().values():
         wrapper.launches = 0
@@ -124,6 +169,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {tier: wrapper.launches for tier, (wrapper, _, _) in ops().items()}
+
+
+def ivf_counts() -> dict[str, int]:
+    return {tier: wrapper.launches for tier, (wrapper, _, _) in ivf_ops().items()}
 
 
 def attention_counts() -> dict[str, int]:
@@ -335,6 +384,93 @@ def attention_cases(seed: int) -> dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
+# 3c. kernel vs plain, IVF
+# ---------------------------------------------------------------------------
+
+IVF_N, IVF_D = 65536, 256
+IVF_CASES = [(q, k, br) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)
+             for br in (64, 1024, 4096)]
+IVF_GARBAGE = 1 << 28  # an id past n_valid that points far outside the index
+
+
+def ivf_plan(n_blocks: int, n_valid: int, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """A plan of max_blocks = n_blocks ids: n_valid probed blocks in
+    ascending id (blocks 0 and 1, which hold the exact ties, among them),
+    then garbage ids the kernel must never read."""
+    rest = torch.randperm(n_blocks - 2, generator=g, device="cuda")[: max(n_valid - 2, 0)] + 2
+    chosen = torch.cat([torch.arange(min(n_valid, 2), device="cuda"), rest])
+    ids = torch.full((n_blocks,), IVF_GARBAGE, dtype=torch.int32, device="cuda")
+    ids[:n_valid] = torch.sort(chosen)[0].to(torch.int32)
+    return ids, torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+
+
+def compare_ivf(tier: str, got, want, full_scores, what: str) -> float:
+    """compare_topk / compare_exact on the live slots, and every other slot
+    (NEG_INF, row 0) in both."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    for res in (got, want):
+        s, i = (t.cpu() for t in res)
+        dead = s <= NEG_INF / 2
+        check(bool((s[dead] == NEG_INF).all() and (i[dead] == 0).all()),
+              f"{what}: an empty slot is not (NEG_INF, 0)")
+    if tier == "bfloat16":
+        return compare_topk(got, want, full_scores, what)
+    return compare_exact(got, want, what)
+
+
+def ivf_kernel_cases(seed: int) -> dict[str, float]:
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(IVF_N, IVF_D, generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    x[100:110] = x[5]  # exact ties, in blocks 0 and 1 at every block_rows
+    bias = torch.zeros(IVF_N, device="cuda")
+    bias[::7] = NEG_INF
+    bias[3::11] = float("-inf")
+    bias[104] = NEG_INF
+    sparse = torch.full((IVF_N,), NEG_INF, device="cuda")
+    sparse[torch.arange(3, IVF_N, IVF_N // 5, device="cuda")] = 0.0  # 5 live rows
+    ties = [r for r in (5, *range(100, 110)) if bias[r] == 0]
+    stored = {}  # tier → (stored rows, scales as extra arguments)
+    for tier, (_, _, quantize) in ivf_ops().items():
+        if quantize is None:
+            stored[tier] = (x.to(torch.bfloat16), ())
+        else:
+            xq, xs = quantize(x)
+            stored[tier] = (xq, (xs,))
+    cases = [(q, k, br, IVF_N // br // 2, "mixed") for q, k, br in IVF_CASES]
+    for br in (64, 1024, 4096):
+        nb = IVF_N // br
+        cases += [(8, 10, br, 0, "mixed"), (8, 10, br, 1, "mixed"), (8, 129, br, nb, "mixed"),
+                  (8, 50, br, nb, "sparse"), (64, 1024, br, 2, "mixed")]
+    max_err = dict.fromkeys(TIERS, 0.0)
+    for q, k, br, n_valid, kind in cases:
+        queries = torch.randn(q, IVF_D, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        queries[0] = x[5]
+        ids, nv = ivf_plan(IVF_N // br, n_valid, g)
+        b = bias if kind == "mixed" else sparse
+        full = plain_scores(queries, stored["bfloat16"][0], b).cpu()
+        for tier, (kernel, plain, _) in ivf_ops().items():
+            xt, extra = stored[tier]
+            what = f"ivf {tier} q={q} k={k} block_rows={br} n_valid={n_valid} {kind}"
+            got = kernel(queries, xt, *extra, b, ids, nv, k, block_rows=br)
+            torch.cuda.synchronize()
+            want = plain(queries, xt, *extra, b, ids, nv, k, block_rows=br)
+            max_err[tier] = max(max_err[tier], compare_ivf(tier, got, want, full, what))
+            if kind == "mixed" and n_valid >= 2 and tier != "bfloat16":
+                top = got[1][0, : min(k, len(ties))].tolist()
+                check(top == ties[: len(top)], f"{what}: tie order {top}")
+            if n_valid == 0:
+                check(bool((got[0] == NEG_INF).all()), f"{what}: an empty plan returned rows")
+    print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels ok, max_abs_err "
+          + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
+    return max_err
+
+
+# ---------------------------------------------------------------------------
 # 4. main path, small corpus
 # ---------------------------------------------------------------------------
 
@@ -501,6 +637,103 @@ def small_corpus(seed: int) -> tuple[dict[str, int], dict[str, float]]:
                 e = (compare_topk(got, want, plain_scores(q, x, b).cpu(), what)
                      if quantize is None else compare_exact(got, want, what))
                 errs[tier] = max(errs[tier], e)
+    return launches, errs
+
+
+# ---------------------------------------------------------------------------
+# 4c. main path, small corpus, IVF
+# ---------------------------------------------------------------------------
+
+
+class Recorder:
+    """Stands in for an IVF wrapper in the index module and keeps the
+    inputs of each call (the kernel still counts its launches)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+
+def ivf_config(name: str, tier: str):
+    from youtu_rag_tpu_torch.core.config import IndexConfig, RAGConfig, VectorStoreConfig
+
+    return RAGConfig(name=name, vector_store=VectorStoreConfig(
+        index=IndexConfig(storage_dtype=tier, block_rows=64)))
+
+
+def top_documents(answers) -> list[str]:
+    return [hits[0].chunk.document_id for hits in answers]
+
+
+def small_corpus_ivf(seed: int) -> tuple[dict[str, int], dict[str, float]]:
+    import youtu_rag_tpu_torch.index.device_index as device_index
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    launches, errs = {}, dict.fromkeys(TIERS, 0.0)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        write_corpus(root, seed)
+        files = sorted(os.path.join(root, f) for f in os.listdir(root))
+        for tier in TIERS:
+            kernel, plain, _ = ivf_ops()[tier]
+            kb = KnowledgeBase(f"ivf-{tier}", ivf_config("ivf", tier), device="cuda")
+            cpu_kb = KnowledgeBase(f"ivf-{tier}-cpu", ivf_config("ivf", tier), device="cpu")
+            asyncio.run(kb.build_files(files))
+            asyncio.run(cpu_kb.build_files(files))
+            for k_b in (kb, cpu_kb):
+                k_b.store._index.build_ivf()
+            spy = Recorder(getattr(device_index, IVF_NAMES[tier]))
+            setattr(device_index, IVF_NAMES[tier], spy)
+            try:
+                reset_launches()
+                got = asyncio.run(_answers(kb))
+                torch.cuda.synchronize()
+                counts, brute = ivf_counts(), launch_counts()
+            finally:
+                setattr(device_index, IVF_NAMES[tier], spy.fn)
+            ref = asyncio.run(_answers(cpu_kb))
+            st = kb.store._index._ivf
+            print(f"IVF KB {tier}: {kb.store._index.count()} chunks, {st.n_lists} lists, "
+                  f"n_probe {st.n_probe}; IVF launches {counts}, brute {brute}")
+            for (query, want), hits in zip(QUERIES + [HYBRID_QUERY], got):
+                check(bool(hits) and hits[0].chunk.document_id == want,
+                      f"IVF KB {tier}: {query!r} top hit {hits and hits[0].chunk.document_id}")
+                check(all(np.isfinite(r.score) for r in hits), f"IVF KB {tier}: non-finite score")
+            check(top_documents(got) == top_documents(ref),
+                  f"IVF KB {tier}: top documents differ from the CPU twin's")
+            check(counts[tier] > 0 and sum(counts.values()) == counts[tier],
+                  f"IVF KB {tier}: IVF launches {counts}")
+            check(sum(brute.values()) == 0, f"IVF KB {tier}: brute launches {brute} (no tuner)")
+            launches[tier] = counts[tier]
+            # each IVF call of the path, against the plain version
+            for args, kw in spy.calls:
+                want = plain(*args, **kw)
+                res = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                # (queries, x, bias, ...) for bf16; compare_exact needs no scores
+                full = plain_scores(*args[:3]).cpu() if tier == "bfloat16" else None
+                errs[tier] = max(errs[tier], compare_ivf(tier, res, want, full,
+                                                         f"IVF KB {tier} call k={args[-1]}"))
+            print(f"  {len(spy.calls)} IVF calls of the path match the plain version; "
+                  f"top documents {top_documents(got)} as the CPU twin's")
+            # through a snapshot into a fresh CUDA KB, which builds IVF again
+            snap = os.path.join(root, f"snap-{tier}")
+            kb.save(snap)
+            fresh = KnowledgeBase(f"ivf-{tier}-loaded", ivf_config("ivf", tier), device="cuda")
+            reset_launches()
+            fresh.load(snap)
+            again = asyncio.run(_answers(fresh))
+            torch.cuda.synchronize()
+            n = ivf_counts()[tier]
+            launches[tier] += n
+            check(fresh.store._index._ivf is not None and n > 0,
+                  f"IVF KB {tier}: the reloaded KB has no IVF or never launched it ({n})")
+            check(top_documents(again) == top_documents(got),
+                  f"IVF KB {tier}: the reloaded KB's top documents differ")
+            print(f"  saved and loaded into a fresh CUDA KB: IVF rebuilt "
+                  f"({fresh.store._index._ivf.n_lists} lists), same top documents, {n} launches")
     return launches, errs
 
 
@@ -852,6 +1085,210 @@ def full_size(seed: int, part: str) -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# 5c. main path at full size, IVF
+# ---------------------------------------------------------------------------
+
+IVF_SETTINGS = dict(block_rows=1024, n_lists=1024, n_probe=64, ivf_adaptive_margin=0.15,
+                    ivf_recall_target=0.95)  # configs/rag/ivf_int8.yaml's index
+
+
+def clustered_rows(seed: int, rows: int, d: int, qn: int):
+    """scripts/bench_scale.py:83-100's generator on the card: unit rows
+    around 1024 unit centers (noise 0.7 / sqrt(d)), queries at half the
+    noise around centers 0..qn-1. Returns host arrays (rows, queries)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn(1024, d, generator=g, device="cuda")
+    centers /= centers.norm(dim=1, keepdim=True)
+    noise = 0.7 / np.sqrt(d)
+    out = np.empty((rows, d), np.float32)
+    for i in range(0, rows, 1 << 18):
+        m = min(1 << 18, rows - i)
+        cid = torch.randint(0, 1024, (m,), generator=g, device="cuda")
+        v = centers[cid] + noise * torch.randn(m, d, generator=g, device="cuda")
+        out[i : i + m] = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+    q = centers[:qn] + 0.5 * noise * torch.randn(qn, d, generator=g, device="cuda")
+    return out, (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def time_cold_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call whose inputs are not in L2; the median over
+    ``calls``. A 1 GiB write before each call evicts the 50 MB L2 (a probed
+    plan reads tens of MB, which back-to-back calls would find cached) and
+    keeps the card busy (~0.3 ms) while the host enqueues the call, so the
+    CUDA events around the call see its device time, not the host's
+    enqueue gaps (which dominate a call this short)."""
+    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def search_split(fn, calls: int = 5) -> None:
+    """Device time per call of ``fn`` (one whole index.search) by part
+    (torch.profiler): the scan and merge kernels, the copies, and the rest
+    (probe planning: the centroid product, sort, union and argsort; query
+    quantization)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _attempt in range(2):  # a window that records no device event is profiled again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    parts = dict.fromkeys(("planning and the rest", "scan", "merge", "copies"), 0.0)
+    for e in events:
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = e.key
+        part = ("scan" if "topk_scan_kernel" in name else "merge" if "topk_merge_kernel" in name
+                else "copies" if "memcpy" in name.lower() or "memset" in name.lower()
+                else "planning and the rest")
+        parts[part] += us / calls / 1e3
+    print("  search device time per call: " + "; ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.4f} ms")
+
+
+def ivf_bound(tier: str, part: str, n_valid: int, br: int, d: int, qn: int, k: int):
+    """The probed rows' bytes (vectors, bias, scales) and the queries and
+    results, at the HBM rate; their 2·q·rows·d operations at the peak of
+    their type. Returns (ms, "bytes" or "operations")."""
+    rows = n_valid * br
+    row_bytes = {"bfloat16": 2 * d + 4, "int8": d + 8, "int4": d // 2 + 8}[tier]
+    bytes_ms = (rows * row_bytes + qn * d * 4 + qn * k * 8) / HBM_PEAK[part] * 1e3
+    peak = BF16_PEAK[part] if tier == "bfloat16" else INT8_PEAK[part]
+    ops_ms = 2 * qn * rows * d / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.core.types import Chunk
+    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.index.ivf import plan_max_blocks, probe_blocks
+
+    rows, d, qn, top_k, batch = ROWS, 768, 8, 10, 65536
+    t0 = time.perf_counter()
+    vecs, queries = clustered_rows(seed, rows, d, qn)
+    queries[0] = vecs[rows // 3]  # a stored row: top-1 known
+    qpad = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
+    qdev = torch.from_numpy(qpad).cuda()  # as search() prepares them
+    chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
+    print(f"IVF full size: {rows} x {d} clustered unit vectors made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for tier in TIERS:
+        kernel, plain, _ = ivf_ops()[tier]
+        brute = ops()[tier][0]
+        index = DeviceVectorIndex(d, IndexConfig(kind="ivf", storage_dtype=tier, **IVF_SETTINGS),
+                                  device="cuda")
+        index.reserve(rows)
+        for start in range(0, rows, batch):
+            index.add(chunks[start : start + batch], vecs[start : start + batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.build_ivf()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        st = index._ivf
+        print(f"{tier}: build_ivf {build_s:.2f} s ({rows / build_s:.0f} rows/s), {st.n_lists} lists, "
+              f"n_probe {st.n_probe}, at most {st.max_cluster_blocks} blocks per cluster")
+
+        reset_launches()
+        hits = index.search(queries, top_k=top_k)
+        torch.cuda.synchronize()
+        counts, brute_counts = ivf_counts(), launch_counts()
+        check(counts[tier] > 0 and sum(counts.values()) == counts[tier],
+              f"{tier}: index.search launched IVF kernels {counts}")
+        check(sum(brute_counts.values()) == 0, f"{tier}: a brute launch {brute_counts} (no shadow)")
+        check(len(hits) == qn and all(len(h) == top_k for h in hits), f"{tier}: wrong shape")
+        check(all(np.isfinite(s) for h in hits for _, s in h), f"{tier}: non-finite scores")
+        check(hits[0][0][0].id == f"c{rows // 3}", f"{tier}: query 0 top hit {hits[0][0][0].id}")
+
+        # the search's own plan, the same device tensors, through the plain version
+        x, b = index._vectors, index._bias
+        extra = () if tier == "bfloat16" else (index._scales,)
+        total = index.capacity // IVF_SETTINGS["block_rows"]
+
+        def plan(margin):
+            kw = {"adaptive_margin": margin, "min_probe": min(index.config.ivf_min_probe,
+                                                              st.n_probe)} if margin else {}
+            return probe_blocks(qdev, st.centroids, st.cluster_block_start, st.cluster_block_count,
+                                n_probe=st.n_probe, max_cluster_blocks=st.max_cluster_blocks,
+                                total_blocks=total, frozen_blocks=st.frozen_blocks,
+                                max_blocks=plan_max_blocks(st, qn, total), **kw)
+
+        ids, nv = plan(IVF_SETTINGS["ivf_adaptive_margin"])
+        k_kernel = top_k if tier != "int4" else 64  # int4: 4 x 10 candidates, pow2, re-ranked on the host
+        call = lambda: kernel(qdev, x, *extra, b, ids, nv, k_kernel,  # noqa: E731
+                              block_rows=IVF_SETTINGS["block_rows"])
+        got = call()
+        torch.cuda.synchronize()
+        want = plain(qdev, x, *extra, b, ids, nv, k_kernel, block_rows=IVF_SETTINGS["block_rows"])
+        full = plain_scores(qdev, x, b).cpu() if tier == "bfloat16" else None
+        err = compare_ivf(tier, got, want, full, f"IVF {tier} full size")
+        # the search's rows are this kernel call's (the kernel is deterministic)
+        got_rows = np.asarray([[index._id_to_row[c.id] for c, _ in h] for h in hits])
+        if tier == "int4":
+            _, rr = index._host_rerank_candidates(qpad, got[0].cpu().numpy(), got[1].cpu().numpy(),
+                                                  index._host_q8, index._host_s8, top_k)
+            check(np.array_equal(got_rows, rr), "int4 IVF: the search's re-ranked rows differ")
+        else:
+            check(np.array_equal(got_rows, got[1][:, :top_k].cpu().numpy()),
+                  f"{tier} IVF: the search's rows differ from its kernel's")
+        brute_rows = brute(qdev, x, *extra, b, top_k)[1].cpu().numpy()
+        ivf_rows = got[1][:, :top_k].cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(r)) / top_k for a, r in zip(ivf_rows, brute_rows)]))
+        n_valid = int(nv)
+        res = {"launches": counts[tier], "err": err}
+        print(f"  search matches the plain version on its plan; n_valid {n_valid} of {total} "
+              f"blocks; recall@10 against {KERNEL_NAMES[tier]} {recall:.3f}")
+
+        for label, margin in (("adaptive", IVF_SETTINGS["ivf_adaptive_margin"]), ("fixed", 0.0)):
+            if margin == 0.0:
+                ids, nv = plan(0.0)
+                n_valid = int(nv)
+            ms = time_cold_ms(call)
+            warm = time_ms(call)
+            bms, by = ivf_bound(tier, part, n_valid, IVF_SETTINGS["block_rows"], d, qn, k_kernel)
+            mb = n_valid * IVF_SETTINGS["block_rows"] * {"bfloat16": 2 * d + 4, "int8": d + 8,
+                                                         "int4": d // 2 + 8}[tier] / 1e6
+            print(f"  {IVF_NAMES[tier]} {label} plan, n_valid {n_valid} ({mb:.1f} MB probed), "
+                  f"k = {k_kernel}: {ms:.4f} ms device, L2 cold ({mb / ms:.1f} GB/s); "
+                  f"{warm:.4f} ms per call back to back; bound {bms:.4f} ms ({by})")
+            if label == "adaptive":
+                res.update(ms=ms, bound_ms=bms, bound_by=by)
+                res["plain_ms"] = time_ms(lambda: plain(qdev, x, *extra, b, ids, nv, k_kernel,
+                                                        block_rows=IVF_SETTINGS["block_rows"]),
+                                          bursts=3, burst=5)
+                brute_ms = time_ms(lambda: brute(qdev, x, *extra, b, k_kernel))
+                print(f"  plain {res['plain_ms']:.4f} ms; brute {KERNEL_NAMES[tier]} on the same "
+                      f"index {brute_ms:.4f} ms; library: none (no one PyTorch call computes a "
+                      f"top-k over gathered blocks)")
+            else:
+                index.config.ivf_adaptive_margin = 0.0
+            search_split(lambda: index.search(queries, top_k=top_k))
+        out[tier] = res
+        del index, x, b, extra, hits
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5b. main path at full size, encoder
 # ---------------------------------------------------------------------------
 
@@ -993,14 +1430,23 @@ def main() -> int:
     phase("3b kernel vs plain, attention")
     err3b = attention_cases(args.seed)
 
+    phase("3c kernel vs plain, IVF")
+    err3c = ivf_kernel_cases(args.seed)
+
     phase("4 main path, small corpus")
     launches4, err4 = small_corpus(args.seed)
 
     phase("4b main path, small corpus, encoder")
     enc, err4b = encoder_corpus(args.seed)
 
+    phase("4c main path, small corpus, IVF")
+    launches4c, err4c = small_corpus_ivf(args.seed)
+
     phase("5 main path, full size")
     full = full_size(args.seed, part)
+
+    phase("5c main path, full size, IVF")
+    full_ivf = full_size_ivf(args.seed, part)
 
     phase("5b main path, full size, encoder")
     enc_full = encoder_full_size(args.seed, part, enc["embedder"])
@@ -1036,6 +1482,21 @@ def main() -> int:
             "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"],
             "library_ms": f["library_ms"],
+        })
+    for tier in TIERS:
+        kname, f = IVF_NAMES[tier], full_ivf[tier]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "youtu_rag_tpu_torch/csrc/ivf_topk.cu",
+            "replaces": REPLACES[kname],
+            "launches": launches4c[tier] + f["launches"],
+            "max_abs_err": max(err3c[tier], err4c[tier], f["err"]),
+            "ms": f["ms"],
+            "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"],
+            "library_ms": None,  # no one PyTorch call computes a top-k over gathered blocks
         })
     print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,14 @@ import torch
 from youtu_rag_tpu_torch.core.config import IndexConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.index import DeviceVectorIndex
+from youtu_rag_tpu_torch.ops.ivf import (
+    ivf_topk_dma,
+    ivf_topk_dma_reference,
+    ivf_topk_int4_dma,
+    ivf_topk_int4_dma_reference,
+    ivf_topk_int8_dma,
+    ivf_topk_int8_dma_reference,
+)
 from youtu_rag_tpu_torch.ops.attention import (
     blockwise_attention,
     blockwise_attention_reference,
@@ -287,3 +295,148 @@ def test_committed_encoder_on_the_card_ranks_like_the_cpu(cuda_device):
     np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
     scores = got[:3] @ got[3]
     assert scores[0] > scores[1] > scores[2]
+
+
+IVF = {
+    "bf16": (None, ivf_topk_dma, ivf_topk_dma_reference),
+    "int8": (quantize_rows_int8, ivf_topk_int8_dma, ivf_topk_int8_dma_reference),
+    "int4": (quantize_rows_int4, ivf_topk_int4_dma, ivf_topk_int4_dma_reference),
+}
+
+
+def ivf_plan(n_blocks, max_blocks, n_valid, seed, device):
+    """n_valid probed blocks in ascending id, blocks 0 and 1 among them
+    (they hold make_inputs' exact ties), then garbage ids (out of range)
+    that the kernel must never read."""
+    rng = np.random.default_rng(seed)
+    ids = np.full(max_blocks, 10**8, np.int32)
+    chosen = [0, 1][:n_valid] + list(rng.choice(np.arange(2, n_blocks), max(n_valid - 2, 0),
+                                                replace=False))
+    ids[:n_valid] = np.sort(chosen)
+    return (torch.from_numpy(ids).to(device),
+            torch.tensor(n_valid, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("k", [1, 10, 128, 129, 1024])
+@pytest.mark.parametrize("q", [1, 8, 64])
+@pytest.mark.parametrize("block_rows", [64, 1024])
+def test_ivf_kernel_matches_plain_version(cuda_device, tier, q, k, block_rows):
+    """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
+    scores; ties in row order; empty slots (NEG_INF, 0)."""
+    quantize, kernel, plain = IVF[tier]
+    qs, x, bias = make_inputs(q, 256, seed=q + k + block_rows)
+    xt = torch.from_numpy(x).to(cuda_device)
+    extra = ()
+    if quantize is None:
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize(xt)
+        extra = (xs,)
+    n_blocks = N // block_rows
+    ids, nv = ivf_plan(n_blocks, n_blocks, n_blocks // 2, seed=k, device=cuda_device)
+    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, torch.from_numpy(bias).to(cuda_device),
+            ids, nv, k)
+    before = kernel.launches
+    s, i = kernel(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ws, wi = plain(*args, block_rows=block_rows)
+    s, i, ws, wi = (t.cpu().numpy() for t in (s, i, ws, wi))
+    for a in range(q):
+        n = int((ws[a] > NEG_INF / 2).sum())
+        assert int((s[a] > NEG_INF / 2).sum()) == n
+        assert (s[a, n:] == NEG_INF).all() and (i[a, n:] == 0).all()
+        if quantize is None:
+            np.testing.assert_allclose(s[a, :n], ws[a, :n], atol=TOL)
+            assert set(i[a, :n].tolist()) == set(wi[a, :n].tolist())
+        else:
+            np.testing.assert_array_equal(s[a, :n].view(np.uint32), ws[a, :n].view(np.uint32))
+            np.testing.assert_array_equal(i[a, :n], wi[a, :n])
+    assert i[0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("n_valid", [0, 1, 64])
+def test_ivf_kernel_plan_edges(cuda_device, tier, n_valid):
+    """An empty plan, one block, every block; fewer live rows than k."""
+    quantize, kernel, plain = IVF[tier]
+    qs, x, bias = make_inputs(8, 256, seed=n_valid)
+    xt = torch.from_numpy(x).to(cuda_device)
+    extra = ()
+    if quantize is None:
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize(xt)
+        extra = (xs,)
+    ids, nv = ivf_plan(64, 64, n_valid, seed=1, device=cuda_device)
+    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, torch.from_numpy(bias).to(cuda_device),
+            ids, nv, 100)
+    s, i = kernel(*args, block_rows=64)
+    ws, wi = plain(*args, block_rows=64)
+    torch.cuda.synchronize()
+    live = ws > NEG_INF / 2
+    assert torch.equal(s.cpu() > NEG_INF / 2, live.cpu())
+    assert torch.equal(i.cpu()[~live.cpu()], wi.cpu()[~live.cpu()])
+    if n_valid == 0:
+        assert (s == NEG_INF).all() and (i == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(IVF))
+def test_ivf_kernel_rejects_out_of_contract(cuda_device, tier):
+    quantize, kernel, _ = IVF[tier]
+    qs, x, bias = make_inputs(3, 256, seed=0)
+    xt, extra = torch.from_numpy(x).to(cuda_device), ()
+    if quantize is None:
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize(xt)
+        extra = (xs,)
+    qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
+    ids, nv = ivf_plan(64, 8, 4, seed=0, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, ids, nv, 10, block_rows=66)  # not a multiple of 4
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, ids.long(), nv, 10, block_rows=64)
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, ids, nv.cpu(), 10, block_rows=64)
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, ids, nv, 1025, block_rows=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [("bfloat16", 4.0), ("int8", 4.0), ("int4", 4.0), ("int4", 0.0)],
+                         ids=["bf16", "int8", "int4-rerank", "int4-raw"])
+def test_cuda_ivf_index_answers_like_cpu_index(cuda_device, tier):
+    """The same IVF plan on both devices (tight clusters: the k-means
+    assignment is unambiguous), then the same answers through the IVF
+    kernel; no brute launch."""
+    storage_dtype, mult = tier
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((16, 96)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    embs = np.concatenate([c + 0.05 * rng.standard_normal((64, 96)).astype(np.float32)
+                           for c in centers])
+    chunks = [Chunk(f"c{i}", f"d{i % 7}", "", i, {"idx": i}) for i in range(len(embs))]
+    cfg = IndexConfig(min_capacity=1024, block_rows=64, n_lists=16, n_probe=3, kmeans_iters=6,
+                      storage_dtype=storage_dtype, int4_rerank_multiplier=mult)
+    gpu, cpu = DeviceVectorIndex(96, cfg, device=cuda_device), DeviceVectorIndex(96, cfg, device="cpu")
+    for ix in (gpu, cpu):
+        ix.add(chunks, embs)
+        ix.build_ivf()
+        ix.delete([f"c{i}" for i in range(0, len(embs), 9)])
+    for name in ("cluster_block_start", "cluster_block_count"):
+        assert torch.equal(getattr(gpu._ivf, name).cpu(), getattr(cpu._ivf, name))
+    kernel = {"bfloat16": ivf_topk_dma, "int8": ivf_topk_int8_dma, "int4": ivf_topk_int4_dma}[storage_dtype]
+    brute = {"bfloat16": topk_pruned, "int8": topk_int8_pruned, "int4": topk_int4_pruned}[storage_dtype]
+    q = centers[:5] + 0.05 * rng.standard_normal((5, 96)).astype(np.float32)
+    before, brute_before = kernel.launches, brute.launches
+    for filters, top_k in ((None, 10), ({"idx": {"$lt": 300}}, 50)):
+        got, want = gpu.search(q, top_k, filters), cpu.search(q, top_k, filters)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=TOL)
+            assert all(a.id == b.id or abs(sa - sb) <= TOL for (a, sa), (b, sb) in zip(g, w))
+    assert kernel.launches == before + 2 and brute.launches == brute_before

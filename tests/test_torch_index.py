@@ -201,7 +201,7 @@ def jax_state(index: JaxIndex) -> dict:
     """What a JAX index holder exports for ``index_from_numpy``."""
     return {
         "dim": index.dim,
-        "metric": index.metric,
+        "config": index.config.model_dump(),
         "vectors": np.asarray(index._vectors).astype(np.float32),
         "bias": np.asarray(index._bias),
         "cols": np.asarray(index._cols),
@@ -220,6 +220,7 @@ def test_index_from_numpy_answers_like_the_jax_index(metric):
     t.call("delete", [f"docA-{i}" for i in range(0, 300, 4)])
     port = index_from_numpy(jax_state(t.jax), device="cpu")
     assert (port.capacity, port.size, port.count()) == (t.jax.capacity, t.jax.size, t.jax.count())
+    assert port.config.model_dump() == t.jax.config.model_dump()  # block_rows 128 included
     q = vectors(11, 5)
     for filters in (None, {"idx": {"$lt": 150}}, {"source": {"$regex": "A$"}}):
         assert_same_hits(port.search(q, 10, filters), t.jax.search(q, 10, filters, backend="xla"))
@@ -300,9 +301,13 @@ def test_top_k_outside_the_kernel_range_raises_on_the_cpu_too(top_k):
         idx.search(vectors(2, 2), top_k=top_k)
 
 
-def test_ivf_kind_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceVectorIndex(D, IndexConfig(kind="ivf"), device="cpu")
+def test_ivf_kind_builds_the_flat_index_jax_builds():
+    """``kind`` is not read, as in the JAX index: "ivf" serves brute force
+    until ``build_ivf()``."""
+    t = Trio("cosine", kind="ivf")
+    t.add(300, seed=1)
+    assert t.port._ivf is None and t.jax._ivf is None
+    t.check(vectors(2, 4))
 
 
 def test_float32_storage_searches_in_bf16():
@@ -429,8 +434,6 @@ def quant_state(index: JaxIndex) -> dict:
     """What a quantized JAX index holder exports for ``index_from_numpy``."""
     state = jax_state(index)
     state.update(
-        storage_dtype=index.config.storage_dtype,
-        int4_rerank_multiplier=index.config.int4_rerank_multiplier,
         vectors=np.asarray(index._vectors),
         scales=np.asarray(index._scales),
     )

@@ -34,10 +34,11 @@ def imported_roots(path: Path) -> set[str]:
 
 def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
-    for module in ("ops/topk.py", "ops/attention.py", "models/encoder.py", "models/convert.py"):
+    for module in ("ops/topk.py", "ops/attention.py", "ops/ivf.py", "ops/kmeans.py",
+                   "index/ivf.py", "models/encoder.py", "models/convert.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
-                "attention.cu"):
+                "topk_scorers.cuh", "ivf_topk.cu", "attention.cu"):
         assert (PORT / "csrc" / src).exists()
 
 

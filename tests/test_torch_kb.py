@@ -205,6 +205,29 @@ def test_snapshots_cross_between_the_packages(corpus, tmp_path, storage_dtype, d
         assert_same_results(got, want, tol)
 
 
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_ivf_snapshots_reload_with_ivf(corpus, tmp_path, storage_dtype, direction):
+    """A snapshot of a KB with IVF built records it; loading it builds IVF
+    again (with the same n_lists) in the port and in the JAX package, and
+    the reloaded KB answers from the same top chunks."""
+    files = sorted(str(p) for p in corpus.iterdir())
+    port_cfg, jax_cfg = tier_configs("ivf", storage_dtype)
+    port = KnowledgeBase("port", port_cfg, device="cpu")
+    jax_kb = jax_kb_on_the_python_hash_path("jax", jax_cfg)
+    src, dst = (jax_kb, port) if direction == "jax_to_port" else (port, jax_kb)
+    asyncio.run(src.build_files(files))
+    src.store._index.build_ivf(n_lists=2)
+    src.save(str(tmp_path / "kb"))
+    dst.load(str(tmp_path / "kb"))
+    for kb in (dst, KnowledgeBase("again", port_cfg, device="cpu")):
+        if kb is not dst:
+            kb.load(str(tmp_path / "kb"))  # the port reloads its own or JAX's snapshot
+        assert kb.store._index._ivf is not None and kb.store._index._ivf.n_lists == 2
+        for got, want in zip(asyncio.run(answers(kb)), asyncio.run(answers(src))):
+            assert got[0].chunk.id == want[0].chunk.id
+
+
 def test_port_snapshot_of_an_empty_kb_raises(tmp_path):
     with pytest.raises(RuntimeError, match="empty"):
         KnowledgeBase("e", device="cpu").save(str(tmp_path / "e"))

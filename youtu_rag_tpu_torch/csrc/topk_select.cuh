@@ -1,7 +1,8 @@
 // Exact masked top-k selection shared by the port's scan kernels, for
 // Hopper (sm_90a). Included by topk_pruned.cu (bf16), topk_int8_pruned.cu
-// and topk_int4_pruned.cu; only the scoring differs between them, and each
-// source passes it in as a Scorer (see the contract below).
+// and topk_int4_pruned.cu (brute scans), and ivf_topk.cu (the IVF scans of
+// probed blocks); the scoring differs between them, and each source passes
+// it in as a Scorer (topk_scorers.cuh, contract below).
 //
 // Contract of every kernel built from this header (the TPU kernels'):
 //   result = the k best (score desc, row asc) per query, as
@@ -37,6 +38,19 @@
 //     order, so the result equals a stable descending sort.
 // Queries are covered in tiles of 8 by the grid's second dimension; each
 // tile reads the index again (q = 64 reads it 8 times).
+//
+// Row sources (the kIvf template flag). Brute: CTA b owns the contiguous
+// rows [b * rows_per_cta, (b + 1) * rows_per_cta). IVF: the rows are those
+// of the probed blocks ids[0 .. n_valid), n_valid read on the device (the
+// host never waits for the probe plan). Virtual row v, v < n_valid *
+// block_rows, is the stored row ids[v / block_rows] * block_rows +
+// v % block_rows; the virtual rows split evenly over the CTAs in whole
+// 128-row tiles, so a plan of a few dozen blocks still spreads over the
+// card (a CTA whose share is empty writes (NEG_INF, 0) lists). block_rows
+// is a multiple of kR, so a 4-row scoring group never straddles two
+// blocks and reads contiguous stored rows. ids past n_valid are never read.
+// Lists keep stored rows, so the result is ordered by (score desc, stored
+// row asc) whatever the order of the ids.
 //
 // Two k classes. Up to kSmallK = 128 an insertion stages the shifted list
 // entries in registers (kSmallK / 32 per lane). Above it, up to kMaxK =
@@ -78,6 +92,19 @@ constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min (NEG_INF)
 static_assert(kR * kQT == 32, "one score per lane after the butterfly");
 static_assert(kQT == kWarps, "one selecting warp per query of the tile");
 static_assert(kTile % 32 == 0, "selection reads the tile 32 rows at a time");
+
+// The IVF row source (unused by the brute scans).
+struct RowSource {
+  const int* ids;      // probed block ids [max_blocks]
+  const int* n_valid;  // device scalar: ids[0 .. n_valid) are probed
+  int max_blocks;
+  int block_rows;      // a multiple of kR
+
+  // stored row of virtual row v (v < n_valid * block_rows)
+  __device__ __forceinline__ int row(int v) const {
+    return __ldg(ids + v / block_rows) * block_rows + v % block_rows;
+  }
+};
 
 // (as, ai) ranks before (bs, bi): higher score, then lower row.
 __device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
@@ -188,7 +215,7 @@ __host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
 
 // Shared memory: the Scorer's query tile, score tiles f32 [2, kQT, kTile],
 // then per query a list of k scores and k rows.
-template <class Scorer, bool kBigK>
+template <class Scorer, bool kBigK, bool kIvf>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  const float* __restrict__ qscale,    // [q] (kScaled only)
@@ -197,7 +224,8 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  const float* __restrict__ bias,      // [n]
                  float* __restrict__ cand_s,          // [n_cta, q, k]
                  int* __restrict__ cand_i,            // [n_cta, q, k]
-                 int q, int n, int d, int k, int rows_per_cta) {
+                 int q, int n, int d, int k, int rows_per_cta,
+                 RowSource src) {                  // kIvf only
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qt = smem;
   float* tiles = reinterpret_cast<float*>(smem + Scorer::q_bytes(d));
@@ -225,8 +253,17 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   const bool selects = warp < q_valid;
   float qs_w = 0.f;
   if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
-  const int row_begin = cta * rows_per_cta;
-  const int row_end = min(n, row_begin + rows_per_cta);
+  // rows [row_begin, row_end): stored rows (brute) or virtual rows (IVF)
+  int row_begin, row_end;
+  if constexpr (kIvf) {
+    const int nv = min(max(*src.n_valid, 0), src.max_blocks);
+    const long long tiles = ((long long)nv * src.block_rows + kTile - 1) / kTile;
+    row_begin = (int)(cta * tiles / gridDim.x) * kTile;
+    row_end = min(nv * src.block_rows, (int)((cta + 1) * tiles / gridDim.x) * kTile);
+  } else {
+    row_begin = cta * rows_per_cta;
+    row_end = min(n, row_begin + rows_per_cta);
+  }
 
   int buf = 0;
   for (int tile0 = row_begin; tile0 < row_end; tile0 += kTile, buf ^= 1) {
@@ -237,13 +274,24 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     float tile_xs[kTile / 32];
 #pragma unroll
     for (int c = 0; c < kTile / 32; ++c) {
-      const int row = tile0 + c * 32 + lane;
-      tile_bias[c] = selects && row < row_end ? bias[row] : 0.f;
-      if constexpr (Scorer::kScaled) tile_xs[c] = selects && row < row_end ? xscale[row] : 0.f;
+      const int v = tile0 + c * 32 + lane;
+      const bool ok = selects && v < row_end;
+      int row = v;
+      if constexpr (kIvf) row = ok ? src.row(v) : 0;
+      tile_bias[c] = ok ? bias[row] : 0.f;
+      if constexpr (Scorer::kScaled) tile_xs[c] = ok ? xscale[row] : 0.f;
     }
     for (int step = 0; step < kSteps; ++step) {
       const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
-      const float v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
+      float v;
+      if constexpr (kIvf) {
+        // the group's kR virtual rows are contiguous stored rows of one block
+        const int v0 = tile0 + r0;
+        const int p0 = v0 < row_end ? src.row(v0) : 0;
+        v = Scorer::group(qt, x, p0, p0 + max(0, min(kR, row_end - v0)), d, lane);
+      } else {
+        v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
+      }
       tile[(lane % kQT) * kTile + r0 + lane / kQT] = v;
     }
     // the tile is complete; the other buffer is free for the next tile,
@@ -254,8 +302,10 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     if (selects) {
 #pragma unroll
       for (int c = 0; c < kTile / 32; ++c) {
-        const int row = tile0 + c * 32 + lane;
-        const bool ok = row < row_end;
+        const int v = tile0 + c * 32 + lane;
+        const bool ok = v < row_end;
+        int row = v;
+        if constexpr (kIvf) row = ok ? src.row(v) : 0;  // recomputed: no registers held
         float s = 0.f;
         if (ok) {
           const float t = tile[warp * kTile + c * 32 + lane];
@@ -366,18 +416,19 @@ topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand
 }
 
 typedef void (*ScanKernel)(const void*, const float*, const void*, const float*, const float*,
-                           float*, int*, int, int, int, int, int);
+                           float*, int*, int, int, int, int, int, RowSource);
 
-template <class Scorer>
+template <class Scorer, bool kIvf>
 ScanKernel scan_kernel_for(int k) {
-  return k <= kSmallK ? topk_scan_kernel<Scorer, false> : topk_scan_kernel<Scorer, true>;
+  return k <= kSmallK ? topk_scan_kernel<Scorer, false, kIvf>
+                      : topk_scan_kernel<Scorer, true, kIvf>;
 }
 
 // Scan CTAs that fit on one SM for width d and top-k k (the register cap
 // of __launch_bounds__ allows 2), or minus a CUDA error code.
-template <class Scorer>
+template <class Scorer, bool kIvf>
 int scan_ctas_per_sm(int d, int k) {
-  ScanKernel kern = scan_kernel_for<Scorer>(k);
+  ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
   int smem = (int)scan_smem_bytes<Scorer>(d, k);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -389,14 +440,14 @@ int scan_ctas_per_sm(int d, int k) {
 
 // Launch the scan and the merge on `stream`. Returns cudaGetLastError()
 // (0 = ok) or cudaErrorInvalidValue for shapes outside the contract.
-template <class Scorer>
-int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
-                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
-                int q, int n, int d, int k, int n_cta, void* stream) {
-  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || !Scorer::width_ok(d) || n < k || n_cta < 1)
+template <class Scorer, bool kIvf>
+int scan_and_merge(const void* queries, const float* qscale, const void* x, const float* xscale,
+                   const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
+                   int q, int n, int d, int k, int n_cta, RowSource src, void* stream) {
+  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || !Scorer::width_ok(d) || n_cta < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  ScanKernel kern = scan_kernel_for<Scorer>(k);
+  ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
   int smem = (int)scan_smem_bytes<Scorer>(d, k);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -404,7 +455,7 @@ int topk_launch(const void* queries, const float* qscale, const void* x, const f
   dim3 grid(n_cta, (q + kQT - 1) / kQT);
   kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
                                         static_cast<float*>(cand_s), static_cast<int*>(cand_i),
-                                        q, n, d, k, rows_per_cta);
+                                        q, n, d, k, rows_per_cta, src);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
@@ -414,16 +465,40 @@ int topk_launch(const void* queries, const float* qscale, const void* x, const f
   return (int)cudaGetLastError();
 }
 
+// Brute: all n rows; the contract wants n >= k.
+template <class Scorer>
+int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
+                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
+                int q, int n, int d, int k, int n_cta, void* stream) {
+  if (n < k) return (int)cudaErrorInvalidValue;
+  return scan_and_merge<Scorer, false>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
+                                       out_i, q, n, d, k, n_cta, RowSource{}, stream);
+}
+
+// IVF: the rows of blocks ids[0 .. *n_valid) of an n-row index cut into
+// blocks of block_rows; k may exceed the probed rows (empty slots).
+template <class Scorer>
+int ivf_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
+               const float* bias, const int* ids, const int* n_valid, void* cand_s, void* cand_i,
+               void* out_s, void* out_i, int q, int n, int d, int k, int max_blocks,
+               int block_rows, int n_cta, void* stream) {
+  if (block_rows < kR || block_rows % kR || n % block_rows || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  return scan_and_merge<Scorer, true>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
+                                      out_i, q, n, d, k, n_cta,
+                                      RowSource{ids, n_valid, max_blocks, block_rows}, stream);
+}
+
 }  // namespace
 
-// Each source defines its C interface with this macro: <name>_launch,
+// Each brute source defines its C interface with this macro: <name>_launch,
 // <name>_ctas_per_sm and <name>_error_string.
 #define TOPK_C_INTERFACE(NAME, SCORER)                                                        \
   extern "C" {                                                                                \
   const char* NAME##_error_string(int err) {                                                  \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                                 \
   }                                                                                           \
-  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER>(d, k); }            \
+  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER, false>(d, k); }     \
   int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
                     const void* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,   \
                     int q, int n, int d, int k, int n_cta, void* stream) {                    \
@@ -431,5 +506,22 @@ int topk_launch(const void* queries, const float* qscale, const void* x, const f
                                static_cast<const float*>(xscale),                             \
                                static_cast<const float*>(bias), cand_s, cand_i, out_s, out_i, \
                                q, n, d, k, n_cta, stream);                                    \
+  }                                                                                           \
+  }
+
+// The IVF source defines one entry per scorer with this macro:
+// <name>_launch and <name>_ctas_per_sm.
+#define IVF_C_INTERFACE(NAME, SCORER)                                                         \
+  extern "C" {                                                                                \
+  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER, true>(d, k); }      \
+  int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
+                    const void* bias, const void* ids, const void* n_valid, void* cand_s,     \
+                    void* cand_i, void* out_s, void* out_i, int q, int n, int d, int k,       \
+                    int max_blocks, int block_rows, int n_cta, void* stream) {                \
+    return ivf_launch<SCORER>(queries, static_cast<const float*>(qscale), x,                  \
+                              static_cast<const float*>(xscale),                              \
+                              static_cast<const float*>(bias), static_cast<const int*>(ids),  \
+                              static_cast<const int*>(n_valid), cand_s, cand_i, out_s, out_i, \
+                              q, n, d, k, max_blocks, block_rows, n_cta, stream);             \
   }                                                                                           \
   }

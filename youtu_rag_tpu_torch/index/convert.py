@@ -4,9 +4,10 @@
 arrays of an index of the JAX package, so both answer the same queries
 identically. The state is a dict:
 
-- ``dim``, ``metric``: the index's width and metric;
-- ``storage_dtype`` (default ``"bfloat16"``) and ``int4_rerank_multiplier``
-  (default 4.0): the index's storage tier;
+- ``dim``: the index's width;
+- ``config``: the index's whole ``IndexConfig.model_dump()``, as a
+  snapshot carries it (storage tier, block size, IVF knobs, compaction
+  ratio, ...);
 - ``vectors``: the stored rows, ``[capacity, d_pad]`` f32 holding the
   stored (bf16) values; for int8 the raw int8 ``[capacity, d_pad]``, for
   int4 the raw packed nibbles ``[capacity, d_pad/2]``;
@@ -18,7 +19,11 @@ identically. The state is a dict:
   chunk object with ``id``, ``document_id``, ``content``, ``chunk_index``
   and ``metadata`` (the JAX package's ``Chunk`` qualifies);
 - ``size``, ``live_count``, ``capacity``;
-- ``schema``: ``MetadataSchema.to_dict()`` (key → slot and type).
+- ``schema``: ``MetadataSchema.to_dict()`` (key → slot and type);
+- ``ivf`` (optional): the IVF state of an index whose rows the arrays
+  above hold cluster-sorted: ``centroids`` f32 [C, d_pad],
+  ``cluster_block_start`` and ``cluster_block_count`` int32 [C],
+  ``max_cluster_blocks``, ``frozen_blocks``, ``n_lists`` and ``n_probe``.
 
 The port imports nothing of the JAX package: whoever holds a JAX index
 extracts these arrays on its side.
@@ -34,6 +39,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.types import Chunk
 from .device_index import DeviceVectorIndex
+from .ivf import IVFState
 from .metadata import MetadataSchema
 
 _CHUNK_FIELDS = ("id", "document_id", "content", "chunk_index", "metadata")
@@ -53,10 +59,8 @@ def _array(state: dict, key: str, dtype, shape: tuple) -> np.ndarray:
 def index_from_numpy(state: dict, device: str | torch.device | None = None) -> DeviceVectorIndex:
     """Build a port index of ``state``'s storage tier holding exactly its rows."""
     schema = MetadataSchema.from_dict(state["schema"])
-    cfg = IndexConfig(metric=state["metric"], max_metadata_columns=schema.max_columns,
-                      storage_dtype=state.get("storage_dtype", "bfloat16"),
-                      int4_rerank_multiplier=state.get("int4_rerank_multiplier", 4.0))
-    idx = DeviceVectorIndex(int(state["dim"]), cfg, device=device)
+    idx = DeviceVectorIndex(int(state["dim"]), IndexConfig.model_validate(state["config"]),
+                            device=device)
     cap = int(state["capacity"])
     if idx._quant:
         vectors = torch.from_numpy(_array(state, "vectors", np.int8, (cap, idx._vec_cols)))
@@ -81,4 +85,19 @@ def index_from_numpy(state: dict, device: str | torch.device | None = None) -> D
         idx.live_count = int(state["live_count"])
         idx.schema = schema
         idx._rebuild_host_maps()
+        ivf = state.get("ivf")
+        if ivf is not None:
+            n_lists = int(ivf["n_lists"])
+            idx._ivf = IVFState(
+                centroids=torch.from_numpy(
+                    _array(ivf, "centroids", np.float32, (n_lists, idx.d_pad))).to(idx.device),
+                cluster_block_start=torch.from_numpy(
+                    _array(ivf, "cluster_block_start", np.int32, (n_lists,))).to(idx.device),
+                cluster_block_count=torch.from_numpy(
+                    _array(ivf, "cluster_block_count", np.int32, (n_lists,))).to(idx.device),
+                max_cluster_blocks=int(ivf["max_cluster_blocks"]),
+                frozen_blocks=int(ivf["frozen_blocks"]),
+                n_lists=n_lists,
+                n_probe=int(ivf["n_probe"]),
+            )
     return idx

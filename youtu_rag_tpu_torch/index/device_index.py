@@ -1,4 +1,4 @@
-"""Device-resident vector index: the brute half of
+"""Device-resident vector index:
 ``youtu_rag_tpu/index/device_index.py::DeviceVectorIndex`` in PyTorch.
 
 - vectors live in a device tensor ``[capacity, d_pad]`` (bf16 by default),
@@ -23,14 +23,24 @@ Every search goes through the top-k wrapper of its storage tier
 the CUDA kernel on a CUDA index, its plain version on a CPU index. There is
 no size threshold that sends small indexes elsewhere.
 
+IVF (``build_ivf``): k-means sorts the rows by cluster (``index.ivf``);
+a search then plans its probed blocks on the device (``probe_blocks``, one
+plan for the whole batch) and scans only those through the tier's IVF
+wrapper (``ops.ivf.ivf_topk_dma`` and its int8/int4 forms), with no host
+sync between the two. It follows the JAX index's ``backend == "pallas"``
+branch on every device: no fallback to brute force when the plan's bound
+covers every block. Options: the adaptive ``n_probe`` margin, the
+closed-loop ``n_probe`` tuner (a brute shadow search every
+``ivf_tune_interval`` batches) and the residual re-rank, whose candidate
+count stops at ``MAX_K``. ``IndexConfig.kind`` is not read, as in JAX.
+
 Facts of the JAX index that this one copies on purpose: ``compact()`` (and
 ``persistence.load_index``) rebuild the int4 host shadow from the
 int4-dequantized vectors, so after either the re-rank sees int4 precision
 only; ``nbytes()`` leaves out the scales.
 
-Not ported yet (ROADMAP Queue A 3 and 9, Queue B 9-11): AOT tier warming,
-the append pacing probe and IVF (which raises ``NotImplementedError``). The
-array updates that JAX writes as donated jit kernels are in-place tensor
+Not ported (ROADMAP Queue A 3): AOT tier warming and the append pacing
+probe. The array updates that JAX writes as donated jit kernels are in-place tensor
 writes here; searches run under the index lock and on the same stream, so
 a search never observes half an append.
 """
@@ -45,6 +55,7 @@ import torch
 
 from ..core.config import IndexConfig
 from ..core.types import Chunk
+from ..ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
 from ..ops.topk import (
     MAX_K,
     MAX_Q,
@@ -97,10 +108,6 @@ class DeviceVectorIndex:
 
     def _reset(self) -> None:
         """(Re)initialize all index state in place (never the lock)."""
-        if self.config.kind != "flat":
-            raise NotImplementedError(
-                f"kind={self.config.kind!r}: IVF is not ported yet (ROADMAP Queue A 9); use 'flat'"
-            )
         self.metric = self.config.metric
         self._int8 = self.config.storage_dtype == "int8"
         self._int4 = self.config.storage_dtype == "int4"
@@ -133,6 +140,11 @@ class DeviceVectorIndex:
         self._chunks: list[Chunk | None] = []
         self._id_to_row: dict[str, int] = {}
         self._doc_rows: dict[str, list[int]] = {}
+        self._ivf = None  # IVFState after build_ivf()
+        # closed-loop n_probe tuner (IndexConfig.ivf_recall_target)
+        self._ivf_tune_counter = 0
+        self._ivf_recall_est: float | None = None
+        self._ivf_tune_streak = 0  # consecutive comfortable observations
 
     # -- mutation ----------------------------------------------------------
 
@@ -318,15 +330,19 @@ class DeviceVectorIndex:
             return len(rows)
 
     def _maybe_auto_compact(self) -> None:
-        """Compact when tombstones dominate (IndexConfig.auto_compact_ratio)."""
+        """Compact when tombstones dominate (IndexConfig.auto_compact_ratio);
+        an index that had IVF builds it again over the compacted rows."""
         ratio = self.config.auto_compact_ratio
         if ratio <= 0 or self.size < 4 * self.config.block_rows:
             return
         dead = self.size - self.live_count
         if dead / max(self.size, 1) >= ratio:
+            had_ivf = self._ivf is not None
             logger.info("auto-compact: %d/%d rows are tombstones (>= %.0f%%)",
                         dead, self.size, ratio * 100)
             self.compact()
+            if had_ivf and self.live_count > 0:
+                self.build_ivf()
 
     def delete_by_document_id(self, document_id: str) -> int:
         with self._lock:
@@ -337,6 +353,63 @@ class DeviceVectorIndex:
     def clear(self) -> None:
         with self._lock:
             self._reset()
+
+    def reorder(self, permutation: np.ndarray) -> None:
+        """Permute rows in place (device arrays, the int4 host shadow and the
+        host maps): ``permutation[new_row] = old_row`` over the ``size``
+        appended rows. The IVF builder sorts rows by cluster with it."""
+        with self._lock:
+            perm = np.asarray(permutation, np.int64)
+            if perm.shape != (self.size,):
+                raise ValueError(f"permutation of {perm.shape} rows, index holds {self.size}")
+            full = np.concatenate([perm, np.arange(self.size, self.capacity)])
+            self._apply_permutation(full)
+            old = self._chunks
+            self._chunks = [old[o] for o in perm]
+            self._rebuild_host_maps()
+
+    def _apply_permutation(self, idx: np.ndarray) -> None:
+        """Gather every row by ``idx`` (length == capacity): on the device,
+        or through the host when the device gather would not fit."""
+        if self._host_q8 is not None:
+            self._host_q8 = self._host_q8[idx]
+            self._host_s8 = self._host_s8[idx]
+        if self._should_stage_reorder():
+            return self._apply_permutation_host(idx)
+        gidx = torch.as_tensor(idx, device=self.device)
+        self._vectors = self._vectors[gidx]
+        self._cols = self._cols[gidx]
+        self._bias = self._bias[gidx]
+        if self._quant:
+            self._scales = self._scales[gidx]
+
+    def _should_stage_reorder(self) -> bool:
+        """The JAX index's rule with the card's own numbers: stage through
+        the host when 1.3x the index bytes (the new copies and workspace)
+        exceed the free device memory, counting what PyTorch's allocator
+        holds cached but unused as free. A CPU index never stages."""
+        if self.device.type != "cuda":
+            return False
+        free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        total = self.nbytes() + (self._scales.numel() * 4 if self._quant else 0)
+        return 1.3 * total > free
+
+    def _apply_permutation_host(self, idx: np.ndarray) -> None:
+        """Pull each array to the host, free the device copies, permute,
+        push back: the device peak stays near one copy of the index."""
+        logger.info("host-staged reorder (%d rows, %.1f GB index)",
+                    len(idx), self.nbytes() / 1e9)
+        gidx = torch.as_tensor(idx)
+        names = ["_vectors", "_cols", "_bias"] + (["_scales"] if self._quant else [])
+        host = {}
+        for name in names:
+            host[name] = getattr(self, name).cpu()
+            setattr(self, name, None)
+        # new arrays land in locals first: a failed push leaves the host copies
+        moved = {name: t[gidx].to(self.device) for name, t in host.items()}
+        for name, t in moved.items():
+            setattr(self, name, t)
 
     def _rebuild_host_maps(self) -> None:
         """Recompute _id_to_row/_doc_rows from _chunks."""
@@ -437,11 +510,23 @@ class DeviceVectorIndex:
             # reference capture, not a copy: structural mutations replace
             # the list; add() appends and delete() writes None, both benign
             chunks_snapshot = self._chunks
+            # closed-loop n_probe tuning: every Nth IVF batch also runs the
+            # brute kernel on the same snapshot (the shadow check)
+            shadow = None
+            if self._ivf is not None and self.config.ivf_recall_target > 0:
+                self._ivf_tune_counter += 1
+                if self._ivf_tune_counter % self.config.ivf_tune_interval == 0:
+                    shadow = self._run_brute(queries, vectors, self._scales, bias, k_eff)
 
         scores = scores.cpu().numpy()[:n_q]
         rows = rows.cpu().numpy()[:n_q]
+        # the tuner compares like with like: the kernel's rows before the
+        # int4 re-rank against the brute shadow, both at storage precision
+        rows_raw = rows
         if host_rr and k_req > k_eff:
             scores, rows = self._host_rerank_candidates(qpad[:n_q], scores, rows, hq8, hs8, k_eff)
+        if shadow is not None:
+            self._tune_nprobe(rows_raw[:, :k_eff], shadow[1].cpu().numpy()[:n_q], k_eff)
         out: list[list[tuple[Chunk, float]]] = []
         for qi in range(scores.shape[0]):
             hits: list[tuple[Chunk, float]] = []
@@ -482,20 +567,119 @@ class DeviceVectorIndex:
     def _run_search(self, queries: torch.Tensor, vectors: torch.Tensor,
                     scales: torch.Tensor | None, bias: torch.Tensor,
                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Dispatch to the storage tier's kernel. It takes at most MAX_Q
-        queries per launch; bigger batches launch once per MAX_Q-query
-        tile. f32 storage is searched in bf16, as the JAX kernels cast it."""
-        if self._quant:
-            kernel = topk_int4_pruned if self._int4 else topk_int8_pruned
-            args = (vectors, scales, bias, k)
-        else:
-            kernel = topk_pruned
-            x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
-            args = (x, bias, k)
+        """IVF search when IVF is built (with the residual re-rank when
+        ``ivf_rerank_multiplier > 1``, unless int4's host re-rank, which
+        re-scores at a higher precision, follows), else brute."""
+        if self._ivf is None:
+            return self._run_brute(queries, vectors, scales, bias, k)
+        mult = self.config.ivf_rerank_multiplier
+        if mult > 1.0 and not self._host_rerank:
+            # probe deeper, then re-score exactly: k2 pow2-bucketed, at most
+            # the largest pow2 <= live_count (as JAX) and at most MAX_K
+            k2 = _pow2_at_least(max(int(np.ceil(k * mult)), k), 16)
+            if self.live_count < k2:
+                k2 = 1 << max(self.live_count.bit_length() - 1, 0)
+            k2 = min(k2, MAX_K)
+            if k2 > k:
+                s2, r2 = self._run_ivf_search(queries, vectors, scales, bias, k2)
+                flat = r2.reshape(-1).long()
+                cand = self._dequantize(vectors[flat], None if scales is None else scales[flat])
+                return _residual_rerank(queries, cand, bias, s2, r2, k)
+        return self._run_ivf_search(queries, vectors, scales, bias, k)
+
+    @staticmethod
+    def _tiled(kernel, queries: torch.Tensor, *args):
+        """``kernel`` over MAX_Q-query tiles (the kernels take at most MAX_Q
+        queries per launch), results concatenated."""
         parts = [kernel(queries[i : i + MAX_Q], *args) for i in range(0, queries.shape[0], MAX_Q)]
         if len(parts) == 1:
             return parts[0]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    def _run_brute(self, queries, vectors, scales, bias, k: int):
+        """The storage tier's brute kernel over every row. f32 storage is
+        searched in bf16, as the JAX kernels cast it."""
+        if self._quant:
+            kernel = topk_int4_pruned if self._int4 else topk_int8_pruned
+            return self._tiled(kernel, queries, vectors, scales, bias, k)
+        x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
+        return self._tiled(topk_pruned, queries, x, bias, k)
+
+    def _run_ivf_search(self, queries, vectors, scales, bias, k: int):
+        """One probe plan for the whole batch (as JAX: a plan per 64-query
+        tile would probe another union), then the tier's IVF kernel over
+        each tile with that plan. ``n_valid`` stays on the device."""
+        from .ivf import plan_max_blocks, probe_blocks
+
+        st = self._ivf
+        br = self.config.block_rows
+        total_blocks = self.capacity // br
+        max_blocks = plan_max_blocks(st, queries.shape[0], total_blocks)
+        margin = self.config.ivf_adaptive_margin
+        adaptive = ({"adaptive_margin": margin,
+                     "min_probe": min(self.config.ivf_min_probe, st.n_probe)}
+                    if margin > 0 else {})
+        ids, n_valid = probe_blocks(
+            queries, st.centroids, st.cluster_block_start, st.cluster_block_count,
+            n_probe=st.n_probe, max_cluster_blocks=st.max_cluster_blocks,
+            total_blocks=total_blocks, frozen_blocks=st.frozen_blocks, max_blocks=max_blocks,
+            **adaptive,
+        )
+        plan = (ids, n_valid, k)
+        if self._quant:
+            kernel = ivf_topk_int4_dma if self._int4 else ivf_topk_int8_dma
+            return self._tiled(lambda q, *a: kernel(q, *a, block_rows=br), queries,
+                               vectors, scales, bias, *plan)
+        x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
+        return self._tiled(lambda q, *a: ivf_topk_dma(q, *a, block_rows=br), queries,
+                           x, bias, *plan)
+
+    # -- IVF -------------------------------------------------------------------
+
+    def build_ivf(self, n_lists: int | None = None, seed: int = 0) -> None:
+        """Cluster-sort the index and enable probed search (ANN). Appends
+        after this call land in always-probed tail blocks; call again to
+        re-freeze after heavy growth."""
+        from .ivf import build_ivf_state
+
+        with self._lock:
+            self._ivf = build_ivf_state(self, n_lists=n_lists, seed=seed)
+
+    def drop_ivf(self) -> None:
+        self._ivf = None
+
+    def _tune_nprobe(self, ivf_rows: np.ndarray, brute_rows: np.ndarray, k: int) -> None:
+        """Adjust n_probe from the observed IVF-vs-brute overlap@k: grow by
+        ``ivf_probe_step`` at once below the recall target, shrink only
+        after three comfortable observations (target + 0.04)."""
+        overlap = float(np.mean([
+            len(set(ivf_rows[i]) & set(brute_rows[i])) / max(k, 1)
+            for i in range(ivf_rows.shape[0])
+        ]))
+        self._ivf_recall_est = overlap
+        cfg = self.config
+        with self._lock:
+            st = self._ivf
+            if st is None:
+                return
+            if overlap < cfg.ivf_recall_target and st.n_probe < st.n_lists:
+                new = min(st.n_lists, max(st.n_probe + 1, int(st.n_probe * cfg.ivf_probe_step)))
+                logger.info("nprobe tune: recall %.3f < %.2f → n_probe %d → %d",
+                            overlap, cfg.ivf_recall_target, st.n_probe, new)
+                st.n_probe = new
+                self._ivf_tune_streak = 0
+            elif (overlap >= min(cfg.ivf_recall_target + 0.04, 1.0)
+                  and st.n_probe > cfg.ivf_min_probe):
+                self._ivf_tune_streak += 1
+                if self._ivf_tune_streak >= 3:
+                    new = max(cfg.ivf_min_probe, int(st.n_probe / cfg.ivf_probe_step))
+                    if new < st.n_probe:
+                        logger.info("nprobe tune: recall %.3f comfortable ×%d → n_probe %d → %d",
+                                    overlap, self._ivf_tune_streak, st.n_probe, new)
+                        st.n_probe = new
+                    self._ivf_tune_streak = 0
+            else:
+                self._ivf_tune_streak = 0
 
     # -- dequantized views ---------------------------------------------------
 
@@ -555,6 +739,23 @@ class DeviceVectorIndex:
         for c in self._chunks:
             if c is not None:
                 yield c
+
+
+def _residual_rerank(queries: torch.Tensor, cand: torch.Tensor, bias: torch.Tensor,
+                     approx_scores: torch.Tensor, rows: torch.Tensor, k: int):
+    """Exact f32 re-score of IVF candidates → the true top k of the k2
+    pool. queries [Q, d_pad] (metric-prescaled), cand [Q*k2, d_pad] f32
+    (the dequantized gather), approx_scores/rows [Q, k2] from the probe
+    pass; padding candidates (approx <= NEG_INF/2) stay NEG_INF, so they
+    cannot duplicate real rows. Ties go to the lower candidate slot."""
+    q_n, k2 = rows.shape
+    if queries.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    s = torch.einsum("qd,qkd->qk", queries.float(), cand.reshape(q_n, k2, -1))
+    s = s + bias[rows.long()]
+    s = torch.where(approx_scores > NEG_INF / 2, s, torch.full_like(s, NEG_INF))
+    top_s, top_i = torch.sort(s, dim=1, descending=True, stable=True)
+    return top_s[:, :k].contiguous(), torch.gather(rows, 1, top_i[:, :k]).contiguous()
 
 
 def _filter_bias(cols: torch.Tensor, bias: torch.Tensor, filt: CompiledFilter) -> torch.Tensor:

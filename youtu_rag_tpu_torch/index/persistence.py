@@ -10,7 +10,10 @@ package loads in the other:
   sidecar with chunks, metadata schema and config. Snapshots are atomic
   (tmp + rename). ``load_index`` re-inserts the dequantized rows through
   ``add``, so a quantized index re-quantizes them (the int4 host shadow is
-  rebuilt from int4 precision, as in JAX).
+  rebuilt from int4 precision, as in JAX). IVF is positional (cluster-sorted
+  rows, block ranges), which a save/load cycle invalidates, so the sidecar
+  records only that it was built (``"ivf": {"n_lists": ...}``) and
+  ``load_index`` clusters again, on the index's device, as JAX does.
 - ``BuildManifest``: content-hash manifest for incremental re-embedding:
   a source is skipped when its (etag, metadata_hash) pair is unchanged.
 """
@@ -71,7 +74,7 @@ def save_index(index: DeviceVectorIndex, path: str | Path) -> None:
         "metric": index.metric,
         "config": index.config.model_dump(),
         "schema": index.schema.to_dict(),
-        "ivf": None,  # the port has no IVF yet; JAX re-clusters on load when set
+        "ivf": {"n_lists": index._ivf.n_lists} if index._ivf is not None else None,
         "chunks": [
             {
                 "id": c.id,
@@ -127,6 +130,8 @@ def load_index(path: str | Path, config: IndexConfig | None = None,
     ]
     if chunks:
         index.add(chunks, vectors)
+    if meta.get("ivf") and chunks:
+        index.build_ivf(n_lists=meta["ivf"]["n_lists"])
     logger.info("loaded index snapshot: %d chunks <- %s", len(chunks), path)
     return index
 

@@ -1,0 +1,249 @@
+"""IVF probed-block top-k: the exact masked top-k over the blocks a probe
+plan lists.
+
+Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
+(``pallas_ivf_topk_dma``, ``pallas_ivf_topk_int8_dma``,
+``pallas_ivf_topk_int4_dma``). The contract is theirs:
+
+- rows: the exact top k over the rows of ``block_ids[:n_valid]`` only;
+  entry ``b`` covers rows ``[b * block_rows, (b + 1) * block_rows)`` and
+  entries past ``n_valid`` are never read;
+- order: (score desc, row asc); the probe plan lists its blocks in
+  ascending id, so this is also the TPU kernels' probe-order walk;
+- empty slots come back as ``(NEG_INF, row 0)``: a row scoring ``NEG_INF``
+  (a tombstone) or ``-inf`` (a filtered tombstone) never enters;
+- scores: bf16 ``f32(bf16 q) · f32(bf16 x) + bias``; int8 and int4 the
+  exact integer dot of ``quantize_rows_int8(queries)`` with the stored
+  rows (int4: the unpacked nibbles against the full-width queries), then
+  ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, rounded op by op.
+
+Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors and
+counts the launch in its ``.launches``; ``n_valid`` stays on the device
+(no ``.item()``), so nothing waits between the plan and the scan. For CPU
+tensors it runs its plain PyTorch version (``*_reference``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .topk import (
+    NEG_INF,
+    _check_cuda,
+    _check_k,
+    _device_of,
+    _exact_dot,
+    quantize_rows_int8,
+    unpack_int4,
+)
+
+_LIB = "ivf_topk"
+_ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
+          "ivf_topk_int4_dma": "ivf_topk_int4"}
+_KR = 4  # rows per scoring group of the kernel: block_rows must be a multiple
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _probed_rows(block_ids: torch.Tensor, n_valid, block_rows: int) -> torch.Tensor:
+    """Stored rows of ``block_ids[:n_valid]``, ascending (int64)."""
+    nv = max(0, min(int(n_valid), block_ids.shape[0]))
+    ids = block_ids[:nv].long()
+    rows = (ids[:, None] * block_rows
+            + torch.arange(block_rows, device=ids.device)[None, :]).reshape(-1)
+    return torch.sort(rows).values
+
+
+def _probed_topk(scores: torch.Tensor, rows: torch.Tensor, k: int):
+    """(score desc, row asc) top k of ``scores`` [q, len(rows)] over the
+    ascending ``rows``; slots without a live row are (NEG_INF, 0)."""
+    qn = scores.shape[0]
+    out_s = torch.full((qn, k), NEG_INF, dtype=torch.float32, device=scores.device)
+    out_i = torch.zeros((qn, k), dtype=torch.int32, device=scores.device)
+    if rows.numel():
+        s, order = torch.sort(scores, dim=1, descending=True, stable=True)
+        m = min(k, rows.numel())
+        s, r = s[:, :m], rows[order[:, :m]].to(torch.int32)
+        live = s > NEG_INF
+        out_s[:, :m] = torch.where(live, s, torch.full_like(s, NEG_INF))
+        out_i[:, :m] = torch.where(live, r, torch.zeros_like(r))
+    return out_s, out_i
+
+
+def ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k: int, *,
+                           block_rows: int):
+    """Plain PyTorch version of the bf16 kernel: gather the valid blocks,
+    score them (``topk_pruned_reference``'s arithmetic), stable sort."""
+    rows = _probed_rows(block_ids, n_valid, block_rows)
+    if database.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    q = queries.to(torch.bfloat16).float()
+    x = database[rows].to(torch.bfloat16).float()
+    return _probed_topk(q @ x.T + bias.float()[rows][None, :], rows, k)
+
+
+def _scaled_reference(queries, x_int, x_max, db_scales, bias, rows, k):
+    qq, qs = quantize_rows_int8(queries)
+    acc = _exact_dot(qq, x_int, x_max)
+    scores = acc * (qs[:, None] * db_scales.float()[rows][None, :]) + bias.float()[rows][None, :]
+    return _probed_topk(scores, rows, k)
+
+
+def ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids, n_valid,
+                                k: int, *, block_rows: int):
+    """Plain PyTorch version of the int8 kernel."""
+    rows = _probed_rows(block_ids, n_valid, block_rows)
+    return _scaled_reference(queries, database_q[rows], 127, db_scales, bias, rows, k)
+
+
+def ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids, n_valid,
+                                k: int, *, block_rows: int):
+    """Plain PyTorch version of the int4 kernel: the int8 one over the
+    unpacked nibbles of the probed rows."""
+    rows = _probed_rows(block_ids, n_valid, block_rows)
+    return _scaled_reference(queries, unpack_int4(database_p[rows]), 7, db_scales, bias, rows, k)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(_LIB)
+    if lib.ivf_topk_error_string.restype is not ctypes.c_char_p:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for entry in _ENTRY.values():
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = [p] * 11 + [i] * 7 + [p]
+            launch.restype = i
+            per_sm = getattr(lib, f"{entry}_ctas_per_sm")
+            per_sm.argtypes = [i, i]
+            per_sm.restype = i
+        lib.ivf_topk_error_string.argtypes = [i]
+        lib.ivf_topk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{entry} failed: CUDA error {err} "
+                        f"({lib.ivf_topk_error_string(err).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_per_sm(entry: str, d: int, k: int) -> int:
+    """Scan CTAs one SM holds at (d, k), at most two (the register cap)."""
+    lib = _library()
+    per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
+    if per_sm < 0:
+        raise _cuda_error(lib, entry, -per_sm)
+    if per_sm == 0:
+        raise RuntimeError(f"{entry}: d={d}, k={k} needs more shared memory than one SM has")
+    return min(per_sm, 2)
+
+
+def _check_plan(name: str, n: int, block_ids: torch.Tensor, n_valid: torch.Tensor,
+                block_rows: int, device) -> torch.Tensor:
+    """The plan's checks; returns n_valid as an int32 [1] tensor."""
+    if block_rows < _KR or block_rows % _KR or n % block_rows:
+        raise ValueError(f"{name}: block_rows={block_rows} must be a positive multiple of {_KR} "
+                         f"that divides the {n} rows")
+    if (block_ids.dtype != torch.int32 or block_ids.dim() != 1 or not block_ids.is_contiguous()
+            or block_ids.numel() < 1):
+        raise ValueError(f"{name}: block_ids must be a contiguous non-empty 1-D int32 tensor")
+    if not isinstance(n_valid, torch.Tensor) or n_valid.dtype != torch.int32 or n_valid.numel() != 1 or n_valid.device != device:
+        raise ValueError(f"{name}: n_valid must be one int32 on {device}")
+    return n_valid.reshape(1).contiguous()
+
+
+def _launch(fn, queries, qscale, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: int,
+            qn: int, block_rows: int):
+    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` on the current stream (no sync)."""
+    entry = _ENTRY[fn.__name__]
+    nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
+    lib = _library()
+    dev = x.device
+    max_blocks = block_ids.numel()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # as many CTAs as fit at once on the card, at least 512 rows of the
+    # longest plan each
+    n_cta = max(1, min(_ctas_per_sm(entry, d, k) * sms, -(-max_blocks * block_rows // 512)))
+    cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = getattr(lib, f"{entry}_launch")(
+        queries.data_ptr(), ptr(qscale), x.data_ptr(), ptr(xscale), bias.data_ptr(),
+        block_ids.data_ptr(), nv.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks, block_rows, n_cta,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise _cuda_error(lib, entry, err)
+    fn.launches += 1
+    return out_s, out_i
+
+
+def ivf_topk_dma(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+                 block_ids: torch.Tensor, n_valid, k: int, *, block_rows: int):
+    """Exact masked top-k over the bf16 rows of ``block_ids[:n_valid]``
+    (``pallas_ivf_topk_dma``): (scores [q, k] f32 desc, rows [q, k] int32).
+
+    queries [q, d] float (cast to bf16), database [N, d] bf16 contiguous with
+    d % 128 == 0 and N % block_rows == 0, bias [N] f32, block_ids int32
+    [max_blocks], n_valid an int32 scalar tensor. On CUDA:
+    1 <= q <= 64 and block_rows a multiple of 4."""
+    _check_k("ivf_topk_dma", k)
+    if _device_of("ivf_topk_dma", queries, database, bias, block_ids) == "cpu":
+        return ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k,
+                                      block_rows=block_rows)
+    d = database.shape[1]
+    n, qn = _check_cuda("ivf_topk_dma", queries, database, bias, torch.bfloat16, d)
+    q16 = queries.to(torch.bfloat16).contiguous()
+    return _launch(ivf_topk_dma, q16, None, database, None, bias, block_ids, n_valid, k, d, n,
+                   qn, block_rows)
+
+
+def ivf_topk_int8_dma(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
+                      bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
+                      block_rows: int):
+    """The int8 form (``pallas_ivf_topk_int8_dma``): database_q [N, d] int8,
+    db_scales [N] f32; queries quantized per row here."""
+    _check_k("ivf_topk_int8_dma", k)
+    if _device_of("ivf_topk_int8_dma", queries, database_q, db_scales, bias, block_ids) == "cpu":
+        return ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids,
+                                           n_valid, k, block_rows=block_rows)
+    d = database_q.shape[1]
+    n, qn = _check_cuda("ivf_topk_int8_dma", queries, database_q, bias, torch.int8, d, db_scales)
+    qq, qs = quantize_rows_int8(queries)
+    return _launch(ivf_topk_int8_dma, qq, qs, database_q, db_scales, bias, block_ids, n_valid,
+                   k, d, n, qn, block_rows)
+
+
+def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
+                      bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
+                      block_rows: int):
+    """The int4 form (``pallas_ivf_topk_int4_dma``): database_p [N, d/2]
+    packed nibbles with (d/2) % 128 == 0, db_scales [N] f32 (amax/7)."""
+    _check_k("ivf_topk_int4_dma", k)
+    if _device_of("ivf_topk_int4_dma", queries, database_p, db_scales, bias, block_ids) == "cpu":
+        return ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids,
+                                           n_valid, k, block_rows=block_rows)
+    d = 2 * database_p.shape[1]
+    n, qn = _check_cuda("ivf_topk_int4_dma", queries, database_p, bias, torch.int8, d, db_scales)
+    qq, qs = quantize_rows_int8(queries)
+    return _launch(ivf_topk_int4_dma, qq, qs, database_p, db_scales, bias, block_ids, n_valid,
+                   k, d, n, qn, block_rows)
+
+
+ivf_topk_dma.launches = 0
+ivf_topk_int8_dma.launches = 0
+ivf_topk_int4_dma.launches = 0
