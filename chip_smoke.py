@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
-  2. build: compiles the path's five kernel sources from csrc/ at once (one
+  2. build: compiles the path's six kernel sources from csrc/ at once (one
      nvcc per source) and prints each build's time and ptxas' register and
      spill report;
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
@@ -22,6 +22,16 @@ Phases; any failure exits non-zero before the result lines:
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
      n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
      TOL, int8 and int4 bit-equal;
+  3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
+     ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
+     versions over BLOCKS_CASES (k 1 to 1024, q 1 to 64, block_rows 256 to
+     4096; NEG_INF and -inf rows, a block scoring -inf throughout, fewer
+     live rows than k, no live row; plans with n_valid 0, 1, half and
+     max_blocks, ids ascending and shuffled): every candidate slot, the
+     fill and the pad included, and the merged result against
+     ``fused_topk(backend="pallas_interpret")`` (bf16 brute) or the merged
+     plain candidates; rows equal (bf16: a swap of two rows scoring within
+     TOL of each other allowed), bf16 scores within TOL, int8 bit-equal;
   4. main path, small corpus: about 20 markdown files through the port's
      KnowledgeBase (hash embedder → device index → kernel → retrievers)
      as three KBs, one per storage tier (bf16, int8, int4), each checked
@@ -58,6 +68,14 @@ Phases; any failure exits non-zero before the result lines:
      its bound (the probed bytes), its plain version and the brute kernel,
      the search's device time split by torch.profiler; then again with the
      adaptive margin off (a fixed n_probe 64 plan);
+  5d. the ops path at full size, on phase 5's and 5c's device tensors:
+     ``fused_topk(q, x_bf16, bias, 10)`` (backend "auto", which must take
+     the kernel), ``topk_int8`` at block_rows 2048, and ``ivf_topk`` /
+     ``ivf_topk_int8`` on 5c's adaptive plan at its block_rows 1024; each
+     checked against its plain version and, on its live slots, against the
+     pruned or DMA kernel on the same tensors (the same rows), then timed
+     (CUDA events; L2 cold for IVF) beside its bound, its plain version,
+     the merge alone, and a one-call PyTorch yardstick or the DMA kernel;
   5b. main path, full size, encoder: the default encoder embeds 128 texts
      at T = 512 (embeddings/s, the forward's device time and its split by
      kernel), and the same encoder with max_len 8192 embeds two long
@@ -66,18 +84,19 @@ Phases; any failure exits non-zero before the result lines:
      beside its bound, its plain version and scaled_dot_product_attention;
   6. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-     "bound_by", "library_ms"}, ...]}: one entry per kernel;
+     "bound_by", "library_ms"}, ...]}: one entry per kernel, twelve;
   7. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 5, 5c and 5b drive it and read just after; launches made to compare or
-time a kernel are not counted. Every phase prints its wall time.
+4c, 5, 5c, 5d and 5b drive it and read just after; launches made to compare
+or time a kernel are not counted. Every phase prints its wall time.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import importlib
 import json
 import os
 import statistics
@@ -99,6 +118,7 @@ TIERS = ("bfloat16", "int8", "int4")
 KERNEL_NAMES = {"bfloat16": "topk_pruned", "int8": "topk_int8_pruned", "int4": "topk_int4_pruned"}
 ATTENTION_NAMES = ("blockwise_attention", "flash_attention")
 IVF_NAMES = {"bfloat16": "ivf_topk_dma", "int8": "ivf_topk_int8_dma", "int4": "ivf_topk_int4_dma"}
+BLOCKS_NAMES = ("topk", "topk_int8", "ivf_topk", "ivf_topk_int8")
 REPLACES = {  # the pallas_call of each TPU kernel
     "topk_pruned": "youtu_rag_tpu/ops/topk.py:299",
     "topk_int8_pruned": "youtu_rag_tpu/ops/topk.py:494",
@@ -108,8 +128,13 @@ REPLACES = {  # the pallas_call of each TPU kernel
     "ivf_topk_dma": "youtu_rag_tpu/ops/ivf.py:461",
     "ivf_topk_int8_dma": "youtu_rag_tpu/ops/ivf.py:527",
     "ivf_topk_int4_dma": "youtu_rag_tpu/ops/ivf.py:596",
+    "topk": "youtu_rag_tpu/ops/topk.py:174",
+    "topk_int8": "youtu_rag_tpu/ops/topk.py:407",
+    "ivf_topk": "youtu_rag_tpu/ops/ivf.py:103",
+    "ivf_topk_int8": "youtu_rag_tpu/ops/ivf.py:188",
 }
-SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention")
+SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention",
+           "topk_blocks")
 
 _phase_t0: list[tuple[str, float]] = []
 
@@ -131,7 +156,8 @@ def check(cond: bool, msg: str) -> None:
 
 def ops():
     """The port's kernels by tier: (wrapper, plain version, quantizer)."""
-    from youtu_rag_tpu_torch.ops import topk as t
+    # by its path: youtu_rag_tpu_torch.ops.topk is also the name of a function
+    t = importlib.import_module("youtu_rag_tpu_torch.ops.topk")
 
     return {
         "bfloat16": (t.topk_pruned, t.topk_pruned_reference, None),
@@ -150,8 +176,8 @@ def attention_ops():
 
 def ivf_ops():
     """The port's IVF kernels by tier: (wrapper, plain version, quantizer)."""
-    from youtu_rag_tpu_torch.ops import ivf as v
-    from youtu_rag_tpu_torch.ops import topk as t
+    v = importlib.import_module("youtu_rag_tpu_torch.ops.ivf")
+    t = importlib.import_module("youtu_rag_tpu_torch.ops.topk")
 
     return {
         "bfloat16": (v.ivf_topk_dma, v.ivf_topk_dma_reference, None),
@@ -160,11 +186,28 @@ def ivf_ops():
     }
 
 
+def blocks_ops():
+    """The per-block kernels by name: (wrapper, plain version, tier, takes a plan)."""
+    v = importlib.import_module("youtu_rag_tpu_torch.ops.ivf")
+    t = importlib.import_module("youtu_rag_tpu_torch.ops.topk")
+
+    return {"topk": (t.topk, t.topk_reference, "bfloat16", False),
+            "topk_int8": (t.topk_int8, t.topk_int8_reference, "int8", False),
+            "ivf_topk": (v.ivf_topk, v.ivf_topk_reference, "bfloat16", True),
+            "ivf_topk_int8": (v.ivf_topk_int8, v.ivf_topk_int8_reference, "int8", True)}
+
+
 def reset_launches() -> None:
     for wrapper, _, _ in [*ops().values(), *ivf_ops().values()]:
         wrapper.launches = 0
     for wrapper, _ in attention_ops().values():
         wrapper.launches = 0
+    for wrapper, *_ in blocks_ops().values():
+        wrapper.launches = 0
+
+
+def blocks_counts() -> dict[str, int]:
+    return {name: wrapper.launches for name, (wrapper, *_) in blocks_ops().items()}
 
 
 def launch_counts() -> dict[str, int]:
@@ -467,6 +510,142 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
                 check(bool((got[0] == NEG_INF).all()), f"{what}: an empty plan returned rows")
     print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels ok, max_abs_err "
           + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# 3d. kernel vs plain, per-block
+# ---------------------------------------------------------------------------
+
+BLOCKS_N, BLOCKS_D = 65536, 256
+BLOCK_TIES = (5, 5000, 20000, 40000)  # copies of row 5, in four blocks at every block_rows
+# (q, k, block_rows, bias kind, plan): plan None (brute) or (n_valid, id order)
+BLOCKS_CASES = (
+    [(q, k, 1024, "mixed", None) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)]
+    + [(8, k, br, "mixed", None) for br in (256, 2048, 4096) for k in (10, 129)]
+    + [(8, k, 1024, kind, None) for kind in ("sparse", "allinf0", "none") for k in (10, 128)]
+    + [(8, 10, br, "mixed", (nv, order)) for br in (256, 1024, 4096)
+       for nv in ("0", "1", "half", "max") for order in ("ascending", "shuffled")]
+    + [(q, k, 1024, "mixed", ("half", "shuffled")) for q, k in ((1, 1), (64, 128), (8, 129),
+                                                               (8, 1024))]
+    + [(8, k, 1024, kind, ("half", "shuffled")) for kind in ("sparse", "allinf0", "none")
+       for k in (10, 128)]
+)
+
+
+def compare_blocks(tier: str, got, want, full, what: str) -> float:
+    """Per-block results, candidates [blocks, q, k_pad] or merged [q, k]:
+    the same live slots; every other slot (the fill and the pad) the same
+    row and the same score bits; int8 live slots the same rows and score
+    bits; bf16 live slots scores within TOL and the same rows, except that
+    a slot may hold another row whose plain score (``full`` [q, N]) is
+    within TOL of the plain version's there (two rows that close may swap
+    when the sums run in another order). Returns the max abs score error."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    gs, gi = (t.cpu() for t in got)
+    ws, wi = (t.cpu() for t in want)
+    check(gs.shape == ws.shape and gi.shape == wi.shape, f"{what}: shapes {gs.shape} {ws.shape}")
+    live = ws > NEG_INF / 2
+    check(torch.equal(gs > NEG_INF / 2, live), f"{what}: live slots differ")
+    check(torch.equal(gi[~live], wi[~live]), f"{what}: a fill or pad slot holds another row")
+    check(torch.equal(gs[~live].view(torch.int32), ws[~live].view(torch.int32)),
+          f"{what}: a fill or pad slot holds another score")
+    if tier == "int8":
+        check(torch.equal(gi, wi), f"{what}: rows differ")
+        check(torch.equal(gs.view(torch.int32), ws.view(torch.int32)), f"{what}: scores not bit-equal")
+        return 0.0
+    if not bool(live.any()):
+        return 0.0
+    err = float((gs[live] - ws[live]).abs().max())
+    check(err <= TOL, f"{what}: score error {err} > {TOL}")
+    swapped = live & (gi != wi)
+    if bool(swapped.any()):
+        qidx = torch.arange(gi.shape[-2])[:, None].expand(gi.shape[-2:]).expand(gi.shape)
+        alt = full[qidx[swapped], gi[swapped].long()]
+        gap = float((alt - ws[swapped]).abs().max())
+        check(gap <= TOL, f"{what}: {int(swapped.sum())} rows differ beyond near-ties ({gap})")
+    return err
+
+
+def blocks_plan(nb: int, nv_kind: str, order: str, g) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """A plan over nb blocks: max_blocks = 3/4 of them (at least 1), every
+    id in range as the probe plan lists them, block 0 (a block scoring -inf
+    throughout in the allinf0 bias) among the first n_valid; those first
+    n_valid ascending or shuffled. Returns (ids, n_valid tensor, n_valid)."""
+    mb = max(1, 3 * nb // 4)
+    nv = {"0": 0, "1": 1, "half": mb // 2, "max": mb}[nv_kind]
+    perm = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                      torch.randperm(nb - 1, generator=g, device="cuda") + 1])[:mb]
+    head = perm[:nv]
+    head = torch.sort(head)[0] if order == "ascending" else head[
+        torch.randperm(nv, generator=g, device="cuda")]
+    ids = torch.cat([head, perm[nv:]]).to(torch.int32)
+    return ids, torch.tensor(nv, dtype=torch.int32, device="cuda"), nv
+
+
+def blocks_kernel_cases(seed: int) -> dict[str, float]:
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF, fused_topk, merge_blocks, quantize_rows_int8
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    n = BLOCKS_N
+    x = torch.randn(n, BLOCKS_D, generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    x[list(BLOCK_TIES[1:])] = x[BLOCK_TIES[0]].clone()
+    mixed = torch.zeros(n, device="cuda")
+    mixed[::7] = NEG_INF
+    mixed[3::11] = float("-inf")
+    sparse = torch.full((n,), NEG_INF, device="cuda")
+    sparse[:3] = float("-inf")
+    sparse[torch.arange(3, n, n // 5, device="cuda")] = 0.0  # 5 live rows
+    allinf0 = mixed.clone()
+    allinf0[:4096] = float("-inf")  # block 0 at every block_rows scores -inf throughout
+    biases = {"mixed": mixed, "sparse": sparse, "allinf0": allinf0,
+              "none": torch.full((n,), NEG_INF, device="cuda")}
+    xq, xs = quantize_rows_int8(x)
+    stored = {"bfloat16": (x.to(torch.bfloat16), ()), "int8": (xq, (xs,))}
+    max_err = dict.fromkeys(BLOCKS_NAMES, 0.0)
+    n_checked = 0
+    for q, k, br, kind, plan_kind in BLOCKS_CASES:
+        queries = torch.randn(q, BLOCKS_D, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        queries[0] = x[BLOCK_TIES[0]]
+        b = biases[kind]
+        full = plain_scores(queries, stored["bfloat16"][0], b).cpu()
+        plan, probe = (), None
+        if plan_kind is not None:
+            ids, nv, n_valid = blocks_plan(n // br, *plan_kind, g)
+            plan = (ids, nv)
+            probe = ids[:n_valid].tolist()
+        for name, (kernel, plain, tier, ivf) in blocks_ops().items():
+            if ivf != (plan_kind is not None):
+                continue
+            xt, extra = stored[tier]
+            args = (queries, xt, *extra, b, *plan, k)
+            what = f"{name} q={q} k={k} block_rows={br} {kind} plan={plan_kind}"
+            got = kernel(*args, block_rows=br, candidates=True)
+            torch.cuda.synchronize()
+            want = plain(*args, block_rows=br, candidates=True)
+            err = compare_blocks(tier, got, want, full, what + " candidates")
+            merged = merge_blocks(*got, k)
+            if name == "topk":
+                ref = fused_topk(queries, xt, b, k, block_rows=br, backend="pallas_interpret")
+            else:
+                ref = merge_blocks(*want, k)
+            err = max(err, compare_blocks(tier, merged, ref, full, what))
+            if kind == "mixed" and k >= len(BLOCK_TIES):
+                # exact ties in position order: block order, or probe order
+                live = [r for r in BLOCK_TIES if b[r] == 0]
+                ties = (live if probe is None else
+                        [r for p in probe for r in live if r // br == p])
+                top = merged[1][0, : len(ties)].tolist()
+                check(top == ties, f"{what}: tie order {top}, expected {ties}")
+            max_err[name] = max(max_err[name], err)
+            n_checked += 1
+    torch.cuda.synchronize()
+    print(f"per-block kernel vs plain: {len(BLOCKS_CASES)} cases, {n_checked} kernel checks ok "
+          "(candidates and merged), max_abs_err "
+          + ", ".join(f"{name} {e}" for name, e in max_err.items()))
     return max_err
 
 
@@ -987,7 +1166,9 @@ def library_call(tier: str, qdev, x, scales, bias, k: int):
     return ("none: PyTorch has no one-call product of int8 queries with packed int4 rows", None)
 
 
-def full_size(seed: int, part: str) -> dict[str, dict]:
+def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Returns (each tier's results, the bf16 and int8 indexes' device
+    tensors and queries, which phase 5d reuses)."""
     from youtu_rag_tpu_torch.core.config import IndexConfig
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
@@ -1009,7 +1190,7 @@ def full_size(seed: int, part: str) -> dict[str, dict]:
     qdev = torch.from_numpy(qpad.astype(np.float32)).cuda()
     print(f"full size: {rows} x {d} unit vectors made in {time.perf_counter() - t0:.1f} s")
 
-    out = {}
+    out, keep = {}, {}
     for tier in TIERS:
         kernel, plain, quantize = kernels[tier]
         index = DeviceVectorIndex(d, IndexConfig(storage_dtype=tier, metric="cosine"), device="cuda")
@@ -1079,9 +1260,11 @@ def full_size(seed: int, part: str) -> dict[str, dict]:
               f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]")
         profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel))
         out[tier] = res
+        if tier != "int4":
+            keep[tier] = {"q": qdev, "x": x, "extra": extra, "bias": b}
         del index, x, b, extra, hits
         torch.cuda.empty_cache()
-    return out
+    return out, keep
 
 
 # ---------------------------------------------------------------------------
@@ -1110,19 +1293,25 @@ def clustered_rows(seed: int, rows: int, d: int, qn: int):
     return out, (q / q.norm(dim=1, keepdim=True)).cpu().numpy()
 
 
-def time_cold_ms(fn, calls: int = 20, warmup: int = 3) -> float:
-    """Device time of one call whose inputs are not in L2; the median over
-    ``calls``. A 1 GiB write before each call evicts the 50 MB L2 (a probed
-    plan reads tens of MB, which back-to-back calls would find cached) and
-    keeps the card busy (~0.3 ms) while the host enqueues the call, so the
-    CUDA events around the call see its device time, not the host's
-    enqueue gaps (which dominate a call this short)."""
-    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda")
+HOLD_CYCLES = 4_000_000  # a ~2 ms spin of the card: more than the host takes to enqueue a call
+
+
+def time_held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> float:
+    """Device time of one call, the median over ``calls``. Before each call
+    a spin kernel (``torch.cuda._sleep``) holds the card while the host
+    enqueues the call, so the CUDA events around it see the call's device
+    time, not the host's enqueue gaps (which exceed the device time of a
+    call this short, and vary with the host). With ``cold`` a 1 GiB write
+    first evicts the 50 MB L2 (a probed plan reads tens of MB, which
+    back-to-back calls would find cached)."""
+    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(calls):
-        flush.zero_()
+        if cold:
+            flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1175,7 +1364,9 @@ def ivf_bound(tier: str, part: str, n_valid: int, br: int, d: int, qn: int, k: i
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
+def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Returns (each tier's results, the bf16 and int8 indexes' device
+    tensors, queries and adaptive plans, which phase 5d reuses)."""
     from youtu_rag_tpu_torch.core.config import IndexConfig
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
@@ -1190,7 +1381,7 @@ def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
     chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
     print(f"IVF full size: {rows} x {d} clustered unit vectors made in "
           f"{time.perf_counter() - t0:.1f} s")
-    out = {}
+    out, keep = {}, {}
     for tier in TIERS:
         kernel, plain, _ = ivf_ops()[tier]
         brute = ops()[tier][0]
@@ -1233,6 +1424,8 @@ def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
                                 max_blocks=plan_max_blocks(st, qn, total), **kw)
 
         ids, nv = plan(IVF_SETTINGS["ivf_adaptive_margin"])
+        if tier != "int4":
+            keep[tier] = {"q": qdev, "x": x, "extra": extra, "bias": b, "ids": ids, "nv": nv}
         k_kernel = top_k if tier != "int4" else 64  # int4: 4 x 10 candidates, pow2, re-ranked on the host
         call = lambda: kernel(qdev, x, *extra, b, ids, nv, k_kernel,  # noqa: E731
                               block_rows=IVF_SETTINGS["block_rows"])
@@ -1262,7 +1455,7 @@ def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
             if margin == 0.0:
                 ids, nv = plan(0.0)
                 n_valid = int(nv)
-            ms = time_cold_ms(call)
+            ms = time_held_ms(call, cold=True)
             warm = time_ms(call)
             bms, by = ivf_bound(tier, part, n_valid, IVF_SETTINGS["block_rows"], d, qn, k_kernel)
             mb = n_valid * IVF_SETTINGS["block_rows"] * {"bfloat16": 2 * d + 4, "int8": d + 8,
@@ -1285,6 +1478,109 @@ def full_size_ivf(seed: int, part: str) -> dict[str, dict]:
         out[tier] = res
         del index, x, b, extra, hits
         torch.cuda.empty_cache()
+    return out, keep
+
+
+# ---------------------------------------------------------------------------
+# 5d. the ops path at full size, per-block
+# ---------------------------------------------------------------------------
+
+
+def blocks_bound(tier: str, part: str, rows: int, d: int, qn: int, n_blocks: int, k: int):
+    """The rows read (vectors, bias and, for int8, scales) and the queries,
+    plus the candidates written (n_blocks × q × k_pad × 8 bytes), at the HBM
+    rate; their 2·q·rows·d operations at the peak of their type. Returns
+    (ms, "bytes" or "operations")."""
+    k_pad = -(-k // 128) * 128
+    row_bytes = {"bfloat16": 2 * d + 4, "int8": d + 8}[tier]
+    nbytes = rows * row_bytes + qn * d * 4 + n_blocks * qn * k_pad * 8
+    bytes_ms = nbytes / HBM_PEAK[part] * 1e3
+    peak = BF16_PEAK[part] if tier == "bfloat16" else INT8_PEAK[part]
+    ops_ms = 2 * qn * rows * d / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
+    """5d: the per-block kernels through the ops API on phase 5's and 5c's
+    device tensors (q = 8, k = 10)."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF, fused_topk, merge_blocks
+
+    k, d = 10, 768
+    kernels = blocks_ops()
+    pruned = {tier: ops()[tier][0] for tier in ("bfloat16", "int8")}
+    dma = {tier: ivf_ops()[tier][0] for tier in ("bfloat16", "int8")}
+    # name → (tensors, block_rows)
+    setup = {
+        "topk": (brute["bfloat16"], 1024),
+        "topk_int8": (brute["int8"], 2048),
+        "ivf_topk": (ivf["bfloat16"], IVF_SETTINGS["block_rows"]),
+        "ivf_topk_int8": (ivf["int8"], IVF_SETTINGS["block_rows"]),
+    }
+
+    def args(name):
+        t, _ = setup[name]
+        plan = (t["ids"], t["nv"]) if "ids" in t else ()
+        return (t["q"], t["x"], *t["extra"], t["bias"], *plan, k)
+
+    reset_launches()
+    results = {"topk": fused_topk(*args("topk")[:3], k)}  # backend "auto"
+    for name in BLOCKS_NAMES[1:]:
+        results[name] = kernels[name][0](*args(name), block_rows=setup[name][1])
+    torch.cuda.synchronize()
+    counts = blocks_counts()
+    print(f"ops path: fused_topk (auto), topk_int8, ivf_topk, ivf_topk_int8 at q = 8, k = {k}; "
+          f"launches {counts}")
+    check(all(counts[name] == 1 for name in BLOCKS_NAMES), f"ops path launches {counts}")
+
+    out = {}
+    for name, (kernel, plain, tier, takes_plan) in kernels.items():
+        t, br = setup[name]
+        a = args(name)
+        x, b, q = t["x"], t["bias"], t["q"]
+        rows = x.shape[0]
+        full = plain_scores(q, x, b).cpu() if tier == "bfloat16" else None
+        cand = kernel(*a, block_rows=br, candidates=True)
+        torch.cuda.synchronize()
+        err = compare_blocks(tier, cand, plain(*a, block_rows=br, candidates=True), full,
+                             f"{name} full size candidates")
+        got = results[name]
+        err = max(err, compare_blocks(tier, got, plain(*a, block_rows=br), full,
+                                      f"{name} full size"))
+        # the pruned (brute) or DMA (IVF) kernel on the same tensors: the same live rows
+        other = (dma[tier](*a, block_rows=br) if takes_plan else pruned[tier](*a))
+        torch.cuda.synchronize()
+        live = got[0] > NEG_INF / 2
+        check(torch.equal(live, other[0] > NEG_INF / 2) and torch.equal(got[1][live], other[1][live])
+              and torch.equal(got[0][live].view(torch.int32), other[0][live].view(torch.int32)),
+              f"{name}: the live slots differ from the {'DMA' if takes_plan else 'pruned'} kernel's")
+        if takes_plan:
+            n_valid = int(t["nv"])
+            n_blocks, scanned = t["ids"].numel(), n_valid * br
+            ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
+            other_ms = time_held_ms(lambda: dma[tier](*a, block_rows=br), cold=True)
+            other_desc = f"{IVF_NAMES[tier]} (DMA kernel, same plan, L2 cold) {other_ms:.4f} ms"
+            desc, lib = "none: no one PyTorch call takes a top-k over gathered blocks", None
+            plan_desc = f", n_valid {n_valid} of {n_blocks} listed blocks"
+        else:
+            n_blocks, scanned = rows // br, rows
+            ms = time_ms(lambda: kernel(*a, block_rows=br, candidates=True))
+            other_ms = time_ms(lambda: pruned[tier](*a))
+            other_desc = f"{KERNEL_NAMES[tier]} {other_ms:.4f} ms"
+            desc, lib = library_call(tier, q, x, *(t["extra"] or (None,)), b, k)
+            plan_desc = ""
+        # the candidates a call just wrote sit in L2 for its merge
+        merge_ms = time_held_ms(lambda: merge_blocks(*cand, k))
+        call_ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=takes_plan)
+        plain_ms = time_ms(lambda: plain(*a, block_rows=br), bursts=3, burst=5)
+        library_ms = None if lib is None else time_ms(lib)
+        bms, by = blocks_bound(tier, part, scanned, d, q.shape[0], n_blocks, k)
+        print(f"  {name} {rows}x{d} block_rows={br}{plan_desc}, q = {q.shape[0]}, k = {k}: "
+              f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); merge {merge_ms:.4f} ms; "
+              f"kernel + merge {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"library {'null' if lib is None else format(library_ms, '.4f') + ' ms'} [{desc}]; "
+              f"{other_desc}; max_abs_err {err}")
+        out[name] = {"launches": counts[name], "err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     return out
 
 
@@ -1433,6 +1729,9 @@ def main() -> int:
     phase("3c kernel vs plain, IVF")
     err3c = ivf_kernel_cases(args.seed)
 
+    phase("3d kernel vs plain, per-block")
+    err3d = blocks_kernel_cases(args.seed)
+
     phase("4 main path, small corpus")
     launches4, err4 = small_corpus(args.seed)
 
@@ -1443,10 +1742,15 @@ def main() -> int:
     launches4c, err4c = small_corpus_ivf(args.seed)
 
     phase("5 main path, full size")
-    full = full_size(args.seed, part)
+    full, keep5 = full_size(args.seed, part)
 
     phase("5c main path, full size, IVF")
-    full_ivf = full_size_ivf(args.seed, part)
+    full_ivf, keep5c = full_size_ivf(args.seed, part)
+
+    phase("5d ops path, full size, per-block")
+    full_blocks = ops_full_size(part, keep5, keep5c)
+    del keep5, keep5c
+    torch.cuda.empty_cache()
 
     phase("5b main path, full size, encoder")
     enc_full = encoder_full_size(args.seed, part, enc["embedder"])
@@ -1497,6 +1801,21 @@ def main() -> int:
             "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"],
             "library_ms": None,  # no one PyTorch call computes a top-k over gathered blocks
+        })
+    for kname in BLOCKS_NAMES:
+        f = full_blocks[kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "youtu_rag_tpu_torch/csrc/topk_blocks.cu",
+            "replaces": REPLACES[kname],
+            "launches": f["launches"],
+            "max_abs_err": max(err3d[kname], f["err"]),
+            "ms": f["ms"],
+            "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"],
+            "library_ms": f["library_ms"],  # null for IVF, as above
         })
     print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")

@@ -14,12 +14,16 @@ from youtu_rag_tpu_torch.core.config import IndexConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.index import DeviceVectorIndex
 from youtu_rag_tpu_torch.ops.ivf import (
+    ivf_topk,
     ivf_topk_dma,
     ivf_topk_dma_reference,
     ivf_topk_int4_dma,
     ivf_topk_int4_dma_reference,
+    ivf_topk_int8,
     ivf_topk_int8_dma,
     ivf_topk_int8_dma_reference,
+    ivf_topk_int8_reference,
+    ivf_topk_reference,
 )
 from youtu_rag_tpu_torch.ops.attention import (
     blockwise_attention,
@@ -29,14 +33,19 @@ from youtu_rag_tpu_torch.ops.attention import (
 )
 from youtu_rag_tpu_torch.ops.topk import (
     NEG_INF,
+    fused_topk,
     quantize_rows_int4,
     quantize_rows_int8,
+    topk,
     topk_int4_pruned,
     topk_int4_pruned_reference,
+    topk_int8,
     topk_int8_pruned,
     topk_int8_pruned_reference,
+    topk_int8_reference,
     topk_pruned,
     topk_pruned_reference,
+    topk_reference,
 )
 
 TOL = 1e-4  # unit vectors; f32 sums in another order than cuBLAS
@@ -440,3 +449,118 @@ def test_cuda_ivf_index_answers_like_cpu_index(cuda_device, tier):
             np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=TOL)
             assert all(a.id == b.id or abs(sa - sb) <= TOL for (a, sa), (b, sb) in zip(g, w))
     assert kernel.launches == before + 2 and brute.launches == brute_before
+
+
+BLOCKS = {  # name: (quantizer, kernel, plain version, takes a plan)
+    "topk": (None, topk, topk_reference, False),
+    "topk_int8": (quantize_rows_int8, topk_int8, topk_int8_reference, False),
+    "ivf_topk": (None, ivf_topk, ivf_topk_reference, True),
+    "ivf_topk_int8": (quantize_rows_int8, ivf_topk_int8, ivf_topk_int8_reference, True),
+}
+
+
+def blocks_bias(kind):
+    """make_inputs' mixed bias, or: sparse (three live rows, rows 0-2 -inf,
+    the rest NEG_INF), allinf0 (block 0 of 256 rows -inf, the rest mixed)."""
+    _, _, bias = make_inputs(1, 128, seed=0)
+    if kind == "sparse":
+        bias[:] = NEG_INF
+        bias[:3] = -np.inf
+        bias[[300, 1500, 3000]] = 0.0
+    elif kind == "allinf0":
+        bias[:256] = -np.inf
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "sparse", "allinf0"])
+@pytest.mark.parametrize("k", [1, 10, 129])
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_per_block_kernel_matches_plain_version(cuda_device, name, k, kind):
+    """Every candidate slot [blocks, q, k_pad]: the fill past the live rows
+    and the (NEG_INF, 0) pad past k equal the plain version's bit for bit;
+    live slots hold the same rows (bf16: the same set per list, scores
+    within TOL; int8: the same order, bit-equal scores)."""
+    quantize, kernel, plain, ivf = BLOCKS[name]
+    qs, x, _ = make_inputs(8, 256, seed=k)
+    bias = torch.from_numpy(blocks_bias(kind)).to(cuda_device)
+    xt = torch.from_numpy(x).to(cuda_device)
+    extra = ()
+    if quantize is None:
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize(xt)
+        extra = (xs,)
+    plan = ()
+    if ivf:  # 12 of the 16 blocks listed, block 0 first, 9 probed in shuffled order
+        ids = [0] + list(np.random.default_rng(k).permutation(np.arange(1, 16))[:11])
+        plan = (torch.tensor(ids, dtype=torch.int32, device=cuda_device),
+                torch.tensor(9, dtype=torch.int32, device=cuda_device))
+    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, bias, *plan, k)
+    before = kernel.launches
+    s, i = kernel(*args, block_rows=256, candidates=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ws, wi = plain(*args, block_rows=256, candidates=True)
+    s, i, ws, wi = (a.cpu() for a in (s, i, ws, wi))
+    assert s.shape == ws.shape == (12 if ivf else 16, 8, -(-k // 128) * 128)
+    live = ws > NEG_INF / 2
+    assert torch.equal(s > NEG_INF / 2, live)
+    assert torch.equal(i[~live], wi[~live])
+    assert torch.equal(s[~live].view(torch.int32), ws[~live].view(torch.int32))
+    if quantize is None:
+        assert not live.any() or float((s[live] - ws[live]).abs().max()) <= TOL
+        for b in range(s.shape[0]):
+            for a in range(8):
+                assert set(i[b, a][live[b, a]].tolist()) == set(wi[b, a][live[b, a]].tolist())
+    else:
+        assert torch.equal(i, wi) and torch.equal(s.view(torch.int32), ws.view(torch.int32))
+    got = kernel(*args, block_rows=256)
+    want = plain(*args, block_rows=256)
+    torch.cuda.synchronize()
+    gs, gi, ws, wi = (a.cpu() for a in (*got, *want))
+    live = ws > NEG_INF / 2
+    assert gs.shape == (8, k) and torch.equal(gs > NEG_INF / 2, live)
+    assert torch.equal(gi[~live], wi[~live])  # the merged fill slots
+
+
+@pytest.mark.cuda
+def test_fused_topk_auto_launches_the_kernel_on_a_large_index(cuda_device):
+    qs, x, bias = make_inputs(70, 256, seed=5)  # 70 queries: two launches
+    args = (torch.from_numpy(qs).to(cuda_device), torch.from_numpy(x).to(cuda_device, torch.bfloat16),
+            torch.from_numpy(bias).to(cuda_device), 10)
+    before = topk.launches
+    s, i = fused_topk(*args)  # N = 4096 >= 4 x 1024
+    torch.cuda.synchronize()
+    assert topk.launches == before + 2 and s.shape == (70, 10)
+    ws, wi = fused_topk(*args, backend="pallas_interpret")
+    assert torch.equal(s.cpu() > NEG_INF / 2, ws.cpu() > NEG_INF / 2)
+    np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), atol=TOL)
+    fused_topk(*args, block_rows=2048)  # N < 4 x 2048: the XLA path, no launch
+    assert topk.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_per_block_kernel_rejects_out_of_contract(cuda_device, name):
+    quantize, kernel, _, ivf = BLOCKS[name]
+    qs, x, bias = make_inputs(3, 256, seed=0)
+    xt, extra = torch.from_numpy(x).to(cuda_device), ()
+    if quantize is None:
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize(xt)
+        extra = (xs,)
+    qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
+    ids = torch.arange(4, dtype=torch.int32, device=cuda_device)
+    plan = (ids, torch.tensor(2, dtype=torch.int32, device=cuda_device)) if ivf else ()
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, *plan, 300, block_rows=256)  # k > block_rows
+    with pytest.raises(ValueError):
+        kernel(qd, xt, *extra, bd, *plan, 10, block_rows=1000)  # does not divide N
+    with pytest.raises(ValueError):
+        kernel(torch.zeros(65, 256, device=cuda_device), xt, *extra, bd, *plan, 10,
+               block_rows=256)
+    if ivf:
+        with pytest.raises(ValueError):
+            kernel(qd, xt, *extra, bd, ids, plan[1].cpu(), 10, block_rows=256)

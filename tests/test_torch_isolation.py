@@ -38,7 +38,7 @@ def test_port_has_sources():
                    "index/ivf.py", "models/encoder.py", "models/convert.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
-                "topk_scorers.cuh", "ivf_topk.cu", "attention.cu"):
+                "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
         assert (PORT / "csrc" / src).exists()
 
 

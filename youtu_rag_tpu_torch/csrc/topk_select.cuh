@@ -1,8 +1,9 @@
 // Exact masked top-k selection shared by the port's scan kernels, for
 // Hopper (sm_90a). Included by topk_pruned.cu (bf16), topk_int8_pruned.cu
-// and topk_int4_pruned.cu (brute scans), and ivf_topk.cu (the IVF scans of
-// probed blocks); the scoring differs between them, and each source passes
-// it in as a Scorer (topk_scorers.cuh, contract below).
+// and topk_int4_pruned.cu (brute scans), ivf_topk.cu (the IVF scans of
+// probed blocks) and topk_blocks.cu (per-block candidates, see below); the
+// scoring differs between them, and each source passes it in as a Scorer
+// (topk_scorers.cuh, contract below).
 //
 // Contract of every kernel built from this header (the TPU kernels'):
 //   result = the k best (score desc, row asc) per query, as
@@ -52,6 +53,15 @@
 // Lists keep stored rows, so the result is ordered by (score desc, stored
 // row asc) whatever the order of the ids.
 //
+// Per-block candidates (the kBlocks template flag, topk_blocks.cu). CTA b
+// owns exactly one block of block_rows stored rows: rows [b * block_rows,
+// (b + 1) * block_rows) (brute) or block ids[b] (IVF; a block at b >=
+// n_valid is not read and counts as all NEG_INF). There is no merge: each
+// selecting warp writes its block's own list, k_out = k_pad entries, as
+// the TPU's per-block kernels (_select_topk) leave it: the live rows in
+// (score desc, row asc), then the fill _select_topk picks once they run
+// out (see the epilogue), then (NEG_INF, 0) past k.
+//
 // Two k classes. Up to kSmallK = 128 an insertion stages the shifted list
 // entries in registers (kSmallK / 32 per lane). Above it, up to kMaxK =
 // 1024 (the JAX kernels' limit at the default block_rows), the lists stay
@@ -73,6 +83,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <math.h>
 
@@ -215,17 +226,21 @@ __host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
 
 // Shared memory: the Scorer's query tile, score tiles f32 [2, kQT, kTile],
 // then per query a list of k scores and k rows.
-template <class Scorer, bool kBigK, bool kIvf>
+template <class Scorer, bool kBigK, bool kIvf, bool kBlocks>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  const float* __restrict__ qscale,    // [q] (kScaled only)
                  const void* __restrict__ x,          // [n, row bytes]
                  const float* __restrict__ xscale,    // [n] (kScaled only)
                  const float* __restrict__ bias,      // [n]
-                 float* __restrict__ cand_s,          // [n_cta, q, k]
-                 int* __restrict__ cand_i,            // [n_cta, q, k]
-                 int q, int n, int d, int k, int rows_per_cta,
+                 float* __restrict__ cand_s,          // [n_cta, q, k_out]
+                 int* __restrict__ cand_i,            // [n_cta, q, k_out]
+                 int q, int n, int d, int k, int k_out,
+                 int rows_per_cta,                 // kBlocks: block_rows
                  RowSource src) {                  // kIvf only
+  // IVF scans of a plan map virtual rows to stored rows; a per-block CTA
+  // reads the stored rows of its one block directly
+  constexpr bool kVirtual = kIvf && !kBlocks;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qt = smem;
   float* tiles = reinterpret_cast<float*>(smem + Scorer::q_bytes(d));
@@ -253,9 +268,24 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   const bool selects = warp < q_valid;
   float qs_w = 0.f;
   if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
-  // rows [row_begin, row_end): stored rows (brute) or virtual rows (IVF)
+  // rows [row_begin, row_end): stored rows (brute, per-block) or virtual
+  // rows (IVF scan)
   int row_begin, row_end;
-  if constexpr (kIvf) {
+  int base = 0;       // kBlocks: the block's first stored row
+  bool valid = true;  // kBlocks: the block is read (IVF: cta < n_valid)
+  int c0 = INT_MAX;   // kBlocks: this lane's lowest row scoring >= NEG_INF
+  if constexpr (kBlocks) {
+    if constexpr (kIvf) {
+      valid = cta < min(max(*src.n_valid, 0), src.max_blocks);
+      // ids[cta] * block_rows in int32 as the TPU kernel computes it (an
+      // id past n_valid is never read, only written back in the fill)
+      base = (int)((unsigned)__ldg(src.ids + cta) * (unsigned)rows_per_cta);
+    } else {
+      base = cta * rows_per_cta;
+    }
+    row_begin = base;
+    row_end = valid ? base + rows_per_cta : base;
+  } else if constexpr (kIvf) {
     const int nv = min(max(*src.n_valid, 0), src.max_blocks);
     const long long tiles = ((long long)nv * src.block_rows + kTile - 1) / kTile;
     row_begin = (int)(cta * tiles / gridDim.x) * kTile;
@@ -277,14 +307,14 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
       const int v = tile0 + c * 32 + lane;
       const bool ok = selects && v < row_end;
       int row = v;
-      if constexpr (kIvf) row = ok ? src.row(v) : 0;
+      if constexpr (kVirtual) row = ok ? src.row(v) : 0;
       tile_bias[c] = ok ? bias[row] : 0.f;
       if constexpr (Scorer::kScaled) tile_xs[c] = ok ? xscale[row] : 0.f;
     }
     for (int step = 0; step < kSteps; ++step) {
       const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
       float v;
-      if constexpr (kIvf) {
+      if constexpr (kVirtual) {
         // the group's kR virtual rows are contiguous stored rows of one block
         const int v0 = tile0 + r0;
         const int p0 = v0 < row_end ? src.row(v0) : 0;
@@ -305,7 +335,7 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
         const int v = tile0 + c * 32 + lane;
         const bool ok = v < row_end;
         int row = v;
-        if constexpr (kIvf) row = ok ? src.row(v) : 0;  // recomputed: no registers held
+        if constexpr (kVirtual) row = ok ? src.row(v) : 0;  // recomputed: no registers held
         float s = 0.f;
         if (ok) {
           const float t = tile[warp * kTile + c * 32 + lane];
@@ -314,6 +344,9 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
             s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, tile_xs[c])), tile_bias[c]);
           else
             s = t + tile_bias[c];
+          // rows ascend along the loop: the first such row is the lowest
+          if constexpr (kBlocks)
+            if (s >= kNegInf && c0 == INT_MAX) c0 = row;
         }
         unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
         while (pending) {
@@ -335,10 +368,33 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   }
 
   if (selects) {
-    size_t out = ((size_t)cta * q + q0 + warp) * k;
-    for (int t = lane; t < k; t += 32) {
-      cand_s[out + t] = my_s[t];
-      cand_i[out + t] = my_i[t];
+    if constexpr (kBlocks) {
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1) c0 = min(c0, __shfl_xor_sync(kFull, c0, o));
+      if (!valid) c0 = base;  // the TPU kernel's all-NEG_INF block: column 0
+    }
+    size_t out = ((size_t)cta * q + q0 + warp) * k_out;
+    for (int t = lane; t < k_out; t += 32) {
+      float s = kNegInf;  // the pad past k (k_out == k outside kBlocks)
+      int r = 0;
+      if (t < k) {
+        s = my_s[t];
+        r = my_i[t];
+        if constexpr (kBlocks) {
+          if (!(s > kNegInf)) {
+            // a slot no live row fills: _select_topk's pick once the live
+            // rows are used up is the first column >= the max, each pick
+            // overwritten with NEG_INF. That is (NEG_INF, c0) for the lowest
+            // column c0 scoring >= NEG_INF (a tombstone counts, a -inf row
+            // does not); in a block scoring -inf throughout, (-inf, base)
+            // first and then (NEG_INF, base).
+            r = c0 != INT_MAX ? c0 : base;
+            s = (c0 == INT_MAX && t == 0) ? -INFINITY : kNegInf;
+          }
+        }
+      }
+      cand_s[out + t] = s;
+      cand_i[out + t] = r;
     }
   }
 }
@@ -416,12 +472,12 @@ topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand
 }
 
 typedef void (*ScanKernel)(const void*, const float*, const void*, const float*, const float*,
-                           float*, int*, int, int, int, int, int, RowSource);
+                           float*, int*, int, int, int, int, int, int, RowSource);
 
-template <class Scorer, bool kIvf>
+template <class Scorer, bool kIvf, bool kBlocks = false>
 ScanKernel scan_kernel_for(int k) {
-  return k <= kSmallK ? topk_scan_kernel<Scorer, false, kIvf>
-                      : topk_scan_kernel<Scorer, true, kIvf>;
+  return k <= kSmallK ? topk_scan_kernel<Scorer, false, kIvf, kBlocks>
+                      : topk_scan_kernel<Scorer, true, kIvf, kBlocks>;
 }
 
 // Scan CTAs that fit on one SM for width d and top-k k (the register cap
@@ -455,7 +511,7 @@ int scan_and_merge(const void* queries, const float* qscale, const void* x, cons
   dim3 grid(n_cta, (q + kQT - 1) / kQT);
   kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
                                         static_cast<float*>(cand_s), static_cast<int*>(cand_i),
-                                        q, n, d, k, rows_per_cta, src);
+                                        q, n, d, k, k, rows_per_cta, src);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
@@ -487,6 +543,32 @@ int ivf_launch(const void* queries, const float* qscale, const void* x, const fl
   return scan_and_merge<Scorer, true>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
                                       out_i, q, n, d, k, n_cta,
                                       RowSource{ids, n_valid, max_blocks, block_rows}, stream);
+}
+
+// Per-block candidates: one CTA per (block, 8-query tile), each writing its
+// block's list of k_pad entries into cand [n_blocks, q, k_pad]; no merge.
+// Brute: n_blocks = n / block_rows; IVF: n_blocks = max_blocks, block i
+// being ids[i] (read only for i < *n_valid, which must be in range).
+template <class Scorer, bool kIvf>
+int blocks_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
+                  const float* bias, const int* ids, const int* n_valid, void* cand_s,
+                  void* cand_i, int q, int n, int d, int k, int k_pad, int n_blocks,
+                  int block_rows, void* stream) {
+  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || k > block_rows || k_pad < k ||
+      !Scorer::width_ok(d) || n_blocks < 1 || block_rows < 1 || n % block_rows ||
+      (!kIvf && n_blocks != n / block_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  ScanKernel kern = scan_kernel_for<Scorer, kIvf, true>(k);
+  int smem = (int)scan_smem_bytes<Scorer>(d, k);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_blocks, (q + kQT - 1) / kQT);
+  kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
+                                        static_cast<float*>(cand_s), static_cast<int*>(cand_i),
+                                        q, n, d, k, k_pad, block_rows,
+                                        RowSource{ids, n_valid, n_blocks, block_rows});
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -524,4 +606,20 @@ int ivf_launch(const void* queries, const float* qscale, const void* x, const fl
                               static_cast<const int*>(n_valid), cand_s, cand_i, out_s, out_i, \
                               q, n, d, k, max_blocks, block_rows, n_cta, stream);             \
   }                                                                                           \
+  }
+
+// The per-block source defines one entry per (scorer, row source) with this
+// macro: <name>_launch (ids and n_valid are null for the brute entries).
+#define BLOCKS_C_INTERFACE(NAME, SCORER, IVF)                                                 \
+  extern "C" int NAME##_launch(const void* queries, const void* qscale, const void* x,        \
+                               const void* xscale, const void* bias, const void* ids,         \
+                               const void* n_valid, void* cand_s, void* cand_i, int q, int n, \
+                               int d, int k, int k_pad, int n_blocks, int block_rows,         \
+                               void* stream) {                                                \
+    return blocks_launch<SCORER, IVF>(queries, static_cast<const float*>(qscale), x,          \
+                                      static_cast<const float*>(xscale),                      \
+                                      static_cast<const float*>(bias),                        \
+                                      static_cast<const int*>(ids),                           \
+                                      static_cast<const int*>(n_valid), cand_s, cand_i, q, n, \
+                                      d, k, k_pad, n_blocks, block_rows, stream);             \
   }

@@ -21,6 +21,18 @@ Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors and
 counts the launch in its ``.launches``; ``n_valid`` stays on the device
 (no ``.item()``), so nothing waits between the plan and the scan. For CPU
 tensors it runs its plain PyTorch version (``*_reference``).
+
+Also the counterparts of the per-probed-block kernels (``pallas_ivf_topk``
+→ ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``, entries of
+``csrc/topk_blocks.cu``) and of the gather fallback ``xla_ivf_topk``.
+Their contract is ``pallas_ivf_topk``'s, which differs from the DMA
+kernels' above: probe position i holds block ``ids[i]``'s own top k
+(``ops/topk.py``'s per-block contract, rows offset by ``ids[i] *
+block_rows``); a position ``i >= n_valid`` scores ``NEG_INF`` throughout,
+so its list is ``(NEG_INF, ids[i] * block_rows)``; the merge takes ties
+in probe position order, so with shuffled ids tied rows come in probe
+order, and empty slots repeat the first-listed block's lowest row that
+scores ``>= NEG_INF``, not row 0.
 """
 
 from __future__ import annotations
@@ -33,10 +45,17 @@ import torch
 from . import _build
 from .topk import (
     NEG_INF,
+    _bf16_scores,
+    _blocks_of,
+    _check_blocks,
     _check_cuda,
     _check_k,
     _device_of,
     _exact_dot,
+    _launch_blocks,
+    _scaled_scores,
+    _sorted_topk,
+    merge_blocks,
     quantize_rows_int8,
     unpack_int4,
 )
@@ -155,6 +174,11 @@ def _check_plan(name: str, n: int, block_ids: torch.Tensor, n_valid: torch.Tenso
     if block_rows < _KR or block_rows % _KR or n % block_rows:
         raise ValueError(f"{name}: block_rows={block_rows} must be a positive multiple of {_KR} "
                          f"that divides the {n} rows")
+    return _check_ids(name, block_ids, n_valid, device)
+
+
+def _check_ids(name: str, block_ids: torch.Tensor, n_valid: torch.Tensor, device) -> torch.Tensor:
+    """The plan tensors' checks; returns n_valid as an int32 [1] tensor."""
     if (block_ids.dtype != torch.int32 or block_ids.dim() != 1 or not block_ids.is_contiguous()
             or block_ids.numel() < 1):
         raise ValueError(f"{name}: block_ids must be a contiguous non-empty 1-D int32 tensor")
@@ -244,6 +268,116 @@ def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales
                    k, d, n, qn, block_rows)
 
 
+def xla_ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+                 block_ids: torch.Tensor, n_valid, k: int, *, block_rows: int = 1024):
+    """JAX's gather fallback ``xla_ivf_topk``: every listed block gathered,
+    the positions at and past ``n_valid`` given a ``NEG_INF`` bias, the bf16
+    scores' top k over the flat [max_blocks * block_rows] positions (ties to
+    the lower position), each position p mapped to row
+    ``ids[p // block_rows] * block_rows + p % block_rows``. Every entry of
+    ``block_ids`` must lie in the index, those past ``n_valid`` too (the
+    probe plan lists the unselected blocks there). Plain PyTorch on every
+    device. Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
+    mb = block_ids.shape[0]
+    if not 1 <= k <= mb * block_rows:
+        raise ValueError(f"xla_ivf_topk: k={k} outside 1..{mb * block_rows}, the listed rows")
+    ids = block_ids.to(torch.int32)
+    offs = torch.arange(block_rows, device=ids.device)
+    rows = (ids.long()[:, None] * block_rows + offs[None, :]).reshape(-1)
+    nv = torch.as_tensor(n_valid, device=ids.device).reshape(())
+    valid = torch.arange(mb, device=ids.device) < nv
+    sel_b = torch.where(valid[:, None], bias.float()[rows].reshape(mb, block_rows),
+                        torch.full((), NEG_INF, device=ids.device))
+    top_s, pos = _sorted_topk(_bf16_scores(queries, database[rows], sel_b.reshape(-1)), k)
+    pos = pos.long()
+    return top_s, ids[pos // block_rows] * block_rows + (pos % block_rows).to(torch.int32)
+
+
+def _probed_blocks(score_rows, block_ids: torch.Tensor, n_valid, k: int, block_rows: int,
+                   candidates: bool):
+    """The per-probed-block plain path: ``score_rows(rows)`` gives the
+    [q, len(rows)] scores of the stored rows of ``block_ids[:n_valid]``; the
+    positions past them score NEG_INF throughout and are not read."""
+    mb = block_ids.shape[0]
+    nv = max(0, min(int(n_valid), mb))
+    ids = block_ids.to(torch.int32)
+    offs = torch.arange(block_rows, device=ids.device)
+    scores = score_rows((ids[:nv].long()[:, None] * block_rows + offs[None, :]).reshape(-1))
+    full = torch.full((scores.shape[0], mb * block_rows), NEG_INF, dtype=torch.float32,
+                      device=scores.device)
+    full[:, : nv * block_rows] = scores
+    # ids * block_rows in int32, as the TPU kernel's fill computes it
+    return _blocks_of(full, k, block_rows, ids * block_rows, candidates)
+
+
+def ivf_topk_reference(queries, database, bias, block_ids, n_valid, k: int, *,
+                       block_rows: int = 1024, candidates: bool = False):
+    """Plain PyTorch version of ``ivf_topk``: the bf16 scores of the valid
+    blocks' rows (``_bf16_scores``), then the per-block selection."""
+    _check_blocks("ivf_topk", database.shape[0], database.shape[1], k, block_rows)
+    return _probed_blocks(lambda rows: _bf16_scores(queries, database[rows], bias[rows]),
+                          block_ids, n_valid, k, block_rows, candidates)
+
+
+def ivf_topk_int8_reference(queries, database_q, db_scales, bias, block_ids, n_valid, k: int, *,
+                            block_rows: int = 4096, candidates: bool = False):
+    """Plain PyTorch version of ``ivf_topk_int8``: the int8 scores of the
+    valid blocks' rows (``_scaled_scores``), then the per-block selection."""
+    _check_blocks("ivf_topk_int8", database_q.shape[0], database_q.shape[1], k, block_rows)
+    return _probed_blocks(
+        lambda rows: _scaled_scores(queries, database_q[rows], 127, db_scales[rows], bias[rows]),
+        block_ids, n_valid, k, block_rows, candidates)
+
+
+def ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+             block_ids: torch.Tensor, n_valid, k: int, *, block_rows: int = 1024,
+             candidates: bool = False):
+    """Masked top-k through per-probed-block candidates
+    (``pallas_ivf_topk``): (scores [q, k] f32 desc, rows [q, k] int32), or
+    with ``candidates`` the unmerged lists [max_blocks, q, k_pad] (module
+    docstring).
+
+    queries [q, d] (cast to bf16); database [N, d] (bf16; another float
+    type is cast) with d % 128 == 0 and N % block_rows == 0; bias [N] f32;
+    block_ids int32 [max_blocks], whose entries lie in the index, those
+    past n_valid too (the probe plan makes them so); n_valid an int32
+    scalar tensor, which stays on the device; 1 <= k <= min(block_rows,
+    1024). On CUDA: 1 <= q <= 64."""
+    n, d = database.shape
+    _check_blocks("ivf_topk", n, d, k, block_rows)
+    if _device_of("ivf_topk", queries, database, bias, block_ids) == "cpu":
+        return ivf_topk_reference(queries, database, bias, block_ids, n_valid, k,
+                                  block_rows=block_rows, candidates=candidates)
+    x = database.to(torch.bfloat16).contiguous()
+    n, qn = _check_cuda("ivf_topk", queries, x, bias, torch.bfloat16, d)
+    nv = _check_ids("ivf_topk", block_ids, n_valid, x.device)
+    q16 = queries.to(torch.bfloat16).contiguous()
+    cand = _launch_blocks(ivf_topk, "ivf_topk_blocks_bf16", q16, None, x, None, bias, k, d, n,
+                          qn, block_rows, block_ids, nv)
+    return cand if candidates else merge_blocks(*cand, k)
+
+
+def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
+                  bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
+                  block_rows: int = 4096, candidates: bool = False):
+    """The int8 form of ``ivf_topk`` (``pallas_ivf_topk_int8``):
+    database_q [N, d] int8, db_scales [N] f32; queries quantized per row
+    here."""
+    n, d = database_q.shape
+    _check_blocks("ivf_topk_int8", n, d, k, block_rows)
+    if _device_of("ivf_topk_int8", queries, database_q, db_scales, bias, block_ids) == "cpu":
+        return ivf_topk_int8_reference(queries, database_q, db_scales, bias, block_ids, n_valid,
+                                       k, block_rows=block_rows, candidates=candidates)
+    n, qn = _check_cuda("ivf_topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
+    nv = _check_ids("ivf_topk_int8", block_ids, n_valid, database_q.device)
+    qq, qs = quantize_rows_int8(queries)
+    cand = _launch_blocks(ivf_topk_int8, "ivf_topk_blocks_int8", qq, qs, database_q, db_scales,
+                          bias, k, d, n, qn, block_rows, block_ids, nv)
+    return cand if candidates else merge_blocks(*cand, k)
+
+
 ivf_topk_dma.launches = 0
 ivf_topk_int8_dma.launches = 0
 ivf_topk_int4_dma.launches = 0
+ivf_topk.launches = 0
+ivf_topk_int8.launches = 0

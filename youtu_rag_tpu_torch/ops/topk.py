@@ -1,9 +1,11 @@
 """Fused masked score + exact top-k over a bf16, int8 or int4 index.
 
-Counterpart of ``youtu_rag_tpu/ops/topk.py``'s pruned kernels
+Counterpart of ``youtu_rag_tpu/ops/topk.py``: its pruned kernels
 (``pallas_topk_pruned``, ``pallas_topk_int8_pruned``,
-``pallas_topk_int4_pruned``) and of its quantizers. The contract is the
-JAX kernels':
+``pallas_topk_int4_pruned``), its quantizers, its XLA paths (``xla_topk*``),
+its per-block kernels (``pallas_topk`` → ``topk``, ``pallas_topk_int8`` →
+``topk_int8``; contract below) and the dispatcher ``fused_topk``. The
+pruned kernels' contract is the JAX kernels':
 
 - bf16: scores are ``f32(bf16(q)) · f32(bf16(x))`` summed in f32, plus
   ``bias[row]`` (0 for live rows, ``NEG_INF`` for tombstones, padding and
@@ -19,10 +21,23 @@ JAX kernels':
   a filter added ``NEG_INF`` to a ``NEG_INF`` bias); their row is not
   specified, and callers drop any slot with ``score <= NEG_INF / 2``.
 
-Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``)
-launches its hand-written CUDA kernel (``csrc/<name>.cu``) for CUDA tensors
-and counts the launch in its ``.launches``; for CPU tensors it runs its
-plain PyTorch version (``*_reference``).
+The per-block kernels score the same way and follow ``pallas_topk``:
+block i of ``block_rows`` rows writes its own top k, as ``_select_topk``
+picks it (k passes of: the max, the first column scoring ``>=`` it, that
+column overwritten with ``NEG_INF``), padded with ``(NEG_INF, 0)`` to
+``k_pad = round_up(k, 128)``; the ``[blocks, q, k_pad]`` candidates then
+merge by a stable descending sort over their positions (``lax.top_k``).
+So the live rows come in (score desc, row asc), and the slots past them
+are not ``(NEG_INF, 0)`` but ``_select_topk``'s repeated pick: the lowest
+row of a block that scores ``>= NEG_INF``, in block order (see
+``csrc/topk_blocks.cu``).
+
+Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``,
+``topk``, ``topk_int8``) launches its hand-written CUDA kernel
+(``csrc/<name>.cu``; the per-block ones ``csrc/topk_blocks.cu``) for CUDA
+tensors and counts the launch in its ``.launches``; for CPU tensors it runs
+its plain PyTorch version (``*_reference``). The ``xla_*`` functions are
+plain PyTorch on every device, as they are plain XLA in JAX.
 """
 
 from __future__ import annotations
@@ -42,9 +57,24 @@ MAX_Q = 64  # the store's search coalescer merges at most 64 queries
 _LANE = 128
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def _check_k(name: str, k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside 1..{MAX_K}, the most the kernel keeps")
+
+
+def _check_blocks(name: str, n: int, d: int, k: int, block_rows: int) -> None:
+    """The per-block kernels' asserts (``pallas_topk``'s), as ValueError."""
+    _check_k(name, k)
+    if block_rows < 1 or n % block_rows:
+        raise ValueError(f"{name}: block_rows={block_rows} must divide the {n} rows")
+    if d % _LANE:
+        raise ValueError(f"{name}: width {d} must be a multiple of {_LANE}")
+    if k > block_rows:
+        raise ValueError(f"{name}: k={k} above block_rows={block_rows}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,17 +139,23 @@ def _sorted_topk(scores: torch.Tensor, k: int):
     return s[:, :k].contiguous(), i[:, :k].to(torch.int32).contiguous()
 
 
-def topk_pruned_reference(queries: torch.Tensor, database: torch.Tensor,
-                          bias: torch.Tensor, k: int):
-    """Plain PyTorch version of the bf16 kernel: full score matrix, stable
-    sort. Casts to bf16 and back to f32 before the matmul (a bf16 matmul
-    would round the scores to bf16), with TF32 off.
-    Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
+def _bf16_scores(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor):
+    """[q, N] f32 ``f32(bf16 q) · f32(bf16 x) + bias``. Casts to bf16 and
+    back to f32 before the matmul (a bf16 matmul would round the scores to
+    bf16), with TF32 off."""
     if database.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     q = queries.to(torch.bfloat16).float()
     x = database.to(torch.bfloat16).float()
-    return _sorted_topk(q @ x.T + bias.float()[None, :], k)
+    return q @ x.T + bias.float()[None, :]
+
+
+def topk_pruned_reference(queries: torch.Tensor, database: torch.Tensor,
+                          bias: torch.Tensor, k: int):
+    """Plain PyTorch version of the bf16 kernel: full score matrix
+    (``_bf16_scores``), stable sort.
+    Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
+    return _sorted_topk(_bf16_scores(queries, database, bias), k)
 
 
 def _exact_dot(qq: torch.Tensor, xq: torch.Tensor, x_max: int) -> torch.Tensor:
@@ -133,12 +169,16 @@ def _exact_dot(qq: torch.Tensor, xq: torch.Tensor, x_max: int) -> torch.Tensor:
     return (qq.double() @ xq.double().T).float()
 
 
-def _scaled_topk(queries, x_int, x_max, db_scales, bias, k):
+def _scaled_scores(queries, x_int, x_max, db_scales, bias):
+    """[q, N] f32 int8/int4 scores: the queries quantized per row, the exact
+    integer dot, then two f32 operations in the TPU kernels' order."""
     qq, qs = quantize_rows_int8(queries)
     acc = _exact_dot(qq, x_int, x_max)
-    # two f32 operations, in the TPU kernels' order
-    scores = acc * (qs[:, None] * db_scales.float()[None, :]) + bias.float()[None, :]
-    return _sorted_topk(scores, k)
+    return acc * (qs[:, None] * db_scales.float()[None, :]) + bias.float()[None, :]
+
+
+def _scaled_topk(queries, x_int, x_max, db_scales, bias, k):
+    return _sorted_topk(_scaled_scores(queries, x_int, x_max, db_scales, bias), k)
 
 
 def topk_int8_pruned_reference(queries: torch.Tensor, database_q: torch.Tensor,
@@ -154,6 +194,110 @@ def topk_int4_pruned_reference(queries: torch.Tensor, database_p: torch.Tensor,
     """Plain PyTorch version of the int4 kernel: as the int8 one over the
     unpacked nibbles (``unpack_int4``)."""
     return _scaled_topk(queries, unpack_int4(database_p), 7, db_scales, bias, k)
+
+
+def _check_rows(name: str, n: int, k: int) -> None:
+    if not 1 <= k <= n:
+        raise ValueError(f"{name}: k={k} outside 1..{n}, the index's rows")
+
+
+def xla_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int):
+    """JAX's ``xla_topk``: the full score matrix (``_bf16_scores``) and its
+    top k per query, ties to the lowest row (a stable sort, as
+    ``lax.top_k``); 1 <= k <= N. Plain PyTorch on every device.
+    Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
+    _check_rows("xla_topk", database.shape[0], k)
+    return topk_pruned_reference(queries, database, bias, k)
+
+
+def xla_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
+                  bias: torch.Tensor, k: int):
+    """JAX's ``xla_topk_int8``: as ``xla_topk`` with the int8 scores
+    (``_scaled_scores``)."""
+    _check_rows("xla_topk_int8", database_q.shape[0], k)
+    return topk_int8_pruned_reference(queries, database_q, db_scales, bias, k)
+
+
+def xla_topk_int4(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
+                  bias: torch.Tensor, k: int):
+    """JAX's ``xla_topk_int4``: as ``xla_topk_int8`` over the unpacked
+    nibbles of the packed rows."""
+    _check_rows("xla_topk_int4", database_p.shape[0], k)
+    return topk_int4_pruned_reference(queries, database_p, db_scales, bias, k)
+
+
+def _select_blocks(scores: torch.Tensor, k: int, base: torch.Tensor):
+    """``_select_topk`` (``topk.py:77-94``) on every block at once, step by
+    step: scores [q, blocks, block_rows] f32, base [blocks] int32 (each
+    block's first row). k times: the max of each block, the first column
+    scoring ``>=`` it, that column overwritten with ``NEG_INF``.
+    Returns (scores, rows), each [blocks, q, k]."""
+    br = scores.shape[2]
+    s = scores.clone()
+    col = torch.arange(br, dtype=torch.int32, device=s.device)
+    vals, cols = [], []
+    for _ in range(k):
+        m = s.amax(dim=2, keepdim=True)
+        arg = torch.where(s >= m, col, br).amin(dim=2, keepdim=True)
+        vals.append(m)
+        cols.append(arg)
+        s.scatter_(2, arg.long(), NEG_INF)
+    rows = torch.cat(cols, dim=2) + base.to(torch.int32)[None, :, None]
+    return torch.cat(vals, dim=2).transpose(0, 1), rows.transpose(0, 1)
+
+
+def _blocks_of(scores: torch.Tensor, k: int, block_rows: int, base: torch.Tensor,
+               candidates: bool):
+    """The per-block kernels' plain path from a score matrix [q, blocks *
+    block_rows]: ``_select_blocks``, each list padded with (NEG_INF, 0) to
+    ``k_pad = round_up(k, 128)`` as ``topk.py:112-116`` pads it; the
+    candidates [blocks, q, k_pad], or their merge (``merge_blocks``)."""
+    qn = scores.shape[0]
+    vals, rows = _select_blocks(scores.reshape(qn, -1, block_rows), k, base)
+    nb, k_pad = vals.shape[0], _round_up(k, _LANE)
+    cand_s = torch.full((nb, qn, k_pad), NEG_INF, dtype=torch.float32, device=scores.device)
+    cand_i = torch.zeros((nb, qn, k_pad), dtype=torch.int32, device=scores.device)
+    cand_s[..., :k] = vals
+    cand_i[..., :k] = rows
+    return (cand_s, cand_i) if candidates else merge_blocks(cand_s, cand_i, k)
+
+
+def merge_blocks(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
+    """The per-block kernels' merge (``topk.py:184-189``): the candidates
+    [blocks, q, k_pad] laid out per query in block order, a stable
+    descending sort over those positions (``lax.top_k``: ties to the lower
+    position), the first k. Returns (scores [q, k] f32, rows [q, k] int32)."""
+    nb, qn, kp = cand_s.shape
+    s = cand_s.transpose(0, 1).reshape(qn, nb * kp)
+    i = cand_i.transpose(0, 1).reshape(qn, nb * kp)
+    top, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    return top[:, :k].contiguous(), torch.gather(i, 1, pos[:, :k]).contiguous()
+
+
+def _block_base(n_blocks: int, block_rows: int, device) -> torch.Tensor:
+    return torch.arange(n_blocks, dtype=torch.int32, device=device) * block_rows
+
+
+def topk_reference(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int,
+                   *, block_rows: int = 1024, candidates: bool = False):
+    """Plain PyTorch version of ``topk`` (``pallas_topk``): the bf16 score
+    matrix, then ``_blocks_of``."""
+    n, d = database.shape
+    _check_blocks("topk", n, d, k, block_rows)
+    return _blocks_of(_bf16_scores(queries, database, bias), k, block_rows,
+                      _block_base(n // block_rows, block_rows, database.device), candidates)
+
+
+def topk_int8_reference(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
+                        bias: torch.Tensor, k: int, *, block_rows: int = 2048,
+                        candidates: bool = False):
+    """Plain PyTorch version of ``topk_int8`` (``pallas_topk_int8``): the
+    int8 score matrix (``_scaled_scores``), then ``_blocks_of``."""
+    n, d = database_q.shape
+    _check_blocks("topk_int8", n, d, k, block_rows)
+    scores = _scaled_scores(queries, database_q, 127, db_scales, bias)
+    return _blocks_of(scores, k, block_rows,
+                      _block_base(n // block_rows, block_rows, database_q.device), candidates)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +447,117 @@ def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales:
     return _launch(topk_int4_pruned, qq, qs, database_p, db_scales, bias, k, d, n, qn)
 
 
+_BLOCKS_LIB = "topk_blocks"
+_BLOCKS_ENTRIES = ("topk_blocks_bf16", "topk_blocks_int8", "ivf_topk_blocks_bf16",
+                   "ivf_topk_blocks_int8")
+
+
+def _blocks_library() -> ctypes.CDLL:
+    lib = _build.load(_BLOCKS_LIB)
+    if lib.topk_blocks_error_string.restype is not ctypes.c_char_p:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for entry in _BLOCKS_ENTRIES:
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = [p] * 9 + [i] * 7 + [p]
+            launch.restype = i
+        lib.topk_blocks_error_string.argtypes = [i]
+        lib.topk_blocks_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_blocks(fn, entry: str, queries, qscale, x, xscale, bias, k: int, d: int, n: int,
+                   qn: int, block_rows: int, block_ids=None, n_valid=None):
+    """Launch ``entry`` of ``csrc/topk_blocks.cu`` on the current stream
+    (no sync); returns its candidates [blocks, q, k_pad] (f32, int32)."""
+    lib = _blocks_library()
+    dev = x.device
+    n_blocks = n // block_rows if block_ids is None else block_ids.numel()
+    k_pad = _round_up(k, _LANE)
+    cand_s = torch.empty((n_blocks, qn, k_pad), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((n_blocks, qn, k_pad), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = getattr(lib, f"{entry}_launch")(
+        queries.data_ptr(), ptr(qscale), x.data_ptr(), ptr(xscale), bias.data_ptr(),
+        ptr(block_ids), ptr(n_valid), cand_s.data_ptr(), cand_i.data_ptr(),
+        qn, n, d, k, k_pad, n_blocks, block_rows, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({lib.topk_blocks_error_string(err).decode()})")
+    fn.launches += 1
+    return cand_s, cand_i
+
+
+def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
+         block_rows: int = 1024, candidates: bool = False):
+    """Masked top-k through per-block candidates (``pallas_topk``):
+    (scores [q, k] f32 desc, rows [q, k] int32), or with ``candidates`` the
+    unmerged lists [N / block_rows, q, k_pad] (module docstring).
+
+    queries [q, d] (cast to bf16); database [N, d] (bf16; another float
+    type is cast to bf16, as JAX does) with d % 128 == 0 and
+    N % block_rows == 0; bias [N] f32; 1 <= k <= min(block_rows, 1024).
+    On CUDA: 1 <= q <= 64; the kernel and the merge (a torch sort) run on
+    the current stream, without a sync."""
+    n, d = database.shape
+    _check_blocks("topk", n, d, k, block_rows)
+    if _device_of("topk", queries, database, bias) == "cpu":
+        return topk_reference(queries, database, bias, k, block_rows=block_rows,
+                              candidates=candidates)
+    x = database.to(torch.bfloat16).contiguous()
+    n, qn = _check_cuda("topk", queries, x, bias, torch.bfloat16, d)
+    q16 = queries.to(torch.bfloat16).contiguous()
+    cand = _launch_blocks(topk, "topk_blocks_bf16", q16, None, x, None, bias, k, d, n, qn,
+                          block_rows)
+    return cand if candidates else merge_blocks(*cand, k)
+
+
+def topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
+              bias: torch.Tensor, k: int, *, block_rows: int = 2048, candidates: bool = False):
+    """The int8 form of ``topk`` (``pallas_topk_int8``): database_q [N, d]
+    int8, db_scales [N] f32; queries quantized per row here
+    (``quantize_rows_int8``)."""
+    n, d = database_q.shape
+    _check_blocks("topk_int8", n, d, k, block_rows)
+    if _device_of("topk_int8", queries, database_q, db_scales, bias) == "cpu":
+        return topk_int8_reference(queries, database_q, db_scales, bias, k,
+                                   block_rows=block_rows, candidates=candidates)
+    n, qn = _check_cuda("topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
+    qq, qs = quantize_rows_int8(queries)
+    cand = _launch_blocks(topk_int8, "topk_blocks_int8", qq, qs, database_q, db_scales, bias,
+                          k, d, n, qn, block_rows)
+    return cand if candidates else merge_blocks(*cand, k)
+
+
+def fused_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
+               block_rows: int = 1024, backend: str = "auto"):
+    """JAX's ``fused_topk``: dispatch between the per-block kernel and the
+    XLA path. ``backend``:
+
+    - ``"auto"``: ``topk`` for CUDA tensors when N >= 4 * block_rows (JAX's
+      rule, with the card in the TPU's place), else ``xla_topk``;
+    - ``"pallas"``: ``topk`` (the kernel on CUDA tensors, its plain version
+      on CPU ones);
+    - ``"pallas_interpret"``: ``topk_reference`` on any device;
+    - ``"xla"``: ``xla_topk``.
+
+    Takes any number of queries: the per-block paths run them in tiles of
+    ``MAX_Q``, the most one kernel launch takes.
+    Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
+    if backend == "auto":
+        backend = "pallas" if database.is_cuda and database.shape[0] >= 4 * block_rows else "xla"
+    if backend == "xla":
+        return xla_topk(queries, database, bias, k)
+    fn = {"pallas": topk, "pallas_interpret": topk_reference}.get(backend)
+    if fn is None:
+        raise ValueError(f"unknown backend {backend!r}")
+    parts = [fn(queries[i : i + MAX_Q], database, bias, k, block_rows=block_rows)
+             for i in range(0, queries.shape[0], MAX_Q)]
+    return torch.cat([s for s, _ in parts]), torch.cat([r for _, r in parts])
+
+
 topk_pruned.launches = 0
 topk_int8_pruned.launches = 0
 topk_int4_pruned.launches = 0
+topk.launches = 0
+topk_int8.launches = 0
