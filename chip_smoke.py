@@ -8,15 +8,27 @@ Phases; any failure exits non-zero before the result lines:
      fails without a CUDA device;
   2. build: compiles the path's six kernel sources from csrc/ at once (one
      nvcc per source) and prints each build's time and ptxas' register and
-     spill report;
+     spill report (the scan kernels in three k classes, the attention
+     kernels with the hop entry);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
      quantized tensors;
+  3x. kernel vs plain, any query count and k above 1024: q = 0 (no launch,
+     an empty result), 65, 100 and 130 (one launch per 64 queries) through
+     all ten top-k wrappers; k = 2048 and 4096 (bf16, int4) and 8192
+     (int8) through the pruned kernels, k = 2048 through one IVF and two
+     per-block cases (the lists in device memory); each held to its plain
+     version as in phases 3, 3c and 3d;
   3b. kernel vs plain, attention: blockwise (T 256, 512, 4096) and flash
      (T 4224, 8192) against their plain versions, hd 64 and 128, bf16 and
      f32, with padded keys and a batch row whose every key is masked,
      within ATTN_TOL; any NaN fails;
+  3e. kernel vs plain, the ring hop: ``flash_attention_stats`` at T = T_kv
+     = 256, 1024 and 8192, T = 1024 against T_kv = 512 and 4096, hd 64 and
+     128, bf16 and f32, padded keys, a fully masked row and a span whose
+     every key is padding: m, l and acc / l (compare_stats); two half-span
+     hops combined against ``flash_attention`` on the whole span;
   3c. kernel vs plain, IVF: each IVF kernel against its plain version over
      IVF_CASES (k 1 to 1024, q 1 to 64, block_rows 64, 1024 and 4096) and
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
@@ -52,6 +64,14 @@ Phases; any failure exits non-zero before the result lines:
      committed yrt_tiny_lex as its config says (no attention launches),
      ranking the exact-identifier documents, then served with "pallas",
      which must give the same top documents;
+  4d. main path, small corpus, long documents: six documents of ~1,200
+     tokens whose own passage starts past token 512, one chunk each at
+     ``chunk_size`` 10,000, through a CUDA KB served by the default
+     full-width encoder with sp_mesh=4: every query answered from its
+     document, hop launches a positive multiple of 12 x 4 (the same KB cut
+     at max_len is printed for contrast); then a small encoder (128 wide,
+     2 layers, 2 heads of 64) with sp_mesh=4, whose top documents on the
+     card equal its CPU twin's;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -82,14 +102,22 @@ Phases; any failure exits non-zero before the result lines:
      documents at T = 8192 (flash); each kernel, on the last layer's
      tensors of its run, is held against its plain version and timed
      beside its bound, its plain version and scaled_dot_product_attention;
+  5e. main path, full size, the ring: the default encoder with sp_mesh=4
+     embeds 8 documents of ~3,500 words (T 4096, Tl 1024): embeddings/s,
+     the forward's device time and its split by kernel, the same top-1
+     neighbours as the unsharded forward at T = 4096 (blockwise) within
+     ENC_TOL, and in f32 at T = 2048 within 2e-5; the hop kernel on the
+     main path's tensors, then at [2, 12, 8192, 64] bf16 against 8192 keys
+     (sp 4 over T = 32,768) timed beside its bound, its plain version and
+     the efficient-attention call that returns (out, logsumexp);
   6. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-     "bound_by", "library_ms"}, ...]}: one entry per kernel, twelve;
+     "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
   7. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 5, 5c, 5d and 5b drive it and read just after; launches made to compare
-or time a kernel are not counted. Every phase prints its wall time.
+4c, 4d, 5, 5c, 5d, 5b and 5e drive it and read just after; launches made to
+compare or time a kernel are not counted. Every phase prints its wall time.
 """
 
 from __future__ import annotations
@@ -125,6 +153,7 @@ REPLACES = {  # the pallas_call of each TPU kernel
     "topk_int4_pruned": "youtu_rag_tpu/ops/topk.py:665",
     "blockwise_attention": "youtu_rag_tpu/ops/attention.py:80",
     "flash_attention": "youtu_rag_tpu/ops/attention.py:307",
+    "flash_attention_stats": "youtu_rag_tpu/ops/attention.py:229",
     "ivf_topk_dma": "youtu_rag_tpu/ops/ivf.py:461",
     "ivf_topk_int8_dma": "youtu_rag_tpu/ops/ivf.py:527",
     "ivf_topk_int4_dma": "youtu_rag_tpu/ops/ivf.py:596",
@@ -171,7 +200,8 @@ def attention_ops():
     from youtu_rag_tpu_torch.ops import attention as a
 
     return {"blockwise_attention": (a.blockwise_attention, a.blockwise_attention_reference),
-            "flash_attention": (a.flash_attention, a.flash_attention_reference)}
+            "flash_attention": (a.flash_attention, a.flash_attention_reference),
+            "flash_attention_stats": (a.flash_attention_stats, a.flash_attention_stats_reference)}
 
 
 def ivf_ops():
@@ -650,6 +680,210 @@ def blocks_kernel_cases(seed: int) -> dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
+# 3 (continued). any query count, k above 1024
+# ---------------------------------------------------------------------------
+
+QUERY_COUNTS = (0, 65, 100, 130)  # around and past the 64 queries of one launch
+BIG_K = {"bfloat16": (2048, 4096), "int8": (8192,), "int4": (2048, 4096)}
+
+
+def all_topk_wrappers() -> dict:
+    """Every top-k wrapper: name → (wrapper, plain version, tier, kind);
+    kind "brute", "ivf" (a plan, merged) or "blocks"/"ivf_blocks"."""
+    out = {KERNEL_NAMES[t]: (w, p, t, "brute") for t, (w, p, _) in ops().items()}
+    out.update({IVF_NAMES[t]: (w, p, t, "ivf") for t, (w, p, _) in ivf_ops().items()})
+    out.update({name: (w, p, tier, "ivf_blocks" if plan else "blocks")
+                for name, (w, p, tier, plan) in blocks_ops().items()})
+    return out
+
+
+def wrapper_args(tier: str, kind: str, stored: dict, bias, plan):
+    """The arguments after the queries and before k, and the keywords."""
+    x, extra = stored[tier]
+    kw = {} if kind == "brute" else {"block_rows": plan[2]}
+    return (x, *extra, bias, *(plan[:2] if kind in ("ivf", "ivf_blocks") else ())), kw
+
+
+def compare_tier(tier: str, got, want, full, what: str) -> float:
+    if tier == "bfloat16":
+        return compare_topk(got, want, full, what)
+    return compare_exact(got, want, what)
+
+
+def query_k_cases(seed: int) -> dict[str, float]:
+    """q = 0 (no launch, an empty result), 65, 100 and 130 (one launch per
+    64 queries) through every top-k wrapper; k = 2048 / 4096 (bf16, int4)
+    and 8192 (int8) through the pruned kernels, and k = 2048 through one
+    IVF and one per-block case (the device-memory list class). Each held to
+    its plain version on the same tensors."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF, quantize_rows_int4, quantize_rows_int8
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n, d = 65536, 256
+    x = torch.randn(n, d, generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    bias = torch.zeros(n, device="cuda")
+    bias[::7] = NEG_INF
+    bias[3::11] = float("-inf")
+    stored = {"bfloat16": (x.to(torch.bfloat16), ()), "int8": (lambda t: (t[0], (t[1],)))(
+        quantize_rows_int8(x)), "int4": (lambda t: (t[0], (t[1],)))(quantize_rows_int4(x))}
+    ids, nv = ivf_plan(n // 1024, n // 1024 // 2, g)
+    plan = (ids, nv, 1024)
+    max_err = {}
+    wrappers = all_topk_wrappers()
+    n_checked = 0
+    for qn in QUERY_COUNTS:
+        queries = torch.randn(qn, d, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        full = plain_scores(queries, stored["bfloat16"][0], bias).cpu()
+        for name, (wrapper, plain, tier, kind) in wrappers.items():
+            args, kw = wrapper_args(tier, kind, stored, bias, plan)
+            what = f"{name} q={qn}"
+            before = wrapper.launches
+            got = wrapper(queries, *args, 10, **kw)
+            torch.cuda.synchronize()
+            launched = wrapper.launches - before
+            check(launched == -(-qn // 64), f"{what}: {launched} launches, want {-(-qn // 64)}")
+            want = plain(queries, *args, 10, **kw)
+            check(tuple(got[0].shape) == tuple(want[0].shape) == (qn, 10),
+                  f"{what}: shapes {tuple(got[0].shape)} {tuple(want[0].shape)}")
+            if kind in ("blocks", "ivf_blocks"):
+                err = compare_blocks(tier, got, want, full, what)
+                cand = wrapper(queries, *args, 10, candidates=True, **kw)
+                cand_want = plain(queries, *args, 10, candidates=True, **kw)
+                check(cand[0].shape[1] == qn, f"{what}: candidates {tuple(cand[0].shape)}")
+                err = max(err, compare_blocks(tier, cand, cand_want, full, what + " candidates"))
+            else:
+                err = compare_tier(tier, got, want, full, what) if qn else 0.0
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            n_checked += 1
+    big = [(tier, k, qn) for tier, ks in BIG_K.items() for k in ks for qn in (8, 65)]
+    for tier, k, qn in big:
+        queries = torch.randn(qn, d, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        full = plain_scores(queries, stored["bfloat16"][0], bias).cpu()
+        name = KERNEL_NAMES[tier]
+        wrapper, plain, _, _ = wrappers[name]
+        args, _ = wrapper_args(tier, "brute", stored, bias, plan)
+        got = wrapper(queries, *args, k)
+        torch.cuda.synchronize()
+        err = compare_tier(tier, got, plain(queries, *args, k), full, f"{name} q={qn} k={k}")
+        max_err[name] = max(max_err[name], err)
+        n_checked += 1
+    queries = torch.randn(8, d, generator=g, device="cuda")
+    queries /= queries.norm(dim=1, keepdim=True)
+    full = plain_scores(queries, stored["bfloat16"][0], bias).cpu()
+    for name, k, br in (("ivf_topk_dma", 2048, 1024), ("topk", 2048, 4096),
+                        ("ivf_topk_int8", 2048, 4096)):
+        wrapper, plain, tier, kind = wrappers[name]
+        kplan = plan if br == 1024 else (*ivf_plan(n // br, n // br // 2, g), br)
+        args, kw = wrapper_args(tier, kind, stored, bias, kplan)
+        what = f"{name} q=8 k={k} block_rows={br}"
+        got = wrapper(queries, *args, k, **({"candidates": True} if "blocks" in kind else {}), **kw)
+        torch.cuda.synchronize()
+        want = plain(queries, *args, k, **({"candidates": True} if "blocks" in kind else {}), **kw)
+        err = (compare_blocks(tier, got, want, full, what) if "blocks" in kind
+               else compare_ivf(tier, got, want, full, what))
+        max_err[name] = max(max_err[name], err)
+        n_checked += 1
+    print(f"any q and k above 1024: {n_checked} checks ok (q {QUERY_COUNTS} through "
+          f"{len(wrappers)} wrappers; k {BIG_K} brute; k 2048 IVF and per-block), max_abs_err "
+          + ", ".join(f"{n} {e}" for n, e in max_err.items()))
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# 3e. kernel vs plain, the ring hop
+# ---------------------------------------------------------------------------
+
+# (T, T_kv, bias kind): "mixed" pads row 0's keys past T_kv / 2 + 3 and
+# masks the last row throughout; "allpad" masks every key of the span
+STATS_CASES = [(t, t_kv, kind, hd, dtype)
+               for t, t_kv, kind in ((256, 256, "mixed"), (1024, 1024, "mixed"),
+                                     (8192, 8192, "mixed"), (1024, 512, "mixed"),
+                                     (1024, 4096, "mixed"), (1024, 512, "allpad"))
+               for hd in (64, 128) for dtype in (torch.bfloat16, torch.float32)]
+
+
+def compare_stats(got, want, what: str) -> float:
+    """m within f32 summation order (1e-5 absolute plus 1e-6 relative), l
+    and acc / l within the flash entry's tolerance (bf16 one bf16 ulp,
+    rtol 2^-7 and 2^-10 absolute; f32 1e-5, l relative); no NaN. Returns
+    the max abs error of acc / l."""
+    (ga, gm, gl), (wa, wm, wl) = got, want
+    for t in (ga, gm, gl):
+        check(bool(torch.isfinite(t).all()), f"{what}: non-finite acc, m or l")
+    check(ga.dtype == gm.dtype == gl.dtype == torch.float32, f"{what}: dtypes")
+    check(ga.shape == wa.shape and gm.shape == wm.shape == gl.shape, f"{what}: shapes")
+    dm = (gm - wm).abs()
+    check(bool((dm <= 1e-5 + 1e-6 * wm.abs()).all()), f"{what}: m differs by {float(dm.max())}")
+    rtol = 2**-7 if what.endswith("bfloat16") else 1e-5
+    dl = (gl - wl).abs() / wl.abs()
+    check(bool((dl <= rtol).all()), f"{what}: l differs by {float(dl.max())} relative")
+    go, wo = ga / gl[..., None], wa / wl[..., None]
+    atol = 2**-10 if rtol > 1e-5 else 1e-5
+    bad = (go - wo).abs() > atol + rtol * wo.abs()
+    err = float((go - wo).abs().max())
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} acc / l beyond tolerance, max {err}")
+    return err
+
+
+def stats_inputs(t: int, t_kv: int, kind: str, hd: int, dtype, g, b: int = 3, h: int = 2):
+    q = torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, t_kv, hd, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = torch.ones(b, t_kv, device="cuda")
+    if kind == "mixed":
+        mask[0, t_kv // 2 + 3 :] = 0
+        mask[-1] = 0
+    else:
+        mask[:] = 0
+    return q, k, v, (1.0 - mask) * -1e9
+
+
+def combine_hops(hops, dtype):
+    """The ring's combine of (acc, m, l) hops, then the divide."""
+    acc, m, l = hops[0]
+    for acc_h, m_h, l_h in hops[1:]:
+        m_new = torch.maximum(m, m_h)
+        a_old, a_hop = torch.exp(m - m_new), torch.exp(m_h - m_new)
+        l = l * a_old + l_h * a_hop
+        acc = acc * a_old[..., None] + acc_h * a_hop[..., None]
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(dtype)
+
+
+def stats_cases(seed: int) -> float:
+    from youtu_rag_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_stats,
+        flash_attention_stats_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    max_err = 0.0
+    for t, t_kv, kind, hd, dtype in STATS_CASES:
+        args = stats_inputs(t, t_kv, kind, hd, dtype, g)
+        got = flash_attention_stats(*args)
+        torch.cuda.synchronize()
+        what = f"flash_attention_stats T={t} T_kv={t_kv} {kind} hd={hd} {str(dtype)[6:]}"
+        max_err = max(max_err, compare_stats(got, flash_attention_stats_reference(*args), what))
+    # two half-span hops, combined, against the flash kernel on the whole span
+    for hd in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias = attention_inputs(3, 2, 1024, hd, dtype, g)
+            halves = [flash_attention_stats(q, k[:, :, s], v[:, :, s], bias[:, s])
+                      for s in (slice(0, 512), slice(512, 1024))]
+            got = combine_hops(halves, dtype)
+            torch.cuda.synchronize()
+            err = compare_attention(got, flash_attention(q, k, v, bias),
+                                    f"two hops vs flash_attention hd={hd} {str(dtype)[6:]}")
+            max_err = max(max_err, err)
+    print(f"ring hop kernel vs plain: {len(STATS_CASES)} cases and 4 two-hop combines ok, "
+          f"max_abs_err {max_err}")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
 # 4. main path, small corpus
 # ---------------------------------------------------------------------------
 
@@ -1065,6 +1299,131 @@ def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
         print(f"  served again with 'pallas': {n_bw} blockwise launches, same top documents "
               f"and identifier order")
     return {"embedder": kb.embedder, "launches": main_counts}, errs
+
+
+# ---------------------------------------------------------------------------
+# 4d. main path, small corpus, long documents
+# ---------------------------------------------------------------------------
+
+LONG_LEAD = 640  # shared filler words before each document's passage: past token 512
+LONG_REPEATS = 50  # the passage's sentence, repeated: the document's own content
+LONG_DOCS = ("cooking.md", "astronomy.md", "cycling.md", "gardening.md", "chess.md", "coffee.md")
+LONG_QUERIES = QUERIES[1:] + [HYBRID_QUERY, ("how does castling move the king", "chess.md"),
+                              ("espresso extraction seconds at nine bar", "coffee.md")]
+SMALL_ENC = dict(d_model=128, n_layers=2, n_heads=2, d_ff=512, out_dim=128)  # 2 heads of 64
+
+
+def write_long_corpus(root: str, seed: int) -> None:
+    """One file per LONG_DOCS topic, under 10,000 characters (one chunk at
+    ``chunk_size`` 10,000): a title, LONG_LEAD filler words that every
+    document shares, then the topic's sentence LONG_REPEATS times, so the
+    text that tells the documents apart starts past token 512."""
+    rng = np.random.default_rng(seed)
+    for name in LONG_DOCS:
+        title, sentence = TOPICS[name].split("\n", 1)
+        lead = " ".join(rng.choice(FILLER, size=LONG_LEAD))
+        with open(os.path.join(root, name), "w") as f:
+            f.write(f"{title}\n\n{lead}.\n\n" + " ".join([sentence] * LONG_REPEATS))
+
+
+def long_config(name: str):
+    from youtu_rag_tpu_torch.core.config import ChunkingConfig
+
+    cfg = encoder_config(name)
+    cfg.knowledge_builder.chunking = ChunkingConfig(chunk_size=10000)
+    return cfg
+
+
+async def _long_answers(kb):
+    return [await kb.retriever.retrieve(q, top_k=3, similarity_threshold=0.0)
+            for q, _ in LONG_QUERIES]
+
+
+def long_kb(name: str, embedder, files, device: str):
+    """A KB of the long corpus served by ``embedder``: (status, answers)."""
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    kb = KnowledgeBase(name, long_config(name), device=device)
+    serve_with(kb, embedder)
+    status = asyncio.run(kb.build_files(files))
+    check(status.status == "completed" and not status.errors, f"{name}: build {status.errors}")
+    check(status.total_chunks == len(LONG_DOCS), f"{name}: {status.total_chunks} chunks, "
+          f"want one per document")
+    return kb, asyncio.run(_long_answers(kb))
+
+
+def long_corpus(seed: int, embedder) -> dict:
+    """4d: the default full-width encoder with sp_mesh=4 answers from the
+    right documents; a small encoder's KB on the card gives the top
+    documents of its CPU twin. Returns the full-width embedder and its
+    main-path launch counts."""
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        write_long_corpus(root, seed)
+        files = sorted(os.path.join(root, f) for f in os.listdir(root))
+        tok = embedder.tokenizer
+        for path in files:
+            with open(path) as f:
+                ids = tok.tokenize(f.read())
+            check(len(ids) + 2 > embedder.cfg.max_len, f"{path}: only {len(ids)} tokens")
+        lead_tokens = len(tok.tokenize(f"{TOPICS[LONG_DOCS[0]].split(chr(10))[0]} "
+                                       + " ".join(["notes"] * LONG_LEAD) + ".")) + 1
+        check(lead_tokens > 512, f"the passages start at token {lead_tokens}")
+
+        # the default encoder, sequence-parallel over 4 shards on the card
+        t0 = time.perf_counter()
+        cfg = embedder.cfg
+        long_emb = TorchEmbedder(config=cfg, params=embedder.params, device="cuda", sp_mesh=4)
+        reset_launches()
+        kb, got = long_kb("smoke-long", long_emb, files, "cuda")
+        torch.cuda.synchronize()
+        counts = attention_counts()
+        n_stats = counts["flash_attention_stats"]
+        lens = sorted(len(tok.tokenize(c.content)) + 2 for c in kb.store.index._chunks if c)
+        print(f"long corpus: {len(files)} documents of {lens[0]}-{lens[-1]} tokens, one chunk "
+              f"each, passages from token {lead_tokens}; default encoder, sp_mesh=4: launches "
+              f"{counts}, {time.perf_counter() - t0:.1f} s")
+        check(n_stats > 0 and n_stats % (cfg.n_layers * 4) == 0,
+              f"flash_attention_stats launches {n_stats}: want a positive multiple of "
+              f"{cfg.n_layers} x 4")
+        for (query, want), hits in zip(LONG_QUERIES, got):
+            check(len(hits) > 0 and all(np.isfinite(h.score) for h in hits), f"{query!r}: hits")
+            print(f"  {query!r} -> {hits[0].chunk.document_id} ({hits[0].score:.4f}; next "
+                  f"{hits[1].chunk.document_id} {hits[1].score:.4f})")
+            check(hits[0].chunk.document_id == want,
+                  f"{query!r}: top document {hits[0].chunk.document_id}, expected {want}")
+        out["launches"] = n_stats
+        # the same KB cut at max_len, for contrast (no check)
+        _, cut = long_kb("smoke-long-cut", TorchEmbedder(config=cfg, params=embedder.params,
+                                                         device="cuda"), files, "cuda")
+        right = sum(h[0].chunk.document_id == w for (_, w), h in zip(LONG_QUERIES, cut))
+        print(f"  cut at max_len {cfg.max_len} (no sp_mesh): {right} of {len(LONG_QUERIES)} "
+              "queries answered from the right document")
+
+        # a small encoder (Tl >= 256 still takes the hop kernel): card vs CPU twin
+        small_cfg = EncoderConfig(**SMALL_ENC, attention_impl="pallas")
+        small = TorchEmbedder(config=small_cfg, device="cuda", sp_mesh=4)
+        before = attention_counts()["flash_attention_stats"]
+        _, got_s = long_kb("smoke-long-small", small, files, "cuda")
+        torch.cuda.synchronize()
+        n_small = attention_counts()["flash_attention_stats"] - before
+        check(n_small > 0 and n_small % (small_cfg.n_layers * 4) == 0,
+              f"small encoder: flash_attention_stats launches {n_small}")
+        twin = TorchEmbedder(config=small_cfg, params=small.params, device="cpu", sp_mesh=4)
+        _, ref_s = long_kb("smoke-long-small-cpu", twin, files, "cpu")
+        tops = [h[0].chunk.document_id for h in got_s]
+        check(tops == [h[0].chunk.document_id for h in ref_s],
+              f"small encoder: card {tops}, CPU twin {[h[0].chunk.document_id for h in ref_s]}")
+        err = max(abs(a.score - b.score) for g, r in zip(got_s, ref_s) for a, b in zip(g, r))
+        check(err <= ENC_TOL, f"small encoder: scores differ from the CPU twin's by {err}")
+        print(f"  small encoder ({small_cfg.d_model} wide, {small_cfg.n_layers} layers, "
+              f"{small_cfg.n_heads} heads of {small_cfg.head_dim}), sp_mesh=4: {n_small} hop "
+              f"launches, the CPU twin's top documents {tops}, scores within {err:.3g}")
+    out["embedder"] = long_emb
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1668,8 +2027,8 @@ def encoder_full_size(seed: int, part: str, embedder) -> dict[str, dict]:
     wall = time.perf_counter() - t0
     check(emb.shape == (128, cfg.embed_dim) and np.isfinite(emb).all(), "forward: bad embeddings")
     check(np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-3), "forward: not unit vectors")
-    check(counts == {"blockwise_attention": cfg.n_layers, "flash_attention": 0},
-          f"forward at T = 512: launches {counts}")
+    check(counts == {"blockwise_attention": cfg.n_layers, "flash_attention": 0,
+                     "flash_attention_stats": 0}, f"forward at T = 512: launches {counts}")
     check(tuple(args[0].shape) == (128, cfg.n_heads, 512, cfg.head_dim), f"shape {args[0].shape}")
     ids, mask = embedder.tokenizer.batch(texts)
     ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
@@ -1689,13 +2048,181 @@ def encoder_full_size(seed: int, part: str, embedder) -> dict[str, dict]:
     docs = [" ".join(rng.choice(words, size=8000)) for _ in range(2)]
     emb, counts, args = drive_capturing(long_emb, docs, "flash_attention")
     check(emb.shape == (2, cfg.embed_dim) and np.isfinite(emb).all(), "long documents: bad embeddings")
-    check(counts == {"blockwise_attention": 0, "flash_attention": cfg.n_layers},
-          f"forward at T = 8192: launches {counts}")
+    check(counts == {"blockwise_attention": 0, "flash_attention": cfg.n_layers,
+                     "flash_attention_stats": 0}, f"forward at T = 8192: launches {counts}")
     check(args[0].shape[2] == 8192, f"flash shape {args[0].shape}")
     print(f"long documents, T = 8192, batch bucket {args[0].shape[0]}: launches {counts}")
     args = tuple(x[:2].contiguous() for x in args)  # the two documents: B = 2
     out["flash_attention"] = {"launches": counts["flash_attention"],
                               **time_attention("flash_attention", args, part)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5e. main path at full size, the ring
+# ---------------------------------------------------------------------------
+
+
+class HopSpy:
+    """Stands in for the hop kernel in the SP module and keeps the inputs
+    of its last call (the kernel still counts its launches)."""
+
+    def __init__(self, fn):
+        self.fn, self.args = fn, None
+
+    def __call__(self, q, k, v, bias):
+        self.args = (q, k, v, bias)
+        return self.fn(q, k, v, bias)
+
+
+def stats_bound(part: str, b: int, h: int, t: int, t_kv: int, hd: int, elem: int):
+    """The larger of 4·B·H·T·T_kv·hd operations at the bf16 tensor-core
+    peak and the bytes of q, k, v (read once), the bias, and acc, m and l
+    (written once) at the HBM rate. Returns (ms, "bytes" or "operations")."""
+    ops_ms = 4 * b * h * t * t_kv * hd / BF16_PEAK[part] * 1e3
+    nbytes = (b * h * (t + 2 * t_kv) * hd * elem + b * t_kv * 4
+              + b * h * t * hd * 4 + 2 * b * h * t * 4)
+    bytes_ms = nbytes / HBM_PEAK[part] * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def paired_docs(rng, words, n: int, size: int) -> list[str]:
+    """n documents of ``size`` words in pairs: the second of each pair is
+    the first with a tenth of its words redrawn, so each document's nearest
+    neighbour is its twin."""
+    docs = []
+    for _ in range(n // 2):
+        a = rng.choice(words, size=size)
+        b = a.copy()
+        swap = rng.choice(size, size=size // 10, replace=False)
+        b[swap] = rng.choice(words, size=len(swap))
+        docs += [" ".join(a), " ".join(b)]
+    return docs
+
+
+def nearest(emb: np.ndarray) -> list[int]:
+    sim = emb @ emb.T
+    np.fill_diagonal(sim, -np.inf)
+    return sim.argmax(axis=1).tolist()
+
+
+def ring_full_size(seed: int, part: str, embedder) -> dict:
+    """5e: (i) the default encoder with sp_mesh=4 embeds 8 documents of
+    ~3,500 words (T bucket 4096, Tl 1024), held to the unsharded forward at
+    T = 4096 (blockwise), and in f32 at T = 2048; (ii) the hop kernel at
+    [2, 12, 8192, 64] bf16 against 8192 keys (sp 4 over T = 32,768)."""
+    import dataclasses
+
+    import youtu_rag_tpu_torch.parallel.sequence_parallel as sp
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import encode_tokens
+    from youtu_rag_tpu_torch.ops.attention import (
+        flash_attention_stats,
+        flash_attention_stats_reference,
+    )
+
+    rng = np.random.default_rng(seed + 5)
+    words = np.array(FILLER + [w.strip(".,;?!#").lower() for t in TOPICS.values() for w in t.split()])
+    cfg = embedder.cfg
+    out = {}
+
+    # (i) bf16, 8 documents → T bucket 4096, Tl 1024
+    docs = paired_docs(rng, words, 8, 3500)
+    embedder.embed_batch(docs[:2])  # warm-up
+    spy = HopSpy(sp.flash_attention_stats)
+    sp.flash_attention_stats = spy
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        emb = embedder.embed_batch(docs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = attention_counts()
+    finally:
+        sp.flash_attention_stats = spy.fn
+    n_hops = counts["flash_attention_stats"]
+    check(emb.shape == (8, cfg.embed_dim) and np.isfinite(emb).all(), "ring: bad embeddings")
+    check(n_hops == cfg.n_layers * 4 and counts["blockwise_attention"] == 0,
+          f"ring forward: launches {counts}, want {cfg.n_layers * 4} hops")
+    q, k, v, bias = spy.args
+    check(tuple(q.shape) == (32, cfg.n_heads, 1024, cfg.head_dim), f"hop shape {tuple(q.shape)}")
+    err = compare_stats(flash_attention_stats(q, k, v, bias),
+                        flash_attention_stats_reference(q, k, v, bias),
+                        "the hop kernel on the main path's tensors bfloat16")
+    seqs = [embedder.tokenizer.encode(d, embedder._long_max) for d in docs]
+    ids = np.zeros((8, 4096), np.int64)
+    mask = np.zeros((8, 4096), np.float32)
+    for j, s in enumerate(seqs):
+        ids[j, : len(s)], mask[j, : len(s)] = s, 1.0
+    ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    fwd = sp.make_sp_encoder(cfg, 4)
+    fwd_ms = time_ms(lambda: fwd(embedder.params, ids_d, mask_d), bursts=3, burst=2, warmup=1)
+    print(f"ring forward, 8 documents of {min(map(len, seqs))}-{max(map(len, seqs))} tokens "
+          f"(T = 4096, sp 4, Tl 1024): {fwd_ms:.4f} ms device ({8 / fwd_ms * 1e3:.2f} "
+          f"embeddings/s); embed_batch wall {wall * 1e3:.1f} ms ({8 / wall:.2f} embeddings/s, "
+          f"host tokenization included); launches {counts}")
+    profile_split(lambda: fwd(embedder.params, ids_d, mask_d), calls=1, top=8)
+    ref, _ = encode_tokens(embedder.params, ids_d, mask_d, cfg)
+    ref = ref.cpu().numpy()
+    diff = float(np.abs(emb - ref).max())
+    near, near_ref = nearest(emb), nearest(ref)
+    print(f"  against the unsharded forward at T = 4096 (blockwise): max |diff| {diff:.3g}, "
+          f"top-1 neighbours {near} (unsharded {near_ref})")
+    check(near == near_ref == [j ^ 1 for j in range(8)], "ring: top-1 neighbours differ")
+    check(diff <= ENC_TOL, f"ring: embeddings differ from the unsharded forward by {diff}")
+    # f32 at T = 2048 (Tl 512): JAX's own test tolerance
+    f32 = TorchEmbedder(config=dataclasses.replace(cfg, dtype=torch.float32),
+                        params=embedder.params, device="cuda", sp_mesh=4)
+    docs32 = paired_docs(rng, words, 2, 1900)
+    seqs = [f32.tokenizer.encode(d, f32._long_max) for d in docs32]
+    ids = np.zeros((2, 2048), np.int64)
+    mask = np.zeros((2, 2048), np.float32)
+    for j, s in enumerate(seqs):
+        ids[j, : len(s)], mask[j, : len(s)] = s, 1.0
+    before = attention_counts()["flash_attention_stats"]
+    got32 = f32.embed_batch(docs32)
+    torch.cuda.synchronize()
+    n_hops += attention_counts()["flash_attention_stats"] - before
+    ref32, _ = encode_tokens(f32.params, torch.from_numpy(ids).cuda(),
+                             torch.from_numpy(mask).cuda(), f32.cfg)
+    diff32 = float(np.abs(got32 - ref32.cpu().numpy()).max())
+    print(f"  f32, 2 documents at T = 2048 (Tl 512): max |diff| {diff32:.3g} from the unsharded "
+          "forward (blockwise, f32)")
+    check(diff32 <= 2e-5, f"ring f32: embeddings differ by {diff32} > 2e-5")
+
+    # (ii) one hop at [2, 12, 8192, 64] bf16 against 8192 keys
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    b, h, t, hd = 2, cfg.n_heads, 8192, cfg.head_dim
+    q, k, v = (torch.randn(b, h, t, hd, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones(b, t, device="cuda")
+    mask[0, t // 2 + 3 :] = 0
+    bias = (1.0 - mask) * -1e9
+    args = (q, k, v, bias)
+    err = max(err, compare_stats(flash_attention_stats(*args),
+                                 flash_attention_stats_reference(*args),
+                                 "hop [2, 12, 8192, 64] bfloat16"))
+    ms = time_held_ms(lambda: flash_attention_stats(*args))
+    plain_ms = time_held_ms(lambda: flash_attention_stats_reference(*args), calls=3, warmup=1)
+    bms, by = stats_bound(part, b, h, t, t, hd, 2)
+    library_ms, lib_desc = None, ""
+    try:
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        lib_bias = bias.to(q.dtype)[:, None, None, :].expand(b, h, t, t)
+        eff(q, k, v, lib_bias, True)
+        library_ms = time_held_ms(lambda: eff(q, k, v, lib_bias, True))
+        lib_desc = ("_scaled_dot_product_efficient_attention(..., compute_log_sumexp=True): "
+                    "(out, logsumexp), the hop in normalized form")
+    except (RuntimeError, TypeError) as e:
+        lib_desc = ("none: the efficient-attention call refused these inputs "
+                    f"({str(e).splitlines()[0][:160]})")
+    tflops = 4 * b * h * t * t * hd / ms / 1e9
+    print(f"  flash_attention_stats [{b}, {h}, {t}, {hd}] bf16 vs {t} keys: {ms:.4f} ms "
+          f"({tflops:.1f} TFLOP/s), bound {bms:.4f} ms ({by}); plain {plain_ms:.4f} ms; library "
+          f"{'null' if library_ms is None else format(library_ms, '.4f') + ' ms'} [{lib_desc}]; "
+          f"max_abs_err {err}")
+    out.update(launches=n_hops, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=library_ms)
     return out
 
 
@@ -1723,8 +2250,14 @@ def main() -> int:
     phase("3 kernel vs plain, top-k")
     err3 = kernel_cases(args.seed)
 
+    phase("3x kernel vs plain, any query count and k above 1024")
+    err3x = query_k_cases(args.seed)
+
     phase("3b kernel vs plain, attention")
     err3b = attention_cases(args.seed)
+
+    phase("3e kernel vs plain, the ring hop")
+    err3e = stats_cases(args.seed)
 
     phase("3c kernel vs plain, IVF")
     err3c = ivf_kernel_cases(args.seed)
@@ -1741,6 +2274,9 @@ def main() -> int:
     phase("4c main path, small corpus, IVF")
     launches4c, err4c = small_corpus_ivf(args.seed)
 
+    phase("4d main path, small corpus, long documents")
+    long4d = long_corpus(args.seed, enc["embedder"])
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -1755,6 +2291,9 @@ def main() -> int:
     phase("5b main path, full size, encoder")
     enc_full = encoder_full_size(args.seed, part, enc["embedder"])
 
+    phase("5e main path, full size, the ring")
+    ring = ring_full_size(args.seed, part, long4d["embedder"])
+
     phase("6 summary")
     kernels = []
     for tier in TIERS:
@@ -1765,7 +2304,7 @@ def main() -> int:
             "source": f"youtu_rag_tpu_torch/csrc/{kname}.cu",
             "replaces": REPLACES[kname],
             "launches": launches4[tier] + f["launches"],
-            "max_abs_err": max(err3[tier], err4[tier], f["err"]),
+            "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -1795,7 +2334,7 @@ def main() -> int:
             "source": "youtu_rag_tpu_torch/csrc/ivf_topk.cu",
             "replaces": REPLACES[kname],
             "launches": launches4c[tier] + f["launches"],
-            "max_abs_err": max(err3c[tier], err4c[tier], f["err"]),
+            "max_abs_err": max(err3c[tier], err3x[kname], err4c[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -1810,13 +2349,26 @@ def main() -> int:
             "source": "youtu_rag_tpu_torch/csrc/topk_blocks.cu",
             "replaces": REPLACES[kname],
             "launches": f["launches"],
-            "max_abs_err": max(err3d[kname], f["err"]),
+            "max_abs_err": max(err3d[kname], err3x[kname], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"],
             "library_ms": f["library_ms"],  # null for IVF, as above
         })
+    kernels.append({
+        "name": "flash_attention_stats",
+        "route": "cuda",
+        "source": "youtu_rag_tpu_torch/csrc/attention.cu",
+        "replaces": REPLACES["flash_attention_stats"],
+        "launches": long4d["launches"] + ring["launches"],
+        "max_abs_err": max(err3e, ring["err"]),
+        "ms": ring["ms"],
+        "plain_ms": ring["plain_ms"],
+        "bound_ms": ring["bound_ms"],
+        "bound_by": ring["bound_by"],
+        "library_ms": ring["library_ms"],
+    })
     print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")
     print(smi)

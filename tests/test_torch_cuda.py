@@ -30,6 +30,8 @@ from youtu_rag_tpu_torch.ops.attention import (
     blockwise_attention_reference,
     flash_attention,
     flash_attention_reference,
+    flash_attention_stats,
+    flash_attention_stats_reference,
 )
 from youtu_rag_tpu_torch.ops.topk import (
     NEG_INF,
@@ -101,11 +103,9 @@ def test_kernel_rejects_out_of_contract(cuda_device):
     xd = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
     qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
     with pytest.raises(ValueError):
-        topk_pruned(qd, xd, bd, 1025)
+        topk_pruned(qd, xd, bd, N + 1)  # k above the rows
     with pytest.raises(ValueError):
         topk_pruned(qd, xd.float(), bd, 10)
-    with pytest.raises(ValueError):
-        topk_pruned(torch.zeros(65, 128, device=cuda_device), xd, bd, 10)
     with pytest.raises(ValueError):
         topk_pruned(qd, xd, bd.cpu(), 10)
 
@@ -150,15 +150,13 @@ def test_quantized_kernel_rejects_out_of_contract(cuda_device, tier):
     xq, xs = quantize(torch.from_numpy(x).to(cuda_device))
     qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
     with pytest.raises(ValueError):
-        kernel(qd, xq, xs, bd, 1025)
+        kernel(qd, xq, xs, bd, N + 1)  # k above the rows
     with pytest.raises(ValueError):
         kernel(qd, xq.float(), xs, bd, 10)
     with pytest.raises(ValueError):
         kernel(qd, xq[:, :64].contiguous(), xs, bd, 10)  # width off the 128 grid
     with pytest.raises(ValueError):
         kernel(qd, xq, xs.double(), bd, 10)
-    with pytest.raises(ValueError):
-        kernel(torch.zeros(65, 256, device=cuda_device), xq, xs, bd, 10)
 
 
 @pytest.mark.cuda
@@ -413,7 +411,7 @@ def test_ivf_kernel_rejects_out_of_contract(cuda_device, tier):
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, ids, nv.cpu(), 10, block_rows=64)
     with pytest.raises(ValueError):
-        kernel(qd, xt, *extra, bd, ids, nv, 1025, block_rows=64)
+        kernel(qd, xt, *extra, bd, ids, nv, 0, block_rows=64)
 
 
 @pytest.mark.cuda
@@ -558,9 +556,181 @@ def test_per_block_kernel_rejects_out_of_contract(cuda_device, name):
         kernel(qd, xt, *extra, bd, *plan, 300, block_rows=256)  # k > block_rows
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, *plan, 10, block_rows=1000)  # does not divide N
-    with pytest.raises(ValueError):
-        kernel(torch.zeros(65, 256, device=cuda_device), xt, *extra, bd, *plan, 10,
-               block_rows=256)
     if ivf:
         with pytest.raises(ValueError):
             kernel(qd, xt, *extra, bd, ids, plan[1].cpu(), 10, block_rows=256)
+
+
+# ---------------------------------------------------------------------------
+# the ring hop, any query count, k above 1024, the long-document embedder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t, t_kv", [(256, 256), (1024, 512), (512, 2048)])
+def test_stats_kernel_matches_plain_version(cuda_device, t, t_kv, hd, dtype):
+    """(acc, m, l) of one hop: m within f32 summation order, l and acc / l
+    within the attention tolerance; padded keys and a fully masked row."""
+    g = torch.Generator(device=cuda_device).manual_seed(t + t_kv + hd)
+    q = torch.randn(3, 2, t, hd, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(3, 2, t_kv, hd, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    mask = torch.ones(3, t_kv, device=cuda_device)
+    mask[0, t_kv // 2 + 3 :] = 0
+    mask[-1] = 0
+    bias = (1.0 - mask) * -1e9
+    before = flash_attention_stats.launches
+    acc, m, l = flash_attention_stats(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert flash_attention_stats.launches == before + 1
+    wa, wm, wl = flash_attention_stats_reference(q, k, v, bias)
+    assert all(torch.isfinite(x).all() for x in (acc, m, l))
+    torch.testing.assert_close(m, wm, rtol=1e-6, atol=1e-5)
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(l, wl, rtol=rtol, atol=0)
+    torch.testing.assert_close(acc / l[..., None], wa / wl[..., None], rtol=rtol,
+                               atol=2**-10 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_stats_kernel_rejects_out_of_contract(cuda_device):
+    q, k, v, bias = attention_inputs(2, 2, 256, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_stats(q, k[:, :, :192], v[:, :, :192], bias[:, :192])
+    with pytest.raises(ValueError):
+        flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], bias)
+    with pytest.raises(ValueError):
+        flash_attention_stats(q, k, v, bias.cpu())
+
+
+def _all_wrappers(device):
+    """Every top-k wrapper with its plain version, its arguments (after
+    the queries, before k) and keywords, over one 4096-row index."""
+    _, x, bias = make_inputs(1, 256, seed=5)
+    xd, bd = torch.from_numpy(x).to(device), torch.from_numpy(bias).to(device)
+    x8, s8 = quantize_rows_int8(xd)
+    x4, s4 = quantize_rows_int4(xd)
+    ids, nv = ivf_plan(64, 8, 4, seed=0, device=device)
+    blocks = (torch.arange(4, dtype=torch.int32, device=device),
+              torch.tensor(2, dtype=torch.int32, device=device))
+    xb = xd.to(torch.bfloat16)
+    return {
+        "topk_pruned": (topk_pruned, topk_pruned_reference, (xb, bd), {}),
+        "topk_int8_pruned": (topk_int8_pruned, topk_int8_pruned_reference, (x8, s8, bd), {}),
+        "topk_int4_pruned": (topk_int4_pruned, topk_int4_pruned_reference, (x4, s4, bd), {}),
+        "ivf_topk_dma": (ivf_topk_dma, ivf_topk_dma_reference, (xb, bd, ids, nv),
+                         {"block_rows": 64}),
+        "ivf_topk_int8_dma": (ivf_topk_int8_dma, ivf_topk_int8_dma_reference,
+                              (x8, s8, bd, ids, nv), {"block_rows": 64}),
+        "ivf_topk_int4_dma": (ivf_topk_int4_dma, ivf_topk_int4_dma_reference,
+                              (x4, s4, bd, ids, nv), {"block_rows": 64}),
+        "topk": (topk, topk_reference, (xb, bd), {"block_rows": 1024}),
+        "topk_int8": (topk_int8, topk_int8_reference, (x8, s8, bd), {"block_rows": 1024}),
+        "ivf_topk": (ivf_topk, ivf_topk_reference, (xb, bd, *blocks), {"block_rows": 1024}),
+        "ivf_topk_int8": (ivf_topk_int8, ivf_topk_int8_reference, (x8, s8, bd, *blocks),
+                          {"block_rows": 1024}),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn", [0, 100])
+@pytest.mark.parametrize("name", ["topk_pruned", "topk_int8_pruned", "topk_int4_pruned",
+                                  "ivf_topk_dma", "ivf_topk_int8_dma", "ivf_topk_int4_dma",
+                                  "topk", "topk_int8", "ivf_topk", "ivf_topk_int8"])
+def test_every_wrapper_takes_any_query_count(cuda_device, name, qn):
+    """0 queries: an empty [0, k] result and no launch; 100: two launches
+    (64 + 36) and the plain version's live slots."""
+    kernel, plain, args, kw = _all_wrappers(cuda_device)[name]
+    g = torch.Generator(device=cuda_device).manual_seed(qn)
+    queries = torch.randn(qn, 256, generator=g, device=cuda_device)
+    queries /= queries.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    before = kernel.launches
+    s, i = kernel(queries, *args, 10, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + (0 if qn == 0 else 2)
+    assert tuple(s.shape) == tuple(i.shape) == (qn, 10)
+    ws, _ = plain(queries, *args, 10, **kw)
+    live = ws > NEG_INF / 2
+    assert torch.equal(s > NEG_INF / 2, live)
+    torch.testing.assert_close(s[live], ws[live], rtol=0, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier, k", [("bf16", 2048), ("int8", 8192), ("int4", 2048)])
+def test_pruned_kernels_take_k_above_1024(cuda_device, tier, k):
+    """The device-memory list class: the plain version's rows (bf16 scores
+    within TOL, int8/int4 bit-equal)."""
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((16384, 256)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    xd = torch.from_numpy(x).to(cuda_device)
+    qd = torch.from_numpy(x[:8] + 0.1 * rng.standard_normal((8, 256)).astype(np.float32))
+    qd = qd.to(cuda_device)
+    bd = torch.zeros(16384, device=cuda_device)
+    bd[::9] = NEG_INF
+    if tier == "bf16":
+        args, kernel, plain = (xd.to(torch.bfloat16), bd), topk_pruned, topk_pruned_reference
+    else:
+        quantize, kernel, plain = QUANT[tier]
+        args = (*quantize(xd), bd)
+    s, i = kernel(qd, *args, k)
+    torch.cuda.synchronize()
+    ws, wi = plain(qd, *args, k)
+    if tier == "bf16":
+        torch.testing.assert_close(s, ws, rtol=0, atol=TOL)
+        for a in range(8):
+            assert len(set(i[a].tolist()) ^ set(wi[a].tolist())) <= 2  # a near-tie at the k-th
+    else:
+        assert torch.equal(i, wi) and torch.equal(s.view(torch.int32), ws.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_index_answers_top_k_2000_on_the_card_like_the_cpu(cuda_device):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3000, 96)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    hits = []
+    for device in (cuda_device, "cpu"):
+        idx = DeviceVectorIndex(96, IndexConfig(storage_dtype="int8"), device=device)
+        idx.add([Chunk(f"c{i}", "doc", "", i) for i in range(3000)], x)
+        hits.append(idx.search(x[:3], top_k=2000))
+    assert [len(h) for h in hits[0]] == [2000] * 3
+    assert [[c.id for c, _ in h] for h in hits[0]] == [[c.id for c, _ in h] for h in hits[1]]
+
+
+@pytest.mark.cuda
+def test_long_document_embedder_launches_the_hop_kernel(cuda_device):
+    """TorchEmbedder(sp_mesh=4) on the card embeds a text past max_len
+    whole through flash_attention_stats (Tl >= 256), as its CPU twin does;
+    a change in the tail moves the embedding."""
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = EncoderConfig(d_model=128, n_layers=2, n_heads=2, d_ff=256, out_dim=64, max_len=256,
+                        attention_impl="pallas")
+    emb = TorchEmbedder(config=cfg, device=cuda_device, sp_mesh=4)
+    twin = TorchEmbedder(config=cfg, params=emb.params, device="cpu", sp_mesh=4)
+    words = [f"w{i}" for i in range(900)]
+    texts = [" ".join(words), " ".join(words[:-5] + ["zebra"] * 5)]
+    before = flash_attention_stats.launches
+    got = emb.embed_batch(texts)
+    torch.cuda.synchronize()
+    assert flash_attention_stats.launches - before == cfg.n_layers * 4
+    np.testing.assert_allclose(got, twin.embed_batch(texts), atol=3e-2)
+    assert np.abs(got[0] - got[1]).max() > 1e-4
+
+
+@pytest.mark.cuda
+def test_long_document_embedder_raises_where_the_hop_kernel_refuses(cuda_device):
+    """A head width the kernel does not take (192) raises from the hop
+    wrapper; nothing falls back to the plain version."""
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = EncoderConfig(d_model=384, n_layers=1, n_heads=2, d_ff=256, out_dim=64, max_len=256,
+                        attention_impl="pallas")
+    emb = TorchEmbedder(config=cfg, device=cuda_device, sp_mesh=4)
+    with pytest.raises(ValueError, match="head dim"):
+        emb.embed_batch([" ".join(f"w{i}" for i in range(900))])

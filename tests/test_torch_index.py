@@ -292,9 +292,10 @@ def test_top_k_1024_answers(storage_dtype):
     assert all(len({c.id for c, _ in h}) == 1024 for h in hits)
 
 
-@pytest.mark.parametrize("top_k", [0, 1025, 2000])
+@pytest.mark.parametrize("top_k", [0, -1, -2000])
 def test_top_k_outside_the_kernel_range_raises_on_the_cpu_too(top_k):
-    """A CPU index refuses the k a CUDA index's kernel cannot take."""
+    """A CPU index refuses the k a CUDA index's kernel cannot take: below 1
+    (above the live count a search answers the live rows, as in JAX)."""
     idx = DeviceVectorIndex(D, IndexConfig(min_capacity=256), device="cpu")
     idx.add(chunks(Chunk, 300), vectors(1, 300))
     with pytest.raises(ValueError, match="top_k"):
@@ -455,3 +456,32 @@ def test_index_from_numpy_carries_the_quantized_tiers(tier):
         t.check(q, filters=filters)
     t.add(20, seed=12, doc="docC")
     t.check(q)
+
+
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "int8", "int4"])
+def test_top_k_2000_matches_jax(monkeypatch, storage_dtype):
+    """top_k above the old 1024 cap answers as the JAX index does, on each
+    tier; the int4 host re-rank draws JAX's candidate count (pow2 of 4 x
+    2000 = 8192, cut to the largest power of two <= the 2100 live rows)."""
+    import youtu_rag_tpu.index.device_index as jax_device_index
+    import youtu_rag_tpu_torch.index.device_index as port_device_index
+
+    asked = {"jax": [], "port": []}
+    for side, module, name in (("jax", jax_device_index, "xla_topk_int4"),
+                               ("port", port_device_index, "topk_int4_pruned")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _r=real, _s=side: asked[_s].append(a[-1])
+                            or _r(*a))
+    kw = dict(min_capacity=4096, storage_dtype=storage_dtype)
+    jax_ix = JaxIndex(D, JaxIndexConfig(**kw))
+    port = DeviceVectorIndex(D, IndexConfig(**kw), device="cpu")
+    jax_ix.add(chunks(JaxChunk, 2100), vectors(1, 2100))
+    port.add(chunks(Chunk, 2100), vectors(1, 2100))
+    q = vectors(2, 3)
+    got = port.search(q, top_k=2000)
+    assert [len(h) for h in got] == [2000] * 3
+    assert_same_hits(got, jax_ix.search(q, top_k=2000, backend="xla"))
+    if storage_dtype == "int4":
+        assert asked["port"] == asked["jax"] == [2048]
+    # above the live count a search answers every live row, as in JAX
+    assert [len(h) for h in port.search(q[:1], top_k=5000)] == [2100]

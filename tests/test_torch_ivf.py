@@ -382,3 +382,37 @@ def test_host_staged_reorder_equals_device_reorder(monkeypatch, storage_dtype):
     assert host._id_to_row == dev._id_to_row
     host.build_ivf(n_lists=3)
     assert host.search(vecs[:1], top_k=1)[0][0][0].id == "c0"
+
+
+@pytest.mark.parametrize("storage_dtype", ["bfloat16", "int8"])
+def test_residual_rerank_draws_jax_k2_above_1024(monkeypatch, storage_dtype):
+    """ivf_rerank_multiplier 4 at top_k 300: both indexes probe for
+    k2 = pow2(1200) = 2048 candidates (no cap at 1024) and re-rank them to
+    the same hits."""
+    import youtu_rag_tpu.ops.ivf as jax_ivf_ops
+    import youtu_rag_tpu_torch.index.device_index as port_device_index
+
+    asked = {"jax": [], "port": []}
+    for side, module, name in (("jax", jax_ivf_ops, "xla_ivf_topk"),
+                               ("port", port_device_index, "ivf_topk_dma"),
+                               ("port", port_device_index, "ivf_topk_int8_dma")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _r=real, _s=side, **kw: asked[_s].append(a[-1])
+                            or _r(*a, **kw))
+    rng = np.random.default_rng(5)
+    # 16384 rows in 256 blocks of 64; a plan of 2 of 32 lists per query
+    # lists fewer than all blocks (JAX's XLA path searches brute force when
+    # the plan's bound covers them all)
+    vecs, centers = clustered(rng, 32, 512, D)
+    cfg = dict(metric="cosine", storage_dtype=storage_dtype, min_capacity=16384, block_rows=64,
+               n_lists=32, n_probe=2, kmeans_iters=3, ivf_adaptive_margin=0.0,
+               ivf_rerank_multiplier=4.0, ivf_recall_target=0.0)
+    jax_ix = JaxIndex(D, JaxIndexConfig(**cfg))
+    jax_ix.add(chunks(JaxChunk, len(vecs)), vecs)
+    jax_ix.build_ivf()
+    port = index_from_numpy(carried_state(jax_ix), device="cpu")
+    q = centers[:2] + 0.1 * rng.normal(size=(2, D)).astype(np.float32)
+    got = port.search(q, top_k=300)
+    assert_same_hits(got, jax_ix.search(q, top_k=300, backend="xla"), TOL)
+    assert [len(h) for h in got] == [300, 300]
+    assert asked["port"] == asked["jax"] == [2048]

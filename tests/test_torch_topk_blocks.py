@@ -387,3 +387,45 @@ def test_per_block_wrappers_refuse_what_jax_asserts(fn):
                                  (1025, 1024, 128)):
         with pytest.raises(ValueError):
             call(k, block_rows, width)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_interpret"])
+def test_fused_topk_takes_zero_queries_as_jax(backend):
+    """No query: [0, k] results on every backend (the CPU runs the plain
+    versions), as JAX's fused_topk returns."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4096, 128)).astype(np.float32)
+    bias = np.zeros(4096, np.float32)
+    q0 = np.zeros((0, 128), np.float32)
+    s, i = fused_topk(torch.from_numpy(q0), torch.from_numpy(x), torch.from_numpy(bias), 7,
+                      block_rows=1024, backend=backend)
+    assert tuple(s.shape) == tuple(i.shape) == (0, 7)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    js, ji = jax_ops.fused_topk(jnp.asarray(q0), jnp.asarray(x), jnp.asarray(bias), 7,
+                                block_rows=1024, backend="xla")
+    assert js.shape == ji.shape == (0, 7)
+
+
+@pytest.mark.parametrize("qn", [0, 1, 64, 65, 130])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_query_tiles_split_and_join(qn, dim):
+    """The wrappers' shared tiling: tiles of at most MAX_Q queries in
+    order, each result joined along its query axis; no query, no launch."""
+    from youtu_rag_tpu_torch.ops.topk import MAX_Q, _empty, _query_tiles
+
+    queries = torch.arange(qn, dtype=torch.float32)[:, None].repeat(1, 3)
+    tiles = []
+
+    def launch(qt):
+        tiles.append(qt.shape[0])
+        s = qt[:, :1].repeat(1, 4)  # [q, 4]: each row's query number
+        s = s if dim == 0 else s[None].repeat(2, 1, 1)  # candidates [2, q, 4]
+        return s, s.to(torch.int32) + 1
+
+    empty = _empty((0, 4) if dim == 0 else (2, 0, 4), "cpu")
+    s, i = _query_tiles(launch, queries, empty, dim=dim)
+    assert tiles == [min(MAX_Q, qn - j) for j in range(0, qn, MAX_Q)]
+    assert s.shape[dim] == qn and i.dtype == torch.int32
+    rows = s if dim == 0 else s[1]
+    assert torch.equal(rows[:, 0], torch.arange(qn, dtype=torch.float32))
+    assert torch.equal(i, s.to(torch.int32) + 1)

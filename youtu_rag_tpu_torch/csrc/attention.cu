@@ -1,14 +1,23 @@
 // Blockwise and flash attention for the encoder, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of youtu_rag_tpu/ops/attention.py:
-//   blockwise_attention_launch -> blockwise_attention (kernel _attn_kernel)
-//   flash_attention_launch     -> flash_attention     (kernel _flash_kernel)
-// Same contract, for q, k, v [B, H, T, hd] and a key bias [B, T] already
-// clamped to -1e30 by the wrapper:
+// Replaces three TPU kernels of youtu_rag_tpu/ops/attention.py:
+//   blockwise_attention_launch     -> blockwise_attention   (kernel _attn_kernel)
+//   flash_attention_launch         -> flash_attention       (kernel _flash_kernel)
+//   flash_attention_stats_launch   -> flash_attention_stats (kernel _flash_stats_kernel)
+// Same contract, for q [B, H, T, hd], k, v [B, H, T_kv, hd] (T_kv == T but
+// for the stats entry) and a key bias [B, T_kv] already clamped to -1e30 by
+// the wrapper:
 //   s = sum_d f32(q) * f32(k)  (f32 sums), then s * scale + bias (two roundings)
 //   blockwise: p = cast(exp(s - max) / sum) to v's type, out = cast(p . v)
 //   flash:     online softmax, running max from -1e30; the unnormalized
 //              exp(s - m) is cast to v's type for p . v, out = cast(acc / l)
+//   stats:     the flash entry's one pass over a K/V span of T_kv keys (the
+//              inner step of ring attention, one hop), ending without the
+//              divide: acc = sum exp(s - m) . cast(v) f32 [B, H, T, hd], and
+//              the running max m and denominator l f32 [B, H, T]. Its 64-key
+//              tiles are not JAX's 1024-key blocks: m is the same maximum;
+//              l and acc agree within f32 summation order and the bf16
+//              rounding of p, as the flash entry's output does.
 // exp is the ex2-based __expf and blockwise divides by a product with the
 // f32 reciprocal of the sum: each within a few f32 ulps of the plain
 // version's exp and division, far inside the one-bf16-ulp tolerance that
@@ -19,6 +28,9 @@
 // ~295: at the encoder's T = 512 the bytes bound it, barely (0.120 ms a
 // layer at B = 128, H = 12, hd = 64, against 0.104 ms of products), and
 // the products from T ~ 600 up (flash at T = 8192: 0.417 ms at B = 2).
+// Stats: 4*B*H*T*T_kv*hd operations at 989 TFLOP/s against the bytes of q,
+// k, v, the bias, acc, m and l: the operations from T_kv ~ 600 up (one hop
+// of sp 4 over T = 32,768, [2, 12, 8192, 64] against 8192 keys: 0.417 ms).
 //
 // Design, simple first: one CTA per (batch x head, query tile), each warp
 // 16 query rows (blockwise 64-row tiles, 4 warps; flash 128-row tiles,
@@ -34,7 +46,10 @@
 // inputs split each operand into three bf16 terms (hi + mid + lo, exact)
 // and sum the six products that matter, so the f32 path keeps near-f32
 // products on the same code path.
-// Not yet: wgmma, TMA, warp specialization.
+// The stats entry is the flash kernel with a template flag: its own key
+// length and another epilogue; the flash entry compiles to the same code.
+// Not yet: wgmma, TMA, warp specialization (none of the three is
+// redesigned yet).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,11 +236,26 @@ struct Args {
   const void* k;
   const void* v;
   const float* bias;  // [B, T], clamped
-  void* out;          // [B, H, T, hd], contiguous
+  void* out;          // [B, H, T, hd], contiguous (stats: acc, f32)
   int h, t;
   long long qs[3], ks[3], vs[3];  // element strides of batch, head and row
   float scale;
 };
+
+// The stats entry's arguments: the span's own key count, bias [B, T_kv],
+// and the outputs m and l [B, H, T] f32, contiguous. A struct of its own,
+// so that the blockwise and flash entries keep their code.
+struct StatsArgs : Args {
+  float* m;
+  float* l;
+  int t_kv;
+};
+
+template <bool kStats>
+using ArgsOf = typename std::conditional<kStats, StatsArgs, Args>::type;
+
+__device__ __forceinline__ int keys_of(const Args& a) { return a.t; }
+__device__ __forceinline__ int keys_of(const StatsArgs& a) { return a.t_kv; }
 
 // shared memory: the query tile, two K and two V tiles, two bias tiles
 template <typename T, int HD, bool kFlash>
@@ -308,8 +338,9 @@ __device__ __forceinline__ void stage_tile(T* ks, T* vs, float* bs, const T* kg,
   cp_async_commit();
 }
 
-template <typename T, int HD, bool kFlash>
-__global__ void __launch_bounds__(Shape<kFlash>::kThreads) attention_kernel(Args args) {
+template <typename T, int HD, bool kFlash, bool kStats = false>
+__global__ void __launch_bounds__(Shape<kFlash>::kThreads) attention_kernel(ArgsOf<kStats> args) {
+  static_assert(kFlash || !kStats, "stats is the flash kernel's epilogue");
   constexpr int kBQ = Shape<kFlash>::kBQ, kThreads = Shape<kFlash>::kThreads;
   constexpr int kLd = HD + kPad, kTile = kBK * kLd;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -324,8 +355,8 @@ __global__ void __launch_bounds__(Shape<kFlash>::kThreads) attention_kernel(Args
   const T* qg = static_cast<const T*>(args.q) + b * args.qs[0] + h * args.qs[1];
   const T* kg = static_cast<const T*>(args.k) + b * args.ks[0] + h * args.ks[1];
   const T* vg = static_cast<const T*>(args.v) + b * args.vs[0] + h * args.vs[1];
-  const float* bias = args.bias + (size_t)b * args.t;
-  const int n_tiles = args.t / kBK;
+  const float* bias = args.bias + (size_t)b * keys_of(args);
+  const int n_tiles = keys_of(args) / kBK;
 
   // the query tile joins the first tile's commit group
   copy_rows<T, HD, kThreads>(qs, kLd, qg + q0 * args.qs[2], args.qs[2], kBQ);
@@ -426,6 +457,25 @@ __global__ void __launch_bounds__(Shape<kFlash>::kThreads) attention_kernel(Args
     l[0] = group_sum(l[0]);
     l[1] = group_sum(l[1]);
   }
+  if constexpr (kStats) {
+    // no divide: acc, and the rows' running max and denominator
+    const size_t row = (size_t)bh * args.t + q0 + r0 + (lane >> 2);
+    float* ag = static_cast<float*>(args.out) + row * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(ag + r * 8 * HD + n * 8) =
+            make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        args.m[row + 8 * r] = m[r];
+        args.l[row + 8 * r] = l[r];
+      }
+    }
+    return;
+  }
   T* og = static_cast<T*>(args.out) + ((size_t)bh * args.t + q0 + r0 + (lane >> 2)) * HD +
           2 * (lane & 3);
 #pragma unroll
@@ -441,9 +491,9 @@ __global__ void __launch_bounds__(Shape<kFlash>::kThreads) attention_kernel(Args
     }
 }
 
-template <typename T, int HD, bool kFlash>
-int launch_one(const Args& a, int bh, cudaStream_t st) {
-  auto kern = attention_kernel<T, HD, kFlash>;
+template <typename T, int HD, bool kFlash, bool kStats>
+int launch_one(const ArgsOf<kStats>& a, int bh, cudaStream_t st) {
+  auto kern = attention_kernel<T, HD, kFlash, kStats>;
   constexpr size_t smem = smem_bytes<T, HD, kFlash>();
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -452,13 +502,14 @@ int launch_one(const Args& a, int bh, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool kFlash>
+template <bool kFlash, bool kStats = false>
 int launch(int is_f32, const void* q, const void* k, const void* v, const void* bias, void* out,
-           int b, int h, int t, int hd, const long long* strides, float scale, void* stream) {
-  if (b <= 0 || h <= 0 || t <= 0 || t % Shape<kFlash>::kBQ || t % kBK || b * h > 65535 ||
-      (hd != 64 && hd != 128))
+           float* m, float* l, int b, int h, int t, int t_kv, int hd, const long long* strides,
+           float scale, void* stream) {
+  if (b <= 0 || h <= 0 || t <= 0 || t_kv <= 0 || t % Shape<kFlash>::kBQ || t_kv % kBK ||
+      b * h > 65535 || (hd != 64 && hd != 128) || (!kStats && t_kv != t))
     return (int)cudaErrorInvalidValue;
-  Args a;
+  ArgsOf<kStats> a;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -466,6 +517,11 @@ int launch(int is_f32, const void* q, const void* k, const void* v, const void* 
   a.out = out;
   a.h = h;
   a.t = t;
+  if constexpr (kStats) {
+    a.m = m;
+    a.l = l;
+    a.t_kv = t_kv;
+  }
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -474,10 +530,10 @@ int launch(int is_f32, const void* q, const void* k, const void* v, const void* 
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f32)
-    return hd == 64 ? launch_one<float, 64, kFlash>(a, b * h, st)
-                    : launch_one<float, 128, kFlash>(a, b * h, st);
-  return hd == 64 ? launch_one<__nv_bfloat16, 64, kFlash>(a, b * h, st)
-                  : launch_one<__nv_bfloat16, 128, kFlash>(a, b * h, st);
+    return hd == 64 ? launch_one<float, 64, kFlash, kStats>(a, b * h, st)
+                    : launch_one<float, 128, kFlash, kStats>(a, b * h, st);
+  return hd == 64 ? launch_one<__nv_bfloat16, 64, kFlash, kStats>(a, b * h, st)
+                  : launch_one<__nv_bfloat16, 128, kFlash, kStats>(a, b * h, st);
 }
 
 }  // namespace
@@ -497,9 +553,24 @@ const char* attention_error_string(int err) {
            long long qst, long long ksb, long long ksh, long long kst, long long vsb,         \
            long long vsh, long long vst, float scale, void* stream) {                         \
     const long long strides[9] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst};               \
-    return launch<FLASH>(is_f32, q, k, v, bias, out, b, h, t, hd, strides, scale, stream);    \
+    return launch<FLASH>(is_f32, q, k, v, bias, out, nullptr, nullptr, b, h, t, t, hd, strides, \
+                         scale, stream);                                                       \
   }
 
 ATTENTION_ENTRY(blockwise_attention_launch, false)
 ATTENTION_ENTRY(flash_attention_launch, true)
+
+// flash_attention_stats_launch(is_f32, q, k, v, bias f32 [B, T_kv] clamped,
+//     acc f32 [B, H, T, hd], m f32 [B, H, T], l f32 [B, H, T], B, H, T, T_kv,
+//     hd, 9 element strides, scale, stream): T a multiple of 128, T_kv of 64.
+int flash_attention_stats_launch(int is_f32, const void* q, const void* k, const void* v,
+                                 const void* bias, void* acc, void* m, void* l, int b, int h,
+                                 int t, int t_kv, int hd, long long qsb, long long qsh,
+                                 long long qst, long long ksb, long long ksh, long long kst,
+                                 long long vsb, long long vsh, long long vst, float scale,
+                                 void* stream) {
+  const long long strides[9] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst};
+  return launch<true, true>(is_f32, q, k, v, bias, acc, static_cast<float*>(m),
+                            static_cast<float*>(l), b, h, t, t_kv, hd, strides, scale, stream);
+}
 }

@@ -62,12 +62,19 @@
 // (score desc, row asc), then the fill _select_topk picks once they run
 // out (see the epilogue), then (NEG_INF, 0) past k.
 //
-// Two k classes. Up to kSmallK = 128 an insertion stages the shifted list
-// entries in registers (kSmallK / 32 per lane). Above it, up to kMaxK =
-// 1024 (the JAX kernels' limit at the default block_rows), the lists stay
-// in dynamic shared memory as before (8 queries x k x 8 B = 64 KB at
-// k = 1024) and an insertion shifts them through shared memory, 32 entries
-// at a time from the top, so no register array grows with k.
+// Three k classes (ListKind). Up to kSmallK = 128 an insertion stages the
+// shifted list entries in registers (kSmallK / 32 per lane). Above it, up
+// to kMaxK = 1024, the lists stay in dynamic shared memory as before (8
+// queries x k x 8 B = 64 KB at k = 1024) and an insertion shifts them
+// through shared memory, 32 entries at a time from the top, so no register
+// array grows with k. Above kMaxK (the JAX kernels take any k up to their
+// block_rows, which the JAX index grows to 8192) 8 lists would outgrow the
+// 227 KB a CTA may have, so each selecting warp keeps its query's list in
+// its own slot of the candidate buffer in device memory ([n_cta, q, k],
+// or [blocks, q, k_pad]), where the epilogue would write it anyway; an
+// insertion shifts only the entries filled so far (the rest are all the
+// initial (NEG_INF, 0)). The wrappers bound that buffer by launching fewer
+// CTAs. Simple first: this class is right, not yet fast.
 //
 // A Scorer provides:
 //   static constexpr bool kScaled;      // score = f32(acc) * (qs * xs) + bias
@@ -95,7 +102,7 @@ constexpr int kR = 4;            // rows per warp step (kR * kQT == 32 lanes)
 constexpr int kSteps = 4;        // warp steps per row tile
 constexpr int kTile = kWarps * kR * kSteps;  // rows scored between barriers
 constexpr int kSmallK = 128;     // largest k whose insert stages in registers
-constexpr int kMaxK = 1024;
+constexpr int kMaxK = 1024;      // largest k whose lists stay in shared memory
 constexpr int kMaxQ = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min (NEG_INF)
@@ -103,6 +110,13 @@ constexpr float kNegInf = -3.4028234663852886e38f;  // float32 min (NEG_INF)
 static_assert(kR * kQT == 32, "one score per lane after the butterfly");
 static_assert(kQT == kWarps, "one selecting warp per query of the tile");
 static_assert(kTile % 32 == 0, "selection reads the tile 32 rows at a time");
+
+// Where a selecting warp keeps its sorted list (the k classes above).
+enum ListKind { kListRegs = 0, kListShared = 1, kListDevice = 2 };
+
+__host__ __device__ inline int list_kind(int k) {
+  return k <= kSmallK ? kListRegs : (k <= kMaxK ? kListShared : kListDevice);
+}
 
 // The IVF row source (unused by the brute scans).
 struct RowSource {
@@ -194,6 +208,44 @@ __device__ __forceinline__ void warp_insert_smem(float* ls, int* li, int k, floa
   __syncwarp();
 }
 
+// The same for the device-memory lists (k > kMaxK): entries at and past
+// n_live all hold the initial (NEG_INF, 0), which no inserted entry ranks
+// below (a NEG_INF row never enters), so pos <= n_live and only entries
+// [pos, n_live) move up, through device memory (the warp alone touches its
+// list; __syncwarp orders the lanes' accesses).
+__device__ __forceinline__ void warp_insert_device(float* ls, int* li, int k, int n_live,
+                                                   float s, int row, int lane) {
+  int pos = 0;
+  for (int base = 0; base < n_live; base += 32) {
+    const int i = base + lane;
+    const unsigned b = __ballot_sync(kFull, i < n_live && better(ls[i], li[i], s, row));
+    pos += __popc(b);
+    if (b != kFull) break;
+  }
+  const int top = min(n_live, k - 1);  // the highest index that receives an entry
+  for (int base = (top / 32) * 32; base + 31 > pos; base -= 32) {
+    const int i = base + lane;
+    const bool mv = i > pos && i <= top;
+    float v = 0.f;
+    int vi = 0;
+    if (mv) {
+      v = ls[i - 1];
+      vi = li[i - 1];
+    }
+    __syncwarp();
+    if (mv) {
+      ls[i] = v;
+      li[i] = vi;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    ls[pos] = s;
+    li[pos] = row;
+  }
+  __syncwarp();
+}
+
 // One step of the transposing butterfly over 2*H values per lane: lanes
 // with bit H set keep the upper half, the others the lower half, and each
 // adds its partner's copy of the half it keeps.
@@ -220,13 +272,14 @@ __device__ __forceinline__ void butterfly(T* acc, int lane) {
 
 template <class Scorer>
 __host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
+  const size_t lists = list_kind(k) == kListDevice ? 0 : (size_t)kQT * k;
   return Scorer::q_bytes(d) + sizeof(float) * 2 * kQT * kTile +
-         (sizeof(float) + sizeof(int)) * (size_t)kQT * k;
+         (sizeof(float) + sizeof(int)) * lists;
 }
 
 // Shared memory: the Scorer's query tile, score tiles f32 [2, kQT, kTile],
-// then per query a list of k scores and k rows.
-template <class Scorer, bool kBigK, bool kIvf, bool kBlocks>
+// then per query a list of k scores and k rows (not for kListDevice).
+template <class Scorer, int kList, bool kIvf, bool kBlocks>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  const float* __restrict__ qscale,    // [q] (kScaled only)
@@ -254,9 +307,11 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   const int q_valid = min(kQT, q - q0);
 
   Scorer::load_queries(qt, queries, q0, q_valid, d);
-  for (int e = threadIdx.x; e < kQT * k; e += blockDim.x) {
-    list_s[e] = kNegInf;
-    list_i[e] = 0;
+  if constexpr (kList != kListDevice) {
+    for (int e = threadIdx.x; e < kQT * k; e += blockDim.x) {
+      list_s[e] = kNegInf;
+      list_i[e] = 0;
+    }
   }
   __syncthreads();
 
@@ -266,6 +321,20 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   float thr_s = kNegInf;
   int thr_i = 0;
   const bool selects = warp < q_valid;
+  int n_live = 0;  // kListDevice: entries filled so far (the rest are initial)
+  if constexpr (kList == kListDevice) {
+    if (selects) {
+      // the slot of this warp's query in the candidates, where it ends
+      const size_t slot = ((size_t)cta * q + q0 + warp) * k_out;
+      my_s = cand_s + slot;
+      my_i = cand_i + slot;
+      for (int t = lane; t < k; t += 32) {
+        my_s[t] = kNegInf;
+        my_i[t] = 0;
+      }
+      __syncwarp();
+    }
+  }
   float qs_w = 0.f;
   if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
   // rows [row_begin, row_end): stored rows (brute, per-block) or virtual
@@ -353,10 +422,14 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
           int src = __ffs(pending) - 1;
           float ss = __shfl_sync(kFull, s, src);
           int rr = __shfl_sync(kFull, row, src);
-          if constexpr (kBigK)
+          if constexpr (kList == kListDevice) {
+            warp_insert_device(my_s, my_i, k, n_live, ss, rr, lane);
+            n_live = min(n_live + 1, k);
+          } else if constexpr (kList == kListShared) {
             warp_insert_smem(my_s, my_i, k, ss, rr, lane);
-          else
+          } else {
             warp_insert(my_s, my_i, k, ss, rr, lane);
+          }
           thr_s = my_s[k - 1];
           thr_i = my_i[k - 1];
           pending &= pending - 1;
@@ -373,6 +446,8 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
       for (int o = 16; o >= 1; o >>= 1) c0 = min(c0, __shfl_xor_sync(kFull, c0, o));
       if (!valid) c0 = base;  // the TPU kernel's all-NEG_INF block: column 0
     }
+    // kListDevice: the list already sits in this slot; each lane rewrites
+    // only the entries it reads
     size_t out = ((size_t)cta * q + q0 + warp) * k_out;
     for (int t = lane; t < k_out; t += 32) {
       float s = kNegInf;  // the pad past k (k_out == k outside kBlocks)
@@ -476,8 +551,14 @@ typedef void (*ScanKernel)(const void*, const float*, const void*, const float*,
 
 template <class Scorer, bool kIvf, bool kBlocks = false>
 ScanKernel scan_kernel_for(int k) {
-  return k <= kSmallK ? topk_scan_kernel<Scorer, false, kIvf, kBlocks>
-                      : topk_scan_kernel<Scorer, true, kIvf, kBlocks>;
+  switch (list_kind(k)) {
+    case kListRegs:
+      return topk_scan_kernel<Scorer, kListRegs, kIvf, kBlocks>;
+    case kListShared:
+      return topk_scan_kernel<Scorer, kListShared, kIvf, kBlocks>;
+    default:
+      return topk_scan_kernel<Scorer, kListDevice, kIvf, kBlocks>;
+  }
 }
 
 // Scan CTAs that fit on one SM for width d and top-k k (the register cap
@@ -500,7 +581,7 @@ template <class Scorer, bool kIvf>
 int scan_and_merge(const void* queries, const float* qscale, const void* x, const float* xscale,
                    const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
                    int q, int n, int d, int k, int n_cta, RowSource src, void* stream) {
-  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || !Scorer::width_ok(d) || n_cta < 1)
+  if (q < 1 || q > kMaxQ || k < 1 || !Scorer::width_ok(d) || n_cta < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
@@ -554,7 +635,7 @@ int blocks_launch(const void* queries, const float* qscale, const void* x, const
                   const float* bias, const int* ids, const int* n_valid, void* cand_s,
                   void* cand_i, int q, int n, int d, int k, int k_pad, int n_blocks,
                   int block_rows, void* stream) {
-  if (q < 1 || q > kMaxQ || k < 1 || k > kMaxK || k > block_rows || k_pad < k ||
+  if (q < 1 || q > kMaxQ || k < 1 || k > block_rows || k_pad < k ||
       !Scorer::width_ok(d) || n_blocks < 1 || block_rows < 1 || n % block_rows ||
       (!kIvf && n_blocks != n / block_rows))
     return (int)cudaErrorInvalidValue;

@@ -31,8 +31,8 @@ sync between the two. It follows the JAX index's ``backend == "pallas"``
 branch on every device: no fallback to brute force when the plan's bound
 covers every block. Options: the adaptive ``n_probe`` margin, the
 closed-loop ``n_probe`` tuner (a brute shadow search every
-``ivf_tune_interval`` batches) and the residual re-rank, whose candidate
-count stops at ``MAX_K``. ``IndexConfig.kind`` is not read, as in JAX.
+``ivf_tune_interval`` batches) and the residual re-rank, which draws JAX's
+candidate count. ``IndexConfig.kind`` is not read, as in JAX.
 
 Facts of the JAX index that this one copies on purpose: ``compact()`` (and
 ``persistence.load_index``) rebuild the int4 host shadow from the
@@ -57,8 +57,6 @@ from ..core.config import IndexConfig
 from ..core.types import Chunk
 from ..ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
 from ..ops.topk import (
-    MAX_K,
-    MAX_Q,
     NEG_INF,
     topk_int4_pruned,
     topk_int8_pruned,
@@ -454,15 +452,15 @@ class DeviceVectorIndex:
 
         Filters compile to a device mask joined into the bias; filters that
         do not compile fall back to a host pre-filter over raw metadata.
-        ``top_k`` must lie in 1..MAX_K on every device, the CUDA kernel's
-        range, so a CPU index refuses what a CUDA index would.
+        ``top_k`` >= 1 on every device (the kernels keep any k up to the
+        live count, which bounds it as in JAX); a smaller one raises.
 
-        int4 with the host re-rank asks the kernel for
+        int4 with the host re-rank asks the kernel for JAX's
         ``pow2_at_least(ceil(k * int4_rerank_multiplier), 16)`` candidates
-        (at most the live count, as JAX) and re-scores them from the int8
-        shadow; unlike JAX, that candidate count stops at MAX_K."""
-        if not 1 <= top_k <= MAX_K:
-            raise ValueError(f"top_k={top_k} outside 1..{MAX_K}, the most the top-k kernel keeps")
+        (at most the largest power of two <= the live count) and re-scores
+        them from the int8 shadow."""
+        if top_k < 1:
+            raise ValueError(f"top_k={top_k} below 1")
         q = np.asarray(query_embeddings, np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -492,7 +490,7 @@ class DeviceVectorIndex:
                 k2 = _pow2_at_least(max(int(np.ceil(k_eff * mult)), k_eff), 16)
                 if self.live_count < k2:
                     k2 = 1 << max(self.live_count.bit_length() - 1, 0)
-                k_req = min(max(k2, k_eff), MAX_K)
+                k_req = max(k2, k_eff)
                 hq8, hs8 = self._host_q8, self._host_s8
             if filters:
                 try:
@@ -575,11 +573,10 @@ class DeviceVectorIndex:
         mult = self.config.ivf_rerank_multiplier
         if mult > 1.0 and not self._host_rerank:
             # probe deeper, then re-score exactly: k2 pow2-bucketed, at most
-            # the largest pow2 <= live_count (as JAX) and at most MAX_K
+            # the largest pow2 <= live_count (as JAX)
             k2 = _pow2_at_least(max(int(np.ceil(k * mult)), k), 16)
             if self.live_count < k2:
                 k2 = 1 << max(self.live_count.bit_length() - 1, 0)
-            k2 = min(k2, MAX_K)
             if k2 > k:
                 s2, r2 = self._run_ivf_search(queries, vectors, scales, bias, k2)
                 flat = r2.reshape(-1).long()
@@ -587,28 +584,20 @@ class DeviceVectorIndex:
                 return _residual_rerank(queries, cand, bias, s2, r2, k)
         return self._run_ivf_search(queries, vectors, scales, bias, k)
 
-    @staticmethod
-    def _tiled(kernel, queries: torch.Tensor, *args):
-        """``kernel`` over MAX_Q-query tiles (the kernels take at most MAX_Q
-        queries per launch), results concatenated."""
-        parts = [kernel(queries[i : i + MAX_Q], *args) for i in range(0, queries.shape[0], MAX_Q)]
-        if len(parts) == 1:
-            return parts[0]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
-
     def _run_brute(self, queries, vectors, scales, bias, k: int):
         """The storage tier's brute kernel over every row. f32 storage is
         searched in bf16, as the JAX kernels cast it."""
         if self._quant:
             kernel = topk_int4_pruned if self._int4 else topk_int8_pruned
-            return self._tiled(kernel, queries, vectors, scales, bias, k)
+            return kernel(queries, vectors, scales, bias, k)
         x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
-        return self._tiled(topk_pruned, queries, x, bias, k)
+        return topk_pruned(queries, x, bias, k)
 
     def _run_ivf_search(self, queries, vectors, scales, bias, k: int):
         """One probe plan for the whole batch (as JAX: a plan per 64-query
-        tile would probe another union), then the tier's IVF kernel over
-        each tile with that plan. ``n_valid`` stays on the device."""
+        tile would probe another union), then the tier's IVF kernel, which
+        runs every 64-query tile on that plan. ``n_valid`` stays on the
+        device."""
         from .ivf import plan_max_blocks, probe_blocks
 
         st = self._ivf
@@ -625,14 +614,11 @@ class DeviceVectorIndex:
             total_blocks=total_blocks, frozen_blocks=st.frozen_blocks, max_blocks=max_blocks,
             **adaptive,
         )
-        plan = (ids, n_valid, k)
         if self._quant:
             kernel = ivf_topk_int4_dma if self._int4 else ivf_topk_int8_dma
-            return self._tiled(lambda q, *a: kernel(q, *a, block_rows=br), queries,
-                               vectors, scales, bias, *plan)
+            return kernel(queries, vectors, scales, bias, ids, n_valid, k, block_rows=br)
         x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
-        return self._tiled(lambda q, *a: ivf_topk_dma(q, *a, block_rows=br), queries,
-                           x, bias, *plan)
+        return ivf_topk_dma(queries, x, bias, ids, n_valid, k, block_rows=br)
 
     # -- IVF -------------------------------------------------------------------
 

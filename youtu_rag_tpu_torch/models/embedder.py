@@ -31,6 +31,7 @@ from .encoder import (
     load_encoder_config,
     load_params_npz,
 )
+from ..parallel.sequence_parallel import make_sp_encoder
 from .tokenizer import HashTokenizer
 
 
@@ -164,10 +165,17 @@ class TorchEmbedder(BaseEmbedder):
     """The encoder forward on ``device`` (``None`` → the CUDA card),
     batched with padding to power-of-two buckets: lengths from 16 up to
     ``max_len``, batches of at least 8 (``TpuEmbedder`` without its
-    meshes). Without ``params`` the encoder starts from seed 0."""
+    data-parallel mesh). Without ``params`` the encoder starts from seed 0.
+
+    With ``sp_mesh`` (an int S, the shards on this device, or a
+    ``torch.distributed`` process group; ``parallel/sequence_parallel.py``)
+    texts longer than ``max_len`` tokens embed whole, up to
+    ``long_max_len`` (default 8 × ``max_len``), through the ring-attention
+    forward instead of being cut at ``max_len``."""
 
     def __init__(self, config: EncoderConfig | None = None, params: dict | None = None,
-                 batch_size: int = 128, device: str | torch.device | None = None):
+                 batch_size: int = 128, device: str | torch.device | None = None,
+                 sp_mesh=None, long_max_len: int | None = None):
         self.device = resolve_device(device)
         # the serving default: the kernels on the card (blockwise from T =
         # 256; shorter buckets take plain attention either way), plain
@@ -179,6 +187,11 @@ class TorchEmbedder(BaseEmbedder):
         self.params = _to_device(params, self.device)
         self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
         self.batch_size = batch_size
+        self._sp_fwd = None
+        if sp_mesh is not None:
+            self._sp_fwd = make_sp_encoder(self.cfg, sp_mesh)
+            self._sp_size = self._sp_fwd.ring_size
+            self._long_max = long_max_len or 8 * self.cfg.max_len
 
     @classmethod
     def from_weights_dir(cls, weights_dir, **kwargs) -> "TorchEmbedder":
@@ -210,11 +223,44 @@ class TorchEmbedder(BaseEmbedder):
         return b
 
     def embed_batch(self, texts: list[str]) -> np.ndarray:
-        """Synchronous batched embed → [n, embed_dim] f32, L2-normalized."""
+        """Synchronous batched embed → [n, embed_dim] f32, L2-normalized.
+
+        With an ``sp_mesh``, texts longer than ``max_len`` tokens detour
+        through the sequence-parallel forward (whole, no truncation); the
+        rows keep their order."""
         out = np.zeros((len(texts), self.dimension), np.float32)
-        for i in range(0, len(texts), self.batch_size):
-            chunk = texts[i : i + self.batch_size]
-            out[i : i + len(chunk)] = self._embed_short(chunk)
+        long_idx: list[int] = []
+        if self._sp_fwd is not None:
+            long_idx = [j for j, t in enumerate(texts)
+                        if len(self.tokenizer.tokenize(t)) + 2 > self.cfg.max_len]
+            if long_idx:
+                out[long_idx] = self._embed_long([texts[j] for j in long_idx])
+        is_long = set(long_idx)
+        short = [(j, t) for j, t in enumerate(texts) if j not in is_long]
+        for i in range(0, len(short), self.batch_size):
+            chunk = short[i : i + self.batch_size]
+            out[[j for j, _ in chunk]] = self._embed_short([t for _, t in chunk])
+        return out
+
+    def _embed_long(self, texts: list[str]) -> np.ndarray:
+        """Ring-attention embed of over-length texts, in waves of
+        ``max(batch_size // 8, 1)``: T bucketed as a power of two from
+        ``16 * S``, the batch from 4 (``TpuEmbedder._embed_long``)."""
+        out = np.zeros((len(texts), self.dimension), np.float32)
+        step = max(self.batch_size // 8, 1)
+        for i in range(0, len(texts), step):
+            chunk = texts[i : i + step]
+            seqs = [self.tokenizer.encode(t, self._long_max) for t in chunk]
+            t_b = self._bucket(max(len(s) for s in seqs), max(16 * self._sp_size, 16))
+            n_b = self._bucket(len(chunk), 4)
+            ids = np.zeros((n_b, t_b), np.int32)
+            mask = np.zeros((n_b, t_b), np.float32)
+            for j, s in enumerate(seqs):
+                ids[j, : len(s)] = s
+                mask[j, : len(s)] = 1.0
+            emb, _ = self._sp_fwd(self.params, torch.from_numpy(ids).to(self.device),
+                                  torch.from_numpy(mask).to(self.device))
+            out[i : i + len(chunk)] = emb[: len(chunk)].cpu().numpy()
         return out
 
     def _embed_short(self, batch: list[str]) -> np.ndarray:

@@ -184,15 +184,23 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, base: float) -> torch.Tensor:
+def _rope(x: torch.Tensor, base: float, pos_offset=0) -> torch.Tensor:
     """Rotary embedding over the last dim of [B, H, T, hd]; cos and sin are
-    computed in f32 and cast to x's type before the product."""
-    t, hd = x.shape[2], x.shape[3]
+    computed in f32 and cast to x's type before the product. Positions are
+    ``arange(T) + pos_offset`` in f32: the sequence-parallel forward passes
+    each shard's global start (a number, or an f32 tensor broadcasting
+    over [..., T, 1], one offset per leading index)."""
+    t, hd = x.shape[-2], x.shape[-1]
     half = hd // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     freqs = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32, device=x.device), idx)
     pos = torch.arange(t, dtype=torch.float32, device=x.device)
-    ang = pos[:, None] * freqs[None, :]
+    if isinstance(pos_offset, torch.Tensor):
+        pos = pos[:, None] + pos_offset  # [..., T, 1]
+        ang = pos * freqs
+    else:
+        pos = pos + float(pos_offset)
+        ang = pos[:, None] * freqs[None, :]
     cos = torch.cos(ang).to(x.dtype)
     sin = torch.sin(ang).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]

@@ -17,10 +17,12 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
   rows (int4: the unpacked nibbles against the full-width queries), then
   ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, rounded op by op.
 
-Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors and
-counts the launch in its ``.launches``; ``n_valid`` stays on the device
-(no ``.item()``), so nothing waits between the plan and the scan. For CPU
-tensors it runs its plain PyTorch version (``*_reference``).
+Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
+once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
+none for no query), and counts the launches in its ``.launches``;
+``n_valid`` stays on the device (no ``.item()``), so nothing waits between
+the plan and the scan. For CPU tensors it runs its plain PyTorch version
+(``*_reference``). k may exceed the probed rows (empty slots).
 
 Also the counterparts of the per-probed-block kernels (``pallas_ivf_topk``
 → ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``, entries of
@@ -47,15 +49,18 @@ from .topk import (
     NEG_INF,
     _bf16_scores,
     _blocks_of,
+    _blocks_tiles,
     _check_blocks,
     _check_cuda,
     _check_k,
     _device_of,
+    _empty,
     _exact_dot,
-    _launch_blocks,
+    _kernel_queries,
+    _list_ctas,
+    _query_tiles,
     _scaled_scores,
     _sorted_topk,
-    merge_blocks,
     quantize_rows_int8,
     unpack_int4,
 )
@@ -187,18 +192,32 @@ def _check_ids(name: str, block_ids: torch.Tensor, n_valid: torch.Tensor, device
     return n_valid.reshape(1).contiguous()
 
 
-def _launch(fn, queries, qscale, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: int,
-            qn: int, block_rows: int):
-    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` on the current stream (no sync)."""
-    entry = _ENTRY[fn.__name__]
+def _tiles(fn, queries, quantized: bool, x, xscale, bias, block_ids, n_valid, k: int, d: int,
+           n: int, block_rows: int):
+    """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
+
+    def launch(qt):
+        return _launch(fn, *_kernel_queries(qt, quantized), x, xscale, bias, block_ids, nv, k, d,
+                       n, block_rows)
+
+    return _query_tiles(launch, queries, _empty((0, k), x.device))
+
+
+def _launch(fn, queries, qscale, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
+            block_rows: int):
+    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` on the current stream
+    (no sync) for one tile of at most MAX_Q queries."""
+    entry = _ENTRY[fn.__name__]
     lib = _library()
     dev = x.device
+    qn = queries.shape[0]
     max_blocks = block_ids.numel()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # as many CTAs as fit at once on the card, at least 512 rows of the
-    # longest plan each
-    n_cta = max(1, min(_ctas_per_sm(entry, d, k) * sms, -(-max_blocks * block_rows // 512)))
+    # longest plan each (fewer above SHARED_K: _list_ctas)
+    n_cta = _list_ctas(
+        max(1, min(_ctas_per_sm(entry, d, k) * sms, -(-max_blocks * block_rows // 512))), qn, k)
     cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
@@ -223,17 +242,16 @@ def ivf_topk_dma(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tens
 
     queries [q, d] float (cast to bf16), database [N, d] bf16 contiguous with
     d % 128 == 0 and N % block_rows == 0, bias [N] f32, block_ids int32
-    [max_blocks], n_valid an int32 scalar tensor. On CUDA:
-    1 <= q <= 64 and block_rows a multiple of 4."""
+    [max_blocks], n_valid an int32 scalar tensor; k >= 1. On
+    CUDA: block_rows a multiple of 4."""
     _check_k("ivf_topk_dma", k)
     if _device_of("ivf_topk_dma", queries, database, bias, block_ids) == "cpu":
         return ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k,
                                       block_rows=block_rows)
     d = database.shape[1]
-    n, qn = _check_cuda("ivf_topk_dma", queries, database, bias, torch.bfloat16, d)
-    q16 = queries.to(torch.bfloat16).contiguous()
-    return _launch(ivf_topk_dma, q16, None, database, None, bias, block_ids, n_valid, k, d, n,
-                   qn, block_rows)
+    n = _check_cuda("ivf_topk_dma", queries, database, bias, torch.bfloat16, d)
+    return _tiles(ivf_topk_dma, queries, False, database, None, bias, block_ids, n_valid, k, d,
+                  n, block_rows)
 
 
 def ivf_topk_int8_dma(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
@@ -246,10 +264,9 @@ def ivf_topk_int8_dma(queries: torch.Tensor, database_q: torch.Tensor, db_scales
         return ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids,
                                            n_valid, k, block_rows=block_rows)
     d = database_q.shape[1]
-    n, qn = _check_cuda("ivf_topk_int8_dma", queries, database_q, bias, torch.int8, d, db_scales)
-    qq, qs = quantize_rows_int8(queries)
-    return _launch(ivf_topk_int8_dma, qq, qs, database_q, db_scales, bias, block_ids, n_valid,
-                   k, d, n, qn, block_rows)
+    n = _check_cuda("ivf_topk_int8_dma", queries, database_q, bias, torch.int8, d, db_scales)
+    return _tiles(ivf_topk_int8_dma, queries, True, database_q, db_scales, bias, block_ids,
+                  n_valid, k, d, n, block_rows)
 
 
 def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
@@ -262,10 +279,9 @@ def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales
         return ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids,
                                            n_valid, k, block_rows=block_rows)
     d = 2 * database_p.shape[1]
-    n, qn = _check_cuda("ivf_topk_int4_dma", queries, database_p, bias, torch.int8, d, db_scales)
-    qq, qs = quantize_rows_int8(queries)
-    return _launch(ivf_topk_int4_dma, qq, qs, database_p, db_scales, bias, block_ids, n_valid,
-                   k, d, n, qn, block_rows)
+    n = _check_cuda("ivf_topk_int4_dma", queries, database_p, bias, torch.int8, d, db_scales)
+    return _tiles(ivf_topk_int4_dma, queries, True, database_p, db_scales, bias, block_ids,
+                  n_valid, k, d, n, block_rows)
 
 
 def xla_ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
@@ -341,20 +357,18 @@ def ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
     type is cast) with d % 128 == 0 and N % block_rows == 0; bias [N] f32;
     block_ids int32 [max_blocks], whose entries lie in the index, those
     past n_valid too (the probe plan makes them so); n_valid an int32
-    scalar tensor, which stays on the device; 1 <= k <= min(block_rows,
-    1024). On CUDA: 1 <= q <= 64."""
+    scalar tensor, which stays on the device; 1 <= k <= block_rows. On
+    CUDA: one launch per MAX_Q queries."""
     n, d = database.shape
     _check_blocks("ivf_topk", n, d, k, block_rows)
     if _device_of("ivf_topk", queries, database, bias, block_ids) == "cpu":
         return ivf_topk_reference(queries, database, bias, block_ids, n_valid, k,
                                   block_rows=block_rows, candidates=candidates)
     x = database.to(torch.bfloat16).contiguous()
-    n, qn = _check_cuda("ivf_topk", queries, x, bias, torch.bfloat16, d)
+    n = _check_cuda("ivf_topk", queries, x, bias, torch.bfloat16, d)
     nv = _check_ids("ivf_topk", block_ids, n_valid, x.device)
-    q16 = queries.to(torch.bfloat16).contiguous()
-    cand = _launch_blocks(ivf_topk, "ivf_topk_blocks_bf16", q16, None, x, None, bias, k, d, n,
-                          qn, block_rows, block_ids, nv)
-    return cand if candidates else merge_blocks(*cand, k)
+    return _blocks_tiles(ivf_topk, "ivf_topk_blocks_bf16", queries, False, x, None, bias, k, d,
+                         n, block_rows, candidates, block_ids, nv)
 
 
 def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
@@ -368,12 +382,10 @@ def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: to
     if _device_of("ivf_topk_int8", queries, database_q, db_scales, bias, block_ids) == "cpu":
         return ivf_topk_int8_reference(queries, database_q, db_scales, bias, block_ids, n_valid,
                                        k, block_rows=block_rows, candidates=candidates)
-    n, qn = _check_cuda("ivf_topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
+    n = _check_cuda("ivf_topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
     nv = _check_ids("ivf_topk_int8", block_ids, n_valid, database_q.device)
-    qq, qs = quantize_rows_int8(queries)
-    cand = _launch_blocks(ivf_topk_int8, "ivf_topk_blocks_int8", qq, qs, database_q, db_scales,
-                          bias, k, d, n, qn, block_rows, block_ids, nv)
-    return cand if candidates else merge_blocks(*cand, k)
+    return _blocks_tiles(ivf_topk_int8, "ivf_topk_blocks_int8", queries, True, database_q,
+                         db_scales, bias, k, d, n, block_rows, candidates, block_ids, nv)
 
 
 ivf_topk_dma.launches = 0

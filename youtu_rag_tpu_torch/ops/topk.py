@@ -16,7 +16,8 @@ pruned kernels' contract is the JAX kernels':
   ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, each operation rounded on
   its own;
 - the result is the exact top k per query ordered by (score desc, row
-  asc): lower rows win ties; 1 <= k <= ``MAX_K`` on every device;
+  asc): lower rows win ties; 1 <= k <= N on every device (JAX asserts
+  k <= block_rows, which divides N);
 - slots no live row fills carry a score of ``NEG_INF`` (or ``-inf`` where
   a filter added ``NEG_INF`` to a ``NEG_INF`` bias); their row is not
   specified, and callers drop any slot with ``score <= NEG_INF / 2``.
@@ -36,8 +37,11 @@ Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``,
 ``topk``, ``topk_int8``) launches its hand-written CUDA kernel
 (``csrc/<name>.cu``; the per-block ones ``csrc/topk_blocks.cu``) for CUDA
 tensors and counts the launch in its ``.launches``; for CPU tensors it runs
-its plain PyTorch version (``*_reference``). The ``xla_*`` functions are
-plain PyTorch on every device, as they are plain XLA in JAX.
+its plain PyTorch version (``*_reference``). Every wrapper takes any number
+of queries: on CUDA it launches once per tile of at most ``MAX_Q`` queries
+(``_query_tiles``, shared with ``ops/ivf.py``) and joins the results; with
+no query it returns an empty result without a launch. The ``xla_*``
+functions are plain PyTorch on every device, as they are plain XLA in JAX.
 """
 
 from __future__ import annotations
@@ -52,8 +56,12 @@ from . import _build
 
 NEG_INF = float(np.finfo(np.float32).min)
 
-MAX_K = 1024  # the JAX kernels' limit (k <= block_rows) at the default block_rows
-MAX_Q = 64  # the store's search coalescer merges at most 64 queries
+# The kernels' lists stay in shared memory up to k = SHARED_K; above it
+# (the JAX kernels take any k up to their block_rows) each list lives in
+# the candidate buffer in device memory, which _list_ctas bounds.
+SHARED_K = 1024
+MAX_Q = 64  # queries per kernel launch; the wrappers tile more (_query_tiles)
+CAND_BYTES = 256 << 20  # the device-memory lists' candidate buffer, at most
 _LANE = 128
 
 
@@ -61,9 +69,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _check_k(name: str, k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{name}: k={k} outside 1..{MAX_K}, the most the kernel keeps")
+def _check_k(name: str, k: int, limit: int | None = None, what: str = "") -> None:
+    """1 <= k (<= limit, where the JAX function bounds it)."""
+    if k < 1 or (limit is not None and k > limit):
+        top = "" if limit is None else str(limit)
+        raise ValueError(f"{name}: k={k} outside 1..{top}{what}")
 
 
 def _check_blocks(name: str, n: int, d: int, k: int, block_rows: int) -> None:
@@ -253,7 +263,8 @@ def _blocks_of(scores: torch.Tensor, k: int, block_rows: int, base: torch.Tensor
     ``k_pad = round_up(k, 128)`` as ``topk.py:112-116`` pads it; the
     candidates [blocks, q, k_pad], or their merge (``merge_blocks``)."""
     qn = scores.shape[0]
-    vals, rows = _select_blocks(scores.reshape(qn, -1, block_rows), k, base)
+    vals, rows = _select_blocks(scores.reshape(qn, scores.shape[1] // block_rows, block_rows), k,
+                                base)
     nb, k_pad = vals.shape[0], _round_up(k, _LANE)
     cand_s = torch.full((nb, qn, k_pad), NEG_INF, dtype=torch.float32, device=scores.device)
     cand_i = torch.zeros((nb, qn, k_pad), dtype=torch.int32, device=scores.device)
@@ -339,15 +350,49 @@ def _ctas_per_sm(name: str, d: int, k: int) -> int:
     return min(per_sm, 2)
 
 
-def _scan_ctas(name: str, n: int, d: int, k: int, device: torch.device) -> int:
+def _list_ctas(n_cta: int, qn: int, k: int) -> int:
+    """Above SHARED_K the kernel keeps each (CTA, query) list in the
+    candidate buffer [n_cta, q, k] itself: fewer CTAs bound it to
+    CAND_BYTES."""
+    if k <= SHARED_K:
+        return n_cta
+    return max(1, min(n_cta, CAND_BYTES // (qn * k * 8)))
+
+
+def _scan_ctas(name: str, n: int, d: int, k: int, qn: int, device: torch.device) -> int:
     """Row-range CTAs of the scan kernel: as many as fit at once on the
-    card, at least 512 rows each."""
+    card, at least 512 rows each (``_list_ctas`` above SHARED_K)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(_ctas_per_sm(name, d, k) * sms, -(-n // 512)))
+    return _list_ctas(max(1, min(_ctas_per_sm(name, d, k) * sms, -(-n // 512))), qn, k)
 
 
-def _check_cuda(name: str, queries, x, bias, dtype, width, scales=None) -> tuple[int, int]:
-    """Shape, type and layout checks of a CUDA launch; returns (n, q)."""
+def _query_tiles(launch, queries: torch.Tensor, empty: tuple, dim: int = 0):
+    """``launch(tile)`` over tiles of at most MAX_Q queries (the most one
+    kernel launch takes), each result joined along its query axis ``dim``;
+    with no query, ``empty`` and no launch."""
+    qn = queries.shape[0]
+    if qn == 0:
+        return empty
+    parts = [launch(queries[i : i + MAX_Q]) for i in range(0, qn, MAX_Q)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(p, dim=dim) for p in zip(*parts))
+
+
+def _kernel_queries(qt: torch.Tensor, quantized: bool):
+    """A tile's queries as a kernel reads them: bf16 rows and no scales, or
+    int8 rows and their f32 scales (``quantize_rows_int8``)."""
+    return quantize_rows_int8(qt) if quantized else (qt.to(torch.bfloat16).contiguous(), None)
+
+
+def _empty(shape: tuple, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """An empty (scores f32, rows int32) result of ``shape``."""
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
+
+
+def _check_cuda(name: str, queries, x, bias, dtype, width, scales=None) -> int:
+    """Shape, type and layout checks of a CUDA launch; returns n."""
     if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: database must be a contiguous 2-D {dtype} tensor")
     n = x.shape[0]
@@ -360,20 +405,17 @@ def _check_cuda(name: str, queries, x, bias, dtype, width, scales=None) -> tuple
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (n,)
                               or not t.is_contiguous()):
             raise ValueError(f"{name}: {what} must be contiguous f32 [{n}]")
-    qn = queries.shape[0]
-    if not 1 <= qn <= MAX_Q:
-        raise ValueError(f"{name}: {qn} queries; the kernel takes 1..{MAX_Q} per call")
-    return n, qn
+    return n
 
 
-def _launch(fn, queries, qscale, x, xscale, bias, k: int, d: int, n: int, qn: int):
-    """Launch ``csrc/<fn.__name__>.cu`` on the current stream (no sync)."""
+def _launch(fn, queries, qscale, x, xscale, bias, k: int, d: int, n: int):
+    """Launch ``csrc/<fn.__name__>.cu`` on the current stream (no sync) for
+    one tile of at most MAX_Q queries."""
     name = fn.__name__
-    if k > n:
-        raise ValueError(f"{name}: k={k} above the index's {n} rows")
+    qn = queries.shape[0]
     lib = _library(name)
     dev = x.device
-    n_cta = _scan_ctas(name, n, d, k, dev)
+    n_cta = _scan_ctas(name, n, d, k, qn, dev)
     cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
@@ -400,18 +442,26 @@ def _device_of(name: str, *tensors: torch.Tensor) -> str:
     return kind
 
 
+def _rows_k(name: str, k: int, n: int) -> None:
+    _check_k(name, k, n, ", the index's rows")
+
+
 def topk_pruned(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int):
     """Exact masked top-k over bf16 rows: (scores [q, k] f32 desc, rows [q, k] int32).
 
     queries [q, d] (any float dtype; cast to bf16), database [N, d] bf16
-    contiguous with d % 128 == 0, bias [N] f32. On CUDA: 1 <= q <= 64 and
-    k <= N. Launches on the current stream and does not synchronize."""
-    _check_k("topk_pruned", k)
+    contiguous with d % 128 == 0, bias [N] f32, 1 <= k <= N. On CUDA:
+    launches on the current stream, once per MAX_Q queries, and does not
+    synchronize."""
+    _rows_k("topk_pruned", k, database.shape[0])
     if _device_of("topk_pruned", queries, database, bias) == "cpu":
         return topk_pruned_reference(queries, database, bias, k)
-    n, qn = _check_cuda("topk_pruned", queries, database, bias, torch.bfloat16, database.shape[1])
-    q16 = queries.to(torch.bfloat16).contiguous()
-    return _launch(topk_pruned, q16, None, database, None, bias, k, database.shape[1], n, qn)
+    d = database.shape[1]
+    n = _check_cuda("topk_pruned", queries, database, bias, torch.bfloat16, d)
+    return _query_tiles(
+        lambda qt: _launch(topk_pruned, *_kernel_queries(qt, False), database, None, bias, k,
+                           d, n),
+        queries, _empty((0, k), database.device))
 
 
 def topk_int8_pruned(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
@@ -420,14 +470,16 @@ def topk_int8_pruned(queries: torch.Tensor, database_q: torch.Tensor, db_scales:
 
     queries [q, d] float, quantized per row here (``quantize_rows_int8``);
     database_q [N, d] int8 contiguous with d % 128 == 0; db_scales [N] f32;
-    bias [N] f32. On CUDA: 1 <= q <= 64 and k <= N."""
-    _check_k("topk_int8_pruned", k)
+    bias [N] f32; 1 <= k <= N."""
+    _rows_k("topk_int8_pruned", k, database_q.shape[0])
     if _device_of("topk_int8_pruned", queries, database_q, db_scales, bias) == "cpu":
         return topk_int8_pruned_reference(queries, database_q, db_scales, bias, k)
     d = database_q.shape[1]
-    n, qn = _check_cuda("topk_int8_pruned", queries, database_q, bias, torch.int8, d, db_scales)
-    qq, qs = quantize_rows_int8(queries)
-    return _launch(topk_int8_pruned, qq, qs, database_q, db_scales, bias, k, d, n, qn)
+    n = _check_cuda("topk_int8_pruned", queries, database_q, bias, torch.int8, d, db_scales)
+    return _query_tiles(
+        lambda qt: _launch(topk_int8_pruned, *_kernel_queries(qt, True), database_q, db_scales,
+                           bias, k, d, n),
+        queries, _empty((0, k), database_q.device))
 
 
 def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
@@ -436,15 +488,17 @@ def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales:
 
     queries [q, d] float, quantized per row to int8 here; database_p
     [N, d/2] int8 packed nibbles (``quantize_rows_int4``) with
-    (d/2) % 128 == 0; db_scales [N] f32 (amax/7); bias [N] f32. On CUDA:
-    1 <= q <= 64 and k <= N."""
-    _check_k("topk_int4_pruned", k)
+    (d/2) % 128 == 0; db_scales [N] f32 (amax/7); bias [N] f32;
+    1 <= k <= N."""
+    _rows_k("topk_int4_pruned", k, database_p.shape[0])
     if _device_of("topk_int4_pruned", queries, database_p, db_scales, bias) == "cpu":
         return topk_int4_pruned_reference(queries, database_p, db_scales, bias, k)
     d = 2 * database_p.shape[1]
-    n, qn = _check_cuda("topk_int4_pruned", queries, database_p, bias, torch.int8, d, db_scales)
-    qq, qs = quantize_rows_int8(queries)
-    return _launch(topk_int4_pruned, qq, qs, database_p, db_scales, bias, k, d, n, qn)
+    n = _check_cuda("topk_int4_pruned", queries, database_p, bias, torch.int8, d, db_scales)
+    return _query_tiles(
+        lambda qt: _launch(topk_int4_pruned, *_kernel_queries(qt, True), database_p, db_scales,
+                           bias, k, d, n),
+        queries, _empty((0, k), database_p.device))
 
 
 _BLOCKS_LIB = "topk_blocks"
@@ -466,11 +520,13 @@ def _blocks_library() -> ctypes.CDLL:
 
 
 def _launch_blocks(fn, entry: str, queries, qscale, x, xscale, bias, k: int, d: int, n: int,
-                   qn: int, block_rows: int, block_ids=None, n_valid=None):
+                   block_rows: int, block_ids=None, n_valid=None):
     """Launch ``entry`` of ``csrc/topk_blocks.cu`` on the current stream
-    (no sync); returns its candidates [blocks, q, k_pad] (f32, int32)."""
+    (no sync) for one tile of at most MAX_Q queries; returns its
+    candidates [blocks, q, k_pad] (f32, int32)."""
     lib = _blocks_library()
     dev = x.device
+    qn = queries.shape[0]
     n_blocks = n // block_rows if block_ids is None else block_ids.numel()
     k_pad = _round_up(k, _LANE)
     cand_s = torch.empty((n_blocks, qn, k_pad), dtype=torch.float32, device=dev)
@@ -488,6 +544,22 @@ def _launch_blocks(fn, entry: str, queries, qscale, x, xscale, bias, k: int, d: 
     return cand_s, cand_i
 
 
+def _blocks_tiles(fn, entry: str, queries, quantized: bool, x, xscale, bias, k: int, d: int,
+                  n: int, block_rows: int, candidates: bool, block_ids=None, n_valid=None):
+    """A per-block kernel over MAX_Q-query tiles (``_query_tiles``): the
+    candidates [blocks, q, k_pad] joined along q, then merged unless
+    ``candidates``."""
+    n_blocks = n // block_rows if block_ids is None else block_ids.numel()
+
+    def launch(qt):
+        return _launch_blocks(fn, entry, *_kernel_queries(qt, quantized), x, xscale, bias, k, d,
+                              n, block_rows, block_ids, n_valid)
+
+    cand = _query_tiles(launch, queries, _empty((n_blocks, 0, _round_up(k, _LANE)), x.device),
+                        dim=1)
+    return cand if candidates else merge_blocks(*cand, k)
+
+
 def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
          block_rows: int = 1024, candidates: bool = False):
     """Masked top-k through per-block candidates (``pallas_topk``):
@@ -496,20 +568,18 @@ def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: i
 
     queries [q, d] (cast to bf16); database [N, d] (bf16; another float
     type is cast to bf16, as JAX does) with d % 128 == 0 and
-    N % block_rows == 0; bias [N] f32; 1 <= k <= min(block_rows, 1024).
-    On CUDA: 1 <= q <= 64; the kernel and the merge (a torch sort) run on
-    the current stream, without a sync."""
+    N % block_rows == 0; bias [N] f32; 1 <= k <= block_rows. On CUDA: one
+    launch per MAX_Q queries; the kernel and the merge (a torch sort) run
+    on the current stream, without a sync."""
     n, d = database.shape
     _check_blocks("topk", n, d, k, block_rows)
     if _device_of("topk", queries, database, bias) == "cpu":
         return topk_reference(queries, database, bias, k, block_rows=block_rows,
                               candidates=candidates)
     x = database.to(torch.bfloat16).contiguous()
-    n, qn = _check_cuda("topk", queries, x, bias, torch.bfloat16, d)
-    q16 = queries.to(torch.bfloat16).contiguous()
-    cand = _launch_blocks(topk, "topk_blocks_bf16", q16, None, x, None, bias, k, d, n, qn,
-                          block_rows)
-    return cand if candidates else merge_blocks(*cand, k)
+    n = _check_cuda("topk", queries, x, bias, torch.bfloat16, d)
+    return _blocks_tiles(topk, "topk_blocks_bf16", queries, False, x, None, bias, k, d, n,
+                         block_rows, candidates)
 
 
 def topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
@@ -522,11 +592,9 @@ def topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.
     if _device_of("topk_int8", queries, database_q, db_scales, bias) == "cpu":
         return topk_int8_reference(queries, database_q, db_scales, bias, k,
                                    block_rows=block_rows, candidates=candidates)
-    n, qn = _check_cuda("topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
-    qq, qs = quantize_rows_int8(queries)
-    cand = _launch_blocks(topk_int8, "topk_blocks_int8", qq, qs, database_q, db_scales, bias,
-                          k, d, n, qn, block_rows)
-    return cand if candidates else merge_blocks(*cand, k)
+    n = _check_cuda("topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
+    return _blocks_tiles(topk_int8, "topk_blocks_int8", queries, True, database_q, db_scales,
+                         bias, k, d, n, block_rows, candidates)
 
 
 def fused_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
@@ -541,8 +609,7 @@ def fused_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor
     - ``"pallas_interpret"``: ``topk_reference`` on any device;
     - ``"xla"``: ``xla_topk``.
 
-    Takes any number of queries: the per-block paths run them in tiles of
-    ``MAX_Q``, the most one kernel launch takes.
+    Takes any number of queries, none included (``[0, k]`` results, as JAX).
     Returns (scores [q, k] f32 desc, rows [q, k] int32)."""
     if backend == "auto":
         backend = "pallas" if database.is_cuda and database.shape[0] >= 4 * block_rows else "xla"
@@ -551,9 +618,7 @@ def fused_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor
     fn = {"pallas": topk, "pallas_interpret": topk_reference}.get(backend)
     if fn is None:
         raise ValueError(f"unknown backend {backend!r}")
-    parts = [fn(queries[i : i + MAX_Q], database, bias, k, block_rows=block_rows)
-             for i in range(0, queries.shape[0], MAX_Q)]
-    return torch.cat([s for s, _ in parts]), torch.cat([r for _, r in parts])
+    return fn(queries, database, bias, k, block_rows=block_rows)
 
 
 topk_pruned.launches = 0
