@@ -8,8 +8,10 @@ Phases; any failure exits non-zero before the result lines:
      fails without a CUDA device;
   2. build: compiles the path's six kernel sources from csrc/ at once (one
      nvcc per source) and prints each build's time and ptxas' register and
-     spill report (the scan kernels in three k classes, the attention
-     kernels with the hop entry);
+     spill report and warnings (the scan kernels in three k classes; the
+     attention source's Hopper kernels, attention_wgmma.cuh's
+     attention_kernel for hd 64 and 128, blockwise and flash, and its
+     mma.sync kernels, f32 and the hop entry);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -20,10 +22,11 @@ Phases; any failure exits non-zero before the result lines:
      (int8) through the pruned kernels, k = 2048 through one IVF and two
      per-block cases (the lists in device memory); each held to its plain
      version as in phases 3, 3c and 3d;
-  3b. kernel vs plain, attention: blockwise (T 256, 512, 4096) and flash
-     (T 4224, 8192) against their plain versions, hd 64 and 128, bf16 and
-     f32, with padded keys and a batch row whose every key is masked,
-     within ATTN_TOL; any NaN fails;
+  3b. kernel vs plain, attention: blockwise (T 256, 384, 512, 640, 4096)
+     and flash (T 4224, 8192) against their plain versions, hd 64 and 128,
+     bf16 (the Hopper kernels) and f32, with padded keys and a batch row
+     whose every key is masked, and both entries on the encoder's strided
+     q, k, v views, within compare_attention's tolerance; any NaN fails;
   3e. kernel vs plain, the ring hop: ``flash_attention_stats`` at T = T_kv
      = 256, 1024 and 8192, T = 1024 against T_kv = 512 and 4096, hd 64 and
      128, bf16 and f32, padded keys, a fully masked row and a span whose
@@ -99,9 +102,12 @@ Phases; any failure exits non-zero before the result lines:
   5b. main path, full size, encoder: the default encoder embeds 128 texts
      at T = 512 (embeddings/s, the forward's device time and its split by
      kernel), and the same encoder with max_len 8192 embeds two long
-     documents at T = 8192 (flash); each kernel, on the last layer's
+     documents at T = 8192 (flash; the forward of the two, B = 2, timed
+     and split by kernel); each kernel, on the last layer's
      tensors of its run, is held against its plain version and timed
-     beside its bound, its plain version and scaled_dot_product_attention;
+     beside its bound, its plain version and scaled_dot_product_attention
+     (the kernel and SDPA by two timers: time_ms, bursts of calls, and
+     time_held_ms, one call's device time behind a spin of the card);
   5e. main path, full size, the ring: the default encoder with sp_mesh=4
      embeds 8 documents of ~3,500 words (T 4096, Tl 1024): embeddings/s,
      the forward's device time and its split by kernel, the same top-1
@@ -281,7 +287,8 @@ def build_all() -> None:
             raise SystemExit(f"FAIL: build of {name}: {got}")
         print(f"built {name} in {got['seconds']:.1f} s")
         print("\n".join(line for line in got["log"].splitlines()
-                        if "registers" in line or "stack" in line or "Compiling entry" in line))
+                        if any(w in line for w in ("registers", "stack", "Compiling entry",
+                                                   "warning"))))
     print(f"all builds: {time.perf_counter() - t0:.1f} s wall")
 
 
@@ -403,19 +410,36 @@ def kernel_cases(seed: int) -> dict[str, float]:
 # 3b. kernel vs plain, attention
 # ---------------------------------------------------------------------------
 
+# (name, T, hd, dtype, layout): blockwise T 256 (two key tiles, fewer than
+# the Hopper kernel's ring stages), 384 and 640 (tile counts the ring's
+# stages do not divide); "strided" takes q, k and v as the encoder passes
+# them, [B, T, H, hd] viewed through transpose(1, 2)
 ATTN_CASES = [
-    (name, t, hd, dtype)
-    for name, ts in (("blockwise_attention", (256, 512, 4096)), ("flash_attention", (4224, 8192)))
+    (name, t, hd, dtype, "contiguous")
+    for name, ts in (("blockwise_attention", (256, 384, 512, 640, 4096)),
+                     ("flash_attention", (4224, 8192)))
     for t in ts
+    for hd in (64, 128)
+    for dtype in (torch.bfloat16, torch.float32)
+] + [
+    (name, t, hd, dtype, "strided")
+    for name, t in (("blockwise_attention", 512), ("flash_attention", 4224))
     for hd in (64, 128)
     for dtype in (torch.bfloat16, torch.float32)
 ]
 
 
-def attention_inputs(b: int, h: int, t: int, hd: int, dtype, g):
+def attention_inputs(b: int, h: int, t: int, hd: int, dtype, g, layout: str = "contiguous"):
     """q, k, v on the card and the encoder's -1e9 padding bias: row 0
-    padded past t/2 + 3, the last batch row fully masked."""
-    q, k, v = (torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype) for _ in range(3))
+    padded past t/2 + 3, the last batch row fully masked. "strided": q, k
+    and v are [B, T, H, hd] tensors seen as [B, H, T, hd] (row stride
+    H·hd), as the encoder's projections reach the kernels."""
+    if layout == "strided":
+        q, k, v = (torch.randn(b, t, h, hd, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
     mask = torch.ones(b, t, device="cuda")
     mask[0, t // 2 + 3 :] = 0
     mask[-1] = 0
@@ -443,13 +467,13 @@ def attention_cases(seed: int) -> dict[str, float]:
     g = torch.Generator(device="cuda").manual_seed(seed)
     kernels = attention_ops()
     max_err = dict.fromkeys(kernels, 0.0)
-    for name, t, hd, dtype in ATTN_CASES:
+    for name, t, hd, dtype, layout in ATTN_CASES:
         kernel, plain = kernels[name]
-        args = attention_inputs(3, 2, t, hd, dtype, g)
+        args = attention_inputs(3, 2, t, hd, dtype, g, layout)
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
-        what = f"{name} T={t} hd={hd} {str(dtype)[6:]}"
+        what = f"{name} T={t} hd={hd} {str(dtype)[6:]} {layout}"
         max_err[name] = max(max_err[name], compare_attention(got, want, what))
     print(f"attention kernel vs plain: {len(ATTN_CASES)} cases ok, max_abs_err "
           + ", ".join(f"{n} {e}" for n, e in max_err.items()))
@@ -1989,21 +2013,29 @@ def attention_bound(part: str, b: int, h: int, t: int, hd: int) -> tuple[float, 
 
 def time_attention(name: str, args, part: str) -> dict:
     """Check the kernel on the main path's tensors, then time it, its plain
-    version and scaled_dot_product_attention with the additive mask."""
+    version and scaled_dot_product_attention with the additive mask. The
+    kernel and SDPA by both timers: ``time_ms`` (bursts of back-to-back
+    calls; the kernels line's ``ms`` and ``library_ms``) and
+    ``time_held_ms`` (one call held behind a spin of the card: its device
+    time alone)."""
     kernel, plain = attention_ops()[name]
     b, h, t, hd = args[0].shape
     err = compare_attention(kernel(*args), plain(*args), f"{name} on the main path's tensors")
     ms = time_ms(lambda: kernel(*args))
+    held_ms = time_held_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args), bursts=3, burst=3, warmup=1)
     q, k, v, bias = args
     mask = bias.to(q.dtype)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    library_held_ms = time_held_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     bms, by = attention_bound(part, b, h, t, hd)
     tflops = 4 * b * h * t * t * hd / ms / 1e9
-    print(f"  {name} [{b}, {h}, {t}, {hd}] {str(q.dtype)[6:]}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), "
-          f"bound {bms:.4f} ms ({by}); plain {plain_ms:.4f} ms; library {library_ms:.4f} ms "
-          f"[scaled_dot_product_attention, additive mask]; max_abs_err {err}")
+    print(f"  {name} [{b}, {h}, {t}, {hd}] {str(q.dtype)[6:]}: time_ms {ms:.4f} ms "
+          f"({tflops:.1f} TFLOP/s), time_held_ms {held_ms:.4f} ms, bound {bms:.4f} ms ({by}); "
+          f"plain {plain_ms:.4f} ms; library time_ms {library_ms:.4f} ms, time_held_ms "
+          f"{library_held_ms:.4f} ms [scaled_dot_product_attention, additive mask]; "
+          f"max_abs_err {err}")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by}
 
@@ -2052,6 +2084,13 @@ def encoder_full_size(seed: int, part: str, embedder) -> dict[str, dict]:
                      "flash_attention_stats": 0}, f"forward at T = 8192: launches {counts}")
     check(args[0].shape[2] == 8192, f"flash shape {args[0].shape}")
     print(f"long documents, T = 8192, batch bucket {args[0].shape[0]}: launches {counts}")
+    ids, mask = long_emb.tokenizer.batch(docs, max_length=8192, pad_to=8192)
+    ids_d, mask_d = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    fwd_ms = time_ms(lambda: encode_tokens(long_emb.params, ids_d, mask_d, long_cfg),
+                     bursts=3, burst=2, warmup=1)
+    print(f"encoder forward B = 2, T = 8192: {fwd_ms:.4f} ms device "
+          f"({2 / fwd_ms * 1e3:.2f} embeddings/s)")
+    profile_split(lambda: encode_tokens(long_emb.params, ids_d, mask_d, long_cfg), calls=1, top=8)
     args = tuple(x[:2].contiguous() for x in args)  # the two documents: B = 2
     out["flash_attention"] = {"launches": counts["flash_attention"],
                               **time_attention("flash_attention", args, part)}

@@ -206,6 +206,26 @@ def test_cuda_index_answers_like_cpu_index(cuda_device, metric):
     assert topk_pruned.launches == before + 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+def test_cuda_index_refuses_plain_backends(cuda_device, backend):
+    """A CUDA index runs the kernel under "auto" and "pallas" and refuses
+    the names of JAX's plain paths rather than run them on the card."""
+    rng = np.random.default_rng(0)
+    idx = DeviceVectorIndex(96, IndexConfig(min_capacity=256), device=cuda_device)
+    idx.add([Chunk(f"c{i}", "d", "", i) for i in range(100)],
+            rng.standard_normal((100, 96)).astype(np.float32))
+    q = rng.standard_normal((2, 96)).astype(np.float32)
+    before = topk_pruned.launches
+    assert [len(h) for h in idx.search(q, 5, backend="auto")] == [5, 5]
+    assert [len(h) for h in idx.search(q, 5, backend="pallas")] == [5, 5]
+    assert topk_pruned.launches == before + 2
+    with pytest.raises(ValueError, match="device='cpu'"):
+        idx.search(q, 5, backend=backend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        idx.search(q, 5, backend="triton")
+
+
 ATTENTION = {"blockwise": (blockwise_attention, blockwise_attention_reference),
              "flash": (flash_attention, flash_attention_reference)}
 
@@ -223,7 +243,7 @@ def attention_inputs(b, h, t, hd, dtype, device, seed=0):
 
 def assert_attention_close(got, want):
     """bf16: one bf16 ulp of the output (sums in another order, and flash's
-    64-key tiles against JAX's key blocks, move a value across a bf16
+    128-key tiles against JAX's key blocks, move a value across a bf16
     rounding); f32: the kernel's three-term bf16 split of each operand
     keeps ~f32 products, summed in another order."""
     if got.dtype == torch.bfloat16:
@@ -258,6 +278,83 @@ def test_attention_kernel_reads_strided_heads(cuda_device, kind):
     views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
     assert not views[0].is_contiguous()
     torch.testing.assert_close(kernel(*views, bias), kernel(q, k, v, bias), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [256, 384, 640, 4224])
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_hopper_attention_matches_plain_version(cuda_device, kind, t, hd):
+    """bf16 runs the wgmma + TMA kernels: T = 256 has fewer key tiles than
+    the ring has stages, 384 and 640 tile counts the stages do not divide;
+    B·H = 6 gives 12 to 30 work items below T = 4224, so the persistent
+    grid shrinks to that many CTAs (one item each), far below the SMs."""
+    kernel, plain = ATTENTION[kind]
+    args = attention_inputs(3, 2, t, hd, torch.bfloat16, cuda_device, seed=t + hd + 1)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert_attention_close(got, plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_hopper_attention_reads_strided_views(cuda_device, kind, hd):
+    """q, k, v as views of one packed [B, T, 3, H, hd] projection (row
+    stride 3·H·hd, head stride hd): the tensor maps take the strides."""
+    kernel, plain = ATTENTION[kind]
+    b, h, t = 2, 3, 512
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    qkv = torch.randn(b, t, 3, h, hd, generator=g, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert q.stride() == (t * 3 * h * hd, hd, 3 * h * hd, 1)
+    bias = attention_inputs(b, h, t, hd, torch.bfloat16, cuda_device)[3]
+    got = kernel(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert_attention_close(got, plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_hopper_attention_walks_many_items_per_cta(cuda_device, kind):
+    """[16, 12, 512, 64]: 384 work items over at most 132 CTAs, so each CTA
+    walks several items through both Q slots and many turns of the ring."""
+    kernel, plain = ATTENTION[kind]
+    args = attention_inputs(16, 12, 512, 64, torch.bfloat16, cuda_device, seed=5)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert_attention_close(got, plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_hopper_attention_back_to_back_shapes(cuda_device, kind):
+    """Two calls of other shapes, then the first again, enqueued without a
+    sync: each launch carries its own tensor maps."""
+    kernel, plain = ATTENTION[kind]
+    a = attention_inputs(3, 2, 512, 64, torch.bfloat16, cuda_device, seed=1)
+    b = attention_inputs(2, 4, 256, 128, torch.bfloat16, cuda_device, seed=2)
+    got = [kernel(*a), kernel(*b), kernel(*a)]
+    torch.cuda.synchronize()
+    assert_attention_close(got[0], plain(*a))
+    assert_attention_close(got[1], plain(*b))
+    torch.testing.assert_close(got[2], got[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ATTENTION))
+def test_hopper_attention_on_a_side_stream(cuda_device, kind):
+    """The launch goes to the current stream: on a side stream the result
+    is ready once that stream is synchronized."""
+    kernel, plain = ATTENTION[kind]
+    args = attention_inputs(3, 2, 384, 64, torch.bfloat16, cuda_device, seed=3)
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = kernel(*args)
+    side.synchronize()
+    assert_attention_close(got, plain(*args))
 
 
 @pytest.mark.cuda

@@ -302,6 +302,27 @@ def test_top_k_outside_the_kernel_range_raises_on_the_cpu_too(top_k):
         idx.search(vectors(2, 2), top_k=top_k)
 
 
+@pytest.mark.parametrize("backend", ["auto", "pallas", "pallas_interpret", "xla"])
+def test_search_backend_names_match_jax_xla(backend):
+    """A CPU index runs the plain version under each of JAX's four names,
+    with JAX's xla backend's hits."""
+    t = Trio("cosine")
+    t.add(300, seed=1)
+    q = vectors(2, 4)
+    got = t.port.search(q, 10, backend=backend)
+    want = t.jax.search(q, 10, backend="xla")
+    for g, w in zip(got, want):
+        assert [c.id for c, _ in g] == [c.id for c, _ in w]
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=TOL)
+
+
+def test_search_unknown_backend_raises():
+    idx = DeviceVectorIndex(D, IndexConfig(min_capacity=256), device="cpu")
+    idx.add(chunks(Chunk, 10), vectors(1, 10))
+    with pytest.raises(ValueError, match="unknown backend"):
+        idx.search(vectors(2, 1), 3, backend="triton")
+
+
 def test_ivf_kind_builds_the_flat_index_jax_builds():
     """``kind`` is not read, as in the JAX index: "ivf" serves brute force
     until ``build_ivf()``."""

@@ -8,9 +8,15 @@ Each argument is a directory that holds a checkout of the repo (or of
 the order given, and builds its own kernels. On tensors drawn on the card
 from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
 (k = 10) and ``topk_int4_pruned`` (k = 64) at 1,048,576 × 768, q = 8 (the
-calls of ``chip_smoke.py`` phase 5), and ``blockwise_attention`` at
+calls of ``chip_smoke.py`` phase 5), ``blockwise_attention`` at
 [128, 12, 512, 64] and ``flash_attention`` at [2, 12, 8192, 64], bf16
-(phase 5b's shapes). Two timers: bursts of 20 back-to-back calls
+(phase 5b's shapes), the same operations at hd 128 ([64, 6, 512, 128],
+[2, 6, 8192, 128]) and at a whole number of 132-CTA rounds of work items
+([132, 12, 512, 64]: 6,336 items; [1, 33, 8192, 64]: 2,112), each beside
+``scaled_dot_product_attention`` on the same tensors with the same
+additive mask as phase 5b (so that kernel and library come from one
+process on one card), and ``flash_attention_stats`` at [2, 12, 8192, 64]
+against 8192 keys (phase 5e's hop). Two timers: bursts of 20 back-to-back calls
 (``chip_smoke.py``'s ``time_ms``: the host's enqueue can bound it when a
 call is short) and one call held behind a spin of the card (its
 ``time_held_ms``: the device time). Prints one JSON line per run and the
@@ -28,6 +34,17 @@ import threading
 
 SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "attention")
 HOLD_CYCLES = 4_000_000  # chip_smoke.py's spin: longer than the host takes to enqueue a call
+# (name, wrapper, shape); the persistent grid's rounds are the shape's
+# B * H * T / 128 items over 132 CTAs
+ATTENTION_CALLS = (
+    ("blockwise_attention", "blockwise_attention", (128, 12, 512, 64)),
+    ("flash_attention", "flash_attention", (2, 12, 8192, 64)),
+    ("blockwise_attention hd 128", "blockwise_attention", (64, 6, 512, 128)),
+    ("flash_attention hd 128", "flash_attention", (2, 6, 8192, 128)),
+    ("blockwise_attention 48 rounds", "blockwise_attention", (132, 12, 512, 64)),
+    ("flash_attention 16 rounds", "flash_attention", (1, 33, 8192, 64)),
+    ("flash_attention_stats", "flash_attention_stats", (2, 12, 8192, 64)),
+)
 
 
 def burst_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
@@ -71,7 +88,7 @@ def measure(tree: str) -> dict:
 
     import youtu_rag_tpu_torch
     from youtu_rag_tpu_torch.ops import _build
-    from youtu_rag_tpu_torch.ops.attention import blockwise_attention, flash_attention
+    from youtu_rag_tpu_torch.ops import attention
     from youtu_rag_tpu_torch.ops.topk import (
         quantize_rows_int4,
         quantize_rows_int8,
@@ -100,11 +117,15 @@ def measure(tree: str) -> dict:
         "topk_int8_pruned k=10": lambda: topk_int8_pruned(q, x8, s8, bias, 10),
         "topk_int4_pruned k=64": lambda: topk_int4_pruned(q, x4, s4, bias, 64),
     }
-    for name, fn, shape in (("blockwise_attention", blockwise_attention, (128, 12, 512, 64)),
-                            ("flash_attention", flash_attention, (2, 12, 8192, 64))):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, wrapper, shape in ATTENTION_CALLS:
+        fn = getattr(attention, wrapper)
         qkv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3)]
         b = torch.zeros(shape[0], shape[2], device="cuda")
         calls[name] = lambda fn=fn, qkv=qkv, b=b: fn(*qkv, b)
+        if wrapper != "flash_attention_stats":
+            mask = b.to(torch.bfloat16)[:, None, None, :]  # chip_smoke.py's time_attention
+            calls[f"sdpa {list(shape)}"] = lambda qkv=qkv, mask=mask: sdpa(*qkv, attn_mask=mask)
     out = {"tree": tree, "package": os.path.dirname(youtu_rag_tpu_torch.__file__)}
     for name, fn in calls.items():
         out[name] = {"burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}

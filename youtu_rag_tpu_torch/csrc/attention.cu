@@ -32,30 +32,35 @@
 // k, v, the bias, acc, m and l: the operations from T_kv ~ 600 up (one hop
 // of sp 4 over T = 32,768, [2, 12, 8192, 64] against 8192 keys: 0.417 ms).
 //
-// Design, simple first: one CTA per (batch x head, query tile), each warp
-// 16 query rows (blockwise 64-row tiles, 4 warps; flash 128-row tiles,
-// 8 warps, to halve its K/V traffic over long T). The TPU kernel keeps all
-// of K and V of a head in VMEM (1 MB at T = 4096, against 227 KB of shared
-// memory here), so K and V stream through shared memory instead, in
-// 64-key tiles double-buffered with cp.async. Both products run on the
-// tensor cores (mma.sync m16n8k16 bf16, f32 sums); V's fragments come
-// from its row-major tile through ldmatrix.trans. Blockwise keeps the JAX
-// rounding points with two passes over K: the first finds each row's max
-// and denominator, the second forms cast(exp(s - m) / l) and p . v (1.5x
-// the products of one pass). Flash is the one-pass online softmax. f32
-// inputs split each operand into three bf16 terms (hi + mid + lo, exact)
-// and sum the six products that matter, so the f32 path keeps near-f32
-// products on the same code path.
+// Design. bf16 blockwise and flash calls, hd 64 and 128, run the Hopper
+// kernels of attention_wgmma.cuh: a warp-specialized CTA (a TMA producer
+// warpgroup, two consumer warpgroups of 64 query rows taking turns at the
+// tensor cores), K/V tiles of 128 keys in an mbarrier ring, both products
+// on wgmma, one persistent CTA per SM; the header says why and what bounds
+// it. The kernel below is the first, simple design, and still serves the
+// f32 calls of both entries and every call of the stats entry: one CTA per
+// (batch x head, query tile), each warp 16 query rows (blockwise 64-row
+// tiles, 4 warps; flash and stats 128-row tiles, 8 warps), K and V
+// streamed through shared memory in 64-key tiles double-buffered with
+// cp.async, both products on mma.sync m16n8k16 (bf16, f32 sums), V's
+// fragments through ldmatrix.trans. Blockwise keeps the JAX rounding points
+// with two passes over K: the first finds each row's max and denominator,
+// the second forms cast(exp(s - m) / l) and p . v (1.5x the products of
+// one pass). Flash is the one-pass online softmax. f32 inputs split each
+// operand into three bf16 terms (hi + mid + lo, exact) and sum the six
+// products that matter, so the f32 path keeps near-f32 products on the
+// same code path (wgmma's tf32 would not be exact).
 // The stats entry is the flash kernel with a template flag: its own key
-// length and another epilogue; the flash entry compiles to the same code.
-// Not yet: wgmma, TMA, warp specialization (none of the three is
-// redesigned yet).
+// length and another epilogue. Its redesign on the Hopper mainloop is
+// next (ROADMAP Queue B).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -532,18 +537,26 @@ int launch(int is_f32, const void* q, const void* k, const void* v, const void* 
   if (is_f32)
     return hd == 64 ? launch_one<float, 64, kFlash, kStats>(a, b * h, st)
                     : launch_one<float, 128, kFlash, kStats>(a, b * h, st);
-  return hd == 64 ? launch_one<__nv_bfloat16, 64, kFlash, kStats>(a, b * h, st)
-                  : launch_one<__nv_bfloat16, 128, kFlash, kStats>(a, b * h, st);
+  if constexpr (kStats)
+    return hd == 64 ? launch_one<__nv_bfloat16, 64, kFlash, kStats>(a, b * h, st)
+                    : launch_one<__nv_bfloat16, 128, kFlash, kStats>(a, b * h, st);
+  else  // bf16 blockwise and flash: the Hopper kernels, no other path
+    return attention_wgmma::launch(kFlash, q, k, v, a.bias, out, b, h, t, hd, strides, scale, st);
 }
 
 }  // namespace
 
 // <name>_launch(is_f32, q, k, v, bias f32 [B, T] clamped, out [B, H, T, hd],
 //               B, H, T, hd, 9 element strides (batch, head, row of q, k, v),
-//               scale, stream). Returns cudaGetLastError() (0 = ok), or
-//               cudaErrorInvalidValue for shapes outside the contract.
+//               scale, stream). Returns cudaGetLastError() (0 = ok),
+//               cudaErrorInvalidValue for shapes outside the contract, or
+//               (bf16) a tensor-map failure of attention_wgmma.cuh.
 extern "C" {
 const char* attention_error_string(int err) {
+  if (err == attention_wgmma::kErrEntryPoint)
+    return "cuTensorMapEncodeTiled was not found in libcuda";
+  if (err >= attention_wgmma::kErrEncode)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 1000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -71,6 +71,7 @@ from .metadata import MISSING_I32, MetadataSchema
 logger = get_logger("index.device")
 
 _LANE = 128
+BACKENDS = ("auto", "pallas", "pallas_interpret", "xla")  # JAX's search backends
 _STORE_DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
@@ -447,8 +448,16 @@ class DeviceVectorIndex:
         query_embeddings: np.ndarray,
         top_k: int = 5,
         filters: dict[str, Any] | None = None,
+        backend: str = "auto",
     ) -> list[list[tuple[Chunk, float]]]:
         """Batched top-k search. Returns per-query (chunk, similarity) lists.
+
+        ``backend`` takes JAX's names (``BACKENDS``). A CPU index runs the
+        plain versions under each of them. A CUDA index runs the kernels
+        under "auto" and "pallas" (JAX's pallas branch, on every device)
+        and refuses "xla" and "pallas_interpret": its path is the kernel,
+        and an index made with ``device="cpu"`` runs the plain one. An
+        unknown name raises on every device.
 
         Filters compile to a device mask joined into the bias; filters that
         do not compile fall back to a host pre-filter over raw metadata.
@@ -459,6 +468,12 @@ class DeviceVectorIndex:
         ``pow2_at_least(ceil(k * int4_rerank_multiplier), 16)`` candidates
         (at most the largest power of two <= the live count) and re-scores
         them from the int8 shadow."""
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        if self.device.type == "cuda" and backend in ("xla", "pallas_interpret"):
+            raise ValueError(f"backend {backend!r} on a CUDA index: the card's path is the "
+                             "kernel ('auto' or 'pallas'); an index made with device='cpu' "
+                             "runs the plain version")
         if top_k < 1:
             raise ValueError(f"top_k={top_k} below 1")
         q = np.asarray(query_embeddings, np.float32)

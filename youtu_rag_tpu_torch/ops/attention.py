@@ -24,8 +24,9 @@ kernels':
 
 Each wrapper (``blockwise_attention``, ``flash_attention``,
 ``flash_attention_stats``) launches its hand-written CUDA kernel
-(``csrc/attention.cu``) for CUDA tensors and counts the launch in its
-``.launches``; for CPU tensors it runs its plain PyTorch version
+(``csrc/attention.cu``; bf16 blockwise and flash calls run its Hopper
+kernels, ``csrc/attention_wgmma.cuh``) for CUDA tensors and counts the
+launch in its ``.launches``; for CPU tensors it runs its plain PyTorch version
 (``*_reference``). On every device it raises ``ValueError`` outside the
 kernel's range: hd 64 or 128, bf16 or f32; T a multiple of 128 and at
 least 256 (the stats entry: T and T_kv multiples of 128).
@@ -191,11 +192,14 @@ def _library() -> ctypes.CDLL:
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself where the kernel can read it through its strides (a
-    unit last stride, 16-byte aligned rows), else a contiguous copy."""
+    """``x`` itself where the kernels can read it through its strides (a
+    unit last stride, 16-byte aligned rows, and no zero stride on a
+    dimension of extent above 1, which a TMA tensor map cannot take), else
+    a contiguous copy."""
     per16 = 16 // x.element_size()
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % per16 == 0 for s in x.stride()[:3])):
+            and all(s % per16 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
     return x.contiguous()
 
@@ -240,9 +244,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor) -> torch.Tensor:
     """The same function by an online softmax over key tiles
     (``flash_attention``): unnormalized bf16 ``p·v``, divided at the end.
-    The kernel's key tile (64) is not JAX's block (up to 2048), so its bf16
-    casts of ``exp(s - m)`` use other running maxima than the plain
-    version's; they agree within the bf16 rounding of ``p``."""
+    The kernel's key tile (128 in bf16, the Hopper kernel of
+    ``csrc/attention_wgmma.cuh``; 64 in f32) is not JAX's block (up to
+    2048), so its bf16 casts of ``exp(s - m)`` use other running maxima
+    than the plain version's; they agree within the bf16 rounding of
+    ``p``."""
     if _check("flash_attention", q, k, v, bias) == "cpu":
         return flash_attention_reference(q, k, v, bias)
     return _launch(flash_attention, q, k, v, bias)
