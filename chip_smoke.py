@@ -10,12 +10,15 @@ Phases; any failure exits non-zero before the result lines:
      nvcc per source) and prints each build's time and ptxas' register and
      spill report and warnings (the scan kernels in three k classes; the
      attention source's Hopper kernels, attention_wgmma.cuh's
-     attention_kernel for hd 64 and 128, blockwise and flash, and its
-     mma.sync kernels, f32 and the hop entry);
+     attention_kernel for hd 64 and 128 and its three entries, blockwise,
+     flash and the hop's stats, and its mma.sync kernels for f32), then one
+     line per attention kernel and int4 scan kernel (the tensor-core
+     scorer) with its registers and spills;
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
-     quantized tensors;
+     quantized tensors; then the int4 kernel alone over INT4_CASES (d 256
+     and 4096, row counts that are not a multiple of 16);
   3x. kernel vs plain, any query count and k above 1024: q = 0 (no launch,
      an empty result), 65, 100 and 130 (one launch per 64 queries) through
      all ten top-k wrappers; k = 2048 and 4096 (bf16, int4) and 8192
@@ -27,16 +30,20 @@ Phases; any failure exits non-zero before the result lines:
      bf16 (the Hopper kernels) and f32, with padded keys and a batch row
      whose every key is masked, and both entries on the encoder's strided
      q, k, v views, within compare_attention's tolerance; any NaN fails;
-  3e. kernel vs plain, the ring hop: ``flash_attention_stats`` at T = T_kv
-     = 256, 1024 and 8192, T = 1024 against T_kv = 512 and 4096, hd 64 and
-     128, bf16 and f32, padded keys, a fully masked row and a span whose
-     every key is padding: m, l and acc / l (compare_stats); two half-span
-     hops combined against ``flash_attention`` on the whole span;
+  3e. kernel vs plain, the ring hop: ``flash_attention_stats`` (bf16 on
+     the Hopper kernel's stats entry, f32 on the mma.sync kernel) at T =
+     T_kv = 128 (one key tile), 256, 1024 and 8192, T = 1024 against T_kv =
+     128, 512 and 4096, hd 64 and 128, bf16 and f32, padded keys, a fully
+     masked row and a span whose every key is padding, the encoder's
+     strided q, k, v views, and [16, 12, 512, 64] (768 work items, several
+     per CTA): m, l and acc / l (compare_stats); two half-span hops
+     combined against ``flash_attention`` on the whole span;
   3c. kernel vs plain, IVF: each IVF kernel against its plain version over
      IVF_CASES (k 1 to 1024, q 1 to 64, block_rows 64, 1024 and 4096) and
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
      n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
-     TOL, int8 and int4 bit-equal;
+     TOL, int8 and int4 bit-equal; then the int4 kernel alone at block_rows
+     4, 8 and 12 (16-row warp tiles that straddle blocks) and k up to 2048;
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
      versions over BLOCKS_CASES (k 1 to 1024, q 1 to 64, block_rows 256 to
@@ -80,7 +87,8 @@ Phases; any failure exits non-zero before the result lines:
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
      re-ranks them on the host), checked against the plain versions on the
      same device tensors, and timed with CUDA events beside their bounds,
-     the plain versions and a one-call PyTorch yardstick where one exists;
+     the plain versions, a one-call PyTorch yardstick where one exists and
+     the recorded time of the kernel's earlier design (EARLIER_MS);
   5c. main path, full size, IVF: ``configs/rag/ivf_int8.yaml``'s index
      settings (block_rows 1024, n_lists 1024, n_probe 64, adaptive margin
      0.15, recall target 0.95) over 1,048,576 × 768 clustered unit vectors
@@ -90,7 +98,7 @@ Phases; any failure exits non-zero before the result lines:
      plan, recall@10 against the brute kernel, the IVF kernel timed beside
      its bound (the probed bytes), its plain version and the brute kernel,
      the search's device time split by torch.profiler; then again with the
-     adaptive margin off (a fixed n_probe 64 plan);
+     adaptive margin off (a fixed n_probe 64 plan); int4 beside EARLIER_MS;
   5d. the ops path at full size, on phase 5's and 5c's device tensors:
      ``fused_topk(q, x_bf16, bias, 10)`` (backend "auto", which must take
      the kernel), ``topk_int8`` at block_rows 2048, and ``ivf_topk`` /
@@ -114,8 +122,8 @@ Phases; any failure exits non-zero before the result lines:
      neighbours as the unsharded forward at T = 4096 (blockwise) within
      ENC_TOL, and in f32 at T = 2048 within 2e-5; the hop kernel on the
      main path's tensors, then at [2, 12, 8192, 64] bf16 against 8192 keys
-     (sp 4 over T = 32,768) timed beside its bound, its plain version and
-     the efficient-attention call that returns (out, logsumexp);
+     (sp 4 over T = 32,768) timed beside its bound, its plain version, the
+     efficient-attention call that returns (out, logsumexp) and EARLIER_MS;
   6. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
      "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
@@ -170,6 +178,12 @@ REPLACES = {  # the pallas_call of each TPU kernel
 }
 SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention",
            "topk_blocks")
+# Each redesigned kernel's time before its redesign, as PERF.md §6 records
+# it (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W): the hop on the
+# mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the int4 scans
+# on the __dp4a scorer (brute k = 64; IVF on phase 5c's adaptive plan).
+EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
+              "ivf_topk_int4_dma": 0.1582}
 
 _phase_t0: list[tuple[str, float]] = []
 
@@ -290,6 +304,12 @@ def build_all() -> None:
                         if any(w in line for w in ("registers", "stack", "Compiling entry",
                                                    "warning"))))
     print(f"all builds: {time.perf_counter() - t0:.1f} s wall")
+    from youtu_rag_tpu_torch.bench.ab_kernels import ptxas_report
+
+    for name in ("attention", "topk_int4_pruned", "ivf_topk"):
+        for kernel, regs, spills in ptxas_report(done[name]["log"]):
+            if kernel.startswith("attention") or "Int4Scorer" in kernel:
+                print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +323,11 @@ KERNEL_CASES = [
     for n in (4096, 65536)
     for k in (1, 10, 50, 128, 256, 1024)
 ]
+# the int4 kernel alone (its tensor-core scorer takes 16-row warp tiles):
+# d 256 (two chunk rounds) and 4096 (32), row counts that are not a
+# multiple of 16 (the last warp tile of the last CTA partly past the end)
+INT4_CASES = [(q, d, n, k) for q in (1, 8, 64) for d in (256, 4096) for n in (4099, 20011)
+              for k in (1, 64, 1024)]
 
 
 def compare_topk(got, want, full_scores, what: str) -> float:
@@ -401,7 +426,24 @@ def kernel_cases(seed: int) -> dict[str, float]:
                 check(bool((got[0] <= NEG_INF / 2).all()), f"{what}: returned live slots")
             max_err[tier] = max(max_err[tier], e)
         torch.cuda.synchronize()
-    print(f"kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels ok, max_abs_err "
+    kernel, plain, quantize = ops()["int4"]
+    for q, d, n, k in INT4_CASES:
+        x = unit(n, d)
+        x[100:110] = x[5]
+        queries = unit(q, d)
+        queries[0] = x[5]
+        bias = torch.zeros(n, device="cuda")
+        bias[::7] = NEG_INF
+        bias[3::11] = float("-inf")
+        xt, xs = quantize(x)
+        got = kernel(queries, xt, xs, bias, k)
+        torch.cuda.synchronize()
+        compare_exact(got, plain(queries, xt, xs, bias, k), f"int4 q={q} d={d} n={n} k={k}")
+        ties = [r for r in (5, *range(100, 110)) if bias[r] == 0]
+        top = got[1][0, : min(k, len(ties))].tolist()
+        check(top == ties[: len(top)], f"int4 q={q} d={d} n={n} k={k}: tie order {top}")
+    print(f"kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels and {len(INT4_CASES)} "
+          "int4 cases (d 256 and 4096, rows not a multiple of 16) ok, max_abs_err "
           + ", ".join(f"{KERNEL_NAMES[t]} {e}" for t, e in max_err.items()))
     return max_err
 
@@ -488,6 +530,10 @@ IVF_N, IVF_D = 65536, 256
 IVF_CASES = [(q, k, br) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)
              for br in (64, 1024, 4096)]
 IVF_GARBAGE = 1 << 28  # an id past n_valid that points far outside the index
+# the int4 kernel alone at block_rows 4, 8 and 12: its 16-row warp tiles
+# straddle 4, 2 and 1-2 blocks (IVF4_N rows: a multiple of 12 and of 16)
+IVF4_N = 49152
+IVF4_CASES = [(q, k, br) for q in (8, 64) for k in (1, 64, 1024, 2048) for br in (4, 8, 12)]
 
 
 def ivf_plan(n_blocks: int, n_valid: int, g) -> tuple[torch.Tensor, torch.Tensor]:
@@ -562,7 +608,21 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
                 check(top == ties[: len(top)], f"{what}: tie order {top}")
             if n_valid == 0:
                 check(bool((got[0] == NEG_INF).all()), f"{what}: an empty plan returned rows")
-    print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels ok, max_abs_err "
+    kernel, plain, quantize = ivf_ops()["int4"]
+    x4, s4 = quantize(x[:IVF4_N])
+    b4 = bias[:IVF4_N]
+    for q, k, br in IVF4_CASES:
+        queries = torch.randn(q, IVF_D, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        queries[0] = x[5]
+        ids, nv = ivf_plan(IVF4_N // br, IVF4_N // br // 2, g)
+        what = f"ivf int4 q={q} k={k} block_rows={br}"
+        got = kernel(queries, x4, s4, b4, ids, nv, k, block_rows=br)
+        torch.cuda.synchronize()
+        want = plain(queries, x4, s4, b4, ids, nv, k, block_rows=br)
+        compare_ivf("int4", got, want, None, what)
+    print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels and {len(IVF4_CASES)} "
+          "int4 cases (block_rows 4, 8, 12) ok, max_abs_err "
           + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
     return max_err
 
@@ -820,13 +880,22 @@ def query_k_cases(seed: int) -> dict[str, float]:
 # 3e. kernel vs plain, the ring hop
 # ---------------------------------------------------------------------------
 
-# (T, T_kv, bias kind): "mixed" pads row 0's keys past T_kv / 2 + 3 and
-# masks the last row throughout; "allpad" masks every key of the span
-STATS_CASES = [(t, t_kv, kind, hd, dtype)
-               for t, t_kv, kind in ((256, 256, "mixed"), (1024, 1024, "mixed"),
-                                     (8192, 8192, "mixed"), (1024, 512, "mixed"),
-                                     (1024, 4096, "mixed"), (1024, 512, "allpad"))
+# (T, T_kv, bias kind, hd, dtype, layout, B, H): "mixed" pads row 0's keys
+# past T_kv / 2 + 3 and masks the last row throughout; "allpad" masks every
+# key of the span (the encoder's -1e9: m is about -1e9, not -1e30); T_kv =
+# 128 is one key tile (the Hopper kernel's peeled tile is also its last);
+# "strided" takes q, k, v as the encoder's [B, T, H, hd] views; [16, 12,
+# 512, 64] gives 768 work items, several per CTA of the persistent grid
+STATS_CASES = [(t, t_kv, kind, hd, dtype, "contiguous", 3, 2)
+               for t, t_kv, kind in ((128, 128, "mixed"), (256, 256, "mixed"),
+                                     (1024, 1024, "mixed"), (8192, 8192, "mixed"),
+                                     (1024, 128, "mixed"), (1024, 512, "mixed"),
+                                     (1024, 4096, "mixed"), (1024, 512, "allpad"),
+                                     (1024, 128, "allpad"))
                for hd in (64, 128) for dtype in (torch.bfloat16, torch.float32)]
+STATS_CASES += [(1024, t_kv, "mixed", hd, dtype, "strided", 3, 2) for t_kv in (1024, 512)
+                for hd in (64, 128) for dtype in (torch.bfloat16, torch.float32)]
+STATS_CASES += [(512, 512, "mixed", 64, torch.bfloat16, "contiguous", 16, 12)]
 
 
 def compare_stats(got, want, what: str) -> float:
@@ -852,9 +921,16 @@ def compare_stats(got, want, what: str) -> float:
     return err
 
 
-def stats_inputs(t: int, t_kv: int, kind: str, hd: int, dtype, g, b: int = 3, h: int = 2):
-    q = torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(b, h, t_kv, hd, generator=g, device="cuda").to(dtype) for _ in range(2))
+def stats_inputs(t: int, t_kv: int, kind: str, hd: int, dtype, g, layout: str = "contiguous",
+                 b: int = 3, h: int = 2):
+    if layout == "strided":  # [B, T, H, hd] seen as [B, H, T, hd], as the encoder passes them
+        q = torch.randn(b, t, h, hd, generator=g, device="cuda").to(dtype).transpose(1, 2)
+        k, v = (torch.randn(b, t_kv, h, hd, generator=g, device="cuda").to(dtype).transpose(1, 2)
+                for _ in range(2))
+    else:
+        q = torch.randn(b, h, t, hd, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(b, h, t_kv, hd, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
     mask = torch.ones(b, t_kv, device="cuda")
     if kind == "mixed":
         mask[0, t_kv // 2 + 3 :] = 0
@@ -885,11 +961,12 @@ def stats_cases(seed: int) -> float:
 
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     max_err = 0.0
-    for t, t_kv, kind, hd, dtype in STATS_CASES:
-        args = stats_inputs(t, t_kv, kind, hd, dtype, g)
+    for t, t_kv, kind, hd, dtype, layout, b, h in STATS_CASES:
+        args = stats_inputs(t, t_kv, kind, hd, dtype, g, layout, b, h)
         got = flash_attention_stats(*args)
         torch.cuda.synchronize()
-        what = f"flash_attention_stats T={t} T_kv={t_kv} {kind} hd={hd} {str(dtype)[6:]}"
+        what = (f"flash_attention_stats [{b}, {h}, {t}, {hd}] T_kv={t_kv} {kind} {layout} "
+                f"{str(dtype)[6:]}")
         max_err = max(max_err, compare_stats(got, flash_attention_stats_reference(*args), what))
     # two half-span hops, combined, against the flash kernel on the whole span
     for hd in (64, 128):
@@ -1639,8 +1716,11 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
         res["plain_ms"] = time_ms(lambda: plain(qdev, x, *extra, b, k_kernel), bursts=3, burst=5)
         desc, call = library_call(tier, qdev, x, *(extra or (None,)), b, k_kernel)
         res["library_ms"] = None if call is None else time_ms(call)
+        earlier = EARLIER_MS.get(KERNEL_NAMES[tier])
         print(f"  plain {res['plain_ms']:.4f} ms; library "
-              f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]")
+              f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]"
+              + ("" if earlier is None else f"; the __dp4a scorer's recorded time {earlier} ms, "
+                 f"now {res['ms']:.4f} ms against a bound of {res['bound_ms']:.4f} ms"))
         profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel))
         out[tier] = res
         if tier != "int4":
@@ -1852,9 +1932,12 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
                                                         block_rows=IVF_SETTINGS["block_rows"]),
                                           bursts=3, burst=5)
                 brute_ms = time_ms(lambda: brute(qdev, x, *extra, b, k_kernel))
+                earlier = EARLIER_MS.get(IVF_NAMES[tier])
                 print(f"  plain {res['plain_ms']:.4f} ms; brute {KERNEL_NAMES[tier]} on the same "
                       f"index {brute_ms:.4f} ms; library: none (no one PyTorch call computes a "
-                      f"top-k over gathered blocks)")
+                      f"top-k over gathered blocks)"
+                      + ("" if earlier is None else f"; the __dp4a scorer's recorded time "
+                         f"{earlier} ms, now {ms:.4f} ms against a bound of {bms:.4f} ms"))
             else:
                 index.config.ivf_adaptive_margin = 0.0
             search_split(lambda: index.search(queries, top_k=top_k))
@@ -2259,6 +2342,7 @@ def ring_full_size(seed: int, part: str, embedder) -> dict:
     print(f"  flash_attention_stats [{b}, {h}, {t}, {hd}] bf16 vs {t} keys: {ms:.4f} ms "
           f"({tflops:.1f} TFLOP/s), bound {bms:.4f} ms ({by}); plain {plain_ms:.4f} ms; library "
           f"{'null' if library_ms is None else format(library_ms, '.4f') + ' ms'} [{lib_desc}]; "
+          f"the mma.sync kernel's recorded time {EARLIER_MS['flash_attention_stats']} ms; "
           f"max_abs_err {err}")
     out.update(launches=n_hops, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                library_ms=library_ms)
@@ -2398,7 +2482,7 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention_stats",
         "route": "cuda",
-        "source": "youtu_rag_tpu_torch/csrc/attention.cu",
+        "source": "youtu_rag_tpu_torch/csrc/attention_wgmma.cuh",
         "replaces": REPLACES["flash_attention_stats"],
         "launches": long4d["launches"] + ring["launches"],
         "max_abs_err": max(err3e, ring["err"]),

@@ -142,6 +142,64 @@ def test_quantized_kernel_is_bit_equal_to_plain_version(cuda_device, tier, q, k)
     assert i[0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
 
 
+def assert_bit_equal(got, want):
+    s, i, ws, wi = (t.cpu().numpy() for t in (*got, *want))
+    for a in range(ws.shape[0]):
+        n = int((ws[a] > NEG_INF / 2).sum())
+        assert int((s[a] > NEG_INF / 2).sum()) == n
+        np.testing.assert_array_equal(s[a, :n].view(np.uint32), ws[a, :n].view(np.uint32))
+        np.testing.assert_array_equal(i[a, :n], wi[a, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 1024])
+@pytest.mark.parametrize("n", [4099, 20011])
+@pytest.mark.parametrize("d", [256, 768, 4096])
+def test_int4_tensor_core_scorer_is_bit_equal(cuda_device, d, n, k):
+    """The int4 scan's mma.sync scorer over 16-row warp tiles: row counts
+    that are not a multiple of 16, one to 32 chunk rounds per row."""
+    rng = np.random.default_rng(d + n + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[n - 5 :] = x[3]  # exact ties in the last, partial warp tile
+    qs = rng.standard_normal((8, d)).astype(np.float32)
+    qs[0] = x[3]
+    bias = np.zeros(n, np.float32)
+    bias[::9] = NEG_INF
+    xq, xs = quantize_rows_int4(torch.from_numpy(x).to(cuda_device))
+    args = (torch.from_numpy(qs).to(cuda_device), xq, xs, torch.from_numpy(bias).to(cuda_device), k)
+    got = topk_int4_pruned(*args)
+    torch.cuda.synchronize()
+    assert_bit_equal(got, topk_int4_pruned_reference(*args))
+    live = [r for r in [3] + list(range(n - 5, n)) if bias[r] == 0]
+    assert got[1][0, : min(k, len(live))].tolist() == live[: min(k, len(live))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 1024, 2048])
+@pytest.mark.parametrize("block_rows", [4, 8, 12, 1024])
+def test_int4_ivf_warp_tiles_straddle_blocks(cuda_device, block_rows, k):
+    """IVF int4 over probed blocks of 4, 8 and 12 rows: a 16-row warp tile
+    takes rows of several blocks, each mapped on its own."""
+    n, d = 12288, 256
+    rng = np.random.default_rng(block_rows + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    qs = rng.standard_normal((8, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    bias = np.zeros(n, np.float32)
+    bias[::7] = NEG_INF
+    xq, xs = quantize_rows_int4(torch.from_numpy(x).to(cuda_device))
+    n_blocks = n // block_rows
+    ids, nv = ivf_plan(n_blocks, n_blocks, n_blocks // 2, seed=k, device=cuda_device)
+    args = (torch.from_numpy(qs).to(cuda_device), xq, xs, torch.from_numpy(bias).to(cuda_device),
+            ids, nv, k)
+    got = ivf_topk_int4_dma(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    want = ivf_topk_int4_dma_reference(*args, block_rows=block_rows)
+    assert_bit_equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["int8", "int4"])
 def test_quantized_kernel_rejects_out_of_contract(cuda_device, tier):
@@ -663,32 +721,98 @@ def test_per_block_kernel_rejects_out_of_contract(cuda_device, name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("t, t_kv", [(256, 256), (1024, 512), (512, 2048)])
-def test_stats_kernel_matches_plain_version(cuda_device, t, t_kv, hd, dtype):
+def stats_inputs(b, h, t, t_kv, hd, device, seed, layout="contiguous", kind="mixed",
+                 dtype=torch.bfloat16):
+    """q [B, H, T, hd], k, v [B, H, T_kv, hd] and the encoder's -1e9 bias
+    [B, T_kv]: "mixed" pads row 0 past T_kv/2 + 3 and masks the last batch
+    row, "allpad" masks every key; "strided" gives [B, T, H, hd] tensors
+    seen as [B, H, T, hd], as the encoder passes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(rows):
+        if layout == "strided":
+            return torch.randn(b, rows, h, hd, generator=g, device=device).to(dtype).transpose(1, 2)
+        return torch.randn(b, h, rows, hd, generator=g, device=device).to(dtype)
+
+    q, k, v = draw(t), draw(t_kv), draw(t_kv)
+    mask = torch.ones(b, t_kv, device=device)
+    if kind == "mixed":
+        mask[0, t_kv // 2 + 3 :] = 0
+        mask[-1] = 0
+    else:
+        mask[:] = 0
+    return q, k, v, (1.0 - mask) * -1e9
+
+
+def assert_stats_close(got, want, dtype=torch.bfloat16):
     """(acc, m, l) of one hop: m within f32 summation order, l and acc / l
-    within the attention tolerance; padded keys and a fully masked row."""
-    g = torch.Generator(device=cuda_device).manual_seed(t + t_kv + hd)
-    q = torch.randn(3, 2, t, hd, generator=g, device=cuda_device).to(dtype)
-    k, v = (torch.randn(3, 2, t_kv, hd, generator=g, device=cuda_device).to(dtype)
-            for _ in range(2))
-    mask = torch.ones(3, t_kv, device=cuda_device)
-    mask[0, t_kv // 2 + 3 :] = 0
-    mask[-1] = 0
-    bias = (1.0 - mask) * -1e9
-    before = flash_attention_stats.launches
-    acc, m, l = flash_attention_stats(q, k, v, bias)
-    torch.cuda.synchronize()
-    assert flash_attention_stats.launches == before + 1
-    wa, wm, wl = flash_attention_stats_reference(q, k, v, bias)
+    within the attention tolerance (bf16: one bf16 ulp, the kernel's key
+    tiles against JAX's 1024-key blocks)."""
+    (acc, m, l), (wa, wm, wl) = got, want
     assert all(torch.isfinite(x).all() for x in (acc, m, l))
     torch.testing.assert_close(m, wm, rtol=1e-6, atol=1e-5)
     rtol = 2**-7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(l, wl, rtol=rtol, atol=0)
     torch.testing.assert_close(acc / l[..., None], wa / wl[..., None], rtol=rtol,
                                atol=2**-10 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "allpad"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t, t_kv", [(256, 256), (1024, 512), (512, 2048), (128, 128),
+                                     (1024, 128), (128, 1024), (1024, 4096)])
+def test_stats_kernel_matches_plain_version(cuda_device, t, t_kv, hd, dtype, kind):
+    """(acc, m, l) of one hop (bf16 on the wgmma kernel's stats entry):
+    padded keys and a fully masked row, or a span whose every key is
+    padding (m near -1e9); one key tile (T_kv = 128, the peeled tile is
+    also the last), T above and below T_kv."""
+    args = stats_inputs(3, 2, t, t_kv, hd, cuda_device, seed=t + t_kv + hd, kind=kind,
+                        dtype=dtype)
+    before = flash_attention_stats.launches
+    got = flash_attention_stats(*args)
+    torch.cuda.synchronize()
+    assert flash_attention_stats.launches == before + 1
+    assert_stats_close(got, flash_attention_stats_reference(*args), dtype)
+    if kind == "allpad":
+        assert (got[1] < -9e8).all() and (got[1] > -1.1e9).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_hopper_stats_reads_strided_views(cuda_device, hd):
+    """The encoder's [B, T, H, hd] views reach the hop through their
+    strides (no copy): the same result as on contiguous copies."""
+    q, k, v, bias = stats_inputs(2, 3, 512, 1024, hd, cuda_device, seed=hd, layout="strided")
+    assert not q.is_contiguous()
+    got = flash_attention_stats(q, k, v, bias)
+    dense = flash_attention_stats(q.contiguous(), k.contiguous(), v.contiguous(), bias)
+    torch.cuda.synchronize()
+    for a, b in zip(got, dense):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert_stats_close(got, flash_attention_stats_reference(q, k, v, bias))
+
+
+@pytest.mark.cuda
+def test_hopper_stats_walks_many_items_per_cta(cuda_device):
+    """[32, 12, 1024, 64] against 1024 keys, the ring's hop at T = 4096,
+    sp 4: 3,072 work items, about 23 rounds of the persistent grid."""
+    args = stats_inputs(32, 12, 1024, 1024, 64, cuda_device, seed=7)
+    got = flash_attention_stats(*args)
+    torch.cuda.synchronize()
+    assert_stats_close(got, flash_attention_stats_reference(*args))
+
+
+@pytest.mark.cuda
+def test_hopper_stats_on_a_side_stream(cuda_device):
+    args = stats_inputs(3, 2, 384, 640, 64, cuda_device, seed=3)
+    side = torch.cuda.Stream(device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = flash_attention_stats(*args)
+    side.synchronize()
+    assert_stats_close(got, flash_attention_stats_reference(*args))
 
 
 @pytest.mark.cuda

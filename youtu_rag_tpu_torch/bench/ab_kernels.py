@@ -7,8 +7,14 @@ Each argument is a directory that holds a checkout of the repo (or of
 ``youtu_rag_tpu_torch/`` alone); each runs in a process of its own, in
 the order given, and builds its own kernels. On tensors drawn on the card
 from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
-(k = 10) and ``topk_int4_pruned`` (k = 64) at 1,048,576 × 768, q = 8 (the
-calls of ``chip_smoke.py`` phase 5), ``blockwise_attention`` at
+(k = 10) and ``topk_int4_pruned`` (k = 64 and 10) at 1,048,576 × 768, q = 8
+(the calls of ``chip_smoke.py`` phase 5); the int4 scan again from a copy of
+the tree's sources whose scorer skips its dot products (each ``__dp4a`` or
+``mma_u8s8`` becomes an XOR that keeps its operands live: loads, unpack
+and selection alone; its results are not used); ``ivf_topk_int4_dma`` at
+k = 64 on phase 5c's plan (``configs/rag/ivf_int8.yaml``'s index settings
+over 1,048,576 × 768 clustered rows, the search's adaptive plan, L2 cold);
+``blockwise_attention`` at
 [128, 12, 512, 64] and ``flash_attention`` at [2, 12, 8192, 64], bf16
 (phase 5b's shapes), the same operations at hd 128 ([64, 6, 512, 128],
 [2, 6, 8192, 128]) and at a whole number of 132-CTA rounds of work items
@@ -16,23 +22,28 @@ calls of ``chip_smoke.py`` phase 5), ``blockwise_attention`` at
 ``scaled_dot_product_attention`` on the same tensors with the same
 additive mask as phase 5b (so that kernel and library come from one
 process on one card), and ``flash_attention_stats`` at [2, 12, 8192, 64]
-against 8192 keys (phase 5e's hop). Two timers: bursts of 20 back-to-back calls
+against 8192 keys (phase 5e's hop) and at [32, 12, 1024, 64] against 1024
+keys (the ring's own hop at T = 4096, sp 4). Two timers: bursts of 20 back-to-back calls
 (``chip_smoke.py``'s ``time_ms``: the host's enqueue can bound it when a
 call is short) and one call held behind a spin of the card (its
-``time_held_ms``: the device time). Prints one JSON line per run and the
-card's name and power limit.
+``time_held_ms``: the device time). Each run builds its tree's sources
+with ptxas' report and lists every kernel's registers and spills
+(``registers``). Prints one JSON line per run and the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import threading
 
-SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "attention")
+SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention")
 HOLD_CYCLES = 4_000_000  # chip_smoke.py's spin: longer than the host takes to enqueue a call
 # (name, wrapper, shape); the persistent grid's rounds are the shape's
 # B * H * T / 128 items over 132 CTAs
@@ -44,7 +55,58 @@ ATTENTION_CALLS = (
     ("blockwise_attention 48 rounds", "blockwise_attention", (132, 12, 512, 64)),
     ("flash_attention 16 rounds", "flash_attention", (1, 33, 8192, 64)),
     ("flash_attention_stats", "flash_attention_stats", (2, 12, 8192, 64)),
+    ("flash_attention_stats ring hop", "flash_attention_stats", (32, 12, 1024, 64)),
 )
+IVF_SETTINGS = dict(block_rows=1024, n_lists=1024, n_probe=64, ivf_adaptive_margin=0.15,
+                    ivf_recall_target=0.95)  # configs/rag/ivf_int8.yaml's index
+# the timing-only scorer: each dot product of the int4 scorer (the __dp4a
+# form, or the mma.sync form) replaced by an XOR of its operands
+NO_DOT_PATCHES = (
+    ('#include "topk_select.cuh"\n',
+     '#include "topk_select.cuh"\n#define __dp4a(a, b, c) ((c) ^ (a) ^ (b))\n'),
+    ("mma_u8s8(acc, a, b);",
+     "acc[0] ^= a[0] ^ b[0]; acc[1] ^= a[1] ^ b[1]; acc[2] ^= a[2] ^ b[0]; acc[3] ^= a[3] ^ b[1];"),
+)
+
+
+def short_kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled form: the Hopper attention kernel
+    with its head width and entry, the mma.sync attention kernel with its
+    type, the scan kernels with their scorer, k class and row source."""
+    entries = ("blockwise", "flash", "stats")
+    m = re.search(r"attention_wgmma16attention_kernelILi(\d+)EL([ib])(\d)E", mangled)
+    if m:
+        return f"attention_wgmma::attention_kernel<hd {m.group(1)}, {entries[int(m.group(3))]}>"
+    m = re.search(r"attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELb([01])E", mangled)
+    if m:
+        entry = "stats" if m.group(4) == "1" else entries[int(m.group(3))]
+        dtype = "f32" if m.group(1) == "f" else "bf16"
+        return f"attention.cu mma.sync attention_kernel<{dtype}, hd {m.group(2)}, {entry}>"
+    m = re.search(r"topk_scan_kernelI\w+?(\w{4}Scorer)ELi(\d)ELb([01])ELb([01])E", mangled)
+    if m:
+        k_class = ("k <= 128", "k <= 1024", "k > 1024")[int(m.group(2))]
+        return (f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}, "
+                f"blocks={m.group(4)}>")
+    return "topk_merge_kernel" if "topk_merge_kernel" in mangled else mangled
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, str]]:
+    """(kernel, registers, "stores/loads" spill bytes) per entry of an
+    ``nvcc -Xptxas -v`` log."""
+    out, name, spills = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), "?"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((short_kernel_name(name), int(m.group(1)), spills))
+            name = None
+    return out
 
 
 def burst_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
@@ -65,13 +127,18 @@ def burst_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def held_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+def held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> float:
+    """One call's device time behind a spin of the card; ``cold`` first
+    evicts the 50 MB L2 with a 1 GiB write."""
     import torch
 
+    flush = torch.empty(256 << 20, dtype=torch.float32, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(calls):
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(HOLD_CYCLES)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -80,6 +147,72 @@ def held_ms(fn, calls: int = 20, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def no_dot_library(name: str) -> tuple[str, list[str]]:
+    """``csrc/<name>.cu`` of the running tree built from a copy whose
+    scorer header carries NO_DOT_PATCHES. Returns (the library's path, the
+    patches that applied)."""
+    import shutil
+    import subprocess as sp
+
+    from youtu_rag_tpu_torch.ops import _build
+
+    src = _build.BUILD_DIR / "no_dot"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, src)
+    header = src / "topk_scorers.cuh"
+    text, applied = header.read_text(), []
+    for old, new in NO_DOT_PATCHES:
+        if old in text:
+            text = text.replace(old, new)
+            applied.append(old.strip())
+    header.write_text(text)
+    lib = src / f"{name}.so"
+    sp.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{name}.cu")],
+           check=True)
+    return str(lib), applied
+
+
+def ivf_int4_call(g):
+    """``ivf_topk_int4_dma`` at k = 64 on chip_smoke.py phase 5c's plan:
+    an int4 IVF index with IVF_SETTINGS over 1,048,576 × 768 clustered unit
+    rows (1024 centers, spread 0.7), the search's adaptive probe plan for 8
+    queries near centers 0..7. Returns (the call, n_valid)."""
+    import numpy as np
+    import torch
+
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.core.types import Chunk
+    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.index.ivf import plan_max_blocks, probe_blocks
+    from youtu_rag_tpu_torch.ops.ivf import ivf_topk_int4_dma
+
+    rows, d, qn = 1 << 20, 768, 8
+    centers = torch.randn(1024, d, generator=g, device="cuda")
+    centers /= centers.norm(dim=1, keepdim=True)
+    noise = 0.7 / np.sqrt(d)
+    index = DeviceVectorIndex(d, IndexConfig(kind="ivf", storage_dtype="int4", **IVF_SETTINGS),
+                              device="cuda")
+    index.reserve(rows)
+    for i in range(0, rows, 1 << 18):
+        v = centers[torch.randint(0, 1024, (1 << 18,), generator=g, device="cuda")]
+        v = v + noise * torch.randn(1 << 18, d, generator=g, device="cuda")
+        v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+        index.add([Chunk(f"c{j}", "doc", "", 0) for j in range(i, i + (1 << 18))], v)
+    index.build_ivf()
+    q = centers[:qn] + 0.5 * noise * torch.randn(qn, d, generator=g, device="cuda")
+    q /= q.norm(dim=1, keepdim=True)
+    st, total = index._ivf, index.capacity // IVF_SETTINGS["block_rows"]
+    ids, nv = probe_blocks(q, st.centroids, st.cluster_block_start, st.cluster_block_count,
+                           n_probe=st.n_probe, max_cluster_blocks=st.max_cluster_blocks,
+                           total_blocks=total, frozen_blocks=st.frozen_blocks,
+                           max_blocks=plan_max_blocks(st, qn, total),
+                           adaptive_margin=IVF_SETTINGS["ivf_adaptive_margin"],
+                           min_probe=min(index.config.ivf_min_probe, st.n_probe))
+    x, xs, b = index._vectors, index._scales, index._bias
+    return (lambda: ivf_topk_int4_dma(q, x, xs, b, ids, nv, 64,
+                                      block_rows=IVF_SETTINGS["block_rows"])), int(nv)
 
 
 def measure(tree: str) -> dict:
@@ -97,7 +230,9 @@ def measure(tree: str) -> dict:
         topk_pruned,
     )
 
-    threads = [threading.Thread(target=_build.build, args=(n,)) for n in SOURCES]
+    logs = {}
+    threads = [threading.Thread(target=lambda n=n: logs.update({n: _build.build(n, verbose=True)}))
+               for n in SOURCES]
     for th in threads:
         th.start()
     for th in threads:
@@ -116,6 +251,7 @@ def measure(tree: str) -> dict:
         "topk_pruned k=10": lambda: topk_pruned(q, x16, bias, 10),
         "topk_int8_pruned k=10": lambda: topk_int8_pruned(q, x8, s8, bias, 10),
         "topk_int4_pruned k=64": lambda: topk_int4_pruned(q, x4, s4, bias, 64),
+        "topk_int4_pruned k=10": lambda: topk_int4_pruned(q, x4, s4, bias, 10),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, wrapper, shape in ATTENTION_CALLS:
@@ -126,9 +262,26 @@ def measure(tree: str) -> dict:
         if wrapper != "flash_attention_stats":
             mask = b.to(torch.bfloat16)[:, None, None, :]  # chip_smoke.py's time_attention
             calls[f"sdpa {list(shape)}"] = lambda qkv=qkv, mask=mask: sdpa(*qkv, attn_mask=mask)
-    out = {"tree": tree, "package": os.path.dirname(youtu_rag_tpu_torch.__file__)}
+    out = {"tree": tree, "package": os.path.dirname(youtu_rag_tpu_torch.__file__),
+           "registers": {f"{n}: {k}": f"{r} registers, spills {sp}" for n in SOURCES
+                         for k, r, sp in ptxas_report(logs[n]["log"])}}
     for name, fn in calls.items():
         out[name] = {"burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}
+    del calls
+    torch.cuda.empty_cache()
+    ivf_call, n_valid = ivf_int4_call(g)
+    out["ivf_topk_int4_dma k=64 (phase 5c plan, L2 cold)"] = {
+        "n_valid": n_valid, "held_ms": held_ms(ivf_call, cold=True)}
+    del ivf_call
+    torch.cuda.empty_cache()
+    # the same int4 scan with its dot products skipped: the wrapper loads
+    # the patched library in place of the tree's own
+    path, applied = no_dot_library("topk_int4_pruned")
+    _build._loaded["topk_int4_pruned"] = ctypes.CDLL(path)
+    for k in (64, 10):
+        fn = lambda k=k: topk_int4_pruned(q, x4, s4, bias, k)  # noqa: E731
+        out[f"topk_int4_pruned k={k}, no dot products (timing only)"] = {
+            "patches": applied, "burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}
     return out
 
 

@@ -14,10 +14,11 @@
 //   stats:     the flash entry's one pass over a K/V span of T_kv keys (the
 //              inner step of ring attention, one hop), ending without the
 //              divide: acc = sum exp(s - m) . cast(v) f32 [B, H, T, hd], and
-//              the running max m and denominator l f32 [B, H, T]. Its 64-key
-//              tiles are not JAX's 1024-key blocks: m is the same maximum;
-//              l and acc agree within f32 summation order and the bf16
-//              rounding of p, as the flash entry's output does.
+//              the running max m and denominator l f32 [B, H, T]. Its key
+//              tiles (128 keys in bf16, 64 in f32) are not JAX's 1024-key
+//              blocks: m is the same maximum; l and acc agree within f32
+//              summation order and the bf16 rounding of p, as the flash
+//              entry's output does.
 // exp is the ex2-based __expf and blockwise divides by a product with the
 // f32 reciprocal of the sum: each within a few f32 ulps of the plain
 // version's exp and division, far inside the one-bf16-ulp tolerance that
@@ -32,27 +33,26 @@
 // k, v, the bias, acc, m and l: the operations from T_kv ~ 600 up (one hop
 // of sp 4 over T = 32,768, [2, 12, 8192, 64] against 8192 keys: 0.417 ms).
 //
-// Design. bf16 blockwise and flash calls, hd 64 and 128, run the Hopper
-// kernels of attention_wgmma.cuh: a warp-specialized CTA (a TMA producer
-// warpgroup, two consumer warpgroups of 64 query rows taking turns at the
-// tensor cores), K/V tiles of 128 keys in an mbarrier ring, both products
-// on wgmma, one persistent CTA per SM; the header says why and what bounds
-// it. The kernel below is the first, simple design, and still serves the
-// f32 calls of both entries and every call of the stats entry: one CTA per
-// (batch x head, query tile), each warp 16 query rows (blockwise 64-row
-// tiles, 4 warps; flash and stats 128-row tiles, 8 warps), K and V
-// streamed through shared memory in 64-key tiles double-buffered with
-// cp.async, both products on mma.sync m16n8k16 (bf16, f32 sums), V's
-// fragments through ldmatrix.trans. Blockwise keeps the JAX rounding points
-// with two passes over K: the first finds each row's max and denominator,
-// the second forms cast(exp(s - m) / l) and p . v (1.5x the products of
-// one pass). Flash is the one-pass online softmax. f32 inputs split each
-// operand into three bf16 terms (hi + mid + lo, exact) and sum the six
-// products that matter, so the f32 path keeps near-f32 products on the
-// same code path (wgmma's tf32 would not be exact).
-// The stats entry is the flash kernel with a template flag: its own key
-// length and another epilogue. Its redesign on the Hopper mainloop is
-// next (ROADMAP Queue B).
+// Design. Every bf16 call of the three entries, hd 64 and 128, runs the
+// Hopper kernels of attention_wgmma.cuh: a warp-specialized CTA (a TMA
+// producer warpgroup, two consumer warpgroups of 64 query rows taking
+// turns at the tensor cores), K/V tiles of 128 keys in an mbarrier ring,
+// both products on wgmma, one persistent CTA per SM; the stats entry is
+// its third entry (K/V maps of T_kv rows, an f32 epilogue without the
+// divide). The header says why and what bounds it. The kernel below is the
+// first, simple design, and serves the f32 calls: one CTA per (batch x
+// head, query tile), each warp 16 query rows (blockwise 64-row tiles, 4
+// warps; flash and stats 128-row tiles, 8 warps), K and V streamed through
+// shared memory in 64-key tiles double-buffered with cp.async, both
+// products on mma.sync m16n8k16 (bf16 terms, f32 sums). Blockwise keeps
+// the JAX rounding points with two passes over K: the first finds each
+// row's max and denominator, the second forms cast(exp(s - m) / l) and
+// p . v (1.5x the products of one pass). Flash is the one-pass online
+// softmax; stats is flash under a template flag, with its own key length
+// and another epilogue. f32 inputs split each operand into three bf16
+// terms (hi + mid + lo, exact) and sum the six products that matter, so
+// the f32 path keeps near-f32 products on the same code path (wgmma's
+// tf32 would not be exact).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,23 +80,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // An operand type's fragment registers: two neighbouring elements of a
-// row per 32-bit register, as kTerms bf16 terms.
+// row per 32-bit register, as kTerms bf16 terms. Only f32 reaches this
+// template (bf16 runs attention_wgmma.cuh).
 template <typename T>
 struct Operand;
-
-template <>
-struct Operand<__nv_bfloat16> {
-  static constexpr int kTerms = 1;
-  static __device__ __forceinline__ void pack(float a, float b, uint32_t (&r)[1]) {
-    r[0] = pack_bf16(a, b);  // the cast to bf16, round to nearest even
-  }
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, uint32_t (&r)[1]) {
-    r[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-  }
-};
 
 template <>
 struct Operand<float> {
@@ -173,34 +160,24 @@ __device__ __forceinline__ void load_b(const T* tile, int ld, int n0, int k0, in
 }
 
 // B fragments of two neighbouring n8 column blocks (n0 and n0 + 8) from a
-// shared tile stored k-major, rows k0..k0+15 (V for p . v). bf16: one
-// ldmatrix.x4.trans; f32: element loads, split into terms.
+// shared tile stored k-major, rows k0..k0+15 (V for p . v): element loads,
+// split into terms.
 template <typename T>
 __device__ __forceinline__ void load_b_kmajor(const T* tile, int ld, int k0, int n0, int lane,
                                               uint32_t (&b0)[Operand<T>::kTerms][2],
                                               uint32_t (&b1)[Operand<T>::kTerms][2]) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // lanes 8m..8m+7 address the rows of matrix m: rows k0 + (m & 1) * 8 +
-    // (lane & 7), columns n0 + (m >> 1) * 8
-    const T* p = tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(b0[0][0]), "=r"(b0[0][1]), "=r"(b1[0][0]), "=r"(b1[0][1])
-                 : "r"(addr));
-  } else {
-    constexpr int N = Operand<T>::kTerms;
-    const T* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  constexpr int N = Operand<T>::kTerms;
+  const T* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+  for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const T* q = p + half * 8 + i * 8 * ld;
-        uint32_t r[N];
-        Operand<T>::pack(q[0], q[ld], r);
+    for (int i = 0; i < 2; ++i) {
+      const T* q = p + half * 8 + i * 8 * ld;
+      uint32_t r[N];
+      Operand<T>::pack(q[0], q[ld], r);
 #pragma unroll
-        for (int s = 0; s < N; ++s) (half ? b1 : b0)[s][i] = r[s];
-      }
-  }
+      for (int s = 0; s < N; ++s) (half ? b1 : b0)[s][i] = r[s];
+    }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -511,8 +488,11 @@ template <bool kFlash, bool kStats = false>
 int launch(int is_f32, const void* q, const void* k, const void* v, const void* bias, void* out,
            float* m, float* l, int b, int h, int t, int t_kv, int hd, const long long* strides,
            float scale, void* stream) {
-  if (b <= 0 || h <= 0 || t <= 0 || t_kv <= 0 || t % Shape<kFlash>::kBQ || t_kv % kBK ||
-      b * h > 65535 || (hd != 64 && hd != 128) || (!kStats && t_kv != t))
+  // T and T_kv multiples of the Hopper kernels' 128-row and 128-key tiles
+  // (the mma.sync kernel's 64 and 128 divide them); B x H on the grid's y
+  if (b <= 0 || h <= 0 || t <= 0 || t_kv <= 0 || t % attention_wgmma::kBM ||
+      t_kv % attention_wgmma::kBN || b * h > 65535 || (hd != 64 && hd != 128) ||
+      (!kStats && t_kv != t))
     return (int)cudaErrorInvalidValue;
   ArgsOf<kStats> a;
   a.q = q;
@@ -537,11 +517,11 @@ int launch(int is_f32, const void* q, const void* k, const void* v, const void* 
   if (is_f32)
     return hd == 64 ? launch_one<float, 64, kFlash, kStats>(a, b * h, st)
                     : launch_one<float, 128, kFlash, kStats>(a, b * h, st);
-  if constexpr (kStats)
-    return hd == 64 ? launch_one<__nv_bfloat16, 64, kFlash, kStats>(a, b * h, st)
-                    : launch_one<__nv_bfloat16, 128, kFlash, kStats>(a, b * h, st);
-  else  // bf16 blockwise and flash: the Hopper kernels, no other path
-    return attention_wgmma::launch(kFlash, q, k, v, a.bias, out, b, h, t, hd, strides, scale, st);
+  // bf16: the Hopper kernels, no other path
+  const int entry = kStats ? attention_wgmma::kStats
+                           : (kFlash ? attention_wgmma::kFlash : attention_wgmma::kBlockwise);
+  return attention_wgmma::launch(entry, q, k, v, a.bias, out, m, l, b, h, t, t_kv, hd, strides,
+                                 scale, st);
 }
 
 }  // namespace
@@ -575,7 +555,7 @@ ATTENTION_ENTRY(flash_attention_launch, true)
 
 // flash_attention_stats_launch(is_f32, q, k, v, bias f32 [B, T_kv] clamped,
 //     acc f32 [B, H, T, hd], m f32 [B, H, T], l f32 [B, H, T], B, H, T, T_kv,
-//     hd, 9 element strides, scale, stream): T a multiple of 128, T_kv of 64.
+//     hd, 9 element strides, scale, stream): T and T_kv multiples of 128.
 int flash_attention_stats_launch(int is_f32, const void* q, const void* k, const void* v,
                                  const void* bias, void* acc, void* m, void* l, int b, int h,
                                  int t, int t_kv, int hd, long long qsb, long long qsh,

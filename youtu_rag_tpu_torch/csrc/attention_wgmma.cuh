@@ -1,8 +1,9 @@
-// The bf16 blockwise and flash entries of attention.cu, designed for
-// Hopper (sm_90a): warp-specialized, fed by TMA, both products on wgmma,
-// one persistent CTA per SM. attention.cu sends every bf16 call of
-// blockwise_attention_launch and flash_attention_launch here, hd 64 and
-// 128; f32 and the stats entry stay on its mma.sync template.
+// The bf16 entries of attention.cu (blockwise, flash and the ring hop's
+// stats entry), designed for Hopper (sm_90a): warp-specialized, fed by
+// TMA, both products on wgmma, one persistent CTA per SM. attention.cu
+// sends every bf16 call of blockwise_attention_launch, flash_attention_launch
+// and flash_attention_stats_launch here, hd 64 and 128; only f32 calls stay
+// on its mma.sync template.
 //
 // The contract is attention.cu's, rounding point for rounding point:
 // s = __fadd_rn(__fmul_rn(dot, scale), bias) with the bias clamped to
@@ -10,16 +11,20 @@
 // and one fused multiply-add gives the same value); blockwise: two
 // passes, p = exp(s - m) * (1 / l) in f32, then the bf16 cast, out =
 // cast(p . v); flash: the online softmax from a running max of -1e30,
-// unnormalized bf16 p, out = cast(acc / l). exp is __expf's ex2(x log2 e)
-// with its denormal results flushed to 0 (exp_ftz). A fully masked row
-// averages v uniformly.
+// unnormalized bf16 p, out = cast(acc / l); stats: flash's pass over a
+// K/V span of its own length T_kv, ending without the divide: acc f32
+// [B, H, T, hd], and each row's running max m and denominator l f32
+// [B, H, T]. exp is __expf's ex2(x log2 e) with its denormal results
+// flushed to 0 (exp_ftz). A fully masked row averages v uniformly.
 //
 // Bound (at the main path's shapes, H100 SXM at 700 W): blockwise at
 // [128, 12, 512, 64] moves 0.120 ms of bytes against 0.104 ms of products
 // (one pass's worth; the two passes issue 1.5x that) and needs 805 M exps
 // (two per score, ~0.21 ms on the MUFU units); flash at [2, 12, 8192, 64]
-// is held by its 0.417 ms of products and 1.61 G exps (~0.41 ms). So the
-// design keeps the tensor cores and the exp units busy at the same time:
+// is held by its 0.417 ms of products and 1.61 G exps (~0.41 ms), and so
+// is the stats entry at the same shape against 8192 keys (its f32 acc
+// doubles the output bytes: 50 MB, 0.015 ms). So the design keeps the
+// tensor cores and the exp units busy at the same time:
 //
 // - CTA of 384 threads. Warpgroup 0 is the producer: setmaxnreg.dec to
 //   40 registers, one thread issues every copy. Warpgroups 1 and 2 are
@@ -32,7 +37,8 @@
 //   item, into one of two slots, so the next item's Q arrives during this
 //   one. K and V tiles of 128 keys and the tile's f32 bias (a plain bulk
 //   copy) ride a ring of kStages stages (4 at hd 64, 2 at hd 128 for
-//   shared memory), each with a full and an empty mbarrier.
+//   shared memory), each with a full and an empty mbarrier. The stats
+//   entry's K and V maps have T_kv rows, and its bias row T_kv keys.
 // - S = Q . K^T is wgmma m64n128k16, both operands from shared memory
 //   (K-major). P . V is wgmma m64n{hd}k16 with P in registers: the f32 C
 //   layout of two n8 blocks of S, packed to bf16, is the A layout. V is
@@ -42,7 +48,10 @@
 //   two named barriers, so that one warpgroup's exps, rescales and packing
 //   run while the other's products do. In the P . V loop one turn issues
 //   Q . K^T of tile j and P . V of tile j - 1; tile j's softmax then runs
-//   while that P . V does (flash rescales o once it has landed).
+//   while that P . V does (flash and stats rescale o once it has landed).
+//   Tile 0 is peeled out of the loop (a branch between a wgmma and its
+//   wait makes ptxas serialize the wgmmas); a span of one tile (T_kv = 128)
+//   is that peeled tile alone.
 // - Persistent grid: min(items, SMs) CTAs walk the (batch x head, q tile)
 //   items in order, the four q tiles of a head on neighbouring CTAs. The
 //   producer loads the next item's tiles while the consumers finish and
@@ -53,7 +62,9 @@
 //   read comes from L2 (a head's K is 64 KB at T = 512 and the head's q
 //   tiles run together), so residency would save L2 traffic, not HBM
 //   bytes, and one ring then serves every T. There is no cut-over.
-// - The output is stored from registers (bf16 pairs).
+// - The output is stored from registers: bf16 pairs (blockwise, flash) or
+//   f32 pairs of acc and, from one thread of each row's quad, m and l
+//   (stats).
 
 #pragma once
 
@@ -63,6 +74,7 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace attention_wgmma {
 
@@ -89,12 +101,31 @@ struct Plan {
 };
 static_assert(Plan<64>::kSmem <= 232448 && Plan<128>::kSmem <= 232448, "shared memory");
 
+// the three entries; flash and stats share the online softmax
+enum Entry { kBlockwise = 0, kFlash = 1, kStats = 2 };
+
 struct Args {
   const float* bias;  // [B, T], clamped
   __nv_bfloat16* out;  // [B, H, T, hd], contiguous
   int h, t, n_items;
   float scale;
 };
+
+// The stats entry's arguments: the span's key count (bias [B, T_kv]) and
+// the f32 outputs, contiguous. A struct of its own, so that the blockwise
+// and flash instantiations keep their parameters and registers.
+struct StatsArgs : Args {
+  float* acc;  // [B, H, T, hd]
+  float* m;    // [B, H, T]
+  float* l;    // [B, H, T]
+  int t_kv;
+};
+
+template <int kEntry>
+using ArgsOf = typename std::conditional<kEntry == kStats, StatsArgs, Args>::type;
+
+__device__ __forceinline__ int keys_of(const Args& a) { return a.t; }
+__device__ __forceinline__ int keys_of(const StatsArgs& a) { return a.t_kv; }
 
 // shared memory: two Q tiles, the ring's stages, the barriers
 template <int HD>
@@ -382,12 +413,12 @@ __device__ __forceinline__ void scale_bias(float (&s)[64], const float* bias, fl
   }
 }
 
-template <int HD, bool kFlash>
+template <int HD, int kEntry>
 __device__ __forceinline__ void produce(const Layout<HD>& L, const CUtensorMap* tq,
                                         const CUtensorMap* tk, const CUtensorMap* tv,
-                                        const Args& a) {
+                                        const ArgsOf<kEntry>& a) {
   using P = Plan<HD>;
-  const int q_tiles = a.t / kBM, n_tiles = a.t / kBN;
+  const int q_tiles = a.t / kBM, n_tiles = keys_of(a) / kBN;
   int stage = 0;
   uint32_t phase = 0;
   for (int item = blockIdx.x, it = 0; item < a.n_items; item += gridDim.x, ++it) {
@@ -398,9 +429,9 @@ __device__ __forceinline__ void produce(const Layout<HD>& L, const CUtensorMap* 
 #pragma unroll
     for (int c = 0; c < P::kSub; ++c)
       tma_load(L.q(slot) + c * kBM * kRowBytes, tq, L.q_full(slot), 64 * c, qt * kBM, h, b);
-    const float* bias = a.bias + static_cast<size_t>(b) * a.t;
-    // blockwise: pass 0 without V, then pass 1; flash: pass 1 alone
-    for (int pass = kFlash ? 1 : 0; pass < 2; ++pass)
+    const float* bias = a.bias + static_cast<size_t>(b) * keys_of(a);
+    // blockwise: pass 0 without V, then pass 1; flash and stats: pass 1 alone
+    for (int pass = kEntry == kBlockwise ? 0 : 1; pass < 2; ++pass)
       for (int kt = 0; kt < n_tiles; ++kt) {
         mbar_wait(L.empty(stage), phase ^ 1);
         mbar_expect_tx(L.full(stage), (pass + 1) * P::kTileBytes + P::kBiasBytes);
@@ -420,15 +451,16 @@ __device__ __forceinline__ void produce(const Layout<HD>& L, const CUtensorMap* 
 }
 
 // Tile j's softmax on S (already scaled and biased), in place: S becomes
-// the f32 p of the contract. Flash returns each row's rescale of o in
-// alpha (applied once the previous P . V has landed); blockwise multiplies
-// by the reciprocal denominator of pass 1 (held in l).
-template <bool kFlash>
+// the f32 p of the contract. The online softmax (flash, stats) returns
+// each row's rescale of o in alpha (applied once the previous P . V has
+// landed); blockwise multiplies by the reciprocal denominator of pass 1
+// (held in l).
+template <bool kOnline>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if constexpr (!kFlash) {
+    if constexpr (!kOnline) {
       // normalized in f32 before the cast, as the blockwise kernel does
 #pragma unroll
       for (int c = 0; c < 16; ++c)
@@ -478,13 +510,13 @@ struct Ring {
   }
 };
 
-template <int HD, bool kFlash>
-__device__ __forceinline__ void consume(const Layout<HD>& L, const Args& a, int cw) {
+template <int HD, int kEntry>
+__device__ __forceinline__ void consume(const Layout<HD>& L, const ArgsOf<kEntry>& a, int cw) {
   using P = Plan<HD>;
-  constexpr bool kFma = HD == 64;
+  constexpr bool kFma = HD == 64, kOnline = kEntry != kBlockwise;
   const int tid = threadIdx.x - 128 * (cw + 1), lane = tid & 31, t4 = lane & 3;
   const int row0 = (tid >> 5) * 16 + (lane >> 2);  // this thread's first row of the 64
-  const int q_tiles = a.t / kBM, n_tiles = a.t / kBN;
+  const int q_tiles = a.t / kBM, n_tiles = keys_of(a) / kBN;
   const int mine = 1 + cw, other = 2 - cw;  // the named barriers of the two turns
   Ring ring;
   float s[64];
@@ -495,7 +527,7 @@ __device__ __forceinline__ void consume(const Layout<HD>& L, const Args& a, int 
     const uint32_t q = L.q(slot) + cw * 64 * kRowBytes;
     mbar_wait(L.q_full(slot), (it >> 1) & 1);
     float m[2], l[2], alpha[2];  // rows row0 and row0 + 8; l is this thread's part of the sum
-    if constexpr (!kFlash) {
+    if constexpr (!kOnline) {
       // pass 1: each row's max and softmax denominator over all keys
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
@@ -548,7 +580,7 @@ __device__ __forceinline__ void consume(const Layout<HD>& L, const Args& a, int 
     hold(s);
     if (n_tiles == 1) mbar_arrive(L.q_empty(slot));
     scale_bias<kFma>(s, L.bias_ptr(ring.stage), a.scale, t4);
-    softmax_tile<kFlash>(s, m, l, alpha);  // o is 0: no rescale
+    softmax_tile<kOnline>(s, m, l, alpha);  // o is 0: no rescale
     pack_p(p, s);
     int prev = ring.stage;  // the stage of the tile whose P is in p
     ring.advance<P::kStages>();
@@ -562,12 +594,12 @@ __device__ __forceinline__ void consume(const Layout<HD>& L, const Args& a, int 
       hold(s);
       if (kt == n_tiles - 1) mbar_arrive(L.q_empty(slot));  // the item's last use of Q
       scale_bias<kFma>(s, L.bias_ptr(ring.stage), a.scale, t4);
-      softmax_tile<kFlash>(s, m, l, alpha);
+      softmax_tile<kOnline>(s, m, l, alpha);
       wgmma_wait<0>();
       hold(o);
       hold(p);
       mbar_arrive(L.empty(prev));
-      if constexpr (kFlash) {
+      if constexpr (kOnline) {
 #pragma unroll
         for (int c = 0; c < HD / 8; ++c)
 #pragma unroll
@@ -585,31 +617,50 @@ __device__ __forceinline__ void consume(const Layout<HD>& L, const Args& a, int 
     hold(p);
     mbar_arrive(L.empty(prev));
 
-    if constexpr (kFlash) {
+    if constexpr (kOnline) {
       l[0] = quad_sum(l[0]);
       l[1] = quad_sum(l[1]);
     }
-    __nv_bfloat16* og = a.out +
-                        (static_cast<size_t>(bh) * a.t + qt * kBM + cw * 64 + row0) * HD + 2 * t4;
+    const size_t row = static_cast<size_t>(bh) * a.t + qt * kBM + cw * 64 + row0;
+    if constexpr (kEntry == kStats) {
+      // no divide: acc as f32 pairs, then each row's m and l from the
+      // quad's first thread (the quad holds the row's reduced m and l)
+      float* ag = a.acc + row * HD + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+      for (int c = 0; c < HD / 8; ++c)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float x = o[4 * c + 2 * r], y = o[4 * c + 2 * r + 1];
-        if constexpr (kFlash) {
-          x /= l[r];
-          y /= l[r];
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(ag + r * 8 * HD + 8 * c) =
+              make_float2(o[4 * c + 2 * r], o[4 * c + 2 * r + 1]);
+      if (t4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          a.m[row + 8 * r] = m[r];
+          a.l[row + 8 * r] = l[r];
         }
-        *reinterpret_cast<uint32_t*>(og + r * 8 * HD + 8 * c) = pack_bf16(x, y);
       }
+    } else {
+      __nv_bfloat16* og = a.out + row * HD + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = o[4 * c + 2 * r], y = o[4 * c + 2 * r + 1];
+          if constexpr (kEntry == kFlash) {
+            x /= l[r];
+            y /= l[r];
+          }
+          *reinterpret_cast<uint32_t*>(og + r * 8 * HD + 8 * c) = pack_bf16(x, y);
+        }
+    }
   }
   if (cw == 0) turn_wait(1);  // consumer 1's last pass of the turn: barriers end balanced
 }
 
-template <int HD, bool kFlash>
+template <int HD, int kEntry>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, const Args a) {
+                     const __grid_constant__ CUtensorMap tv, const ArgsOf<kEntry> a) {
   using P = Plan<HD>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -630,10 +681,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // one if-else for the whole kernel: the roles never meet again
   if (threadIdx.x < 128) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) produce<HD, kFlash>(L, &tq, &tk, &tv, a);
+    if (threadIdx.x == 0) produce<HD, kEntry>(L, &tq, &tk, &tv, a);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<HD, kFlash>(L, a, threadIdx.x / 128 - 1);
+    consume<HD, kEntry>(L, a, threadIdx.x / 128 - 1);
   }
 }
 
@@ -688,15 +739,15 @@ inline int encode(EncodeTiled fn, CUtensorMap* map, const void* x, const long lo
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
-template <int HD, bool kFlash>
+template <int HD, int kEntry>
 int launch_hd(EncodeTiled fn, const void* q, const void* k, const void* v, const float* bias,
-              void* out, int b, int h, int t, const long long* strides, float scale,
-              cudaStream_t stream) {
+              void* out, float* m, float* l, int b, int h, int t, int t_kv,
+              const long long* strides, float scale, cudaStream_t stream) {
   using P = Plan<HD>;
   CUtensorMap tq, tk, tv;
   int err = encode(fn, &tq, q, strides, b, h, t, HD, kBM);
-  if (err == 0) err = encode(fn, &tk, k, strides + 3, b, h, t, HD, kBN);
-  if (err == 0) err = encode(fn, &tv, v, strides + 6, b, h, t, HD, kBN);
+  if (err == 0) err = encode(fn, &tk, k, strides + 3, b, h, t_kv, HD, kBN);
+  if (err == 0) err = encode(fn, &tv, v, strides + 6, b, h, t_kv, HD, kBN);
   if (err != 0) return err;
   static int sms = 0;
   if (sms == 0) {
@@ -705,34 +756,66 @@ int launch_hd(EncodeTiled fn, const void* q, const void* k, const void* v, const
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  auto kern = attention_kernel<HD, kFlash>;
+  auto kern = attention_kernel<HD, kEntry>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Args a{bias, static_cast<__nv_bfloat16*>(out), h, t, b * h * (t / kBM), scale};
+  ArgsOf<kEntry> a;
+  a.bias = bias;
+  a.out = nullptr;
+  a.h = h;
+  a.t = t;
+  a.n_items = b * h * (t / kBM);
+  a.scale = scale;
+  if constexpr (kEntry == kStats) {
+    a.acc = static_cast<float*>(out);
+    a.m = m;
+    a.l = l;
+    a.t_kv = t_kv;
+  } else {
+    a.out = static_cast<__nv_bfloat16*>(out);
+  }
   const int grid = a.n_items < sms ? a.n_items : sms;
   kern<<<grid, kThreads, P::kSmem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 blockwise (flash false) or flash entry: q, k, v [B, H, T, hd]
-// through 9 element strides (batch, head, row of q, k, v; the rows
-// 16-byte aligned), bias [B, T] f32 clamped, out [B, H, T, hd]
-// contiguous; T a multiple of 128, hd 64 or 128 (checked by the caller).
-// Returns 0, a CUDA error, or kErrEntryPoint / kErrEncode + CUresult.
-inline int launch(bool flash, const void* q, const void* k, const void* v, const float* bias,
-                  void* out, int b, int h, int t, int hd, const long long* strides, float scale,
-                  cudaStream_t stream) {
+template <int HD>
+int launch_entry(int entry, EncodeTiled fn, const void* q, const void* k, const void* v,
+                 const float* bias, void* out, float* m, float* l, int b, int h, int t, int t_kv,
+                 const long long* strides, float scale, cudaStream_t stream) {
+  switch (entry) {
+    case kBlockwise:
+      return launch_hd<HD, kBlockwise>(fn, q, k, v, bias, out, m, l, b, h, t, t, strides, scale,
+                                       stream);
+    case kFlash:
+      return launch_hd<HD, kFlash>(fn, q, k, v, bias, out, m, l, b, h, t, t, strides, scale,
+                                   stream);
+    default:
+      return launch_hd<HD, kStats>(fn, q, k, v, bias, out, m, l, b, h, t, t_kv, strides, scale,
+                                   stream);
+  }
+}
+
+// A bf16 entry (kBlockwise, kFlash or kStats): q [B, H, T, hd], k, v
+// [B, H, T_kv, hd] (T_kv == T but for kStats) through 9 element strides
+// (batch, head, row of q, k, v; the rows 16-byte aligned), bias [B, T_kv]
+// f32 clamped; out [B, H, T, hd] contiguous, bf16 (kStats: acc f32, and m,
+// l [B, H, T] f32 contiguous); T and T_kv multiples of 128, hd 64 or 128
+// (checked by the caller). Returns 0, a CUDA error, or kErrEntryPoint /
+// kErrEncode + CUresult.
+inline int launch(int entry, const void* q, const void* k, const void* v, const float* bias,
+                  void* out, float* m, float* l, int b, int h, int t, int t_kv, int hd,
+                  const long long* strides, float scale, cudaStream_t stream) {
   EncodeTiled fn;
   const int err = encode_tiled(&fn);
   if (err != 0) return err;
   int e;
   if (hd == 64 && std::frexp(scale, &e) != 0.5f)  // hd 64 folds the scale into one FMA
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hd == 64)
-    return flash ? launch_hd<64, true>(fn, q, k, v, bias, out, b, h, t, strides, scale, stream)
-                 : launch_hd<64, false>(fn, q, k, v, bias, out, b, h, t, strides, scale, stream);
-  return flash ? launch_hd<128, true>(fn, q, k, v, bias, out, b, h, t, strides, scale, stream)
-               : launch_hd<128, false>(fn, q, k, v, bias, out, b, h, t, strides, scale, stream);
+  return hd == 64 ? launch_entry<64>(entry, fn, q, k, v, bias, out, m, l, b, h, t, t_kv, strides,
+                                     scale, stream)
+                  : launch_entry<128>(entry, fn, q, k, v, bias, out, m, l, b, h, t, t_kv,
+                                      strides, scale, stream);
 }
 
 }  // namespace attention_wgmma

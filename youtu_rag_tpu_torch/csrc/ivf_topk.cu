@@ -17,8 +17,9 @@
 // order with double-buffered DMA and one running top-k. Here the scan of
 // topk_select.cuh runs with its IVF row source: n_valid is read on the
 // device (no host sync between plan and scan), the probed rows split
-// evenly over all CTAs in 128-row tiles, a 4-row scoring group reads
-// contiguous rows of one block, and the lists keep stored rows, so the
+// evenly over all CTAs in 128-row tiles, a 4-row scoring group (bf16,
+// int8) reads contiguous rows of one block, int4's 16-row warp tile maps
+// each of its rows on its own, and the lists keep stored rows, so the
 // merge's (score desc, row asc) order equals the plain version's sort.
 // The grid is sized on the host from the plan's static length max_blocks.
 //

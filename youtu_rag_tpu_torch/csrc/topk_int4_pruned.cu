@@ -16,11 +16,15 @@
 //
 // Bound: the kernel must read N*d/2 bytes of packed vectors and 8N bytes of
 // scales and bias. It does the same 2*q*N*d integer operations as the int8
-// kernel on half the bytes (32 per byte at q = 8), plus the unpack, so on
-// the CUDA cores it may meet its compute time before its HBM time.
+// kernel on half the bytes (32 per byte at q = 8), plus the unpack: on the
+// CUDA cores (__dp4a, 4 products an instruction, a 31-shuffle butterfly per
+// 4 rows) that work took as long as the int8 scan of twice the bytes.
 //
-// Scoring: Int4Scorer in topk_scorers.cuh (the biased-nibble __dp4a
-// unpack; bit-equal to the plain version).
+// Scoring: Int4Scorer in topk_scorers.cuh puts the products on the tensor
+// cores: mma.sync m16n8k32 over the biased nibbles (u8) of a warp's 16 rows
+// and the tile's 8 int8 queries, the columns ordered so that each lane
+// fills its fragments from 16-byte loads of packed bytes; no butterfly.
+// Bit-equal to the plain version (exact integer sums).
 
 #include "topk_scorers.cuh"
 

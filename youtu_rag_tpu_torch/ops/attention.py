@@ -24,10 +24,10 @@ kernels':
 
 Each wrapper (``blockwise_attention``, ``flash_attention``,
 ``flash_attention_stats``) launches its hand-written CUDA kernel
-(``csrc/attention.cu``; bf16 blockwise and flash calls run its Hopper
-kernels, ``csrc/attention_wgmma.cuh``) for CUDA tensors and counts the
-launch in its ``.launches``; for CPU tensors it runs its plain PyTorch version
-(``*_reference``). On every device it raises ``ValueError`` outside the
+(``csrc/attention.cu``; every bf16 call runs its Hopper kernels,
+``csrc/attention_wgmma.cuh``, and f32 calls its mma.sync kernel) for CUDA
+tensors and counts the launch in its ``.launches``; for CPU tensors it runs
+its plain PyTorch version (``*_reference``). On every device it raises ``ValueError`` outside the
 kernel's range: hd 64 or 128, bf16 or f32; T a multiple of 128 and at
 least 256 (the stats entry: T and T_kv multiples of 128).
 """
@@ -260,7 +260,8 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax of q [B, H, T, hd] over the span k, v [B, H, T_kv, hd] with
     its key bias [B, T_kv], without the final divide. Returns (acc
     [B, H, T, hd], m [B, H, T], l [B, H, T]), f32. Hops combine as
-    ``parallel/sequence_parallel.py`` does. The kernel's key tile (64) is
+    ``parallel/sequence_parallel.py`` does. The kernel's key tile (128 in
+    bf16, the Hopper kernel of ``csrc/attention_wgmma.cuh``; 64 in f32) is
     not JAX's block (up to 1024): m is the same maximum, l and acc agree
     within f32 summation order and the bf16 rounding of ``p``. On CUDA:
     launches on the current stream and does not synchronize."""
