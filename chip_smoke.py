@@ -12,8 +12,9 @@ Phases; any failure exits non-zero before the result lines:
      attention source's Hopper kernels, attention_wgmma.cuh's
      attention_kernel for hd 64 and 128 and its three entries, blockwise,
      flash and the hop's stats, and its mma.sync kernels for f32), then one
-     line per attention kernel and int4 scan kernel (the tensor-core
-     scorer) with its registers and spills;
+     line per attention kernel, int4 scan kernel (the tensor-core scorer)
+     and bf16 / int8 IVF kernel (ivf_scan_tma.cuh) with its registers and
+     spills;
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -43,7 +44,11 @@ Phases; any failure exits non-zero before the result lines:
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
      n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
      TOL, int8 and int4 bit-equal; then the int4 kernel alone at block_rows
-     4, 8 and 12 (16-row warp tiles that straddle blocks) and k up to 2048;
+     4, 8 and 12 (16-row warp tiles that straddle blocks) and k up to 2048,
+     and the bf16 and int8 kernels alone over IVF_TMA_CASES (q 1, 7, 9, 65;
+     k 1, 129, 1025; block_rows 4, 12, 4096; f32 queries and ascending ids,
+     bf16 queries and shuffled ids; a zero query row), one launch per 64
+     queries;
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
      versions over BLOCKS_CASES (k 1 to 1024, q 1 to 64, block_rows 256 to
@@ -97,14 +102,19 @@ Phases; any failure exits non-zero before the result lines:
      q = 8, top_k = 10 search checked against the plain version on the same
      plan, recall@10 against the brute kernel, the IVF kernel timed beside
      its bound (the probed bytes), its plain version and the brute kernel,
-     the search's device time split by torch.profiler; then again with the
-     adaptive margin off (a fixed n_probe 64 plan); int4 beside EARLIER_MS;
+     one call's launches (1) and five calls' device kernels (bf16, int8:
+     the scan alone, after a memset), the search's device time split by
+     torch.profiler (bf16, int8: no merge kernel); then again with the
+     adaptive margin off (a fixed n_probe 64 plan); each beside the earlier
+     design's recorded time (EARLIER_MS, EARLIER_FIXED_MS);
   5d. the ops path at full size, on phase 5's and 5c's device tensors:
      ``fused_topk(q, x_bf16, bias, 10)`` (backend "auto", which must take
      the kernel), ``topk_int8`` at block_rows 2048, and ``ivf_topk`` /
      ``ivf_topk_int8`` on 5c's adaptive plan at its block_rows 1024; each
      checked against its plain version and, on its live slots, against the
-     pruned or DMA kernel on the same tensors (the same rows), then timed
+     pruned or DMA kernel on the same tensors (the same rows and scores;
+     against the bf16 DMA kernel, which sums on the tensor cores, as
+     compare_topk holds two bf16 results), then timed
      (CUDA events; L2 cold for IVF) beside its bound, its plain version,
      the merge alone, and a one-call PyTorch yardstick or the DMA kernel;
   5b. main path, full size, encoder: the default encoder embeds 128 texts
@@ -183,7 +193,11 @@ SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "a
 # mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the int4 scans
 # on the __dp4a scorer (brute k = 64; IVF on phase 5c's adaptive plan).
 EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
-              "ivf_topk_int4_dma": 0.1582}
+              "ivf_topk_int4_dma": 0.1582, "ivf_topk_dma": 0.0918, "ivf_topk_int8_dma": 0.0879}
+# ... and the IVF scans' on phase 5c's fixed plan (the bf16 and int8 scans
+# of topk_select.cuh with a merge launch after them; int4 on its PR 8 scorer)
+EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
+                    "ivf_topk_int4_dma": 0.4116}
 
 _phase_t0: list[tuple[str, float]] = []
 
@@ -308,7 +322,7 @@ def build_all() -> None:
 
     for name in ("attention", "topk_int4_pruned", "ivf_topk"):
         for kernel, regs, spills in ptxas_report(done[name]["log"]):
-            if kernel.startswith("attention") or "Int4Scorer" in kernel:
+            if kernel.startswith(("attention", "ivf_tma")) or "Int4Scorer" in kernel:
                 print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
 
@@ -534,16 +548,29 @@ IVF_GARBAGE = 1 << 28  # an id past n_valid that points far outside the index
 # straddle 4, 2 and 1-2 blocks (IVF4_N rows: a multiple of 12 and of 16)
 IVF4_N = 49152
 IVF4_CASES = [(q, k, br) for q in (8, 64) for k in (1, 64, 1024, 2048) for br in (4, 8, 12)]
+# the bf16 and int8 kernels (csrc/ivf_scan_tma.cuh) alone: query counts
+# around the 8-query tiles and the 64 of a launch, k in the three list
+# classes, block_rows 4 and 12 (a 32-row stage spans several blocks) and
+# 4096; queries f32 with ids ascending, or bf16 with ids shuffled; query
+# row 1 is zero (its int8 scale 1e-12 / 127)
+IVF_TMA_CASES = [(q, k, br, qdtype, order) for q in (1, 7, 9, 65) for k in (1, 129, 1025)
+                 for br in (4, 12, 4096) for qdtype, order in (("f32", "sorted"),
+                                                              ("bf16", "shuffled"))]
 
 
-def ivf_plan(n_blocks: int, n_valid: int, g) -> tuple[torch.Tensor, torch.Tensor]:
+def ivf_plan(n_blocks: int, n_valid: int, g, order: str = "sorted"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """A plan of max_blocks = n_blocks ids: n_valid probed blocks in
-    ascending id (blocks 0 and 1, which hold the exact ties, among them),
-    then garbage ids the kernel must never read."""
+    ascending id (or shuffled; blocks 0 and 1, which hold the exact ties,
+    among them), then garbage ids the kernel must never read."""
     rest = torch.randperm(n_blocks - 2, generator=g, device="cuda")[: max(n_valid - 2, 0)] + 2
     chosen = torch.cat([torch.arange(min(n_valid, 2), device="cuda"), rest])
+    if order == "sorted":
+        chosen = torch.sort(chosen)[0]
+    else:
+        chosen = chosen[torch.randperm(chosen.numel(), generator=g, device="cuda")]
     ids = torch.full((n_blocks,), IVF_GARBAGE, dtype=torch.int32, device="cuda")
-    ids[:n_valid] = torch.sort(chosen)[0].to(torch.int32)
+    ids[:n_valid] = chosen.to(torch.int32)
     return ids, torch.tensor(n_valid, dtype=torch.int32, device="cuda")
 
 
@@ -621,8 +648,33 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
         torch.cuda.synchronize()
         want = plain(queries, x4, s4, b4, ids, nv, k, block_rows=br)
         compare_ivf("int4", got, want, None, what)
-    print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels and {len(IVF4_CASES)} "
-          "int4 cases (block_rows 4, 8, 12) ok, max_abs_err "
+    for q, k, br, qdtype, order in IVF_TMA_CASES:
+        queries = torch.randn(q, IVF_D, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        queries[0] = x[5]
+        if q > 1:
+            queries[1] = 0.0
+        if qdtype == "bf16":
+            queries = queries.to(torch.bfloat16)
+        n = IVF_N - IVF_N % br  # the rows that whole blocks cover
+        ids, nv = ivf_plan(n // br, n // br // 2, g, order)
+        b = bias[:n]
+        full = plain_scores(queries, stored["bfloat16"][0][:n], b).cpu()
+        for tier in ("bfloat16", "int8"):
+            kernel, plain, _ = ivf_ops()[tier]
+            xt, extra = stored[tier]
+            xt, extra = xt[:n], tuple(e[:n] for e in extra)
+            what = f"ivf {tier} q={q} k={k} block_rows={br} {qdtype} queries, ids {order}"
+            before = kernel.launches
+            got = kernel(queries, xt, *extra, b, ids, nv, k, block_rows=br)
+            torch.cuda.synchronize()
+            check(kernel.launches - before == -(-q // 64), f"{what}: launches")
+            want = plain(queries, xt, *extra, b, ids, nv, k, block_rows=br)
+            max_err[tier] = max(max_err[tier], compare_ivf(tier, got, want, full, what))
+    print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels, {len(IVF4_CASES)} "
+          f"int4 cases (block_rows 4, 8, 12) and {len(IVF_TMA_CASES)} cases x 2 kernels "
+          "(ivf_scan_tma.cuh: q 1-65, k to 1025, block_rows 4, 12, 4096, bf16 queries, a zero "
+          "query, shuffled ids) ok, max_abs_err "
           + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
     return max_err
 
@@ -1785,34 +1837,54 @@ def time_held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> fl
     return statistics.median(times)
 
 
-def search_split(fn, calls: int = 5) -> None:
-    """Device time per call of ``fn`` (one whole index.search) by part
-    (torch.profiler): the scan and merge kernels, the copies, and the rest
-    (probe planning: the centroid product, sort, union and argsort; query
-    quantization)."""
+def device_kernels(fn, calls: int) -> dict[str, tuple[int, float]]:
+    """Every device activity of ``calls`` calls of ``fn`` (torch.profiler):
+    name → (count, device us in all)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _attempt in range(2):  # a window that records no device event is profiled again
+    for _attempt in range(4):  # a window that records no device event is profiled again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            out[e.key] = (e.count, us)
+        if out:
+            return out
+    return {}
+
+
+SCAN_KERNELS = ("topk_scan_kernel", "ivf_tma_kernel")
+
+
+def search_split(fn, calls: int = 5) -> dict[str, float]:
+    """Device time per call of ``fn`` (one whole index.search) by part
+    (torch.profiler): the scan and merge kernels, the copies, and the rest
+    (probe planning: the centroid product, sort, union and argsort; int4's
+    query quantization), whose largest kernels are named. Returns the
+    parts (ms)."""
     parts = dict.fromkeys(("planning and the rest", "scan", "merge", "copies"), 0.0)
-    for e in events:
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        name = e.key
-        part = ("scan" if "topk_scan_kernel" in name else "merge" if "topk_merge_kernel" in name
+    rest = []
+    for name, (count, us) in device_kernels(fn, calls).items():
+        part = ("scan" if any(k in name for k in SCAN_KERNELS)
+                else "merge" if "topk_merge_kernel" in name
                 else "copies" if "memcpy" in name.lower() or "memset" in name.lower()
                 else "planning and the rest")
         parts[part] += us / calls / 1e3
+        if part == "planning and the rest":
+            rest.append((us / calls / 1e3, count // calls, name))
     print("  search device time per call: " + "; ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
           + f"; total {sum(parts.values()):.4f} ms")
+    print(f"  planning and the rest: {sum(c for _, c, _ in rest)} kernels per call; largest: "
+          + "; ".join(f"{n.replace('(anonymous namespace)::', '').split('(')[0][:60]} x{c} "
+                      f"{ms:.4f} ms" for ms, c, n in sorted(rest, reverse=True)[:5]))
+    return parts
 
 
 def ivf_bound(tier: str, part: str, n_valid: int, br: int, d: int, qn: int, k: int):
@@ -1913,6 +1985,20 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
         res = {"launches": counts[tier], "err": err}
         print(f"  search matches the plain version on its plan; n_valid {n_valid} of {total} "
               f"blocks; recall@10 against {KERNEL_NAMES[tier]} {recall:.3f}")
+        # what one call runs on the card: bf16 and int8 one kernel (the
+        # queries' prep and the merge inside it) after a memset
+        before = kernel.launches
+        call()
+        per_call = kernel.launches - before
+        check(per_call == 1, f"{tier}: {per_call} launches per call")
+        # (the profiler may drop events of so short a window: kinds, not counts)
+        ran = device_kernels(call, 5)
+        names = [n for n in ran if "memset" not in n.lower()]
+        if tier != "int4":
+            check(len(names) == 1 and "ivf_tma_kernel" in names[0],
+                  f"{tier}: five calls ran {sorted(ran)}")
+        print(f"  one call: {per_call} launch; five calls on the card: " + "; ".join(
+            f"{n.split('(')[0][:60]} x{c}" for n, (c, _) in ran.items()))
 
         for label, margin in (("adaptive", IVF_SETTINGS["ivf_adaptive_margin"]), ("fixed", 0.0)):
             if margin == 0.0:
@@ -1923,24 +2009,25 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
             bms, by = ivf_bound(tier, part, n_valid, IVF_SETTINGS["block_rows"], d, qn, k_kernel)
             mb = n_valid * IVF_SETTINGS["block_rows"] * {"bfloat16": 2 * d + 4, "int8": d + 8,
                                                          "int4": d // 2 + 8}[tier] / 1e6
+            earlier = (EARLIER_MS if label == "adaptive" else EARLIER_FIXED_MS).get(IVF_NAMES[tier])
             print(f"  {IVF_NAMES[tier]} {label} plan, n_valid {n_valid} ({mb:.1f} MB probed), "
-                  f"k = {k_kernel}: {ms:.4f} ms device, L2 cold ({mb / ms:.1f} GB/s); "
-                  f"{warm:.4f} ms per call back to back; bound {bms:.4f} ms ({by})")
+                  f"k = {k_kernel}: {ms:.4f} ms device, L2 cold ({mb / ms:.1f} GB/s), 1 launch "
+                  f"per call; {warm:.4f} ms per call back to back; bound {bms:.4f} ms ({by}); "
+                  f"earlier design's recorded time {earlier} ms")
             if label == "adaptive":
                 res.update(ms=ms, bound_ms=bms, bound_by=by)
                 res["plain_ms"] = time_ms(lambda: plain(qdev, x, *extra, b, ids, nv, k_kernel,
                                                         block_rows=IVF_SETTINGS["block_rows"]),
                                           bursts=3, burst=5)
                 brute_ms = time_ms(lambda: brute(qdev, x, *extra, b, k_kernel))
-                earlier = EARLIER_MS.get(IVF_NAMES[tier])
                 print(f"  plain {res['plain_ms']:.4f} ms; brute {KERNEL_NAMES[tier]} on the same "
                       f"index {brute_ms:.4f} ms; library: none (no one PyTorch call computes a "
-                      f"top-k over gathered blocks)"
-                      + ("" if earlier is None else f"; the __dp4a scorer's recorded time "
-                         f"{earlier} ms, now {ms:.4f} ms against a bound of {bms:.4f} ms"))
+                      f"top-k over gathered blocks)")
             else:
                 index.config.ivf_adaptive_margin = 0.0
-            search_split(lambda: index.search(queries, top_k=top_k))
+            parts = search_split(lambda: index.search(queries, top_k=top_k))
+            if tier != "int4":
+                check(parts["merge"] == 0.0, f"{tier}: the search launched a merge kernel")
         out[tier] = res
         del index, x, b, extra, hits
         torch.cuda.empty_cache()
@@ -2016,9 +2103,15 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
         other = (dma[tier](*a, block_rows=br) if takes_plan else pruned[tier](*a))
         torch.cuda.synchronize()
         live = got[0] > NEG_INF / 2
-        check(torch.equal(live, other[0] > NEG_INF / 2) and torch.equal(got[1][live], other[1][live])
-              and torch.equal(got[0][live].view(torch.int32), other[0][live].view(torch.int32)),
-              f"{name}: the live slots differ from the {'DMA' if takes_plan else 'pruned'} kernel's")
+        what = f"{name}: the live slots against the {'DMA' if takes_plan else 'pruned'} kernel's"
+        if takes_plan and tier == "bfloat16":
+            # the bf16 DMA kernel sums on the tensor cores, in another order
+            compare_topk(got, other, full, what)
+        else:
+            check(torch.equal(live, other[0] > NEG_INF / 2)
+                  and torch.equal(got[1][live], other[1][live])
+                  and torch.equal(got[0][live].view(torch.int32), other[0][live].view(torch.int32)),
+                  f"{what} differ")
         if takes_plan:
             n_valid = int(t["nv"])
             n_blocks, scanned = t["ids"].numel(), n_valid * br
@@ -2454,7 +2547,8 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": "youtu_rag_tpu_torch/csrc/ivf_topk.cu",
+            "source": ("youtu_rag_tpu_torch/csrc/ivf_topk.cu" if tier == "int4"
+                       else "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh"),
             "replaces": REPLACES[kname],
             "launches": launches4c[tier] + f["launches"],
             "max_abs_err": max(err3c[tier], err3x[kname], err4c[tier], f["err"]),

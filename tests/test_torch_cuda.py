@@ -61,15 +61,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_inputs(q, d, seed):
+def make_inputs(q, d, seed, n=N):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     x[101:105] = x[3]  # exact ties
     qs = rng.standard_normal((q, d)).astype(np.float32)
     qs /= np.linalg.norm(qs, axis=1, keepdims=True)
     qs[0] = x[3]
-    bias = np.zeros(N, np.float32)
+    bias = np.zeros(n, np.float32)
     bias[::5] = NEG_INF
     bias[7::13] = -np.inf
     return qs, x, bias
@@ -466,84 +466,168 @@ IVF = {
 }
 
 
-def ivf_plan(n_blocks, max_blocks, n_valid, seed, device):
-    """n_valid probed blocks in ascending id, blocks 0 and 1 among them
-    (they hold make_inputs' exact ties), then garbage ids (out of range)
-    that the kernel must never read."""
+def ivf_plan(n_blocks, max_blocks, n_valid, seed, device, block_rows=None, order="sorted"):
+    """n_valid probed blocks in ascending id (or shuffled), blocks 0 and 1
+    among them (with ``block_rows``: the blocks of make_inputs' exact ties,
+    rows 3 and 101-104, instead), then garbage ids (out of range) that the
+    kernel must never read."""
     rng = np.random.default_rng(seed)
     ids = np.full(max_blocks, 10**8, np.int32)
-    chosen = [0, 1][:n_valid] + list(rng.choice(np.arange(2, n_blocks), max(n_valid - 2, 0),
-                                                replace=False))
-    ids[:n_valid] = np.sort(chosen)
+    first = [0, 1] if block_rows is None else sorted({r // block_rows for r in (3, *range(101, 105))})
+    first = first[:n_valid]
+    rest = np.setdiff1d(np.arange(n_blocks), first)
+    chosen = first + list(rng.choice(rest, max(n_valid - len(first), 0), replace=False))
+    ids[:n_valid] = np.sort(chosen) if order == "sorted" else rng.permutation(chosen)
     return (torch.from_numpy(ids).to(device),
             torch.tensor(n_valid, dtype=torch.int32, device=device))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tier", list(IVF))
-@pytest.mark.parametrize("k", [1, 10, 128, 129, 1024])
-@pytest.mark.parametrize("q", [1, 8, 64])
-@pytest.mark.parametrize("block_rows", [64, 1024])
-def test_ivf_kernel_matches_plain_version(cuda_device, tier, q, k, block_rows):
-    """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
-    scores; ties in row order; empty slots (NEG_INF, 0)."""
-    quantize, kernel, plain = IVF[tier]
-    qs, x, bias = make_inputs(q, 256, seed=q + k + block_rows)
-    xt = torch.from_numpy(x).to(cuda_device)
+def ivf_inputs(tier, q, seed, device, n=N, qdtype="f32"):
+    """(queries, stored rows, extra (the scales), bias) of one tier on
+    ``device``; queries in f32 or bf16."""
+    quantize = IVF[tier][0]
+    qs, x, bias = make_inputs(q, 256, seed=seed, n=n)
+    xt = torch.from_numpy(x).to(device)
     extra = ()
     if quantize is None:
         xt = xt.to(torch.bfloat16)
     else:
         xt, xs = quantize(xt)
         extra = (xs,)
-    n_blocks = N // block_rows
-    ids, nv = ivf_plan(n_blocks, n_blocks, n_blocks // 2, seed=k, device=cuda_device)
-    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, torch.from_numpy(bias).to(cuda_device),
-            ids, nv, k)
-    before = kernel.launches
-    s, i = kernel(*args, block_rows=block_rows)
-    torch.cuda.synchronize()
-    assert kernel.launches == before + 1
-    ws, wi = plain(*args, block_rows=block_rows)
-    s, i, ws, wi = (t.cpu().numpy() for t in (s, i, ws, wi))
-    for a in range(q):
+    qt = torch.from_numpy(qs).to(device)
+    if qdtype == "bf16":
+        qt = qt.to(torch.bfloat16)
+    return qt, xt, extra, torch.from_numpy(bias).to(device)
+
+
+def assert_ivf_equal(tier, got, want):
+    """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
+    scores; empty slots (NEG_INF, 0) in both."""
+    s, i, ws, wi = (t.cpu().numpy() for t in (*got, *want))
+    assert s.shape == ws.shape
+    for a in range(s.shape[0]):
         n = int((ws[a] > NEG_INF / 2).sum())
         assert int((s[a] > NEG_INF / 2).sum()) == n
         assert (s[a, n:] == NEG_INF).all() and (i[a, n:] == 0).all()
-        if quantize is None:
+        if tier == "bf16":
             np.testing.assert_allclose(s[a, :n], ws[a, :n], atol=TOL)
             assert set(i[a, :n].tolist()) == set(wi[a, :n].tolist())
         else:
             np.testing.assert_array_equal(s[a, :n].view(np.uint32), ws[a, :n].view(np.uint32))
             np.testing.assert_array_equal(i[a, :n], wi[a, :n])
-    assert i[0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
+
+
+IVF_N = 16384  # block_rows up to 4096: four blocks, two of them probed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 128, 129, 1024, 1025])
+@pytest.mark.parametrize("q", [1, 7, 8, 9, 64, 65])
+@pytest.mark.parametrize("block_rows", [4, 8, 12, 64, 1024, 4096])
+def test_ivf_kernel_matches_plain_version(cuda_device, tier, q, k, block_rows, qdtype):
+    """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
+    scores (int8 with the kernel's own quantization of f32 queries); ties
+    in row order; empty slots (NEG_INF, 0); one launch per 64 queries."""
+    _, kernel, plain = IVF[tier]
+    n = IVF_N - IVF_N % block_rows
+    qt, xt, extra, bias = ivf_inputs(tier, q, q + k + block_rows, cuda_device, n, qdtype)
+    n_blocks = n // block_rows
+    ids, nv = ivf_plan(n_blocks, n_blocks, n_blocks // 2, seed=k, device=cuda_device,
+                       block_rows=block_rows)
+    args = (qt, xt, *extra, bias, ids, nv, k)
+    before = kernel.launches
+    got = kernel(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + -(-q // 64)
+    want = plain(*args, block_rows=block_rows)
+    assert_ivf_equal(tier, got, want)
+    assert got[1][0, : min(k, 5)].tolist() == [3, 101, 102, 103, 104][: min(k, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("n_valid", [0, 1, 64])
+def test_ivf_kernel_plan_edges(cuda_device, tier, n_valid, order):
+    """An empty plan, one block, every block (max_blocks), ids in any
+    order; fewer live rows than k; a zero query row (its int8 scale
+    1e-12 / 127), whose live rows all score 0 and come in row order."""
+    _, kernel, plain = IVF[tier]
+    qt, xt, extra, bias = ivf_inputs(tier, 8, n_valid, cuda_device)
+    qt[1] = 0
+    ids, nv = ivf_plan(64, 64, n_valid, seed=1, device=cuda_device, order=order)
+    args = (qt, xt, *extra, bias, ids, nv, 100)
+    got = kernel(*args, block_rows=64)
+    want = plain(*args, block_rows=64)
+    torch.cuda.synchronize()
+    assert_ivf_equal(tier, got, want)
+    if n_valid == 0:
+        assert (got[0] == NEG_INF).all() and (got[1] == 0).all()
+    else:
+        live = got[0][1] > NEG_INF / 2
+        assert (got[0][1][live] == 0).all()
+        assert torch.equal(got[1][1][live], torch.sort(got[1][1][live]).values)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", list(IVF))
-@pytest.mark.parametrize("n_valid", [0, 1, 64])
-def test_ivf_kernel_plan_edges(cuda_device, tier, n_valid):
-    """An empty plan, one block, every block; fewer live rows than k."""
-    quantize, kernel, plain = IVF[tier]
-    qs, x, bias = make_inputs(8, 256, seed=n_valid)
-    xt = torch.from_numpy(x).to(cuda_device)
-    extra = ()
-    if quantize is None:
-        xt = xt.to(torch.bfloat16)
-    else:
-        xt, xs = quantize(xt)
-        extra = (xs,)
-    ids, nv = ivf_plan(64, 64, n_valid, seed=1, device=cuda_device)
-    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, torch.from_numpy(bias).to(cuda_device),
-            ids, nv, 100)
-    s, i = kernel(*args, block_rows=64)
-    ws, wi = plain(*args, block_rows=64)
+def test_ivf_kernel_two_streams_at_once(cuda_device, tier):
+    """Two calls enqueued on two streams at once, each behind a spin of its
+    stream so that they overlap on the card: each has its own counters and
+    candidates, and each answers its own queries."""
+    _, kernel, plain = IVF[tier]
+    runs = []
+    for seed in (11, 12):
+        qt, xt, extra, bias = ivf_inputs(tier, 8, seed, cuda_device)
+        ids, nv = ivf_plan(64, 64, 40, seed=seed, device=cuda_device)
+        runs.append((qt, xt, *extra, bias, ids, nv, 10))
     torch.cuda.synchronize()
-    live = ws > NEG_INF / 2
-    assert torch.equal(s.cpu() > NEG_INF / 2, live.cpu())
-    assert torch.equal(i.cpu()[~live.cpu()], wi.cpu()[~live.cpu()])
-    if n_valid == 0:
-        assert (s == NEG_INF).all() and (i == 0).all()
+    streams = [torch.cuda.Stream() for _ in runs]
+    got = []
+    for args, st in zip(runs, streams):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(1_000_000)
+            got.append(kernel(*args, block_rows=64))
+    torch.cuda.synchronize()
+    for args, res in zip(runs, got):
+        assert_ivf_equal(tier, res, plain(*args, block_rows=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("q", [1, 64, 65, 128, 130])
+def test_ivf_kernel_launches_per_query_tile(cuda_device, tier, q):
+    """One launch per 64 queries; bf16 and int8 run no other kernel than
+    their scan (their queries are cast or quantized inside it, and merged
+    there) and, past 64 queries, the join of the tiles."""
+    _, kernel, plain = IVF[tier]
+    qt, xt, extra, bias = ivf_inputs(tier, q, q, cuda_device)
+    ids, nv = ivf_plan(64, 64, 32, seed=q, device=cuda_device)
+    args = (qt, xt, *extra, bias, ids, nv, 10)
+    kernel(*args, block_rows=64)  # builds and loads the library
+    torch.cuda.synchronize()
+    for _attempt in range(3):  # a profiler window that recorded no device event is run again
+        before = kernel.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = kernel(*args, block_rows=64)
+            torch.cuda.synchronize()
+        assert kernel.launches == before + -(-q // 64)
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "memset" not in e.key.lower() and "memcpy" not in e.key.lower()}
+        if counts:
+            break
+    assert_ivf_equal(tier, got, plain(*args, block_rows=64))
+    if tier != "int4":
+        # the scan kernel once per tile; past one tile the tiles' results
+        # are joined (torch.cat), and nothing else runs
+        scans = sum(c for name, c in counts.items() if "ivf_tma_kernel" in name)
+        others = [name for name in counts if "ivf_tma_kernel" not in name]
+        assert scans == -(-q // 64), counts
+        assert all("Cat" in name for name in others) and (q > 64 or not others), counts
 
 
 @pytest.mark.cuda
@@ -567,6 +651,11 @@ def test_ivf_kernel_rejects_out_of_contract(cuda_device, tier):
         kernel(qd, xt, *extra, bd, ids, nv.cpu(), 10, block_rows=64)
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, ids, nv, 0, block_rows=64)
+    if tier != "int4":  # the bulk copies read the bias in 16-byte units
+        shifted = torch.zeros(bd.numel() + 1, device=cuda_device)[1:]
+        shifted.copy_(bd)
+        with pytest.raises(ValueError):
+            kernel(qd, xt, *extra, shifted, ids, nv, 10, block_rows=64)
 
 
 @pytest.mark.cuda

@@ -188,12 +188,19 @@ def run_both(tier, x, q, bias, ids, n_valid, k):
 
 
 @pytest.mark.parametrize("tier", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("n_valid, k", [(3, 10), (8, 5), (1, 50), (0, 5)],
-                         ids=["partial", "all", "fewer_rows_than_k", "empty"])
-def test_plain_versions_match_pallas_dma_kernels(tier, n_valid, k):
+@pytest.mark.parametrize("n_valid, k, ordered",
+                         [(3, 10, True), (8, 5, True), (1, 50, True), (0, 5, True),
+                          (5, 20, False), (8, 40, False)],
+                         ids=["partial", "all", "fewer_rows_than_k", "empty", "unordered",
+                              "all_unordered"])
+def test_plain_versions_match_pallas_dma_kernels(tier, n_valid, k, ordered):
+    """A plan lists its selected blocks ascending; the unordered cases walk
+    them in another order, which changes nothing without exact ties
+    between blocks (none here): the kernels rank by (score, row)."""
     x, q, bias = kernel_inputs(seed=n_valid + k)
     ids = np.asarray([1, 2, 5, 0, 3, 4, 6, 7], np.int32)
-    ids[:n_valid] = np.sort(ids[:n_valid])  # a plan lists its selected blocks ascending
+    if ordered:
+        ids[:n_valid] = np.sort(ids[:n_valid])
     (gs, gi), (ws, wi) = run_both(tier, x, q, bias, ids, n_valid, k)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gs, ws, rtol=0, atol=TOL if tier == "bf16" else QTOL)

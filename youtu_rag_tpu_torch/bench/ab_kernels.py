@@ -8,13 +8,13 @@ Each argument is a directory that holds a checkout of the repo (or of
 the order given, and builds its own kernels. On tensors drawn on the card
 from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
 (k = 10) and ``topk_int4_pruned`` (k = 64 and 10) at 1,048,576 × 768, q = 8
-(the calls of ``chip_smoke.py`` phase 5); the int4 scan again from a copy of
-the tree's sources whose scorer skips its dot products (each ``__dp4a`` or
-``mma_u8s8`` becomes an XOR that keeps its operands live: loads, unpack
-and selection alone; its results are not used); ``ivf_topk_int4_dma`` at
-k = 64 on phase 5c's plan (``configs/rag/ivf_int8.yaml``'s index settings
-over 1,048,576 × 768 clustered rows, the search's adaptive plan, L2 cold);
-``blockwise_attention`` at
+(the calls of ``chip_smoke.py`` phase 5); the three IVF scans,
+``ivf_topk_dma`` and ``ivf_topk_int8_dma`` at k = 10 and
+``ivf_topk_int4_dma`` at k = 64, on phase 5c's plans
+(``configs/rag/ivf_int8.yaml``'s index settings over 1,048,576 × 768
+clustered rows; the search's adaptive plan and the fixed n_probe 64 plan;
+L2 cold), each with the kernels one call runs on the card
+(torch.profiler); ``blockwise_attention`` at
 [128, 12, 512, 64] and ``flash_attention`` at [2, 12, 8192, 64], bf16
 (phase 5b's shapes), the same operations at hd 128 ([64, 6, 512, 128],
 [2, 6, 8192, 128]) and at a whole number of 132-CTA rounds of work items
@@ -34,7 +34,6 @@ limit.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import re
@@ -59,16 +58,6 @@ ATTENTION_CALLS = (
 )
 IVF_SETTINGS = dict(block_rows=1024, n_lists=1024, n_probe=64, ivf_adaptive_margin=0.15,
                     ivf_recall_target=0.95)  # configs/rag/ivf_int8.yaml's index
-# the timing-only scorer: each dot product of the int4 scorer (the __dp4a
-# form, or the mma.sync form) replaced by an XOR of its operands
-NO_DOT_PATCHES = (
-    ('#include "topk_select.cuh"\n',
-     '#include "topk_select.cuh"\n#define __dp4a(a, b, c) ((c) ^ (a) ^ (b))\n'),
-    ("mma_u8s8(acc, a, b);",
-     "acc[0] ^= a[0] ^ b[0]; acc[1] ^= a[1] ^ b[1]; acc[2] ^= a[2] ^ b[0]; acc[3] ^= a[3] ^ b[1];"),
-)
-
-
 def short_kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled form: the Hopper attention kernel
     with its head width and entry, the mma.sync attention kernel with its
@@ -87,6 +76,10 @@ def short_kernel_name(mangled: str) -> str:
         k_class = ("k <= 128", "k <= 1024", "k > 1024")[int(m.group(2))]
         return (f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}, "
                 f"blocks={m.group(4)}>")
+    m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E", mangled)
+    if m:
+        k_class = ("k <= 128", "k <= 1024", "k > 1024", "k <= 32")[int(m.group(3))]
+        return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}>"
     return "topk_merge_kernel" if "topk_merge_kernel" in mangled else mangled
 
 
@@ -149,36 +142,13 @@ def held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> float:
     return statistics.median(times)
 
 
-def no_dot_library(name: str) -> tuple[str, list[str]]:
-    """``csrc/<name>.cu`` of the running tree built from a copy whose
-    scorer header carries NO_DOT_PATCHES. Returns (the library's path, the
-    patches that applied)."""
-    import shutil
-    import subprocess as sp
-
-    from youtu_rag_tpu_torch.ops import _build
-
-    src = _build.BUILD_DIR / "no_dot"
-    shutil.rmtree(src, ignore_errors=True)
-    shutil.copytree(_build.CSRC_DIR, src)
-    header = src / "topk_scorers.cuh"
-    text, applied = header.read_text(), []
-    for old, new in NO_DOT_PATCHES:
-        if old in text:
-            text = text.replace(old, new)
-            applied.append(old.strip())
-    header.write_text(text)
-    lib = src / f"{name}.so"
-    sp.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{name}.cu")],
-           check=True)
-    return str(lib), applied
-
-
-def ivf_int4_call(g):
-    """``ivf_topk_int4_dma`` at k = 64 on chip_smoke.py phase 5c's plan:
-    an int4 IVF index with IVF_SETTINGS over 1,048,576 × 768 clustered unit
-    rows (1024 centers, spread 0.7), the search's adaptive probe plan for 8
-    queries near centers 0..7. Returns (the call, n_valid)."""
+def ivf_calls(g):
+    """The three IVF scans on chip_smoke.py phase 5c's plans: per tier an
+    IVF index with IVF_SETTINGS over one set of 1,048,576 × 768 clustered
+    unit rows (1024 centers, spread 0.7), the search's adaptive probe plan
+    and the fixed one (margin off) for 8 queries near centers 0..7, k as
+    the search asks (10; int4 64). Yields (name, the call, n_valid, the
+    wrapper, its arguments before ``block_rows``)."""
     import numpy as np
     import torch
 
@@ -186,33 +156,59 @@ def ivf_int4_call(g):
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
     from youtu_rag_tpu_torch.index.ivf import plan_max_blocks, probe_blocks
-    from youtu_rag_tpu_torch.ops.ivf import ivf_topk_int4_dma
+    from youtu_rag_tpu_torch.ops import ivf
 
-    rows, d, qn = 1 << 20, 768, 8
+    rows, d, qn, batch = 1 << 20, 768, 8, 1 << 18
     centers = torch.randn(1024, d, generator=g, device="cuda")
     centers /= centers.norm(dim=1, keepdim=True)
     noise = 0.7 / np.sqrt(d)
-    index = DeviceVectorIndex(d, IndexConfig(kind="ivf", storage_dtype="int4", **IVF_SETTINGS),
-                              device="cuda")
-    index.reserve(rows)
-    for i in range(0, rows, 1 << 18):
-        v = centers[torch.randint(0, 1024, (1 << 18,), generator=g, device="cuda")]
-        v = v + noise * torch.randn(1 << 18, d, generator=g, device="cuda")
-        v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
-        index.add([Chunk(f"c{j}", "doc", "", 0) for j in range(i, i + (1 << 18))], v)
-    index.build_ivf()
+    vecs = []
+    for _ in range(0, rows, batch):
+        v = centers[torch.randint(0, 1024, (batch,), generator=g, device="cuda")]
+        v = v + noise * torch.randn(batch, d, generator=g, device="cuda")
+        vecs.append((v / v.norm(dim=1, keepdim=True)).cpu().numpy())
     q = centers[:qn] + 0.5 * noise * torch.randn(qn, d, generator=g, device="cuda")
     q /= q.norm(dim=1, keepdim=True)
-    st, total = index._ivf, index.capacity // IVF_SETTINGS["block_rows"]
-    ids, nv = probe_blocks(q, st.centroids, st.cluster_block_start, st.cluster_block_count,
-                           n_probe=st.n_probe, max_cluster_blocks=st.max_cluster_blocks,
-                           total_blocks=total, frozen_blocks=st.frozen_blocks,
-                           max_blocks=plan_max_blocks(st, qn, total),
-                           adaptive_margin=IVF_SETTINGS["ivf_adaptive_margin"],
-                           min_probe=min(index.config.ivf_min_probe, st.n_probe))
-    x, xs, b = index._vectors, index._scales, index._bias
-    return (lambda: ivf_topk_int4_dma(q, x, xs, b, ids, nv, 64,
-                                      block_rows=IVF_SETTINGS["block_rows"])), int(nv)
+    chunks = [Chunk(f"c{j}", "doc", "", 0) for j in range(rows)]
+    for tier, name, k in (("bfloat16", "ivf_topk_dma", 10), ("int8", "ivf_topk_int8_dma", 10),
+                          ("int4", "ivf_topk_int4_dma", 64)):
+        index = DeviceVectorIndex(d, IndexConfig(kind="ivf", storage_dtype=tier, **IVF_SETTINGS),
+                                  device="cuda")
+        index.reserve(rows)
+        for i, v in enumerate(vecs):
+            index.add(chunks[i * batch : (i + 1) * batch], v)
+        index.build_ivf()
+        st, total = index._ivf, index.capacity // IVF_SETTINGS["block_rows"]
+        x, b = index._vectors, index._bias
+        extra = () if tier == "bfloat16" else (index._scales,)
+        fn = getattr(ivf, name)
+        for label, margin in (("adaptive", IVF_SETTINGS["ivf_adaptive_margin"]), ("fixed", 0.0)):
+            kw = ({"adaptive_margin": margin, "min_probe": min(index.config.ivf_min_probe,
+                                                               st.n_probe)} if margin else {})
+            ids, nv = probe_blocks(q, st.centroids, st.cluster_block_start,
+                                   st.cluster_block_count, n_probe=st.n_probe,
+                                   max_cluster_blocks=st.max_cluster_blocks, total_blocks=total,
+                                   frozen_blocks=st.frozen_blocks,
+                                   max_blocks=plan_max_blocks(st, qn, total), **kw)
+            args = (q, x, *extra, b, ids, nv, k)
+            yield (f"{name} k={k} ({label} plan, L2 cold)",
+                   lambda args=args: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
+                   int(nv), fn, args)
+        del index, x, b, extra
+        torch.cuda.empty_cache()
+
+
+def device_kernels(fn) -> list[str]:
+    """The device activities of one call of ``fn`` (torch.profiler), with
+    their counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [f"{e.key.split('(')[0][:70]} x{e.count}" for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def measure(tree: str) -> dict:
@@ -269,19 +265,9 @@ def measure(tree: str) -> dict:
         out[name] = {"burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}
     del calls
     torch.cuda.empty_cache()
-    ivf_call, n_valid = ivf_int4_call(g)
-    out["ivf_topk_int4_dma k=64 (phase 5c plan, L2 cold)"] = {
-        "n_valid": n_valid, "held_ms": held_ms(ivf_call, cold=True)}
-    del ivf_call
-    torch.cuda.empty_cache()
-    # the same int4 scan with its dot products skipped: the wrapper loads
-    # the patched library in place of the tree's own
-    path, applied = no_dot_library("topk_int4_pruned")
-    _build._loaded["topk_int4_pruned"] = ctypes.CDLL(path)
-    for k in (64, 10):
-        fn = lambda k=k: topk_int4_pruned(q, x4, s4, bias, k)  # noqa: E731
-        out[f"topk_int4_pruned k={k}, no dot products (timing only)"] = {
-            "patches": applied, "burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}
+    for name, fn, n_valid, *_ in ivf_calls(g):
+        out[name] = {"n_valid": n_valid, "held_ms": held_ms(fn, cold=True),
+                     "kernels": device_kernels(fn)}
     return out
 
 

@@ -1,0 +1,885 @@
+// The bf16 and int8 IVF scans for Hopper (sm_90a): the exact masked top-k
+// over the rows of the probed blocks ids[0 .. n_valid), in ONE launch that
+// prepares the queries, streams the probed rows through a ring of bulk
+// asynchronous copies, scores them on the tensor cores and merges the
+// CTAs' lists. Included by ivf_topk.cu, whose entries ivf_topk_bf16 and
+// ivf_topk_int8 it defines; the int4 entry stays on topk_select.cuh's scan,
+// and so do the brute and per-block scans.
+//
+// Contract (the TPU kernels' pallas_ivf_topk_dma and pallas_ivf_topk_int8_dma):
+//  - rows: the stored rows of blocks ids[0 .. n_valid), block b covering
+//    rows [b * block_rows, (b + 1) * block_rows); n_valid is read on the
+//    device and clamped to [0, max_blocks]; ids past it are never read;
+//  - scores: bf16 f32(bf16 q) . f32(x) + bias, summed in f32 (in another
+//    order than the plain version's matmul); int8 the exact integer dot of
+//    the queries quantized as quantize_rows_int8 does (below) with the
+//    stored rows, then f32(acc) * (qs * xs) + bias rounded op by op;
+//  - result: the k best per query in (score desc, stored row asc); slots no
+//    live row fills stay (NEG_INF, 0). Any q (8-query tiles on the grid's
+//    y, up to 64 per launch) and any k (4.'s list classes).
+//
+// Design. The rows a plan probes are few (phase 5c's adaptive plan: ~60
+// blocks of 1024 rows, 48.5 MB in int8) and are read once per 8-query tile,
+// so the scan is a short stream: fixed costs, bytes in flight and the work
+// per row decide it.
+//  1. Grid: n_cta CTAs per 8-query tile, one wave (the wrapper sizes it).
+//     The virtual rows v < n_valid * block_rows (stored row
+//     ids[v / block_rows] * block_rows + v % block_rows) are cut into
+//     stages of R rows. CTA c owns stages c S .. c S + S - 1 (S the ring's
+//     depth: the first fill needs no atomic); the rest it takes in pairs
+//     from a counter of the tile, the next pair's atomicAdd always in
+//     flight, so a CTA whose SM streams faster takes more and the CTAs
+//     finish together.
+//  2. A ring of S stages of R rows (R 32 or 16, S up to 4; the host picks
+//     them from d and k: int8 at d = 768 holds 4 x 32 rows, 99 KB in
+//     flight per CTA). Thread 0 fills a stage with 1-D bulk copies
+//     (cp.async.bulk, completing on the stage's mbarrier): per run of rows
+//     inside one block, the rows, their bias and (int8) their scales. A
+//     stage may hold rows of several blocks (block_rows 4, 8, 12); every run
+//     starts and ends on a multiple of 4 rows, so each copy is a multiple of
+//     16 bytes. The first S stages go out once the query prep's loads are
+//     out (they would otherwise wait behind the ring in the memory queues);
+//     stage i + S goes out as soon as every warp has passed stage i's
+//     barrier, by which point its rows are scored and its bias and scales
+//     sit in registers, so no empty barrier is needed. A slot records which
+//     rows it holds; once the stages run past the plan, thread 0 arrives on
+//     the next slot's barrier with no rows, which ends the CTA's scan.
+//  3. Scoring on the tensor cores: warp w takes the 16 rows 16 (w / 4) ..
+//     of the stage and a quarter of the width, the 16-byte chunks c with
+//     c / 4 % 4 == w % 4, and computes their dots with the 8 queries with
+//     mma.sync (int8: m16n8k32 s8 x s8, exact; bf16: m16n8k16, f32 sums).
+//     Lane (g, t) reads chunk 4 (w % 4) + t + 16 i of rows g and g + 8 and
+//     of query g; the k order inside a step is free as long as A and B
+//     agree, so words 0 and 1 of the chunk are the step's two k groups, then
+//     words 2 and 3, and no fragment needs a shuffle. The four quarters'
+//     partial dots go to a double-buffered tile [4, kQT, 32] (one
+//     __syncthreads per stage); selection adds them (int8 as integers).
+//  4. Selection as topk_select.cuh's scan: warp j keeps query j's sorted
+//     list and lane L takes row L of the stage; only a row that beats the
+//     list's k-th entry inserts. Up to k = 32 the list lives in registers,
+//     entry i in lane i, and an insertion is one ballot and one shuffle
+//     (kListWarp); above, topk_select.cuh's three classes.
+//  5. Query prep in the prologue, by every thread, with its loads in flight
+//     at once (one round trip at d <= 1024): bf16 rounds f32 queries to
+//     bf16 (__floats2bfloat162_rn, as .to(torch.bfloat16)) or takes bf16
+//     ones; int8 quantizes each query as quantize_rows_int8: scale =
+//     max(amax, 1e-12) times the f32 reciprocal of 127, q = round half even
+//     of the true quotient x / scale (Int8::quantize), clamped to +-127.
+//  6. The merge in the same launch: each CTA writes its lists as
+//     candidates [tiles, n_cta, kQT, k_pad] (k_pad: k rounded up to 4); the
+//     last CTA of a query tile to finish (a ticket from atomicAdd on the
+//     tile's counter, which the launch zeroes with cudaMemsetAsync; each
+//     call has its own) merges them, warp j query j, in (score desc, row
+//     asc) order, ties between lists to the lower list. Each list keeps a
+//     window of its next W entries in shared memory (all windows loaded at
+//     once in 16-byte loads; W 4 or 8), which its lane refills from the
+//     candidates when it runs out; a lane keeps the heads of its lists in
+//     registers, and each step is three warp reductions (redux.sync) of an
+//     order-preserving key.
+//
+// Bound: HBM reads of the probed rows (2d or d bytes each, plus 4 or 8 of
+// bias and scale), once per 8-query tile.
+
+#pragma once
+
+#include "topk_scorers.cuh"
+
+namespace ivf_tma {
+
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroupRows = 16;      // rows a warp scores (the mma's m)
+constexpr int kQuarters = 4;        // warps that share a row group, each a quarter of the width
+constexpr int kMaxRows = kGroupRows * kWarps / kQuarters;  // 32 rows per stage at most
+constexpr int kMaxStages = 4;       // stages in the ring at most
+constexpr int kSmemLimit = 232448;  // bytes of shared memory one CTA may have
+constexpr int kBatch = 8;           // loads in flight per thread in the query prep
+constexpr int kMergeBatch = 9;      // ... in the merge (every window at once up to 2304 x 4)
+constexpr int kWindowMax = 8;       // merge: entries of a list kept in shared memory
+constexpr int kPair = 2;            // stages a CTA takes from the tile's counter at once
+constexpr int kListsPerLane = 9;    // merge: lists a lane owns at most (n_cta <= 288)
+
+constexpr float kRecip127 = 1.0f / 127.0f;  // f32(1 / 127), as the jitted quantizer folds it
+
+static_assert(kWarps == 2 * kQuarters, "two row groups of 16 per 32-row stage");
+
+// Where a selecting warp keeps its list: topk_select.cuh's ListKind, and
+// up to k = 32 in its lanes' registers
+constexpr int kListWarp = 3;
+__host__ __device__ inline int tma_list_kind(int k) { return k <= 32 ? kListWarp : list_kind(k); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// f32 score -> an unsigned key in the same order (-0 as +0), and back
+__device__ __forceinline__ unsigned order_key(float s) {
+  const unsigned b = __float_as_uint(s + 0.f);
+  return b & 0x80000000u ? ~b : b | 0x80000000u;
+}
+__device__ __forceinline__ float key_score(unsigned key) {
+  return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
+}
+
+// d = A . B + d over one k16 step: A 16 x 16 bf16 (row major), B 16 x 8 bf16
+// (column major), d 16 x 8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = A . B + d over one k32 step: A 16 x 32 s8 (row major), B 32 x 8 s8
+// (column major), d 16 x 8 s32, exact
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The warp's quarter of the dots of 16 rows (`rows`, row_bytes apart)
+// with the kQT queries of the tile `qt` (q_row bytes apart), each row and
+// query `chunks` 16-byte chunks long. Lane (g, t) = (lane / 4, lane % 4)
+// adds to acc[e] the partial dot of row g + 8 (e >> 1) with query
+// 2t + (e & 1). Chunk c of a row belongs to quarter c / 4 % 4; lane t takes
+// c = 4 quarter + t + 16 i. Two mma steps per chunk: words 0 and 1, then 2
+// and 3, as the two k groups of the step (A and B alike).
+template <typename Acc, void (*Mma)(Acc (&)[4], const uint32_t (&)[4], const uint32_t (&)[2])>
+__device__ __forceinline__ void quarter_dots(const unsigned char* qt, int q_row,
+                                             const unsigned char* rows, int row_bytes, int chunks,
+                                             int quarter, int lane, Acc (&acc)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint4* ra = reinterpret_cast<const uint4*>(rows + (size_t)g * row_bytes);
+  const uint4* rb = reinterpret_cast<const uint4*>(rows + (size_t)(g + 8) * row_bytes);
+  const uint4* qg = reinterpret_cast<const uint4*>(qt + (size_t)g * q_row);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int c0 = 4 * quarter; c0 < chunks; c0 += 16) {  // warp-uniform
+    const int c = c0 + t;
+    const uint4 xa = c < chunks ? ra[c] : zero, xb = c < chunks ? rb[c] : zero;
+    const uint4 xq = c < chunks ? qg[c] : zero;
+    {
+      const uint32_t a[4] = {xa.x, xb.x, xa.y, xb.y};
+      const uint32_t b[2] = {xq.x, xq.y};
+      Mma(acc, a, b);
+    }
+    {
+      const uint32_t a[4] = {xa.z, xb.z, xa.w, xb.w};
+      const uint32_t b[2] = {xq.z, xq.w};
+      Mma(acc, a, b);
+    }
+  }
+}
+
+// bf16 rows: the query tile as bf16 [kQT, d], rows 2d bytes
+struct Bf16 {
+  static constexpr bool kScaled = false;
+  typedef float Acc;
+  static __host__ __device__ int row_bytes(int d) { return 2 * d; }
+  static __host__ __device__ size_t q_bytes(int d) { return (size_t)2 * kQT * d; }
+
+  // queries f32 or (queries_bf16) bf16 [q, d], 16-byte aligned; rows past
+  // q are zero. 16-byte loads, kBatch in flight per thread (d = 768: every
+  // load of the tile at once)
+  template <class Hook>
+  static __device__ void prepare(unsigned char* qt, float*, const void* queries, bool queries_bf16,
+                                 int q0, int q_valid, int d, Hook&& loaded) {
+    if (queries_bf16) {  // a chunk: 8 bf16, copied
+      uint4* dst = reinterpret_cast<uint4*>(qt);
+      const uint4* src =
+          reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(queries) + (size_t)q0 * d);
+      const int chunks = kQT * d / 8, valid = q_valid * d / 8;
+      for (int base = threadIdx.x; base < chunks; base += kThreads * kBatch) {
+        uint4 v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int c = base + u * kThreads;
+          v[u] = c < valid ? __ldg(src + c) : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (base + u * kThreads < chunks) dst[base + u * kThreads] = v[u];
+      }
+      loaded();
+      return;
+    }
+    // a chunk: 4 f32, rounded to 4 bf16 (8 bytes) as .to(torch.bfloat16)
+    uint2* dst = reinterpret_cast<uint2*>(qt);
+    const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(queries) +
+                                                        (size_t)q0 * d);
+    const int chunks = kQT * d / 4, valid = q_valid * d / 4;
+    for (int base = threadIdx.x; base < chunks; base += kThreads * kBatch) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = base + u * kThreads;
+        v[u] = c < valid ? __ldg(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = base + u * kThreads;
+        if (c < chunks) {
+          __nv_bfloat162 lo = __floats2bfloat162_rn(v[u].x, v[u].y);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(v[u].z, v[u].w);
+          dst[c] = make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+        }
+      }
+    }
+    loaded();
+  }
+
+  static __device__ __forceinline__ void dots(const unsigned char* qt, const unsigned char* rows,
+                                              int d, int quarter, int lane, float (&acc)[4]) {
+    quarter_dots<float, mma_bf16>(qt, 2 * d, rows, 2 * d, d / 8, quarter, lane, acc);
+  }
+  static __device__ __forceinline__ float to_f32(float s) { return s; }
+};
+
+// int8 rows: the query tile as int8 [kQT, d], rows d bytes
+struct Int8 {
+  static constexpr bool kScaled = true;
+  typedef int Acc;
+  static __host__ __device__ int row_bytes(int d) { return d; }
+  static __host__ __device__ size_t q_bytes(int d) { return (size_t)kQT * d; }
+
+  // queries f32 [q, d], 16-byte aligned, quantized as quantize_rows_int8
+  // (rows past q: zeros, scale 0). Every thread loads its float4 chunks of
+  // the tile, kBatch in flight (d <= 1024: all of them, held in registers
+  // for the second pass); a warp's 32 chunks belong to one query (d is a
+  // multiple of 128), whose amax it takes to shared memory with one
+  // atomicMax (qscale's words as f32 bits: non-negative floats order as
+  // their bits do). All threads take part.
+  template <class Hook>
+  static __device__ void prepare(unsigned char* qt, float* qscale, const void* queries, bool,
+                                 int q0, int q_valid, int d, Hook&& loaded) {
+    unsigned* qmax = reinterpret_cast<unsigned*>(qscale);
+    uint32_t* qq = reinterpret_cast<uint32_t*>(qt);
+    const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(queries) +
+                                                        (size_t)q0 * d);
+    const int n4 = d / 4, chunks = kQT * n4, valid = q_valid * n4;
+    const int lane = threadIdx.x % 32;
+    const bool held = chunks <= kThreads * kBatch;
+    if (threadIdx.x < kQT) qmax[threadIdx.x] = 0u;
+    __syncthreads();
+    float4 v[kBatch];
+    auto load = [&](int base) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = base + u * kThreads;
+        v[u] = c < valid ? __ldg(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    };
+    for (int base = threadIdx.x; base < chunks; base += kThreads * kBatch) {
+      load(base);
+      if (base == threadIdx.x) loaded();  // the first loads are out
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = base + u * kThreads;
+        if (c - lane < chunks) {  // warp-uniform
+          float m = fmaxf(fmaxf(fabsf(v[u].x), fabsf(v[u].y)), fmaxf(fabsf(v[u].z), fabsf(v[u].w)));
+#pragma unroll
+          for (int o = 16; o >= 1; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+          if (lane == 0) atomicMax(qmax + c / n4, __float_as_uint(m));
+        }
+      }
+    }
+    __syncthreads();
+    // the jitted quantizer's folded division: a product with f32(1 / 127)
+    __shared__ float scale_s[kQT], inv_s[kQT];
+    if (threadIdx.x < kQT) {
+      const float scale = __fmul_rn(fmaxf(__uint_as_float(qmax[threadIdx.x]), 1e-12f), kRecip127);
+      scale_s[threadIdx.x] = scale;
+      inv_s[threadIdx.x] = __frcp_rn(scale);
+    }
+    __syncthreads();
+    for (int base = threadIdx.x; base < chunks; base += kThreads * kBatch) {
+      if (!held) load(base);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int c = base + u * kThreads;
+        if (c < chunks) {
+          uint32_t word = 0;
+          if (c < valid) {
+            const float scale = scale_s[c / n4], inv = inv_s[c / n4];
+            word = quantize(v[u].x, scale, inv) | quantize(v[u].y, scale, inv) << 8 |
+                   quantize(v[u].z, scale, inv) << 16 | quantize(v[u].w, scale, inv) << 24;
+          }
+          qq[c] = word;
+        }
+      }
+    }
+    if (threadIdx.x < kQT) qscale[threadIdx.x] = threadIdx.x < q_valid ? scale_s[threadIdx.x] : 0.f;
+  }
+
+  // round half to even of the true quotient e / scale (f32), clamped to
+  // +-127, as a byte. The product with the reciprocal is within 3e-5 of the
+  // quotient for |quotient| <= 128 (two roundings of 2^-24), so its nearest
+  // integer is the quotient's unless it lies within 1e-4 of a half; there
+  // the true division decides.
+  static __device__ __forceinline__ uint32_t quantize(float e, float scale, float inv) {
+    float y = e * inv;
+    if (fabsf(y - floorf(y) - 0.5f) < 1e-4f) y = __fdiv_rn(e, scale);
+    return (uint32_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f) & 0xffu;
+  }
+
+  static __device__ __forceinline__ void dots(const unsigned char* qt, const unsigned char* rows,
+                                              int d, int quarter, int lane, int (&acc)[4]) {
+    quarter_dots<int, mma_s8>(qt, d, rows, d, d / 16, quarter, lane, acc);
+  }
+  static __device__ __forceinline__ float to_f32(int s) { return __int2float_rn(s); }
+};
+
+// Stage geometry and shared-memory layout, the same on host and device.
+// Shared memory: S mbarriers | query tile | qscale f32 [kQT] | partial
+// dots [2, kQuarters, kQT, 32] (T::Acc) | lists (k scores, k rows per
+// query; not for kListDevice) | S stages of R rows, R biases and R scales.
+// The last CTA's merge reuses everything past the mbarriers: per query
+// the windows' scores [n_cta, W] and rows [n_cta, W] (n_cta counted up to
+// a multiple of 4).
+template <class T>
+struct Plan {
+  int rows;    // R, rows per stage: 32 or 16
+  int stages;  // S
+  int row_bytes, d, k;
+  int window;  // W, entries per list in the merge's windows (set at launch)
+
+  __host__ __device__ size_t barriers() const { return 16 * ((8 * stages + 15) / 16); }
+  __host__ __device__ size_t q_off() const { return barriers(); }
+  __host__ __device__ size_t qscale_off() const { return q_off() + T::q_bytes(d); }
+  __host__ __device__ size_t parts_off() const { return qscale_off() + sizeof(float) * kQT; }
+  __host__ __device__ size_t lists_off() const {
+    return parts_off() + sizeof(typename T::Acc) * 2 * kQuarters * kQT * kMaxRows;
+  }
+  __host__ __device__ size_t ring_off() const {
+    const size_t lists = list_kind(k) == kListDevice ? 0 : (size_t)kQT * k * 8;
+    return 16 * ((lists_off() + lists + 15) / 16);
+  }
+  // a stage: rows, then biases, then scales (every part a multiple of 16 bytes)
+  __host__ __device__ size_t stage_bytes() const { return (size_t)rows * (row_bytes + 8); }
+  __host__ __device__ size_t merge_bytes(int n_cta) const {
+    return barriers() + (size_t)kQT * ((n_cta + 3) & ~3) * 8 * window;
+  }
+  __host__ __device__ size_t smem(int n_cta) const {
+    const size_t scan = ring_off() + stages * stage_bytes();
+    const size_t merge = merge_bytes(n_cta);
+    return scan > merge ? scan : merge;
+  }
+};
+
+// R and S for width d and top-k k: the first of 4 x 32, 3 x 32, 2 x 32,
+// 4 x 16, 3 x 16, 2 x 16, 1 x 32, 1 x 16 rows that fits (the merge at a
+// window of 4); rows = 0 if none does.
+template <class T>
+Plan<T> make_plan(int d, int k, int max_cta) {
+  const int shapes[][2] = {{32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3}, {16, 2}, {32, 1}, {16, 1}};
+  for (const auto& rs : shapes) {
+    const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4};
+    if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
+  }
+  return Plan<T>{0, 1, T::row_bytes(d), d, k, 4};
+}
+
+struct Args {
+  const void* queries;  // [q, d] f32, or bf16 (queries_bf16, bf16 scan only)
+  const void* x;        // [n, row bytes]
+  const float* xscale;  // [n] (int8)
+  const float* bias;    // [n]
+  float* cand_s;        // [tiles, n_cta, kQT, k_pad]
+  int* cand_i;          // [tiles, n_cta, kQT, k_pad]
+  int* counter;         // [2, tiles], zero at launch: the tiles' tickets, then their stages
+  float* out_s;         // [q, k]
+  int* out_i;           // [q, k]
+  RowSource src;
+  int q, d, k, queries_bf16;
+};
+
+template <class T, int kList>
+__global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, const Plan<T> p) {
+  typedef typename T::Acc Acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bars = smem_addr(smem);
+  unsigned char* qt = smem + p.q_off();
+  float* qscale = reinterpret_cast<float*>(smem + p.qscale_off());
+  Acc* parts = reinterpret_cast<Acc*>(smem + p.parts_off());
+  float* list_s = reinterpret_cast<float*>(smem + p.lists_off());
+  int* list_i = reinterpret_cast<int*>(list_s + kQT * a.k);
+  unsigned char* ring = smem + p.ring_off();
+  __shared__ int last_cta;
+  __shared__ int slot_v0[kMaxStages];  // the first virtual row of each slot's stage, -1: none
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cta = blockIdx.x, n_cta = gridDim.x;
+  const int q0 = blockIdx.y * kQT;
+  const int q_valid = min(kQT, a.q - q0);
+  const int k = a.k, d = a.d, R = p.rows, S = p.stages;
+  const int k_pad = (k + 3) & ~3;
+  const int br = a.src.block_rows;
+
+  // the plan's virtual rows [0, total), taken a stage of R at a time
+  const int nv = min(max(*a.src.n_valid, 0), a.src.max_blocks);
+  const int total = nv * br;
+  int* next_pair = a.counter + gridDim.y + blockIdx.y;
+  // thread 0: stages of its own issued, the pair claim in flight, the
+  // stages left of the pair in hand and the next of them
+  int own = 0, claim = 0, pair_left = 0, pair_stage = 0;
+  bool more = true;  // thread 0: no stage past the plan issued yet
+  if (threadIdx.x == 0) claim = atomicAdd(next_pair, 1);
+
+  // slot i % S takes the CTA's next stage: one run of copies per block it
+  // touches; past the plan, an arrival with no rows
+  auto issue = [&](int i) {
+    const int slot = i % S;
+    long long stage;
+    if (own < S) {
+      stage = (long long)cta * S + own++;
+    } else {
+      if (pair_left == 0) {
+        pair_stage = n_cta * S + kPair * claim;
+        pair_left = kPair;
+        claim = atomicAdd(next_pair, 1);
+      }
+      --pair_left;
+      stage = pair_stage++;
+    }
+    const long long s0 = stage * R;
+    more = s0 < total;
+    const int v0 = more ? (int)s0 : -1;
+    slot_v0[slot] = v0;
+    if (!more) {
+      mbar_arrive(bars + 8 * slot);
+      return;
+    }
+    const int len = min(R, total - v0);
+    unsigned char* st = ring + slot * p.stage_bytes();
+    const int per_row = p.row_bytes + 4 + (T::kScaled ? 4 : 0);
+    mbar_expect_tx(bars + 8 * slot, len * per_row);
+    for (int r = 0; r < len;) {
+      const int v = v0 + r;
+      const int run = min(len - r, br - v % br);
+      const int row = a.src.row(v);
+      bulk_load(smem_addr(st + (size_t)r * p.row_bytes),
+                static_cast<const unsigned char*>(a.x) + (size_t)row * p.row_bytes,
+                run * p.row_bytes, bars + 8 * slot);
+      bulk_load(smem_addr(st + (size_t)R * p.row_bytes + 4 * r), a.bias + row, 4 * run,
+                bars + 8 * slot);
+      if constexpr (T::kScaled)
+        bulk_load(smem_addr(st + (size_t)R * (p.row_bytes + 4) + 4 * r), a.xscale + row, 4 * run,
+                  bars + 8 * slot);
+      r += run;
+    }
+  };
+
+  // the ring's first fill goes out once the queries' loads are (their loads
+  // would otherwise queue behind the ring's bytes)
+  T::prepare(qt, qscale, a.queries, a.queries_bf16 != 0, q0, q_valid, d, [&]() {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int i = 0; i < S && more; ++i) issue(i);
+    }
+  });
+  if constexpr (kList != kListDevice) {
+    for (int e = threadIdx.x; e < kQT * k; e += kThreads) {
+      list_s[e] = kNegInf;
+      list_i[e] = 0;
+    }
+  }
+  __syncthreads();
+
+  // this warp's list: query q0 + warp; (thr_s, thr_i) mirrors its entry k-1
+  float* my_s = list_s + warp * k;
+  int* my_i = list_i + warp * k;
+  float thr_s = kNegInf;
+  int thr_i = 0;
+  const bool selects = warp < q_valid;
+  // this list's candidates
+  const size_t slot_out = (((size_t)blockIdx.y * n_cta + cta) * kQT + warp) * k_pad;
+  int n_live = 0;  // kListDevice: entries filled so far (the rest are initial)
+  if constexpr (kList == kListDevice) {
+    if (selects) {
+      my_s = a.cand_s + slot_out;
+      my_i = a.cand_i + slot_out;
+      for (int t = lane; t < k; t += 32) {
+        my_s[t] = kNegInf;
+        my_i[t] = 0;
+      }
+      __syncwarp();
+    }
+  }
+  const float qs_w = T::kScaled && selects ? qscale[warp] : 0.f;
+  const int group = warp / kQuarters, quarter = warp % kQuarters;
+  float reg_s = kNegInf;  // kListWarp: entry `lane` of this warp's list
+  int reg_i = 0;
+
+  for (int i = 0;; ++i) {
+    const int slot = i % S;
+    mbar_wait(bars + 8 * slot, (i / S) & 1);
+    const int v0 = slot_v0[slot];
+    if (v0 < 0) break;  // the same for every thread: the scan is over
+    const int len = min(R, total - v0);
+    const unsigned char* st = ring + slot * p.stage_bytes();
+    Acc* part = parts + (i & 1) * kQuarters * kQT * kMaxRows;  // [kQuarters, kQT, 32]
+    if (kGroupRows * group < len) {  // rows past len are scored and never selected
+      Acc acc[4] = {0, 0, 0, 0};
+      T::dots(qt, st + (size_t)kGroupRows * group * p.row_bytes, d, quarter, lane, acc);
+      const int g = lane >> 2, t = lane & 3;
+      Acc* out = part + quarter * kQT * kMaxRows + kGroupRows * group + g;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[(2 * t + (e & 1)) * kMaxRows + 8 * (e >> 1)] = acc[e];
+    }
+    // the bias and scale of the row this lane selects, out of the stage
+    // before it is refilled
+    float b = 0.f, xs = 0.f;
+    if (selects && lane < len) {
+      b = reinterpret_cast<const float*>(st + (size_t)R * p.row_bytes)[lane];
+      if constexpr (T::kScaled)
+        xs = reinterpret_cast<const float*>(st + (size_t)R * (p.row_bytes + 4))[lane];
+    }
+    // the partial dots are complete and the stage consumed; the other
+    // buffer is free for the next stage, whose scoring starts only after
+    // every warp passed this barrier, that is, after every warp finished
+    // selecting from it
+    __syncthreads();
+    if (threadIdx.x == 0 && more) issue(i + S);
+
+    if (selects) {
+      const bool ok = lane < len;
+      const int row = ok ? a.src.row(v0 + lane) : 0;
+      float s = 0.f;
+      if (ok) {
+        const Acc* in = part + warp * kMaxRows + lane;
+        const float t = T::to_f32(((in[0] + in[kQT * kMaxRows]) + in[2 * kQT * kMaxRows]) +
+                                  in[3 * kQT * kMaxRows]);
+        if constexpr (T::kScaled)
+          // the TPU kernels' epilogue, rounded op by op (no contraction)
+          s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, xs)), b);
+        else
+          s = t + b;
+      }
+      unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
+      while (pending) {
+        const int src = __ffs(pending) - 1;
+        const float ss = __shfl_sync(kFull, s, src);
+        const int rr = __shfl_sync(kFull, row, src);
+        if constexpr (kList == kListWarp) {
+          // entry i in lane i: the entries below the new one move up a lane
+          const int at = __popc(__ballot_sync(kFull, lane < k && better(reg_s, reg_i, ss, rr)));
+          const float up_s = __shfl_up_sync(kFull, reg_s, 1);
+          const int up_i = __shfl_up_sync(kFull, reg_i, 1);
+          if (lane == at) {
+            reg_s = ss;
+            reg_i = rr;
+          } else if (lane > at) {
+            reg_s = up_s;
+            reg_i = up_i;
+          }
+          thr_s = __shfl_sync(kFull, reg_s, k - 1);
+          thr_i = __shfl_sync(kFull, reg_i, k - 1);
+        } else {
+          if constexpr (kList == kListDevice) {
+            warp_insert_device(my_s, my_i, k, n_live, ss, rr, lane);
+            n_live = min(n_live + 1, k);
+          } else if constexpr (kList == kListShared) {
+            warp_insert_smem(my_s, my_i, k, ss, rr, lane);
+          } else {
+            warp_insert(my_s, my_i, k, ss, rr, lane);
+          }
+          thr_s = my_s[k - 1];
+          thr_i = my_i[k - 1];
+        }
+        pending &= pending - 1;
+        // entry k-1 moved: drop the candidates that no longer beat it
+        pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
+      }
+    }
+  }
+
+  // this CTA's lists as candidates (kListDevice: already there)
+  if constexpr (kList == kListWarp) {
+    if (selects && lane < k) {
+      a.cand_s[slot_out + lane] = reg_s;
+      a.cand_i[slot_out + lane] = reg_i;
+    }
+  } else if constexpr (kList != kListDevice) {
+    if (selects)
+      for (int t = lane; t < k; t += 32) {
+        a.cand_s[slot_out + t] = my_s[t];
+        a.cand_i[slot_out + t] = my_i[t];
+      }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_cta = atomicAdd(a.counter + blockIdx.y, 1) == n_cta - 1;
+  __syncthreads();
+  if (!last_cta) return;
+  __threadfence();
+
+  // The merge: warp j merges query q0 + j's n_cta sorted lists into the
+  // top k in (score desc, row asc), ties between lists to the lower list
+  // (topk_merge_kernel's order). Per warp in shared memory: the windows'
+  // scores [n_cta, W] and rows [n_cta, W], each part 16-byte aligned (the
+  // lists counted up to a multiple of 4; W is a power of two from 4). Lane
+  // L owns lists L + 32 m; their heads and positions sit in its registers.
+  const int W = p.window, n_pad = (n_cta + 3) & ~3;
+  const size_t per_warp = (size_t)n_pad * 2 * W;
+  float* win_all = reinterpret_cast<float*>(smem + p.barriers());
+  const float* tile_s = a.cand_s + (size_t)blockIdx.y * n_cta * kQT * k_pad;
+  const int* tile_i = a.cand_i + (size_t)blockIdx.y * n_cta * kQT * k_pad;
+  // every window's first W entries, 4 at a time: e = (l * kQT + j) << w4 | c
+  const int w4 = W == 8, n_vec = n_cta * kQT << w4;
+  for (int base = threadIdx.x; base < n_vec; base += kThreads * kMergeBatch) {
+    float4 vs[kMergeBatch];
+    int4 vi[kMergeBatch];
+#pragma unroll
+    for (int u = 0; u < kMergeBatch; ++u) {
+      const int e = base + u * kThreads;
+      const int lj = e >> w4, c = e & w4;
+      if (e < n_vec && lj % kQT < q_valid && 4 * c < k) {
+        const size_t off = (size_t)lj * k_pad + 4 * c;
+        vs[u] = __ldcg(reinterpret_cast<const float4*>(tile_s + off));
+        vi[u] = __ldcg(reinterpret_cast<const int4*>(tile_i + off));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeBatch; ++u) {
+      const int e = base + u * kThreads;
+      const int lj = e >> w4, c = e & w4;
+      if (e < n_vec && lj % kQT < q_valid && 4 * c < k) {
+        float* wj = win_all + (lj % kQT) * per_warp;
+        const int l = lj / kQT;
+        reinterpret_cast<float4*>(wj)[(l * W) / 4 + c] = vs[u];
+        reinterpret_cast<int4*>(wj + n_pad * W)[(l * W) / 4 + c] = vi[u];
+      }
+    }
+  }
+  __syncthreads();
+  if (!selects) return;
+  float* win_s = win_all + warp * per_warp;
+  int* win_i = reinterpret_cast<int*>(win_s + n_pad * W);
+  const int qi = q0 + warp;
+  // the heads of this lane's lists (key 0, row INT_MAX: no list, or spent)
+  unsigned hk[kListsPerLane];
+  int hr[kListsPerLane], hp[kListsPerLane];
+#pragma unroll
+  for (int m = 0; m < kListsPerLane; ++m) {
+    const int l = lane + 32 * m;
+    hp[m] = 0;
+    hk[m] = l < n_cta ? order_key(win_s[l * W]) : 0u;
+    hr[m] = l < n_cta ? win_i[l * W] : INT_MAX;
+  }
+  // this lane's best head as (key, row, list); lists ascend with m, so the
+  // first of a tie wins
+  auto lane_best = [&](unsigned& bk, int& bi, int& bl) {
+    bk = 0;
+    bi = INT_MAX;
+    bl = INT_MAX;
+#pragma unroll
+    for (int m = 0; m < kListsPerLane; ++m)
+      if (hk[m] > bk || (hk[m] == bk && hr[m] < bi)) {
+        bk = hk[m];
+        bi = hr[m];
+        bl = lane + 32 * m;
+      }
+  };
+  // the warp's best of the lanes' (key, row, list): key max, then row min,
+  // then list min
+  auto warp_best = [](unsigned key, int row, int list, unsigned& bk, unsigned& bi, unsigned& bl) {
+    bk = __reduce_max_sync(kFull, key);
+    bi = __reduce_min_sync(kFull, key == bk ? (unsigned)row : 0xffffffffu);
+    bl = __reduce_min_sync(kFull, key == bk && (unsigned)row == bi ? (unsigned)list : 0xffffffffu);
+  };
+  for (int t = 0; t < k; ++t) {
+    unsigned lk, bk, bi, bl;
+    int li, ll;
+    lane_best(lk, li, ll);
+    warp_best(lk, li, ll, bk, bi, bl);
+    if (lane == 0) {
+      a.out_s[(size_t)qi * k + t] = key_score(bk);
+      a.out_i[(size_t)qi * k + t] = (int)bi;
+    }
+    if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
+      const int mm = bl / 32;
+      int np = 0;
+#pragma unroll
+      for (int m = 0; m < kListsPerLane; ++m)
+        if (m == mm) np = ++hp[m];
+      unsigned key = 0u;
+      int row = INT_MAX;
+      if (np < k) {
+        if ((np & (W - 1)) == 0) {  // the list's next W entries
+          const size_t off = ((size_t)bl * kQT + warp) * k_pad + np;
+          float4 vs[kWindowMax / 4];
+          int4 vi[kWindowMax / 4];
+#pragma unroll
+          for (int c = 0; c < kWindowMax / 4; ++c)
+            if (4 * c < W && np + 4 * c < k) {
+              vs[c] = __ldcg(reinterpret_cast<const float4*>(tile_s + off) + c);
+              vi[c] = __ldcg(reinterpret_cast<const int4*>(tile_i + off) + c);
+            }
+#pragma unroll
+          for (int c = 0; c < kWindowMax / 4; ++c)
+            if (4 * c < W && np + 4 * c < k) {
+              reinterpret_cast<float4*>(win_s + bl * W)[c] = vs[c];
+              reinterpret_cast<int4*>(win_i + bl * W)[c] = vi[c];
+            }
+        }
+        key = order_key(win_s[bl * W + (np & (W - 1))]);
+        row = win_i[bl * W + (np & (W - 1))];
+      }
+#pragma unroll
+      for (int m = 0; m < kListsPerLane; ++m)
+        if (m == mm) {
+          hk[m] = key;
+          hr[m] = row;
+        }
+    }
+    __syncwarp();
+  }
+}
+
+template <class T>
+const void* kernel_for(int k) {
+  switch (tma_list_kind(k)) {
+    case kListWarp:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp>);
+    case kListRegs:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListRegs>);
+    case kListShared:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListShared>);
+    default:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListDevice>);
+  }
+}
+
+// the most CTAs a launch takes per query tile: two per SM (the merge's
+// lanes hold up to 32 kListsPerLane lists)
+inline int max_ctas() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return min(2 * sms, 32 * kListsPerLane);
+}
+
+// CTAs that fit on one SM for width d and top-k k (at most 2, the
+// register cap), 0 if one does not fit, or minus a CUDA error code.
+template <class T>
+int ctas_per_sm(int d, int k) {
+  if (!Bf16Scorer::width_ok(d) || k < 1) return -(int)cudaErrorInvalidValue;
+  const Plan<T> p = make_plan<T>(d, k, max_ctas());
+  if (p.rows == 0) return 0;
+  const void* kern = kernel_for<T>(k);
+  const int smem = (int)p.smem(max_ctas());
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
+}
+
+// Zero the tiles' counters and launch the scan-and-merge on `stream`.
+// Returns cudaGetLastError() (0 = ok), cudaErrorInvalidValue for shapes
+// outside the contract or cudaErrorInvalidConfiguration where no plan fits
+// one CTA's shared memory.
+template <class T>
+int launch(const Args& a, int n, int n_cta, void* stream) {
+  const int br = a.src.block_rows;
+  if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !Bf16Scorer::width_ok(a.d) || n_cta < 1 ||
+      n_cta > max_ctas() || br < kR || br % kR || n % br || a.src.max_blocks < 1 ||
+      (a.queries_bf16 && T::kScaled))
+    return (int)cudaErrorInvalidValue;
+  const Plan<T> p = make_plan<T>(a.d, a.k, max_ctas());
+  if (p.rows == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const void* kern = kernel_for<T>(a.k);
+  const int smem = (int)p.smem(max_ctas());
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (a.q + kQT - 1) / kQT;
+  err = cudaMemsetAsync(a.counter, 0, sizeof(int) * 2 * tiles, st);
+  if (err != cudaSuccess) return (int)err;
+  // the widest merge window (4 or 8 entries; no wider than k needs)
+  // that fits in the shared memory the launch takes anyway
+  Plan<T> run = p;
+  while (run.window < kWindowMax && run.window < a.k) {
+    run.window *= 2;
+    if (run.merge_bytes(n_cta) > (size_t)smem) {
+      run.window /= 2;
+      break;
+    }
+  }
+  Args args = a;
+  void* params[] = {&args, &run};
+  err = cudaLaunchKernel(kern, dim3(n_cta, tiles), dim3(kThreads), params, smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ivf_tma
+
+// The IVF source defines its bf16 and int8 entries with this macro:
+// <name>_launch and <name>_ctas_per_sm.
+#define IVF_TMA_C_INTERFACE(NAME, T)                                                          \
+  extern "C" {                                                                                \
+  int NAME##_ctas_per_sm(int d, int k) { return ivf_tma::ctas_per_sm<T>(d, k); }             \
+  int NAME##_launch(const void* queries, int queries_bf16, const void* x, const void* xscale, \
+                    const void* bias, const void* ids, const void* n_valid, void* cand_s,     \
+                    void* cand_i, void* counter, void* out_s, void* out_i, int q, int n, int d, \
+                    int k, int max_blocks, int block_rows, int n_cta, void* stream) {         \
+    ivf_tma::Args a{queries,                                                                  \
+                    x,                                                                        \
+                    static_cast<const float*>(xscale),                                        \
+                    static_cast<const float*>(bias),                                          \
+                    static_cast<float*>(cand_s),                                              \
+                    static_cast<int*>(cand_i),                                                \
+                    static_cast<int*>(counter),                                               \
+                    static_cast<float*>(out_s),                                               \
+                    static_cast<int*>(out_i),                                                 \
+                    RowSource{static_cast<const int*>(ids), static_cast<const int*>(n_valid), \
+                              max_blocks, block_rows},                                        \
+                    q,                                                                        \
+                    d,                                                                        \
+                    k,                                                                        \
+                    queries_bf16};                                                            \
+    return ivf_tma::launch<T>(a, n, n_cta, stream);                                           \
+  }                                                                                           \
+  }

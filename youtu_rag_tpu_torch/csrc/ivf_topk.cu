@@ -14,26 +14,36 @@
 // integer dot with the op-by-op f32 epilogue.
 //
 // Design. The TPU kernel is one program that walks the block list in
-// order with double-buffered DMA and one running top-k. Here the scan of
-// topk_select.cuh runs with its IVF row source: n_valid is read on the
-// device (no host sync between plan and scan), the probed rows split
-// evenly over all CTAs in 128-row tiles, a 4-row scoring group (bf16,
-// int8) reads contiguous rows of one block, int4's 16-row warp tile maps
-// each of its rows on its own, and the lists keep stored rows, so the
-// merge's (score desc, row asc) order equals the plain version's sort.
-// The grid is sized on the host from the plan's static length max_blocks.
+// order with double-buffered DMA and one running top-k; the port does not
+// copy that. bf16 and int8 run ivf_scan_tma.cuh: one launch per 64
+// queries that prepares its queries (the bf16 cast; int8 the
+// quantize_rows_int8 rounding), splits the virtual rows of the plan (n_valid
+// read on the device, no host sync between plan and scan) evenly over one
+// wave of CTAs, streams each CTA's share through a ring of bulk
+// asynchronous copies (cp.async.bulk on mbarriers), selects per query as
+// topk_select.cuh's scan does, and merges the CTAs' lists in the last CTA
+// of each query tile to finish. int4 runs topk_select.cuh's scan with its
+// IVF row source (each CTA's share read with plain loads in 128-row tiles,
+// int4's 16-row warp tiles mapping each row on its own) and a second launch
+// for the merge. Either way the lists keep stored rows, so the result is
+// ordered (score desc, stored row asc) whatever the order of the ids.
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
 // (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale), read once
 // per 8-query tile.
 
-#include "topk_scorers.cuh"
+#include "ivf_scan_tma.cuh"
 
-// <name>_launch(queries, qscale, x, xscale, bias, ids int32 [max_blocks],
+// <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
+//               x, xscale, bias, ids int32 [max_blocks], n_valid int32 [1],
+//               cand_s, cand_i [n_cta, q, k], counter int32 [ceil(q / 8)],
+//               out_s, out_i, q, n, d, k, max_blocks, block_rows, n_cta, stream)
+IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16)
+IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8)
+
+// <name>_launch(queries int8, qscale, x, xscale, bias, ids int32 [max_blocks],
 //               n_valid int32 [1], cand_s, cand_i, out_s, out_i,
 //               q, n, d, k, max_blocks, block_rows, n_cta, stream)
-IVF_C_INTERFACE(ivf_topk_bf16, Bf16Scorer)
-IVF_C_INTERFACE(ivf_topk_int8, Int8Scorer)
 IVF_C_INTERFACE(ivf_topk_int4, Int4Scorer)
 
 extern "C" const char* ivf_topk_error_string(int err) {

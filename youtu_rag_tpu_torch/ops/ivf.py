@@ -21,8 +21,12 @@ Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
 once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
 none for no query), and counts the launches in its ``.launches``;
 ``n_valid`` stays on the device (no ``.item()``), so nothing waits between
-the plan and the scan. For CPU tensors it runs its plain PyTorch version
-(``*_reference``). k may exceed the probed rows (empty slots).
+the plan and the scan. bf16 and int8 make one kernel launch per tile
+(``csrc/ivf_scan_tma.cuh``: the queries' cast or quantization, the scan
+and the merge, after one memset of its counters); int4 quantizes its
+queries here and launches a scan and a merge. For CPU tensors it runs its
+plain PyTorch version (``*_reference``). k may exceed the probed rows
+(empty slots).
 
 Also the counterparts of the per-probed-block kernels (``pallas_ivf_topk``
 → ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``, entries of
@@ -68,6 +72,7 @@ from .topk import (
 _LIB = "ivf_topk"
 _ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
           "ivf_topk_int4_dma": "ivf_topk_int4"}
+_TWO_LAUNCH = ("ivf_topk_int4_dma",)  # the scan, then a merge; the others merge in the scan
 _KR = 4  # rows per scoring group of the kernel: block_rows must be a multiple
 
 
@@ -144,9 +149,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if lib.ivf_topk_error_string.restype is not ctypes.c_char_p:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for entry in _ENTRY.values():
+        for name, entry in _ENTRY.items():
             launch = getattr(lib, f"{entry}_launch")
-            launch.argtypes = [p] * 11 + [i] * 7 + [p]
+            launch.argtypes = ([p] * 11 + [i] * 7 + [p] if name in _TWO_LAUNCH
+                               else [p, i] + [p] * 10 + [i] * 7 + [p])
             launch.restype = i
             per_sm = getattr(lib, f"{entry}_ctas_per_sm")
             per_sm.argtypes = [i, i]
@@ -192,40 +198,90 @@ def _check_ids(name: str, block_ids: torch.Tensor, n_valid: torch.Tensor, device
     return n_valid.reshape(1).contiguous()
 
 
-def _tiles(fn, queries, quantized: bool, x, xscale, bias, block_ids, n_valid, k: int, d: int,
-           n: int, block_rows: int):
+def _tiles(fn, queries, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: int,
+           block_rows: int):
     """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
+    launch = _launch if fn.__name__ in _TWO_LAUNCH else _launch_tma
+    if launch is _launch_tma:
+        # the bulk copies read the bias and scales in 16-byte units
+        for what, t in (("bias", bias), ("db_scales", xscale)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{fn.__name__}: {what} must start 16-byte aligned")
+    return _query_tiles(lambda qt: launch(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
+                                          block_rows),
+                        queries, _empty((0, k), x.device))
 
-    def launch(qt):
-        return _launch(fn, *_kernel_queries(qt, quantized), x, xscale, bias, block_ids, nv, k, d,
-                       n, block_rows)
 
-    return _query_tiles(launch, queries, _empty((0, k), x.device))
+def _n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 1) -> int:
+    """Scan CTAs per 8-query tile: as many as fit at once on the card
+    (shared by ``tiles`` query tiles), at least 512 rows of the longest
+    plan each (fewer above SHARED_K: _list_ctas)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = _ctas_per_sm(entry, d, k) * sms // tiles
+    return _list_ctas(max(1, min(wave, -(-rows // 512))), qn, k)
 
 
-def _launch(fn, queries, qscale, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
+def _launch(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
             block_rows: int):
-    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` on the current stream
-    (no sync) for one tile of at most MAX_Q queries."""
+    """Launch the int4 entry of ``csrc/ivf_topk.cu`` (the scan, then the
+    merge) on the current stream (no sync) for one tile of at most MAX_Q
+    queries, quantized here."""
     entry = _ENTRY[fn.__name__]
     lib = _library()
     dev = x.device
+    queries, qscale = _kernel_queries(queries, True)
     qn = queries.shape[0]
     max_blocks = block_ids.numel()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # as many CTAs as fit at once on the card, at least 512 rows of the
-    # longest plan each (fewer above SHARED_K: _list_ctas)
-    n_cta = _list_ctas(
-        max(1, min(_ctas_per_sm(entry, d, k) * sms, -(-max_blocks * block_rows // 512))), qn, k)
+    n_cta = _n_cta(entry, d, k, qn, max_blocks * block_rows, dev)
     cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = getattr(lib, f"{entry}_launch")(
-        queries.data_ptr(), ptr(qscale), x.data_ptr(), ptr(xscale), bias.data_ptr(),
+        queries.data_ptr(), qscale.data_ptr(), x.data_ptr(), xscale.data_ptr(), bias.data_ptr(),
         block_ids.data_ptr(), nv.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks, block_rows, n_cta,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise _cuda_error(lib, entry, err)
+    fn.launches += 1
+    return out_s, out_i
+
+
+def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
+                block_rows: int):
+    """Launch the bf16 or int8 entry of ``csrc/ivf_topk.cu`` (one kernel
+    that prepares the queries, scans and merges, after a memset of its
+    counters) on the current stream (no sync) for one tile of at most MAX_Q
+    queries, as the caller gives them: f32, or bf16 for the bf16 entry
+    (another float type is cast here)."""
+    entry = _ENTRY[fn.__name__]
+    lib = _library()
+    dev = x.device
+    keep = (torch.float32, torch.bfloat16) if xscale is None else (torch.float32,)
+    if queries.dtype not in keep:
+        queries = queries.to(torch.bfloat16 if xscale is None else torch.float32)
+    queries = queries.contiguous()
+    if queries.data_ptr() % 16:  # the kernel reads them in 16-byte units
+        queries = queries.clone()
+    qn = queries.shape[0]
+    max_blocks = block_ids.numel()
+    tiles = -(-qn // 8)
+    # one wave: the card's CTAs split over the launch's 8-query tiles
+    n_cta = _n_cta(entry, d, k, 8 * tiles, max_blocks * block_rows, dev, tiles)
+    # the CTAs' lists, [tiles, n_cta, 8, k rounded up to 4]
+    cand = (tiles, n_cta, 8, -(-k // 4) * 4)
+    cand_s = torch.empty(cand, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(cand, dtype=torch.int32, device=dev)
+    counter = torch.empty((2, tiles), dtype=torch.int32, device=dev)  # tickets, stage pairs
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    err = getattr(lib, f"{entry}_launch")(
+        queries.data_ptr(), int(queries.dtype == torch.bfloat16), x.data_ptr(),
+        None if xscale is None else xscale.data_ptr(), bias.data_ptr(), block_ids.data_ptr(),
+        nv.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), counter.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks, block_rows, n_cta,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -243,30 +299,32 @@ def ivf_topk_dma(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tens
     queries [q, d] float (cast to bf16), database [N, d] bf16 contiguous with
     d % 128 == 0 and N % block_rows == 0, bias [N] f32, block_ids int32
     [max_blocks], n_valid an int32 scalar tensor; k >= 1. On
-    CUDA: block_rows a multiple of 4."""
+    CUDA: block_rows a multiple of 4, bias 16-byte aligned."""
     _check_k("ivf_topk_dma", k)
     if _device_of("ivf_topk_dma", queries, database, bias, block_ids) == "cpu":
         return ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k,
                                       block_rows=block_rows)
     d = database.shape[1]
     n = _check_cuda("ivf_topk_dma", queries, database, bias, torch.bfloat16, d)
-    return _tiles(ivf_topk_dma, queries, False, database, None, bias, block_ids, n_valid, k, d,
-                  n, block_rows)
+    return _tiles(ivf_topk_dma, queries, database, None, bias, block_ids, n_valid, k, d, n,
+                  block_rows)
 
 
 def ivf_topk_int8_dma(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
                       bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
                       block_rows: int):
     """The int8 form (``pallas_ivf_topk_int8_dma``): database_q [N, d] int8,
-    db_scales [N] f32; queries quantized per row here."""
+    db_scales [N] f32; queries quantized per row as ``quantize_rows_int8``
+    does (on CUDA inside the kernel). On CUDA: bias and db_scales start
+    16-byte aligned."""
     _check_k("ivf_topk_int8_dma", k)
     if _device_of("ivf_topk_int8_dma", queries, database_q, db_scales, bias, block_ids) == "cpu":
         return ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids,
                                            n_valid, k, block_rows=block_rows)
     d = database_q.shape[1]
     n = _check_cuda("ivf_topk_int8_dma", queries, database_q, bias, torch.int8, d, db_scales)
-    return _tiles(ivf_topk_int8_dma, queries, True, database_q, db_scales, bias, block_ids,
-                  n_valid, k, d, n, block_rows)
+    return _tiles(ivf_topk_int8_dma, queries, database_q, db_scales, bias, block_ids, n_valid,
+                  k, d, n, block_rows)
 
 
 def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
@@ -280,8 +338,8 @@ def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales
                                            n_valid, k, block_rows=block_rows)
     d = 2 * database_p.shape[1]
     n = _check_cuda("ivf_topk_int4_dma", queries, database_p, bias, torch.int8, d, db_scales)
-    return _tiles(ivf_topk_int4_dma, queries, True, database_p, db_scales, bias, block_ids,
-                  n_valid, k, d, n, block_rows)
+    return _tiles(ivf_topk_int4_dma, queries, database_p, db_scales, bias, block_ids, n_valid,
+                  k, d, n, block_rows)
 
 
 def xla_ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
