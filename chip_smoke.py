@@ -13,8 +13,8 @@ Phases; any failure exits non-zero before the result lines:
      attention_kernel for hd 64 and 128 and its three entries, blockwise,
      flash and the hop's stats, and its mma.sync kernels for f32), then one
      line per attention kernel, int4 scan kernel (the tensor-core scorer)
-     and bf16 / int8 IVF kernel (ivf_scan_tma.cuh) with its registers and
-     spills;
+     and bf16 / int8 IVF kernel (ivf_scan_tma.cuh: the DMA entries and the
+     per-block ones) with its registers and spills;
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -22,10 +22,12 @@ Phases; any failure exits non-zero before the result lines:
      and 4096, row counts that are not a multiple of 16);
   3x. kernel vs plain, any query count and k above 1024: q = 0 (no launch,
      an empty result), 65, 100 and 130 (one launch per 64 queries) through
-     all ten top-k wrappers; k = 2048 and 4096 (bf16, int4) and 8192
-     (int8) through the pruned kernels, k = 2048 through one IVF and two
-     per-block cases (the lists in device memory); each held to its plain
-     version as in phases 3, 3c and 3d;
+     all ten top-k wrappers (the per-block IVF ones merged by their kernel
+     and as candidates); k = 2048 and 4096 (bf16, int4) and 8192 (int8)
+     through the pruned kernels, k = 2048 through one IVF case and the
+     per-block candidates, and the merged per-block IVF calls at k = 1024,
+     2048 and 4096 (= block_rows); each held to its plain version as in
+     phases 3, 3c and 3d;
   3b. kernel vs plain, attention: blockwise (T 256, 384, 512, 640, 4096)
      and flash (T 4224, 8192) against their plain versions, hd 64 and 128,
      bf16 (the Hopper kernels) and f32, with padded keys and a batch row
@@ -51,14 +53,20 @@ Phases; any failure exits non-zero before the result lines:
      queries;
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
-     versions over BLOCKS_CASES (k 1 to 1024, q 1 to 64, block_rows 256 to
-     4096; NEG_INF and -inf rows, a block scoring -inf throughout, fewer
-     live rows than k, no live row; plans with n_valid 0, 1, half and
-     max_blocks, ids ascending and shuffled): every candidate slot, the
-     fill and the pad included, and the merged result against
-     ``fused_topk(backend="pallas_interpret")`` (bf16 brute) or the merged
-     plain candidates; rows equal (bf16: a swap of two rows scoring within
-     TOL of each other allowed), bf16 scores within TOL, int8 bit-equal;
+     versions over BLOCKS_CASES (k 1 to 1024 and k = block_rows, q 1 to
+     64, block_rows 256 to 4096, IVF also 4, 6 and 12; NEG_INF and -inf rows,
+     a block scoring -inf throughout, fewer live rows than k, no live row
+     with position 0 all -inf (the tail's last slot from position 1, the
+     pad or a one-block plan's -inf); plans with n_valid 0, 1, half and
+     max_blocks, ids ascending and shuffled): every candidate slot of
+     ``csrc/topk_blocks.cu``, the fill and the pad included, and the merged
+     result: brute the merged candidates against
+     ``fused_topk(backend="pallas_interpret")`` (bf16) or the merged plain
+     candidates, IVF the merged call (the per-block entries of
+     ``csrc/ivf_scan_tma.cuh``, one launch per 64 queries) against the
+     merged plain candidates, ties in probe order; rows equal (bf16: a swap
+     of two rows scoring within TOL of each other allowed), bf16 scores
+     within TOL, int8 bit-equal, the tail slot for slot;
   4. main path, small corpus: about 20 markdown files through the port's
      KnowledgeBase (hash embedder → device index → kernel → retrievers)
      as three KBs, one per storage tier (bf16, int8, int4), each checked
@@ -111,12 +119,16 @@ Phases; any failure exits non-zero before the result lines:
      ``fused_topk(q, x_bf16, bias, 10)`` (backend "auto", which must take
      the kernel), ``topk_int8`` at block_rows 2048, and ``ivf_topk`` /
      ``ivf_topk_int8`` on 5c's adaptive plan at its block_rows 1024; each
-     checked against its plain version and, on its live slots, against the
-     pruned or DMA kernel on the same tensors (the same rows and scores;
-     against the bf16 DMA kernel, which sums on the tensor cores, as
-     compare_topk holds two bf16 results), then timed
-     (CUDA events; L2 cold for IVF) beside its bound, its plain version,
-     the merge alone, and a one-call PyTorch yardstick or the DMA kernel;
+     checked against its plain version (merged and as candidates) and, on
+     its live slots, against the pruned or DMA kernel on the same tensors
+     (the same rows and scores; against the bf16 DMA kernel, which sums on
+     the tensor cores, as compare_topk holds two bf16 results), then
+     timed: brute the candidates kernel (CUDA events) beside its bound,
+     the merge alone, its plain version and a one-call PyTorch yardstick;
+     IVF the merged call (one kernel on the card and no sort, torch.profiler;
+     held timer, L2 cold) beside its bound (the probed rows, the queries
+     and the result), the earlier design (the candidates kernel and
+     merge_blocks), the DMA kernel on the same plan and its plain version;
   5b. main path, full size, encoder: the default encoder embeds 128 texts
      at T = 512 (embeddings/s, the forward's device time and its split by
      kernel), and the same encoder with max_len 8192 embeds two long
@@ -685,7 +697,8 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
 
 BLOCKS_N, BLOCKS_D = 65536, 256
 BLOCK_TIES = (5, 5000, 20000, 40000)  # copies of row 5, in four blocks at every block_rows
-# (q, k, block_rows, bias kind, plan): plan None (brute) or (n_valid, id order)
+# (q, k, block_rows, bias kind, plan): plan None (brute) or (n_valid, id order);
+# n_valid "only" is a plan of one listed block
 BLOCKS_CASES = (
     [(q, k, 1024, "mixed", None) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)]
     + [(8, k, br, "mixed", None) for br in (256, 2048, 4096) for k in (10, 129)]
@@ -696,6 +709,18 @@ BLOCKS_CASES = (
                                                                (8, 1024))]
     + [(8, k, 1024, kind, ("half", "shuffled")) for kind in ("sparse", "allinf0", "none")
        for k in (10, 128)]
+    # block_rows 4, 6 and 12 (a 32-row stage spans several blocks; at 6 runs
+    # start off 4-row boundaries, so the merged kernel copies bias and scales
+    # element by element) and k = block_rows
+    + [(8, k, br, kind, plan) for br in (4, 6, 12) for k in (1, br)
+       for kind in ("mixed", "deadcols") for plan in (("half", "shuffled"), ("max", "ascending"))]
+    + [(8, 256, 256, kind, ("half", "shuffled")) for kind in ("mixed", "deadcols")]
+    # no live row, position 0 (block 0) scoring -inf throughout: the tail's
+    # last slot comes from position 1 (k a multiple of 128), from the pad
+    # (k = 10) or is position 0's -inf entry (one listed block)
+    + [(8, k, br, "allinf0dead", (nv, "ascending"))
+       for k, br, nv in ((128, 256, "max"), (128, 4096, "max"), (1024, 1024, "1"),
+                         (10, 256, "half"), (128, 256, "only"))]
 )
 
 
@@ -739,8 +764,8 @@ def blocks_plan(nb: int, nv_kind: str, order: str, g) -> tuple[torch.Tensor, tor
     id in range as the probe plan lists them, block 0 (a block scoring -inf
     throughout in the allinf0 bias) among the first n_valid; those first
     n_valid ascending or shuffled. Returns (ids, n_valid tensor, n_valid)."""
-    mb = max(1, 3 * nb // 4)
-    nv = {"0": 0, "1": 1, "half": mb // 2, "max": mb}[nv_kind]
+    mb = 1 if nv_kind == "only" else max(1, 3 * nb // 4)
+    nv = {"0": 0, "1": 1, "half": mb // 2, "max": mb, "only": 1}[nv_kind]
     perm = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
                       torch.randperm(nb - 1, generator=g, device="cuda") + 1])[:mb]
     head = perm[:nv]
@@ -766,37 +791,55 @@ def blocks_kernel_cases(seed: int) -> dict[str, float]:
     sparse[torch.arange(3, n, n // 5, device="cuda")] = 0.0  # 5 live rows
     allinf0 = mixed.clone()
     allinf0[:4096] = float("-inf")  # block 0 at every block_rows scores -inf throughout
-    biases = {"mixed": mixed, "sparse": sparse, "allinf0": allinf0,
-              "none": torch.full((n,), NEG_INF, device="cuda")}
+    # no live row: NEG_INF, except rows 0-4095 -inf and columns 0-2 of every
+    # 4096-row block past them (block 1's lowest column scoring NEG_INF is 3)
+    allinf0dead = torch.full((n,), NEG_INF, device="cuda")
+    allinf0dead[torch.arange(n, device="cuda") % 4096 < 3] = float("-inf")
+    allinf0dead[:4096] = float("-inf")
+    # five live rows; rows r % 256 < 3 -inf, the rest NEG_INF (the fill of a
+    # block whose first columns score -inf is its column 3, or 0 at block_rows 4)
+    deadcols = torch.full((n,), NEG_INF, device="cuda")
+    deadcols[torch.arange(n, device="cuda") % 256 < 3] = float("-inf")
+    deadcols[torch.arange(100, n, n // 5, device="cuda")] = 0.0
+    biases = {"mixed": mixed, "sparse": sparse, "allinf0": allinf0, "allinf0dead": allinf0dead,
+              "deadcols": deadcols, "none": torch.full((n,), NEG_INF, device="cuda")}
     xq, xs = quantize_rows_int8(x)
     stored = {"bfloat16": (x.to(torch.bfloat16), ()), "int8": (xq, (xs,))}
     max_err = dict.fromkeys(BLOCKS_NAMES, 0.0)
     n_checked = 0
     for q, k, br, kind, plan_kind in BLOCKS_CASES:
+        nr = n - n % br  # the rows whole blocks cover
         queries = torch.randn(q, BLOCKS_D, generator=g, device="cuda")
         queries /= queries.norm(dim=1, keepdim=True)
         queries[0] = x[BLOCK_TIES[0]]
-        b = biases[kind]
-        full = plain_scores(queries, stored["bfloat16"][0], b).cpu()
+        b = biases[kind][:nr]
+        full = plain_scores(queries, stored["bfloat16"][0][:nr], b).cpu()
         plan, probe = (), None
         if plan_kind is not None:
-            ids, nv, n_valid = blocks_plan(n // br, *plan_kind, g)
+            ids, nv, n_valid = blocks_plan(nr // br, *plan_kind, g)
             plan = (ids, nv)
             probe = ids[:n_valid].tolist()
         for name, (kernel, plain, tier, ivf) in blocks_ops().items():
             if ivf != (plan_kind is not None):
                 continue
             xt, extra = stored[tier]
+            xt, extra = xt[:nr], tuple(e[:nr] for e in extra)
             args = (queries, xt, *extra, b, *plan, k)
             what = f"{name} q={q} k={k} block_rows={br} {kind} plan={plan_kind}"
             got = kernel(*args, block_rows=br, candidates=True)
             torch.cuda.synchronize()
             want = plain(*args, block_rows=br, candidates=True)
             err = compare_blocks(tier, got, want, full, what + " candidates")
-            merged = merge_blocks(*got, k)
             if name == "topk":
+                merged = merge_blocks(*got, k)
                 ref = fused_topk(queries, xt, b, k, block_rows=br, backend="pallas_interpret")
-            else:
+            elif not ivf:
+                merged, ref = merge_blocks(*got, k), merge_blocks(*want, k)
+            else:  # the merged call: csrc/ivf_scan_tma.cuh's per-block entry, one launch
+                before = kernel.launches
+                merged = kernel(*args, block_rows=br)
+                torch.cuda.synchronize()
+                check(kernel.launches - before == -(-q // 64), f"{what}: merged call's launches")
                 ref = merge_blocks(*want, k)
             err = max(err, compare_blocks(tier, merged, ref, full, what))
             if kind == "mixed" and k >= len(BLOCK_TIES):
@@ -810,7 +853,8 @@ def blocks_kernel_cases(seed: int) -> dict[str, float]:
             n_checked += 1
     torch.cuda.synchronize()
     print(f"per-block kernel vs plain: {len(BLOCKS_CASES)} cases, {n_checked} kernel checks ok "
-          "(candidates and merged), max_abs_err "
+          "(candidates, and merged: IVF through the merged kernel; block_rows 4-4096, k to 1024 "
+          "and k = block_rows, tails past position 0), max_abs_err "
           + ", ".join(f"{name} {e}" for name, e in max_err.items()))
     return max_err
 
@@ -909,21 +953,29 @@ def query_k_cases(seed: int) -> dict[str, float]:
     queries = torch.randn(8, d, generator=g, device="cuda")
     queries /= queries.norm(dim=1, keepdim=True)
     full = plain_scores(queries, stored["bfloat16"][0], bias).cpu()
-    for name, k, br in (("ivf_topk_dma", 2048, 1024), ("topk", 2048, 4096),
-                        ("ivf_topk_int8", 2048, 4096)):
+    # the per-block IVF wrappers: the candidates (csrc/topk_blocks.cu) and
+    # the merged call (csrc/ivf_scan_tma.cuh) in the shared and device list
+    # classes, k = block_rows included
+    big_blocks = [("ivf_topk_dma", 2048, 1024, False), ("topk", 2048, 4096, True),
+                  ("ivf_topk_int8", 2048, 4096, True), ("ivf_topk_int8", 2048, 4096, False),
+                  ("ivf_topk", 1024, 4096, False), ("ivf_topk", 4096, 4096, False)]
+    for name, k, br, cand in big_blocks:
         wrapper, plain, tier, kind = wrappers[name]
         kplan = plan if br == 1024 else (*ivf_plan(n // br, n // br // 2, g), br)
         args, kw = wrapper_args(tier, kind, stored, bias, kplan)
-        what = f"{name} q=8 k={k} block_rows={br}"
-        got = wrapper(queries, *args, k, **({"candidates": True} if "blocks" in kind else {}), **kw)
+        if "blocks" in kind:
+            kw["candidates"] = cand
+        what = f"{name} q=8 k={k} block_rows={br}" + (" candidates" if cand else "")
+        got = wrapper(queries, *args, k, **kw)
         torch.cuda.synchronize()
-        want = plain(queries, *args, k, **({"candidates": True} if "blocks" in kind else {}), **kw)
+        want = plain(queries, *args, k, **kw)
         err = (compare_blocks(tier, got, want, full, what) if "blocks" in kind
                else compare_ivf(tier, got, want, full, what))
         max_err[name] = max(max_err[name], err)
         n_checked += 1
     print(f"any q and k above 1024: {n_checked} checks ok (q {QUERY_COUNTS} through "
-          f"{len(wrappers)} wrappers; k {BIG_K} brute; k 2048 IVF and per-block), max_abs_err "
+          f"{len(wrappers)} wrappers, the per-block IVF ones merged by their kernel and as "
+          f"candidates; k {BIG_K} brute; k 2048 IVF, per-block k 1024-4096), max_abs_err "
           + ", ".join(f"{n} {e}" for n, e in max_err.items()))
     return max_err
 
@@ -1839,17 +1891,30 @@ def time_held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> fl
 
 def device_kernels(fn, calls: int) -> dict[str, tuple[int, float]]:
     """Every device activity of ``calls`` calls of ``fn`` (torch.profiler):
-    name → (count, device us in all)."""
-    from torch.profiler import ProfilerActivity, profile
+    name → (count, device us in all). The profiler may drop a short
+    window's device events, some or all: a window that records none is
+    profiled again, every other attempt after a warm-up step of the same
+    calls (a schedule whose first step records nothing); {} if none
+    records any."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _attempt in range(4):  # a window that records no device event is profiled again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+    for attempt in range(6):
+        warm = attempt % 2 == 1
+        ready = []  # the recorded step's events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None,
+                     on_trace_ready=(lambda p: ready.append(p.key_averages())) if warm else None
+                     ) as prof:
+            for _step in range(2 if warm else 1):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                if warm:
+                    prof.step()
         out = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+        for e in (ready[0] if warm and ready else [] if warm else prof.key_averages()):
+            # (the schedule's step annotation also shows on the device)
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("ProfilerStep"):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -2040,10 +2105,11 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
 
 
 def blocks_bound(tier: str, part: str, rows: int, d: int, qn: int, n_blocks: int, k: int):
-    """The rows read (vectors, bias and, for int8, scales) and the queries,
-    plus the candidates written (n_blocks × q × k_pad × 8 bytes), at the HBM
-    rate; their 2·q·rows·d operations at the peak of their type. Returns
-    (ms, "bytes" or "operations")."""
+    """The brute per-block kernels' bound: the rows read (vectors, bias
+    and, for int8, scales) and the queries, plus the candidates written
+    (n_blocks × q × k_pad × 8 bytes), at the HBM rate; their 2·q·rows·d
+    operations at the peak of their type (the merged IVF calls take
+    ivf_bound: no candidates). Returns (ms, "bytes" or "operations")."""
     k_pad = -(-k // 128) * 128
     row_bytes = {"bfloat16": 2 * d + 4, "int8": d + 8}[tier]
     nbytes = rows * row_bytes + qn * d * 4 + n_blocks * qn * k_pad * 8
@@ -2112,32 +2178,54 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
                   and torch.equal(got[1][live], other[1][live])
                   and torch.equal(got[0][live].view(torch.int32), other[0][live].view(torch.int32)),
                   f"{what} differ")
+        plain_ms = time_ms(lambda: plain(*a, block_rows=br), bursts=3, burst=5)
         if takes_plan:
+            # the merged call is one kernel (csrc/ivf_scan_tma.cuh) after a
+            # memset: no candidates, no sort. The host issues no torch.sort ...
+            sort = torch.sort
+            torch.sort = lambda *_, **__: check(False, f"{name}: the merged call sorts")
+            try:
+                kernel(*a, block_rows=br)
+            finally:
+                torch.sort = sort
+            # ... and what the card ran (the profiler may drop events of so
+            # short a window: kinds, not counts; every kind recorded must be
+            # the scan or the memset)
+            ran = device_kernels(lambda: kernel(*a, block_rows=br), 5)
+            names = [kn for kn in ran if "memset" not in kn.lower()]
+            check(len(names) <= 1 and all("ivf_tma_kernel" in kn for kn in names),
+                  f"{name}: five merged calls ran {sorted(ran)}")
             n_valid = int(t["nv"])
-            n_blocks, scanned = t["ids"].numel(), n_valid * br
-            ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
-            other_ms = time_held_ms(lambda: dma[tier](*a, block_rows=br), cold=True)
-            other_desc = f"{IVF_NAMES[tier]} (DMA kernel, same plan, L2 cold) {other_ms:.4f} ms"
-            desc, lib = "none: no one PyTorch call takes a top-k over gathered blocks", None
-            plan_desc = f", n_valid {n_valid} of {n_blocks} listed blocks"
+            ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=True)
+            cand_ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
+            earlier_ms = time_held_ms(
+                lambda: merge_blocks(*kernel(*a, block_rows=br, candidates=True), k), cold=True)
+            dma_ms = time_held_ms(lambda: dma[tier](*a, block_rows=br), cold=True)
+            bms, by = ivf_bound(tier, part, n_valid, br, d, q.shape[0], k)
+            print(f"  {name} {rows}x{d} block_rows={br}, n_valid {n_valid} of "
+                  f"{t['ids'].numel()} listed blocks, q = {q.shape[0]}, k = {k}: merged call "
+                  f"{ms:.4f} ms (one kernel, L2 cold), bound {bms:.4f} ms ({by}); earlier "
+                  f"design (csrc/topk_blocks.cu candidates + merge_blocks) {earlier_ms:.4f} ms, "
+                  f"its kernel alone {cand_ms:.4f} ms; {IVF_NAMES[tier]} (DMA kernel, same "
+                  f"plan) {dma_ms:.4f} ms; plain {plain_ms:.4f} ms; library null [none: no one "
+                  f"PyTorch call takes a top-k over gathered blocks]; five calls on the card: "
+                  + ("; ".join(f"{kn.split('(')[0][:60]} x{c}" for kn, (c, _) in ran.items())
+                     or "no device event recorded") + f"; max_abs_err {err}")
+            library_ms = None
         else:
-            n_blocks, scanned = rows // br, rows
             ms = time_ms(lambda: kernel(*a, block_rows=br, candidates=True))
             other_ms = time_ms(lambda: pruned[tier](*a))
-            other_desc = f"{KERNEL_NAMES[tier]} {other_ms:.4f} ms"
             desc, lib = library_call(tier, q, x, *(t["extra"] or (None,)), b, k)
-            plan_desc = ""
-        # the candidates a call just wrote sit in L2 for its merge
-        merge_ms = time_held_ms(lambda: merge_blocks(*cand, k))
-        call_ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=takes_plan)
-        plain_ms = time_ms(lambda: plain(*a, block_rows=br), bursts=3, burst=5)
-        library_ms = None if lib is None else time_ms(lib)
-        bms, by = blocks_bound(tier, part, scanned, d, q.shape[0], n_blocks, k)
-        print(f"  {name} {rows}x{d} block_rows={br}{plan_desc}, q = {q.shape[0]}, k = {k}: "
-              f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); merge {merge_ms:.4f} ms; "
-              f"kernel + merge {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-              f"library {'null' if lib is None else format(library_ms, '.4f') + ' ms'} [{desc}]; "
-              f"{other_desc}; max_abs_err {err}")
+            # the candidates a call just wrote sit in L2 for its merge
+            merge_ms = time_held_ms(lambda: merge_blocks(*cand, k))
+            call_ms = time_held_ms(lambda: kernel(*a, block_rows=br))
+            library_ms = None if lib is None else time_ms(lib)
+            bms, by = blocks_bound(tier, part, rows, d, q.shape[0], rows // br, k)
+            print(f"  {name} {rows}x{d} block_rows={br}, q = {q.shape[0]}, k = {k}: "
+                  f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); merge {merge_ms:.4f} ms; "
+                  f"kernel + merge {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+                  f"library {'null' if lib is None else format(library_ms, '.4f') + ' ms'} "
+                  f"[{desc}]; {KERNEL_NAMES[tier]} {other_ms:.4f} ms; max_abs_err {err}")
         out[name] = {"launches": counts[name], "err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     return out
@@ -2563,7 +2651,9 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": "youtu_rag_tpu_torch/csrc/topk_blocks.cu",
+            # the merged IVF calls: csrc/ivf_topk.cu's ivf_blocks_* entries
+            "source": ("youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh" if kname.startswith("ivf")
+                       else "youtu_rag_tpu_torch/csrc/topk_blocks.cu"),
             "replaces": REPLACES[kname],
             "launches": f["launches"],
             "max_abs_err": max(err3d[kname], err3x[kname], f["err"]),

@@ -6,6 +6,9 @@ imports nothing of JAX, so on the card it runs without the JAX package:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +52,10 @@ from youtu_rag_tpu_torch.ops.topk import (
     topk_pruned_reference,
     topk_reference,
 )
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ivf_cases import IVF_CASES, IVF_WIDE_CASES  # noqa: E402
+from torch_ivf_cases import make_inputs as ivf_case_inputs  # noqa: E402
 
 TOL = 1e-4  # unit vectors; f32 sums in another order than cuBLAS
 N = 4096
@@ -803,6 +810,81 @@ def test_per_block_kernel_rejects_out_of_contract(cuda_device, name):
     if ivf:
         with pytest.raises(ValueError):
             kernel(qd, xt, *extra, bd, ids, plan[1].cpu(), 10, block_rows=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("case", [*IVF_CASES, *IVF_WIDE_CASES])
+def test_ivf_blocks_merged_matches_plain_version(cuda_device, case, tier, qdtype):
+    """The merged per-block call (``csrc/ivf_topk.cu``'s ``ivf_blocks_*``
+    entries) on the IVF cases the CPU parity tests share, against
+    ``ivf_topk*_reference`` on the same card tensors: one launch per 64
+    queries; every slot no live row fills (the tail) the same row and score
+    bits; live slots the same rows, int8 scores bit-equal, bf16 within TOL
+    (a row may give way to one whose plain score is within TOL)."""
+    kind, ids, n_valid, block_rows, k, q, n = {**IVF_CASES, **IVF_WIDE_CASES}[case]
+    qs, x, bias = ivf_case_inputs(q, 128, n, kind, seed=len(case))
+    kernel, plain = (ivf_topk, ivf_topk_reference) if tier == "bf16" else (
+        ivf_topk_int8, ivf_topk_int8_reference)
+    xt = torch.from_numpy(x).to(cuda_device)
+    extra = ()
+    if tier == "bf16":
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize_rows_int8(xt)
+        extra = (xs,)
+    qd = torch.from_numpy(qs).to(cuda_device, qdtype)
+    bd = torch.from_numpy(bias).to(cuda_device)
+    args = (qd, xt, *extra, bd, torch.tensor(ids, dtype=torch.int32, device=cuda_device),
+            torch.tensor(n_valid, dtype=torch.int32, device=cuda_device), k)
+    before = kernel.launches
+    gs, gi = kernel(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + -(-q // 64)
+    ws, wi = plain(*args, block_rows=block_rows)
+    gs, gi, ws, wi = (a.cpu() for a in (gs, gi, ws, wi))
+    assert gs.shape == gi.shape == (q, k)
+    live = ws > NEG_INF / 2
+    assert torch.equal(gs > NEG_INF / 2, live)
+    assert torch.equal(gi[~live], wi[~live])
+    assert torch.equal(gs[~live].view(torch.int32), ws[~live].view(torch.int32))
+    if tier == "int8":
+        assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+        return
+    torch.testing.assert_close(gs[live], ws[live], rtol=0, atol=TOL)
+    full = (qd.to(torch.bfloat16).float() @ xt.float().T + bd).cpu()
+    swapped = live & (gi != wi)
+    rows = torch.arange(q)[:, None].expand(q, k)
+    assert ((full[rows[swapped], gi[swapped].long()] - ws[swapped]).abs() <= TOL).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+def test_ivf_blocks_merged_reads_unaligned_bias_and_scales(cuda_device, tier):
+    """Bias and scales that start off a 16-byte boundary (views at offset 1)
+    and block_rows 6: the kernel copies them element by element."""
+    qs, x, bias = ivf_case_inputs(8, 128, 1027, "mixed", seed=11)
+    kernel, plain = (ivf_topk, ivf_topk_reference) if tier == "bf16" else (
+        ivf_topk_int8, ivf_topk_int8_reference)
+    xt = torch.from_numpy(x[1:]).to(cuda_device)
+    extra = ()
+    if tier == "bf16":
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize_rows_int8(xt)
+        extra = (torch.cat([xs[:1], xs])[1:],)  # a view one element in
+    bd = torch.from_numpy(bias).to(cuda_device)[1:]
+    assert bd.data_ptr() % 16 and all(e.data_ptr() % 16 for e in extra)
+    ids = torch.tensor([3, 170, 0, 99, 5], dtype=torch.int32, device=cuda_device)
+    args = (torch.from_numpy(qs).to(cuda_device), xt, *extra, bd, ids,
+            torch.tensor(4, dtype=torch.int32, device=cuda_device), 6)
+    gs, gi = kernel(*args, block_rows=6)
+    ws, wi = plain(*args, block_rows=6)
+    torch.cuda.synchronize()
+    live = ws > NEG_INF / 2
+    assert torch.equal(gs > NEG_INF / 2, live) and torch.equal(gi, wi)
+    torch.testing.assert_close(gs, ws, rtol=0, atol=0 if tier == "int8" else TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ run their plain PyTorch versions:
 """
 
 import importlib
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,40 +51,10 @@ from youtu_rag_tpu_torch.ops.topk import (
     xla_topk_int8,
 )
 
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ivf_cases import IVF_CASES, make_inputs  # noqa: E402
+
 TOL = 1e-5
-
-
-def make_inputs(q, d, n, kind, seed=0):
-    """Unit rows and queries, and a bias of one of these kinds:
-    mixed: NEG_INF tombstones every 5th row, -inf every 13th from row 7;
-    dead: three live rows (300, 301, 700), rows 0-2 -inf, the rest NEG_INF;
-    allinf0: block 0 (rows 0-255) -inf, two live rows, the rest NEG_INF;
-    none: every row NEG_INF;
-    ties: every row live, rows 20, 300, 600 and 900 copy row 700, query 0
-    is row 700."""
-    rng = np.random.default_rng(seed)
-    x = rng.standard_normal((n, d)).astype(np.float32)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    qs = rng.standard_normal((q, d)).astype(np.float32)
-    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
-    bias = np.zeros(n, np.float32)
-    if kind == "mixed":
-        bias[::5] = NEG_INF
-        bias[7::13] = -np.inf
-    elif kind == "dead":
-        bias[:] = NEG_INF
-        bias[:3] = -np.inf
-        bias[[300, 301, 700]] = 0.0
-    elif kind == "allinf0":
-        bias[:] = NEG_INF
-        bias[:256] = -np.inf
-        bias[[400, 900]] = 0.0
-    elif kind == "none":
-        bias[:] = NEG_INF
-    elif kind == "ties":
-        x[[20, 300, 600, 900]] = x[700]
-        qs[0] = x[700]
-    return qs, x, bias
 
 
 def quantized(x):
@@ -219,25 +191,13 @@ def test_a_block_scoring_minus_inf_lists_minus_inf_first(k):
 # the per-probed-block IVF kernels (pallas_ivf_topk, pallas_ivf_topk_int8)
 # ---------------------------------------------------------------------------
 
-# (kind, ids, n_valid, block_rows, k); n = 1024, q = 3, d = 128
-IVF_CASES = {
-    "partial-ascending": ("mixed", [1, 2, 5, 0, 3, 4, 6, 7], 3, 128, 10),
-    "one-block": ("mixed", [6, 0, 1, 2, 3, 4, 5, 7], 1, 128, 10),
-    "empty-plan": ("mixed", [1, 2, 3, 0], 0, 256, 10),
-    "full-shuffled-k128": ("mixed", [2, 0, 3, 1], 4, 256, 128),
-    "dead-fill-ids0": ("dead", [1, 2, 3, 0], 2, 256, 10),
-    "dead-fill-shuffled": ("dead", [3, 1, 0, 0], 2, 256, 10),
-    "allinf-block0-k32": ("allinf0", [0, 1, 2, 3], 4, 256, 32),
-    "allinf-block0-k128": ("allinf0", [0, 1, 2, 3], 4, 256, 128),
-    "ties-probe-order": ("ties", [3, 1, 0, 2], 4, 256, 10),
-}
-
-
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
 @pytest.mark.parametrize("case", list(IVF_CASES))
 def test_ivf_blocks_match_pallas(tier, case):
-    kind, ids, n_valid, block_rows, k = IVF_CASES[case]
-    qs, x, bias = make_inputs(3, 128, 1024, kind, seed=len(case))
+    """The merged result of every case of ``torch_ivf_cases.IVF_CASES``
+    (shared with the GPU tests), slot for slot, the tail included."""
+    kind, ids, n_valid, block_rows, k, q, n = IVF_CASES[case]
+    qs, x, bias = make_inputs(q, 128, n, kind, seed=len(case))
     got, want = ivf_pair(tier, qs, x, bias, ids, n_valid, k, block_rows)
     assert_same(got, want, tier)
     gs, gi = (a.numpy() for a in got)
@@ -251,6 +211,18 @@ def test_ivf_blocks_match_pallas(tier, case):
         assert (gi[:, 2:] == 0).all() and (gs[:, 2:] == NEG_INF).all()
     if case == "ties-probe-order":  # blocks 3, 1, 0, 2: rows 900, 300, 20, 600, 700
         assert gi[0, :5].tolist() == [900, 300, 20, 600, 700]
+    if case == "rows4-ties-full":  # the first four tied rows in probe order
+        order = sorted((20, 300, 600, 700, 900), key=lambda r: ids.index(r // 4))
+        assert gi[0, :4].tolist() == order[:4]
+    if case == "duplicates-past-n-valid":  # 3 live rows; block 5 listed first fills
+        assert (gi[:, 3:] == 640).all() and (gs[:, 3:] == NEG_INF).all()
+    if kind == "allinf0-dead":  # no live row: block 0's (NEG_INF, 0), then the last slot
+        assert (gi[:, : k - 1] == 0).all() and (gs[:, : k - 1] == NEG_INF).all()
+        last = {"allinf-block0-dead-k128": (NEG_INF, 259),  # position 1 = block 1, column 3
+                "allinf-block0-dead-nv1-k128": (NEG_INF, 768),  # position 1 = block 3, unread
+                "allinf-block0-dead-single": (-np.inf, 0),  # block 0's own -inf entry
+                "allinf-block0-dead-k10": (NEG_INF, 0)}[case]  # the pad
+        assert (gs[:, -1] == last[0]).all() and (gi[:, -1] == last[1]).all()
 
 
 def test_ivf_reference_leaves_blocks_past_n_valid_unread():

@@ -13,8 +13,9 @@ from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
 ``ivf_topk_int4_dma`` at k = 64, on phase 5c's plans
 (``configs/rag/ivf_int8.yaml``'s index settings over 1,048,576 × 768
 clustered rows; the search's adaptive plan and the fixed n_probe 64 plan;
-L2 cold), each with the kernels one call runs on the card
-(torch.profiler); ``blockwise_attention`` at
+L2 cold), and on the same plans the per-block calls ``ivf_topk`` and
+``ivf_topk_int8`` (k = 10, block_rows 1024, merged: the ``ops`` path),
+each with the kernels one call runs on the card (torch.profiler); ``blockwise_attention`` at
 [128, 12, 512, 64] and ``flash_attention`` at [2, 12, 8192, 64], bf16
 (phase 5b's shapes), the same operations at hd 128 ([64, 6, 512, 128],
 [2, 6, 8192, 128]) and at a whole number of 132-CTA rounds of work items
@@ -76,10 +77,11 @@ def short_kernel_name(mangled: str) -> str:
         k_class = ("k <= 128", "k <= 1024", "k > 1024")[int(m.group(2))]
         return (f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}, "
                 f"blocks={m.group(4)}>")
-    m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E", mangled)
+    m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E(?:Lb([01])E)?", mangled)
     if m:
         k_class = ("k <= 128", "k <= 1024", "k > 1024", "k <= 32")[int(m.group(3))]
-        return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}>"
+        contract = ", per-block" if m.group(4) == "1" else ""
+        return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}{contract}>"
     return "topk_merge_kernel" if "topk_merge_kernel" in mangled else mangled
 
 
@@ -147,8 +149,10 @@ def ivf_calls(g):
     IVF index with IVF_SETTINGS over one set of 1,048,576 × 768 clustered
     unit rows (1024 centers, spread 0.7), the search's adaptive probe plan
     and the fixed one (margin off) for 8 queries near centers 0..7, k as
-    the search asks (10; int4 64). Yields (name, the call, n_valid, the
-    wrapper, its arguments before ``block_rows``)."""
+    the search asks (10; int4 64), and for bf16 and int8 the per-block
+    merged call (``ivf_topk``, ``ivf_topk_int8``) on the same plan. Yields
+    (name, the call, n_valid, the wrapper, its arguments before
+    ``block_rows``)."""
     import numpy as np
     import torch
 
@@ -194,6 +198,12 @@ def ivf_calls(g):
             yield (f"{name} k={k} ({label} plan, L2 cold)",
                    lambda args=args: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
                    int(nv), fn, args)
+            if tier != "int4":  # the per-block merged call (ops path) on the same plan
+                blocks = ivf.ivf_topk if tier == "bfloat16" else ivf.ivf_topk_int8
+                yield (f"{blocks.__name__} merged k={k} ({label} plan, L2 cold)",
+                       lambda args=args, blocks=blocks: blocks(
+                           *args, block_rows=IVF_SETTINGS["block_rows"]),
+                       int(nv), blocks, args)
         del index, x, b, extra
         torch.cuda.empty_cache()
 

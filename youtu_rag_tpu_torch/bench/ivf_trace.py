@@ -70,7 +70,8 @@ TRACE_PATCHES = (
     ("  if (!last_cta) return;\n", "  TRACE(6);\n  if (!last_cta) return;\n"),
     ("  __syncthreads();\n  if (!selects) return;\n",
      "  __syncthreads();\n  TRACE(7);\n  if (!selects) return;\n"),
-    ("    __syncwarp();\n  }\n}\n", "    __syncwarp();\n  }\n  TRACE(8);\n}\n"),
+    ("    __syncwarp();\n  }\n  if constexpr (kProbe) {\n",
+     "    __syncwarp();\n  }\n  TRACE(8);\n  if constexpr (kProbe) {\n"),
 )
 TRACE_C = """
 extern "C" int ivf_trace_read(void* dst) {

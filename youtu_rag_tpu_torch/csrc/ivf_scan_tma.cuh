@@ -3,13 +3,16 @@
 // prepares the queries, streams the probed rows through a ring of bulk
 // asynchronous copies, scores them on the tensor cores and merges the
 // CTAs' lists. Included by ivf_topk.cu, whose entries ivf_topk_bf16 and
-// ivf_topk_int8 it defines; the int4 entry stays on topk_select.cuh's scan,
-// and so do the brute and per-block scans.
+// ivf_topk_int8 (the DMA contract) and ivf_blocks_bf16 and ivf_blocks_int8
+// (the per-block contract, the kProbe template flag) it defines; the int4
+// entry stays on topk_select.cuh's scan, and so do the brute scans and the
+// per-block candidates (topk_blocks.cu).
 //
-// Contract (the TPU kernels' pallas_ivf_topk_dma and pallas_ivf_topk_int8_dma):
+// DMA contract (the TPU kernels' pallas_ivf_topk_dma and pallas_ivf_topk_int8_dma):
 //  - rows: the stored rows of blocks ids[0 .. n_valid), block b covering
 //    rows [b * block_rows, (b + 1) * block_rows); n_valid is read on the
 //    device and clamped to [0, max_blocks]; ids past it are never read;
+//    block_rows a multiple of 4, bias and scales 16-byte aligned;
 //  - scores: bf16 f32(bf16 q) . f32(x) + bias, summed in f32 (in another
 //    order than the plain version's matmul); int8 the exact integer dot of
 //    the queries quantized as quantize_rows_int8 does (below) with the
@@ -17,6 +20,25 @@
 //  - result: the k best per query in (score desc, stored row asc); slots no
 //    live row fills stay (NEG_INF, 0). Any q (8-query tiles on the grid's
 //    y, up to 64 per launch) and any k (4.'s list classes).
+//
+// Per-block contract (kProbe; pallas_ivf_topk and pallas_ivf_topk_int8
+// merged, as ops/ivf.py's _probed_blocks + merge_blocks compute it):
+//  - rows and scores as above, any block_rows that divides n (bias and
+//    scales at any 4-byte alignment);
+//  - order (score desc, probe position i asc, row in block asc), that is
+//    (score desc, virtual row v asc): the lists hold v, and the output maps
+//    v to its stored row ids[v / block_rows] * block_rows + v % block_rows;
+//  - the tail: when a query has T < k live rows (score > NEG_INF), slots
+//    T .. k-1 repeat what the per-block lists put first among their
+//    NEG_INF entries, in position order: position 0's fill (NEG_INF,
+//    ids[0] * block_rows + c0), c0 its lowest column scoring >= NEG_INF, or
+//    0 if it scores -inf throughout; with n_valid = 0, (NEG_INF, ids[0] *
+//    block_rows). One exception: no live row, position 0 all -inf (its
+//    list is (-inf, base), k - 1 times (NEG_INF, base), then the pad):
+//    slot k - 1 is the pad's (NEG_INF, 0) when k is not a multiple of 128,
+//    else position 1's first NEG_INF entry (its own c0, 0 past n_valid),
+//    or (-inf, base) when max_blocks is 1. The scan keeps each query's c0
+//    of positions 0 and 1 by atomicMax in the tile's counters (7. below).
 //
 // Design. The rows a plan probes are few (phase 5c's adaptive plan: ~60
 // blocks of 1024 rows, 48.5 MB in int8) and are read once per 8-query tile,
@@ -76,6 +98,21 @@
 //     candidates when it runs out; a lane keeps the heads of its lists in
 //     registers, and each step is three warp reductions (redux.sync) of an
 //     order-preserving key.
+//  7. kProbe: the lists and the merge key on v instead of the stored row, so
+//     ties come in probe order whichever CTA took a stage; the merge stops
+//     at the first entry that is not live and writes the tail. While it
+//     scans v < 2 * block_rows, each selecting warp records its query's
+//     lowest column scoring >= NEG_INF of positions 0 and 1 (a ballot, then
+//     an atomicMax of block_rows - column, 0 meaning none, in counters the
+//     launch's memset zeroes). Where block_rows % 4 != 0 or bias or scales
+//     start off a 16-byte boundary, thread 0 copies the bias and scales of
+//     a stage element by element (4-byte cp.async, arriving on the stage's
+//     barrier, which then counts two arrivals); the rows go by bulk copies
+//     as before (d % 128 == 0 keeps every row a 16-byte multiple).
+//     This replaces topk_blocks.cu's design for the merged call (one CTA
+//     per listed block and 8 queries, most of them past n_valid and idle,
+//     each valid one streaming its block alone; k_pad candidates per block
+//     and query written to device memory; a torch sort to merge them).
 //
 // Bound: HBM reads of the probed rows (2d or d bytes each, plus 4 or 8 of
 // bias and scale), once per 8-query tile.
@@ -144,6 +181,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int byt
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// 4 bytes into shared memory (cp.async; completes on the barrier below)
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued has landed
+__device__ __forceinline__ void copy4_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // f32 score -> an unsigned key in the same order (-0 as +0), and back
@@ -432,7 +479,12 @@ struct Args {
   int q, d, k, queries_bf16;
 };
 
-template <class T, int kList>
+// kProbe: the counters past the tickets and stage pairs, [tiles, kQT, 2]:
+// per query, block_rows minus the lowest column of positions 0 and 1 that
+// scores >= NEG_INF (0: none)
+constexpr int kFirstCols = 2 * kQT;
+
+template <class T, int kList, bool kProbe>
 __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, const Plan<T> p) {
   typedef typename T::Acc Acc;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -453,6 +505,11 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   const int k = a.k, d = a.d, R = p.rows, S = p.stages;
   const int k_pad = (k + 3) & ~3;
   const int br = a.src.block_rows;
+  // kProbe: bias and scales element by element where a bulk copy cannot
+  // take them (runs off 4-row boundaries, or tensors off 16-byte ones)
+  const bool aux_copy =
+      kProbe && (br % 4 != 0 || ((reinterpret_cast<uintptr_t>(a.bias) |
+                                   reinterpret_cast<uintptr_t>(a.xscale)) & 15) != 0);
 
   // the plan's virtual rows [0, total), taken a stage of R at a time
   const int nv = min(max(*a.src.n_valid, 0), a.src.max_blocks);
@@ -486,11 +543,12 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     slot_v0[slot] = v0;
     if (!more) {
       mbar_arrive(bars + 8 * slot);
+      if (aux_copy) mbar_arrive(bars + 8 * slot);
       return;
     }
     const int len = min(R, total - v0);
     unsigned char* st = ring + slot * p.stage_bytes();
-    const int per_row = p.row_bytes + 4 + (T::kScaled ? 4 : 0);
+    const int per_row = p.row_bytes + (aux_copy ? 0 : 4 + (T::kScaled ? 4 : 0));
     mbar_expect_tx(bars + 8 * slot, len * per_row);
     for (int r = 0; r < len;) {
       const int v = v0 + r;
@@ -499,20 +557,29 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       bulk_load(smem_addr(st + (size_t)r * p.row_bytes),
                 static_cast<const unsigned char*>(a.x) + (size_t)row * p.row_bytes,
                 run * p.row_bytes, bars + 8 * slot);
-      bulk_load(smem_addr(st + (size_t)R * p.row_bytes + 4 * r), a.bias + row, 4 * run,
-                bars + 8 * slot);
-      if constexpr (T::kScaled)
-        bulk_load(smem_addr(st + (size_t)R * (p.row_bytes + 4) + 4 * r), a.xscale + row, 4 * run,
+      if (aux_copy) {
+        for (int e = 0; e < run; ++e) {
+          copy4(smem_addr(st + (size_t)R * p.row_bytes + 4 * (r + e)), a.bias + row + e);
+          if constexpr (T::kScaled)
+            copy4(smem_addr(st + (size_t)R * (p.row_bytes + 4) + 4 * (r + e)), a.xscale + row + e);
+        }
+      } else {
+        bulk_load(smem_addr(st + (size_t)R * p.row_bytes + 4 * r), a.bias + row, 4 * run,
                   bars + 8 * slot);
+        if constexpr (T::kScaled)
+          bulk_load(smem_addr(st + (size_t)R * (p.row_bytes + 4) + 4 * r), a.xscale + row,
+                    4 * run, bars + 8 * slot);
+      }
       r += run;
     }
+    if (aux_copy) copy4_arrive(bars + 8 * slot);  // the barrier's second arrival
   };
 
   // the ring's first fill goes out once the queries' loads are (their loads
   // would otherwise queue behind the ring's bytes)
   T::prepare(qt, qscale, a.queries, a.queries_bf16 != 0, q0, q_valid, d, [&]() {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, 1);
+      for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, aux_copy ? 2 : 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       for (int i = 0; i < S && more; ++i) issue(i);
     }
@@ -583,7 +650,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
 
     if (selects) {
       const bool ok = lane < len;
-      const int row = ok ? a.src.row(v0 + lane) : 0;
+      // the list's key: kProbe the virtual row, else the stored row
+      const int row = ok ? (kProbe ? v0 + lane : a.src.row(v0 + lane)) : 0;
       float s = 0.f;
       if (ok) {
         const Acc* in = part + warp * kMaxRows + lane;
@@ -594,6 +662,16 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
           s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, xs)), b);
         else
           s = t + b;
+      }
+      if constexpr (kProbe) {
+        if (v0 < 2 * br) {  // positions 0 and 1: their lowest columns scoring >= NEG_INF
+          const bool seen = ok && s >= kNegInf;
+          const unsigned m0 = __ballot_sync(kFull, seen && row < br);
+          const unsigned m1 = __ballot_sync(kFull, seen && row >= br && row < 2 * br);
+          int* first = a.counter + 2 * gridDim.y + (blockIdx.y * kQT + warp) * 2;
+          if (lane == 0 && m0) atomicMax(first, br - (v0 + __ffs(m0) - 1));
+          if (lane == 0 && m1) atomicMax(first + 1, 2 * br - (v0 + __ffs(m1) - 1));
+        }
       }
       unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
       while (pending) {
@@ -727,14 +805,21 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     bi = __reduce_min_sync(kFull, key == bk ? (unsigned)row : 0xffffffffu);
     bl = __reduce_min_sync(kFull, key == bk && (unsigned)row == bi ? (unsigned)list : 0xffffffffu);
   };
+  [[maybe_unused]] int n_out = k;  // kProbe: the slots the live entries fill
   for (int t = 0; t < k; ++t) {
     unsigned lk, bk, bi, bl;
     int li, ll;
     lane_best(lk, li, ll);
     warp_best(lk, li, ll, bk, bi, bl);
+    if constexpr (kProbe) {
+      if (bk <= order_key(kNegInf)) {  // the live entries are spent: the tail
+        n_out = t;
+        break;
+      }
+    }
     if (lane == 0) {
       a.out_s[(size_t)qi * k + t] = key_score(bk);
-      a.out_i[(size_t)qi * k + t] = (int)bi;
+      a.out_i[(size_t)qi * k + t] = kProbe ? a.src.row((int)bi) : (int)bi;
     }
     if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
       const int mm = bl / 32;
@@ -774,19 +859,45 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     }
     __syncwarp();
   }
+  if constexpr (kProbe) {
+    if (n_out < k) {
+      // the tail (contract above): ids * block_rows in 32 bits, as the TPU
+      // kernel's fill computes it
+      const unsigned ubr = (unsigned)br;
+      const int* first = a.counter + 2 * gridDim.y + (blockIdx.y * kQT + warp) * 2;
+      const int e0 = nv > 0 ? __ldcg(first) : 0;
+      const int fill = (int)((unsigned)__ldg(a.src.ids) * ubr + (e0 ? br - e0 : 0));
+      float last_s = kNegInf;
+      int last_i = fill;
+      if (n_out == 0 && nv > 0 && e0 == 0) {  // no live row; position 0 all -inf
+        if (k % 128) {
+          last_i = 0;
+        } else if (a.src.max_blocks == 1) {
+          last_s = __uint_as_float(0xff800000u);  // -inf
+        } else {
+          const int e1 = __ldcg(first + 1);
+          last_i = (int)((unsigned)__ldg(a.src.ids + 1) * ubr + (e1 ? br - e1 : 0));
+        }
+      }
+      for (int t = n_out + lane; t < k; t += 32) {
+        a.out_s[(size_t)qi * k + t] = t == k - 1 ? last_s : kNegInf;
+        a.out_i[(size_t)qi * k + t] = t == k - 1 ? last_i : fill;
+      }
+    }
+  }
 }
 
-template <class T>
+template <class T, bool kProbe>
 const void* kernel_for(int k) {
   switch (tma_list_kind(k)) {
     case kListWarp:
-      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp>);
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp, kProbe>);
     case kListRegs:
-      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListRegs>);
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListRegs, kProbe>);
     case kListShared:
-      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListShared>);
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListShared, kProbe>);
     default:
-      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListDevice>);
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListDevice, kProbe>);
   }
 }
 
@@ -801,12 +912,12 @@ inline int max_ctas() {
 
 // CTAs that fit on one SM for width d and top-k k (at most 2, the
 // register cap), 0 if one does not fit, or minus a CUDA error code.
-template <class T>
+template <class T, bool kProbe>
 int ctas_per_sm(int d, int k) {
   if (!Bf16Scorer::width_ok(d) || k < 1) return -(int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(d, k, max_ctas());
   if (p.rows == 0) return 0;
-  const void* kern = kernel_for<T>(k);
+  const void* kern = kernel_for<T, kProbe>(k);
   const int smem = (int)p.smem(max_ctas());
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -819,23 +930,25 @@ int ctas_per_sm(int d, int k) {
 // Zero the tiles' counters and launch the scan-and-merge on `stream`.
 // Returns cudaGetLastError() (0 = ok), cudaErrorInvalidValue for shapes
 // outside the contract or cudaErrorInvalidConfiguration where no plan fits
-// one CTA's shared memory.
-template <class T>
+// one CTA's shared memory. The counters: int32 [2, tiles], and kProbe
+// [tiles, kFirstCols] after them.
+template <class T, bool kProbe>
 int launch(const Args& a, int n, int n_cta, void* stream) {
   const int br = a.src.block_rows;
+  const bool rows_ok = kProbe ? br >= 1 : br >= kR && br % kR == 0;
   if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !Bf16Scorer::width_ok(a.d) || n_cta < 1 ||
-      n_cta > max_ctas() || br < kR || br % kR || n % br || a.src.max_blocks < 1 ||
+      n_cta > max_ctas() || !rows_ok || n % br || a.src.max_blocks < 1 ||
       (a.queries_bf16 && T::kScaled))
     return (int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(a.d, a.k, max_ctas());
   if (p.rows == 0) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const void* kern = kernel_for<T>(a.k);
+  const void* kern = kernel_for<T, kProbe>(a.k);
   const int smem = (int)p.smem(max_ctas());
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.q + kQT - 1) / kQT;
-  err = cudaMemsetAsync(a.counter, 0, sizeof(int) * 2 * tiles, st);
+  err = cudaMemsetAsync(a.counter, 0, sizeof(int) * (2 + (kProbe ? kFirstCols : 0)) * tiles, st);
   if (err != cudaSuccess) return (int)err;
   // the widest merge window (4 or 8 entries; no wider than k needs)
   // that fits in the shared memory the launch takes anyway
@@ -857,10 +970,10 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
 }  // namespace ivf_tma
 
 // The IVF source defines its bf16 and int8 entries with this macro:
-// <name>_launch and <name>_ctas_per_sm.
-#define IVF_TMA_C_INTERFACE(NAME, T)                                                          \
+// <name>_launch and <name>_ctas_per_sm; PROBE selects the per-block contract.
+#define IVF_TMA_C_INTERFACE(NAME, T, PROBE)                                                   \
   extern "C" {                                                                                \
-  int NAME##_ctas_per_sm(int d, int k) { return ivf_tma::ctas_per_sm<T>(d, k); }             \
+  int NAME##_ctas_per_sm(int d, int k) { return ivf_tma::ctas_per_sm<T, PROBE>(d, k); }      \
   int NAME##_launch(const void* queries, int queries_bf16, const void* x, const void* xscale, \
                     const void* bias, const void* ids, const void* n_valid, void* cand_s,     \
                     void* cand_i, void* counter, void* out_s, void* out_i, int q, int n, int d, \
@@ -880,6 +993,6 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
                     d,                                                                        \
                     k,                                                                        \
                     queries_bf16};                                                            \
-    return ivf_tma::launch<T>(a, n, n_cta, stream);                                           \
+    return ivf_tma::launch<T, PROBE>(a, n, n_cta, stream);                                    \
   }                                                                                           \
   }

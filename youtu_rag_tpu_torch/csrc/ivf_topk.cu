@@ -2,10 +2,18 @@
 // (sm_90a): one entry per storage tier.
 //
 // Replaces the TPU kernels of youtu_rag_tpu/ops/ivf.py:
-//   ivf_topk_bf16  <- pallas_ivf_topk_dma       (pallas_call at :461, _ivf_dma_kernel_bf16)
-//   ivf_topk_int8  <- pallas_ivf_topk_int8_dma  (pallas_call at :527, _ivf_dma_kernel)
-//   ivf_topk_int4  <- pallas_ivf_topk_int4_dma  (pallas_call at :596, _ivf_dma_kernel packed)
-// Same contract: the exact top k (score desc, row asc) over the rows of
+//   ivf_topk_bf16    <- pallas_ivf_topk_dma       (pallas_call at :461, _ivf_dma_kernel_bf16)
+//   ivf_topk_int8    <- pallas_ivf_topk_int8_dma  (pallas_call at :527, _ivf_dma_kernel)
+//   ivf_topk_int4    <- pallas_ivf_topk_int4_dma  (pallas_call at :596, _ivf_dma_kernel packed)
+//   ivf_blocks_bf16  <- pallas_ivf_topk           (pallas_call at :103, _ivf_kernel, with its
+//                                                  lax.top_k merge at :110-114)
+//   ivf_blocks_int8  <- pallas_ivf_topk_int8      (pallas_call at :188, _ivf_kernel_int8, merge
+//                                                  at :192-196)
+// The ivf_blocks entries keep the per-block contract (probe-order ties, the
+// per-block fill in the slots no live row fills, any block_rows; see
+// ivf_scan_tma.cuh) and compute the merged result in the same one launch;
+// topk_blocks.cu keeps the unmerged candidates. The DMA entries' contract:
+// the exact top k (score desc, row asc) over the rows of
 // blocks ids[0 .. n_valid) only, block b covering stored rows
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
 // never read; slots no live row fills come back as (NEG_INF, row 0). The
@@ -25,8 +33,10 @@
 // of each query tile to finish. int4 runs topk_select.cuh's scan with its
 // IVF row source (each CTA's share read with plain loads in 128-row tiles,
 // int4's 16-row warp tiles mapping each row on its own) and a second launch
-// for the merge. Either way the lists keep stored rows, so the result is
-// ordered (score desc, stored row asc) whatever the order of the ids.
+// for the merge. Either way the DMA entries' lists keep stored rows, so
+// their result is ordered (score desc, stored row asc) whatever the order
+// of the ids; the ivf_blocks entries' lists keep the virtual row, so theirs
+// is in probe order.
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
 // (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale), read once
@@ -36,10 +46,13 @@
 
 // <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
 //               x, xscale, bias, ids int32 [max_blocks], n_valid int32 [1],
-//               cand_s, cand_i [n_cta, q, k], counter int32 [ceil(q / 8)],
+//               cand_s, cand_i [tiles, n_cta, 8, k_pad4], counter int32 [2 + 16, tiles],
 //               out_s, out_i, q, n, d, k, max_blocks, block_rows, n_cta, stream)
-IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16)
-IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8)
+IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false)
+IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false)
+// (the DMA entries use the counters' first [2, tiles])
+IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true)
+IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true)
 
 // <name>_launch(queries int8, qscale, x, xscale, bias, ids int32 [max_blocks],
 //               n_valid int32 [1], cand_s, cand_i, out_s, out_i,

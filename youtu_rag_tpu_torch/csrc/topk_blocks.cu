@@ -2,6 +2,9 @@
 // (sm_90a): every block of block_rows rows writes its own top k, padded to
 // k_pad = round_up(k, 128); the caller merges the [n_blocks, q, k_pad]
 // candidates (ops/topk.py::merge_blocks, a stable sort over positions).
+// The IVF entries serve ops/ivf.py's candidates=True only: the merged IVF
+// call runs ivf_topk.cu's ivf_blocks_* entries (ivf_scan_tma.cuh), one
+// launch with the merge inside.
 //
 // Replaces the TPU kernels:
 //   topk_blocks_bf16      <- youtu_rag_tpu/ops/topk.py::pallas_topk          (pallas_call :174, _topk_kernel)

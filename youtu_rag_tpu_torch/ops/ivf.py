@@ -29,16 +29,32 @@ plain PyTorch version (``*_reference``). k may exceed the probed rows
 (empty slots).
 
 Also the counterparts of the per-probed-block kernels (``pallas_ivf_topk``
-→ ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``, entries of
-``csrc/topk_blocks.cu``) and of the gather fallback ``xla_ivf_topk``.
-Their contract is ``pallas_ivf_topk``'s, which differs from the DMA
-kernels' above: probe position i holds block ``ids[i]``'s own top k
-(``ops/topk.py``'s per-block contract, rows offset by ``ids[i] *
-block_rows``); a position ``i >= n_valid`` scores ``NEG_INF`` throughout,
-so its list is ``(NEG_INF, ids[i] * block_rows)``; the merge takes ties
-in probe position order, so with shuffled ids tied rows come in probe
-order, and empty slots repeat the first-listed block's lowest row that
-scores ``>= NEG_INF``, not row 0.
+→ ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``) and of the
+gather fallback ``xla_ivf_topk``. Their contract is ``pallas_ivf_topk``'s,
+which differs from the DMA kernels' above:
+
+- probe position i holds block ``ids[i]``'s own top k (``ops/topk.py``'s
+  per-block contract, rows offset by ``ids[i] * block_rows``); a position
+  ``i >= n_valid`` scores ``NEG_INF`` throughout, so its list is
+  ``(NEG_INF, ids[i] * block_rows)``;
+- the merge takes ties in probe position order: (score desc, position asc,
+  row in block asc), so with shuffled ids tied rows come in probe order;
+- the tail: slots no live row fills repeat the first-listed block's lowest
+  row that scores ``>= NEG_INF`` (``ids[0] * block_rows`` when it scores
+  ``-inf`` throughout or n_valid is 0), not row 0; with no live row, block
+  0 all ``-inf`` and k a multiple of 128 the last slot comes from position
+  1 (or is ``(-inf, ids[0] * block_rows)`` for a one-block plan), with k
+  not a multiple of 128 it is the pad's ``(NEG_INF, 0)``;
+- any ``block_rows >= k`` that divides N, bias and scales at any offset.
+
+On CUDA the merged call (``candidates=False``) launches
+``csrc/ivf_topk.cu``'s ``ivf_blocks_bf16`` / ``ivf_blocks_int8`` (the
+DMA kernels' ``csrc/ivf_scan_tma.cuh`` under its ``kProbe`` flag): one
+launch per tile of at most ``MAX_Q`` queries, after one memset of its
+counters, with the queries' cast or quantization and the merge inside; no
+``torch.sort``. ``candidates=True`` (the port's own inspection path)
+launches ``csrc/topk_blocks.cu``'s ``ivf_topk_blocks_*`` entries and
+returns their unmerged ``[max_blocks, q, k_pad]`` lists.
 """
 
 from __future__ import annotations
@@ -71,9 +87,11 @@ from .topk import (
 
 _LIB = "ivf_topk"
 _ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
-          "ivf_topk_int4_dma": "ivf_topk_int4"}
+          "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
+          "ivf_topk_int8": "ivf_blocks_int8"}
 _TWO_LAUNCH = ("ivf_topk_int4_dma",)  # the scan, then a merge; the others merge in the scan
-_KR = 4  # rows per scoring group of the kernel: block_rows must be a multiple
+_FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
+_KR = 4  # rows per scoring group of the DMA kernels: block_rows must be a multiple
 
 
 # ---------------------------------------------------------------------------
@@ -252,11 +270,12 @@ def _launch(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
 
 def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
                 block_rows: int):
-    """Launch the bf16 or int8 entry of ``csrc/ivf_topk.cu`` (one kernel
+    """Launch a bf16 or int8 entry of ``csrc/ivf_topk.cu`` (one kernel
     that prepares the queries, scans and merges, after a memset of its
-    counters) on the current stream (no sync) for one tile of at most MAX_Q
-    queries, as the caller gives them: f32, or bf16 for the bf16 entry
-    (another float type is cast here)."""
+    counters; the DMA or, for ``ivf_topk*``, the per-block contract) on the
+    current stream (no sync) for one tile of at most MAX_Q queries, as the
+    caller gives them: f32, or bf16 for a bf16 entry (another float type is
+    cast here)."""
     entry = _ENTRY[fn.__name__]
     lib = _library()
     dev = x.device
@@ -275,7 +294,8 @@ def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: 
     cand = (tiles, n_cta, 8, -(-k // 4) * 4)
     cand_s = torch.empty(cand, dtype=torch.float32, device=dev)
     cand_i = torch.empty(cand, dtype=torch.int32, device=dev)
-    counter = torch.empty((2, tiles), dtype=torch.int32, device=dev)  # tickets, stage pairs
+    # tickets, stage pairs, the per-block entries' first columns
+    counter = torch.empty((2 + _FIRST_COLS) * tiles, dtype=torch.int32, device=dev)
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
     err = getattr(lib, f"{entry}_launch")(
@@ -416,7 +436,7 @@ def ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
     block_ids int32 [max_blocks], whose entries lie in the index, those
     past n_valid too (the probe plan makes them so); n_valid an int32
     scalar tensor, which stays on the device; 1 <= k <= block_rows. On
-    CUDA: one launch per MAX_Q queries."""
+    CUDA: one launch per MAX_Q queries (module docstring)."""
     n, d = database.shape
     _check_blocks("ivf_topk", n, d, k, block_rows)
     if _device_of("ivf_topk", queries, database, bias, block_ids) == "cpu":
@@ -425,16 +445,21 @@ def ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
     x = database.to(torch.bfloat16).contiguous()
     n = _check_cuda("ivf_topk", queries, x, bias, torch.bfloat16, d)
     nv = _check_ids("ivf_topk", block_ids, n_valid, x.device)
-    return _blocks_tiles(ivf_topk, "ivf_topk_blocks_bf16", queries, False, x, None, bias, k, d,
-                         n, block_rows, candidates, block_ids, nv)
+    if candidates:
+        return _blocks_tiles(ivf_topk, "ivf_topk_blocks_bf16", queries, False, x, None, bias, k,
+                             d, n, block_rows, True, block_ids, nv)
+    return _query_tiles(lambda qt: _launch_tma(ivf_topk, qt, x, None, bias, block_ids, nv, k, d,
+                                               n, block_rows),
+                        queries, _empty((0, k), x.device))
 
 
 def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
                   bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
                   block_rows: int = 4096, candidates: bool = False):
     """The int8 form of ``ivf_topk`` (``pallas_ivf_topk_int8``):
-    database_q [N, d] int8, db_scales [N] f32; queries quantized per row
-    here."""
+    database_q [N, d] int8, db_scales [N] f32; queries quantized per row as
+    ``quantize_rows_int8`` does (the merged call on CUDA inside the
+    kernel)."""
     n, d = database_q.shape
     _check_blocks("ivf_topk_int8", n, d, k, block_rows)
     if _device_of("ivf_topk_int8", queries, database_q, db_scales, bias, block_ids) == "cpu":
@@ -442,8 +467,12 @@ def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: to
                                        k, block_rows=block_rows, candidates=candidates)
     n = _check_cuda("ivf_topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
     nv = _check_ids("ivf_topk_int8", block_ids, n_valid, database_q.device)
-    return _blocks_tiles(ivf_topk_int8, "ivf_topk_blocks_int8", queries, True, database_q,
-                         db_scales, bias, k, d, n, block_rows, candidates, block_ids, nv)
+    if candidates:
+        return _blocks_tiles(ivf_topk_int8, "ivf_topk_blocks_int8", queries, True, database_q,
+                             db_scales, bias, k, d, n, block_rows, True, block_ids, nv)
+    return _query_tiles(lambda qt: _launch_tma(ivf_topk_int8, qt, database_q, db_scales, bias,
+                                               block_ids, nv, k, d, n, block_rows),
+                        queries, _empty((0, k), database_q.device))
 
 
 ivf_topk_dma.launches = 0
