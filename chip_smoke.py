@@ -14,7 +14,9 @@ Phases; any failure exits non-zero before the result lines:
      flash and the hop's stats, and its mma.sync kernels for f32), then one
      line per attention kernel, int4 scan kernel (the tensor-core scorer)
      and bf16 / int8 IVF kernel (ivf_scan_tma.cuh: the DMA entries and the
-     per-block ones) with its registers and spills;
+     per-block ones) with its registers and spills, and the bf16 / int8 IVF
+     entries' shared-memory plan and CTAs per SM for d 128-8192 x k 1-4096
+     (fails where a cell has none);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -51,6 +53,11 @@ Phases; any failure exits non-zero before the result lines:
      k 1, 129, 1025; block_rows 4, 12, 4096; f32 queries and ascending ids,
      bf16 queries and shuffled ids; a zero query row), one launch per 64
      queries;
+  3f. kernel vs plain, IVF inputs JAX takes: the three DMA entries at
+     block_rows 1, 2, 6, 66 and 1026 with bias and scales 4 bytes past a
+     16-byte boundary, k up to block_rows; the bf16 and int8 DMA and merged
+     per-block entries at d 4096 and 8192 with k up to 4096 (lists in
+     device memory; bf16 at d = 8192 the wide plan); as in phases 3c, 3d;
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
      versions over BLOCKS_CASES (k 1 to 1024 and k = block_rows, q 1 to
@@ -95,6 +102,21 @@ Phases; any failure exits non-zero before the result lines:
      at max_len is printed for contrast); then a small encoder (128 wide,
      2 layers, 2 heads of 64) with sp_mesh=4, whose top documents on the
      card equal its CPU twin's;
+  4e. main path, a pretrained BERT-family checkpoint: a BERT-base embedder
+     (bge-base-en-v1.5's config, CLS pooling; safetensors F32) and a
+     one-label cross-encoder (bert-base-uncased's widths; BF16) written
+     from a seed with a 30,522-entry vocab.txt, served through a CUDA KB
+     with ``EmbeddingConfig(provider="tpu", pretrained_dir=...)`` and
+     ``TorchReranker.from_pretrained`` over phase 4's topics as one chunk
+     of ~450 tokens each (T = 512): the stored embeddings and every
+     document's dense rank against a CPU f32 twin, the same forward with
+     plain attention, the kernel's attention output against plain
+     attention within one bf16 ulp, the cross-encoder's scores and order
+     against a CPU f32 twin (ENC_TOL), blockwise launches 12 per forward
+     at T >= 256 and none below; then BERT-base embeddings/s at B = 128,
+     T = 512 (device and embed_batch, WordPiece apart), the forward's split
+     (attention kernel, GEMMs, the rest), the forward with SDPA in the
+     kernel's place, and cross-encoder pairs/s at B = 64, T = 512;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -152,7 +174,7 @@ Phases; any failure exits non-zero before the result lines:
   7. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 5, 5c, 5d, 5b and 5e drive it and read just after; launches made to
+4c, 4d, 4e, 5, 5c, 5d, 5b and 5e drive it and read just after; launches made to
 compare or time a kernel are not counted. Every phase prints its wall time.
 """
 
@@ -336,6 +358,35 @@ def build_all() -> None:
         for kernel, regs, spills in ptxas_report(done[name]["log"]):
             if kernel.startswith(("attention", "ivf_tma")) or "Int4Scorer" in kernel:
                 print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
+    ivf_plan_table()
+
+
+# the (d, k) grid of the TMA IVF entries' shared-memory plans
+PLAN_WIDTHS = (128, 768, 1024, 2048, 4096, 8192)
+PLAN_KS = (1, 10, 128, 1024, 2048, 4096)
+TMA_ENTRIES = ("ivf_topk_bf16", "ivf_topk_int8", "ivf_blocks_bf16", "ivf_blocks_int8")
+
+
+def ivf_plan_table() -> None:
+    """Per TMA IVF entry of csrc/ivf_topk.cu and (d, k): the CTAs one SM
+    holds (``<entry>_ctas_per_sm``, before the wrapper's cap of 2) and the
+    plan, rows x stages, "dev" where the lists live in device memory and
+    "wide" where the query tile does. Fails where a cell has no plan."""
+    from youtu_rag_tpu_torch.ops.ivf import _library, scan_plan
+
+    lib = _library()
+    print("IVF TMA plans, ctas_per_sm/rows x stages[ dev][ wide], k across:",
+          " ".join(str(k) for k in PLAN_KS))
+    for entry in TMA_ENTRIES:
+        for d in PLAN_WIDTHS:
+            cells = []
+            for k in PLAN_KS:
+                per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
+                rows, stages, dev, wide = scan_plan(entry, d, k)
+                check(per_sm >= 1 and rows > 0, f"{entry} d={d} k={k}: no plan ({per_sm})")
+                cells.append(f"{per_sm}/{rows}x{stages}{' dev' if dev else ''}"
+                             f"{' wide' if wide else ''}")
+            print(f"  {entry} d={d}: " + ", ".join(cells))
 
 
 # ---------------------------------------------------------------------------
@@ -689,6 +740,106 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
           "query, shuffled ids) ok, max_abs_err "
           + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
     return max_err
+
+
+# ---------------------------------------------------------------------------
+# 3f. kernel vs plain, IVF: any block_rows and alignment, wide rows
+# ---------------------------------------------------------------------------
+
+# block_rows off 4-row boundaries (JAX asks only that they divide the rows),
+# each with k = 1, 10 (at most block_rows) and block_rows
+REPAIR_BLOCK_ROWS = (1, 2, 6, 66, 1026)
+# (d, k): where the lists or the query tile outgrow shared memory
+WIDE_CASES = ((4096, 1024), (8192, 1024), (8192, 4096), (4096, 10))
+
+
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out.copy_(t)
+    return out
+
+
+def ivf_repair_cases(seed: int) -> dict[str, float]:
+    """3f: (i) the three DMA entries at block_rows 1, 2, 6, 66 and 1026 with
+    bias and scales 4 bytes past a 16-byte boundary, k up to block_rows;
+    (ii) the bf16 and int8 DMA and merged per-block entries at d 4096 and
+    8192, k up to 4096 (device lists; bf16 at d = 8192 the wide plan). Each
+    against its plain version: rows equal, bf16 within TOL, int8/int4
+    bit-equal. Returns the max abs error per kernel name."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    err: dict[str, float] = {}
+    n_cases = 0
+    d = IVF_D
+    for br in REPAIR_BLOCK_ROWS:
+        n = br * max(8, 8208 // br)
+        x = torch.randn(n, d, generator=g, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        bias = torch.zeros(n, device="cuda")
+        bias[::7] = NEG_INF
+        bias[3::11] = float("-inf")
+        bias = _offset(bias)
+        ids, nv = ivf_plan(n // br, n // br // 2, g, "shuffled")
+        queries = torch.randn(9, d, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        full = plain_scores(queries, x.to(torch.bfloat16), bias).cpu()
+        for tier, (kernel, plain, quantize) in ivf_ops().items():
+            if quantize is None:
+                xt, extra = x.to(torch.bfloat16), ()
+            else:
+                xt, xs = quantize(x)
+                extra = (_offset(xs),)
+            check(bias.data_ptr() % 16 == 4 and all(e.data_ptr() % 16 == 4 for e in extra),
+                  "3f: the bias and scales must start 4 bytes past a 16-byte boundary")
+            for k in sorted({1, min(10, br), br}):
+                what = f"ivf {tier} block_rows={br} k={k}, bias and scales at +4 bytes"
+                got = kernel(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+                torch.cuda.synchronize()
+                want = plain(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+                name = IVF_NAMES[tier]
+                err[name] = max(err.get(name, 0.0), compare_ivf(tier, got, want, full, what))
+                n_cases += 1
+    blocks = blocks_ops()
+    for wd, k in WIDE_CASES:
+        n, br = 3 * 4096, 4096
+        x = torch.randn(n, wd, generator=g, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        bias = torch.zeros(n, device="cuda")
+        bias[::5] = NEG_INF
+        queries = torch.randn(9, wd, generator=g, device="cuda")
+        queries /= queries.norm(dim=1, keepdim=True)
+        ids = torch.tensor([2, 0, 1], dtype=torch.int32, device="cuda")
+        nv = torch.tensor(2, dtype=torch.int32, device="cuda")
+        full = plain_scores(queries, x.to(torch.bfloat16), bias).cpu()
+        for tier in ("bfloat16", "int8"):
+            if tier == "bfloat16":
+                xt, extra = x.to(torch.bfloat16), ()
+            else:
+                xq, xs = ivf_ops()["int8"][2](x)
+                xt, extra = xq, (xs,)
+            kernel, plain, _ = ivf_ops()[tier]
+            what = f"ivf {tier} d={wd} k={k}"
+            got = kernel(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+            torch.cuda.synchronize()
+            want = plain(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+            name = IVF_NAMES[tier]
+            err[name] = max(err.get(name, 0.0), compare_ivf(tier, got, want, full, what))
+            name = "ivf_topk" if tier == "bfloat16" else "ivf_topk_int8"
+            kernel, plain = blocks[name][:2]
+            got = kernel(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+            torch.cuda.synchronize()
+            want = plain(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
+            tier_b = "bf16" if tier == "bfloat16" else "int8"
+            err[name] = max(err.get(name, 0.0),
+                            compare_blocks(tier_b, got, want, full, f"{name} d={wd} k={k}"))
+            n_cases += 2
+        del x, full
+    print(f"IVF any block_rows and alignment, wide rows: {n_cases} cases ok (block_rows "
+          f"{REPAIR_BLOCK_ROWS} at +4-byte bias and scales; (d, k) {WIDE_CASES}), max_abs_err "
+          + ", ".join(f"{n} {e}" for n, e in err.items()))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1632,6 +1783,384 @@ def long_corpus(seed: int, embedder) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4e. main path, small corpus, a pretrained BERT-family checkpoint
+# ---------------------------------------------------------------------------
+
+# BAAI/bge-base-en-v1.5's config.json (BERT-base: CLS pooling, from its
+# 1_Pooling/config.json); the cross-encoder has google-bert/bert-base-uncased's
+# widths as a BertForSequenceClassification with one label
+BERT_BASE = {"model_type": "bert", "vocab_size": 30522, "hidden_size": 768,
+             "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+             "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+             "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+             "attention_probs_dropout_prob": 0.1, "initializer_range": 0.02, "pad_token_id": 0}
+BERT_SPECIAL = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+BERT_PIECES = ("##s", "##es", "##ed", "##ing", "##ly", "##er")
+BERT_WORDS = 430  # filler words per document: one chunk of ~450-500 tokens (the T = 512 bucket)
+
+
+def write_safetensors(path: str, tensors: dict[str, np.ndarray], dtype: str) -> None:
+    """The safetensors layout (an 8-byte little-endian header length, a JSON
+    header padded to 8 bytes, the tensors' bytes), F32 or BF16 (rounded to
+    nearest even by torch)."""
+    import struct
+
+    header, offset, names = {}, 0, sorted(tensors)
+    for name in names:
+        nbytes = tensors[name].size * (4 if dtype == "F32" else 2)
+        header[name] = {"dtype": dtype, "shape": list(tensors[name].shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    h = json.dumps(header, separators=(",", ":")).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for name in names:
+            a = np.ascontiguousarray(tensors[name], np.float32)
+            if dtype == "BF16":
+                a = torch.from_numpy(a).to(torch.bfloat16).view(torch.int16).numpy()
+            f.write(a.tobytes())
+
+
+def write_bert_checkpoint(d: str, vocab: list[str], seed: int, head: bool, dtype: str) -> None:
+    """A BERT-base checkpoint directory in the Hugging Face layout: weights
+    and biases N(0, 0.02^2) from ``seed``, LayerNorms 1 and 0; BertModel's
+    keys with its pooler and CLS pooling (an embedder), or with ``head``
+    under ``bert.`` with a one-label ``classifier`` (a cross-encoder)."""
+    rng = np.random.default_rng(seed)
+    hd, inter, vsz = BERT_BASE["hidden_size"], BERT_BASE["intermediate_size"], len(vocab)
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    sd = {"embeddings.word_embeddings.weight": w(vsz, hd),
+          "embeddings.position_embeddings.weight": w(BERT_BASE["max_position_embeddings"], hd),
+          "embeddings.token_type_embeddings.weight": w(BERT_BASE["type_vocab_size"], hd)}
+    lns = ["embeddings.LayerNorm"]
+    for i in range(BERT_BASE["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, (o, n) in (("attention.self.query", (hd, hd)), ("attention.self.key", (hd, hd)),
+                             ("attention.self.value", (hd, hd)),
+                             ("attention.output.dense", (hd, hd)),
+                             ("intermediate.dense", (inter, hd)), ("output.dense", (hd, inter))):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(o, n), w(o)
+        lns += [p + "attention.output.LayerNorm", p + "output.LayerNorm"]
+    for ln in lns:
+        sd[ln + ".weight"], sd[ln + ".bias"] = np.ones(hd, np.float32), np.zeros(hd, np.float32)
+    sd["pooler.dense.weight"], sd["pooler.dense.bias"] = w(hd, hd), w(hd)
+    cfg = dict(BERT_BASE, vocab_size=vsz, architectures=["BertModel"])
+    if head:
+        sd = {"bert." + k: v for k, v in sd.items()}
+        sd["classifier.weight"], sd["classifier.bias"] = w(1, hd), w(1)
+        cfg.update(architectures=["BertForSequenceClassification"], id2label={"0": "LABEL_0"},
+                   label2id={"LABEL_0": 0})
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    write_safetensors(os.path.join(d, "model.safetensors"), sd, dtype)
+    with open(os.path.join(d, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    if not head:
+        os.makedirs(os.path.join(d, "1_Pooling"), exist_ok=True)
+        with open(os.path.join(d, "1_Pooling", "config.json"), "w") as f:
+            json.dump({"word_embedding_dimension": hd, "pooling_mode_cls_token": True,
+                       "pooling_mode_mean_tokens": False}, f)
+
+
+def bert_vocab(texts: list[str]) -> list[str]:
+    """A 30,522-entry vocab.txt: the special tokens, the texts' words (as
+    BERT's basic tokenizer splits them), their characters bare and as
+    ``##`` pieces, a few suffixes, then ``[unusedN]`` filler."""
+    from youtu_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    basic = WordPieceTokenizer({"[UNK]": 0, "[CLS]": 1, "[SEP]": 2}, use_fast=False)
+    words = sorted({w for t in texts for w in basic.basic_tokenize(t)})
+    chars = sorted({c for w in words for c in w})
+    vocab = list(dict.fromkeys([*BERT_SPECIAL, *words, *chars, *("##" + c for c in chars),
+                                *BERT_PIECES]))
+    return vocab + [f"[unused{i}]" for i in range(BERT_BASE["vocab_size"] - len(vocab))]
+
+
+def write_bert_corpus(root: str, seed: int) -> None:
+    """Phase 4's topics, one chunk each: the topic's text, then BERT_WORDS
+    filler words."""
+    rng = np.random.default_rng(seed + 11)
+    for name, text in TOPICS.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text + "\n\n" + " ".join(rng.choice(FILLER, size=BERT_WORDS)) + ".")
+
+
+def bert_config(name: str, pretrained_dir: str | None):
+    """One chunk per document; the pretrained embedder (a twin without
+    ``pretrained_dir`` is served its embedder by ``serve_with``)."""
+    from youtu_rag_tpu_torch.core.config import ChunkingConfig, EmbeddingConfig, RAGConfig
+
+    cfg = RAGConfig(name=name)
+    if pretrained_dir:
+        cfg.knowledge_builder.embedding = EmbeddingConfig(provider="tpu",
+                                                          pretrained_dir=pretrained_dir)
+    cfg.knowledge_builder.chunking = ChunkingConfig(chunk_size=10000)
+    return cfg
+
+
+class ForwardSpy:
+    """Stands in for ``encode_tokens`` / ``rerank_scores`` in a module and
+    records the T of every call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.fn, self.ts = module, name, getattr(module, name), []
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def __call__(self, params, token_ids, *args, **kw):
+        self.ts.append(int(token_ids.shape[1]))
+        return self.fn(params, token_ids, *args, **kw)
+
+
+def forward_split(fn) -> dict[str, float]:
+    """One call's device time by kernel kind (torch.profiler): the blockwise
+    attention kernel, the GEMMs (cuBLAS) and the rest (elementwise, norms,
+    copies); ms each."""
+    split = {"attention kernel": 0.0, "GEMMs": 0.0, "elementwise and the rest": 0.0}
+    for name, (_, us) in device_kernels(fn, 1).items():
+        low = name.lower()
+        kind = ("attention kernel" if "attention_kernel" in low else
+                "GEMMs" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")) else
+                "elementwise and the rest")
+        split[kind] += us / 1e3
+    return split
+
+
+def check_ranking(got: list[tuple[str, float]], ref: list[tuple[str, float]], tol: float,
+                  what: str) -> float:
+    """The same items in the same order, but for a swap of two whose
+    reference scores lie within ``tol``; scores within ``tol``. Returns the
+    max score difference."""
+    scores = dict(ref)
+    err = 0.0
+    for (item, s), (want, ws) in zip(got, ref):
+        check(item in scores and np.isfinite(s), f"{what}: {item} is not among {list(scores)}")
+        err = max(err, abs(s - scores[item]))
+        check(item == want or abs(scores[item] - ws) <= tol,
+              f"{what}: {item} ranks where the reference has {want} ({scores[item]} vs {ws})")
+    check(err <= tol, f"{what}: scores differ by {err} > {tol}")
+    return err
+
+
+def bert_corpus(seed: int, smi: str) -> dict:
+    """4e: a BERT-base embedder and cross-encoder written from a seed,
+    served through ``EmbeddingConfig(provider="tpu", pretrained_dir=...)``
+    and ``TorchReranker.from_pretrained`` on the card, held against CPU f32
+    twins of the same checkpoints; then BERT-base throughput. Returns the
+    main path's blockwise launches and the max differences."""
+    import dataclasses
+
+    import youtu_rag_tpu_torch.models.embedder as embedder_mod
+    import youtu_rag_tpu_torch.models.encoder as encoder_mod
+    import youtu_rag_tpu_torch.models.reranker as reranker_mod
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import encode_tokens, rerank_scores
+    from youtu_rag_tpu_torch.models.reranker import TorchReranker
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    out, errs = {}, {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=repo) as root:
+        docs = os.path.join(root, "docs")
+        os.makedirs(docs)
+        write_bert_corpus(docs, seed)
+        files = sorted(os.path.join(docs, f) for f in os.listdir(docs))
+        texts = [open(p).read() for p in files] + [q for q, _ in QUERIES]
+        t0 = time.perf_counter()
+        vocab = bert_vocab(texts)
+        emb_dir, rr_dir = os.path.join(root, "bge-base"), os.path.join(root, "reranker-base")
+        write_bert_checkpoint(emb_dir, vocab, seed + 1, head=False, dtype="F32")
+        write_bert_checkpoint(rr_dir, vocab, seed + 2, head=True, dtype="BF16")
+        print(f"BERT-base checkpoints written (embedder F32, cross-encoder BF16; vocab.txt "
+              f"{len(vocab)} entries): {time.perf_counter() - t0:.1f} s")
+
+        # the CUDA KB through the user's entry points, the cross-encoder in its retriever
+        t0 = time.perf_counter()
+        kb = KnowledgeBase("smoke-bert", bert_config("smoke-bert", emb_dir), device="cuda")
+        rr = TorchReranker.from_pretrained(rr_dir, device="cuda")
+        for part in (kb, kb.retriever, kb.hybrid_retriever):
+            part.reranker = rr
+        cfg = kb.embedder.cfg
+        check(isinstance(kb.embedder, TorchEmbedder) and cfg.arch == "bert"
+              and cfg.attention_impl == "pallas" and cfg.pooling == "cls"
+              and cfg.dtype == torch.bfloat16 and cfg.gelu_approximate is False
+              and cfg.ln_eps == 1e-12 and (cfg.d_model, cfg.n_layers, cfg.n_heads) == (768, 12, 12),
+              f"the pretrained embedder's config: {cfg}")
+        check(rr.cfg.attention_impl == "pallas" and "score_head" in rr.params
+              and "pooler_w" in rr.params, "the cross-encoder's config or head")
+        reset_launches()
+        with ForwardSpy(embedder_mod, "encode_tokens") as fe, \
+                ForwardSpy(reranker_mod, "rerank_scores") as fr, \
+                LastCallOn(encoder_mod, "blockwise_attention") as attn:
+            status = asyncio.run(kb.build_files(files))
+            dense = [asyncio.run(kb.retriever.retrieve(q, top_k=len(files),
+                                                       similarity_threshold=0.0))
+                     for q, _ in QUERIES]
+            reranked = [asyncio.run(kb.retriever.retrieve(q, top_k=3, similarity_threshold=0.0,
+                                                          enable_reranking=True))
+                        for q, _ in QUERIES]
+            torch.cuda.synchronize()
+        counts = attention_counts()
+        t_card = time.perf_counter() - t0
+        check(status.status == "completed" and status.total_chunks == len(files),
+              f"bert KB build: {status.total_chunks} chunks, errors {status.errors}")
+        long_calls = sum(t >= 256 for t in fe.ts + fr.ts)
+        check(512 in fe.ts and 512 in fr.ts and min(fe.ts) < 256,
+              f"forward T buckets: embedder {fe.ts}, reranker {fr.ts}")
+        check(counts["blockwise_attention"] == cfg.n_layers * long_calls
+              and counts["flash_attention"] == 0,
+              f"attention launches {counts}: want {cfg.n_layers} x {long_calls} forwards at "
+              f"T >= 256 (embedder T {fe.ts}, reranker T {fr.ts})")
+        out["launches"] = counts["blockwise_attention"]
+        print(f"CUDA KB: {status.total_chunks} chunks; forwards: embedder T {fe.ts}, reranker "
+              f"T {fr.ts}; blockwise launches {counts['blockwise_attention']} = "
+              f"{cfg.n_layers} x {long_calls}; {t_card:.1f} s")
+
+        # G1: the stored embeddings (T = 512) against a CPU f32 twin
+        t0 = time.perf_counter()
+        twin = KnowledgeBase("smoke-bert-cpu", bert_config("smoke-bert-cpu", None), device="cpu")
+        cpu_emb = TorchEmbedder.from_pretrained(emb_dir, dtype=torch.float32, device="cpu")
+        serve_with(twin, cpu_emb)
+        asyncio.run(twin.build_files(files))
+        ref_dense = [asyncio.run(twin.retriever.retrieve(q, top_k=len(files),
+                                                         similarity_threshold=0.0))
+                     for q, _ in QUERIES]
+        vecs, ref_vecs = stored_vectors(kb), stored_vectors(twin)
+        check(vecs.keys() == ref_vecs.keys() and len(vecs) >= 16, "the bert KBs' chunks")
+        check(all(np.isfinite(v).all() for v in vecs.values()), "non-finite embeddings")
+        errs["embeddings"] = max(float(np.abs(v - ref_vecs[c]).max()) for c, v in vecs.items())
+        check(errs["embeddings"] <= ENC_TOL,
+              f"{len(vecs)} embeddings at T = 512 differ from the CPU f32 forward's by "
+              f"{errs['embeddings']} > {ENC_TOL}")
+        # G4: the dense ranking of every document, near-ties aside
+        for (query, _), got, ref in zip(QUERIES, dense, ref_dense):
+            errs["dense"] = max(errs.get("dense", 0.0), check_ranking(
+                [(h.chunk.document_id, h.score) for h in got],
+                [(h.chunk.document_id, h.score) for h in ref], ENC_TOL, f"dense {query!r}"))
+        print(f"  CPU f32 twin: {len(vecs)} stored embeddings within {errs['embeddings']:.3g} "
+              f"(ENC_TOL {ENC_TOL}); dense rankings within {errs['dense']:.3g}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # G2: the same CUDA forward with plain attention ("xla")
+        xla = TorchEmbedder(config=dataclasses.replace(cfg, attention_impl="xla"),
+                            params=kb.embedder.params, tokenizer=kb.embedder.tokenizer,
+                            device="cuda")
+        chunks = {c.id: c.content for c in kb.store.index._chunks if c}
+        ids = sorted(chunks)
+        plain_vecs = xla.embed_batch([chunks[c] for c in ids])
+        errs["xla"] = float(max(np.abs(plain_vecs[i] - vecs[c]).max() for i, c in enumerate(ids)))
+        check(np.isfinite(plain_vecs).all() and errs["xla"] <= ENC_TOL,
+              f"the forward with plain attention differs by {errs['xla']}")
+        q, k, v, bias = attn.args  # the last blockwise call of the path: the last reranker layer
+        mask = (bias == 0).float()
+        errs["attention"] = compare_attention(
+            encoder_mod._attention_core(q, k, v, mask, dataclasses.replace(rr.cfg,
+                                                                           attention_impl="pallas")),
+            encoder_mod._attention_core(q, k, v, mask, dataclasses.replace(rr.cfg,
+                                                                           attention_impl="xla")),
+            f"blockwise against plain attention on the path's [{', '.join(map(str, q.shape))}]")
+        print(f"  plain-attention ('xla') CUDA forward: embeddings within {errs['xla']:.3g}; the "
+              f"kernel's attention output within one bf16 ulp of plain attention "
+              f"({errs['attention']:.3g}) on the last layer's strided q, k, v")
+
+        # G3: the cross-encoder's scores on the path's candidates, against a CPU f32 twin
+        t0 = time.perf_counter()
+        rr_cpu = TorchReranker.from_pretrained(rr_dir, dtype=torch.float32, device="cpu")
+        for (query, _), ranked, final in zip(QUERIES, dense, reranked):
+            cands = ranked[: 2 * len(final)]  # the retriever's recall before the rerank
+            cand = [h.chunk.content for h in cands]
+            got, ref = rr.score(query, cand), rr_cpu.score(query, cand)
+            order = sorted(range(len(cand)), key=lambda i: -ref[i])
+            errs["rerank"] = max(errs.get("rerank", 0.0), check_ranking(
+                sorted([(i, got[i]) for i in range(len(cand))], key=lambda t: -t[1]),
+                [(i, ref[i]) for i in order], ENC_TOL, f"rerank {query!r}"))
+            by_content = {h.chunk.content: i for i, h in enumerate(cands)}
+            top = [by_content[h.chunk.content] for h in final]
+            check(top == sorted(range(len(cand)), key=lambda i: -got[i])[: len(top)],
+                  f"rerank {query!r}: the retriever's order is not its scores'")
+            print(f"  {query!r}: dense top {cands[0].chunk.document_id} ({cands[0].score:.5f}), "
+                  f"reranked top {final[0].chunk.document_id} ({final[0].score:.4f}; CPU "
+                  f"{ref[top[0]]:.4f})")
+        print(f"  cross-encoder scores within {errs['rerank']:.3g} of the CPU f32 twin's "
+              f"(ENC_TOL), the same order where they are further apart; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # throughput: B = 128, T = 512 embeddings; B = 64, T = 512 pairs
+        rng = np.random.default_rng(seed + 12)
+        words = np.array([w for w in vocab[len(BERT_SPECIAL):] if w.isalpha() and len(w) > 1])
+        big = [" ".join(rng.choice(words, size=600)) for _ in range(128)]
+        emb = kb.embedder
+        emb.embed_batch(big[:8])  # warm-up
+        t0 = time.perf_counter()
+        tok_ids, tok_mask = emb.tokenizer.batch(big)
+        t_tok = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        vec = emb.embed_batch(big)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_bw = attention_counts()["blockwise_attention"]
+        check(vec.shape == (128, 768) and np.isfinite(vec).all() and n_bw == cfg.n_layers,
+              f"B = 128 embed: {vec.shape}, {n_bw} blockwise launches")
+        check(tok_ids.shape == (128, 512), f"B = 128 batch: {tok_ids.shape}")
+        ids_d, mask_d = torch.from_numpy(tok_ids).cuda(), torch.from_numpy(tok_mask).cuda()
+        fwd = lambda: encode_tokens(emb.params, ids_d, mask_d, cfg)  # noqa: E731
+        fwd_ms = time_ms(fwd, bursts=3, burst=3, warmup=1)
+        split = forward_split(fwd)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        real = encoder_mod.blockwise_attention
+        encoder_mod.blockwise_attention = lambda q, k, v, b: sdpa(  # noqa: E731
+            q, k, v, attn_mask=torch.clamp_min(b, -1e30).to(q.dtype)[:, None, None, :])
+        try:
+            sdpa_ms = time_ms(fwd, bursts=3, burst=3, warmup=1)
+        finally:
+            encoder_mod.blockwise_attention = real
+        out["embed"] = {"fwd_ms": fwd_ms, "wall_ms": wall * 1e3, "tok_ms": t_tok * 1e3,
+                        "sdpa_ms": sdpa_ms, "split": split}
+        path = "pure-Python" if emb.tokenizer._fast is None else "tokenizers"
+        print(f"BERT-base embeddings, B = 128, T = 512 [{smi}]: forward {fwd_ms:.4f} ms device "
+              f"({128 / fwd_ms * 1e3:.1f} embeddings/s); embed_batch {wall * 1e3:.1f} ms wall "
+              f"({128 / wall:.1f} embeddings/s; WordPiece alone, {path} path, "
+              f"{t_tok * 1e3:.1f} ms); the forward with SDPA in the kernel's place "
+              f"{sdpa_ms:.4f} ms")
+        total = sum(split.values())
+        print("  forward split (torch.profiler, one call): " + ("; ".join(
+            f"{kind} {ms:.4f} ms ({ms / total:.0%})" for kind, ms in split.items())
+            + f"; {total:.4f} ms of kernels" if total else "no device events recorded"))
+        pairs = [" ".join(rng.choice(words, size=600)) for _ in range(64)]
+        rr.score(QUERIES[0][0], pairs[:8])  # warm-up
+        reset_launches()
+        t0 = time.perf_counter()
+        scores = rr.score(QUERIES[0][0], pairs)
+        torch.cuda.synchronize()
+        r_wall = time.perf_counter() - t0
+        n_bw = attention_counts()["blockwise_attention"]
+        check(len(scores) == 64 and np.isfinite(scores).all() and n_bw == rr.cfg.n_layers,
+              f"B = 64 rerank: {n_bw} blockwise launches")
+        p_ids, p_mask, p_types = (torch.from_numpy(a).cuda()
+                                  for a in rr._bucket(pairs, QUERIES[0][0]))
+        check(tuple(p_ids.shape) == (64, 512), f"B = 64 pairs: {tuple(p_ids.shape)}")
+        r_ms = time_ms(lambda: rerank_scores(rr.params, p_ids, p_mask, rr.cfg, type_ids=p_types),
+                       bursts=3, burst=3, warmup=1)
+        out["rerank"] = {"fwd_ms": r_ms, "wall_ms": r_wall * 1e3}
+        print(f"BERT-base cross-encoder, B = 64 pairs, T = 512 [{smi}]: {r_ms:.4f} ms device "
+              f"({64 / r_ms * 1e3:.1f} pairs/s); score() {r_wall * 1e3:.1f} ms wall "
+              f"({64 / r_wall:.1f} pairs/s, WordPiece included)")
+    out["errs"] = errs
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -2248,6 +2777,21 @@ class LastCall:
         return self.fn(q, k, v, bias)
 
 
+class LastCallOn(LastCall):
+    """``LastCall`` in place of ``module.name`` for a ``with`` block."""
+
+    def __init__(self, module, name: str):
+        super().__init__(getattr(module, name))
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
 def drive_capturing(embedder, texts: list[str], name: str):
     """``embedder.embed_batch(texts)`` with the launch counts set to 0 just
     before and read just after; returns (embeddings, counts, the last
@@ -2566,6 +3110,9 @@ def main() -> int:
     phase("3c kernel vs plain, IVF")
     err3c = ivf_kernel_cases(args.seed)
 
+    phase("3f kernel vs plain, IVF: any block_rows and alignment, wide rows")
+    err3f = ivf_repair_cases(args.seed)
+
     phase("3d kernel vs plain, per-block")
     err3d = blocks_kernel_cases(args.seed)
 
@@ -2580,6 +3127,9 @@ def main() -> int:
 
     phase("4d main path, small corpus, long documents")
     long4d = long_corpus(args.seed, enc["embedder"])
+
+    phase("4e main path, small corpus, a pretrained BERT-family checkpoint")
+    bert4e = bert_corpus(args.seed, smi)
 
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
@@ -2622,8 +3172,11 @@ def main() -> int:
             "route": "cuda",
             "source": "youtu_rag_tpu_torch/csrc/attention.cu",
             "replaces": REPLACES[kname],
-            "launches": enc["launches"][kname] + f["launches"],
-            "max_abs_err": max(err3b[kname], f["err"]),
+            "launches": (enc["launches"][kname] + f["launches"]
+                         + (bert4e["launches"] if kname == "blockwise_attention" else 0)),
+            "max_abs_err": max(err3b[kname], f["err"],
+                               bert4e["errs"]["attention"] if kname == "blockwise_attention"
+                               else 0.0),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -2639,7 +3192,7 @@ def main() -> int:
                        else "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh"),
             "replaces": REPLACES[kname],
             "launches": launches4c[tier] + f["launches"],
-            "max_abs_err": max(err3c[tier], err3x[kname], err4c[tier], f["err"]),
+            "max_abs_err": max(err3c[tier], err3x[kname], err3f[kname], err4c[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -2656,7 +3209,7 @@ def main() -> int:
                        else "youtu_rag_tpu_torch/csrc/topk_blocks.cu"),
             "replaces": REPLACES[kname],
             "launches": f["launches"],
-            "max_abs_err": max(err3d[kname], err3x[kname], f["err"]),
+            "max_abs_err": max(err3d[kname], err3x[kname], err3f.get(kname, 0.0), f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -2676,7 +3229,8 @@ def main() -> int:
         "bound_by": ring["bound_by"],
         "library_ms": ring["library_ms"],
     })
-    print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}")
+    print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}; BERT-base "
+          f"(4e): {bert4e['errs']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

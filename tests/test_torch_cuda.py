@@ -466,6 +466,41 @@ def test_committed_encoder_on_the_card_ranks_like_the_cpu(cuda_device):
     assert scores[0] > scores[1] > scores[2]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["embedder", "reranker"])
+def test_pretrained_bert_on_the_card_matches_the_cpu(cuda_device, tmp_path, kind):
+    """A BERT-family checkpoint (hd 64) served on the card from_pretrained:
+    bf16 with the blockwise kernel at T >= 256 (n_layers launches per such
+    forward, none below), within 3e-2 (the JAX package's bf16 encoder
+    tolerance) of the CPU f32 forward of the same checkpoint."""
+    from torch_bert_checkpoint import VOCAB, write_bert_dir
+
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.models.reranker import TorchReranker
+
+    d = write_bert_dir(tmp_path / kind, hidden=128, layers=2, heads=2, inter=256, max_pos=512,
+                       num_labels=1 if kind == "reranker" else None,
+                       pooling="cls" if kind == "embedder" else None)
+    rng = np.random.default_rng(0)
+    words = VOCAB[5:]
+    long = [" ".join(rng.choice(words, size=int(n))) for n in (300, 420, 600)]
+    short = ["the quick brown fox", "中国人 hello"]
+    cls = TorchEmbedder if kind == "embedder" else TorchReranker
+    card = cls.from_pretrained(d, device=cuda_device)
+    cpu = cls.from_pretrained(d, dtype=torch.float32, device="cpu")
+    assert card.cfg.attention_impl == "pallas" and card.cfg.dtype == torch.bfloat16
+    for texts, want_launches in ((long, card.cfg.n_layers), (short, 0)):
+        before = blockwise_attention.launches
+        if kind == "embedder":
+            got, want = card.embed_batch(texts), cpu.embed_batch(texts)
+        else:
+            got, want = (np.asarray(m.score("quick fox", texts)) for m in (card, cpu))
+        torch.cuda.synchronize()
+        assert blockwise_attention.launches - before == want_launches
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=0, atol=3e-2)
+
+
 IVF = {
     "bf16": (None, ivf_topk_dma, ivf_topk_dma_reference),
     "int8": (quantize_rows_int8, ivf_topk_int8_dma, ivf_topk_int8_dma_reference),
@@ -640,7 +675,7 @@ def test_ivf_kernel_launches_per_query_tile(cuda_device, tier, q):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tier", list(IVF))
 def test_ivf_kernel_rejects_out_of_contract(cuda_device, tier):
-    quantize, kernel, _ = IVF[tier]
+    quantize, kernel, plain = IVF[tier]
     qs, x, bias = make_inputs(3, 256, seed=0)
     xt, extra = torch.from_numpy(x).to(cuda_device), ()
     if quantize is None:
@@ -649,20 +684,129 @@ def test_ivf_kernel_rejects_out_of_contract(cuda_device, tier):
         xt, xs = quantize(xt)
         extra = (xs,)
     qd, bd = torch.from_numpy(qs).to(cuda_device), torch.from_numpy(bias).to(cuda_device)
+    ids, nv = ivf_plan(62, 8, 4, seed=0, device=cuda_device)
+    # JAX asks only that block_rows divide the rows: 66 (not a multiple of
+    # 4) over 4092 rows, and a bias one element in, answer as the plain
+    # version does
+    n66 = 66 * 62
+    shifted = torch.zeros(n66 + 1, device=cuda_device)[1:]
+    shifted.copy_(bd[:n66])
+    args = (qd, xt[:n66], *(e[:n66] for e in extra), shifted, ids, nv, 10)
+    got = kernel(*args, block_rows=66)
+    torch.cuda.synchronize()
+    assert_ivf_equal(tier, got, plain(*args, block_rows=66))
     ids, nv = ivf_plan(64, 8, 4, seed=0, device=cuda_device)
     with pytest.raises(ValueError):
-        kernel(qd, xt, *extra, bd, ids, nv, 10, block_rows=66)  # not a multiple of 4
+        kernel(qd, xt, *extra, bd, ids, nv, 10, block_rows=66)  # does not divide 4096
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, ids.long(), nv, 10, block_rows=64)
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, ids, nv.cpu(), 10, block_rows=64)
     with pytest.raises(ValueError):
         kernel(qd, xt, *extra, bd, ids, nv, 0, block_rows=64)
-    if tier != "int4":  # the bulk copies read the bias in 16-byte units
-        shifted = torch.zeros(bd.numel() + 1, device=cuda_device)[1:]
-        shifted.copy_(bd)
-        with pytest.raises(ValueError):
-            kernel(qd, xt, *extra, shifted, ids, nv, 10, block_rows=64)
+
+
+def _offset(t):
+    """A copy of ``t`` that starts one element (4 bytes) past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("tier", list(IVF))
+@pytest.mark.parametrize("block_rows", [1, 2, 6, 66, 1026])
+def test_ivf_kernel_takes_any_block_rows_and_alignment(cuda_device, tier, block_rows, offset):
+    """The three DMA entries at block_rows off 4-row boundaries and with
+    bias and scales 4 bytes past a 16-byte boundary, k up to block_rows:
+    the plain version's answer (bf16 within TOL, int8/int4 bit-equal)."""
+    quantize, kernel, plain = IVF[tier]
+    n = block_rows * max(8, 8208 // block_rows)
+    qt, xt, extra, bias = ivf_inputs(tier, 9, block_rows, cuda_device, n)
+    if offset:
+        bias, extra = _offset(bias), tuple(_offset(e) for e in extra)
+    n_blocks = n // block_rows
+    ids, nv = ivf_plan(n_blocks, n_blocks, n_blocks // 2, seed=block_rows, device=cuda_device,
+                       block_rows=block_rows)
+    for k in sorted({1, min(10, block_rows), block_rows}):
+        args = (qt, xt, *extra, bias, ids, nv, k)
+        got = kernel(*args, block_rows=block_rows)
+        torch.cuda.synchronize()
+        assert_ivf_equal(tier, got, plain(*args, block_rows=block_rows))
+
+
+C2_WIDTHS = (128, 768, 1024, 2048, 4096, 8192)
+C2_KS = (1, 10, 128, 1024, 2048, 4096)
+TMA_ENTRIES = {"ivf_topk_bf16": ivf_topk_dma, "ivf_topk_int8": ivf_topk_int8_dma,
+               "ivf_blocks_bf16": ivf_topk, "ivf_blocks_int8": ivf_topk_int8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(TMA_ENTRIES))
+def test_ivf_scan_has_a_plan_for_every_width_and_k(cuda_device, entry):
+    """Every (d, k) of the grid has a shared-memory plan and a CTA fits an
+    SM (csrc/ivf_scan_tma.cuh, make_plan); at d = 768 the plans the
+    adaptive-plan searches use are the narrow ones."""
+    from youtu_rag_tpu_torch.ops.ivf import _ctas_per_sm, scan_plan
+
+    for d in C2_WIDTHS:
+        for k in C2_KS:
+            rows, stages, _, wide = scan_plan(entry, d, k)
+            assert rows > 0 and stages > 0, (d, k)
+            assert _ctas_per_sm(entry, d, k) >= 1, (d, k)
+            assert not wide or (entry.endswith("bf16") and d > 4096), (d, k)
+    assert scan_plan(entry, 768, 10)[:2] == (32, 4) and not any(scan_plan(entry, 768, 10)[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, k", [(4096, 1024), (8192, 1024), (8192, 10), (4096, 4096),
+                                  (8192, 4096), (2048, 2048), (128, 4096)])
+@pytest.mark.parametrize("entry", list(TMA_ENTRIES))
+def test_ivf_kernel_answers_wide_rows_and_large_k(cuda_device, entry, d, k):
+    """Where the lists or the query tile outgrow shared memory (device
+    lists, the wide plan): the plain version's answer on two probed blocks
+    of 4096 rows (bf16 within TOL, a row giving way to one whose plain
+    score is within TOL; int8 bit-equal; every slot no live row fills as
+    the plain version's)."""
+    kernel = TMA_ENTRIES[entry]
+    plain = {ivf_topk_dma: ivf_topk_dma_reference, ivf_topk_int8_dma: ivf_topk_int8_dma_reference,
+             ivf_topk: ivf_topk_reference, ivf_topk_int8: ivf_topk_int8_reference}[kernel]
+    g = torch.Generator(device=cuda_device).manual_seed(d + k)
+    n, br = 3 * 4096, 4096
+    x = torch.randn(n, d, generator=g, device=cuda_device)
+    x /= x.norm(dim=1, keepdim=True)
+    qd = torch.randn(9, d, generator=g, device=cuda_device)
+    qd /= qd.norm(dim=1, keepdim=True)
+    bias = torch.zeros(n, device=cuda_device)
+    bias[::5] = NEG_INF
+    bias[7::13] = float("-inf")
+    if entry.endswith("bf16"):
+        xt, extra = x.to(torch.bfloat16), ()
+    else:
+        xq, xs = quantize_rows_int8(x)
+        xt, extra = xq, (xs,)
+    ids = torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda_device)
+    args = (qd, xt, *extra, bias, ids, torch.tensor(2, dtype=torch.int32, device=cuda_device), k)
+    before = kernel.launches
+    gs, gi = kernel(*args, block_rows=br)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ws, wi = plain(*args, block_rows=br)
+    gs, gi, ws, wi = (a.cpu() for a in (gs, gi, ws, wi))
+    assert not torch.isnan(gs).any()
+    live = ws > NEG_INF / 2
+    assert torch.equal(gs > NEG_INF / 2, live)
+    assert torch.equal(gi[~live], wi[~live])
+    assert torch.equal(gs[~live].view(torch.int32), ws[~live].view(torch.int32))
+    if entry.endswith("int8"):
+        assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+        return
+    torch.testing.assert_close(gs[live], ws[live], rtol=0, atol=TOL)
+    full = (qd.to(torch.bfloat16).float() @ xt.float().T + bias).cpu()
+    swapped = live & (gi != wi)
+    rows = torch.arange(gs.shape[0])[:, None].expand(-1, k)
+    assert ((full[rows[swapped], gi[swapped].long()] - ws[swapped]).abs() <= TOL).all()
 
 
 @pytest.mark.cuda

@@ -198,11 +198,18 @@ def test_converter_rejects_a_tree_the_config_does_not_give():
 
 
 def test_bert_arch_waits_for_a_later_slice():
-    cfg = port_encoder.EncoderConfig(arch="bert")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_encoder.init_encoder_params(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_encoder.encode_tokens({}, torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 4), cfg)
+    """The bert arch has landed (``tests/test_torch_pretrained.py`` holds it
+    against the JAX package): a seeded bert trunk has the JAX tree's shapes
+    and encodes; an arch neither package knows raises."""
+    cfg = port_encoder.EncoderConfig(arch="bert", **SMALL)
+    params = port_encoder.init_encoder_params(cfg, torch.Generator().manual_seed(0))
+    jtree = jax_encoder.init_encoder_params(jax_encoder.EncoderConfig(arch="bert", **SMALL))
+    assert jax.tree.map(np.shape, jtree) == jax.tree.map(lambda t: tuple(t.shape), params)
+    emb, cls = port_encoder.encode_tokens(params, torch.zeros(1, 4, dtype=torch.int32),
+                                          torch.ones(1, 4), cfg)
+    assert emb.shape == cls.shape == (1, SMALL["d_model"])  # no out_proj: the pooled width
+    with pytest.raises(ValueError, match="arch"):
+        port_encoder.init_encoder_params(dataclasses.replace(cfg, arch="t5"))
 
 
 TEXTS = [
@@ -277,9 +284,17 @@ def test_committed_model_ranks_the_exact_identifier(yrt_embedders, impl):
 
 
 def test_weights_dir_with_a_vocabulary_waits_for_wordpiece(tmp_path):
-    (tmp_path / "vocab.txt").write_text("[PAD]\n")
-    with pytest.raises(NotImplementedError, match="WordPiece"):
-        TorchEmbedder.from_weights_dir(tmp_path, device="cpu")
+    """WordPiece has landed: a weights dir with a vocab.txt tokenizes with it
+    (``tests/test_torch_pretrained.py`` holds the embeddings against JAX)."""
+    from youtu_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    jcfg, tcfg = configs(vocab_size=16)
+    jax_encoder.save_params_npz(jax_encoder.init_encoder_params(jcfg), tmp_path / "encoder_params.npz")
+    jax_encoder.save_encoder_config(jcfg, tmp_path / "encoder_config.json")
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\nfox\n")
+    emb = TorchEmbedder.from_weights_dir(tmp_path, device="cpu")
+    assert isinstance(emb.tokenizer, WordPieceTokenizer) and emb.cfg == tcfg
+    assert emb.tokenizer.encode("fox wolf") == [2, 4, 1, 3]
 
 
 def test_default_embedder_is_the_full_width_encoder():

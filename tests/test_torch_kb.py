@@ -283,17 +283,20 @@ def test_kb_surface(kbs):
 
 
 def test_unported_providers_raise():
+    """Every provider is ported now: what raises is what the JAX package
+    raises (a missing checkpoint, a remote provider without a URL)."""
     from youtu_rag_tpu_torch.core.config import EmbeddingConfig, RerankerConfig
-    from youtu_rag_tpu_torch.models.reranker import RerankerFactory
+    from youtu_rag_tpu_torch.models.embedder import RemoteEmbedder
+    from youtu_rag_tpu_torch.models.reranker import RemoteReranker, RerankerFactory
 
-    with pytest.raises(NotImplementedError, match="pretrained_dir"):
+    with pytest.raises(FileNotFoundError):
         EmbedderFactory.create(EmbeddingConfig(provider="tpu", pretrained_dir="/nowhere"),
                                device="cpu")
     for provider in ("openai", "service"):
-        with pytest.raises(NotImplementedError, match=provider):
-            EmbedderFactory.create(EmbeddingConfig(provider=provider, base_url="http://x"))
-    with pytest.raises(NotImplementedError):
-        RerankerFactory.create(RerankerConfig(provider="tpu"))
+        emb = EmbedderFactory.create(EmbeddingConfig(provider=provider, base_url="http://x"))
+        assert isinstance(emb, RemoteEmbedder)
+    assert isinstance(RerankerFactory.create(RerankerConfig(provider="jina", base_url="http://x")),
+                      RemoteReranker)
     assert RerankerFactory.create(RerankerConfig(provider="none")) is None
 
 

@@ -13,7 +13,9 @@ Subpackages
 core        data model + config tree
 ops         kernel wrappers, their plain versions, the CUDA builder
 index       device vector index, metadata columns, filter compiler
-models      hash embedder, lexical reranker, hashing tokenizer
+models      embedders (hash, encoder, pretrained BERT, remote), rerankers
+            (cross-encoder, lexical, remote), tokenizers (hashing, WordPiece),
+            the encoder trunk and the checkpoint loader
 ingest      loaders, chunkers, knowledge builder
 retrieval   vector store, retrievers, context assembly, knowledge base
 tracing     in-process span tracer

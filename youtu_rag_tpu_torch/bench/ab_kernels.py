@@ -77,11 +77,13 @@ def short_kernel_name(mangled: str) -> str:
         k_class = ("k <= 128", "k <= 1024", "k > 1024")[int(m.group(2))]
         return (f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}, "
                 f"blocks={m.group(4)}>")
-    m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E(?:Lb([01])E)?", mangled)
+    m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E(?:Lb([01])E)?(?:Lb([01])E)?",
+                  mangled)
     if m:
-        k_class = ("k <= 128", "k <= 1024", "k > 1024", "k <= 32")[int(m.group(3))]
+        k_class = ("k <= 128", "k <= 1024", "device lists", "k <= 32")[int(m.group(3))]
         contract = ", per-block" if m.group(4) == "1" else ""
-        return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}{contract}>"
+        wide = ", wide" if m.group(5) == "1" else ""
+        return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}{contract}{wide}>"
     return "topk_merge_kernel" if "topk_merge_kernel" in mangled else mangled
 
 

@@ -9,8 +9,8 @@ each query read from standard input:
         --weights-dir benchmarks/models/yrt_tiny_lex
 
 The KB runs on the CUDA card unless ``--device`` names another device.
-Agentic mode (an LLM answering through KB-search tools) waits for the
-agents slice (ROADMAP Queue A 10)."""
+Agentic mode (an LLM answering through KB-search tools) and the LLM flags
+wait for the local-LLM and agents slices (ROADMAP Queue A 5 and 6)."""
 
 from __future__ import annotations
 
@@ -24,9 +24,10 @@ import sys
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m youtu_rag_tpu_torch.cli_chat")
     p.add_argument("--paths", nargs="+", required=True, help="files/dirs/globs to index")
-    p.add_argument("--provider", default="hash", choices=["hash", "tpu"],
-                   help="embedding provider: 'hash', or 'tpu' for the repo's encoder "
-                   "on the KB's device (the remote providers are not ported)")
+    p.add_argument("--provider", default="hash", choices=["hash", "tpu", "openai", "service"],
+                   help="embedding provider: 'hash'; 'tpu' for the repo's encoder on the "
+                   "KB's device; 'openai' or 'service' for a remote endpoint "
+                   "(YRT_EMBEDDING_URL / YRT_EMBEDDING_API_KEY)")
     p.add_argument("--weights-dir", default=None,
                    help="provider tpu: train_embedder output dir (e.g. the committed "
                    "benchmarks/models/yrt_tiny_lex lexical-residual encoder)")

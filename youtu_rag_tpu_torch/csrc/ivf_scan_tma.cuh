@@ -12,7 +12,8 @@
 //  - rows: the stored rows of blocks ids[0 .. n_valid), block b covering
 //    rows [b * block_rows, (b + 1) * block_rows); n_valid is read on the
 //    device and clamped to [0, max_blocks]; ids past it are never read;
-//    block_rows a multiple of 4, bias and scales 16-byte aligned;
+//    any block_rows that divides n, bias and scales at any 4-byte alignment
+//    (JAX asserts only n % block_rows == 0 and d % 128 == 0);
 //  - scores: bf16 f32(bf16 q) . f32(x) + bias, summed in f32 (in another
 //    order than the plain version's matmul); int8 the exact integer dot of
 //    the queries quantized as quantize_rows_int8 does (below) with the
@@ -23,8 +24,7 @@
 //
 // Per-block contract (kProbe; pallas_ivf_topk and pallas_ivf_topk_int8
 // merged, as ops/ivf.py's _probed_blocks + merge_blocks compute it):
-//  - rows and scores as above, any block_rows that divides n (bias and
-//    scales at any 4-byte alignment);
+//  - rows and scores as above;
 //  - order (score desc, probe position i asc, row in block asc), that is
 //    (score desc, virtual row v asc): the lists hold v, and the output maps
 //    v to its stored row ids[v / block_rows] * block_rows + v % block_rows;
@@ -53,13 +53,13 @@
 //     flight, so a CTA whose SM streams faster takes more and the CTAs
 //     finish together.
 //  2. A ring of S stages of R rows (R 32 or 16, S up to 4; the host picks
-//     them from d and k: int8 at d = 768 holds 4 x 32 rows, 99 KB in
-//     flight per CTA). Thread 0 fills a stage with 1-D bulk copies
+//     them from d and k, 9. below: int8 at d = 768 holds 4 x 32 rows, 99 KB
+//     in flight per CTA). Thread 0 fills a stage with 1-D bulk copies
 //     (cp.async.bulk, completing on the stage's mbarrier): per run of rows
 //     inside one block, the rows, their bias and (int8) their scales. A
-//     stage may hold rows of several blocks (block_rows 4, 8, 12); every run
-//     starts and ends on a multiple of 4 rows, so each copy is a multiple of
-//     16 bytes. The first S stages go out once the query prep's loads are
+//     stage may hold rows of several blocks (block_rows 4, 8, 12); where
+//     block_rows is a multiple of 4 every run starts and ends on a multiple
+//     of 4 rows, so each copy is a multiple of 16 bytes (else 8.). The first S stages go out once the query prep's loads are
 //     out (they would otherwise wait behind the ring in the memory queues);
 //     stage i + S goes out as soon as every warp has passed stage i's
 //     barrier, by which point its rows are scored and its bias and scales
@@ -104,15 +104,25 @@
 //     scans v < 2 * block_rows, each selecting warp records its query's
 //     lowest column scoring >= NEG_INF of positions 0 and 1 (a ballot, then
 //     an atomicMax of block_rows - column, 0 meaning none, in counters the
-//     launch's memset zeroes). Where block_rows % 4 != 0 or bias or scales
-//     start off a 16-byte boundary, thread 0 copies the bias and scales of
-//     a stage element by element (4-byte cp.async, arriving on the stage's
-//     barrier, which then counts two arrivals); the rows go by bulk copies
-//     as before (d % 128 == 0 keeps every row a 16-byte multiple).
+//     launch's memset zeroes).
 //     This replaces topk_blocks.cu's design for the merged call (one CTA
 //     per listed block and 8 queries, most of them past n_valid and idle,
 //     each valid one streaming its block alone; k_pad candidates per block
 //     and query written to device memory; a torch sort to merge them).
+//  8. Both contracts: where block_rows % 4 != 0 or bias or scales start off
+//     a 16-byte boundary, thread 0 copies the bias and scales of a stage
+//     element by element (4-byte cp.async, arriving on the stage's barrier,
+//     which then counts two arrivals); the rows go by bulk copies as before
+//     (d % 128 == 0 keeps every row a 16-byte multiple).
+//  9. Any d and k (make_plan). The query tile (16d bytes bf16, 8d int8),
+//     the lists (64k bytes) and at least one stage (R (2d + 8) bytes) share
+//     one CTA's 232,448 bytes. A plan first keeps the lists in shared memory
+//     (the shapes of 2.), then in device memory (kListDevice, which k >
+//     1024 takes anyway); past that (bf16 from d ~ 4,700) the wide plan
+//     (kWide) reads the query tile from device memory, bf16 as the caller
+//     gives it (the wrapper casts), and may stage 8 rows (rows g + 8 of the
+//     m16 step repeat rows g and are never selected). A wide plan scores at
+//     the rate of its one or two stages in flight: it answers, slowly.
 //
 // Bound: HBM reads of the probed rows (2d or d bytes each, plus 4 or 8 of
 // bias and scale), once per 8-query tile.
@@ -231,19 +241,25 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 // 2t + (e & 1). Chunk c of a row belongs to quarter c / 4 % 4; lane t takes
 // c = 4 quarter + t + 16 i. Two mma steps per chunk: words 0 and 1, then 2
 // and 3, as the two k groups of the step (A and B alike).
-template <typename Acc, void (*Mma)(Acc (&)[4], const uint32_t (&)[4], const uint32_t (&)[2])>
+// kWide: the query tile lies in device memory with q_valid rows (lanes of
+// the rows past it read the last one, whose dots are never selected), and
+// the group's second 8 rows are rows g + hi (hi 0: an 8-row stage).
+template <typename Acc, void (*Mma)(Acc (&)[4], const uint32_t (&)[4], const uint32_t (&)[2]),
+          bool kWide = false>
 __device__ __forceinline__ void quarter_dots(const unsigned char* qt, int q_row,
                                              const unsigned char* rows, int row_bytes, int chunks,
-                                             int quarter, int lane, Acc (&acc)[4]) {
+                                             int quarter, int lane, Acc (&acc)[4],
+                                             int q_valid = kQT, int hi = 8) {
   const int g = lane >> 2, t = lane & 3;
   const uint4* ra = reinterpret_cast<const uint4*>(rows + (size_t)g * row_bytes);
-  const uint4* rb = reinterpret_cast<const uint4*>(rows + (size_t)(g + 8) * row_bytes);
-  const uint4* qg = reinterpret_cast<const uint4*>(qt + (size_t)g * q_row);
+  const uint4* rb = reinterpret_cast<const uint4*>(rows + (size_t)(g + (kWide ? hi : 8)) * row_bytes);
+  const uint4* qg =
+      reinterpret_cast<const uint4*>(qt + (size_t)(kWide ? min(g, q_valid - 1) : g) * q_row);
   const uint4 zero = make_uint4(0, 0, 0, 0);
   for (int c0 = 4 * quarter; c0 < chunks; c0 += 16) {  // warp-uniform
     const int c = c0 + t;
     const uint4 xa = c < chunks ? ra[c] : zero, xb = c < chunks ? rb[c] : zero;
-    const uint4 xq = c < chunks ? qg[c] : zero;
+    const uint4 xq = c < chunks ? (kWide ? __ldg(qg + c) : qg[c]) : zero;
     {
       const uint32_t a[4] = {xa.x, xb.x, xa.y, xb.y};
       const uint32_t b[2] = {xq.x, xq.y};
@@ -314,9 +330,12 @@ struct Bf16 {
     loaded();
   }
 
+  template <bool kWide = false>
   static __device__ __forceinline__ void dots(const unsigned char* qt, const unsigned char* rows,
-                                              int d, int quarter, int lane, float (&acc)[4]) {
-    quarter_dots<float, mma_bf16>(qt, 2 * d, rows, 2 * d, d / 8, quarter, lane, acc);
+                                              int d, int quarter, int lane, float (&acc)[4],
+                                              int q_valid = kQT, int hi = 8) {
+    quarter_dots<float, mma_bf16, kWide>(qt, 2 * d, rows, 2 * d, d / 8, quarter, lane, acc,
+                                         q_valid, hi);
   }
   static __device__ __forceinline__ float to_f32(float s) { return s; }
 };
@@ -408,36 +427,42 @@ struct Int8 {
     return (uint32_t)(int)fminf(fmaxf(rintf(y), -127.f), 127.f) & 0xffu;
   }
 
+  template <bool kWide = false>  // no wide plan (the tile fits up to d = 8192)
   static __device__ __forceinline__ void dots(const unsigned char* qt, const unsigned char* rows,
-                                              int d, int quarter, int lane, int (&acc)[4]) {
+                                              int d, int quarter, int lane, int (&acc)[4],
+                                              int = kQT, int = 8) {
+    static_assert(!kWide, "int8 has no wide plan");
     quarter_dots<int, mma_s8>(qt, d, rows, d, d / 16, quarter, lane, acc);
   }
   static __device__ __forceinline__ float to_f32(int s) { return __int2float_rn(s); }
 };
 
 // Stage geometry and shared-memory layout, the same on host and device.
-// Shared memory: S mbarriers | query tile | qscale f32 [kQT] | partial
-// dots [2, kQuarters, kQT, 32] (T::Acc) | lists (k scores, k rows per
-// query; not for kListDevice) | S stages of R rows, R biases and R scales.
+// Shared memory: S mbarriers | query tile (not for a wide plan) | qscale
+// f32 [kQT] | partial dots [2, kQuarters, kQT, 32] (T::Acc) | lists (k
+// scores, k rows per query; not for device lists) | S stages of R rows,
+// R biases and R scales.
 // The last CTA's merge reuses everything past the mbarriers: per query
 // the windows' scores [n_cta, W] and rows [n_cta, W] (n_cta counted up to
 // a multiple of 4).
 template <class T>
 struct Plan {
-  int rows;    // R, rows per stage: 32 or 16
+  int rows;    // R, rows per stage: 32 or 16 (a wide plan also 8)
   int stages;  // S
   int row_bytes, d, k;
-  int window;  // W, entries per list in the merge's windows (set at launch)
+  int window;     // W, entries per list in the merge's windows (set at launch)
+  int dev_lists;  // the lists in device memory (kListDevice)
+  int wide;       // the query tile in device memory (kWide)
 
   __host__ __device__ size_t barriers() const { return 16 * ((8 * stages + 15) / 16); }
   __host__ __device__ size_t q_off() const { return barriers(); }
-  __host__ __device__ size_t qscale_off() const { return q_off() + T::q_bytes(d); }
+  __host__ __device__ size_t qscale_off() const { return q_off() + (wide ? 0 : T::q_bytes(d)); }
   __host__ __device__ size_t parts_off() const { return qscale_off() + sizeof(float) * kQT; }
   __host__ __device__ size_t lists_off() const {
     return parts_off() + sizeof(typename T::Acc) * 2 * kQuarters * kQT * kMaxRows;
   }
   __host__ __device__ size_t ring_off() const {
-    const size_t lists = list_kind(k) == kListDevice ? 0 : (size_t)kQT * k * 8;
+    const size_t lists = dev_lists ? 0 : (size_t)kQT * k * 8;
     return 16 * ((lists_off() + lists + 15) / 16);
   }
   // a stage: rows, then biases, then scales (every part a multiple of 16 bytes)
@@ -454,15 +479,25 @@ struct Plan {
 
 // R and S for width d and top-k k: the first of 4 x 32, 3 x 32, 2 x 32,
 // 4 x 16, 3 x 16, 2 x 16, 1 x 32, 1 x 16 rows that fits (the merge at a
-// window of 4); rows = 0 if none does.
+// window of 4) with the lists in shared memory (k <= 1024), then with the
+// lists in device memory, then (bf16) the same and 4, 3, 2 and 1 x 8 as
+// a wide plan (9. above); rows = 0 if none does.
 template <class T>
 Plan<T> make_plan(int d, int k, int max_cta) {
-  const int shapes[][2] = {{32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3}, {16, 2}, {32, 1}, {16, 1}};
-  for (const auto& rs : shapes) {
-    const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4};
-    if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
-  }
-  return Plan<T>{0, 1, T::row_bytes(d), d, k, 4};
+  const int shapes[][2] = {{32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3}, {16, 2}, {32, 1}, {16, 1},
+                           {8, 4},  {8, 3},  {8, 2},  {8, 1}};
+  const int n_narrow = 8;  // the shapes a plan with the query tile in shared memory takes
+  for (int dev = list_kind(k) == kListDevice; dev <= 1; ++dev)
+    for (int s = 0; s < n_narrow; ++s) {
+      const Plan<T> p{shapes[s][0], shapes[s][1], T::row_bytes(d), d, k, 4, dev, 0};
+      if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
+    }
+  if (!T::kScaled)
+    for (const auto& rs : shapes) {
+      const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4, 1, 1};
+      if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
+    }
+  return Plan<T>{0, 1, T::row_bytes(d), d, k, 4, 1, 0};
 }
 
 struct Args {
@@ -484,12 +519,12 @@ struct Args {
 // scores >= NEG_INF (0: none)
 constexpr int kFirstCols = 2 * kQT;
 
-template <class T, int kList, bool kProbe>
+template <class T, int kList, bool kProbe, bool kWide = false>
 __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, const Plan<T> p) {
   typedef typename T::Acc Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t bars = smem_addr(smem);
-  unsigned char* qt = smem + p.q_off();
+  unsigned char* qt = smem + p.q_off();  // the tile's prepared queries (not kWide)
   float* qscale = reinterpret_cast<float*>(smem + p.qscale_off());
   Acc* parts = reinterpret_cast<Acc*>(smem + p.parts_off());
   float* list_s = reinterpret_cast<float*>(smem + p.lists_off());
@@ -505,11 +540,10 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   const int k = a.k, d = a.d, R = p.rows, S = p.stages;
   const int k_pad = (k + 3) & ~3;
   const int br = a.src.block_rows;
-  // kProbe: bias and scales element by element where a bulk copy cannot
-  // take them (runs off 4-row boundaries, or tensors off 16-byte ones)
-  const bool aux_copy =
-      kProbe && (br % 4 != 0 || ((reinterpret_cast<uintptr_t>(a.bias) |
-                                   reinterpret_cast<uintptr_t>(a.xscale)) & 15) != 0);
+  // bias and scales element by element where a bulk copy cannot take them
+  // (runs off 4-row boundaries, or tensors off 16-byte ones)
+  const bool aux_copy = br % 4 != 0 || ((reinterpret_cast<uintptr_t>(a.bias) |
+                                         reinterpret_cast<uintptr_t>(a.xscale)) & 15) != 0;
 
   // the plan's virtual rows [0, total), taken a stage of R at a time
   const int nv = min(max(*a.src.n_valid, 0), a.src.max_blocks);
@@ -577,13 +611,21 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
 
   // the ring's first fill goes out once the queries' loads are (their loads
   // would otherwise queue behind the ring's bytes)
-  T::prepare(qt, qscale, a.queries, a.queries_bf16 != 0, q0, q_valid, d, [&]() {
+  auto first_fill = [&]() {
     if (threadIdx.x == 0) {
       for (int s = 0; s < S; ++s) mbar_init(bars + 8 * s, aux_copy ? 2 : 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       for (int i = 0; i < S && more; ++i) issue(i);
     }
-  });
+  };
+  // the query tile the dots read: kWide the caller's bf16 rows in place
+  const unsigned char* q_read = qt;
+  if constexpr (kWide) {
+    q_read = static_cast<const unsigned char*>(a.queries) + (size_t)q0 * T::row_bytes(d);
+    first_fill();
+  } else {
+    T::prepare(qt, qscale, a.queries, a.queries_bf16 != 0, q0, q_valid, d, first_fill);
+  }
   if constexpr (kList != kListDevice) {
     for (int e = threadIdx.x; e < kQT * k; e += kThreads) {
       list_s[e] = kNegInf;
@@ -627,7 +669,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     Acc* part = parts + (i & 1) * kQuarters * kQT * kMaxRows;  // [kQuarters, kQT, 32]
     if (kGroupRows * group < len) {  // rows past len are scored and never selected
       Acc acc[4] = {0, 0, 0, 0};
-      T::dots(qt, st + (size_t)kGroupRows * group * p.row_bytes, d, quarter, lane, acc);
+      T::template dots<kWide>(q_read, st + (size_t)kGroupRows * group * p.row_bytes, d, quarter,
+                              lane, acc, q_valid, R > 8 ? 8 : 0);
       const int g = lane >> 2, t = lane & 3;
       Acc* out = part + quarter * kQT * kMaxRows + kGroupRows * group + g;
 #pragma unroll
@@ -888,8 +931,11 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
 }
 
 template <class T, bool kProbe>
-const void* kernel_for(int k) {
-  switch (tma_list_kind(k)) {
+const void* kernel_for(const Plan<T>& p) {
+  if constexpr (!T::kScaled)
+    if (p.wide) return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListDevice, kProbe, true>);
+  if (p.dev_lists) return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListDevice, kProbe>);
+  switch (tma_list_kind(p.k)) {
     case kListWarp:
       return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp, kProbe>);
     case kListRegs:
@@ -917,7 +963,7 @@ int ctas_per_sm(int d, int k) {
   if (!Bf16Scorer::width_ok(d) || k < 1) return -(int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(d, k, max_ctas());
   if (p.rows == 0) return 0;
-  const void* kern = kernel_for<T, kProbe>(k);
+  const void* kern = kernel_for<T, kProbe>(p);
   const int smem = (int)p.smem(max_ctas());
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -927,23 +973,37 @@ int ctas_per_sm(int d, int k) {
   return blocks;
 }
 
+// The plan for width d and top-k k as {rows, stages, lists in device
+// memory, wide}: rows 0 where none fits; a wide plan takes bf16 queries.
+template <class T>
+int plan_of(int d, int k, int* out) {
+  if (!Bf16Scorer::width_ok(d) || k < 1) return (int)cudaErrorInvalidValue;
+  const Plan<T> p = make_plan<T>(d, k, max_ctas());
+  out[0] = p.rows;
+  out[1] = p.stages;
+  out[2] = p.dev_lists;
+  out[3] = p.wide;
+  return 0;
+}
+
 // Zero the tiles' counters and launch the scan-and-merge on `stream`.
 // Returns cudaGetLastError() (0 = ok), cudaErrorInvalidValue for shapes
-// outside the contract or cudaErrorInvalidConfiguration where no plan fits
-// one CTA's shared memory. The counters: int32 [2, tiles], and kProbe
-// [tiles, kFirstCols] after them.
+// outside the contract (a wide plan with f32 queries among them) or
+// cudaErrorInvalidConfiguration where no plan fits one CTA's shared
+// memory. The counters: int32 [2, tiles], and kProbe [tiles, kFirstCols]
+// after them.
 template <class T, bool kProbe>
 int launch(const Args& a, int n, int n_cta, void* stream) {
   const int br = a.src.block_rows;
-  const bool rows_ok = kProbe ? br >= 1 : br >= kR && br % kR == 0;
   if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !Bf16Scorer::width_ok(a.d) || n_cta < 1 ||
-      n_cta > max_ctas() || !rows_ok || n % br || a.src.max_blocks < 1 ||
+      n_cta > max_ctas() || br < 1 || n % br || a.src.max_blocks < 1 ||
       (a.queries_bf16 && T::kScaled))
     return (int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(a.d, a.k, max_ctas());
   if (p.rows == 0) return (int)cudaErrorInvalidConfiguration;
+  if (p.wide && !a.queries_bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const void* kern = kernel_for<T, kProbe>(a.k);
+  const void* kern = kernel_for<T, kProbe>(p);
   const int smem = (int)p.smem(max_ctas());
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -970,10 +1030,12 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
 }  // namespace ivf_tma
 
 // The IVF source defines its bf16 and int8 entries with this macro:
-// <name>_launch and <name>_ctas_per_sm; PROBE selects the per-block contract.
+// <name>_launch, <name>_ctas_per_sm and <name>_plan; PROBE selects the
+// per-block contract.
 #define IVF_TMA_C_INTERFACE(NAME, T, PROBE)                                                   \
   extern "C" {                                                                                \
   int NAME##_ctas_per_sm(int d, int k) { return ivf_tma::ctas_per_sm<T, PROBE>(d, k); }      \
+  int NAME##_plan(int d, int k, int* out) { return ivf_tma::plan_of<T>(d, k, out); }         \
   int NAME##_launch(const void* queries, int queries_bf16, const void* x, const void* xscale, \
                     const void* bias, const void* ids, const void* n_valid, void* cand_s,     \
                     void* cand_i, void* counter, void* out_s, void* out_i, int q, int n, int d, \

@@ -10,13 +10,14 @@
 //   ivf_blocks_int8  <- pallas_ivf_topk_int8      (pallas_call at :188, _ivf_kernel_int8, merge
 //                                                  at :192-196)
 // The ivf_blocks entries keep the per-block contract (probe-order ties, the
-// per-block fill in the slots no live row fills, any block_rows; see
-// ivf_scan_tma.cuh) and compute the merged result in the same one launch;
+// per-block fill in the slots no live row fills; see ivf_scan_tma.cuh) and compute the merged result in the same one launch;
 // topk_blocks.cu keeps the unmerged candidates. The DMA entries' contract:
 // the exact top k (score desc, row asc) over the rows of
 // blocks ids[0 .. n_valid) only, block b covering stored rows
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
-// never read; slots no live row fills come back as (NEG_INF, row 0). The
+// never read; slots no live row fills come back as (NEG_INF, row 0). Every
+// entry takes what JAX does: any block_rows that divides n, any d % 128 ==
+// 0 and any k, bias and scales at any 4-byte alignment. The
 // scores are the brute kernels' (topk_pruned.cu, topk_int8_pruned.cu,
 // topk_int4_pruned.cu): bf16 f32(q)·f32(x) + bias, int8/int4 the exact
 // integer dot with the op-by-op f32 epilogue.
@@ -47,7 +48,9 @@
 // <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
 //               x, xscale, bias, ids int32 [max_blocks], n_valid int32 [1],
 //               cand_s, cand_i [tiles, n_cta, 8, k_pad4], counter int32 [2 + 16, tiles],
-//               out_s, out_i, q, n, d, k, max_blocks, block_rows, n_cta, stream)
+//               out_s, out_i, q, n, d, k, max_blocks, block_rows, n_cta, stream);
+// <name>_plan(d, k, out int32 [4]): rows, stages, lists in device memory, wide
+// (a wide plan takes bf16 queries)
 IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false)
 IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false)
 // (the DMA entries use the counters' first [2, tiles])

@@ -50,11 +50,12 @@
 // block_rows, is the stored row ids[v / block_rows] * block_rows +
 // v % block_rows; the virtual rows split evenly over the CTAs in whole
 // 128-row tiles, so a plan of a few dozen blocks still spreads over the
-// card (a CTA whose share is empty writes (NEG_INF, 0) lists). block_rows
-// is a multiple of kR, so a 4-row scoring group never straddles two
-// blocks and reads contiguous stored rows; a warp tile's 16 rows may
-// straddle blocks (block_rows 4, 8, 12), so warp_tile is given each row's
-// stored row. ids past n_valid are never read.
+// card (a CTA whose share is empty writes (NEG_INF, 0) lists). For a
+// group scorer block_rows is a multiple of kR, so a 4-row scoring group
+// never straddles two blocks and reads contiguous stored rows; a warp
+// tile's 16 rows may straddle blocks (block_rows 4, 8, 12, or any other,
+// such as 1, 2, 6 or 66), so warp_tile is given each row's stored row.
+// ids past n_valid are never read.
 // Lists keep stored rows, so the result is ordered by (score desc, stored
 // row asc) whatever the order of the ids.
 //
@@ -137,7 +138,7 @@ struct RowSource {
   const int* ids;      // probed block ids [max_blocks]
   const int* n_valid;  // device scalar: ids[0 .. n_valid) are probed
   int max_blocks;
-  int block_rows;      // a multiple of kR
+  int block_rows;      // a multiple of kR for the group scorers (the TMA scans: any)
 
   // stored row of virtual row v (v < n_valid * block_rows)
   __device__ __forceinline__ int row(int v) const {
@@ -650,8 +651,11 @@ int ivf_launch(const void* queries, const float* qscale, const void* x, const fl
                const float* bias, const int* ids, const int* n_valid, void* cand_s, void* cand_i,
                void* out_s, void* out_i, int q, int n, int d, int k, int max_blocks,
                int block_rows, int n_cta, void* stream) {
-  if (block_rows < kR || block_rows % kR || n % block_rows || max_blocks < 1)
-    return (int)cudaErrorInvalidValue;
+  // a kR-row scoring group reads kR contiguous stored rows; a warp tile maps
+  // each of its rows on its own, so any block_rows serves it
+  const bool rows_ok = Scorer::kWarpRows == kR ? block_rows >= kR && block_rows % kR == 0
+                                               : block_rows >= 1;
+  if (!rows_ok || n % block_rows || max_blocks < 1) return (int)cudaErrorInvalidValue;
   return scan_and_merge<Scorer, true>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
                                       out_i, q, n, d, k, n_cta,
                                       RowSource{ids, n_valid, max_blocks, block_rows}, stream);

@@ -1,6 +1,13 @@
-from .embedder import CoalescingEmbedder, EmbedderFactory, HashEmbedder
-from .reranker import LexicalReranker, RerankerFactory
+from .embedder import (
+    CoalescingEmbedder,
+    EmbedderFactory,
+    HashEmbedder,
+    RemoteEmbedder,
+    TorchEmbedder,
+)
+from .reranker import LexicalReranker, RemoteReranker, RerankerFactory, TorchReranker
 from .tokenizer import HashTokenizer
+from .wordpiece import WordPieceTokenizer
 
 __all__ = [
     "CoalescingEmbedder",
@@ -8,5 +15,10 @@ __all__ = [
     "HashEmbedder",
     "HashTokenizer",
     "LexicalReranker",
+    "RemoteEmbedder",
+    "RemoteReranker",
     "RerankerFactory",
+    "TorchEmbedder",
+    "TorchReranker",
+    "WordPieceTokenizer",
 ]

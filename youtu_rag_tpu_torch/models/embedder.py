@@ -4,10 +4,11 @@ The port's counterpart of ``youtu_rag_tpu/models/embedder.py``:
 ``HashEmbedder`` on the JAX package's pure-Python path (bit-equal to it;
 the JAX package's native C kernel, ``native/fasthash.c``, normalizes within
 1 ulp of it), ``TorchEmbedder`` (the encoder on the card, the ``tpu``
-provider's counterpart of ``TpuEmbedder``), the ``CoalescingEmbedder``
-wrapper, and ``EmbedderFactory``. Pretrained BERT-family checkpoints
-(``pretrained_dir``), WordPiece vocabularies and the remote providers raise
-until their slice lands (ROADMAP Queue A 8).
+provider's counterpart of ``TpuEmbedder``: the repo's encoder, a
+``weights_dir`` with or without a WordPiece vocabulary, or a pretrained
+BERT-family checkpoint, ``from_pretrained``), ``RemoteEmbedder`` (the
+``openai`` and ``service`` HTTP providers), the ``CoalescingEmbedder``
+wrapper, and ``EmbedderFactory``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,11 @@ import torch
 
 from ..core.config import EmbeddingConfig
 from ..core.types import BaseEmbedder
-from ..utils.device import resolve_device
-from .convert import encoder_params_from_numpy
+from ..parallel.sequence_parallel import make_sp_encoder
+from ..utils.device import resolve_device, serving_attention
+from ..utils.http import post_json_with_retry
+from ..utils.log import get_logger
+from .convert import encoder_params_from_numpy, params_to_device
 from .encoder import (
     EncoderConfig,
     encode_tokens,
@@ -31,8 +35,11 @@ from .encoder import (
     load_encoder_config,
     load_params_npz,
 )
-from ..parallel.sequence_parallel import make_sp_encoder
+from .pretrained import load_pretrained_encoder
 from .tokenizer import HashTokenizer
+from .wordpiece import WordPieceTokenizer
+
+logger = get_logger("models.embedder")
 
 
 _FNV_OFFSET = 14695981039346656037
@@ -165,7 +172,8 @@ class TorchEmbedder(BaseEmbedder):
     """The encoder forward on ``device`` (``None`` → the CUDA card),
     batched with padding to power-of-two buckets: lengths from 16 up to
     ``max_len``, batches of at least 8 (``TpuEmbedder`` without its
-    data-parallel mesh). Without ``params`` the encoder starts from seed 0.
+    data-parallel mesh). Without ``params`` the encoder starts from seed 0;
+    without ``tokenizer`` it tokenizes with ``HashTokenizer``.
 
     With ``sp_mesh`` (an int S, the shards on this device, or a
     ``torch.distributed`` process group; ``parallel/sequence_parallel.py``)
@@ -175,17 +183,15 @@ class TorchEmbedder(BaseEmbedder):
 
     def __init__(self, config: EncoderConfig | None = None, params: dict | None = None,
                  batch_size: int = 128, device: str | torch.device | None = None,
-                 sp_mesh=None, long_max_len: int | None = None):
+                 sp_mesh=None, long_max_len: int | None = None, tokenizer=None):
         self.device = resolve_device(device)
-        # the serving default: the kernels on the card (blockwise from T =
-        # 256; shorter buckets take plain attention either way), plain
-        # attention elsewhere, as TpuEmbedder picks Pallas on a TPU only
-        self.cfg = config or EncoderConfig(
-            attention_impl="pallas" if self.device.type == "cuda" else "xla")
+        # the serving default (blockwise from T = 256 on the card; shorter
+        # buckets take plain attention either way)
+        self.cfg = config or EncoderConfig(attention_impl=serving_attention(self.device))
         if params is None:
             params = init_encoder_params(self.cfg, torch.Generator().manual_seed(0))
-        self.params = _to_device(params, self.device)
-        self.tokenizer = HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
+        self.params = params_to_device(params, self.device)
+        self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
         self.batch_size = batch_size
         self._sp_fwd = None
         if sp_mesh is not None:
@@ -196,20 +202,35 @@ class TorchEmbedder(BaseEmbedder):
     @classmethod
     def from_weights_dir(cls, weights_dir, **kwargs) -> "TorchEmbedder":
         """Serve a ``scripts/train_embedder.py`` output directory
-        (``encoder_params.npz`` + ``encoder_config.json``), such as the
-        committed ``benchmarks/models/yrt_tiny_lex``, with its config as
-        written (its ``attention_impl`` included)."""
+        (``encoder_params.npz`` + ``encoder_config.json``, + ``vocab.txt``
+        when the run trained a WordPiece vocabulary), such as the committed
+        ``benchmarks/models/yrt_tiny_lex``, with its config as written (its
+        ``attention_impl`` included)."""
         d = os.fspath(weights_dir)
-        if os.path.exists(os.path.join(d, "vocab.txt")):
-            raise NotImplementedError(
-                f"{d} has a vocab.txt: WordPiece tokenization is not ported yet "
-                "(ROADMAP Queue A 8)"
-            )
         cfg = load_encoder_config(os.path.join(d, "encoder_config.json"))
+        vocab = os.path.join(d, "vocab.txt")
+        tokenizer = (WordPieceTokenizer(vocab, max_length=cfg.max_len)
+                     if os.path.exists(vocab) else None)
         # checked against the config's shapes; keys it does not read are dropped
         params = encoder_params_from_numpy(load_params_npz(os.path.join(d, "encoder_params.npz")),
                                            cfg)
-        return cls(config=cfg, params=params, **kwargs)
+        return cls(config=cfg, params=params, tokenizer=tokenizer, **kwargs)
+
+    @classmethod
+    def from_pretrained(cls, model_dir, pooling: str | None = None,
+                        dtype: torch.dtype | None = None, attention_impl: str | None = None,
+                        max_len: int | None = None, **kwargs) -> "TorchEmbedder":
+        """Serve a pretrained BERT-family checkpoint (bge/gte/e5 layouts: an
+        HF export with config.json, model.safetensors and vocab.txt) on
+        ``device``: WordPiece → the bert trunk → its pooling → L2.
+        ``attention_impl`` defaults to "pallas" on CUDA (the blockwise
+        kernel at T >= 256) and "xla" elsewhere; ``dtype`` to bf16."""
+        device = resolve_device(kwargs.pop("device", None))
+        params, cfg, tokenizer = load_pretrained_encoder(
+            model_dir, pooling=pooling, dtype=dtype,
+            attention_impl=attention_impl or serving_attention(device), max_len=max_len)
+        return cls(config=cfg, params=encoder_params_from_numpy(params, cfg), device=device,
+                   tokenizer=tokenizer, **kwargs)
 
     @property
     def dimension(self) -> int:
@@ -282,16 +303,54 @@ class TorchEmbedder(BaseEmbedder):
         return self.embed_batch([query])[0].tolist()
 
 
-def _to_device(tree: dict, device: torch.device) -> dict:
-    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device, torch.float32)
-            for k, v in tree.items()}
+class RemoteEmbedder(BaseEmbedder):
+    """HTTP embedding adapter: OpenAI-compatible ``POST /embeddings`` or a
+    self-hosted service's ``POST /embed`` (a copy of the JAX package's),
+    with ``utils/http.py``'s retry on transient failures; batches of
+    ``batch_size`` texts, ``batch_delay`` seconds apart."""
+
+    def __init__(self, config: EmbeddingConfig):
+        self.config = config
+        self._dim = config.dimensions
+
+    @property
+    def dimension(self) -> int | None:
+        return self._dim
+
+    async def _post(self, path: str, payload: dict) -> dict:
+        headers = {}
+        if self.config.api_key:
+            headers["Authorization"] = f"Bearer {self.config.api_key}"
+        return await post_json_with_retry(
+            self.config.base_url.rstrip("/") + path, payload, headers=headers, log=logger
+        )
+
+    async def embed_texts(self, texts: list[str]) -> list[list[float]]:
+        out: list[list[float]] = []
+        bs = self.config.batch_size
+        for i in range(0, len(texts), bs):
+            batch = texts[i : i + bs]
+            if self.config.provider == "openai":
+                data = await self._post("/embeddings", {"model": self.config.model, "input": batch})
+                out.extend(item["embedding"] for item in data["data"])
+            else:  # service
+                data = await self._post("/embed", {"texts": batch})
+                out.extend(data["embeddings"])
+            if self.config.batch_delay and i + bs < len(texts):
+                await asyncio.sleep(self.config.batch_delay)
+        if out and self._dim is None:
+            self._dim = len(out[0])
+        return out
+
+    async def embed_query(self, query: str) -> list[float]:
+        return (await self.embed_texts([query]))[0]
 
 
 class EmbedderFactory:
-    """Provider dispatch (the JAX factory's). ``hash`` and ``tpu`` (the
-    encoder on ``device``, or a ``weights_dir``) are served;
-    ``pretrained_dir``, ``auto`` and the remote providers raise until their
-    slice lands."""
+    """Provider dispatch (the JAX factory's). ``auto`` resolves from the
+    environment: the ``service`` provider if ``YRT_EMBEDDING_URL`` /
+    ``UTU_EMBEDDING_URL`` is set, else ``tpu`` (the encoder on ``device``,
+    which on a host without CUDA raises unless ``device="cpu"``)."""
 
     @staticmethod
     def create(config: EmbeddingConfig | None = None,
@@ -307,17 +366,42 @@ class EmbedderFactory:
     @staticmethod
     def _create_inner(config: EmbeddingConfig, device) -> BaseEmbedder:
         provider = config.provider
+        if provider == "auto":
+            url = os.environ.get("YRT_EMBEDDING_URL") or os.environ.get("UTU_EMBEDDING_URL")
+            if url:
+                config = config.model_copy(update={"base_url": url, "provider": "service"})
+                provider = "service"
+            else:
+                provider = "tpu"
         if provider == "hash":
             return HashEmbedder(dim=config.dimensions or 256)
-        if provider == "tpu" and not config.pretrained_dir:
+        if provider == "tpu":
+            if config.pretrained_dir:
+                return TorchEmbedder.from_pretrained(
+                    config.pretrained_dir, batch_size=config.batch_size, device=device
+                )
             if config.weights_dir:
                 return TorchEmbedder.from_weights_dir(
                     config.weights_dir, batch_size=config.batch_size, device=device
                 )
             return TorchEmbedder(batch_size=config.batch_size, device=device)
-        what = ("pretrained_dir (BERT-family checkpoints)" if provider == "tpu"
-                else f"provider {provider!r}")
-        raise NotImplementedError(
-            f"embedding {what} is not ported yet (ROADMAP Queue A 8); "
-            "use provider='hash' or 'tpu' with the repo's encoder"
-        )
+        if provider in ("openai", "service"):
+            # the env fallbacks apply independently: a configured base_url
+            # with a secret passed through the environment still sends it
+            config = config.model_copy(
+                update={
+                    "base_url": config.base_url
+                    or os.environ.get("YRT_EMBEDDING_URL")
+                    or os.environ.get("UTU_EMBEDDING_URL"),
+                    "api_key": config.api_key
+                    or os.environ.get("YRT_EMBEDDING_API_KEY")
+                    or os.environ.get("UTU_EMBEDDING_API_KEY"),
+                }
+            )
+            if not config.base_url:
+                raise ValueError(
+                    f"embedding provider {provider!r} needs base_url (config) or "
+                    "YRT_EMBEDDING_URL / UTU_EMBEDDING_URL in the environment"
+                )
+            return RemoteEmbedder(config)
+        raise ValueError(f"unknown embedding provider {provider!r}")

@@ -1,20 +1,29 @@
-"""Transformer encoder trunk (the embedder's backbone), in PyTorch.
+"""Transformer encoder trunk (the embedder's and reranker's backbone), in
+PyTorch.
 
-The port's counterpart of ``youtu_rag_tpu/models/encoder.py`` for the
-repo's own trunk (``arch="preln_rope"``): pre-LN layers with RoPE and no
-attention biases, mean pooling over the mask, a projection and an L2
-normalization, with the two lexical epilogues (``lex_proj`` blend and
-``lex_buckets`` concat). The parameters are a plain dict of f32 tensors
-with the layers stacked on a leading axis, the JAX package's tree and
-npz layout, and the forward runs the layers in a Python loop.
+The port's counterpart of ``youtu_rag_tpu/models/encoder.py``, both archs:
+- ``"preln_rope"``, the repo's own trunk: pre-LN layers with RoPE and no
+  attention biases, mean pooling over the mask, a projection and an L2
+  normalization, with the two lexical epilogues (``lex_proj`` blend and
+  ``lex_buckets`` concat);
+- ``"bert"``, the HF BERT-family layout that pretrained bge/gte/e5-style
+  checkpoints use (``models/pretrained.py`` loads them): learned absolute
+  positions and token types summed in f32, post-LN layers with biased
+  q/k/v/o projections and no RoPE, exact-erf GELU unless
+  ``gelu_approximate``, ``cls`` or ``mean`` pooling, an optional
+  ``out_proj``, then L2; ``rerank_scores`` adds the tanh pooler and the
+  classifier head of a cross-encoder.
+The parameters are a plain dict of f32 tensors with the layers stacked on
+a leading axis, the JAX package's tree and npz layout, and the forward
+runs the layers in a Python loop.
 
 The rounding points are the JAX package's: parameters stay f32 and are
-cast to ``cfg.dtype`` at each use; LayerNorm (population variance),
-pooling and the epilogues run in f32; RoPE's cos and sin are cast to
-``cfg.dtype`` before the product; the FFN's GELU is the tanh form.
-Attention goes through ``ops/attention.py`` by the JAX dispatch rule
-(``_attention_core``). The BERT-family trunk (``arch="bert"``, the
-``from_pretrained`` path) is a later slice and raises here.
+cast to ``cfg.dtype`` at each use; LayerNorm (population variance, eps
+``1e-6`` for preln_rope and ``cfg.ln_eps`` for bert), pooling and the
+epilogues run in f32; RoPE's cos and sin are cast to ``cfg.dtype`` before
+the product. Attention goes through ``ops/attention.py`` by the JAX
+dispatch rule (``_attention_core``): with "pallas" every layer at T >= 256
+launches the blockwise kernel (flash above T = 4096), for either arch.
 """
 
 from __future__ import annotations
@@ -56,14 +65,14 @@ class EncoderConfig:
     dtype: torch.dtype = torch.bfloat16
     rope_base: float = 10000.0
     attention_impl: str = "xla"
-    arch: str = "preln_rope"  # "bert" waits for a later slice
-    pooling: str = "mean"
+    arch: str = "preln_rope"  # or "bert" (the HF BERT-family layout)
+    pooling: str = "mean"  # bert: "mean" or "cls"
     lex_pool: bool = False  # lexical residual over the input token embeddings
     lex_buckets: int = 0  # > 0: the sparse hashed-bucket channel instead of lex_proj
     lex_gate_init: float = 0.85
-    ln_eps: float = 1e-6
-    type_vocab_size: int = 2
-    gelu_approximate: bool = True
+    ln_eps: float = 1e-6  # bert checkpoints use 1e-12
+    type_vocab_size: int = 2  # bert token-type (segment) vocabulary
+    gelu_approximate: bool = True  # HF "gelu" is the exact erf form
 
     @property
     def head_dim(self) -> int:
@@ -77,12 +86,12 @@ class EncoderConfig:
         return self.out_dim + (self.lex_buckets if self.lex_pool else 0)
 
 
+ARCHS = ("preln_rope", "bert")
+
+
 def _check_arch(cfg: EncoderConfig) -> None:
-    if cfg.arch != "preln_rope":
-        raise NotImplementedError(
-            f"encoder arch {cfg.arch!r} is not ported yet: the BERT-family trunk and "
-            "from_pretrained wait for a later slice (ROADMAP Queue A 8)"
-        )
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"encoder arch {cfg.arch!r} not in {ARCHS}")
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl {cfg.attention_impl!r} not in {ATTENTION_IMPLS}")
 
@@ -116,6 +125,25 @@ def init_encoder_params(cfg: EncoderConfig, generator: torch.Generator | None = 
     def init(shape, scale):
         return torch.randn(shape, generator=generator, dtype=torch.float32) * scale
 
+    if cfg.arch == "bert":
+        return {
+            "tok_emb": init((V, D), 0.02),
+            "pos_emb": init((cfg.max_len, D), 0.02),
+            "type_emb": init((cfg.type_vocab_size, D), 0.02),
+            "emb_ln_scale": torch.ones(D),
+            "emb_ln_bias": torch.zeros(D),
+            "layers": {
+                "wq": init((L, D, D), s_attn), "bq": torch.zeros(L, D),
+                "wk": init((L, D, D), s_attn), "bk": torch.zeros(L, D),
+                "wv": init((L, D, D), s_attn), "bv": torch.zeros(L, D),
+                "wo": init((L, D, D), s_attn), "bo": torch.zeros(L, D),
+                "ln1_scale": torch.ones(L, D), "ln1_bias": torch.zeros(L, D),
+                "w1": init((L, D, Fd), s_attn), "b1": torch.zeros(L, Fd),
+                "w2": init((L, Fd, D), s_ff), "b2": torch.zeros(L, D),
+                "ln2_scale": torch.ones(L, D), "ln2_bias": torch.zeros(L, D),
+            },
+            "score_head": init((D, 1), s_attn),
+        }
     params = {"tok_emb": init((V, D), 0.02)}
     if cfg.lex_pool:
         g0 = min(max(cfg.lex_gate_init, 1e-4), 1 - 1e-4)
@@ -307,17 +335,78 @@ def _attention(x: torch.Tensor, mask: torch.Tensor, lp: dict, cfg: EncoderConfig
     return torch.matmul(y, lp["wo"].to(x.dtype))
 
 
+def _bert_attention(x: torch.Tensor, mask: torch.Tensor, lp: dict,
+                    cfg: EncoderConfig) -> torch.Tensor:
+    """BERT-family attention: biased q/k/v/o projections, no RoPE. q, k and v
+    reach ``_attention_core`` as [B, T, H, hd] views transposed to
+    [B, H, T, hd] (strides T·D, hd, D, 1), which the kernels take as they
+    are."""
+    b, t, d = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+
+    def proj(w, bias):
+        y = torch.matmul(x, w.to(x.dtype)) + bias.to(x.dtype)
+        return y.view(b, t, h, hd).transpose(1, 2)
+
+    q = proj(lp["wq"], lp["bq"])
+    k = proj(lp["wk"], lp["bk"])
+    v = proj(lp["wv"], lp["bv"])
+    y = _attention_core(q, k, v, mask, cfg)
+    y = y.transpose(1, 2).reshape(b, t, d)
+    return torch.matmul(y, lp["wo"].to(x.dtype)) + lp["bo"].to(x.dtype)
+
+
+def _bert_encode(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
+                 cfg: EncoderConfig, type_ids: torch.Tensor | None = None):
+    """BERT-family forward (post-LN residuals, learned positions), the math of
+    ``transformers.BertModel``."""
+    dt = cfg.dtype
+    t = token_ids.shape[1]
+    if t > params["pos_emb"].shape[0]:
+        raise ValueError(
+            f"sequence length {t} exceeds the checkpoint's learned position "
+            f"table ({params['pos_emb'].shape[0]}); BERT-family models cannot "
+            "extrapolate positions — truncate or chunk the input"
+        )
+    x32 = params["tok_emb"][token_ids].float() + params["pos_emb"][:t][None].float()
+    if type_ids is None:
+        x32 = x32 + params["type_emb"][0][None, None].float()
+    else:
+        x32 = x32 + params["type_emb"][type_ids.long()].float()
+    eps = cfg.ln_eps
+    x = _layer_norm(x32, params["emb_ln_scale"], params["emb_ln_bias"], eps).to(dt)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x = _layer_norm(x + _bert_attention(x, mask, lp, cfg), lp["ln1_scale"], lp["ln1_bias"],
+                        eps)
+        x = _layer_norm(x + _ffn(x, lp, dt, approximate=cfg.gelu_approximate), lp["ln2_scale"],
+                        lp["ln2_bias"], eps)
+    if cfg.pooling == "cls":
+        pooled = x[:, 0, :].float()
+    else:
+        summed, cnt = masked_pool_sums(x, mask)
+        pooled = summed / torch.clamp_min(cnt, 1.0)
+    if "out_proj" in params:
+        pooled = pooled @ params["out_proj"]
+    return _l2_normalize(pooled), x[:, 0, :].float()
+
+
 @torch.inference_mode()
 def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
-                  cfg: EncoderConfig) -> tuple[torch.Tensor, torch.Tensor]:
+                  cfg: EncoderConfig,
+                  type_ids: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward pass.
 
-    token_ids [B, T] integer, mask [B, T] float (1 = real token), on the
-    parameters' device. Returns (embeddings [B, embed_dim] f32
-    L2-normalized, cls_state [B, d_model] f32)."""
+    token_ids [B, T] integer, mask [B, T] float (1 = real token), type_ids
+    [B, T] integer segment ids (bert only; None: all 0), on the parameters'
+    device. Returns (embeddings [B, embed_dim] f32 L2-normalized, cls_state
+    [B, d_model] f32)."""
     _check_arch(cfg)
-    dt = cfg.dtype
     token_ids = token_ids.long()
+    if cfg.arch == "bert":
+        return _bert_encode(params, token_ids, mask, cfg, type_ids)
+    dt = cfg.dtype
     x = params["tok_emb"][token_ids].to(dt)  # [B, T, D]
     layers = params["layers"]
     for i in range(cfg.n_layers):
@@ -336,3 +425,18 @@ def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
     else:
         emb = pool_project(params, *sums)
     return emb, x[:, 0, :].float()
+
+
+@torch.inference_mode()
+def rerank_scores(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
+                  cfg: EncoderConfig, type_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-encoder relevance scores [B] f32 from the CLS state, through the
+    tanh pooler and the score head (and its bias) where the parameters have
+    them (pretrained sequence-classification rerankers do)."""
+    _, cls = encode_tokens(params, token_ids, mask, cfg, type_ids=type_ids)
+    if "pooler_w" in params:
+        cls = torch.tanh(cls @ params["pooler_w"] + params["pooler_b"])
+    s = (cls @ params["score_head"])[:, 0]
+    if "score_bias" in params:
+        s = s + params["score_bias"][0]
+    return s

@@ -15,7 +15,11 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
 - scores: bf16 ``f32(bf16 q) · f32(bf16 x) + bias``; int8 and int4 the
   exact integer dot of ``quantize_rows_int8(queries)`` with the stored
   rows (int4: the unpacked nibbles against the full-width queries), then
-  ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, rounded op by op.
+  ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, rounded op by op;
+- inputs: what JAX takes, on every device: any ``block_rows`` that divides
+  N, any d % 128 == 0 and k, bias and scales at any offset (on CUDA the
+  bf16 and int8 entries pick a shared-memory plan for (d, k),
+  ``scan_plan``).
 
 Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
 once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
@@ -91,7 +95,6 @@ _ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
           "ivf_topk_int8": "ivf_blocks_int8"}
 _TWO_LAUNCH = ("ivf_topk_int4_dma",)  # the scan, then a merge; the others merge in the scan
 _FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
-_KR = 4  # rows per scoring group of the DMA kernels: block_rows must be a multiple
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +178,10 @@ def _library() -> ctypes.CDLL:
             per_sm = getattr(lib, f"{entry}_ctas_per_sm")
             per_sm.argtypes = [i, i]
             per_sm.restype = i
+            if name not in _TWO_LAUNCH:
+                plan = getattr(lib, f"{entry}_plan")
+                plan.argtypes = [i, i, p]
+                plan.restype = i
         lib.ivf_topk_error_string.argtypes = [i]
         lib.ivf_topk_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,6 +190,20 @@ def _library() -> ctypes.CDLL:
 def _cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
     return RuntimeError(f"{entry} failed: CUDA error {err} "
                         f"({lib.ivf_topk_error_string(err).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
+    """The shared-memory plan of a bf16 or int8 entry of ``csrc/ivf_topk.cu``
+    at (d, k): (rows per stage, stages, lists in device memory, wide). A
+    wide plan reads the query tile from device memory and takes bf16
+    queries (``csrc/ivf_scan_tma.cuh``, 9.); rows 0: none fits."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, f"{entry}_plan")(d, k, out)
+    if err != 0:
+        raise _cuda_error(lib, entry, err)
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,10 +220,10 @@ def _ctas_per_sm(entry: str, d: int, k: int) -> int:
 
 def _check_plan(name: str, n: int, block_ids: torch.Tensor, n_valid: torch.Tensor,
                 block_rows: int, device) -> torch.Tensor:
-    """The plan's checks; returns n_valid as an int32 [1] tensor."""
-    if block_rows < _KR or block_rows % _KR or n % block_rows:
-        raise ValueError(f"{name}: block_rows={block_rows} must be a positive multiple of {_KR} "
-                         f"that divides the {n} rows")
+    """The plan's checks (JAX asks only that block_rows divide the rows);
+    returns n_valid as an int32 [1] tensor."""
+    if block_rows < 1 or n % block_rows:
+        raise ValueError(f"{name}: block_rows={block_rows} must divide the {n} rows")
     return _check_ids(name, block_ids, n_valid, device)
 
 
@@ -221,11 +242,6 @@ def _tiles(fn, queries, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: 
     """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
     launch = _launch if fn.__name__ in _TWO_LAUNCH else _launch_tma
-    if launch is _launch_tma:
-        # the bulk copies read the bias and scales in 16-byte units
-        for what, t in (("bias", bias), ("db_scales", xscale)):
-            if t is not None and t.data_ptr() % 16:
-                raise ValueError(f"{fn.__name__}: {what} must start 16-byte aligned")
     return _query_tiles(lambda qt: launch(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
                                           block_rows),
                         queries, _empty((0, k), x.device))
@@ -275,11 +291,14 @@ def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: 
     counters; the DMA or, for ``ivf_topk*``, the per-block contract) on the
     current stream (no sync) for one tile of at most MAX_Q queries, as the
     caller gives them: f32, or bf16 for a bf16 entry (another float type is
-    cast here)."""
+    cast here; a wide plan takes them cast here to bf16, as the kernel
+    would round them)."""
     entry = _ENTRY[fn.__name__]
     lib = _library()
     dev = x.device
     keep = (torch.float32, torch.bfloat16) if xscale is None else (torch.float32,)
+    if xscale is None and scan_plan(entry, d, k)[3]:
+        keep = (torch.bfloat16,)
     if queries.dtype not in keep:
         queries = queries.to(torch.bfloat16 if xscale is None else torch.float32)
     queries = queries.contiguous()
@@ -318,8 +337,8 @@ def ivf_topk_dma(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tens
 
     queries [q, d] float (cast to bf16), database [N, d] bf16 contiguous with
     d % 128 == 0 and N % block_rows == 0, bias [N] f32, block_ids int32
-    [max_blocks], n_valid an int32 scalar tensor; k >= 1. On
-    CUDA: block_rows a multiple of 4, bias 16-byte aligned."""
+    [max_blocks], n_valid an int32 scalar tensor; k >= 1; block_rows >= 1
+    and bias at any offset, as JAX."""
     _check_k("ivf_topk_dma", k)
     if _device_of("ivf_topk_dma", queries, database, bias, block_ids) == "cpu":
         return ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k,
@@ -335,8 +354,7 @@ def ivf_topk_int8_dma(queries: torch.Tensor, database_q: torch.Tensor, db_scales
                       block_rows: int):
     """The int8 form (``pallas_ivf_topk_int8_dma``): database_q [N, d] int8,
     db_scales [N] f32; queries quantized per row as ``quantize_rows_int8``
-    does (on CUDA inside the kernel). On CUDA: bias and db_scales start
-    16-byte aligned."""
+    does (on CUDA inside the kernel)."""
     _check_k("ivf_topk_int8_dma", k)
     if _device_of("ivf_topk_int8_dma", queries, database_q, db_scales, bias, block_ids) == "cpu":
         return ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids,

@@ -4,7 +4,7 @@ retriever + builder, plus a process-wide registry.
 The port's counterpart of ``youtu_rag_tpu/retrieval/kb.py`` for the
 retrieval path, with its snapshots (``save``/``load``, the same layout as
 the JAX package's). The staged builder agent, tables and the attached build
-manifest wait for a later slice (ROADMAP Queue A 10)."""
+manifest wait for a later slice (ROADMAP Queue A 6)."""
 
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ class KnowledgeBase:
         self.store = TorchVectorStore(self.config.vector_store, device=device)
         self.embedder = EmbedderFactory.create(self.config.knowledge_builder.embedding,
                                                device=self.store.device)
-        self.reranker = RerankerFactory.create(self.config.reranker)
+        self.reranker = RerankerFactory.create(self.config.reranker, device=self.store.device)
         self.retriever = VectorRetriever(
             self.store, self.embedder, self.config.retriever, reranker=self.reranker
         )

@@ -16,3 +16,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def serving_attention(device: torch.device) -> str:
+    """The encoder's serving ``attention_impl`` on ``device``: the kernels
+    on the card ("pallas"), plain attention elsewhere ("xla"), as the JAX
+    package picks Pallas on a TPU only."""
+    return "pallas" if device.type == "cuda" else "xla"
