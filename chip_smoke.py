@@ -12,11 +12,11 @@ Phases; any failure exits non-zero before the result lines:
      attention source's Hopper kernels, attention_wgmma.cuh's
      attention_kernel for hd 64 and 128 and its three entries, blockwise,
      flash and the hop's stats, and its mma.sync kernels for f32), then one
-     line per attention kernel, int4 scan kernel (the tensor-core scorer)
-     and bf16 / int8 IVF kernel (ivf_scan_tma.cuh: the DMA entries and the
-     per-block ones) with its registers and spills, and the bf16 / int8 IVF
-     entries' shared-memory plan and CTAs per SM for d 128-8192 x k 1-4096
-     (fails where a cell has none);
+     line per attention kernel, brute int4 scan kernel (the tensor-core
+     scorer) and IVF kernel (ivf_scan_tma.cuh: the bf16, int8 and int4 DMA
+     entries and the bf16 / int8 per-block ones) with its registers and
+     spills, and the TMA IVF entries' shared-memory plan and CTAs per SM for
+     d 128-8192 (int4 256-8192) x k 1-4096 (fails where a cell has none);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -48,16 +48,17 @@ Phases; any failure exits non-zero before the result lines:
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
      n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
      TOL, int8 and int4 bit-equal; then the int4 kernel alone at block_rows
-     4, 8 and 12 (16-row warp tiles that straddle blocks) and k up to 2048,
-     and the bf16 and int8 kernels alone over IVF_TMA_CASES (q 1, 7, 9, 65;
+     4, 8 and 12 (stages and 16-row groups that straddle blocks) and k up
+     to 2048, and the three kernels over IVF_TMA_CASES (q 1, 7, 9, 65;
      k 1, 129, 1025; block_rows 4, 12, 4096; f32 queries and ascending ids,
      bf16 queries and shuffled ids; a zero query row), one launch per 64
      queries;
   3f. kernel vs plain, IVF inputs JAX takes: the three DMA entries at
      block_rows 1, 2, 6, 66 and 1026 with bias and scales 4 bytes past a
-     16-byte boundary, k up to block_rows; the bf16 and int8 DMA and merged
-     per-block entries at d 4096 and 8192 with k up to 4096 (lists in
-     device memory; bf16 at d = 8192 the wide plan); as in phases 3c, 3d;
+     16-byte boundary, k up to block_rows; the three DMA entries and the
+     bf16 and int8 merged per-block entries at d 4096 and 8192 with k up to
+     4096 (lists in device memory; bf16 at d = 8192 the wide plan); as in
+     phases 3c, 3d;
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
      versions over BLOCKS_CASES (k 1 to 1024 and k = block_rows, q 1 to
@@ -132,11 +133,11 @@ Phases; any failure exits non-zero before the result lines:
      q = 8, top_k = 10 search checked against the plain version on the same
      plan, recall@10 against the brute kernel, the IVF kernel timed beside
      its bound (the probed bytes), its plain version and the brute kernel,
-     one call's launches (1) and five calls' device kernels (bf16, int8:
-     the scan alone, after a memset), the search's device time split by
-     torch.profiler (bf16, int8: no merge kernel); then again with the
-     adaptive margin off (a fixed n_probe 64 plan); each beside the earlier
-     design's recorded time (EARLIER_MS, EARLIER_FIXED_MS);
+     one call's launches (1) and five calls' device kernels (the scan
+     alone, after a memset), the search's device time split by
+     torch.profiler (no merge kernel); then again with the adaptive margin
+     off (a fixed n_probe 64 plan); each beside the earlier design's
+     recorded time (EARLIER_MS, EARLIER_FIXED_MS);
   5d. the ops path at full size, on phase 5's and 5c's device tensors:
      ``fused_topk(q, x_bf16, bias, 10)`` (backend "auto", which must take
      the kernel), ``topk_int8`` at block_rows 2048, and ``ivf_topk`` /
@@ -224,14 +225,15 @@ SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "a
            "topk_blocks")
 # Each redesigned kernel's time before its redesign, as PERF.md §6 records
 # it (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W): the hop on the
-# mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the int4 scans
-# on the __dp4a scorer (brute k = 64; IVF on phase 5c's adaptive plan).
+# mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the brute int4
+# scan on the __dp4a scorer (k = 64), the IVF scans on topk_select.cuh's
+# scan with a merge launch after it (phase 5c's adaptive plan; int4 with
+# the tensor-core scorer, k = 64).
 EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
-              "ivf_topk_int4_dma": 0.1582, "ivf_topk_dma": 0.0918, "ivf_topk_int8_dma": 0.0879}
-# ... and the IVF scans' on phase 5c's fixed plan (the bf16 and int8 scans
-# of topk_select.cuh with a merge launch after them; int4 on its PR 8 scorer)
+              "ivf_topk_int4_dma": 0.1544, "ivf_topk_dma": 0.0918, "ivf_topk_int8_dma": 0.0879}
+# ... and the IVF scans' on phase 5c's fixed plan
 EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
-                    "ivf_topk_int4_dma": 0.4116}
+                    "ivf_topk_int4_dma": 0.4119}
 
 _phase_t0: list[tuple[str, float]] = []
 
@@ -361,10 +363,12 @@ def build_all() -> None:
     ivf_plan_table()
 
 
-# the (d, k) grid of the TMA IVF entries' shared-memory plans
+# the (d, k) grid of the TMA IVF entries' shared-memory plans (int4 takes
+# d % 256 == 0: its first width is 256)
 PLAN_WIDTHS = (128, 768, 1024, 2048, 4096, 8192)
 PLAN_KS = (1, 10, 128, 1024, 2048, 4096)
-TMA_ENTRIES = ("ivf_topk_bf16", "ivf_topk_int8", "ivf_blocks_bf16", "ivf_blocks_int8")
+TMA_ENTRIES = ("ivf_topk_bf16", "ivf_topk_int8", "ivf_topk_int4", "ivf_blocks_bf16",
+               "ivf_blocks_int8")
 
 
 def ivf_plan_table() -> None:
@@ -379,6 +383,8 @@ def ivf_plan_table() -> None:
           " ".join(str(k) for k in PLAN_KS))
     for entry in TMA_ENTRIES:
         for d in PLAN_WIDTHS:
+            if entry.endswith("int4") and d == 128:
+                d = 256
             cells = []
             for k in PLAN_KS:
                 per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
@@ -607,15 +613,15 @@ IVF_N, IVF_D = 65536, 256
 IVF_CASES = [(q, k, br) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)
              for br in (64, 1024, 4096)]
 IVF_GARBAGE = 1 << 28  # an id past n_valid that points far outside the index
-# the int4 kernel alone at block_rows 4, 8 and 12: its 16-row warp tiles
-# straddle 4, 2 and 1-2 blocks (IVF4_N rows: a multiple of 12 and of 16)
+# the int4 kernel alone at block_rows 4, 8 and 12: its 32-row stages and
+# 16-row groups straddle blocks (IVF4_N rows: a multiple of 12 and of 16)
 IVF4_N = 49152
 IVF4_CASES = [(q, k, br) for q in (8, 64) for k in (1, 64, 1024, 2048) for br in (4, 8, 12)]
-# the bf16 and int8 kernels (csrc/ivf_scan_tma.cuh) alone: query counts
-# around the 8-query tiles and the 64 of a launch, k in the three list
-# classes, block_rows 4 and 12 (a 32-row stage spans several blocks) and
-# 4096; queries f32 with ids ascending, or bf16 with ids shuffled; query
-# row 1 is zero (its int8 scale 1e-12 / 127)
+# the three kernels (csrc/ivf_scan_tma.cuh) alone: query counts around the
+# 8-query tiles and the 64 of a launch, k in the three list classes,
+# block_rows 4 and 12 (a 32-row stage spans several blocks) and 4096;
+# queries f32 with ids ascending, or bf16 with ids shuffled; query row 1 is
+# zero (its int8 scale 1e-12 / 127)
 IVF_TMA_CASES = [(q, k, br, qdtype, order) for q in (1, 7, 9, 65) for k in (1, 129, 1025)
                  for br in (4, 12, 4096) for qdtype, order in (("f32", "sorted"),
                                                               ("bf16", "shuffled"))]
@@ -723,7 +729,7 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
         ids, nv = ivf_plan(n // br, n // br // 2, g, order)
         b = bias[:n]
         full = plain_scores(queries, stored["bfloat16"][0][:n], b).cpu()
-        for tier in ("bfloat16", "int8"):
+        for tier in TIERS:
             kernel, plain, _ = ivf_ops()[tier]
             xt, extra = stored[tier]
             xt, extra = xt[:n], tuple(e[:n] for e in extra)
@@ -735,7 +741,7 @@ def ivf_kernel_cases(seed: int) -> dict[str, float]:
             want = plain(queries, xt, *extra, b, ids, nv, k, block_rows=br)
             max_err[tier] = max(max_err[tier], compare_ivf(tier, got, want, full, what))
     print(f"IVF kernel vs plain: {len(cases)} cases x {len(TIERS)} kernels, {len(IVF4_CASES)} "
-          f"int4 cases (block_rows 4, 8, 12) and {len(IVF_TMA_CASES)} cases x 2 kernels "
+          f"int4 cases (block_rows 4, 8, 12) and {len(IVF_TMA_CASES)} cases x 3 kernels "
           "(ivf_scan_tma.cuh: q 1-65, k to 1025, block_rows 4, 12, 4096, bf16 queries, a zero "
           "query, shuffled ids) ok, max_abs_err "
           + ", ".join(f"{IVF_NAMES[t]} {e}" for t, e in max_err.items()))
@@ -763,8 +769,9 @@ def _offset(t: torch.Tensor) -> torch.Tensor:
 def ivf_repair_cases(seed: int) -> dict[str, float]:
     """3f: (i) the three DMA entries at block_rows 1, 2, 6, 66 and 1026 with
     bias and scales 4 bytes past a 16-byte boundary, k up to block_rows;
-    (ii) the bf16 and int8 DMA and merged per-block entries at d 4096 and
-    8192, k up to 4096 (device lists; bf16 at d = 8192 the wide plan). Each
+    (ii) the three DMA entries and the bf16 and int8 merged per-block
+    entries at d 4096 and 8192, k up to 4096 (device lists; bf16 at d =
+    8192 the wide plan). Each
     against its plain version: rows equal, bf16 within TOL, int8/int4
     bit-equal. Returns the max abs error per kernel name."""
     from youtu_rag_tpu_torch.ops.topk import NEG_INF
@@ -813,19 +820,22 @@ def ivf_repair_cases(seed: int) -> dict[str, float]:
         ids = torch.tensor([2, 0, 1], dtype=torch.int32, device="cuda")
         nv = torch.tensor(2, dtype=torch.int32, device="cuda")
         full = plain_scores(queries, x.to(torch.bfloat16), bias).cpu()
-        for tier in ("bfloat16", "int8"):
-            if tier == "bfloat16":
+        for tier in TIERS:
+            kernel, plain, quantize = ivf_ops()[tier]
+            if quantize is None:
                 xt, extra = x.to(torch.bfloat16), ()
             else:
-                xq, xs = ivf_ops()["int8"][2](x)
+                xq, xs = quantize(x)
                 xt, extra = xq, (xs,)
-            kernel, plain, _ = ivf_ops()[tier]
             what = f"ivf {tier} d={wd} k={k}"
             got = kernel(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
             torch.cuda.synchronize()
             want = plain(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
             name = IVF_NAMES[tier]
             err[name] = max(err.get(name, 0.0), compare_ivf(tier, got, want, full, what))
+            n_cases += 1
+            if tier == "int4":  # no per-block int4 kernel (JAX has none)
+                continue
             name = "ivf_topk" if tier == "bfloat16" else "ivf_topk_int8"
             kernel, plain = blocks[name][:2]
             got = kernel(queries, xt, *extra, bias, ids, nv, k, block_rows=br)
@@ -834,7 +844,7 @@ def ivf_repair_cases(seed: int) -> dict[str, float]:
             tier_b = "bf16" if tier == "bfloat16" else "int8"
             err[name] = max(err.get(name, 0.0),
                             compare_blocks(tier_b, got, want, full, f"{name} d={wd} k={k}"))
-            n_cases += 2
+            n_cases += 1
         del x, full
     print(f"IVF any block_rows and alignment, wide rows: {n_cases} cases ok (block_rows "
           f"{REPAIR_BLOCK_ROWS} at +4-byte bias and scales; (d, k) {WIDE_CASES}), max_abs_err "
@@ -2460,9 +2470,8 @@ SCAN_KERNELS = ("topk_scan_kernel", "ivf_tma_kernel")
 def search_split(fn, calls: int = 5) -> dict[str, float]:
     """Device time per call of ``fn`` (one whole index.search) by part
     (torch.profiler): the scan and merge kernels, the copies, and the rest
-    (probe planning: the centroid product, sort, union and argsort; int4's
-    query quantization), whose largest kernels are named. Returns the
-    parts (ms)."""
+    (probe planning: the centroid product, sort, union and argsort), whose
+    largest kernels are named. Returns the parts (ms)."""
     parts = dict.fromkeys(("planning and the rest", "scan", "merge", "copies"), 0.0)
     rest = []
     for name, (count, us) in device_kernels(fn, calls).items():
@@ -2579,8 +2588,8 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
         res = {"launches": counts[tier], "err": err}
         print(f"  search matches the plain version on its plan; n_valid {n_valid} of {total} "
               f"blocks; recall@10 against {KERNEL_NAMES[tier]} {recall:.3f}")
-        # what one call runs on the card: bf16 and int8 one kernel (the
-        # queries' prep and the merge inside it) after a memset
+        # what one call runs on the card: one kernel (the queries' prep and
+        # the merge inside it) after a memset
         before = kernel.launches
         call()
         per_call = kernel.launches - before
@@ -2588,9 +2597,8 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
         # (the profiler may drop events of so short a window: kinds, not counts)
         ran = device_kernels(call, 5)
         names = [n for n in ran if "memset" not in n.lower()]
-        if tier != "int4":
-            check(len(names) == 1 and "ivf_tma_kernel" in names[0],
-                  f"{tier}: five calls ran {sorted(ran)}")
+        check(len(names) == 1 and "ivf_tma_kernel" in names[0],
+              f"{tier}: five calls ran {sorted(ran)}")
         print(f"  one call: {per_call} launch; five calls on the card: " + "; ".join(
             f"{n.split('(')[0][:60]} x{c}" for n, (c, _) in ran.items()))
 
@@ -2620,8 +2628,7 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
             else:
                 index.config.ivf_adaptive_margin = 0.0
             parts = search_split(lambda: index.search(queries, top_k=top_k))
-            if tier != "int4":
-                check(parts["merge"] == 0.0, f"{tier}: the search launched a merge kernel")
+            check(parts["merge"] == 0.0, f"{tier}: the search launched a merge kernel")
         out[tier] = res
         del index, x, b, extra, hits
         torch.cuda.empty_cache()
@@ -3188,8 +3195,7 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": ("youtu_rag_tpu_torch/csrc/ivf_topk.cu" if tier == "int4"
-                       else "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh"),
+            "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],
             "launches": launches4c[tier] + f["launches"],
             "max_abs_err": max(err3c[tier], err3x[kname], err3f[kname], err4c[tier], f["err"]),

@@ -186,8 +186,9 @@ def test_int4_tensor_core_scorer_is_bit_equal(cuda_device, d, n, k):
 @pytest.mark.parametrize("k", [1, 64, 1024, 2048])
 @pytest.mark.parametrize("block_rows", [4, 8, 12, 1024])
 def test_int4_ivf_warp_tiles_straddle_blocks(cuda_device, block_rows, k):
-    """IVF int4 over probed blocks of 4, 8 and 12 rows: a 16-row warp tile
-    takes rows of several blocks, each mapped on its own."""
+    """IVF int4 over probed blocks of 4, 8 and 12 rows: a 32-row stage of
+    the ring, and a warp's 16-row group, take rows of several blocks, each
+    block's run copied on its own."""
     n, d = 12288, 256
     rng = np.random.default_rng(block_rows + k)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -641,9 +642,9 @@ def test_ivf_kernel_two_streams_at_once(cuda_device, tier):
 @pytest.mark.parametrize("tier", list(IVF))
 @pytest.mark.parametrize("q", [1, 64, 65, 128, 130])
 def test_ivf_kernel_launches_per_query_tile(cuda_device, tier, q):
-    """One launch per 64 queries; bf16 and int8 run no other kernel than
-    their scan (their queries are cast or quantized inside it, and merged
-    there) and, past 64 queries, the join of the tiles."""
+    """One launch per 64 queries; every tier runs no other kernel than its
+    scan (its queries are cast or quantized inside it, and merged there)
+    and, past 64 queries, the join of the tiles."""
     _, kernel, plain = IVF[tier]
     qt, xt, extra, bias = ivf_inputs(tier, q, q, cuda_device)
     ids, nv = ivf_plan(64, 64, 32, seed=q, device=cuda_device)
@@ -663,13 +664,12 @@ def test_ivf_kernel_launches_per_query_tile(cuda_device, tier, q):
         if counts:
             break
     assert_ivf_equal(tier, got, plain(*args, block_rows=64))
-    if tier != "int4":
-        # the scan kernel once per tile; past one tile the tiles' results
-        # are joined (torch.cat), and nothing else runs
-        scans = sum(c for name, c in counts.items() if "ivf_tma_kernel" in name)
-        others = [name for name in counts if "ivf_tma_kernel" not in name]
-        assert scans == -(-q // 64), counts
-        assert all("Cat" in name for name in others) and (q > 64 or not others), counts
+    # the scan kernel once per tile; past one tile the tiles' results are
+    # joined (torch.cat), and nothing else runs
+    scans = sum(c for name, c in counts.items() if "ivf_tma_kernel" in name)
+    others = [name for name in counts if "ivf_tma_kernel" not in name]
+    assert scans == -(-q // 64), counts
+    assert all("Cat" in name for name in others) and (q > 64 or not others), counts
 
 
 @pytest.mark.cuda
@@ -739,7 +739,13 @@ def test_ivf_kernel_takes_any_block_rows_and_alignment(cuda_device, tier, block_
 C2_WIDTHS = (128, 768, 1024, 2048, 4096, 8192)
 C2_KS = (1, 10, 128, 1024, 2048, 4096)
 TMA_ENTRIES = {"ivf_topk_bf16": ivf_topk_dma, "ivf_topk_int8": ivf_topk_int8_dma,
-               "ivf_blocks_bf16": ivf_topk, "ivf_blocks_int8": ivf_topk_int8}
+               "ivf_topk_int4": ivf_topk_int4_dma, "ivf_blocks_bf16": ivf_topk,
+               "ivf_blocks_int8": ivf_topk_int8}
+
+
+def c2_width(entry, d):
+    """int4 takes d % 256 == 0: its d = 128 cell is d = 256."""
+    return 256 if entry.endswith("int4") and d == 128 else d
 
 
 @pytest.mark.cuda
@@ -747,16 +753,20 @@ TMA_ENTRIES = {"ivf_topk_bf16": ivf_topk_dma, "ivf_topk_int8": ivf_topk_int8_dma
 def test_ivf_scan_has_a_plan_for_every_width_and_k(cuda_device, entry):
     """Every (d, k) of the grid has a shared-memory plan and a CTA fits an
     SM (csrc/ivf_scan_tma.cuh, make_plan); at d = 768 the plans the
-    adaptive-plan searches use are the narrow ones."""
+    adaptive-plan searches use are the narrow ones (int4: 7 stages, two
+    CTAs on an SM at the search's k = 64)."""
     from youtu_rag_tpu_torch.ops.ivf import _ctas_per_sm, scan_plan
 
-    for d in C2_WIDTHS:
+    for d in (c2_width(entry, d) for d in C2_WIDTHS):
         for k in C2_KS:
             rows, stages, _, wide = scan_plan(entry, d, k)
             assert rows > 0 and stages > 0, (d, k)
             assert _ctas_per_sm(entry, d, k) >= 1, (d, k)
             assert not wide or (entry.endswith("bf16") and d > 4096), (d, k)
-    assert scan_plan(entry, 768, 10)[:2] == (32, 4) and not any(scan_plan(entry, 768, 10)[2:])
+    stages = 7 if entry.endswith("int4") else 4
+    assert scan_plan(entry, 768, 10)[:2] == (32, stages) and not any(scan_plan(entry, 768, 10)[2:])
+    if entry.endswith("int4"):
+        assert _ctas_per_sm(entry, 768, 64) == 2
 
 
 @pytest.mark.cuda
@@ -767,11 +777,13 @@ def test_ivf_kernel_answers_wide_rows_and_large_k(cuda_device, entry, d, k):
     """Where the lists or the query tile outgrow shared memory (device
     lists, the wide plan): the plain version's answer on two probed blocks
     of 4096 rows (bf16 within TOL, a row giving way to one whose plain
-    score is within TOL; int8 bit-equal; every slot no live row fills as
-    the plain version's)."""
+    score is within TOL; int8 and int4 bit-equal; every slot no live row
+    fills as the plain version's)."""
     kernel = TMA_ENTRIES[entry]
     plain = {ivf_topk_dma: ivf_topk_dma_reference, ivf_topk_int8_dma: ivf_topk_int8_dma_reference,
-             ivf_topk: ivf_topk_reference, ivf_topk_int8: ivf_topk_int8_reference}[kernel]
+             ivf_topk_int4_dma: ivf_topk_int4_dma_reference, ivf_topk: ivf_topk_reference,
+             ivf_topk_int8: ivf_topk_int8_reference}[kernel]
+    d = c2_width(entry, d)
     g = torch.Generator(device=cuda_device).manual_seed(d + k)
     n, br = 3 * 4096, 4096
     x = torch.randn(n, d, generator=g, device=cuda_device)
@@ -784,7 +796,7 @@ def test_ivf_kernel_answers_wide_rows_and_large_k(cuda_device, entry, d, k):
     if entry.endswith("bf16"):
         xt, extra = x.to(torch.bfloat16), ()
     else:
-        xq, xs = quantize_rows_int8(x)
+        xq, xs = (quantize_rows_int4 if entry.endswith("int4") else quantize_rows_int8)(x)
         xt, extra = xq, (xs,)
     ids = torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda_device)
     args = (qd, xt, *extra, bias, ids, torch.tensor(2, dtype=torch.int32, device=cuda_device), k)
@@ -799,7 +811,7 @@ def test_ivf_kernel_answers_wide_rows_and_large_k(cuda_device, entry, d, k):
     assert torch.equal(gs > NEG_INF / 2, live)
     assert torch.equal(gi[~live], wi[~live])
     assert torch.equal(gs[~live].view(torch.int32), ws[~live].view(torch.int32))
-    if entry.endswith("int8"):
+    if not entry.endswith("bf16"):
         assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32))
         return
     torch.testing.assert_close(gs[live], ws[live], rtol=0, atol=TOL)

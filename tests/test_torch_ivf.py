@@ -15,6 +15,9 @@ half of DeviceVectorIndex) against the JAX package's, on the CPU.
   n_probe steps, the auto-compaction rebuild and ``clear``.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +39,9 @@ from youtu_rag_tpu_torch.index import ivf as port_ivf
 from youtu_rag_tpu_torch.ops import kmeans as port_kmeans
 from youtu_rag_tpu_torch.ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
 from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ivf_cases import make_inputs  # noqa: E402
 
 TOL = 1e-4
 QTOL = 1e-5
@@ -207,6 +213,113 @@ def test_plain_versions_match_pallas_dma_kernels(tier, n_valid, k, ordered):
     assert ((gs > NEG_INF) | ((gs == NEG_INF) & (gi == 0))).all()  # empty slots: (NEG_INF, 0)
     if n_valid == 0:
         assert (gs == NEG_INF).all()
+
+
+# The inputs the int4 ring kernel must answer (csrc/ivf_scan_tma.cuh,
+# Int4): name → (d, n, block_rows, n_valid, k, bias kind, ids order). A
+# 32-row stage spans blocks of 4 and 12 rows; 66 starts runs off 4-row
+# boundaries; ids past n_valid are garbage (never read); "ties" holds exact
+# ties across blocks, in ascending ids (the probe plan's order, in which
+# the DMA kernels' row order and JAX's probe-order walk agree).
+INT4_DMA_CASES = {
+    "rows4-shuffled-k10": (256, 1024, 4, 48, 10, "mixed", "shuffled"),
+    "rows12-k64": (256, 1020, 12, 30, 64, "mixed", "shuffled"),
+    "rows66-d512-k64": (512, 1056, 66, 8, 64, "mixed", "shuffled"),
+    "empty-plan": (256, 1024, 64, 0, 10, "mixed", "sorted"),
+    "k-above-probed-rows": (256, 1024, 4, 5, 64, "mixed", "shuffled"),
+    "ties-d512-k64": (512, 1024, 64, 16, 64, "ties", "sorted"),
+    "ties-rows4": (256, 1024, 4, 256, 10, "ties", "sorted"),
+    "dead-d512": (512, 1024, 64, 16, 10, "dead", "sorted"),
+}
+
+
+@pytest.mark.parametrize("case", list(INT4_DMA_CASES))
+def test_int4_plain_version_matches_pallas_dma_kernel_on_ring_inputs(case):
+    """The port's plain int4 IVF top-k against ``pallas_ivf_topk_int4_dma``
+    in interpret mode: the same live slots (score > NEG_INF), rows equal
+    and scores bit-equal (tolerance: none), and NEG_INF in every other slot
+    of both. Those slots hold row 0 in the port (its DMA contract); JAX's
+    kernel repeats the top row of its running list there once it has merged
+    a block after one with a live row (ROADMAP Queue C), so their rows are
+    not compared."""
+    d, n, br, n_valid, k, kind, order = INT4_DMA_CASES[case]
+    qs, x, bias = make_inputs(4, d, n, kind, seed=d + br + k)
+    rng = np.random.default_rng(n_valid + k)
+    ids = np.full(n // br, 10**8, np.int32)  # garbage past n_valid
+    chosen = rng.permutation(n // br)[:n_valid]
+    ids[:n_valid] = chosen if order == "shuffled" else np.sort(chosen)
+    xq, xs = (np.array(a) for a in jax_quantize_int4(jnp.asarray(x)))
+    tnv = torch.tensor(n_valid, dtype=torch.int32)
+    gs, gi = ivf_topk_int4_dma(torch.from_numpy(qs), torch.from_numpy(xq), torch.from_numpy(xs),
+                               torch.from_numpy(bias), torch.from_numpy(ids), tnv, k,
+                               block_rows=br)
+    ws, wi = jax_ops_ivf.pallas_ivf_topk_int4_dma(
+        jnp.asarray(qs), jnp.asarray(xq), jnp.asarray(xs), jnp.asarray(bias), jnp.asarray(ids),
+        jnp.int32(n_valid), k, block_rows=br, interpret=True)
+    gs, gi, ws, wi = gs.numpy(), gi.numpy(), np.asarray(ws), np.asarray(wi)
+    live = ws > NEG_INF
+    np.testing.assert_array_equal(gs > NEG_INF, live)
+    np.testing.assert_array_equal(gi[live], wi[live])
+    np.testing.assert_array_equal(gs.view(np.uint32), ws.view(np.uint32))  # NEG_INF past live
+    assert (gi[~live] == 0).all()
+    if kind == "ties":  # query 0 is row 700: its copies tie at the top, in row order
+        assert gi[0, :5].tolist() == [r for r in (20, 300, 600, 700, 900)
+                                      if r // br in set(ids[:n_valid].tolist())][:5]
+    if n_valid == 0:
+        assert (gs == NEG_INF).all() and (gi == 0).all()
+
+
+def int4_ring_steps(d, quarter, t):
+    """Int4::dots' steps for lane t of ``quarter`` (csrc/ivf_scan_tma.cuh):
+    the byte offset of the packed word each mma step takes, in the row and
+    in the query's low half (its high half at d/2 + offset). Rounds of 16
+    chunks: chunk 16r + 4 quarter + t, its four words; then, where
+    d % 512 == 256, the last 8 chunks as 16 halves: half 4 quarter + t, its
+    two words."""
+    rounds = d // 512
+    steps = [16 * (16 * r + 4 * quarter + t) + 4 * w for r in range(rounds) for w in range(4)]
+    if d % 512:
+        steps += [256 * rounds + 8 * (4 * quarter + t) + 4 * w for w in range(2)]
+    return steps
+
+
+@pytest.mark.parametrize("d", [256, 512, 768, 1024, 1280, 2048, 3072, 4096, 8192])
+def test_int4_ring_column_mapping_is_exact_and_balanced(d):
+    """An emulation of the int4 ring's scoring, lane by lane and mma step by
+    step: per step, lane (g, t) gives A its word's biased low nibbles (k
+    4t..4t+3) and high nibbles (k 16 + 4t..) of rows g and g + 8, and B
+    query g's bytes of the same offsets in its low and high halves;
+    mma.sync m16n8k32 sums A @ B. The four quarters' sums, less 8 sum(q) in
+    quarter 0, equal ``unpack_int4(x) @ q`` exactly (tolerance: none), each
+    packed byte is taken once, and every quarter takes d/128 steps."""
+    from youtu_rag_tpu.ops.topk import unpack_int4 as jax_unpack_int4
+
+    rng = np.random.default_rng(d)
+    xp = rng.integers(-128, 128, (16, d // 2), dtype=np.int64).astype(np.int8)  # every nibble
+    q = rng.integers(-127, 128, (8, d), dtype=np.int64)
+    steps = [[int4_ring_steps(d, quarter, t) for t in range(4)] for quarter in range(4)]
+    taken = sorted(off for quarter in steps for lane in quarter for off in lane)
+    assert taken == list(range(0, d // 2, 4))
+    assert {len(lane) for quarter in steps for lane in quarter} == {d // 128}
+    u = xp.view(np.uint8).astype(np.int64) ^ 0x88  # biased: x + 8, in [0, 15]
+    lo, hi = u & 0x0F, u >> 4
+    acc = np.zeros((16, 8), np.int64)
+    for quarter in range(4):
+        for s in range(d // 128):
+            a = np.zeros((16, 32), np.int64)
+            b = np.zeros((32, 8), np.int64)
+            for t in range(4):
+                off = steps[quarter][t][s]
+                cols = slice(off, off + 4)
+                a[:, 4 * t : 4 * t + 4] = lo[:, cols]  # rows g and g + 8 alike
+                a[:, 16 + 4 * t : 20 + 4 * t] = hi[:, cols]
+                b[4 * t : 4 * t + 4] = q[:, off : off + 4].T
+                b[16 + 4 * t : 20 + 4 * t] = q[:, d // 2 + off : d // 2 + off + 4].T
+            acc += a @ b
+        if quarter == 0:
+            acc -= 8 * q.sum(axis=1)[None, :]
+    want = np.asarray(jax_unpack_int4(jnp.asarray(xp))).astype(np.int64) @ q.T
+    np.testing.assert_array_equal(acc, want)
 
 
 # ---------------------------------------------------------------------------

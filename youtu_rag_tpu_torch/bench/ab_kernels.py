@@ -10,7 +10,7 @@ from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
 (k = 10) and ``topk_int4_pruned`` (k = 64 and 10) at 1,048,576 × 768, q = 8
 (the calls of ``chip_smoke.py`` phase 5); the three IVF scans,
 ``ivf_topk_dma`` and ``ivf_topk_int8_dma`` at k = 10 and
-``ivf_topk_int4_dma`` at k = 64, on phase 5c's plans
+``ivf_topk_int4_dma`` at k = 64 (bf16 and int8 also at 64), on phase 5c's plans
 (``configs/rag/ivf_int8.yaml``'s index settings over 1,048,576 × 768
 clustered rows; the search's adaptive plan and the fixed n_probe 64 plan;
 L2 cold), and on the same plans the per-block calls ``ivf_topk`` and
@@ -80,7 +80,8 @@ def short_kernel_name(mangled: str) -> str:
     m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E(?:Lb([01])E)?(?:Lb([01])E)?",
                   mangled)
     if m:
-        k_class = ("k <= 128", "k <= 1024", "device lists", "k <= 32")[int(m.group(3))]
+        k_class = ("k <= 128", "k <= 1024", "device lists", "k <= 32", "k <= 64",
+                   "k <= 128")[int(m.group(3))]
         contract = ", per-block" if m.group(4) == "1" else ""
         wide = ", wide" if m.group(5) == "1" else ""
         return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}{contract}{wide}>"
@@ -152,7 +153,8 @@ def ivf_calls(g):
     unit rows (1024 centers, spread 0.7), the search's adaptive probe plan
     and the fixed one (margin off) for 8 queries near centers 0..7, k as
     the search asks (10; int4 64), and for bf16 and int8 the per-block
-    merged call (``ivf_topk``, ``ivf_topk_int8``) on the same plan. Yields
+    merged call (``ivf_topk``, ``ivf_topk_int8``) and the DMA call at
+    k = 64 on the same plan. Yields
     (name, the call, n_valid, the wrapper, its arguments before
     ``block_rows``)."""
     import numpy as np
@@ -206,6 +208,11 @@ def ivf_calls(g):
                        lambda args=args, blocks=blocks: blocks(
                            *args, block_rows=IVF_SETTINGS["block_rows"]),
                        int(nv), blocks, args)
+                # and the DMA entry at int4's k (the register lists of 33 <= k <= 64)
+                args64 = (*args[:-1], 64)
+                yield (f"{name} k=64 ({label} plan, L2 cold)",
+                       lambda args=args64: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
+                       int(nv), fn, args64)
         del index, x, b, extra
         torch.cuda.empty_cache()
 

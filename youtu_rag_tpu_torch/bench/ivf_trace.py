@@ -1,10 +1,10 @@
-"""Where the time of one bf16 or int8 IVF scan call goes, on one card.
+"""Where the time of one IVF scan call goes, on one card.
 
-    python -m youtu_rag_tpu_torch.bench.ivf_trace [--tiers bfloat16,int8]
+    python -m youtu_rag_tpu_torch.bench.ivf_trace [--tiers bfloat16,int8,int4]
 
 On ``chip_smoke.py`` phase 5c's plans (``bench/ab_kernels.py``'s
 ``ivf_calls``: the adaptive and the fixed plan over 1,048,576 × 768
-clustered rows, k = 10) it times each call with the held timer
+clustered rows, k = 10, int4 k = 64) it times each call with the held timer
 (``ab_kernels.held_ms``) under variants that separate the fixed cost from
 the streaming:
 
@@ -53,9 +53,9 @@ TRACE_PATCHES = (
      "&& (i) < 256) g_stage[i][n] = now_();\n"),
     ("  const int cta = blockIdx.x, n_cta = gridDim.x;\n",
      "  const int cta = blockIdx.x, n_cta = gridDim.x;\n  TRACE(0);\n"),
-    ("      for (int i = 0; i < S && more; ++i) issue(i);\n    }\n  });\n",
-     "      for (int i = 0; i < S && more; ++i) issue(i);\n      TRACE(2);\n    }\n  });\n"
-     "  TRACE(1);\n"),
+    ("      for (int i = 0; i < S && more; ++i) issue(i);\n    }\n  };\n",
+     "      for (int i = 0; i < S && more; ++i) issue(i);\n      TRACE(2);\n    }\n  };\n"),
+    ("q0, q_valid, d, first_fill);\n  }\n", "q0, q_valid, d, first_fill);\n  }\n  TRACE(1);\n"),
     ("  __syncthreads();\n\n  // this warp's list",
      "  __syncthreads();\n  TRACE(3);\n\n  // this warp's list"),
     ("    if (v0 < 0) break;  // the same for every thread: the scan is over\n",
@@ -63,15 +63,16 @@ TRACE_PATCHES = (
      "    if (i == 0) TRACE(4);\n    TRACE_STAGE(i, 0);\n"),
     ("    if (threadIdx.x == 0 && more) issue(i + S);\n",
      "    if (threadIdx.x == 0 && more) issue(i + S);\n    TRACE_STAGE(i, 1);\n"),
-    ("        pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n      }\n    }\n  }\n",
-     "        pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n      }\n    }\n"
-     "    TRACE_STAGE(i, 2);\n  }\n"),
+    ("          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n        }\n"
+     "      }\n    }\n  }\n",
+     "          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n        }\n"
+     "      }\n    }\n    TRACE_STAGE(i, 2);\n  }\n"),
     ("  // this CTA's lists as candidates", "  TRACE(5);\n  // this CTA's lists as candidates"),
     ("  if (!last_cta) return;\n", "  TRACE(6);\n  if (!last_cta) return;\n"),
     ("  __syncthreads();\n  if (!selects) return;\n",
      "  __syncthreads();\n  TRACE(7);\n  if (!selects) return;\n"),
-    ("    __syncwarp();\n  }\n  if constexpr (kProbe) {\n",
-     "    __syncwarp();\n  }\n  TRACE(8);\n  if constexpr (kProbe) {\n"),
+    ("  if constexpr (kProbe) {\n    if (n_out < k) {\n",
+     "  TRACE(8);\n  if constexpr (kProbe) {\n    if (n_out < k) {\n"),
 )
 TRACE_C = """
 extern "C" int ivf_trace_read(void* dst) {
@@ -161,8 +162,8 @@ def main() -> int:
     from youtu_rag_tpu_torch.ops import _build, ivf
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tiers", default="bfloat16,int8")
-    tiers = {"bfloat16": "ivf_topk_dma", "int8": "ivf_topk_int8_dma"}
+    ap.add_argument("--tiers", default="bfloat16,int8,int4")
+    tiers = {"bfloat16": "ivf_topk_dma", "int8": "ivf_topk_int8_dma", "int4": "ivf_topk_int4_dma"}
     names = [tiers[t] for t in ap.parse_args().tiers.split(",")]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

@@ -1,23 +1,28 @@
-// The bf16 and int8 IVF scans for Hopper (sm_90a): the exact masked top-k
-// over the rows of the probed blocks ids[0 .. n_valid), in ONE launch that
-// prepares the queries, streams the probed rows through a ring of bulk
-// asynchronous copies, scores them on the tensor cores and merges the
-// CTAs' lists. Included by ivf_topk.cu, whose entries ivf_topk_bf16 and
-// ivf_topk_int8 (the DMA contract) and ivf_blocks_bf16 and ivf_blocks_int8
-// (the per-block contract, the kProbe template flag) it defines; the int4
-// entry stays on topk_select.cuh's scan, and so do the brute scans and the
-// per-block candidates (topk_blocks.cu).
+// The IVF scans for Hopper (sm_90a): the exact masked top-k over the rows
+// of the probed blocks ids[0 .. n_valid), in ONE launch that prepares the
+// queries, streams the probed rows through a ring of bulk asynchronous
+// copies, scores them on the tensor cores and merges the CTAs' lists.
+// Three tiers: Bf16, Int8 and Int4 (packed nibbles) below. Included by
+// ivf_topk.cu, whose entries ivf_topk_bf16, ivf_topk_int8 and
+// ivf_topk_int4 (the DMA contract) and ivf_blocks_bf16 and ivf_blocks_int8
+// (the per-block contract, the kProbe template flag) it defines; the brute
+// scans and the per-block candidates (topk_blocks.cu) stay on
+// topk_select.cuh's scan.
 //
-// DMA contract (the TPU kernels' pallas_ivf_topk_dma and pallas_ivf_topk_int8_dma):
+// DMA contract (the TPU kernels' pallas_ivf_topk_dma, pallas_ivf_topk_int8_dma
+// and pallas_ivf_topk_int4_dma):
 //  - rows: the stored rows of blocks ids[0 .. n_valid), block b covering
 //    rows [b * block_rows, (b + 1) * block_rows); n_valid is read on the
 //    device and clamped to [0, max_blocks]; ids past it are never read;
 //    any block_rows that divides n, bias and scales at any 4-byte alignment
-//    (JAX asserts only n % block_rows == 0 and d % 128 == 0);
+//    (JAX asserts only n % block_rows == 0 and d % 128 == 0, int4 d % 256);
 //  - scores: bf16 f32(bf16 q) . f32(x) + bias, summed in f32 (in another
 //    order than the plain version's matmul); int8 the exact integer dot of
 //    the queries quantized as quantize_rows_int8 does (below) with the
-//    stored rows, then f32(acc) * (qs * xs) + bias rounded op by op;
+//    stored rows, int4 the same with the rows' nibbles (quantize_rows_int4's
+//    layout: packed byte j holds column j in its low nibble and column
+//    j + d/2 in its high one, each a 4-bit two's complement value), then
+//    f32(acc) * (qs * xs) + bias rounded op by op;
 //  - result: the k best per query in (score desc, stored row asc); slots no
 //    live row fills stay (NEG_INF, 0). Any q (8-query tiles on the grid's
 //    y, up to 64 per launch) and any k (4.'s list classes).
@@ -52,11 +57,12 @@
 //     from a counter of the tile, the next pair's atomicAdd always in
 //     flight, so a CTA whose SM streams faster takes more and the CTAs
 //     finish together.
-//  2. A ring of S stages of R rows (R 32 or 16, S up to 4; the host picks
-//     them from d and k, 9. below: int8 at d = 768 holds 4 x 32 rows, 99 KB
-//     in flight per CTA). Thread 0 fills a stage with 1-D bulk copies
+//  2. A ring of S stages of R rows (R 32 or 16, S up to 4, int4 up to 7;
+//     the host picks them from d and k, 9. below: int8 at d = 768 holds
+//     4 x 32 rows, 99 KB in flight per CTA, int4 7 x 32 packed rows, 88 KB,
+//     and both still fit two CTAs on an SM at the search's k). Thread 0 fills a stage with 1-D bulk copies
 //     (cp.async.bulk, completing on the stage's mbarrier): per run of rows
-//     inside one block, the rows, their bias and (int8) their scales. A
+//     inside one block, the rows, their bias and (int8, int4) their scales. A
 //     stage may hold rows of several blocks (block_rows 4, 8, 12); where
 //     block_rows is a multiple of 4 every run starts and ends on a multiple
 //     of 4 rows, so each copy is a multiple of 16 bytes (else 8.). The first S stages go out once the query prep's loads are
@@ -75,18 +81,40 @@
 //     agree, so words 0 and 1 of the chunk are the step's two k groups, then
 //     words 2 and 3, and no fragment needs a shuffle. The four quarters'
 //     partial dots go to a double-buffered tile [4, kQT, 32] (one
-//     __syncthreads per stage); selection adds them (int8 as integers).
+//     __syncthreads per stage); selection adds them (int8 and int4 as
+//     integers).
+//     int4 (Int4::dots): packed chunk c of a row (16 bytes: columns 16c..
+//     in the low nibbles, d/2 + 16c.. in the high ones) meets chunk c of
+//     the query's low half and chunk c of its high half. A packed word XOR
+//     0x88888888, masked to its low or high nibbles, is four biased u8
+//     values u = x + 8, so mma.sync m16n8k32 u8 x s8 sums dot(q, u) exactly
+//     and quarter 0 subtracts 8 sum(q), kept per query beside the tile
+//     (topk_scorers.cuh's Int4Scorer arithmetic). The d/32 packed chunks
+//     would split over the quarters unevenly by the rule above (d = 768:
+//     8/8/4/4), so int4 takes rounds of 16 chunks, chunk 16r + 4 quarter +
+//     t to lane t with its four words as four steps, and the 8 chunks past
+//     the last round (d % 512 == 256) as 16 halves of 8 bytes, half
+//     4 quarter + t to lane t, two steps: d/128 steps per quarter at every d.
 //  4. Selection as topk_select.cuh's scan: warp j keeps query j's sorted
 //     list and lane L takes row L of the stage; only a row that beats the
 //     list's k-th entry inserts. Up to k = 32 the list lives in registers,
 //     entry i in lane i, and an insertion is one ballot and one shuffle
-//     (kListWarp); above, topk_select.cuh's three classes.
+//     (kListWarp). Up to k = 64 and 128 it lives in two or four registers
+//     a lane, entry 32 r + lane in register r (kListWarp2, kListWarp4), and
+//     a stage's rows that beat entry k - 1 go in together: a bitonic sort of
+//     the 32 (15 exchanges between lanes), then Batcher's merge into the
+//     list (its last 32 against them reversed, then a bitonic merge), so a
+//     stage costs the same whether 1 or 32 rows insert (one at a time, into
+//     shared memory, the first stages of a CTA cost ~5 us at k = 64). Above
+//     k = 128, topk_select.cuh's shared and device classes.
 //  5. Query prep in the prologue, by every thread, with its loads in flight
 //     at once (one round trip at d <= 1024): bf16 rounds f32 queries to
 //     bf16 (__floats2bfloat162_rn, as .to(torch.bfloat16)) or takes bf16
 //     ones; int8 quantizes each query as quantize_rows_int8: scale =
 //     max(amax, 1e-12) times the f32 reciprocal of 127, q = round half even
-//     of the true quotient x / scale (Int8::quantize), clamped to +-127.
+//     of the true quotient x / scale (Int8::quantize), clamped to +-127;
+//     int4 the same into rows padded by 64 bytes (so that the 16-byte loads
+//     of two queries hit distinct banks), then warp j sums query j's bytes.
 //  6. The merge in the same launch: each CTA writes its lists as
 //     candidates [tiles, n_cta, kQT, k_pad] (k_pad: k rounded up to 4); the
 //     last CTA of a query tile to finish (a ticket from atomicAdd on the
@@ -97,7 +125,17 @@
 //     once in 16-byte loads; W 4 or 8), which its lane refills from the
 //     candidates when it runs out; a lane keeps the heads of its lists in
 //     registers, and each step is three warp reductions (redux.sync) of an
-//     order-preserving key.
+//     order-preserving key. A register list (4.) merges instead as it
+//     selects: the lists offer their window's entries a position at a
+//     time, each lane holding one, and the warp sorts and merges the 32 it
+//     holds when a lane would take a second; a list whose entry does not
+//     beat entry k - 1 offers no more, and those still offering past their
+//     windows stream the rest from the candidates, the next list's first 32
+//     entries loading while one merges. Its cost follows the entries that
+//     enter, not k steps (at k = 64 over 264 lists the tournament took
+//     ~43 us). The last CTA alone runs the merge, once, so its code is kept
+//     small: unrolled copies of the merge network cost more in instruction
+//     fetches than they save.
 //  7. kProbe: the lists and the merge key on v instead of the stored row, so
 //     ties come in probe order whichever CTA took a stage; the merge stops
 //     at the first entry that is not live and writes the tail. While it
@@ -114,9 +152,9 @@
 //     element by element (4-byte cp.async, arriving on the stage's barrier,
 //     which then counts two arrivals); the rows go by bulk copies as before
 //     (d % 128 == 0 keeps every row a 16-byte multiple).
-//  9. Any d and k (make_plan). The query tile (16d bytes bf16, 8d int8),
-//     the lists (64k bytes) and at least one stage (R (2d + 8) bytes) share
-//     one CTA's 232,448 bytes. A plan first keeps the lists in shared memory
+//  9. Any d and k (make_plan). The query tile (16d bytes bf16, 8d int8,
+//     8 (d + 64) int4), the lists (64k bytes) and at least one stage
+//     (R (row bytes + 8)) share one CTA's 232,448 bytes. A plan first keeps the lists in shared memory
 //     (the shapes of 2.), then in device memory (kListDevice, which k >
 //     1024 takes anyway); past that (bf16 from d ~ 4,700) the wide plan
 //     (kWide) reads the query tile from device memory, bf16 as the caller
@@ -124,8 +162,8 @@
 //     m16 step repeat rows g and are never selected). A wide plan scores at
 //     the rate of its one or two stages in flight: it answers, slowly.
 //
-// Bound: HBM reads of the probed rows (2d or d bytes each, plus 4 or 8 of
-// bias and scale), once per 8-query tile.
+// Bound: HBM reads of the probed rows (2d, d or d/2 packed bytes each,
+// plus 4 or 8 of bias and scale), once per 8-query tile.
 
 #pragma once
 
@@ -137,7 +175,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kGroupRows = 16;      // rows a warp scores (the mma's m)
 constexpr int kQuarters = 4;        // warps that share a row group, each a quarter of the width
 constexpr int kMaxRows = kGroupRows * kWarps / kQuarters;  // 32 rows per stage at most
-constexpr int kMaxStages = 4;       // stages in the ring at most
 constexpr int kSmemLimit = 232448;  // bytes of shared memory one CTA may have
 constexpr int kBatch = 8;           // loads in flight per thread in the query prep
 constexpr int kMergeBatch = 9;      // ... in the merge (every window at once up to 2304 x 4)
@@ -150,9 +187,86 @@ constexpr float kRecip127 = 1.0f / 127.0f;  // f32(1 / 127), as the jitted quant
 static_assert(kWarps == 2 * kQuarters, "two row groups of 16 per 32-row stage");
 
 // Where a selecting warp keeps its list: topk_select.cuh's ListKind, and
-// up to k = 32 in its lanes' registers
+// in its lanes' registers up to k = 32 (one entry a lane, kListWarp), 64
+// and 128 (two and four, kListWarp2 and kListWarp4: 4. and 6. below)
 constexpr int kListWarp = 3;
-__host__ __device__ inline int tma_list_kind(int k) { return k <= 32 ? kListWarp : list_kind(k); }
+constexpr int kListWarp2 = 4;
+constexpr int kListWarp4 = 5;
+__host__ __device__ inline int tma_list_kind(int k) {
+  return k <= 32 ? kListWarp : k <= 64 ? kListWarp2 : k <= 128 ? kListWarp4 : list_kind(k);
+}
+// registers a lane holds of a kListWarp2 / kListWarp4 list (0: another class)
+template <int kList>
+constexpr int kListRegsPerLane = kList == kListWarp2 ? 2 : kList == kListWarp4 ? 4 : 0;
+
+// Compare-exchange with the lane `mask` away: this lane keeps the better of
+// the two entries (score desc, key asc) if keep_better, else the worse.
+__device__ __forceinline__ void exchange(float& s, int& i, int mask, bool keep_better) {
+  const float os = __shfl_xor_sync(kFull, s, mask);
+  const int oi = __shfl_xor_sync(kFull, i, mask);
+  if (keep_better ? better(os, oi, s, i) : better(s, i, os, oi)) {
+    s = os;
+    i = oi;
+  }
+}
+
+// The warp's 32 entries (one a lane) sorted best first, entry `lane` in
+// lane `lane`: a bitonic sort, 15 exchanges.
+__device__ __forceinline__ void sort32(float& s, int& i, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1)
+      exchange(s, i, stride, ((lane & stride) == 0) == ((lane & size) == 0));
+}
+
+// A sorted list of 32 L entries, entry 32 r + lane in (ls[r], li[r]), takes
+// the best 32 L of itself and 32 sorted entries (cs, ci), entry `lane` in
+// lane `lane`. Its last 32 against the new ones reversed (each place the
+// better) make a bitonic sequence that holds them (Batcher's merge), which
+// a bitonic merge sorts: strides 16 L .. 32 between a lane's registers,
+// then 16 .. 1 between lanes.
+template <int L>
+__device__ __forceinline__ void merge32(float (&ls)[L], int (&li)[L], float cs, int ci, int lane) {
+  const float os = __shfl_sync(kFull, cs, 31 - lane);
+  const int oi = __shfl_sync(kFull, ci, 31 - lane);
+  if (better(os, oi, ls[L - 1], li[L - 1])) {
+    ls[L - 1] = os;
+    li[L - 1] = oi;
+  }
+#pragma unroll
+  for (int h = L / 2; h >= 1; h /= 2)
+#pragma unroll
+    for (int r = 0; r < L; ++r)
+      if ((r & h) == 0 && better(ls[r + h], li[r + h], ls[r], li[r])) {
+        const float ts = ls[r];
+        const int ti = li[r];
+        ls[r] = ls[r + h];
+        li[r] = li[r + h];
+        ls[r + h] = ts;
+        li[r + h] = ti;
+      }
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1)
+#pragma unroll
+    for (int r = 0; r < L; ++r) exchange(ls[r], li[r], stride, (lane & stride) == 0);
+}
+
+// Entry e < 32 L of a register list, to every lane.
+template <int L>
+__device__ __forceinline__ void list_entry(const float (&ls)[L], const int (&li)[L], int e,
+                                           float& s, int& i) {
+  float ts = ls[0];
+  int ti = li[0];
+#pragma unroll
+  for (int r = 1; r < L; ++r)
+    if (r == e / 32) {
+      ts = ls[r];
+      ti = li[r];
+    }
+  s = __shfl_sync(kFull, ts, e % 32);
+  i = __shfl_sync(kFull, ti, e % 32);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -276,7 +390,9 @@ __device__ __forceinline__ void quarter_dots(const unsigned char* qt, int q_row,
 // bf16 rows: the query tile as bf16 [kQT, d], rows 2d bytes
 struct Bf16 {
   static constexpr bool kScaled = false;
+  static constexpr int kStages = 4;  // stages in the ring at most
   typedef float Acc;
+  static __host__ __device__ bool width_ok(int d) { return d % 128 == 0; }
   static __host__ __device__ int row_bytes(int d) { return 2 * d; }
   static __host__ __device__ size_t q_bytes(int d) { return (size_t)2 * kQT * d; }
 
@@ -343,20 +459,29 @@ struct Bf16 {
 // int8 rows: the query tile as int8 [kQT, d], rows d bytes
 struct Int8 {
   static constexpr bool kScaled = true;
+  static constexpr int kStages = 4;
   typedef int Acc;
+  static __host__ __device__ bool width_ok(int d) { return d % 128 == 0; }
   static __host__ __device__ int row_bytes(int d) { return d; }
   static __host__ __device__ size_t q_bytes(int d) { return (size_t)kQT * d; }
 
-  // queries f32 [q, d], 16-byte aligned, quantized as quantize_rows_int8
-  // (rows past q: zeros, scale 0). Every thread loads its float4 chunks of
-  // the tile, kBatch in flight (d <= 1024: all of them, held in registers
-  // for the second pass); a warp's 32 chunks belong to one query (d is a
-  // multiple of 128), whose amax it takes to shared memory with one
-  // atomicMax (qscale's words as f32 bits: non-negative floats order as
-  // their bits do). All threads take part.
   template <class Hook>
   static __device__ void prepare(unsigned char* qt, float* qscale, const void* queries, bool,
                                  int q0, int q_valid, int d, Hook&& loaded) {
+    quantize_tile<0>(qt, qscale, queries, q0, q_valid, d, loaded);
+  }
+
+  // queries f32 [q, d], 16-byte aligned, quantized as quantize_rows_int8
+  // into the tile, query j at qt + j (d + kPad) (rows past q: zeros, scale
+  // 0). Every thread loads its float4 chunks of the tile, kBatch in flight
+  // (d <= 1024: all of them, held in registers for the second pass); a
+  // warp's 32 chunks belong to one query (d is a multiple of 128), whose
+  // amax it takes to shared memory with one atomicMax (qscale's words as
+  // f32 bits: non-negative floats order as their bits do). All threads
+  // take part.
+  template <int kPad, class Hook>
+  static __device__ void quantize_tile(unsigned char* qt, float* qscale, const void* queries,
+                                       int q0, int q_valid, int d, Hook&& loaded) {
     unsigned* qmax = reinterpret_cast<unsigned*>(qscale);
     uint32_t* qq = reinterpret_cast<uint32_t*>(qt);
     const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(queries) +
@@ -409,7 +534,10 @@ struct Int8 {
             word = quantize(v[u].x, scale, inv) | quantize(v[u].y, scale, inv) << 8 |
                    quantize(v[u].z, scale, inv) << 16 | quantize(v[u].w, scale, inv) << 24;
           }
-          qq[c] = word;
+          if constexpr (kPad == 0)
+            qq[c] = word;
+          else
+            qq[c + c / n4 * (kPad / 4)] = word;
         }
       }
     }
@@ -433,6 +561,96 @@ struct Int8 {
                                               int = kQT, int = 8) {
     static_assert(!kWide, "int8 has no wide plan");
     quarter_dots<int, mma_s8>(qt, d, rows, d, d / 16, quarter, lane, acc);
+  }
+  static __device__ __forceinline__ float to_f32(int s) { return __int2float_rn(s); }
+};
+
+// int4 rows: packed [n, d/2] (quantize_rows_int4's layout), d/2 bytes a
+// row; the query tile as int8 [kQT, d + kQPad], then 8 sum(q) per query as
+// int32 (3. and 5. above)
+struct Int4 {
+  static constexpr bool kScaled = true;
+  static constexpr int kStages = 7;  // a stage holds half an int8 one's bytes
+  static constexpr int kQPad = 64;   // bytes past each query row: its 16-byte loads in other banks
+  typedef int Acc;
+  // the packed width a multiple of 128, as the TPU kernel asserts
+  static __host__ __device__ bool width_ok(int d) { return d % 256 == 0; }
+  static __host__ __device__ int row_bytes(int d) { return d / 2; }
+  static __host__ __device__ size_t q_bytes(int d) {
+    return corr_off(d) + sizeof(int) * kQT;
+  }
+  static __host__ __device__ size_t corr_off(int d) { return (size_t)kQT * (d + kQPad); }
+
+  template <class Hook>
+  static __device__ void prepare(unsigned char* qt, float* qscale, const void* queries, bool,
+                                 int q0, int q_valid, int d, Hook&& loaded) {
+    Int8::quantize_tile<kQPad>(qt, qscale, queries, q0, q_valid, d, loaded);
+    __syncthreads();
+    // warp j: 8 times the sum of query j's bytes (kWarps == kQT; rows past q are zero)
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int* row = reinterpret_cast<const int*>(qt + (size_t)warp * (d + kQPad));
+    int s = 0;
+    for (int w = lane; w < d / 4; w += 32) s = __dp4a(row[w], 0x01010101, s);
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    if (lane == 0) reinterpret_cast<int*>(qt + corr_off(d))[warp] = 8 * s;
+  }
+
+  // one k32 step: words wa and wb of rows g and g + 8 (their low nibbles as
+  // k 4t.., their high ones as k 16 + 4t..) against the query words of the
+  // same bytes in its low half (ql) and its high half (qh)
+  static __device__ __forceinline__ void step(int (&acc)[4], uint32_t wa, uint32_t wb, uint32_t ql,
+                                              uint32_t qh) {
+    const uint32_t ua = wa ^ 0x88888888u, ub = wb ^ 0x88888888u;
+    const uint32_t a[4] = {ua & 0x0f0f0f0fu, ub & 0x0f0f0f0fu, (ua >> 4) & 0x0f0f0f0fu,
+                           (ub >> 4) & 0x0f0f0f0fu};
+    const uint32_t b[2] = {ql, qh};
+    mma_u8s8(acc, a, b);
+  }
+
+  // The warp's quarter of the dots of 16 packed rows (`rows`, d/2 bytes
+  // apart) with the tile's queries, as 3. above: lane (g, t) adds to acc[e]
+  // the partial dot of row g + 8 (e >> 1) with query 2t + (e & 1); quarter
+  // 0 subtracts the queries' 8 sum(q).
+  template <bool kWide = false>  // no wide plan (the tile fits up to d = 8192)
+  static __device__ __forceinline__ void dots(const unsigned char* qt, const unsigned char* rows,
+                                              int d, int quarter, int lane, int (&acc)[4],
+                                              int = kQT, int = 8) {
+    static_assert(!kWide, "int4 has no wide plan");
+    const int half = d / 2, g = lane >> 2, t = lane & 3;
+    const unsigned char* ra = rows + (size_t)g * half;  // rows g and g + 8
+    const unsigned char* rb = ra + (size_t)8 * half;
+    const unsigned char* ql = qt + (size_t)g * (d + kQPad);  // query g's low half
+    const unsigned char* qh = ql + half;                     // and its high half
+    const int rounds = d / 512;  // of 16 packed chunks
+    for (int r = 0; r < rounds; ++r) {  // chunk 16r + 4 quarter + t, four steps
+      const int off = 16 * (16 * r + 4 * quarter + t);
+      const uint4 xa = *reinterpret_cast<const uint4*>(ra + off);
+      const uint4 xb = *reinterpret_cast<const uint4*>(rb + off);
+      const uint4 bl = *reinterpret_cast<const uint4*>(ql + off);
+      const uint4 bh = *reinterpret_cast<const uint4*>(qh + off);
+      step(acc, xa.x, xb.x, bl.x, bh.x);
+      step(acc, xa.y, xb.y, bl.y, bh.y);
+      step(acc, xa.z, xb.z, bl.z, bh.z);
+      step(acc, xa.w, xb.w, bl.w, bh.w);
+    }
+    if (d % 512) {  // the last 8 chunks as 16 halves: half 4 quarter + t, two steps
+      const int off = 256 * rounds + 8 * (4 * quarter + t);
+      const uint2 xa = *reinterpret_cast<const uint2*>(ra + off);
+      const uint2 xb = *reinterpret_cast<const uint2*>(rb + off);
+      const uint2 bl = *reinterpret_cast<const uint2*>(ql + off);
+      const uint2 bh = *reinterpret_cast<const uint2*>(qh + off);
+      step(acc, xa.x, xb.x, bl.x, bh.x);
+      step(acc, xa.y, xb.y, bl.y, bh.y);
+    }
+    if (quarter == 0) {
+      const int* corr = reinterpret_cast<const int*>(qt + corr_off(d));
+      const int c0 = corr[2 * t], c1 = corr[2 * t + 1];
+      acc[0] -= c0;
+      acc[1] -= c1;
+      acc[2] -= c0;
+      acc[3] -= c1;
+    }
   }
   static __device__ __forceinline__ float to_f32(int s) { return __int2float_rn(s); }
 };
@@ -477,23 +695,25 @@ struct Plan {
   }
 };
 
-// R and S for width d and top-k k: the first of 4 x 32, 3 x 32, 2 x 32,
-// 4 x 16, 3 x 16, 2 x 16, 1 x 32, 1 x 16 rows that fits (the merge at a
-// window of 4) with the lists in shared memory (k <= 1024), then with the
-// lists in device memory, then (bf16) the same and 4, 3, 2 and 1 x 8 as
-// a wide plan (9. above); rows = 0 if none does.
+// R and S for width d and top-k k: the first of 7, 6, 5 (int4 only), 4, 3
+// and 2 x 32, 4, 3 and 2 x 16, 1 x 32 and 1 x 16 rows that fits (the merge
+// at a window of 4) with the lists in shared memory (k <= 1024), then with
+// the lists in device memory, then (bf16) the same and 4, 3, 2 and 1 x 8
+// as a wide plan (9. above); rows = 0 if none does.
 template <class T>
 Plan<T> make_plan(int d, int k, int max_cta) {
-  const int shapes[][2] = {{32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3}, {16, 2}, {32, 1}, {16, 1},
-                           {8, 4},  {8, 3},  {8, 2},  {8, 1}};
-  const int n_narrow = 8;  // the shapes a plan with the query tile in shared memory takes
+  const int shapes[][2] = {{32, 7}, {32, 6}, {32, 5}, {32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3},
+                           {16, 2}, {32, 1}, {16, 1}, {8, 4},  {8, 3},  {8, 2},  {8, 1}};
   for (int dev = list_kind(k) == kListDevice; dev <= 1; ++dev)
-    for (int s = 0; s < n_narrow; ++s) {
-      const Plan<T> p{shapes[s][0], shapes[s][1], T::row_bytes(d), d, k, 4, dev, 0};
+    for (const auto& rs : shapes) {
+      // 8-row stages only with the query tile in device memory
+      if (rs[0] < 16 || rs[1] > T::kStages) continue;
+      const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4, dev, 0};
       if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
     }
   if (!T::kScaled)
     for (const auto& rs : shapes) {
+      if (rs[1] > T::kStages) continue;
       const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4, 1, 1};
       if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
     }
@@ -503,7 +723,7 @@ Plan<T> make_plan(int d, int k, int max_cta) {
 struct Args {
   const void* queries;  // [q, d] f32, or bf16 (queries_bf16, bf16 scan only)
   const void* x;        // [n, row bytes]
-  const float* xscale;  // [n] (int8)
+  const float* xscale;  // [n] (int8, int4)
   const float* bias;    // [n]
   float* cand_s;        // [tiles, n_cta, kQT, k_pad]
   int* cand_i;          // [tiles, n_cta, kQT, k_pad]
@@ -531,7 +751,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   int* list_i = reinterpret_cast<int*>(list_s + kQT * a.k);
   unsigned char* ring = smem + p.ring_off();
   __shared__ int last_cta;
-  __shared__ int slot_v0[kMaxStages];  // the first virtual row of each slot's stage, -1: none
+  __shared__ int slot_v0[T::kStages];  // the first virtual row of each slot's stage, -1: none
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cta = blockIdx.x, n_cta = gridDim.x;
@@ -626,7 +846,9 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   } else {
     T::prepare(qt, qscale, a.queries, a.queries_bf16 != 0, q0, q_valid, d, first_fill);
   }
-  if constexpr (kList != kListDevice) {
+  // kListWarp2/4: the list in registers, entry 32 r + lane in (wl_s[r], wl_i[r])
+  constexpr int kRegList = kListRegsPerLane<kList>;
+  if constexpr (kList != kListDevice && kRegList == 0) {
     for (int e = threadIdx.x; e < kQT * k; e += kThreads) {
       list_s[e] = kNegInf;
       list_i[e] = 0;
@@ -658,6 +880,13 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   const int group = warp / kQuarters, quarter = warp % kQuarters;
   float reg_s = kNegInf;  // kListWarp: entry `lane` of this warp's list
   int reg_i = 0;
+  float wl_s[kRegList > 0 ? kRegList : 1];
+  int wl_i[kRegList > 0 ? kRegList : 1];
+#pragma unroll
+  for (int r = 0; r < (kRegList > 0 ? kRegList : 1); ++r) {
+    wl_s[r] = kNegInf;
+    wl_i[r] = 0;
+  }
 
   for (int i = 0;; ++i) {
     const int slot = i % S;
@@ -716,40 +945,51 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
           if (lane == 0 && m1) atomicMax(first + 1, 2 * br - (v0 + __ffs(m1) - 1));
         }
       }
-      unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
-      while (pending) {
-        const int src = __ffs(pending) - 1;
-        const float ss = __shfl_sync(kFull, s, src);
-        const int rr = __shfl_sync(kFull, row, src);
-        if constexpr (kList == kListWarp) {
-          // entry i in lane i: the entries below the new one move up a lane
-          const int at = __popc(__ballot_sync(kFull, lane < k && better(reg_s, reg_i, ss, rr)));
-          const float up_s = __shfl_up_sync(kFull, reg_s, 1);
-          const int up_i = __shfl_up_sync(kFull, reg_i, 1);
-          if (lane == at) {
-            reg_s = ss;
-            reg_i = rr;
-          } else if (lane > at) {
-            reg_s = up_s;
-            reg_i = up_i;
-          }
-          thr_s = __shfl_sync(kFull, reg_s, k - 1);
-          thr_i = __shfl_sync(kFull, reg_i, k - 1);
-        } else {
-          if constexpr (kList == kListDevice) {
-            warp_insert_device(my_s, my_i, k, n_live, ss, rr, lane);
-            n_live = min(n_live + 1, k);
-          } else if constexpr (kList == kListShared) {
-            warp_insert_smem(my_s, my_i, k, ss, rr, lane);
-          } else {
-            warp_insert(my_s, my_i, k, ss, rr, lane);
-          }
-          thr_s = my_s[k - 1];
-          thr_i = my_i[k - 1];
+      if constexpr (kRegList > 0) {
+        // a stage at a time: its rows that beat entry k - 1, sorted, merged in
+        const bool in = ok && better(s, row, thr_s, thr_i);
+        if (__ballot_sync(kFull, in)) {
+          float cs = in ? s : kNegInf;
+          int ci = in ? row : 0;
+          sort32(cs, ci, lane);
+          merge32<kRegList>(wl_s, wl_i, cs, ci, lane);
+          list_entry<kRegList>(wl_s, wl_i, k - 1, thr_s, thr_i);
         }
-        pending &= pending - 1;
-        // entry k-1 moved: drop the candidates that no longer beat it
-        pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
+      } else {
+        unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
+        while (pending) {
+          const int src = __ffs(pending) - 1;
+          const float ss = __shfl_sync(kFull, s, src);
+          const int rr = __shfl_sync(kFull, row, src);
+          if constexpr (kList == kListWarp) {
+            // entry i in lane i: the entries below the new one move up a lane
+            const int at = __popc(__ballot_sync(kFull, lane < k && better(reg_s, reg_i, ss, rr)));
+            const float up_s = __shfl_up_sync(kFull, reg_s, 1);
+            const int up_i = __shfl_up_sync(kFull, reg_i, 1);
+            if (lane == at) {
+              reg_s = ss;
+              reg_i = rr;
+            } else if (lane > at) {
+              reg_s = up_s;
+              reg_i = up_i;
+            }
+            thr_s = __shfl_sync(kFull, reg_s, k - 1);
+            thr_i = __shfl_sync(kFull, reg_i, k - 1);
+          } else {
+            if constexpr (kList == kListDevice) {
+              warp_insert_device(my_s, my_i, k, n_live, ss, rr, lane);
+              n_live = min(n_live + 1, k);
+            } else {
+              static_assert(kList == kListShared, "the other classes keep registers");
+              warp_insert_smem(my_s, my_i, k, ss, rr, lane);
+            }
+            thr_s = my_s[k - 1];
+            thr_i = my_i[k - 1];
+          }
+          pending &= pending - 1;
+          // entry k-1 moved: drop the candidates that no longer beat it
+          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
+        }
       }
     }
   }
@@ -760,6 +1000,14 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       a.cand_s[slot_out + lane] = reg_s;
       a.cand_i[slot_out + lane] = reg_i;
     }
+  } else if constexpr (kRegList > 0) {
+    if (selects)
+#pragma unroll
+      for (int r = 0; r < kRegList; ++r)
+        if (32 * r + lane < k) {
+          a.cand_s[slot_out + 32 * r + lane] = wl_s[r];
+          a.cand_i[slot_out + 32 * r + lane] = wl_i[r];
+        }
   } else if constexpr (kList != kListDevice) {
     if (selects)
       for (int t = lane; t < k; t += 32) {
@@ -817,90 +1065,217 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   float* win_s = win_all + warp * per_warp;
   int* win_i = reinterpret_cast<int*>(win_s + n_pad * W);
   const int qi = q0 + warp;
-  // the heads of this lane's lists (key 0, row INT_MAX: no list, or spent)
-  unsigned hk[kListsPerLane];
-  int hr[kListsPerLane], hp[kListsPerLane];
-#pragma unroll
-  for (int m = 0; m < kListsPerLane; ++m) {
-    const int l = lane + 32 * m;
-    hp[m] = 0;
-    hk[m] = l < n_cta ? order_key(win_s[l * W]) : 0u;
-    hr[m] = l < n_cta ? win_i[l * W] : INT_MAX;
-  }
-  // this lane's best head as (key, row, list); lists ascend with m, so the
-  // first of a tie wins
-  auto lane_best = [&](unsigned& bk, int& bi, int& bl) {
-    bk = 0;
-    bi = INT_MAX;
-    bl = INT_MAX;
-#pragma unroll
-    for (int m = 0; m < kListsPerLane; ++m)
-      if (hk[m] > bk || (hk[m] == bk && hr[m] < bi)) {
-        bk = hk[m];
-        bi = hr[m];
-        bl = lane + 32 * m;
-      }
-  };
-  // the warp's best of the lanes' (key, row, list): key max, then row min,
-  // then list min
-  auto warp_best = [](unsigned key, int row, int list, unsigned& bk, unsigned& bi, unsigned& bl) {
-    bk = __reduce_max_sync(kFull, key);
-    bi = __reduce_min_sync(kFull, key == bk ? (unsigned)row : 0xffffffffu);
-    bl = __reduce_min_sync(kFull, key == bk && (unsigned)row == bi ? (unsigned)list : 0xffffffffu);
-  };
   [[maybe_unused]] int n_out = k;  // kProbe: the slots the live entries fill
-  for (int t = 0; t < k; ++t) {
-    unsigned lk, bk, bi, bl;
-    int li, ll;
-    lane_best(lk, li, ll);
-    warp_best(lk, li, ll, bk, bi, bl);
+  if constexpr (kRegList > 0) {
+    // A register list (kListWarp2/4) merges as it selects (6. above). A
+    // list whose entry does not beat the merged list's entry k - 1 offers
+    // no more: its later entries are worse, and entry k - 1 only improves.
+    // (1) The windows a position at a time, list by list: each lane holds
+    // one offered entry, and the warp sorts and merges the 32 it holds when
+    // a lane would take a second. (2) The lists still offering past their
+    // windows, one at a time, the next one's first 32 entries loading while
+    // one merges. The last CTA alone runs this code, once, so it is kept
+    // small (one merge in each loop, no unrolled copies): instruction
+    // fetches, not the merges, set its time.
+    float ls[kRegList > 0 ? kRegList : 1];
+    int li[kRegList > 0 ? kRegList : 1];
+#pragma unroll
+    for (int r = 0; r < kRegList; ++r) {
+      ls[r] = kNegInf;
+      li[r] = 0;
+    }
+    float ts = kNegInf;  // entry k - 1
+    int ti = 0;
+    float hs = kNegInf;  // the entry this lane holds
+    int hi = 0;
+    bool held = false;
+    unsigned open = 0;  // bit m: list lane + 32 m still offers
+    for (int m = 0; m < kListsPerLane; ++m)
+      if (lane + 32 * m < n_cta) open |= 1u << m;
+    const int wk = min(W, k), n_offers = wk * kListsPerLane;
+#pragma unroll 1
+    for (int o = 0; o <= n_offers; ++o) {  // o == n_offers: what is still held
+      const int e = o / kListsPerLane, m = o % kListsPerLane;
+      float cs = kNegInf;
+      int ci = 0;
+      bool in = false;
+      if (o < n_offers && (open >> m & 1)) {
+        const int l = lane + 32 * m;
+        cs = win_s[l * W + e];
+        ci = win_i[l * W + e];
+        in = better(cs, ci, ts, ti);
+        if (!in) open &= ~(1u << m);
+      }
+      if (__ballot_sync(kFull, held && (in || o == n_offers))) {
+        sort32(hs, hi, lane);
+        merge32<kRegList>(ls, li, hs, hi, lane);
+        list_entry<kRegList>(ls, li, k - 1, ts, ti);
+        hs = kNegInf;
+        hi = 0;
+        held = false;
+      }
+      if (in) {
+        hs = cs;
+        hi = ci;
+        held = true;
+      }
+    }
+    // (2): the open lists in turn (-1: none left)
+    int m_next = 0;
+    unsigned pend = 0;
+    auto next_list = [&]() {
+      while (!pend && m_next < kListsPerLane) {
+        pend = __ballot_sync(kFull, (open >> m_next & 1) && wk < k);
+        if (!pend) ++m_next;
+      }
+      if (!pend) return -1;
+      const int l = __ffs(pend) - 1 + 32 * m_next;
+      pend &= pend - 1;
+      if (!pend) ++m_next;
+      return l;
+    };
+    // entry `base` + lane of list l, or none
+    auto entry_of = [&](int l, int base, float& cs, int& ci) {
+      cs = kNegInf;
+      ci = 0;
+      if (l >= 0 && base + lane < k) {
+        const size_t off = ((size_t)l * kQT + warp) * k_pad + base + lane;
+        cs = __ldcg(tile_s + off);
+        ci = __ldcg(tile_i + off);
+      }
+    };
+    int l = next_list();
+    float cs, ns;
+    int ci, ni;
+    entry_of(l, wk, cs, ci);
+    int nl = next_list();  // the next list, its first 32 loading while this one merges
+    entry_of(nl, wk, ns, ni);
+#pragma unroll 1
+    for (int base = wk; l >= 0;) {
+      const bool in = base + lane < k && better(cs, ci, ts, ti);
+      const unsigned got = __ballot_sync(kFull, in);
+      bool done = !got;  // this list's entries from `base` on are worse
+      if (got) {
+        if (!in) {
+          cs = kNegInf;
+          ci = 0;
+        }
+        merge32<kRegList>(ls, li, cs, ci, lane);  // a sorted run: a prefix, then none
+        list_entry<kRegList>(ls, li, k - 1, ts, ti);
+        base += 32;
+        done = got != kFull || base >= k;
+      }
+      if (done) {
+        l = nl;
+        cs = ns;
+        ci = ni;
+        base = wk;
+        nl = next_list();
+        entry_of(nl, wk, ns, ni);
+      } else {
+        entry_of(l, base, cs, ci);  // this list's next 32
+      }
+    }
+    // slots 0 .. k - 1 (kProbe: the live entries, a prefix; the tail below)
     if constexpr (kProbe) {
-      if (bk <= order_key(kNegInf)) {  // the live entries are spent: the tail
-        n_out = t;
-        break;
+      int live = 0;
+#pragma unroll
+      for (int r = 0; r < kRegList; ++r) live += __popc(__ballot_sync(kFull, ls[r] > kNegInf));
+      n_out = min(live, k);
+    }
+#pragma unroll
+    for (int r = 0; r < kRegList; ++r) {
+      const int e = 32 * r + lane;
+      if (e < n_out) {
+        a.out_s[(size_t)qi * k + e] = ls[r];
+        a.out_i[(size_t)qi * k + e] = kProbe ? a.src.row(li[r]) : li[r];
       }
     }
-    if (lane == 0) {
-      a.out_s[(size_t)qi * k + t] = key_score(bk);
-      a.out_i[(size_t)qi * k + t] = kProbe ? a.src.row((int)bi) : (int)bi;
+  } else {
+    // the heads of this lane's lists (key 0, row INT_MAX: no list, or spent)
+    unsigned hk[kListsPerLane];
+    int hr[kListsPerLane], hp[kListsPerLane];
+#pragma unroll
+    for (int m = 0; m < kListsPerLane; ++m) {
+      const int l = lane + 32 * m;
+      hp[m] = 0;
+      hk[m] = l < n_cta ? order_key(win_s[l * W]) : 0u;
+      hr[m] = l < n_cta ? win_i[l * W] : INT_MAX;
     }
-    if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
-      const int mm = bl / 32;
-      int np = 0;
+    // this lane's best head as (key, row, list); lists ascend with m, so the
+    // first of a tie wins
+    auto lane_best = [&](unsigned& bk, int& bi, int& bl) {
+      bk = 0;
+      bi = INT_MAX;
+      bl = INT_MAX;
 #pragma unroll
       for (int m = 0; m < kListsPerLane; ++m)
-        if (m == mm) np = ++hp[m];
-      unsigned key = 0u;
-      int row = INT_MAX;
-      if (np < k) {
-        if ((np & (W - 1)) == 0) {  // the list's next W entries
-          const size_t off = ((size_t)bl * kQT + warp) * k_pad + np;
-          float4 vs[kWindowMax / 4];
-          int4 vi[kWindowMax / 4];
-#pragma unroll
-          for (int c = 0; c < kWindowMax / 4; ++c)
-            if (4 * c < W && np + 4 * c < k) {
-              vs[c] = __ldcg(reinterpret_cast<const float4*>(tile_s + off) + c);
-              vi[c] = __ldcg(reinterpret_cast<const int4*>(tile_i + off) + c);
-            }
-#pragma unroll
-          for (int c = 0; c < kWindowMax / 4; ++c)
-            if (4 * c < W && np + 4 * c < k) {
-              reinterpret_cast<float4*>(win_s + bl * W)[c] = vs[c];
-              reinterpret_cast<int4*>(win_i + bl * W)[c] = vi[c];
-            }
+        if (hk[m] > bk || (hk[m] == bk && hr[m] < bi)) {
+          bk = hk[m];
+          bi = hr[m];
+          bl = lane + 32 * m;
         }
-        key = order_key(win_s[bl * W + (np & (W - 1))]);
-        row = win_i[bl * W + (np & (W - 1))];
+    };
+    // the warp's best of the lanes' (key, row, list): key max, then row min,
+    // then list min
+    auto warp_best = [](unsigned key, int row, int list, unsigned& bk, unsigned& bi, unsigned& bl) {
+      bk = __reduce_max_sync(kFull, key);
+      bi = __reduce_min_sync(kFull, key == bk ? (unsigned)row : 0xffffffffu);
+      bl = __reduce_min_sync(kFull, key == bk && (unsigned)row == bi ? (unsigned)list : 0xffffffffu);
+    };
+    for (int t = 0; t < k; ++t) {
+      unsigned lk, bk, bi, bl;
+      int li, ll;
+      lane_best(lk, li, ll);
+      warp_best(lk, li, ll, bk, bi, bl);
+      if constexpr (kProbe) {
+        if (bk <= order_key(kNegInf)) {  // the live entries are spent: the tail
+          n_out = t;
+          break;
+        }
       }
+      if (lane == 0) {
+        a.out_s[(size_t)qi * k + t] = key_score(bk);
+        a.out_i[(size_t)qi * k + t] = kProbe ? a.src.row((int)bi) : (int)bi;
+      }
+      if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
+        const int mm = bl / 32;
+        int np = 0;
 #pragma unroll
-      for (int m = 0; m < kListsPerLane; ++m)
-        if (m == mm) {
-          hk[m] = key;
-          hr[m] = row;
+        for (int m = 0; m < kListsPerLane; ++m)
+          if (m == mm) np = ++hp[m];
+        unsigned key = 0u;
+        int row = INT_MAX;
+        if (np < k) {
+          if ((np & (W - 1)) == 0) {  // the list's next W entries
+            const size_t off = ((size_t)bl * kQT + warp) * k_pad + np;
+            float4 vs[kWindowMax / 4];
+            int4 vi[kWindowMax / 4];
+#pragma unroll
+            for (int c = 0; c < kWindowMax / 4; ++c)
+              if (4 * c < W && np + 4 * c < k) {
+                vs[c] = __ldcg(reinterpret_cast<const float4*>(tile_s + off) + c);
+                vi[c] = __ldcg(reinterpret_cast<const int4*>(tile_i + off) + c);
+              }
+#pragma unroll
+            for (int c = 0; c < kWindowMax / 4; ++c)
+              if (4 * c < W && np + 4 * c < k) {
+                reinterpret_cast<float4*>(win_s + bl * W)[c] = vs[c];
+                reinterpret_cast<int4*>(win_i + bl * W)[c] = vi[c];
+              }
+          }
+          key = order_key(win_s[bl * W + (np & (W - 1))]);
+          row = win_i[bl * W + (np & (W - 1))];
         }
+#pragma unroll
+        for (int m = 0; m < kListsPerLane; ++m)
+          if (m == mm) {
+            hk[m] = key;
+            hr[m] = row;
+          }
+      }
+      __syncwarp();
     }
-    __syncwarp();
   }
   if constexpr (kProbe) {
     if (n_out < k) {
@@ -938,8 +1313,10 @@ const void* kernel_for(const Plan<T>& p) {
   switch (tma_list_kind(p.k)) {
     case kListWarp:
       return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp, kProbe>);
-    case kListRegs:
-      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListRegs, kProbe>);
+    case kListWarp2:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp2, kProbe>);
+    case kListWarp4:
+      return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListWarp4, kProbe>);
     case kListShared:
       return reinterpret_cast<const void*>(ivf_tma_kernel<T, kListShared, kProbe>);
     default:
@@ -960,7 +1337,7 @@ inline int max_ctas() {
 // register cap), 0 if one does not fit, or minus a CUDA error code.
 template <class T, bool kProbe>
 int ctas_per_sm(int d, int k) {
-  if (!Bf16Scorer::width_ok(d) || k < 1) return -(int)cudaErrorInvalidValue;
+  if (!T::width_ok(d) || k < 1) return -(int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(d, k, max_ctas());
   if (p.rows == 0) return 0;
   const void* kern = kernel_for<T, kProbe>(p);
@@ -977,7 +1354,7 @@ int ctas_per_sm(int d, int k) {
 // memory, wide}: rows 0 where none fits; a wide plan takes bf16 queries.
 template <class T>
 int plan_of(int d, int k, int* out) {
-  if (!Bf16Scorer::width_ok(d) || k < 1) return (int)cudaErrorInvalidValue;
+  if (!T::width_ok(d) || k < 1) return (int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(d, k, max_ctas());
   out[0] = p.rows;
   out[1] = p.stages;
@@ -995,7 +1372,7 @@ int plan_of(int d, int k, int* out) {
 template <class T, bool kProbe>
 int launch(const Args& a, int n, int n_cta, void* stream) {
   const int br = a.src.block_rows;
-  if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !Bf16Scorer::width_ok(a.d) || n_cta < 1 ||
+  if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !T::width_ok(a.d) || n_cta < 1 ||
       n_cta > max_ctas() || br < 1 || n % br || a.src.max_blocks < 1 ||
       (a.queries_bf16 && T::kScaled))
     return (int)cudaErrorInvalidValue;
@@ -1029,7 +1406,7 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
 
 }  // namespace ivf_tma
 
-// The IVF source defines its bf16 and int8 entries with this macro:
+// The IVF source defines its entries with this macro:
 // <name>_launch, <name>_ctas_per_sm and <name>_plan; PROBE selects the
 // per-block contract.
 #define IVF_TMA_C_INTERFACE(NAME, T, PROBE)                                                   \

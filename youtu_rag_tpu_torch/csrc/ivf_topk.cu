@@ -17,27 +17,27 @@
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
 // never read; slots no live row fills come back as (NEG_INF, row 0). Every
 // entry takes what JAX does: any block_rows that divides n, any d % 128 ==
-// 0 and any k, bias and scales at any 4-byte alignment. The
-// scores are the brute kernels' (topk_pruned.cu, topk_int8_pruned.cu,
-// topk_int4_pruned.cu): bf16 f32(q)·f32(x) + bias, int8/int4 the exact
-// integer dot with the op-by-op f32 epilogue.
+// 0 (int4 d % 256 == 0: its packed width a multiple of 128) and any k,
+// bias and scales at any 4-byte alignment. The scores are the brute
+// kernels' (topk_pruned.cu, topk_int8_pruned.cu, topk_int4_pruned.cu):
+// bf16 f32(q)·f32(x) + bias, int8/int4 the exact integer dot with the
+// op-by-op f32 epilogue.
 //
 // Design. The TPU kernel is one program that walks the block list in
 // order with double-buffered DMA and one running top-k; the port does not
-// copy that. bf16 and int8 run ivf_scan_tma.cuh: one launch per 64
-// queries that prepares its queries (the bf16 cast; int8 the
-// quantize_rows_int8 rounding), splits the virtual rows of the plan (n_valid
-// read on the device, no host sync between plan and scan) evenly over one
-// wave of CTAs, streams each CTA's share through a ring of bulk
-// asynchronous copies (cp.async.bulk on mbarriers), selects per query as
-// topk_select.cuh's scan does, and merges the CTAs' lists in the last CTA
-// of each query tile to finish. int4 runs topk_select.cuh's scan with its
-// IVF row source (each CTA's share read with plain loads in 128-row tiles,
-// int4's 16-row warp tiles mapping each row on its own) and a second launch
-// for the merge. Either way the DMA entries' lists keep stored rows, so
-// their result is ordered (score desc, stored row asc) whatever the order
-// of the ids; the ivf_blocks entries' lists keep the virtual row, so theirs
-// is in probe order.
+// copy that. Every entry runs ivf_scan_tma.cuh: one launch per 64 queries
+// that prepares its queries (the bf16 cast; int8 and int4 the
+// quantize_rows_int8 rounding, int4 also each query's byte sum for its
+// biased nibbles), splits the virtual rows of the plan (n_valid read on the
+// device, no host sync between plan and scan) evenly over one wave of
+// CTAs, streams each CTA's share through a ring of bulk asynchronous copies
+// (cp.async.bulk on mbarriers), scores it on the tensor cores (int4: the
+// packed bytes unpacked to biased u8 nibbles in registers, mma.sync u8 x
+// s8), selects per query as topk_select.cuh's scan does, and merges the
+// CTAs' lists in the last CTA of each query tile to finish. The DMA
+// entries' lists keep stored rows, so their result is ordered (score desc,
+// stored row asc) whatever the order of the ids; the ivf_blocks entries'
+// lists keep the virtual row, so theirs is in probe order.
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
 // (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale), read once
@@ -46,21 +46,19 @@
 #include "ivf_scan_tma.cuh"
 
 // <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
-//               x, xscale, bias, ids int32 [max_blocks], n_valid int32 [1],
+//               x (int4: packed [n, d/2]), xscale, bias, ids int32 [max_blocks],
+//               n_valid int32 [1],
 //               cand_s, cand_i [tiles, n_cta, 8, k_pad4], counter int32 [2 + 16, tiles],
-//               out_s, out_i, q, n, d, k, max_blocks, block_rows, n_cta, stream);
+//               out_s, out_i, q, n, d (the unpacked width), k, max_blocks, block_rows,
+//               n_cta, stream);
 // <name>_plan(d, k, out int32 [4]): rows, stages, lists in device memory, wide
 // (a wide plan takes bf16 queries)
 IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false)
 IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false)
+IVF_TMA_C_INTERFACE(ivf_topk_int4, ivf_tma::Int4, false)
 // (the DMA entries use the counters' first [2, tiles])
 IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true)
 IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true)
-
-// <name>_launch(queries int8, qscale, x, xscale, bias, ids int32 [max_blocks],
-//               n_valid int32 [1], cand_s, cand_i, out_s, out_i,
-//               q, n, d, k, max_blocks, block_rows, n_cta, stream)
-IVF_C_INTERFACE(ivf_topk_int4, Int4Scorer)
 
 extern "C" const char* ivf_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -3,8 +3,9 @@
 // score a 4-row group per warp step on the CUDA cores; int4-packed rows
 // (Int4Scorer) score a warp's 16 rows at once on the tensor cores. Shared
 // by the brute sources (topk_pruned.cu, topk_int8_pruned.cu,
-// topk_int4_pruned.cu) and the IVF source (ivf_topk.cu), which differ only
-// in where a CTA's rows come from.
+// topk_int4_pruned.cu) and the per-block candidates (topk_blocks.cu). The
+// IVF scans (ivf_scan_tma.cuh) score on their own ring with mma_u8s8 and
+// Int4Scorer's nibble arithmetic.
 
 #pragma once
 

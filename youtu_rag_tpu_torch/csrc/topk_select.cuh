@@ -1,9 +1,10 @@
 // Exact masked top-k selection shared by the port's scan kernels, for
 // Hopper (sm_90a). Included by topk_pruned.cu (bf16), topk_int8_pruned.cu
-// and topk_int4_pruned.cu (brute scans), ivf_topk.cu (the IVF scans of
-// probed blocks) and topk_blocks.cu (per-block candidates, see below); the
-// scoring differs between them, and each source passes it in as a Scorer
-// (topk_scorers.cuh, contract below).
+// and topk_int4_pruned.cu (brute scans) and topk_blocks.cu (per-block
+// candidates, see below); the scoring differs between them, and each
+// source passes it in as a Scorer (topk_scorers.cuh, contract below). The
+// IVF scans (ivf_scan_tma.cuh) take its selection helpers, its list
+// classes and RowSource, and run a kernel of their own.
 //
 // Contract of every kernel built from this header (the TPU kernels'):
 //   result = the k best (score desc, row asc) per query, as
@@ -43,26 +44,14 @@
 // Queries are covered in tiles of 8 by the grid's second dimension; each
 // tile reads the index again (q = 64 reads it 8 times).
 //
-// Row sources (the kIvf template flag). Brute: CTA b owns the contiguous
-// rows [b * rows_per_cta, (b + 1) * rows_per_cta). IVF: the rows are those
-// of the probed blocks ids[0 .. n_valid), n_valid read on the device (the
-// host never waits for the probe plan). Virtual row v, v < n_valid *
-// block_rows, is the stored row ids[v / block_rows] * block_rows +
-// v % block_rows; the virtual rows split evenly over the CTAs in whole
-// 128-row tiles, so a plan of a few dozen blocks still spreads over the
-// card (a CTA whose share is empty writes (NEG_INF, 0) lists). For a
-// group scorer block_rows is a multiple of kR, so a 4-row scoring group
-// never straddles two blocks and reads contiguous stored rows; a warp
-// tile's 16 rows may straddle blocks (block_rows 4, 8, 12, or any other,
-// such as 1, 2, 6 or 66), so warp_tile is given each row's stored row.
-// ids past n_valid are never read.
-// Lists keep stored rows, so the result is ordered by (score desc, stored
-// row asc) whatever the order of the ids.
+// Brute scans: CTA b owns the contiguous rows [b * rows_per_cta, (b + 1) *
+// rows_per_cta).
 //
 // Per-block candidates (the kBlocks template flag, topk_blocks.cu). CTA b
 // owns exactly one block of block_rows stored rows: rows [b * block_rows,
-// (b + 1) * block_rows) (brute) or block ids[b] (IVF; a block at b >=
-// n_valid is not read and counts as all NEG_INF). There is no merge: each
+// (b + 1) * block_rows) (brute) or, with the kIvf flag, block ids[b] of
+// the probe plan (a block at b >= n_valid, n_valid read on the device, is
+// not read and counts as all NEG_INF). There is no merge: each
 // selecting warp writes its block's own list, k_out = k_pad entries, as
 // the TPU's per-block kernels (_select_topk) leave it: the live rows in
 // (score desc, row asc), then the fill _select_topk picks once they run
@@ -133,12 +122,15 @@ __host__ __device__ inline int list_kind(int k) {
   return k <= kSmallK ? kListRegs : (k <= kMaxK ? kListShared : kListDevice);
 }
 
-// The IVF row source (unused by the brute scans).
+// A probe plan's blocks: the per-block IVF candidates' (kIvf) and the IVF
+// scans' of ivf_scan_tma.cuh (unused by the brute scans). Virtual row v,
+// v < n_valid * block_rows, is the stored row ids[v / block_rows] *
+// block_rows + v % block_rows.
 struct RowSource {
   const int* ids;      // probed block ids [max_blocks]
   const int* n_valid;  // device scalar: ids[0 .. n_valid) are probed
   int max_blocks;
-  int block_rows;      // a multiple of kR for the group scorers (the TMA scans: any)
+  int block_rows;      // any that divides the rows
 
   // stored row of virtual row v (v < n_valid * block_rows)
   __device__ __forceinline__ int row(int v) const {
@@ -306,9 +298,7 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  int q, int n, int d, int k, int k_out,
                  int rows_per_cta,                 // kBlocks: block_rows
                  RowSource src) {                  // kIvf only
-  // IVF scans of a plan map virtual rows to stored rows; a per-block CTA
-  // reads the stored rows of its one block directly
-  constexpr bool kVirtual = kIvf && !kBlocks;
+  static_assert(kBlocks || !kIvf, "an IVF scan reads one block per CTA");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qt = smem;
   float* tiles = reinterpret_cast<float*>(smem + Scorer::q_bytes(d));
@@ -352,8 +342,7 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   }
   float qs_w = 0.f;
   if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
-  // rows [row_begin, row_end): stored rows (brute, per-block) or virtual
-  // rows (IVF scan)
+  // stored rows [row_begin, row_end)
   int row_begin, row_end;
   int base = 0;       // kBlocks: the block's first stored row
   bool valid = true;  // kBlocks: the block is read (IVF: cta < n_valid)
@@ -369,11 +358,6 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     }
     row_begin = base;
     row_end = valid ? base + rows_per_cta : base;
-  } else if constexpr (kIvf) {
-    const int nv = min(max(*src.n_valid, 0), src.max_blocks);
-    const long long tiles = ((long long)nv * src.block_rows + kTile - 1) / kTile;
-    row_begin = (int)(cta * tiles / gridDim.x) * kTile;
-    row_end = min(nv * src.block_rows, (int)((cta + 1) * tiles / gridDim.x) * kTile);
   } else {
     row_begin = cta * rows_per_cta;
     row_end = min(n, row_begin + rows_per_cta);
@@ -388,23 +372,19 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     float tile_xs[kTile / 32];
 #pragma unroll
     for (int c = 0; c < kTile / 32; ++c) {
-      const int v = tile0 + c * 32 + lane;
-      const bool ok = selects && v < row_end;
-      int row = v;
-      if constexpr (kVirtual) row = ok ? src.row(v) : 0;
+      const int row = tile0 + c * 32 + lane;
+      const bool ok = selects && row < row_end;
       tile_bias[c] = ok ? bias[row] : 0.f;
       if constexpr (Scorer::kScaled) tile_xs[c] = ok ? xscale[row] : 0.f;
     }
     if constexpr (Scorer::kWarpRows == kTile / kWarps) {
-      // the warp's 16 rows of the tile at once; each row's stored row on its
-      // own (IVF: the 16 may straddle blocks)
+      // the warp's 16 rows of the tile at once
       const int r0 = warp * Scorer::kWarpRows, g = lane / 4, t = lane % 4;
       int rows[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int v = tile0 + r0 + g + 8 * h;
         rows[h] = v < row_end ? v : -1;
-        if constexpr (kVirtual) rows[h] = v < row_end ? src.row(v) : -1;
       }
       float dots[4];
       Scorer::warp_tile(qt, x, rows[0], rows[1], d, lane, dots);
@@ -413,15 +393,7 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     } else {
       for (int step = 0; step < kSteps; ++step) {
         const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
-        float v;
-        if constexpr (kVirtual) {
-          // the group's kR virtual rows are contiguous stored rows of one block
-          const int v0 = tile0 + r0;
-          const int p0 = v0 < row_end ? src.row(v0) : 0;
-          v = Scorer::group(qt, x, p0, p0 + max(0, min(kR, row_end - v0)), d, lane);
-        } else {
-          v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
-        }
+        const float v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
         tile[(lane % kQT) * kTile + r0 + lane / kQT] = v;
       }
     }
@@ -433,10 +405,8 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
     if (selects) {
 #pragma unroll
       for (int c = 0; c < kTile / 32; ++c) {
-        const int v = tile0 + c * 32 + lane;
-        const bool ok = v < row_end;
-        int row = v;
-        if constexpr (kVirtual) row = ok ? src.row(v) : 0;  // recomputed: no registers held
+        const int row = tile0 + c * 32 + lane;
+        const bool ok = row < row_end;
         float s = 0.f;
         if (ok) {
           const float t = tile[warp * kTile + c * 32 + lane];
@@ -595,9 +565,9 @@ ScanKernel scan_kernel_for(int k) {
 
 // Scan CTAs that fit on one SM for width d and top-k k (the register cap
 // of __launch_bounds__ allows 2), or minus a CUDA error code.
-template <class Scorer, bool kIvf>
+template <class Scorer>
 int scan_ctas_per_sm(int d, int k) {
-  ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
+  ScanKernel kern = scan_kernel_for<Scorer, false>(k);
   int smem = (int)scan_smem_bytes<Scorer>(d, k);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -607,16 +577,17 @@ int scan_ctas_per_sm(int d, int k) {
   return blocks;
 }
 
-// Launch the scan and the merge on `stream`. Returns cudaGetLastError()
-// (0 = ok) or cudaErrorInvalidValue for shapes outside the contract.
-template <class Scorer, bool kIvf>
-int scan_and_merge(const void* queries, const float* qscale, const void* x, const float* xscale,
-                   const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
-                   int q, int n, int d, int k, int n_cta, RowSource src, void* stream) {
-  if (q < 1 || q > kMaxQ || k < 1 || !Scorer::width_ok(d) || n_cta < 1)
+// Brute: all n rows; the contract wants n >= k. Launches the scan and the
+// merge on `stream`. Returns cudaGetLastError() (0 = ok) or
+// cudaErrorInvalidValue for shapes outside the contract.
+template <class Scorer>
+int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
+                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
+                int q, int n, int d, int k, int n_cta, void* stream) {
+  if (q < 1 || q > kMaxQ || k < 1 || !Scorer::width_ok(d) || n_cta < 1 || n < k)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
+  ScanKernel kern = scan_kernel_for<Scorer, false>(k);
   int smem = (int)scan_smem_bytes<Scorer>(d, k);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -624,7 +595,7 @@ int scan_and_merge(const void* queries, const float* qscale, const void* x, cons
   dim3 grid(n_cta, (q + kQT - 1) / kQT);
   kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
                                         static_cast<float*>(cand_s), static_cast<int*>(cand_i),
-                                        q, n, d, k, k, rows_per_cta, src);
+                                        q, n, d, k, k, rows_per_cta, RowSource{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
@@ -632,33 +603,6 @@ int scan_and_merge(const void* queries, const float* qscale, const void* x, cons
       static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
       static_cast<float*>(out_s), static_cast<int*>(out_i), q, k, n_cta);
   return (int)cudaGetLastError();
-}
-
-// Brute: all n rows; the contract wants n >= k.
-template <class Scorer>
-int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
-                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
-                int q, int n, int d, int k, int n_cta, void* stream) {
-  if (n < k) return (int)cudaErrorInvalidValue;
-  return scan_and_merge<Scorer, false>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
-                                       out_i, q, n, d, k, n_cta, RowSource{}, stream);
-}
-
-// IVF: the rows of blocks ids[0 .. *n_valid) of an n-row index cut into
-// blocks of block_rows; k may exceed the probed rows (empty slots).
-template <class Scorer>
-int ivf_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
-               const float* bias, const int* ids, const int* n_valid, void* cand_s, void* cand_i,
-               void* out_s, void* out_i, int q, int n, int d, int k, int max_blocks,
-               int block_rows, int n_cta, void* stream) {
-  // a kR-row scoring group reads kR contiguous stored rows; a warp tile maps
-  // each of its rows on its own, so any block_rows serves it
-  const bool rows_ok = Scorer::kWarpRows == kR ? block_rows >= kR && block_rows % kR == 0
-                                               : block_rows >= 1;
-  if (!rows_ok || n % block_rows || max_blocks < 1) return (int)cudaErrorInvalidValue;
-  return scan_and_merge<Scorer, true>(queries, qscale, x, xscale, bias, cand_s, cand_i, out_s,
-                                      out_i, q, n, d, k, n_cta,
-                                      RowSource{ids, n_valid, max_blocks, block_rows}, stream);
 }
 
 // Per-block candidates: one CTA per (block, 8-query tile), each writing its
@@ -696,7 +640,7 @@ int blocks_launch(const void* queries, const float* qscale, const void* x, const
   const char* NAME##_error_string(int err) {                                                  \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                                 \
   }                                                                                           \
-  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER, false>(d, k); }     \
+  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER>(d, k); }            \
   int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
                     const void* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,   \
                     int q, int n, int d, int k, int n_cta, void* stream) {                    \
@@ -704,23 +648,6 @@ int blocks_launch(const void* queries, const float* qscale, const void* x, const
                                static_cast<const float*>(xscale),                             \
                                static_cast<const float*>(bias), cand_s, cand_i, out_s, out_i, \
                                q, n, d, k, n_cta, stream);                                    \
-  }                                                                                           \
-  }
-
-// The IVF source defines one entry per scorer with this macro:
-// <name>_launch and <name>_ctas_per_sm.
-#define IVF_C_INTERFACE(NAME, SCORER)                                                         \
-  extern "C" {                                                                                \
-  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER, true>(d, k); }      \
-  int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
-                    const void* bias, const void* ids, const void* n_valid, void* cand_s,     \
-                    void* cand_i, void* out_s, void* out_i, int q, int n, int d, int k,       \
-                    int max_blocks, int block_rows, int n_cta, void* stream) {                \
-    return ivf_launch<SCORER>(queries, static_cast<const float*>(qscale), x,                  \
-                              static_cast<const float*>(xscale),                              \
-                              static_cast<const float*>(bias), static_cast<const int*>(ids),  \
-                              static_cast<const int*>(n_valid), cand_s, cand_i, out_s, out_i, \
-                              q, n, d, k, max_blocks, block_rows, n_cta, stream);             \
   }                                                                                           \
   }
 

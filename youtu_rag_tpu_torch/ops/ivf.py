@@ -17,20 +17,19 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
   rows (int4: the unpacked nibbles against the full-width queries), then
   ``f32(acc) * (qs[q] * xs[row]) + bias[row]``, rounded op by op;
 - inputs: what JAX takes, on every device: any ``block_rows`` that divides
-  N, any d % 128 == 0 and k, bias and scales at any offset (on CUDA the
-  bf16 and int8 entries pick a shared-memory plan for (d, k),
-  ``scan_plan``).
+  N, any d % 128 == 0 (int4: the packed width d/2 % 128 == 0) and k, bias
+  and scales at any offset (on CUDA each entry picks a shared-memory plan
+  for (d, k), ``scan_plan``).
 
 Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
 once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
 none for no query), and counts the launches in its ``.launches``;
 ``n_valid`` stays on the device (no ``.item()``), so nothing waits between
-the plan and the scan. bf16 and int8 make one kernel launch per tile
+the plan and the scan. Each makes one kernel launch per tile
 (``csrc/ivf_scan_tma.cuh``: the queries' cast or quantization, the scan
-and the merge, after one memset of its counters); int4 quantizes its
-queries here and launches a scan and a merge. For CPU tensors it runs its
-plain PyTorch version (``*_reference``). k may exceed the probed rows
-(empty slots).
+and the merge, after one memset of its counters; int4 unpacks its rows'
+nibbles in registers). For CPU tensors it runs its plain PyTorch version
+(``*_reference``). k may exceed the probed rows (empty slots).
 
 Also the counterparts of the per-probed-block kernels (``pallas_ivf_topk``
 → ``ivf_topk``, ``pallas_ivf_topk_int8`` → ``ivf_topk_int8``) and of the
@@ -80,7 +79,6 @@ from .topk import (
     _device_of,
     _empty,
     _exact_dot,
-    _kernel_queries,
     _list_ctas,
     _query_tiles,
     _scaled_scores,
@@ -93,7 +91,6 @@ _LIB = "ivf_topk"
 _ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
           "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
           "ivf_topk_int8": "ivf_blocks_int8"}
-_TWO_LAUNCH = ("ivf_topk_int4_dma",)  # the scan, then a merge; the others merge in the scan
 _FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
 
 
@@ -172,16 +169,14 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, entry in _ENTRY.items():
             launch = getattr(lib, f"{entry}_launch")
-            launch.argtypes = ([p] * 11 + [i] * 7 + [p] if name in _TWO_LAUNCH
-                               else [p, i] + [p] * 10 + [i] * 7 + [p])
+            launch.argtypes = [p, i] + [p] * 10 + [i] * 7 + [p]
             launch.restype = i
             per_sm = getattr(lib, f"{entry}_ctas_per_sm")
             per_sm.argtypes = [i, i]
             per_sm.restype = i
-            if name not in _TWO_LAUNCH:
-                plan = getattr(lib, f"{entry}_plan")
-                plan.argtypes = [i, i, p]
-                plan.restype = i
+            plan = getattr(lib, f"{entry}_plan")
+            plan.argtypes = [i, i, p]
+            plan.restype = i
         lib.ivf_topk_error_string.argtypes = [i]
         lib.ivf_topk_error_string.restype = ctypes.c_char_p
     return lib
@@ -194,9 +189,9 @@ def _cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
 
 @functools.lru_cache(maxsize=None)
 def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
-    """The shared-memory plan of a bf16 or int8 entry of ``csrc/ivf_topk.cu``
-    at (d, k): (rows per stage, stages, lists in device memory, wide). A
-    wide plan reads the query tile from device memory and takes bf16
+    """The shared-memory plan of an entry of ``csrc/ivf_topk.cu`` at (d, k):
+    (rows per stage, stages, lists in device memory, wide). A wide plan
+    (bf16 only) reads the query tile from device memory and takes bf16
     queries (``csrc/ivf_scan_tma.cuh``, 9.); rows 0: none fits."""
     lib = _library()
     out = (ctypes.c_int * 4)()
@@ -241,9 +236,8 @@ def _tiles(fn, queries, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: 
            block_rows: int):
     """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
-    launch = _launch if fn.__name__ in _TWO_LAUNCH else _launch_tma
-    return _query_tiles(lambda qt: launch(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
-                                          block_rows),
+    return _query_tiles(lambda qt: _launch_tma(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
+                                               block_rows),
                         queries, _empty((0, k), x.device))
 
 
@@ -256,43 +250,14 @@ def _n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 
     return _list_ctas(max(1, min(wave, -(-rows // 512))), qn, k)
 
 
-def _launch(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
-            block_rows: int):
-    """Launch the int4 entry of ``csrc/ivf_topk.cu`` (the scan, then the
-    merge) on the current stream (no sync) for one tile of at most MAX_Q
-    queries, quantized here."""
-    entry = _ENTRY[fn.__name__]
-    lib = _library()
-    dev = x.device
-    queries, qscale = _kernel_queries(queries, True)
-    qn = queries.shape[0]
-    max_blocks = block_ids.numel()
-    n_cta = _n_cta(entry, d, k, qn, max_blocks * block_rows, dev)
-    cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    err = getattr(lib, f"{entry}_launch")(
-        queries.data_ptr(), qscale.data_ptr(), x.data_ptr(), xscale.data_ptr(), bias.data_ptr(),
-        block_ids.data_ptr(), nv.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks, block_rows, n_cta,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise _cuda_error(lib, entry, err)
-    fn.launches += 1
-    return out_s, out_i
-
-
 def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
                 block_rows: int):
-    """Launch a bf16 or int8 entry of ``csrc/ivf_topk.cu`` (one kernel
-    that prepares the queries, scans and merges, after a memset of its
-    counters; the DMA or, for ``ivf_topk*``, the per-block contract) on the
-    current stream (no sync) for one tile of at most MAX_Q queries, as the
-    caller gives them: f32, or bf16 for a bf16 entry (another float type is
-    cast here; a wide plan takes them cast here to bf16, as the kernel
-    would round them)."""
+    """Launch an entry of ``csrc/ivf_topk.cu`` (one kernel that prepares
+    the queries, scans and merges, after a memset of its counters; the DMA
+    or, for ``ivf_topk*``, the per-block contract) on the current stream (no
+    sync) for one tile of at most MAX_Q queries, as the caller gives them:
+    f32, or bf16 for a bf16 entry (another float type is cast here; a wide
+    plan takes them cast here to bf16, as the kernel would round them)."""
     entry = _ENTRY[fn.__name__]
     lib = _library()
     dev = x.device
@@ -369,7 +334,9 @@ def ivf_topk_int4_dma(queries: torch.Tensor, database_p: torch.Tensor, db_scales
                       bias: torch.Tensor, block_ids: torch.Tensor, n_valid, k: int, *,
                       block_rows: int):
     """The int4 form (``pallas_ivf_topk_int4_dma``): database_p [N, d/2]
-    packed nibbles with (d/2) % 128 == 0, db_scales [N] f32 (amax/7)."""
+    packed nibbles with (d/2) % 128 == 0, db_scales [N] f32 (amax/7);
+    queries quantized per row as ``quantize_rows_int8`` does (on CUDA
+    inside the kernel)."""
     _check_k("ivf_topk_int4_dma", k)
     if _device_of("ivf_topk_int4_dma", queries, database_p, db_scales, bias, block_ids) == "cpu":
         return ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids,
