@@ -47,7 +47,9 @@ Phases; any failure exits non-zero before the result lines:
      IVF_CASES (k 1 to 1024, q 1 to 64, block_rows 64, 1024 and 4096) and
      the plan's edges (n_valid 0, 1 and max_blocks, garbage ids past
      n_valid, NEG_INF and -inf rows, fewer live rows than k): bf16 within
-     TOL, int8 and int4 bit-equal; then the int4 kernel alone at block_rows
+     TOL, int8 and int4 bit-equal, ties in probe order, every empty slot
+     NEG_INF with the plain version's fill row (JAX's: the best live row
+     before the last probed block with one); then the int4 kernel alone at block_rows
      4, 8 and 12 (stages and 16-row groups that straddle blocks) and k up
      to 2048, and the three kernels over IVF_TMA_CASES (q 1, 7, 9, 65;
      k 1, 129, 1025; block_rows 4, 12, 4096; f32 queries and ascending ids,
@@ -169,14 +171,39 @@ Phases; any failure exits non-zero before the result lines:
      main path's tensors, then at [2, 12, 8192, 64] bf16 against 8192 keys
      (sp 4 over T = 32,768) timed beside its bound, its plain version, the
      efficient-attention call that returns (out, logsumexp) and EARLIER_MS;
-  6. one JSON line, {"kernels": [{"name": ..., "route", "source",
+  6a. the local LLM, the agentic CLI: ``python -m
+     youtu_rag_tpu_torch.cli_chat --llm-weights-dir
+     benchmarks/models/yrt_tiny_chat`` in this process over twelve fact
+     documents in the chat model's training format (its own copy of the
+     generator), three questions on its standard input: no turn may report
+     an error, each first turn must be a kb_embedding_search action, every
+     observation the model is given must be a search result, the KB's
+     search must launch topk_pruned, and an answer must come back; the same
+     toolkit, asked each question itself, must return the fact document
+     the question was made from; then the same on the CPU (``--device
+     cpu``, no error either), and whether transcripts and observations are
+     equal;
+  6b. the local LLM at Qwen2-0.5B's widths (Qwen/Qwen2-0.5B-Instruct's
+     config.json, random bf16 weights written from the seed as a qwen2
+     safetensors checkpoint, loaded by ``load_pretrained_decoder`` with
+     max_len 2048, served in bf16): gates (calibrated on the card at full
+     depth against controls by ``python -m
+     youtu_rag_tpu_torch.bench.decoder_tolerance``) on decode with the
+     cache against the teacher-forced forward, the int8 KV cache against
+     the bf16 one and the first step against the CPU f32 forward (B 1,
+     T 128); prefill at T = 512 and decode over 128 new tokens at B = 1
+     and 8 (bf16 and int8 caches) beside the bytes bound, generate's
+     tokens/s, a decode step's device split (torch.profiler) and the
+     host's cost of generate's per-step read-back of ``done``;
+  7. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
      "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
-  7. the last line: {"ok": true, "device": {...}}.
+  8. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 4e, 5, 5c, 5d, 5b and 5e drive it and read just after; launches made to
-compare or time a kernel are not counted. Every phase prints its wall time.
+4c, 4d, 4e, 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
+made to compare or time a kernel are not counted. Every phase prints its
+wall time.
 """
 
 from __future__ import annotations
@@ -413,10 +440,10 @@ INT4_CASES = [(q, d, n, k) for q in (1, 8, 64) for d in (256, 4096) for n in (40
               for k in (1, 64, 1024)]
 
 
-def compare_topk(got, want, full_scores, what: str) -> float:
+def compare_live(got, want, full_scores, what: str) -> float:
     """bf16, live slots only: equal row sets (rows whose scores sit within
-    TOL of the k-th may swap), scores within TOL, and the kernel's own ties
-    in row order. Returns the max abs score error."""
+    TOL of the k-th may swap) and scores within TOL. Returns the max abs
+    score error."""
     from youtu_rag_tpu_torch.ops.topk import NEG_INF
 
     gs, gi = (t.cpu() for t in got)
@@ -435,9 +462,19 @@ def compare_topk(got, want, full_scores, what: str) -> float:
         kth = float(ws[a, n_live - 1])
         near = all(abs(float(full_scores[a, r]) - kth) <= TOL for r in diff)
         check(near, f"{what}: row sets differ beyond near-ties, query {a}: {sorted(diff)[:8]}")
-        for t in range(n_live - 1):
+    return err
+
+
+def compare_topk(got, want, full_scores, what: str) -> float:
+    """compare_live, and the kernel's own ties in row order."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    err = compare_live(got, want, full_scores, what)
+    gs, gi = (t.cpu() for t in got)
+    for a in range(gs.shape[0]):
+        for t in range(int((gs[a] > NEG_INF / 2).sum()) - 1):
             if gs[a, t] == gs[a, t + 1]:
-                check(gi[a, t] < gi[a, t + 1], f"{what}: tie not in row order, query {a}")
+                check(int(gi[a, t]) < int(gi[a, t + 1]), f"{what}: tie not in row order, query {a}")
     return err
 
 
@@ -644,18 +681,31 @@ def ivf_plan(n_blocks: int, n_valid: int, g, order: str = "sorted"
 
 
 def compare_ivf(tier: str, got, want, full_scores, what: str) -> float:
-    """compare_topk / compare_exact on the live slots, and every other slot
-    (NEG_INF, row 0) in both."""
+    """compare_live / compare_exact on the live slots, and every other slot
+    NEG_INF in both with the plain version's fill row (JAX's: the best live
+    row before the last probed block with one, or 0)."""
     from youtu_rag_tpu_torch.ops.topk import NEG_INF
 
-    for res in (got, want):
-        s, i = (t.cpu() for t in res)
-        dead = s <= NEG_INF / 2
-        check(bool((s[dead] == NEG_INF).all() and (i[dead] == 0).all()),
-              f"{what}: an empty slot is not (NEG_INF, 0)")
-    if tier == "bfloat16":
-        return compare_topk(got, want, full_scores, what)
-    return compare_exact(got, want, what)
+    (s, i), (ws, wi) = ((t.cpu() for t in res) for res in (got, want))
+    dead = ws <= NEG_INF / 2
+    check(torch.equal(s <= NEG_INF / 2, dead), f"{what}: live slots differ")
+    check(bool((s[dead] == NEG_INF).all() and (ws[dead] == NEG_INF).all()),
+          f"{what}: an empty slot does not score NEG_INF")
+    check(torch.equal(i[dead], wi[dead]), f"{what}: an empty slot's fill row differs")
+    if tier != "bfloat16":
+        return compare_exact(got, want, what)
+    err = compare_live(got, want, full_scores, what)
+    # a tie of both in the plain version's order (its stable sort keeps probe order)
+    for a in range(ws.shape[0]):
+        n_live = int((~dead[a]).sum())
+        rank = {int(r): (j, float(v)) for j, (r, v) in
+                enumerate(zip(wi[a, :n_live].tolist(), ws[a, :n_live].tolist()))}
+        for t in range(n_live - 1):
+            r0, r1 = int(i[a, t]), int(i[a, t + 1])
+            if s[a, t] == s[a, t + 1] and r0 in rank and r1 in rank \
+                    and rank[r0][1] == rank[r1][1]:
+                check(rank[r0][0] < rank[r1][0], f"{what}: tie not in probe order, query {a}")
+    return err
 
 
 def ivf_kernel_cases(seed: int) -> dict[str, float]:
@@ -3081,6 +3131,373 @@ def ring_full_size(seed: int, part: str, embedder) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6. the local LLM on the card
+# ---------------------------------------------------------------------------
+
+CHAT_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmarks", "models", "yrt_tiny_chat")
+# a copy of the chat model's training-data generator (the JAX package's
+# models/lm_synth.py: pseudo-word entities, its attributes and templates)
+CHAT_ATTRS = ("color", "mass", "code", "owner", "status", "price", "origin", "rank", "voltage",
+              "length", "capacity", "model", "category", "weight")
+CHAT_FACTS = ("The {attr} of {ent} is {val}.", "{ent} has a {attr} of {val}.",
+              "For {ent}, the {attr} is {val}.")
+CHAT_QUESTIONS = ("What is the {attr} of {ent}?", "what {attr} does {ent} have?",
+                  "Tell me the {attr} of {ent}.")
+
+
+def chat_word(rng, syllables: int) -> str:
+    return "".join(rng.choice(list("bcdfgklmnprstvz")) + rng.choice(list("aeiou"))
+                   for _ in range(syllables))
+
+
+def write_fact_corpus(root: str, seed: int, n_docs: int = 12) -> list[tuple[str, str]]:
+    """``n_docs`` fact documents of two or three facts each in the chat
+    model's training format; returns for each document a question about
+    its first fact and that fact."""
+    rng = np.random.default_rng(seed)
+    questions = []
+    for i in range(n_docs):
+        facts = []
+        for j in range(int(rng.integers(2, 4))):
+            ent = chat_word(rng, 2).capitalize()
+            attr = str(rng.choice(CHAT_ATTRS))
+            val = chat_word(rng, 2) if rng.random() < 0.5 else f"{int(rng.integers(2, 950))} kg"
+            facts.append(str(rng.choice(CHAT_FACTS)).format(attr=attr, ent=ent, val=val))
+            if j == 0:
+                questions.append((str(rng.choice(CHAT_QUESTIONS)).format(attr=attr, ent=ent),
+                                  facts[0]))
+        with open(os.path.join(root, f"facts_{i:02d}.md"), "w") as f:
+            f.write(" ".join(facts))
+    return questions
+
+
+def run_cli(argv: list[str], questions: list[str]) -> tuple[list[str], list[tuple], object]:
+    """``python -m youtu_rag_tpu_torch.cli_chat`` in this process, the
+    questions on its standard input. Returns the text printed for each, the
+    tool calls its agent made as (name, arguments, the observation the
+    model was given), and the agent's KB toolkit."""
+    import contextlib
+    import io
+
+    from youtu_rag_tpu_torch import cli_chat
+    from youtu_rag_tpu_torch.tools.base import ToolRouter
+
+    calls, routers, call = [], [], ToolRouter.call
+
+    async def recorded(router, name, arguments):
+        out = await call(router, name, arguments)
+        calls.append((name, arguments, out))
+        routers.append(router)
+        return out
+
+    out, stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO("\n".join(questions) + "\n")
+    ToolRouter.call = recorded
+    try:
+        with contextlib.redirect_stdout(out):
+            asyncio.run(cli_chat.main(argv))
+    finally:
+        sys.stdin, ToolRouter.call = stdin, call
+    blocks = [block.strip() for block in out.getvalue().split("\n> ")[1:-1]]
+    return blocks, calls, routers[0].toolkits[0] if routers else None
+
+
+def agentic_cli(seed: int) -> dict:
+    """6a: the port's agentic CLI on yrt_tiny_chat over a fact corpus, on
+    the card (the KB's search through topk_pruned, the decoder in bf16),
+    then on the CPU. Gates: no turn reports an error; each question's first
+    turn parses to a kb_embedding_search action; every observation the
+    model was given is a search result (not an error, not empty); the
+    search launched topk_pruned; a final answer comes back; and the same
+    toolkit, asked each question itself, returns the fact document the
+    question was made from."""
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        asked = write_fact_corpus(root, seed)[:3]
+        questions = [q for q, _ in asked]
+        argv = ["--paths", root, "--llm-weights-dir", CHAT_WEIGHTS]
+        reset_launches()
+        t0 = time.perf_counter()
+        card, calls, toolkit = run_cli(argv, questions)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        cpu, cpu_calls, _ = run_cli(argv + ["--device", "cpu"], questions)
+        cpu_wall = time.perf_counter() - t0
+    check(len(card) == len(questions), f"6a: {len(card)} answers to {len(questions)} questions")
+    for where, blocks in (("card", card), ("CPU", cpu)):
+        for q, block in zip(questions, blocks):
+            check("[error" not in block, f"6a: the {where} run reports an error for {q!r}: {block}")
+    for q, block in zip(questions, card):
+        print(f"  > {q}\n    " + block.replace("\n", "\n    "))
+        check(block.startswith("[tool kb_embedding_search("),
+              f"6a: the first turn for {q!r} is not a kb_embedding_search action")
+        answer = block.split(")]", 1)[1].strip() if ")]" in block else ""
+        check(bool(answer) and not answer.startswith("[tool"),
+              f"6a: no final answer for {q!r}")
+    check(len(calls) == sum(block.count("[tool ") for block in card),
+          f"6a: {len(calls)} tool calls recorded against the transcript's")
+    for name, arguments, obs in calls:
+        check(name == "kb_embedding_search" and obs.startswith("[1] (score ")
+              and not obs.startswith("Error"),
+              f"6a: the observation of {name}({arguments}) is not a search result: {obs[:200]!r}")
+    check(counts["bfloat16"] > 0, f"6a: the KB tool launched no topk_pruned: {counts}")
+    # the same toolkit on the card, asked each question itself (not counted above)
+    for q, fact in asked:
+        obs = asyncio.run(toolkit.kb_embedding_search(q))
+        check(not obs.startswith("Error") and fact in obs,
+              f"6a: the search for {q!r} does not return its fact document: {obs[:300]!r}")
+    print(f"  topk_pruned launches {counts['bfloat16']}; card run {wall:.1f} s, CPU run "
+          f"{cpu_wall:.1f} s; {len(calls)} searches, each a result; each question's own search "
+          f"returns its fact document; transcript equal to the CPU port's: {card == cpu}; "
+          f"observations equal: {[c[2] for c in calls] == [c[2] for c in cpu_calls]}")
+    return {"launches": counts["bfloat16"]}
+
+
+# Qwen/Qwen2-0.5B-Instruct's config.json (random weights from the seed)
+QWEN2_05B = {"model_type": "qwen2", "vocab_size": 151936, "hidden_size": 896,
+             "num_hidden_layers": 24, "num_attention_heads": 14, "num_key_value_heads": 2,
+             "intermediate_size": 4864, "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+             "rms_norm_eps": 1e-6, "tie_word_embeddings": True, "bos_token_id": 151643,
+             "eos_token_id": 151645, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+# Gates of 6b, calibrated on an H100 at these widths and full depth by
+# ``python -m youtu_rag_tpu_torch.bench.decoder_tolerance`` (seeds 0-5, the
+# weights and tokens this phase draws; logit std 0.60): each lies between
+# the largest sound reading and the smallest reading of the controls it
+# catches. First step against the CPU f32 forward: sound 0.050-0.067;
+# the residual stream in fp8 0.34-0.40, RoPE at base 1e4 0.77-1.30, the
+# q/k/v biases dropped 1.47-1.84 (scores and softmax in bf16, 0.053-0.068,
+# and logits in bf16, 0.050-0.066, are not told apart). Cached decode
+# against the teacher-forced forward: sound 0.047-0.054; the cache read
+# through fp8 0.108-0.154, positions one too far 0.27-0.37 (scores and
+# softmax in bf16, 0.056-0.066, not told apart). int8 KV cache against
+# the bf16 one: sound 0.063-0.079; a 4-bit quantizer 0.38-0.51
+# (truncation, 0.079-0.096, not told apart).
+BF16_TOL = 0.15
+DECODE_TOL = 0.08
+INT8_KV_TOL = 0.15
+
+
+def write_qwen2_checkpoint(d: str, seed: int) -> int:
+    """A qwen2-layout checkpoint directory (config.json, model.safetensors in
+    BF16) with Qwen2-0.5B's widths: weights N(0, 0.02^2), q/k/v biases
+    N(0, 0.02^2), norms 1, drawn on the card from ``seed``. Returns the
+    parameter count."""
+    c = QWEN2_05B
+    dm, ff, kv = c["hidden_size"], c["intermediate_size"], (
+        c["num_key_value_heads"] * c["hidden_size"] // c["num_attention_heads"])
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return (0.02 * torch.randn(shape, generator=g, device="cuda")).cpu().numpy()
+
+    tensors = {"model.embed_tokens.weight": rand(c["vocab_size"], dm),
+               "model.norm.weight": np.ones(dm, np.float32)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        tensors.update({
+            p + "input_layernorm.weight": np.ones(dm, np.float32),
+            p + "post_attention_layernorm.weight": np.ones(dm, np.float32),
+            p + "self_attn.q_proj.weight": rand(dm, dm), p + "self_attn.q_proj.bias": rand(dm),
+            p + "self_attn.k_proj.weight": rand(kv, dm), p + "self_attn.k_proj.bias": rand(kv),
+            p + "self_attn.v_proj.weight": rand(kv, dm), p + "self_attn.v_proj.bias": rand(kv),
+            p + "self_attn.o_proj.weight": rand(dm, dm),
+            p + "mlp.gate_proj.weight": rand(ff, dm), p + "mlp.up_proj.weight": rand(ff, dm),
+            p + "mlp.down_proj.weight": rand(dm, ff),
+        })
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(c, f)
+    write_safetensors(os.path.join(d, "model.safetensors"), tensors, "BF16")
+    return sum(t.size for t in tensors.values())
+
+
+def decode_split(step, wall_ms: float) -> dict[str, float]:
+    """One decode step's device time by kind (torch.profiler, the operators
+    that launched the kernels): the weight GEMMs (aten::mm), the attention
+    einsums (aten::bmm), the rest (elementwise, norms, casts, cache
+    writes); and the host's share, a step's wall time less its device
+    time. ms each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops, kernels = {"aten::mm": 0.0, "aten::bmm": 0.0}, 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            kernels += us if us is not None else getattr(e, "self_cuda_time_total", 0)
+        elif e.key in ops:
+            ops[e.key] += dev
+    split = {"GEMMs": ops["aten::mm"] / 1e3, "attention einsums": ops["aten::bmm"] / 1e3}
+    split["elementwise and the rest"] = max(kernels / 1e3 - sum(split.values()), 0.0)
+    split["host (wall less device)"] = max(wall_ms - kernels / 1e3, 0.0)
+    return split
+
+
+def read_back_ms(logits: torch.Tensor, calls: int = 200, bursts: int = 5) -> float:
+    """The host's cost of reading one flag back after a step, as generate
+    reads ``done``: a reduction over ``logits`` [B, V] and its copy to the
+    host, the step it follows already done (the device idle, as it is when
+    the host is what bounds decode). Median over bursts, ms per read."""
+    times = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            bool((logits[:, 0] > 1e30).all())
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    return statistics.median(times)
+
+
+def qwen2_width(seed: int, part: str) -> dict:
+    """6b: the Qwen2-0.5B-width checkpoint through load_pretrained_decoder
+    (max_len 2048), served in bf16 on the card. Gates (tolerances above):
+    decode with the cache against a prefill over the same sequence, the
+    int8 KV cache against the bf16 one, the first step's logits against
+    the CPU f32 forward at B = 1, T = 128. Prints prefill and decode times,
+    the bytes bound, generate tokens/s and a decode step's split."""
+    import dataclasses
+
+    from youtu_rag_tpu_torch.models import decoder as td
+    from youtu_rag_tpu_torch.models.convert import decoder_params_from_numpy
+    from youtu_rag_tpu_torch.models.pretrained import load_pretrained_decoder
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        t0 = time.perf_counter()
+        n_params = write_qwen2_checkpoint(root, seed)
+        t1 = time.perf_counter()
+        tree, cfg = load_pretrained_decoder(root, max_len=2048)
+        t2 = time.perf_counter()
+    check(cfg.n_kv_heads == 2 and cfg.qkv_bias and cfg.tie_embeddings and cfg.max_len == 2048
+          and cfg.dtype == torch.bfloat16, f"6b: the qwen2 config reads as {cfg}")
+    params = td.cast_params_for_serving(decoder_params_from_numpy(tree, cfg, "cuda"))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    weight_bytes = sum(v.numel() * v.element_size() for v in params["layers"].values()) + \
+        params["tok_emb"].numel() * params["tok_emb"].element_size() + \
+        params["final_ln_scale"].numel() * 4
+    print(f"  {n_params / 1e6:.1f} M parameters ({weight_bytes / 1e9:.3f} GB served): written in "
+          f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, on the card in {t3 - t2:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    out: dict = {}
+
+    # the first step against the CPU f32 forward of the same checkpoint (B 1, T 128)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128), generator=g, device="cuda")
+    mask = torch.ones(1, 128, device="cuda")
+    card, _ = td.prefill(params, toks, mask, td.init_cache(cfg, 1, 128, "cuda"), cfg)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_params = decoder_params_from_numpy(tree, f32)
+    del tree
+    t0 = time.perf_counter()
+    ref, _ = td.prefill(cpu_params, toks.cpu(), mask.cpu(), td.init_cache(f32, 1, 128), f32)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    err_f32 = float((card.float().cpu() - ref).abs().max())
+    print(f"  first step, card bf16 vs CPU f32 (B 1, T 128, CPU {cpu_s:.1f} s): max "
+          f"|diff| {err_f32:.4f} (logit std {float(ref.std()):.3f}); gate {BF16_TOL}")
+    check(err_f32 <= BF16_TOL, f"6b: bf16 logits {err_f32} from the CPU f32 forward")
+
+    # decode with the cache against the teacher-forced forward, bf16 and int8 caches
+    seq = torch.randint(0, cfg.vocab_size, (2, 144), generator=g, device="cuda")
+    full = td.causal_logits(params, seq, torch.ones(2, 144, device="cuda"), cfg)
+    logits = {}
+    for kv in ("native", "int8"):
+        c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        cache = td.init_cache(c, 2, 144, "cuda")
+        lg, cache = td.prefill(params, seq[:, :128], torch.ones(2, 128, device="cuda"), cache, c)
+        attn = torch.zeros(2, 144, device="cuda")
+        attn[:, :128] = 1.0
+        steps = [lg]
+        for t in range(128, 144):
+            attn[:, t] = 1.0
+            lg, cache = td.decode_step(params, seq[:, t], t, attn,
+                                       torch.full((2,), t, dtype=torch.int32, device="cuda"),
+                                       cache, c)
+            steps.append(lg)
+        logits[kv] = torch.stack(steps, 1)  # positions 127 .. 143
+    err_dec = float((logits["native"] - full[:, 127:]).abs().max())
+    err_int8 = float((logits["int8"] - logits["native"]).abs().max())
+    print(f"  decode with the cache vs the teacher-forced forward (17 positions): {err_dec:.4f} "
+          f"(gate {DECODE_TOL}); int8 KV cache vs bf16: {err_int8:.4f} (gate {INT8_KV_TOL})")
+    check(err_dec <= DECODE_TOL, f"6b: cached decode {err_dec} from the teacher-forced forward")
+    check(err_int8 <= INT8_KV_TOL, f"6b: the int8 KV cache {err_int8} from the bf16 one")
+    del full, logits
+
+    # speed: prefill at T = 512, decode over 128 new tokens, B = 1 and 8
+    tp, n_new = 512, 128
+    for b in (1, 8):
+        prompt = torch.randint(0, cfg.vocab_size, (b, tp), generator=g, device="cuda")
+        pmask = torch.ones(b, tp, device="cuda")
+        pre_cache = td.init_cache(cfg, b, tp, "cuda")
+        pre_ms = time_held_ms(lambda: td.prefill(params, prompt, pmask, pre_cache, cfg), calls=5)
+        del pre_cache
+        print(f"  B {b}: prefill T {tp} {pre_ms:.3f} ms ({b * tp / pre_ms * 1e3:.0f} tokens/s)")
+        out[f"prefill B {b}"] = pre_ms
+        for kv in ("native", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            cache = td.init_cache(c, b, tp + n_new, "cuda")
+            first, cache = td.prefill(params, prompt, pmask, cache, c)
+            attn = torch.cat([pmask, torch.zeros(b, n_new, device="cuda")], 1)
+            pos = torch.full((b,), tp, dtype=torch.int32, device="cuda")
+
+            def decode(i, lg):  # one greedy step into cache slot tp + i, no host sync
+                attn[:, tp + i] = 1.0
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                return td.decode_step(params, tok, tp + i, attn, pos + i, cache, c)[0]
+
+            # ms per step over n_new steps, no read-back: host clock, CUDA events
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            lg = first
+            t0 = time.perf_counter()
+            e0.record()
+            for i in range(n_new):
+                lg = decode(i, lg)
+            e1.record()
+            e1.synchronize()
+            wall_ms, dev_ms = (time.perf_counter() - t0) * 1e3 / n_new, e0.elapsed_time(e1) / n_new
+            sync_ms = read_back_ms(lg) if kv == "native" else None
+            held = time_held_ms(lambda: decode(n_new - 1, first), calls=10)
+            # the bytes a step must read: the weights once, the valid cache once
+            # (at the mean length tp + n_new / 2; int8 with its f32 scales)
+            per_pos = cfg.head_dim * (1 if kv == "int8" else 2) + (4 if kv == "int8" else 0)
+            kv_bytes = 2 * cfg.n_layers * b * cfg.n_kv_heads * (tp + n_new / 2) * per_pos
+            bound = (weight_bytes + kv_bytes) / HBM_PEAK[part] * 1e3
+            out[f"decode B {b} {kv}"] = {"ms_per_token": wall_ms, "device_ms": dev_ms,
+                                         "held_ms": held, "bound_ms": bound}
+            print(f"  B {b} {kv} KV cache: decode {wall_ms:.3f} ms per step (host clock, no "
+                  f"sync; events {dev_ms:.3f} ms), one step held {held:.3f} ms; bytes bound "
+                  f"{bound:.4f} ms ({(weight_bytes + kv_bytes) / 1e9:.3f} GB); "
+                  f"{b / wall_ms * 1e3:.0f} tokens/s"
+                  + ("" if sync_ms is None else
+                     f"; generate's read-back of `done` alone, the step done: {sync_ms:.4f} ms"))
+            if kv == "native":
+                split = decode_split(lambda: decode(n_new - 1, first), wall_ms)
+                print("    a decode step's split: " + "; ".join(
+                    f"{k} {v:.3f} ms" for k, v in split.items()))
+            del cache
+        # generate: the prefill and the host loop, which reads `done` after each step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, lengths = td.generate(params, prompt, pmask, cfg, max_new_tokens=n_new)
+        gen_s = time.perf_counter() - t0
+        check(tuple(gen.shape) == (b, n_new) and bool((lengths <= n_new).all()),
+              "6b: generate's output")
+        print(f"  B {b}: generate {n_new} new tokens in {gen_s:.3f} s, {b * n_new / gen_s:.0f} "
+              f"tokens/s (lengths {sorted(set(lengths.tolist()))})")
+        out[f"generate B {b}"] = b * n_new / gen_s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3155,7 +3572,13 @@ def main() -> int:
     phase("5e main path, full size, the ring")
     ring = ring_full_size(args.seed, part, long4d["embedder"])
 
-    phase("6 summary")
+    phase("6a the local LLM: the agentic CLI on yrt_tiny_chat")
+    chat6a = agentic_cli(args.seed)
+
+    phase("6b the local LLM: Qwen2-0.5B widths")
+    qwen2_width(args.seed, part)
+
+    phase("7 summary")
     kernels = []
     for tier in TIERS:
         kname, f = KERNEL_NAMES[tier], full[tier]
@@ -3164,7 +3587,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"youtu_rag_tpu_torch/csrc/{kname}.cu",
             "replaces": REPLACES[kname],
-            "launches": launches4[tier] + f["launches"],
+            "launches": (launches4[tier] + f["launches"]
+                         + (chat6a["launches"] if tier == "bfloat16" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],

@@ -545,13 +545,13 @@ def ivf_inputs(tier, q, seed, device, n=N, qdtype="f32"):
 
 def assert_ivf_equal(tier, got, want):
     """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
-    scores; empty slots (NEG_INF, 0) in both."""
+    scores; empty slots NEG_INF in both, with the plain version's fill row."""
     s, i, ws, wi = (t.cpu().numpy() for t in (*got, *want))
     assert s.shape == ws.shape
     for a in range(s.shape[0]):
         n = int((ws[a] > NEG_INF / 2).sum())
         assert int((s[a] > NEG_INF / 2).sum()) == n
-        assert (s[a, n:] == NEG_INF).all() and (i[a, n:] == 0).all()
+        assert (s[a, n:] == NEG_INF).all() and (i[a, n:] == wi[a, n:]).all()
         if tier == "bf16":
             np.testing.assert_allclose(s[a, :n], ws[a, :n], atol=TOL)
             assert set(i[a, :n].tolist()) == set(wi[a, :n].tolist())
@@ -572,7 +572,8 @@ IVF_N = 16384  # block_rows up to 4096: four blocks, two of them probed
 def test_ivf_kernel_matches_plain_version(cuda_device, tier, q, k, block_rows, qdtype):
     """bf16 within TOL with the same row sets; int8/int4 bit-equal rows and
     scores (int8 with the kernel's own quantization of f32 queries); ties
-    in row order; empty slots (NEG_INF, 0); one launch per 64 queries."""
+    in row order (the ids ascend); empty slots as the plain version's; one
+    launch per 64 queries."""
     _, kernel, plain = IVF[tier]
     n = IVF_N - IVF_N % block_rows
     qt, xt, extra, bias = ivf_inputs(tier, q, q + k + block_rows, cuda_device, n, qdtype)
@@ -596,7 +597,7 @@ def test_ivf_kernel_matches_plain_version(cuda_device, tier, q, k, block_rows, q
 def test_ivf_kernel_plan_edges(cuda_device, tier, n_valid, order):
     """An empty plan, one block, every block (max_blocks), ids in any
     order; fewer live rows than k; a zero query row (its int8 scale
-    1e-12 / 127), whose live rows all score 0 and come in row order."""
+    1e-12 / 127), whose live rows all score 0 and come in probe order."""
     _, kernel, plain = IVF[tier]
     qt, xt, extra, bias = ivf_inputs(tier, 8, n_valid, cuda_device)
     qt[1] = 0
@@ -611,7 +612,9 @@ def test_ivf_kernel_plan_edges(cuda_device, tier, n_valid, order):
     else:
         live = got[0][1] > NEG_INF / 2
         assert (got[0][1][live] == 0).all()
-        assert torch.equal(got[1][1][live], torch.sort(got[1][1][live]).values)
+        position = {b: p for p, b in enumerate(ids[:n_valid].tolist())}
+        keys = [position[r // 64] * 64 + r % 64 for r in got[1][1][live].tolist()]
+        assert keys == sorted(keys)
 
 
 @pytest.mark.cuda
@@ -1282,3 +1285,42 @@ def test_long_document_embedder_raises_where_the_hop_kernel_refuses(cuda_device)
     emb = TorchEmbedder(config=cfg, device=cuda_device, sp_mesh=4)
     with pytest.raises(ValueError, match="head dim"):
         emb.embed_batch([" ".join(f"w{i}" for i in range(900))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [((3, 1, 64), (64, 96)), ((2, 4, 5, 64), (2, 4, 64, 33))])
+def test_decoder_f32_matmul_on_the_card(cuda_device, shape):
+    """The decoder's f32-output product of two bf16 operands (one GEMM with
+    an f32 output on the card, the head's and attention's path): the f32
+    sums of the same products the CPU path forms, within f32 rounding."""
+    from youtu_rag_tpu_torch.models.decoder import _f32_matmul
+
+    g = torch.Generator().manual_seed(0)
+    a, b = (torch.randn(s, generator=g).to(torch.bfloat16) for s in shape)
+    got = _f32_matmul(a.to(cuda_device), b.to(cuda_device))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), _f32_matmul(a, b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["native", "int8"])
+def test_decoder_generate_on_the_card(cuda_device, kv):
+    """A small llama decoder (GQA, q/k/v biases) in f32 on the card: greedy
+    tokens and lengths equal to the CPU's, logits of a prefill within
+    1e-4."""
+    from youtu_rag_tpu_torch.models import decoder as td
+
+    cfg = td.DecoderConfig(vocab_size=96, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                           d_ff=128, max_len=64, arch="llama", dtype=torch.float32,
+                           qkv_bias=True, eos_token_id=95, kv_cache_dtype=kv)
+    params = td.init_decoder_params(cfg, torch.Generator().manual_seed(1))
+    card = td._tree_map(lambda t: t.to(cuda_device), params)
+    toks, mask = td.left_pad_batch([[5, 17, 42], [8, 1, 2, 3, 4, 60]], pad_id=0)
+    toks, mask = torch.from_numpy(toks), torch.from_numpy(mask)
+    want = td.generate(params, toks, mask, cfg, max_new_tokens=12)
+    got = td.generate(card, toks.to(cuda_device), mask.to(cuda_device), cfg, max_new_tokens=12)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    cache = td.init_cache(cfg, 2, 8, cuda_device)
+    logits, _ = td.prefill(card, toks.to(cuda_device), mask.to(cuda_device), cache, cfg)
+    cpu, _ = td.prefill(params, toks, mask, td.init_cache(cfg, 2, 8), cfg)
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=1e-4)

@@ -36,7 +36,12 @@ def test_port_has_sources():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
     for module in ("ops/topk.py", "ops/attention.py", "ops/ivf.py", "ops/kmeans.py",
                    "index/ivf.py", "models/encoder.py", "models/convert.py",
-                   "models/wordpiece.py", "models/pretrained.py", "utils/http.py"):
+                   "models/wordpiece.py", "models/pretrained.py", "utils/http.py",
+                   "models/bpe.py", "models/decoder.py", "agents/llm.py", "agents/local_llm.py",
+                   "agents/react.py", "agents/simple_agent.py", "agents/config.py",
+                   "agents/events.py", "agents/context.py", "agents/hooks.py",
+                   "agents/llm_agent.py", "tools/__init__.py", "tools/base.py",
+                   "tools/schema.py", "tools/kb_search.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
@@ -126,12 +131,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
     from youtu_rag_tpu_torch.utils.device import resolve_device
 
+    from youtu_rag_tpu_torch.agents.llm import get_chat_client
+    from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient
     from youtu_rag_tpu_torch.models.reranker import TorchReranker
 
     for make in (lambda: resolve_device(None), lambda: DeviceVectorIndex(8),
                  lambda: TorchVectorStore(), lambda: KnowledgeBase("x"), TorchEmbedder,
                  lambda: TorchEmbedder.from_pretrained("/nowhere"),
-                 lambda: TorchReranker.from_pretrained("/nowhere"), TorchReranker):
+                 lambda: TorchReranker.from_pretrained("/nowhere"), TorchReranker,
+                 lambda: LocalChatClient("/nowhere"),
+                 lambda: get_chat_client({"provider": "local", "weights_dir": "/nowhere"})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert DeviceVectorIndex(8, device="cpu").device.type == "cpu"

@@ -8,7 +8,8 @@ half of DeviceVectorIndex) against the JAX package's, on the CPU.
   and with a fresh tail;
 - the plain versions of the IVF kernels against the interpret-mode Pallas
   DMA kernels: bf16 rows equal with scores within 1e-4, int8/int4 within
-  1e-5 (exact integer dots; XLA may contract the f32 epilogue);
+  1e-5 (exact integer dots; XLA may contract the f32 epilogue), every slot
+  compared, the fill of the slots no live row fills included;
 - a JAX IVF index carried by ``index_from_numpy`` answers as JAX's
   ``backend="pallas_interpret"`` through search, fresh-tail appends,
   deletes, filters, the adaptive margin, the residual re-rank, the tuner's
@@ -170,11 +171,11 @@ def kernel_inputs(seed):
     return x, q, bias
 
 
-def run_both(tier, x, q, bias, ids, n_valid, k):
+def run_both(tier, x, q, bias, ids, n_valid, k, block_rows=KBR):
     """(port, jax) results of one tier's IVF top-k on the same inputs."""
     tids, tnv = torch.from_numpy(ids), torch.tensor(n_valid, dtype=torch.int32)
     jids, jnv = jnp.asarray(ids), jnp.int32(n_valid)
-    kw = dict(block_rows=KBR)
+    kw = dict(block_rows=block_rows)
     tq, tb = torch.from_numpy(q), torch.from_numpy(bias)
     if tier == "bf16":
         got = ivf_topk_dma(tq, torch.from_numpy(x).to(torch.bfloat16), tb, tids, tnv, k, **kw)
@@ -201,8 +202,8 @@ def run_both(tier, x, q, bias, ids, n_valid, k):
                               "all_unordered"])
 def test_plain_versions_match_pallas_dma_kernels(tier, n_valid, k, ordered):
     """A plan lists its selected blocks ascending; the unordered cases walk
-    them in another order, which changes nothing without exact ties
-    between blocks (none here): the kernels rank by (score, row)."""
+    them in another order, and both rank by (score, probe position, row in
+    block). Every slot is compared, the fill of the empty ones included."""
     x, q, bias = kernel_inputs(seed=n_valid + k)
     ids = np.asarray([1, 2, 5, 0, 3, 4, 6, 7], np.int32)
     if ordered:
@@ -210,9 +211,49 @@ def test_plain_versions_match_pallas_dma_kernels(tier, n_valid, k, ordered):
     (gs, gi), (ws, wi) = run_both(tier, x, q, bias, ids, n_valid, k)
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_allclose(gs, ws, rtol=0, atol=TOL if tier == "bf16" else QTOL)
-    assert ((gs > NEG_INF) | ((gs == NEG_INF) & (gi == 0))).all()  # empty slots: (NEG_INF, 0)
+    assert ((gs > NEG_INF) | (gs == NEG_INF)).all()  # empty slots score NEG_INF
     if n_valid == 0:
         assert (gs == NEG_INF).all()
+
+
+# Fewer live rows than k over many blocks: the slots no live row fills
+# hold JAX's fill (NEG_INF, r), r the running list's top row when the last
+# block with a live row was merged. name → (queries (the kernel pads them
+# to 8), live rows, n_valid, ids order, -inf rows)
+FILL_CASES = {
+    "one-query-shuffled": (1, 9, 12, "shuffled", False),
+    "three-queries-sorted": (3, 5, 10, "sorted", True),
+    "seven-queries-shuffled": (7, 13, 12, "shuffled", True),
+    "nine-queries-two-tiles": (9, 4, 8, "shuffled", False),
+    "live-in-one-block": (2, 1, 12, "shuffled", False),
+    "no-live-row": (4, 0, 12, "shuffled", True),
+}
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", list(FILL_CASES))
+def test_dma_fill_matches_pallas_dma_kernels(tier, case):
+    """12 blocks of 16 rows, k = 10: every slot of the plain versions
+    equals the interpret-mode DMA kernel's (rows exactly, scores as in
+    ``test_plain_versions_match_pallas_dma_kernels``), the fill rows of the
+    empty slots included."""
+    qn, n_live, n_valid, order, neg_inf_rows = FILL_CASES[case]
+    rng = np.random.default_rng(len(case) + qn)
+    br, nb, d, k = 16, 12, 256, 10
+    x = rng.standard_normal((nb * br, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.standard_normal((qn, d)).astype(np.float32)
+    bias = np.full(nb * br, NEG_INF, np.float32)
+    bias[rng.choice(nb * br, n_live, replace=False)] = 0.0
+    if neg_inf_rows:
+        bias[rng.choice(np.flatnonzero(bias < 0), 5, replace=False)] = -np.inf
+    ids = rng.permutation(nb).astype(np.int32)
+    if order == "sorted":
+        ids[:n_valid] = np.sort(ids[:n_valid])
+    (gs, gi), (ws, wi) = run_both(tier, x, q, bias, ids, n_valid, k, block_rows=br)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=TOL if tier == "bf16" else QTOL)
+    np.testing.assert_array_equal(gs <= NEG_INF, ws <= NEG_INF)
 
 
 # The inputs the int4 ring kernel must answer (csrc/ivf_scan_tma.cuh,
@@ -238,10 +279,8 @@ def test_int4_plain_version_matches_pallas_dma_kernel_on_ring_inputs(case):
     """The port's plain int4 IVF top-k against ``pallas_ivf_topk_int4_dma``
     in interpret mode: the same live slots (score > NEG_INF), rows equal
     and scores bit-equal (tolerance: none), and NEG_INF in every other slot
-    of both. Those slots hold row 0 in the port (its DMA contract); JAX's
-    kernel repeats the top row of its running list there once it has merged
-    a block after one with a live row (ROADMAP Queue C), so their rows are
-    not compared."""
+    of both, whose rows (JAX's fill: the running list's top row once a
+    block after one with a live row was merged) are equal too."""
     d, n, br, n_valid, k, kind, order = INT4_DMA_CASES[case]
     qs, x, bias = make_inputs(4, d, n, kind, seed=d + br + k)
     rng = np.random.default_rng(n_valid + k)
@@ -259,9 +298,8 @@ def test_int4_plain_version_matches_pallas_dma_kernel_on_ring_inputs(case):
     gs, gi, ws, wi = gs.numpy(), gi.numpy(), np.asarray(ws), np.asarray(wi)
     live = ws > NEG_INF
     np.testing.assert_array_equal(gs > NEG_INF, live)
-    np.testing.assert_array_equal(gi[live], wi[live])
+    np.testing.assert_array_equal(gi, wi)  # every slot, the fill included
     np.testing.assert_array_equal(gs.view(np.uint32), ws.view(np.uint32))  # NEG_INF past live
-    assert (gi[~live] == 0).all()
     if kind == "ties":  # query 0 is row 700: its copies tie at the top, in row order
         assert gi[0, :5].tolist() == [r for r in (20, 300, 600, 700, 900)
                                       if r // br in set(ids[:n_valid].tolist())][:5]

@@ -10,7 +10,7 @@ from one seed it times ``topk_pruned`` (bf16, k = 10), ``topk_int8_pruned``
 (k = 10) and ``topk_int4_pruned`` (k = 64 and 10) at 1,048,576 × 768, q = 8
 (the calls of ``chip_smoke.py`` phase 5); the three IVF scans,
 ``ivf_topk_dma`` and ``ivf_topk_int8_dma`` at k = 10 and
-``ivf_topk_int4_dma`` at k = 64 (bf16 and int8 also at 64), on phase 5c's plans
+``ivf_topk_int4_dma`` at k = 64 (each also at the other k), on phase 5c's plans
 (``configs/rag/ivf_int8.yaml``'s index settings over 1,048,576 × 768
 clustered rows; the search's adaptive plan and the fixed n_probe 64 plan;
 L2 cold), and on the same plans the per-block calls ``ivf_topk`` and
@@ -208,11 +208,13 @@ def ivf_calls(g):
                        lambda args=args, blocks=blocks: blocks(
                            *args, block_rows=IVF_SETTINGS["block_rows"]),
                        int(nv), blocks, args)
-                # and the DMA entry at int4's k (the register lists of 33 <= k <= 64)
-                args64 = (*args[:-1], 64)
-                yield (f"{name} k=64 ({label} plan, L2 cold)",
-                       lambda args=args64: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
-                       int(nv), fn, args64)
+            # and the DMA entry at the other tiers' k (64: the register lists
+            # of 33 <= k <= 64; int4 at 10)
+            k2 = 10 if k == 64 else 64
+            args2 = (*args[:-1], k2)
+            yield (f"{name} k={k2} ({label} plan, L2 cold)",
+                   lambda args=args2: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
+                   int(nv), fn, args2)
         del index, x, b, extra
         torch.cuda.empty_cache()
 

@@ -1,16 +1,22 @@
-"""Retrieval-only chat REPL over a knowledge base, on the port.
+"""Chat REPL over a knowledge base, on the port.
 
-Builds a KB from files/directories, then prints the assembled context for
-each query read from standard input:
+Builds a KB from files/directories and reads queries from standard input.
+With an LLM it runs agentic mode: a ``SimpleAgent`` answers each query,
+calling the KB-search tool (``kb_embedding_search``) as it decides; the
+local causal LM of ``--llm-weights-dir`` runs in-process on the KB's
+device, a remote one comes from ``--llm-model`` / ``--llm-base-url`` /
+``--llm-api-key`` (or YRT_LLM_* / UTU_LLM_*). Without one it runs
+retrieval-only and prints the assembled context:
 
     python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --provider hash
     python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --hybrid --device cpu
     python -m youtu_rag_tpu_torch.cli_chat --paths docs/ --provider tpu \
         --weights-dir benchmarks/models/yrt_tiny_lex
+    python -m youtu_rag_tpu_torch.cli_chat --paths docs/ \
+        --llm-weights-dir benchmarks/models/yrt_tiny_chat
 
-The KB runs on the CUDA card unless ``--device`` names another device.
-Agentic mode (an LLM answering through KB-search tools) and the LLM flags
-wait for the local-LLM and agents slices (ROADMAP Queue A 5 and 6)."""
+The KB and the local LLM run on the CUDA card unless ``--device`` names
+another device."""
 
 from __future__ import annotations
 
@@ -19,6 +25,14 @@ import asyncio
 import glob
 import os
 import sys
+
+
+# the system prompt the committed tiny chat LM was trained against (a copy
+# of the JAX package's models/lm_synth.py DEFAULT_KB_INSTRUCTIONS)
+DEFAULT_KB_INSTRUCTIONS = (
+    "You are a helpful assistant. Use the kb_embedding_search tool to "
+    "look up facts from the knowledge base before answering."
+)
 
 
 def parse_args(argv=None):
@@ -32,9 +46,17 @@ def parse_args(argv=None):
                    help="provider tpu: train_embedder output dir (e.g. the committed "
                    "benchmarks/models/yrt_tiny_lex lexical-residual encoder)")
     p.add_argument("--top-k", type=int, default=5)
+    p.add_argument("--llm-model", default=None)
+    p.add_argument("--llm-base-url", default=None)
+    p.add_argument("--llm-api-key", default=None)
+    p.add_argument("--llm-weights-dir", default=None,
+                   help="serve a local causal-LM checkpoint dir (the repo's native "
+                   "decoder_params.npz, or config.json + model.safetensors + tokenizer.json "
+                   "of a gpt2/llama/mistral/qwen2 model) on the KB's device instead of a "
+                   "remote LLM service")
     p.add_argument("--hybrid", action="store_true", help="dense+BM25 RRF fusion retrieval")
     p.add_argument("--device", default=None,
-                   help="torch device for the index (default: the CUDA card)")
+                   help="torch device for the index and the local LLM (default: the CUDA card)")
     return p.parse_args(argv)
 
 
@@ -52,8 +74,13 @@ def collect_files(paths: list[str]) -> list[str]:
 async def main(argv=None) -> None:
     args = parse_args(argv)
 
+    from .agents.config import AgentConfig, ModelConfig
+    from .agents.llm import get_chat_client
+    from .agents.simple_agent import SimpleAgent
     from .core.config import EmbeddingConfig, RAGConfig
     from .retrieval.kb import GLOBAL_KB_REGISTRY, KnowledgeBase
+    from .tools.base import ToolkitConfig
+    from .tools.kb_search import KBSearchToolkit
 
     cfg = RAGConfig(name="cli")
     cfg.knowledge_builder.embedding = EmbeddingConfig(provider=args.provider,
@@ -69,7 +96,28 @@ async def main(argv=None) -> None:
     status = await kb.build_files(files)
     print(f"built: {status.total_chunks} chunks from {status.processed_documents} docs "
           f"({len(status.errors)} errors)")
-    print("retrieval-only mode. Ctrl-D to exit.")
+
+    if args.llm_weights_dir:
+        model = ModelConfig(provider="local", weights_dir=args.llm_weights_dir)
+        has_llm = True
+    else:
+        model = ModelConfig(model=args.llm_model, base_url=args.llm_base_url,
+                            api_key=args.llm_api_key).resolved()
+        has_llm = bool(model.model and model.base_url)
+
+    agent = None
+    if has_llm:
+        toolkit = KBSearchToolkit(ToolkitConfig(config={"kb": kb}))
+        acfg = AgentConfig(model=model)
+        # the committed tiny chat LM was trained against this system prompt
+        acfg.agent.instructions = DEFAULT_KB_INSTRUCTIONS
+        agent = SimpleAgent(acfg, client=get_chat_client(model, device=kb.device),
+                            toolkits=[toolkit])
+        await agent.build()
+        where = f"local decoder on {kb.device}" if args.llm_weights_dir else "remote LLM"
+        print(f"LLM connected ({where}): agentic mode. Ctrl-D to exit.")
+    else:
+        print("no LLM configured: retrieval-only mode. Ctrl-D to exit.")
 
     retriever = kb.hybrid_retriever if args.hybrid else kb.retriever
     while True:
@@ -79,8 +127,19 @@ async def main(argv=None) -> None:
             break
         if not query:
             continue
-        results = await retriever.retrieve(query, top_k=args.top_k, similarity_threshold=0.0)
-        print(kb.assembler.assemble(results, format_style="markdown") or "(no hits)")
+        if agent is not None:
+            rec = agent.run_streamed(query)
+            async for ev in rec.stream_events():
+                if ev.type == "text_delta":
+                    print(ev.text, end="", flush=True)
+                elif ev.type == "tool_call":
+                    print(f"\n[tool {ev.name}({ev.arguments})]", flush=True)
+                elif ev.type == "error":
+                    print(f"\n[error {ev.text}]", flush=True)
+            print()
+        else:
+            results = await retriever.retrieve(query, top_k=args.top_k, similarity_threshold=0.0)
+            print(kb.assembler.assemble(results, format_style="markdown") or "(no hits)")
 
 
 if __name__ == "__main__":

@@ -23,9 +23,21 @@
 //    layout: packed byte j holds column j in its low nibble and column
 //    j + d/2 in its high one, each a 4-bit two's complement value), then
 //    f32(acc) * (qs * xs) + bias rounded op by op;
-//  - result: the k best per query in (score desc, stored row asc); slots no
-//    live row fills stay (NEG_INF, 0). Any q (8-query tiles on the grid's
-//    y, up to 64 per launch) and any k (4.'s list classes).
+//  - result: the k best per query in the TPU kernels' order, (score desc,
+//    probe position i asc, row in block asc), that is (score desc, virtual
+//    row v asc): the lists hold v, and the output maps v to its stored row
+//    ids[v / block_rows] * block_rows + v % block_rows (with ids ascending,
+//    as the probe plan lists them, the order is (score desc, row asc));
+//  - the fill: when a query has T < k live rows (score > NEG_INF), slots
+//    T .. k-1 hold (NEG_INF, r), as the TPU kernels leave them: with L the
+//    probe position of the last block holding a live row, r is the stored
+//    row of the query's best live entry at a position before L, or 0 if
+//    there is none (the TPU kernel merges every block with a live row while
+//    its list is not full, and a merge's dead picks repeat the running
+//    list's top entry). The scan records the last live v of each tile by
+//    atomicMax in the counters the launch's memset zeroes (7. below).
+//  - any q (8-query tiles on the grid's y, up to 64 per launch) and any k
+//    (4.'s list classes).
 //
 // Per-block contract (kProbe; pallas_ivf_topk and pallas_ivf_topk_int8
 // merged, as ops/ivf.py's _probed_blocks + merge_blocks compute it):
@@ -136,9 +148,12 @@
 //     ~43 us). The last CTA alone runs the merge, once, so its code is kept
 //     small: unrolled copies of the merge network cost more in instruction
 //     fetches than they save.
-//  7. kProbe: the lists and the merge key on v instead of the stored row, so
-//     ties come in probe order whichever CTA took a stage; the merge stops
-//     at the first entry that is not live and writes the tail. While it
+//  7. The lists and the merge key on v, not on the stored row, so ties come
+//     in probe order whichever CTA took a stage; the merge stops at the
+//     first entry that is not live and writes the fill (DMA) or the tail
+//     (kProbe). DMA: each selecting warp keeps the last live v it scored
+//     (a ballot a stage) and lane 0 takes it to the tile's counter by one
+//     atomicMax before the CTA's ticket. kProbe: while it
 //     scans v < 2 * block_rows, each selecting warp records its query's
 //     lowest column scoring >= NEG_INF of positions 0 and 1 (a ballot, then
 //     an atomicMax of block_rows - column, 0 meaning none, in counters the
@@ -734,9 +749,10 @@ struct Args {
   int q, d, k, queries_bf16;
 };
 
-// kProbe: the counters past the tickets and stage pairs, [tiles, kQT, 2]:
-// per query, block_rows minus the lowest column of positions 0 and 1 that
-// scores >= NEG_INF (0: none)
+// The counters past the tickets and stage pairs, [tiles, kFirstCols]:
+// kProbe [kQT, 2], per query block_rows minus the lowest column of
+// positions 0 and 1 that scores >= NEG_INF (0: none); the DMA entries the
+// tile's last live v plus 1 in the first (0: none)
 constexpr int kFirstCols = 2 * kQT;
 
 template <class T, int kList, bool kProbe, bool kWide = false>
@@ -865,6 +881,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   // this list's candidates
   const size_t slot_out = (((size_t)blockIdx.y * n_cta + cta) * kQT + warp) * k_pad;
   int n_live = 0;  // kListDevice: entries filled so far (the rest are initial)
+  [[maybe_unused]] int last_live = -1;  // DMA: the last live v this warp scored
   if constexpr (kList == kListDevice) {
     if (selects) {
       my_s = a.cand_s + slot_out;
@@ -922,8 +939,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
 
     if (selects) {
       const bool ok = lane < len;
-      // the list's key: kProbe the virtual row, else the stored row
-      const int row = ok ? (kProbe ? v0 + lane : a.src.row(v0 + lane)) : 0;
+      // the list's key: the virtual row
+      const int row = ok ? v0 + lane : 0;
       float s = 0.f;
       if (ok) {
         const Acc* in = part + warp * kMaxRows + lane;
@@ -934,6 +951,10 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
           s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, xs)), b);
         else
           s = t + b;
+      }
+      if constexpr (!kProbe) {
+        const unsigned lv = __ballot_sync(kFull, ok && s > kNegInf);
+        if (lv) last_live = max(last_live, v0 + 31 - __clz(lv));
       }
       if constexpr (kProbe) {
         if (v0 < 2 * br) {  // positions 0 and 1: their lowest columns scoring >= NEG_INF
@@ -1015,6 +1036,9 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
         a.cand_i[slot_out + t] = my_i[t];
       }
   }
+  int* first_cols = a.counter + 2 * gridDim.y + blockIdx.y * kFirstCols;
+  if constexpr (!kProbe)
+    if (lane == 0 && last_live >= 0) atomicMax(first_cols, last_live + 1);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last_cta = atomicAdd(a.counter + blockIdx.y, 1) == n_cta - 1;
@@ -1023,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   __threadfence();
 
   // The merge: warp j merges query q0 + j's n_cta sorted lists into the
-  // top k in (score desc, row asc), ties between lists to the lower list
-  // (topk_merge_kernel's order). Per warp in shared memory: the windows'
+  // top k in (score desc, virtual row asc), ties between lists to the lower
+  // list (topk_merge_kernel's order). Per warp in shared memory: the windows'
   // scores [n_cta, W] and rows [n_cta, W], each part 16-byte aligned (the
   // lists counted up to a multiple of 4; W is a power of two from 4). Lane
   // L owns lists L + 32 m; their heads and positions sit in its registers.
@@ -1065,7 +1089,14 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   float* win_s = win_all + warp * per_warp;
   int* win_i = reinterpret_cast<int*>(win_s + n_pad * W);
   const int qi = q0 + warp;
-  [[maybe_unused]] int n_out = k;  // kProbe: the slots the live entries fill
+  int n_out = k;  // the slots the live entries fill
+  // DMA: the fill's entries lie before the last block with a live row
+  // (v < fill_end), the first in the merged order (-1: none)
+  int fill_v = -1, fill_end = 0;
+  if constexpr (!kProbe) {
+    const int lv = __ldcg(first_cols);
+    fill_end = lv > 0 ? (lv - 1) / br * br : 0;
+  }
   if constexpr (kRegList > 0) {
     // A register list (kListWarp2/4) merges as it selects (6. above). A
     // list whose entry does not beat the merged list's entry k - 1 offers
@@ -1176,19 +1207,24 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
         entry_of(l, base, cs, ci);  // this list's next 32
       }
     }
-    // slots 0 .. k - 1 (kProbe: the live entries, a prefix; the tail below)
-    if constexpr (kProbe) {
-      int live = 0;
+    // the live entries, a prefix of slots 0 .. k - 1 (the fill or the tail below)
+    int live = 0;
 #pragma unroll
-      for (int r = 0; r < kRegList; ++r) live += __popc(__ballot_sync(kFull, ls[r] > kNegInf));
-      n_out = min(live, k);
+    for (int r = 0; r < kRegList; ++r) {
+      live += __popc(__ballot_sync(kFull, ls[r] > kNegInf));
+      if constexpr (!kProbe) {
+        const unsigned m = __ballot_sync(kFull, ls[r] > kNegInf && li[r] < fill_end);
+        const int first = __shfl_sync(kFull, li[r], m ? __ffs(m) - 1 : 0);
+        if (fill_v < 0 && m) fill_v = first;
+      }
     }
+    n_out = min(live, k);
 #pragma unroll
     for (int r = 0; r < kRegList; ++r) {
       const int e = 32 * r + lane;
       if (e < n_out) {
         a.out_s[(size_t)qi * k + e] = ls[r];
-        a.out_i[(size_t)qi * k + e] = kProbe ? a.src.row(li[r]) : li[r];
+        a.out_i[(size_t)qi * k + e] = a.src.row(li[r]);
       }
     }
   } else {
@@ -1228,15 +1264,14 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       int li, ll;
       lane_best(lk, li, ll);
       warp_best(lk, li, ll, bk, bi, bl);
-      if constexpr (kProbe) {
-        if (bk <= order_key(kNegInf)) {  // the live entries are spent: the tail
-          n_out = t;
-          break;
-        }
+      if (bk <= order_key(kNegInf)) {  // the live entries are spent: the fill or the tail
+        n_out = t;
+        break;
       }
+      if (!kProbe && fill_v < 0 && (int)bi < fill_end) fill_v = (int)bi;
       if (lane == 0) {
         a.out_s[(size_t)qi * k + t] = key_score(bk);
-        a.out_i[(size_t)qi * k + t] = kProbe ? a.src.row((int)bi) : (int)bi;
+        a.out_i[(size_t)qi * k + t] = a.src.row((int)bi);
       }
       if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
         const int mm = bl / 32;
@@ -1277,12 +1312,18 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       __syncwarp();
     }
   }
-  if constexpr (kProbe) {
+  if constexpr (!kProbe) {
+    const int fill = fill_v >= 0 ? a.src.row(fill_v) : 0;  // the fill (contract above)
+    for (int t = n_out + lane; t < k; t += 32) {
+      a.out_s[(size_t)qi * k + t] = kNegInf;
+      a.out_i[(size_t)qi * k + t] = fill;
+    }
+  } else {
     if (n_out < k) {
       // the tail (contract above): ids * block_rows in 32 bits, as the TPU
       // kernel's fill computes it
       const unsigned ubr = (unsigned)br;
-      const int* first = a.counter + 2 * gridDim.y + (blockIdx.y * kQT + warp) * 2;
+      const int* first = first_cols + warp * 2;
       const int e0 = nv > 0 ? __ldcg(first) : 0;
       const int fill = (int)((unsigned)__ldg(a.src.ids) * ubr + (e0 ? br - e0 : 0));
       float last_s = kNegInf;
@@ -1367,8 +1408,7 @@ int plan_of(int d, int k, int* out) {
 // Returns cudaGetLastError() (0 = ok), cudaErrorInvalidValue for shapes
 // outside the contract (a wide plan with f32 queries among them) or
 // cudaErrorInvalidConfiguration where no plan fits one CTA's shared
-// memory. The counters: int32 [2, tiles], and kProbe [tiles, kFirstCols]
-// after them.
+// memory. The counters: int32 [2, tiles], then [tiles, kFirstCols].
 template <class T, bool kProbe>
 int launch(const Args& a, int n, int n_cta, void* stream) {
   const int br = a.src.block_rows;
@@ -1385,7 +1425,7 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (a.q + kQT - 1) / kQT;
-  err = cudaMemsetAsync(a.counter, 0, sizeof(int) * (2 + (kProbe ? kFirstCols : 0)) * tiles, st);
+  err = cudaMemsetAsync(a.counter, 0, sizeof(int) * (2 + kFirstCols) * tiles, st);
   if (err != cudaSuccess) return (int)err;
   // the widest merge window (4 or 8 entries; no wider than k needs)
   // that fits in the shared memory the launch takes anyway

@@ -12,10 +12,12 @@
 // The ivf_blocks entries keep the per-block contract (probe-order ties, the
 // per-block fill in the slots no live row fills; see ivf_scan_tma.cuh) and compute the merged result in the same one launch;
 // topk_blocks.cu keeps the unmerged candidates. The DMA entries' contract:
-// the exact top k (score desc, row asc) over the rows of
-// blocks ids[0 .. n_valid) only, block b covering stored rows
+// the exact top k (score desc, probe position asc, row in block asc) over
+// the rows of blocks ids[0 .. n_valid) only, block b covering stored rows
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
-// never read; slots no live row fills come back as (NEG_INF, row 0). Every
+// never read; slots no live row fills come back as the TPU kernels leave
+// them, (NEG_INF, the best live row before the last block with one; 0 if
+// none: ivf_scan_tma.cuh). Every
 // entry takes what JAX does: any block_rows that divides n, any d % 128 ==
 // 0 (int4 d % 256 == 0: its packed width a multiple of 128) and any k,
 // bias and scales at any 4-byte alignment. The scores are the brute
@@ -34,10 +36,8 @@
 // (cp.async.bulk on mbarriers), scores it on the tensor cores (int4: the
 // packed bytes unpacked to biased u8 nibbles in registers, mma.sync u8 x
 // s8), selects per query as topk_select.cuh's scan does, and merges the
-// CTAs' lists in the last CTA of each query tile to finish. The DMA
-// entries' lists keep stored rows, so their result is ordered (score desc,
-// stored row asc) whatever the order of the ids; the ivf_blocks entries'
-// lists keep the virtual row, so theirs is in probe order.
+// CTAs' lists in the last CTA of each query tile to finish. Every entry's
+// lists keep the virtual row, so ties come in probe order.
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
 // (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale), read once
@@ -56,7 +56,7 @@
 IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false)
 IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false)
 IVF_TMA_C_INTERFACE(ivf_topk_int4, ivf_tma::Int4, false)
-// (the DMA entries use the counters' first [2, tiles])
+// (the DMA entries use one int of each tile's kFirstCols: the last live row)
 IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true)
 IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true)
 

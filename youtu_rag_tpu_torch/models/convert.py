@@ -1,10 +1,10 @@
-"""Carry an encoder's parameters across as numpy arrays.
+"""Carry an encoder's or a decoder's parameters across as numpy arrays.
 
-``encoder_params_from_numpy`` turns a parameter tree of numpy arrays into
-the port's parameter dict on a device: the JAX package's tree
-(``jax.tree.map(np.asarray, params)``), so that both packages compute the
-same function, or the tree ``models/pretrained.py`` reads from a
-checkpoint. The port imports nothing of the JAX package: whoever holds JAX
+``encoder_params_from_numpy`` and ``decoder_params_from_numpy`` turn a
+parameter tree of numpy arrays into the port's parameter dict on a device:
+the JAX package's tree (``jax.tree.map(np.asarray, params)``), so that both
+packages compute the same function, or the tree ``models/pretrained.py``
+reads from a checkpoint. The port imports nothing of the JAX package: whoever holds JAX
 parameters converts them to numpy on its side.
 """
 
@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .decoder import DecoderConfig
 from .encoder import EncoderConfig, _check_arch
 
 
@@ -84,6 +85,64 @@ def encoder_params_from_numpy(tree: dict, cfg: EncoderConfig,
         return out
 
     return walk(_expected_shapes(cfg), tree, "")
+
+
+def _decoder_shapes(cfg: DecoderConfig) -> dict[str, Any]:
+    """The JAX package's ``init_decoder_params`` layout for ``cfg``."""
+    D, Fd, L, V, KV = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size, cfg.kv_dim
+    if cfg.arch == "gpt2":
+        layers = {name: (L, D, D) for name in ("wq", "wk", "wv", "wo")}
+        layers.update({name: (L, D) for name in ("ln1_scale", "ln1_bias", "bq", "bk", "bv",
+                                                 "bo", "ln2_scale", "ln2_bias", "b2")})
+        layers.update(w1=(L, D, Fd), b1=(L, Fd), w2=(L, Fd, D))
+        shapes = {"tok_emb": (V, D), "pos_emb": (cfg.max_len, D), "layers": layers,
+                  "final_ln_scale": (D,), "final_ln_bias": (D,)}
+    elif cfg.arch == "llama":
+        layers = {"ln1_scale": (L, D), "wq": (L, D, D), "wk": (L, D, KV), "wv": (L, D, KV),
+                  "wo": (L, D, D), "ln2_scale": (L, D), "w_gate": (L, D, Fd), "w1": (L, D, Fd),
+                  "w2": (L, Fd, D)}
+        if cfg.qkv_bias:
+            layers.update(bq=(L, D), bk=(L, KV), bv=(L, KV))
+        shapes = {"tok_emb": (V, D), "layers": layers, "final_ln_scale": (D,)}
+    else:
+        raise ValueError(f"unknown decoder arch {cfg.arch!r} (gpt2 or llama)")
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, V)
+    return shapes
+
+
+def decoder_params_from_numpy(tree: dict, cfg: DecoderConfig,
+                              device: str | torch.device = "cpu") -> dict:
+    """The port's f32 decoder parameters on ``device`` from a nested dict of
+    numpy arrays (the JAX package's tree, or ``load_pretrained_decoder``'s),
+    with ``wq``, ``wk`` and ``wv`` fused into ``wqkv`` (``bq``, ``bk``,
+    ``bv`` into ``bqkv``). Raises ``ValueError`` on a missing key or a
+    shape ``cfg`` does not give (a gpt2 position table may hold more rows
+    than ``max_len``); keys ``cfg`` does not read are left out."""
+    def walk(want: dict, got: dict, path: str) -> dict:
+        out = {}
+        for key, shape in want.items():
+            where = f"{path}{key}"
+            if key not in got:
+                raise ValueError(f"decoder parameters: {where} is missing")
+            if isinstance(shape, dict):
+                out[key] = walk(shape, got[key], f"{where}/")
+                continue
+            arr = np.asarray(got[key], dtype=np.float32)
+            if key == "pos_emb" and arr.ndim == 2 and arr.shape[0] >= shape[0]:
+                arr = arr[: shape[0]]
+            if arr.shape != shape:
+                raise ValueError(f"decoder parameters: {where} has shape {arr.shape}, "
+                                 f"the config gives {shape}")
+            out[key] = torch.from_numpy(np.array(arr, copy=True)).to(device)
+        return out
+
+    params = walk(_decoder_shapes(cfg), tree, "")
+    layers = params["layers"]
+    layers["wqkv"] = torch.cat([layers.pop(k) for k in ("wq", "wk", "wv")], dim=-1)
+    if "bq" in layers:
+        layers["bqkv"] = torch.cat([layers.pop(k) for k in ("bq", "bk", "bv")], dim=-1)
+    return params
 
 
 def params_to_device(tree: dict, device: torch.device) -> dict:

@@ -2,10 +2,13 @@
 checkpoint directory → the stacked parameter tree of ``models/encoder.py``'s
 ``arch="bert"`` trunk, as numpy arrays.
 
-The port's counterpart of the encoder half of
-``youtu_rag_tpu/models/pretrained.py`` (the decoder loaders wait for the
-local-LLM slice). Supported layout (HF ``BertModel``, optionally wrapped in
-a ``BertForSequenceClassification`` reranker):
+The port's counterpart of ``youtu_rag_tpu/models/pretrained.py``: the
+encoder half, and (below) the causal-LM loaders of ``models/decoder.py``:
+GPT-2 (``GPT2LMHeadModel``, fused c_attn Conv1D weights) and the LLaMA
+family (llama, mistral, qwen2: q/k/v biases, a tied or separate head), or
+the repo's native ``decoder_params.npz`` + ``decoder_config.json``. The
+encoder layout (HF ``BertModel``, optionally wrapped in a
+``BertForSequenceClassification`` reranker):
 
   embeddings.{word,position,token_type}_embeddings.weight, embeddings.LayerNorm.*
   encoder.layer.N.attention.self.{query,key,value}.{weight,bias}
@@ -15,8 +18,8 @@ a ``BertForSequenceClassification`` reranker):
 
 Optional ``bert.`` / ``model.`` prefixes are stripped; ``nn.Linear``
 weights ([out, in]) are transposed to the [in, out] layout and per-layer
-tensors stacked on a leading L axis. ``models/convert.py`` carries the tree
-onto the device.
+tensors stacked on a leading L axis. ``models/convert.py`` carries either
+tree onto the device.
 
 The safetensors format is read here (an 8-byte little-endian header
 length, a JSON header, then the raw bytes), F16 and BF16 widened exactly to
@@ -265,3 +268,191 @@ def load_pretrained_encoder(model_dir, pooling: str | None = None,
         cfg.n_heads, cfg.vocab_size, cfg.pooling,
     )
     return params, cfg, tokenizer
+
+
+# ---------------------------------------------------------------------------
+# causal-LM checkpoints (models/decoder.py)
+# ---------------------------------------------------------------------------
+
+
+def convert_gpt2_params(raw: dict[str, np.ndarray]) -> dict:
+    """HF GPT2LMHeadModel state dict → the stacked decoder param tree.
+
+    GPT-2 uses Conv1D modules storing weights [in, out] — already the
+    einsum layout here, so NO transpose (unlike nn.Linear checkpoints).
+    The fused c_attn [D, 3D] splits into wq/wk/wv."""
+    raw = {
+        (k[len("transformer."):] if k.startswith("transformer.") else k): v
+        for k, v in raw.items()
+    }
+
+    def take(key: str) -> np.ndarray:
+        if key not in raw:
+            raise KeyError(f"checkpoint missing {key!r} — not a GPT-2 layout?")
+        return np.asarray(raw[key], np.float32)
+
+    n_layers = 0
+    while f"h.{n_layers}.attn.c_attn.weight" in raw:
+        n_layers += 1
+    if n_layers == 0:
+        raise ValueError("checkpoint has no h.N transformer blocks")
+
+    def stack(fmt: str) -> np.ndarray:
+        return np.stack([take(fmt.format(i)) for i in range(n_layers)])
+
+    qkv_w = stack("h.{}.attn.c_attn.weight")  # [L, D, 3D]
+    qkv_b = stack("h.{}.attn.c_attn.bias")  # [L, 3D]
+    d = qkv_w.shape[1]
+    layers = {
+        "ln1_scale": stack("h.{}.ln_1.weight"),
+        "ln1_bias": stack("h.{}.ln_1.bias"),
+        "wq": qkv_w[:, :, :d], "bq": qkv_b[:, :d],
+        "wk": qkv_w[:, :, d : 2 * d], "bk": qkv_b[:, d : 2 * d],
+        "wv": qkv_w[:, :, 2 * d :], "bv": qkv_b[:, 2 * d :],
+        "wo": stack("h.{}.attn.c_proj.weight"),
+        "bo": stack("h.{}.attn.c_proj.bias"),
+        "ln2_scale": stack("h.{}.ln_2.weight"),
+        "ln2_bias": stack("h.{}.ln_2.bias"),
+        "w1": stack("h.{}.mlp.c_fc.weight"),
+        "b1": stack("h.{}.mlp.c_fc.bias"),
+        "w2": stack("h.{}.mlp.c_proj.weight"),
+        "b2": stack("h.{}.mlp.c_proj.bias"),
+    }
+    return {
+        "tok_emb": take("wte.weight"),
+        "pos_emb": take("wpe.weight"),
+        "layers": layers,
+        "final_ln_scale": take("ln_f.weight"),
+        "final_ln_bias": take("ln_f.bias"),
+    }
+
+
+def convert_llama_params(raw: dict[str, np.ndarray], tie_embeddings: bool) -> dict:
+    """HF LlamaForCausalLM-family state dict (llama/mistral/qwen2) → the
+    stacked decoder tree. nn.Linear weights transpose to [in, out]."""
+    raw = {
+        (k[len("model."):] if k.startswith("model.") else k): v
+        for k, v in raw.items()
+    }
+
+    def take(key: str) -> np.ndarray:
+        if key not in raw:
+            raise KeyError(f"checkpoint missing {key!r} — not a LLaMA layout?")
+        return np.asarray(raw[key], np.float32)
+
+    n_layers = 0
+    while f"layers.{n_layers}.self_attn.q_proj.weight" in raw:
+        n_layers += 1
+    if n_layers == 0:
+        raise ValueError("checkpoint has no layers.N transformer blocks")
+
+    def stack(fmt: str, transpose: bool = True) -> np.ndarray:
+        mats = [take(fmt.format(i)) for i in range(n_layers)]
+        if transpose:
+            mats = [m.T for m in mats]
+        return np.stack(mats)
+
+    layers = {
+        "ln1_scale": stack("layers.{}.input_layernorm.weight", transpose=False),
+        "wq": stack("layers.{}.self_attn.q_proj.weight"),
+        "wk": stack("layers.{}.self_attn.k_proj.weight"),
+        "wv": stack("layers.{}.self_attn.v_proj.weight"),
+        "wo": stack("layers.{}.self_attn.o_proj.weight"),
+        "ln2_scale": stack("layers.{}.post_attention_layernorm.weight", transpose=False),
+        "w_gate": stack("layers.{}.mlp.gate_proj.weight"),
+        "w1": stack("layers.{}.mlp.up_proj.weight"),
+        "w2": stack("layers.{}.mlp.down_proj.weight"),
+    }
+    if "layers.0.self_attn.q_proj.bias" in raw:  # qwen2-style qkv biases
+        layers["bq"] = stack("layers.{}.self_attn.q_proj.bias", transpose=False)
+        layers["bk"] = stack("layers.{}.self_attn.k_proj.bias", transpose=False)
+        layers["bv"] = stack("layers.{}.self_attn.v_proj.bias", transpose=False)
+    params = {
+        "tok_emb": take("embed_tokens.weight"),
+        "layers": layers,
+        "final_ln_scale": take("norm.weight"),
+    }
+    if not tie_embeddings:
+        params["lm_head"] = take("lm_head.weight").T
+    return params
+
+
+def load_pretrained_decoder(model_dir, dtype: torch.dtype | None = None,
+                            max_len: int | None = None):
+    """Load a causal-LM checkpoint directory: (params, DecoderConfig),
+    params the numpy tree (f32) that ``models.convert.decoder_params_from_numpy``
+    carries onto a device.
+
+    The repo's native form comes first (``decoder_params.npz`` +
+    ``decoder_config.json``, as ``scripts/train_chat_lm.py`` writes it);
+    else config.json + model.safetensors (or pytorch_model.bin, or a
+    sharded index) of a gpt2, llama, mistral or qwen2 model. The tokenizer
+    loads separately (``models/bpe.py`` reads tokenizer.json)."""
+    from .decoder import DecoderConfig, _tree_map, load_decoder_config
+    from .encoder import load_params_npz
+
+    model_dir = Path(model_dir)
+    native = model_dir / "decoder_params.npz"
+    if native.exists():
+        cfg = load_decoder_config(model_dir / "decoder_config.json")
+        params = _tree_map(lambda t: t.float().numpy(), load_params_npz(native))
+        logger.info("loaded native decoder %s: %s L=%d D=%d vocab=%d",
+                    os.path.basename(str(model_dir)), cfg.arch, cfg.n_layers, cfg.d_model,
+                    cfg.vocab_size)
+        return params, cfg
+    with open(model_dir / "config.json", encoding="utf-8") as f:
+        hf = json.load(f)
+    model_type = hf.get("model_type", "")
+    raw = _load_raw_weights(model_dir)
+    dtype = dtype if dtype is not None else torch.bfloat16
+    if model_type == "gpt2":
+        params = convert_gpt2_params(raw)
+        max_pos = int(hf.get("n_positions", 1024))
+        cfg = DecoderConfig(
+            arch="gpt2",
+            vocab_size=int(hf["vocab_size"]),
+            d_model=int(hf["n_embd"]),
+            n_layers=int(hf["n_layer"]),
+            n_heads=int(hf["n_head"]),
+            n_kv_heads=int(hf["n_head"]),
+            d_ff=int(hf.get("n_inner") or 4 * hf["n_embd"]),
+            max_len=min(max_len or max_pos, max_pos),
+            dtype=dtype,
+            ln_eps=float(hf.get("layer_norm_epsilon", 1e-5)),
+            tie_embeddings=True,
+            eos_token_id=int(hf.get("eos_token_id", 50256)),
+            bos_token_id=hf.get("bos_token_id"),
+        )
+    elif model_type in ("llama", "mistral", "qwen2"):
+        tie = bool(hf.get("tie_word_embeddings", False))
+        params = convert_llama_params(raw, tie_embeddings=tie)
+        n_heads = int(hf["num_attention_heads"])
+        max_pos = int(hf.get("max_position_embeddings", 4096))
+        cfg = DecoderConfig(
+            arch="llama",
+            vocab_size=int(hf["vocab_size"]),
+            d_model=int(hf["hidden_size"]),
+            n_layers=int(hf["num_hidden_layers"]),
+            n_heads=n_heads,
+            n_kv_heads=int(hf.get("num_key_value_heads", n_heads)),
+            d_ff=int(hf["intermediate_size"]),
+            max_len=min(max_len or max_pos, max_pos),
+            dtype=dtype,
+            rope_base=float(hf.get("rope_theta", 10000.0)),
+            ln_eps=float(hf.get("rms_norm_eps", 1e-6)),
+            tie_embeddings=tie,
+            eos_token_id=int(hf.get("eos_token_id", 2)),
+            bos_token_id=hf.get("bos_token_id"),
+            qkv_bias="layers.0.self_attn.q_proj.bias" in {k.removeprefix("model."): None
+                                                          for k in raw},
+        )
+    else:
+        raise ValueError(f"unsupported model_type {model_type!r} (gpt2 / llama / mistral "
+                         "/ qwen2 layouts are supported)")
+    if params["tok_emb"].shape[0] != cfg.vocab_size:
+        raise ValueError(f"embeddings {params['tok_emb'].shape} do not match vocab_size "
+                         f"{cfg.vocab_size}")
+    logger.info("loaded decoder %s: %s L=%d D=%d heads=%d/%d vocab=%d",
+                os.path.basename(str(model_dir)), cfg.arch, cfg.n_layers, cfg.d_model,
+                cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size)
+    return params, cfg

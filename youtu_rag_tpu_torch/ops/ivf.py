@@ -8,10 +8,18 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
 - rows: the exact top k over the rows of ``block_ids[:n_valid]`` only;
   entry ``b`` covers rows ``[b * block_rows, (b + 1) * block_rows)`` and
   entries past ``n_valid`` are never read;
-- order: (score desc, row asc); the probe plan lists its blocks in
-  ascending id, so this is also the TPU kernels' probe-order walk;
-- empty slots come back as ``(NEG_INF, row 0)``: a row scoring ``NEG_INF``
-  (a tombstone) or ``-inf`` (a filtered tombstone) never enters;
+- order: the TPU kernels' walk, (score desc, probe position asc, row in
+  block asc), that is (score desc, virtual row v asc), v counting the
+  probed rows in ``block_ids`` order; with the ids ascending, as the probe
+  plan lists them, this is (score desc, row asc);
+- a row scoring ``NEG_INF`` (a tombstone) or ``-inf`` (a filtered
+  tombstone) never enters. The slots no live row fills (fewer than k live
+  rows probed) hold JAX's fill ``(NEG_INF, r)``: L is the probe position
+  of the last block with a live row, and r the row of the query's best
+  live entry (in the order above) in a block probed before L, or 0 where
+  there is none (and where no block has a live row). JAX's kernel merges
+  every block with a live row while its lists are not full, and each
+  merge's dead picks repeat the running list's top entry;
 - scores: bf16 ``f32(bf16 q) · f32(bf16 x) + bias``; int8 and int4 the
   exact integer dot of ``quantize_rows_int8(queries)`` with the stored
   rows (int4: the unpacked nibbles against the full-width queries), then
@@ -100,54 +108,65 @@ _FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 q
 
 
 def _probed_rows(block_ids: torch.Tensor, n_valid, block_rows: int) -> torch.Tensor:
-    """Stored rows of ``block_ids[:n_valid]``, ascending (int64)."""
+    """Stored rows of ``block_ids[:n_valid]`` in probe order: virtual row v
+    is row ``ids[v // block_rows] * block_rows + v % block_rows`` (int64)."""
     nv = max(0, min(int(n_valid), block_ids.shape[0]))
     ids = block_ids[:nv].long()
-    rows = (ids[:, None] * block_rows
+    return (ids[:, None] * block_rows
             + torch.arange(block_rows, device=ids.device)[None, :]).reshape(-1)
-    return torch.sort(rows).values
 
 
-def _probed_topk(scores: torch.Tensor, rows: torch.Tensor, k: int):
-    """(score desc, row asc) top k of ``scores`` [q, len(rows)] over the
-    ascending ``rows``; slots without a live row are (NEG_INF, 0)."""
+def _probed_topk(scores: torch.Tensor, rows: torch.Tensor, k: int, block_rows: int):
+    """(score desc, v asc) top k of ``scores`` [q, len(rows)], column v the
+    virtual row v of ``rows``; the slots without a live row hold JAX's fill
+    (module docstring)."""
     qn = scores.shape[0]
     out_s = torch.full((qn, k), NEG_INF, dtype=torch.float32, device=scores.device)
     out_i = torch.zeros((qn, k), dtype=torch.int32, device=scores.device)
-    if rows.numel():
-        s, order = torch.sort(scores, dim=1, descending=True, stable=True)
-        m = min(k, rows.numel())
-        s, r = s[:, :m], rows[order[:, :m]].to(torch.int32)
-        live = s > NEG_INF
-        out_s[:, :m] = torch.where(live, s, torch.full_like(s, NEG_INF))
-        out_i[:, :m] = torch.where(live, r, torch.zeros_like(r))
+    if not rows.numel():
+        return out_s, out_i
+    s, v = torch.sort(scores, dim=1, descending=True, stable=True)
+    m = min(k, rows.numel())
+    s, v = s[:, :m], v[:, :m]
+    live = s > NEG_INF
+    out_s[:, :m] = torch.where(live, s, torch.full_like(s, NEG_INF))
+    out_i[:, :m] = torch.where(live, rows[v].to(torch.int32), 0)
+    live_cols = (scores > NEG_INF).any(0).nonzero()
+    if live_cols.numel():
+        # the best live entry in a block probed before the last one with a live row
+        before = live & (v < int(live_cols.max()) // block_rows * block_rows)
+        first = v.gather(1, before.int().argmax(1, keepdim=True))[:, 0]
+        fill = torch.where(before.any(1), rows[first].to(torch.int32), 0)
+        out_i = torch.where(out_s > NEG_INF, out_i, fill[:, None])
     return out_s, out_i
 
 
 def ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k: int, *,
                            block_rows: int):
-    """Plain PyTorch version of the bf16 kernel: gather the valid blocks,
-    score them (``topk_pruned_reference``'s arithmetic), stable sort."""
+    """Plain PyTorch version of the bf16 kernel: gather the valid blocks in
+    probe order, score them (``topk_pruned_reference``'s arithmetic),
+    stable sort."""
     rows = _probed_rows(block_ids, n_valid, block_rows)
     if database.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     q = queries.to(torch.bfloat16).float()
     x = database[rows].to(torch.bfloat16).float()
-    return _probed_topk(q @ x.T + bias.float()[rows][None, :], rows, k)
+    return _probed_topk(q @ x.T + bias.float()[rows][None, :], rows, k, block_rows)
 
 
-def _scaled_reference(queries, x_int, x_max, db_scales, bias, rows, k):
+def _scaled_reference(queries, x_int, x_max, db_scales, bias, rows, k, block_rows):
     qq, qs = quantize_rows_int8(queries)
     acc = _exact_dot(qq, x_int, x_max)
     scores = acc * (qs[:, None] * db_scales.float()[rows][None, :]) + bias.float()[rows][None, :]
-    return _probed_topk(scores, rows, k)
+    return _probed_topk(scores, rows, k, block_rows)
 
 
 def ivf_topk_int8_dma_reference(queries, database_q, db_scales, bias, block_ids, n_valid,
                                 k: int, *, block_rows: int):
     """Plain PyTorch version of the int8 kernel."""
     rows = _probed_rows(block_ids, n_valid, block_rows)
-    return _scaled_reference(queries, database_q[rows], 127, db_scales, bias, rows, k)
+    return _scaled_reference(queries, database_q[rows], 127, db_scales, bias, rows, k,
+                             block_rows)
 
 
 def ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids, n_valid,
@@ -155,7 +174,8 @@ def ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids,
     """Plain PyTorch version of the int4 kernel: the int8 one over the
     unpacked nibbles of the probed rows."""
     rows = _probed_rows(block_ids, n_valid, block_rows)
-    return _scaled_reference(queries, unpack_int4(database_p[rows]), 7, db_scales, bias, rows, k)
+    return _scaled_reference(queries, unpack_int4(database_p[rows]), 7, db_scales, bias, rows, k,
+                             block_rows)
 
 
 # ---------------------------------------------------------------------------
