@@ -120,6 +120,26 @@ Phases; any failure exits non-zero before the result lines:
      T = 512 (device and embed_batch, WordPiece apart), the forward's split
      (attention kernel, GEMMs, the rest), the forward with SDPA in the
      kernel's place, and cross-encoder pairs/s at B = 64, T = 512;
+  4f. main path, ingest through the staged builder: 2,048 markdown files
+     of ~6,000 characters written from the seed (one fact sentence each)
+     through ``KnowledgeBase(...).build_sources`` on the card with the
+     default ChunkingConfig: (a) the default hash provider (the native C
+     tokenizer and hash embedder, the bf16 index): the report (2,048
+     processed, none failed), a CPU twin with the same chunk ids and
+     bit-equal stored embeddings, 64 fact questions each answered from
+     their document in the hybrid top 5 on both (the dense top 50 the same
+     up to ties within TOL), topk_pruned launched; the build's wall time,
+     chunks/s and split (load and chunk, embed, lexical update, index
+     add), and HashEmbedder (1,024 chunks) and HashTokenizer.batch (128
+     chunks) on their Python and C paths; (b) the same tasks again (all
+     skipped, no index add), 16 files rewritten (16 processed, each
+     source's count_by_document right) and 8 sources cleaned (no chunk
+     left, their facts no longer answered); (c) the encoder provider (the
+     default 768 x 12 encoder from the seed, "pallas") over the first 256
+     files: every source's chunks at T = 256, blockwise launches a positive
+     multiple of 12, 64 stored embeddings against a CPU TorchEmbedder
+     (plain attention) within ENC_TOL, chunks/s and embed's split into
+     tokenization and forward; whether pandas imports is printed;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -201,7 +221,7 @@ Phases; any failure exits non-zero before the result lines:
   8. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 4e, 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
+4c, 4d, 4e, 4f (a) and (c), 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
 """
@@ -2221,6 +2241,402 @@ def bert_corpus(seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4f. main path, ingest through the staged builder
+# ---------------------------------------------------------------------------
+
+INGEST_DOCS = 2048
+INGEST_CHARS = 6000  # per file: ~8 chunks of the default ChunkingConfig (1,000 / 200)
+INGEST_QUESTIONS = 64
+INGEST_REWRITTEN = 16
+INGEST_CLEANED = 8
+INGEST_ENC_DOCS = 256
+INGEST_SYLLABLES = np.array([c + v for c in "bcdfghklmnprstvz" for v in "aeiou"])
+INGEST_KINDS = ("code", "number", "period", "rating", "index", "channel", "berth", "total")
+
+
+def ingest_words(rng, n: int) -> list[str]:
+    """``n`` words of two or three syllables."""
+    k = rng.integers(2, 4, size=n)
+    return ["".join(row[:m]) for row, m in zip(rng.choice(INGEST_SYLLABLES, size=(n, 3)), k)]
+
+
+def write_ingest_corpus(root: str, seed: int, version: int = 0,
+                        names: list[str] | None = None) -> list[tuple[str, str]]:
+    """INGEST_DOCS markdown files of ~INGEST_CHARS characters: a title that
+    names the document's entity, one fact sentence ("The <attr> of <entity>
+    is <value>."; entity and attribute words belong to this document
+    alone), then paragraphs of sentences over a shared vocabulary of 8,000
+    words (each sentence 8-16 words, so every 1,000-character chunk holds
+    130-250 tokens: T = 256 at the encoder). ``version`` draws other
+    paragraphs; ``names`` limits the files written. Returns (file name,
+    fact question) per document."""
+    rng = np.random.default_rng(seed)
+    vocab = np.array(sorted(set(ingest_words(rng, 8000))))
+    entities = sorted({w.capitalize() for w in ingest_words(rng, 4 * INGEST_DOCS)})
+    rng.shuffle(entities)
+    attrs = sorted(set(ingest_words(rng, 4 * INGEST_DOCS)) - {e.lower() for e in entities})
+    rng.shuffle(attrs)
+    facts = []
+    for i in range(INGEST_DOCS):
+        name = f"doc{i:04d}.md"
+        ent = f"{entities[2 * i]} {entities[2 * i + 1]}"
+        attr = f"{attrs[i]} {INGEST_KINDS[i % len(INGEST_KINDS)]}"
+        facts.append((name, f"What is the {attr} of {ent}?"))
+        value = int(rng.integers(10_000, 100_000))
+        if names is not None and name not in names:
+            continue
+        frng = np.random.default_rng([seed, i, version])
+        text = f"# {ent}\n\nThe {attr} of {ent} is {value}."
+        sentences, size = [], len(text) + 2
+        while size < INGEST_CHARS:
+            s = " ".join(vocab[frng.integers(0, len(vocab), size=int(frng.integers(8, 17)))])
+            sentences.append(s.capitalize() + ".")
+            size += len(sentences[-1]) + 1
+        text += "\n\n" + "\n\n".join(" ".join(sentences[j:j + 5])
+                                      for j in range(0, len(sentences), 5))
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    return facts
+
+
+class IngestTimers:
+    """Host seconds of the build's parts while active: load and chunk
+    (``_load``, ``_content_chunks``, ``_summary_chunk`` of the processors),
+    embed (the embedder's ``embed_texts``), lexical update
+    (``LexicalInvertedIndex.add``) and index add (``DeviceVectorIndex.add``
+    up to its device completion); with the index adds counted."""
+
+    PARTS = ("load and chunk", "embed", "lexical update", "index add")
+
+    def __init__(self, embedder):
+        from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+        from youtu_rag_tpu_torch.ingest.processors import BaseSourceProcessor
+        from youtu_rag_tpu_torch.retrieval.lexical import LexicalInvertedIndex
+
+        self.seconds = dict.fromkeys(self.PARTS, 0.0)
+        self.adds = 0
+        self._patches = [(BaseSourceProcessor, n, "load and chunk")
+                         for n in ("_load", "_content_chunks", "_summary_chunk")]
+        self._patches += [(LexicalInvertedIndex, "add", "lexical update"),
+                          (DeviceVectorIndex, "add", "index add")]
+        self._embedder = embedder
+
+    def _timed(self, fn, part: str):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                if part == "index add":
+                    self.adds += 1
+                    if torch.cuda.is_available():
+                        torch.cuda.synchronize()
+                return out
+            finally:
+                self.seconds[part] += time.perf_counter() - t0
+        return run
+
+    def __enter__(self):
+        self._saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in self._patches]
+        for cls, name, part in self._patches:
+            setattr(cls, name, self._timed(cls.__dict__[name], part))
+        embed = self._embedder.embed_texts
+
+        async def timed_embed(texts):
+            t0 = time.perf_counter()
+            try:
+                return await embed(texts)
+            finally:
+                self.seconds["embed"] += time.perf_counter() - t0
+
+        self._embedder.embed_texts = timed_embed
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        del self._embedder.embed_texts
+
+
+def hybrid_documents(kb, facts) -> list[list[str]]:
+    """The documents of each question's hybrid top 5 (dense through the
+    kernel, fused with the BM25 index the build filled)."""
+    return [[h.chunk.document_id for h in asyncio.run(
+        kb.hybrid_retriever.retrieve(q, top_k=5, similarity_threshold=0.0))] for _, q in facts]
+
+
+def dense_pools(kb, facts, k: int = 50) -> list:
+    return [asyncio.run(kb.retriever.retrieve(q, top_k=k, similarity_threshold=0.0))
+            for _, q in facts]
+
+
+def same_up_to_ties(got, ref, tol: float) -> bool:
+    """The same chunk at each rank with scores within ``tol``, except that
+    chunks whose reference scores lie within ``tol`` of each other may trade
+    places (the kernel sums in f32 in another order than its plain
+    version); the last rank may hold a chunk the reference ranks next."""
+    if len(got) != len(ref):
+        return False
+    ref_score = {r.chunk.id: r.score for r in ref}
+    for g, r in zip(got, ref):
+        if abs(g.score - r.score) > tol:
+            return False
+        if g.chunk.id != r.chunk.id and abs(ref_score.get(g.chunk.id, np.inf) - r.score) > tol:
+            return False
+    return True
+
+
+def stored_rows(kb, ids: list[str]) -> torch.Tensor:
+    index = kb.store.index
+    rows = torch.tensor([index._id_to_row[c] for c in ids], device=index._vectors.device)
+    return index._vectors[rows].cpu()
+
+
+def ingest_corpus(seed: int, smi: str) -> dict:
+    """4f: 2,048 markdown files through ``KnowledgeBase.build_sources`` on
+    the card: (a) the hash provider against a CPU twin, (b) incremental
+    builds and cleanup, (c) the encoder provider over the first 256 files.
+    Returns the main path's launches and the numbers printed."""
+    import dataclasses
+    import importlib.util
+
+    import youtu_rag_tpu_torch.models.embedder as embedder_mod
+    import youtu_rag_tpu_torch.models.tokenizer as tokenizer_mod
+    from youtu_rag_tpu_torch.core.config import EmbeddingConfig, RAGConfig
+    from youtu_rag_tpu_torch.ingest.chunker import get_splitter
+    from youtu_rag_tpu_torch.ingest.cleanup import KnowledgeCleanupManager
+    from youtu_rag_tpu_torch.ingest.loaders import DocumentLoaderRegistry
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+    from youtu_rag_tpu_torch.models.embedder import HashEmbedder, TorchEmbedder
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    print(f"pandas importable on this host: {importlib.util.find_spec('pandas') is not None} "
+          "(table, QA-file and database sources are held on the CPU tests only)")
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        t0 = time.perf_counter()
+        facts = write_ingest_corpus(root, seed)
+        print(f"{INGEST_DOCS} files of ~{INGEST_CHARS} characters written in "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        tasks = [SourceTask(name, "text", path=os.path.join(root, name)) for name, _ in facts]
+        asked = facts[:: INGEST_DOCS // INGEST_QUESTIONS][:INGEST_QUESTIONS]
+
+        # (a) the default hash provider, the index on the card, against a CPU twin
+        kb = KnowledgeBase("ingest", RAGConfig(name="ingest"))
+        check(kb.device.type == "cuda", f"the ingest KB is on {kb.device}")
+        check(isinstance(kb.embedder, HashEmbedder) and kb.embedder._use_native
+              and tokenizer_mod._USE_NATIVE, "the hash provider is not on its native path")
+        reset_launches()
+        with IngestTimers(kb.embedder) as timers:
+            t0 = time.perf_counter()
+            report = asyncio.run(kb.build_sources(tasks))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        docs = hybrid_documents(kb, asked)
+        pools = dense_pools(kb, asked)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(report.processed == INGEST_DOCS and report.failed == 0 and not report.errors,
+              f"(a) build report {report.summary()}")
+        n = report.total_chunks
+        rate = n / wall
+        rest = wall - sum(timers.seconds.values())
+        print(f"(a) hash provider [{smi}]: {INGEST_DOCS} sources, {n} chunks "
+              f"({n - INGEST_DOCS} content + {INGEST_DOCS} summary) in {wall:.2f} s wall, "
+              f"{rate:.0f} chunks/s; " + "; ".join(
+                  f"{k} {v:.2f} s" for k, v in timers.seconds.items())
+              + f"; the rest (analysis, hashing, deletes, manifest, warm-up) {rest:.2f} s; "
+              f"{timers.adds} index adds; launches {counts}")
+        out["hash"] = {"chunks": n, "wall_s": wall, "chunks_per_s": rate,
+                       "split_s": dict(timers.seconds, rest=rest)}
+        check(counts["bfloat16"] > 0, "(a) the ingest KB's searches never launched topk_pruned")
+        missing = [name for (name, _), d in zip(asked, docs) if name not in d]
+        check(not missing, f"(a) facts not in their hybrid top 5: {missing}")
+
+        t0 = time.perf_counter()
+        twin = KnowledgeBase("ingest-cpu", RAGConfig(name="ingest-cpu"), device="cpu")
+        ref_report = asyncio.run(twin.build_sources(tasks))
+        twin_s = time.perf_counter() - t0
+        ids = sorted(kb.store.index._id_to_row)
+        check(ref_report.total_chunks == n and ids == sorted(twin.store.index._id_to_row),
+              "(a) the CUDA and CPU builds hold different chunks")
+        check(torch.equal(stored_rows(kb, ids).view(torch.int16),
+                          stored_rows(twin, ids).view(torch.int16)),
+              "(a) stored embeddings differ between the card and the CPU twin")
+        ref_docs = hybrid_documents(twin, asked)
+        ref_pools = dense_pools(twin, asked)
+        check(all(name in d for (name, _), d in zip(asked, ref_docs)),
+              "(a) the CPU twin misses a fact in its hybrid top 5")
+        check(all(same_up_to_ties(g, r, TOL) for g, r in zip(pools, ref_pools)),
+              "(a) the dense top 50 differs from the CPU twin's beyond ties within TOL")
+        same = sum(d == r for d, r in zip(docs, ref_docs))
+        print(f"  CPU twin [{smi}]: {ref_report.total_chunks} chunks in {twin_s:.2f} s; the same "
+              f"chunk ids and bit-equal stored bf16 embeddings; {INGEST_QUESTIONS} fact "
+              f"questions: each fact document in its hybrid top 5 on both, the dense top 50 the "
+              f"same up to ties "
+              f"within {TOL}, {same} of {INGEST_QUESTIONS} hybrid top-5 document lists identical")
+
+        # the host paths on this build's chunk texts: Python against C
+        texts = [c.content for c in kb.store.index.iter_live()][:1024]
+        py_s, c_s = [], []
+        for use_native, acc in ((False, py_s), (True, c_s)):
+            emb = HashEmbedder(256, use_native=use_native)
+            t0 = time.perf_counter()
+            vecs = emb.embed_batch(texts)
+            acc.append(time.perf_counter() - t0)
+            acc.append(vecs)
+        # the two paths sum a dimension's weights in another order
+        ulps = int(np.abs(py_s[1].view(np.int32).astype(np.int64)
+                          - c_s[1].view(np.int32).astype(np.int64)).max())
+        diff = float(np.abs(py_s[1] - c_s[1]).max())
+        check(diff <= 1e-6, f"the native hash embedder is {diff} from the Python path")
+        tok = tokenizer_mod.HashTokenizer()
+        batches = {}
+        for use_native in (False, True):
+            tokenizer_mod._USE_NATIVE = use_native
+            try:
+                t0 = time.perf_counter()
+                batches[use_native] = (tok.batch(texts[:128]), time.perf_counter() - t0)
+            finally:
+                tokenizer_mod._USE_NATIVE = True
+        (py_ids, py_mask), tok_py = batches[False]
+        (c_ids, c_mask), tok_c = batches[True]
+        check(np.array_equal(py_ids, c_ids) and np.array_equal(py_mask, c_mask),
+              "the native tokenizer's ids differ from the Python path's")
+        out["host"] = {"embed_py_ms": py_s[0] * 1e3, "embed_c_ms": c_s[0] * 1e3,
+                       "tok_py_ms": tok_py * 1e3, "tok_c_ms": tok_c * 1e3}
+        print(f"  host paths on this machine [{smi}]: HashEmbedder.embed_batch of {len(texts)} "
+              f"chunks Python {py_s[0] * 1e3:.1f} ms, C {c_s[0] * 1e3:.2f} ms "
+              f"({py_s[0] / c_s[0]:.0f}x; at most {ulps} ulp, {diff:.3g}, apart); "
+              f"HashTokenizer.batch of 128 "
+              f"chunks Python {tok_py * 1e3:.2f} ms, C {tok_c * 1e3:.2f} ms "
+              f"({tok_py / tok_c:.1f}x; the same ids, T {c_ids.shape[1]})")
+
+        # (b) incremental builds and cleanup, on the card's KB
+        before = asyncio.run(kb.store.count())
+        with IngestTimers(kb.embedder) as timers:
+            t0 = time.perf_counter()
+            again = asyncio.run(kb.build_sources(tasks))
+            skip_s = time.perf_counter() - t0
+        check(again.skipped == INGEST_DOCS and again.processed == 0 and timers.adds == 0
+              and asyncio.run(kb.store.count()) == before,
+              f"(b) unchanged sources: {again.summary()}, {timers.adds} index adds")
+        rewritten = [name for name, _ in facts[1::INGEST_DOCS // INGEST_REWRITTEN]]
+        write_ingest_corpus(root, seed, version=1, names=rewritten)
+        t0 = time.perf_counter()
+        changed = asyncio.run(kb.build_sources(tasks))
+        change_s = time.perf_counter() - t0
+        check(changed.processed == INGEST_REWRITTEN and changed.skipped == INGEST_DOCS
+              - INGEST_REWRITTEN and changed.failed == 0, f"(b) rewrite: {changed.summary()}")
+        splitter = get_splitter(kb.config.knowledge_builder.chunking)
+        by_source = {r.source_id: r.chunks for r in changed.results}
+        for name in rewritten:
+            doc = DocumentLoaderRegistry.load(os.path.join(root, name))[0]
+            want = len(splitter.split_text(doc.content, doc.metadata)) + 1  # + its summary
+            got = asyncio.run(kb.store.count_by_document(name))
+            check(got == want == by_source[name],
+                  f"(b) {name}: {got} chunks stored, {want} expected, {by_source[name]} reported")
+        cleaned = [name for name, _ in asked[:INGEST_CLEANED]]
+        manager = KnowledgeCleanupManager(kb.name, kb.store, kb.tables, kb.manifest)
+        for name in cleaned:
+            had = asyncio.run(kb.store.count_by_document(name))
+            res = asyncio.run(manager.cleanup_source(name))
+            check(res["deleted_chunks"] == had > 0
+                  and asyncio.run(kb.store.count_by_document(name)) == 0
+                  and name not in kb.manifest.sources, f"(b) cleanup of {name}: {res}")
+        after = hybrid_documents(kb, asked[:INGEST_CLEANED])
+        check(all(name not in d for name, d in zip(cleaned, after)),
+              "(b) a cleaned document still answers its fact question")
+        print(f"(b) [{smi}] unchanged rebuild: {again.skipped} skipped, no index add, "
+              f"{skip_s:.2f} s; "
+              f"{INGEST_REWRITTEN} files rewritten: {changed.processed} processed, "
+              f"{changed.skipped} skipped, count_by_document right for each, {change_s:.2f} s; "
+              f"{INGEST_CLEANED} sources cleaned: their chunks gone, their facts no longer "
+              f"answered")
+        del twin
+
+        # (c) the encoder provider over the first INGEST_ENC_DOCS files
+        cfg = RAGConfig(name="ingest-enc")
+        cfg.knowledge_builder.embedding = EmbeddingConfig(provider="tpu")
+        enc_kb = KnowledgeBase("ingest-enc", cfg)
+        emb = enc_kb.embedder
+        check(isinstance(emb, TorchEmbedder) and emb.cfg == EncoderConfig(attention_impl="pallas"),
+              f"(c) the encoder KB serves {type(emb).__name__} {getattr(emb, 'cfg', None)}")
+        tok_s, fwd_ts, fwd_s = [0.0], [], [0.0]
+        real_batch, real_fwd = emb.tokenizer.batch, embedder_mod.encode_tokens
+
+        def timed_batch(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_batch(*a, **kw)
+            finally:
+                tok_s[0] += time.perf_counter() - t0
+
+        def timed_fwd(params, token_ids, mask, *a, **kw):
+            fwd_ts.append((int(token_ids.shape[1]), int((mask.sum(1) > 0).sum())))
+            t0 = time.perf_counter()
+            try:
+                res = real_fwd(params, token_ids, mask, *a, **kw)
+                torch.cuda.synchronize()
+                return res
+            finally:
+                fwd_s[0] += time.perf_counter() - t0
+
+        emb.tokenizer.batch, embedder_mod.encode_tokens = timed_batch, timed_fwd
+        reset_launches()
+        try:
+            with IngestTimers(emb) as timers:
+                t0 = time.perf_counter()
+                enc_report = asyncio.run(enc_kb.build_sources(tasks[:INGEST_ENC_DOCS]))
+                torch.cuda.synchronize()
+                enc_wall = time.perf_counter() - t0
+        finally:
+            del emb.tokenizer.batch
+            embedder_mod.encode_tokens = real_fwd
+        att = attention_counts()
+        n_enc = enc_report.total_chunks
+        ts = [t for t, _ in fwd_ts]
+        buckets = {t: ts.count(t) for t in sorted(set(ts))}
+        check(enc_report.processed == INGEST_ENC_DOCS and enc_report.failed == 0,
+              f"(c) build report {enc_report.summary()}")
+        n_bw = att["blockwise_attention"]
+        check(n_bw > 0 and n_bw % emb.cfg.n_layers == 0 and att["flash_attention"] == 0,
+              f"(c) attention launches {att}: want blockwise a positive multiple of "
+              f"{emb.cfg.n_layers}, no flash")
+        check(all(t == 256 for t, rows in fwd_ts if rows > 1),  # one row: the warm-up query
+              f"(c) a source's chunks padded to T other than 256: {buckets}")
+        embed_s = timers.seconds["embed"]
+        print(f"(c) encoder provider ({emb.cfg.d_model} x {emb.cfg.n_layers} layers, seeded, "
+              f"'pallas') [{smi}]: {INGEST_ENC_DOCS} sources, {n_enc} chunks in {enc_wall:.2f} s "
+              f"wall, {n_enc / enc_wall:.0f} chunks/s; forwards per T {buckets} (T < 256: the "
+              f"warm-up query); "
+              f"embed {embed_s:.2f} s: tokenization {tok_s[0]:.3f} s, forward {fwd_s[0]:.2f} s "
+              f"(to device completion), the rest {embed_s - tok_s[0] - fwd_s[0]:.3f} s; "
+              f"launches {att}")
+        out["encoder"] = {"chunks": n_enc, "wall_s": enc_wall, "chunks_per_s": n_enc / enc_wall,
+                          "embed_s": embed_s, "tokenize_s": tok_s[0], "forward_s": fwd_s[0],
+                          "buckets": buckets}
+        enc_ids = sorted(enc_kb.store.index._id_to_row)[:: max(n_enc // 64, 1)][:64]
+        # plain attention on the host: the reference, and 2x the wrapper's
+        # plain blockwise version there
+        cpu_emb = TorchEmbedder(config=dataclasses.replace(emb.cfg, attention_impl="xla"),
+                                params=emb.params, device="cpu")
+        t0 = time.perf_counter()
+        ref = cpu_emb.embed_batch([enc_kb.store.index.get_by_id(c).content for c in enc_ids])
+        cpu_s = time.perf_counter() - t0
+        got = stored_rows(enc_kb, enc_ids).float().numpy()[:, : emb.dimension]
+        enc_err = float(np.abs(got - ref).max())
+        check(np.isfinite(got).all() and enc_err <= ENC_TOL,
+              f"(c) stored embeddings differ from the CPU twin's by {enc_err} > {ENC_TOL}")
+        print(f"  64 stored embeddings against the CPU twin's TorchEmbedder (plain attention, "
+              f"{cpu_s:.1f} s) [{smi}]: "
+              f"max |diff| {enc_err:.4g} (ENC_TOL {ENC_TOL})")
+    out["launches"] = {"topk_pruned": counts["bfloat16"], "blockwise_attention": n_bw}
+    out["errs"] = {"encoder": enc_err}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -3555,6 +3971,9 @@ def main() -> int:
     phase("4e main path, small corpus, a pretrained BERT-family checkpoint")
     bert4e = bert_corpus(args.seed, smi)
 
+    phase("4f main path, ingest through the staged builder")
+    ingest4f = ingest_corpus(args.seed, smi)
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -3588,7 +4007,8 @@ def main() -> int:
             "source": f"youtu_rag_tpu_torch/csrc/{kname}.cu",
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
-                         + (chat6a["launches"] if tier == "bfloat16" else 0)),
+                         + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
+                            if tier == "bfloat16" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
@@ -3604,7 +4024,8 @@ def main() -> int:
             "source": "youtu_rag_tpu_torch/csrc/attention.cu",
             "replaces": REPLACES[kname],
             "launches": (enc["launches"][kname] + f["launches"]
-                         + (bert4e["launches"] if kname == "blockwise_attention" else 0)),
+                         + (bert4e["launches"] + ingest4f["launches"]["blockwise_attention"]
+                            if kname == "blockwise_attention" else 0)),
             "max_abs_err": max(err3b[kname], f["err"],
                                bert4e["errs"]["attention"] if kname == "blockwise_attention"
                                else 0.0),
@@ -3660,7 +4081,7 @@ def main() -> int:
         "library_ms": ring["library_ms"],
     })
     print(f"encoder KB max differences: (a) {err4b['a']}, (b) {err4b['b']}; BERT-base "
-          f"(4e): {bert4e['errs']}")
+          f"(4e): {bert4e['errs']}; ingest encoder (4f): {ingest4f['errs']}")
     print(f"phases 2-6: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -76,7 +76,7 @@ def kbs(corpus):
     files = sorted(str(p) for p in corpus.iterdir())
     port = KnowledgeBase("facts", RAGConfig(name="facts"), device="cpu")
     jax_kb = JaxKB("facts", JaxRAGConfig(name="facts"))
-    jax_kb.embedder._use_native = False  # the Python hash path the port copies
+    port.embedder._use_native = jax_kb.embedder._use_native = False  # the Python hash path
     asyncio.run(port.build_files(files))
     asyncio.run(jax_kb.build_files(files))
     return port, jax_kb
@@ -331,7 +331,7 @@ def jax_transcript(corpus) -> list[str]:
     from youtu_rag_tpu.models.lm_synth import DEFAULT_KB_INSTRUCTIONS
 
     kb = JaxKB("cli", JaxRAGConfig(name="cli"))
-    kb.embedder._use_native = False
+    kb.embedder._use_native = True  # the hash provider's default path, as the port's CLI runs it
     asyncio.run(kb.build_files(sorted(str(p) for p in corpus.iterdir())))
     acfg = JaxAgentConfig(model=JaxModelConfig(provider="local",
                                                weights_dir=str(cli_chat_weights())))

@@ -41,11 +41,15 @@ def test_port_has_sources():
                    "agents/react.py", "agents/simple_agent.py", "agents/config.py",
                    "agents/events.py", "agents/context.py", "agents/hooks.py",
                    "agents/llm_agent.py", "tools/__init__.py", "tools/base.py",
-                   "tools/schema.py", "tools/kb_search.py"):
+                   "tools/schema.py", "tools/kb_search.py", "native/__init__.py",
+                   "ingest/agent.py", "ingest/processors.py", "ingest/tables.py",
+                   "ingest/qa_file.py", "ingest/cleanup.py", "ingest/metadata_extractor.py",
+                   "ingest/hichunk.py", "ingest/ocr.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
         assert (PORT / "csrc" / src).exists()
+    assert (PORT / "native" / "fasthash.c").exists()
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -80,7 +84,7 @@ def test_cpu_query_loads_no_jax():
 
 CARD_SCRIPT = """
 import sys
-for name in ("transformers", "tokenizers", "safetensors", "httpx"):
+for name in ("transformers", "tokenizers", "safetensors", "httpx", "pandas", "cffi"):
     sys.modules[name] = None  # none of them is required: importing them fails
 import importlib, pkgutil, tempfile
 import numpy as np, torch
@@ -102,21 +106,76 @@ with tempfile.TemporaryDirectory() as d:
     rr = TorchReranker.from_pretrained(write_bert_dir(d + "/r", num_labels=1), device="cpu")
     scores = rr.score("quick fox", ["the quick brown fox", "lazy dog"])
     assert len(scores) == 2 and np.isfinite(scores).all()
-print(len(names), sorted(m for m in ("transformers", "tokenizers", "safetensors", "httpx")
-                         if sys.modules.get(m) is not None))
+print(len(names), sorted(m for m in ("transformers", "tokenizers", "safetensors", "httpx",
+                                    "pandas", "cffi") if sys.modules.get(m) is not None))
 """
 
 
 def test_card_path_needs_no_hf_packages():
-    """The port requires none of transformers, tokenizers, safetensors and
-    httpx (the card's machine need not have them): every port module imports
-    without them, and a pretrained checkpoint (written by the tests' numpy
-    writer) embeds and reranks."""
+    """The port requires none of transformers, tokenizers, safetensors,
+    httpx, pandas and cffi (the card's machine need not have them): every
+    port module imports without them, and a pretrained checkpoint (written
+    by the tests' numpy writer) embeds and reranks."""
     out = subprocess.run([sys.executable, "-c", CARD_SCRIPT], capture_output=True, text=True,
                          cwd=REPO, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
     assert int(n_modules) >= 40 and loaded.strip() == "[]"
+
+
+NATIVE_SCRIPT = """
+import json, os, sys, tempfile
+from pathlib import Path
+import youtu_rag_tpu_torch.native as native
+
+port = Path(native.__file__).resolve().parent.parent
+default_library = native.library_path()
+native.BUILD_DIR = Path(tempfile.mkdtemp(dir=port / "_build"))  # a fresh build, under _build/
+events = {"open": [], "dlopen": [], "popen": []}
+
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        events["open"].append(os.fsdecode(args[0]))
+    elif event == "ctypes.dlopen":
+        events["dlopen"].append(os.fsdecode(args[0]))
+    elif event == "subprocess.Popen":
+        events["popen"].append([os.fsdecode(a) for a in args[1]])
+
+sys.addaudithook(hook)
+native.load()
+native.hash_embed_batch_native(["a text", "中文"], 16)
+native.tokenize_ids_native("a text", 6, 32764, 4)
+snapshot = {k: list(v) for k, v in events.items()}
+built = sorted(p.name for p in native.BUILD_DIR.iterdir())
+for p in native.BUILD_DIR.iterdir():
+    p.unlink()
+native.BUILD_DIR.rmdir()
+print(json.dumps({"events": snapshot, "built": built, "library": str(native.library_path()),
+                  "build_dir": str(native.BUILD_DIR), "default": str(default_library)}))
+"""
+
+
+def test_native_build_reads_only_the_port():
+    """``native/__init__.py`` opens no file outside youtu_rag_tpu_torch/
+    (its C source is the port's copy, never the JAX package's), compiles
+    that copy alone into a file under ``_build/`` and loads the library
+    from there; by default the library is ``_build/fasthash-<hash>.so``."""
+    out = subprocess.run([sys.executable, "-c", NATIVE_SCRIPT], capture_output=True, text=True,
+                         cwd=REPO, timeout=120, env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert out.returncode == 0, out.stderr
+    got = __import__("json").loads(out.stdout.strip().splitlines()[-1])
+    build_dir, events = Path(got["build_dir"]), got["events"]
+    assert build_dir.parent == PORT / "_build"
+    assert Path(got["default"]).parent == PORT / "_build"
+    assert Path(got["default"]).name.startswith("fasthash-") and got["default"].endswith(".so")
+    assert got["built"] == [Path(got["library"]).name]
+    assert events["open"] and all(Path(p).resolve().is_relative_to(PORT) for p in events["open"])
+    assert events["dlopen"] == [got["library"]]
+    (cmd,) = events["popen"]
+    assert str(PORT / "native" / "fasthash.c") in cmd
+    files = [a for a in cmd[1:] if "/" in a]
+    assert all(Path(a).resolve().is_relative_to(PORT) for a in files), cmd
+    assert Path(cmd[cmd.index("-o") + 1]).parent == build_dir
 
 
 @pytest.fixture

@@ -68,6 +68,7 @@ def kbs(corpus):
     files = sorted(str(p) for p in corpus.iterdir())
     port = KnowledgeBase("port", RAGConfig(name="port"), device="cpu")
     jax_kb = JaxKB("jax", JaxRAGConfig(name="jax"))
+    port.embedder._use_native = jax_kb.embedder._use_native = True  # the C kernel on both
     ps = asyncio.run(port.build_files(files))
     js = asyncio.run(jax_kb.build_files(files))
     assert ps.total_chunks == js.total_chunks > len(DOCS)
@@ -91,21 +92,28 @@ def tier_configs(name, storage_dtype):
                 index=JaxIndexConfig(storage_dtype=storage_dtype))))
 
 
-def jax_kb_on_the_python_hash_path(name, config):
-    """A JAX KB whose hash embedder runs its Python path, which the port
-    copies bit for bit: the native C path normalizes 1 ulp apart, and a
-    quantized tier can turn that ulp into another level where a value
-    sits exactly halfway between two."""
-    kb = JaxKB(name, config)
+def on_the_python_hash_path(kb):
+    """``kb`` with its hash embedder on the Python path, for a test that
+    holds a port KB against a JAX KB on that same path: the C kernel
+    normalizes 1 ulp apart from it, and a quantized tier can turn that ulp
+    into another level where a value sits exactly halfway between two."""
     kb.embedder._use_native = False
     return kb
+
+
+def jax_kb_on_the_python_hash_path(name, config):
+    return on_the_python_hash_path(JaxKB(name, config))
+
+
+def port_kb_on_the_python_hash_path(name, config):
+    return on_the_python_hash_path(KnowledgeBase(name, config, device="cpu"))
 
 
 @pytest.fixture(scope="module", params=["int8", "int4"])
 def quant_kbs(request, corpus):
     files = sorted(str(p) for p in corpus.iterdir())
     port_cfg, jax_cfg = tier_configs("q", request.param)
-    port = KnowledgeBase("port", port_cfg, device="cpu")
+    port = port_kb_on_the_python_hash_path("port", port_cfg)
     jax_kb = jax_kb_on_the_python_hash_path("jax", jax_cfg)
     asyncio.run(port.build_files(files))
     asyncio.run(jax_kb.build_files(files))
@@ -114,12 +122,15 @@ def quant_kbs(request, corpus):
 
 
 def test_hash_embedder_matches_jax():
-    """Bit-equal to the JAX package's Python path; its native C path
-    normalizes with another rounding (1 ulp, 3e-8 seen)."""
+    """Each path bit-equal to the JAX package's same path; the C kernel
+    normalizes with another rounding than the Python path (1 ulp, 3e-8
+    seen)."""
     texts = [q for q, _ in QUERIES] + list(DOCS.values()) + ["", "ünïcödé 中文 tokens!"]
-    got = HashEmbedder(256).embed_batch(texts)
+    got = HashEmbedder(256, use_native=False).embed_batch(texts)
     np.testing.assert_array_equal(got, JaxHashEmbedder(256, use_native=False).embed_batch(texts))
     np.testing.assert_allclose(got, JaxHashEmbedder(256).embed_batch(texts), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(HashEmbedder(256, use_native=True).embed_batch(texts),
+                                  JaxHashEmbedder(256, use_native=True).embed_batch(texts))
 
 
 @pytest.mark.parametrize("top_k", [1, 5, 20])
@@ -175,7 +186,7 @@ def test_snapshots_cross_between_the_packages(corpus, tmp_path, storage_dtype, d
     own device) and answers as the KB that saved it."""
     files = sorted(str(p) for p in corpus.iterdir())
     port_cfg, jax_cfg = tier_configs("snap", storage_dtype)
-    port = KnowledgeBase("port", port_cfg, device="cpu")
+    port = port_kb_on_the_python_hash_path("port", port_cfg)
     jax_kb = jax_kb_on_the_python_hash_path("jax", jax_cfg)
     src, dst = (jax_kb, port) if direction == "jax_to_port" else (port, jax_kb)
     asyncio.run(src.build_files(files))
@@ -198,7 +209,7 @@ def test_snapshots_cross_between_the_packages(corpus, tmp_path, storage_dtype, d
     # and the snapshot round-trips: the loading side's answers match the
     # other package loading the same snapshot
     twin = (jax_kb_on_the_python_hash_path("twin", jax_cfg) if dst is port
-            else KnowledgeBase("twin", port_cfg, device="cpu"))
+            else port_kb_on_the_python_hash_path("twin", port_cfg))
     twin.load(str(tmp_path / "kb"))
     for got, want in zip(asyncio.run(answers(port if dst is port else twin)),
                          asyncio.run(answers(twin if dst is port else jax_kb))):
@@ -213,14 +224,14 @@ def test_ivf_snapshots_reload_with_ivf(corpus, tmp_path, storage_dtype, directio
     the reloaded KB answers from the same top chunks."""
     files = sorted(str(p) for p in corpus.iterdir())
     port_cfg, jax_cfg = tier_configs("ivf", storage_dtype)
-    port = KnowledgeBase("port", port_cfg, device="cpu")
+    port = port_kb_on_the_python_hash_path("port", port_cfg)
     jax_kb = jax_kb_on_the_python_hash_path("jax", jax_cfg)
     src, dst = (jax_kb, port) if direction == "jax_to_port" else (port, jax_kb)
     asyncio.run(src.build_files(files))
     src.store._index.build_ivf(n_lists=2)
     src.save(str(tmp_path / "kb"))
     dst.load(str(tmp_path / "kb"))
-    for kb in (dst, KnowledgeBase("again", port_cfg, device="cpu")):
+    for kb in (dst, port_kb_on_the_python_hash_path("again", port_cfg)):
         if kb is not dst:
             kb.load(str(tmp_path / "kb"))  # the port reloads its own or JAX's snapshot
         assert kb.store._index._ivf is not None and kb.store._index._ivf.n_lists == 2

@@ -16,7 +16,9 @@ index       device vector index, metadata columns, filter compiler
 models      embedders (hash, encoder, pretrained BERT, remote), rerankers
             (cross-encoder, lexical, remote), tokenizers (hashing, WordPiece),
             the encoder trunk and the checkpoint loader
-ingest      loaders, chunkers, knowledge builder
+ingest      loaders, chunkers, knowledge builder, the staged builder agent
+            (processors, table store, QA files, cleanup), metadata, HiChunk, OCR
+native      the host C kernels of the hash tokenizer and embedder (cc, ctypes)
 retrieval   vector store, retrievers, context assembly, knowledge base
 tracing     in-process span tracer
 """

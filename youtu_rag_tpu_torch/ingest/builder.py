@@ -5,7 +5,7 @@ Parity with the simple builder (``utu/rag/knowledge_builder/base_builder.py:
 delete-then-reinsert idempotency, error collection without aborting the
 batch (ref agent behavior, ``agent.py:743-830``). The staged
 KnowledgeBuilderAgent (config analysis, task groups, Excel/DB/QA
-processors) layers on top in ``youtu_rag_tpu.ingest.agent`` and is not ported yet.
+processors) layers on top in ``ingest.agent``.
 
 Device shape: chunks from all documents in a wave are embedded in one large
 batch (one device wave) instead of per-document HTTP batches with rate-limit

@@ -1,10 +1,10 @@
 """Embedders + factory.
 
 The port's counterpart of ``youtu_rag_tpu/models/embedder.py``:
-``HashEmbedder`` on the JAX package's pure-Python path (bit-equal to it;
-the JAX package's native C kernel, ``native/fasthash.c``, normalizes within
-1 ulp of it), ``TorchEmbedder`` (the encoder on the card, the ``tpu``
-provider's counterpart of ``TpuEmbedder``: the repo's encoder, a
+``HashEmbedder`` (the C kernel of ``native/fasthash.c``, bit-equal to the
+JAX package's, and the pure-Python path, bit-equal to its Python path and
+1-2 ulp from the C kernel), ``TorchEmbedder`` (the encoder on the card,
+the ``tpu`` provider's counterpart of ``TpuEmbedder``: the repo's encoder, a
 ``weights_dir`` with or without a WordPiece vocabulary, or a pretrained
 BERT-family checkpoint, ``from_pretrained``), ``RemoteEmbedder`` (the
 ``openai`` and ``service`` HTTP providers), the ``CoalescingEmbedder``
@@ -60,10 +60,14 @@ class HashEmbedder(BaseEmbedder):
 
     Tokens (ASCII word runs lowercased; every other codepoint/symbol is a
     single token) hash via FNV-1a-64 to a dimension; vectors are
-    tf-weighted (1 + log tf), L2-normalized, positive-only."""
+    tf-weighted (1 + log tf), L2-normalized, positive-only.
 
-    def __init__(self, dim: int = 512):
+    ``embed_batch`` runs the native C kernel (``native/fasthash.c``) unless
+    ``use_native`` is false; ``embed_one`` is the pure-Python path."""
+
+    def __init__(self, dim: int = 512, use_native: bool = True):
         self._dim = dim
+        self._use_native = use_native
 
     @property
     def dimension(self) -> int:
@@ -84,6 +88,18 @@ class HashEmbedder(BaseEmbedder):
         return vec / n if n > 0 else vec
 
     def embed_batch(self, texts: list[str]) -> np.ndarray:
+        if self._use_native:
+            from ..native import hash_embed_batch_native
+
+            out = hash_embed_batch_native(texts, self._dim)
+            # the C kernel zeroes a row whose text overflows its tf table
+            # (> 4096 distinct tokens); any text with a token has a nonzero
+            # vector, so zero and not blank marks that row: re-embed it on
+            # the unbounded Python path
+            for i, t in enumerate(texts):
+                if t.strip() and not out[i].any():
+                    out[i] = self.embed_one(t)
+            return out
         if not texts:
             return np.zeros((0, self._dim), np.float32)
         return np.stack([self.embed_one(t) for t in texts])

@@ -1,18 +1,22 @@
-"""Deterministic hashing tokenizer (pure Python).
+"""Deterministic hashing tokenizer.
 
-A copy of ``youtu_rag_tpu/models/tokenizer.py::HashTokenizer`` on its
-pure-Python path, which the JAX package tests byte-for-byte against its
-native C tokenizer (``native/fasthash.c``). The BM25 index, the lexical
-reranker and the encoder's embedder use it; porting the C fast path is a
-later slice."""
+A copy of ``youtu_rag_tpu/models/tokenizer.py::HashTokenizer``: the C
+tokenizer of ``native/fasthash.c`` (``tokenize_ids``,
+``tokenize_ids_batch``), whose ids equal the pure-Python path's, and that
+path. The BM25 index, the lexical reranker and the encoder's embedder use
+it."""
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
 
 from ..utils.hashing import stable_hash64
+
+# the C tokenizer; YRT_NATIVE_TOKENIZER=0 takes the pure-Python path
+_USE_NATIVE = os.environ.get("YRT_NATIVE_TOKENIZER", "1") != "0"
 
 _WORD_RE = re.compile(r"[A-Za-z0-9_]+|[一-鿿]|[^\sA-Za-z0-9_]")
 
@@ -33,6 +37,11 @@ class HashTokenizer:
 
     def tokenize(self, text: str) -> list[int]:
         n_buckets = self.vocab_size - _N_SPECIAL
+        if _USE_NATIVE:
+            from ..native import tokenize_ids_native
+
+            # tokens <= codepoints, so len(text) bounds the output
+            return tokenize_ids_native(text, max(len(text), 1), n_buckets, _N_SPECIAL)
         words = _WORD_RE.findall(text.lower())
         return [_N_SPECIAL + (stable_hash64(w) % n_buckets) for w in words]
 
@@ -51,8 +60,26 @@ class HashTokenizer:
 
     def batch(self, texts: list[str], max_length: int | None = None,
               pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-        """Encode and pad a batch: (ids [B, T] int32, mask [B, T] f32)."""
+        """Encode and pad a batch: (ids [B, T] int32, mask [B, T] f32).
+
+        The C tokenizer takes the whole batch in one call."""
         max_length = max_length or self.max_length
+        if _USE_NATIVE:
+            from ..native import tokenize_ids_batch_native
+
+            toks, counts = tokenize_ids_batch_native(
+                texts, max_length - 2, self.vocab_size - _N_SPECIAL, _N_SPECIAL
+            )
+            lens = counts + 2  # [CLS] ... [SEP]
+            t = pad_to or int(lens.max(initial=2))
+            rows, cols = np.arange(len(texts)), np.arange(t)
+            ids = np.full((len(texts), t), PAD_ID, np.int32)
+            body = min(t - 1, toks.shape[1])
+            ids[:, 1 : 1 + body] = toks[:, :body]  # zero (PAD_ID) past each row's count
+            ids[:, 0] = CLS_ID
+            ids[rows, counts + 1] = SEP_ID
+            mask = (cols[None, :] < lens[:, None]).astype(np.float32)
+            return ids, mask
         seqs = [self.encode(t, max_length) for t in texts]
         t = pad_to or max(len(s) for s in seqs)
         ids = np.full((len(seqs), t), PAD_ID, np.int32)

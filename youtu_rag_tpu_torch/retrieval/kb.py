@@ -1,10 +1,11 @@
 """KnowledgeBase: one named collection bundling store + embedder +
 retriever + builder, plus a process-wide registry.
 
-The port's counterpart of ``youtu_rag_tpu/retrieval/kb.py`` for the
-retrieval path, with its snapshots (``save``/``load``, the same layout as
-the JAX package's). The staged builder agent, tables and the attached build
-manifest wait for a later slice (ROADMAP Queue A 6)."""
+The port's counterpart of ``youtu_rag_tpu/retrieval/kb.py``: the
+retrieval path, its snapshots (``save``/``load``, the same layout as the
+JAX package's) and the staged builder (``build_sources``: the ingest
+agent with its table store and incremental build manifest, on disk once
+``attach_persistence`` names a directory)."""
 
 from __future__ import annotations
 
@@ -20,9 +21,12 @@ from ..core.types import Document, RetrievalResult
 from ..ingest.builder import KnowledgeBuilder
 from ..models.embedder import EmbedderFactory
 from ..models.reranker import RerankerFactory
+from ..utils.log import get_logger
 from .context import ContextAssembler
 from .retriever import HybridRetriever, VectorRetriever
 from .store import TorchVectorStore
+
+logger = get_logger("retrieval.kb")
 
 
 class KnowledgeBase:
@@ -44,10 +48,92 @@ class KnowledgeBase:
         )
         self.builder = KnowledgeBuilder(self.store, self.embedder, self.config.knowledge_builder)
         self.assembler = ContextAssembler()
+        # staged-builder state (made at first use; on disk once a directory
+        # is attached): one TableStore and one incremental manifest per KB,
+        # so table and database sources share one registry
+        self._tables = None
+        self._manifest = None
+        self._builder_agent = None
+        self._persist_dir = None
 
     @property
     def device(self) -> torch.device:
         return self.store.device
+
+    # -- staged builder (ingest agent) -------------------------------------
+
+    @property
+    def tables(self):
+        if self._tables is None:
+            from ..ingest.tables import TableStore
+
+            path = ":memory:"
+            if self._persist_dir is not None:
+                path = str(self._persist_dir / "tables.sqlite")
+            self._tables = TableStore(path)
+        return self._tables
+
+    @property
+    def manifest(self):
+        if self._manifest is None:
+            from ..index.persistence import BuildManifest
+
+            mf = None
+            if self._persist_dir is not None:
+                p = self._persist_dir / "manifest.json"
+                if p.exists():
+                    try:
+                        mf = BuildManifest.load(p)
+                    except (OSError, ValueError, TypeError, AttributeError):  # corrupt manifest → full rebuild
+                        logger.exception("manifest load failed; rebuilding from scratch")
+            self._manifest = mf or BuildManifest()
+        return self._manifest
+
+    def attach_persistence(self, directory) -> None:
+        """Give the staged-builder state a home on disk: the table registry
+        becomes sqlite-backed and the incremental manifest survives
+        restarts. Call before the first build."""
+        self._persist_dir = Path(directory)
+        self._persist_dir.mkdir(parents=True, exist_ok=True)
+
+    @property
+    def builder_agent(self):
+        """The staged knowledge builder (analyze → group → parallel process
+        → QA stage) over this KB's store, embedder and tables."""
+        if self._builder_agent is None:
+            from ..ingest.agent import KnowledgeBuilderAgent
+
+            self._builder_agent = KnowledgeBuilderAgent(
+                self.name,
+                self.store,
+                self.embedder,
+                tables=self.tables,
+                config=self.config.knowledge_builder,
+                manifest=self.manifest,
+            )
+        return self._builder_agent
+
+    async def build_sources(self, tasks, rebuild: bool = False, on_progress=None):
+        """Build through the staged ingest agent: source tasks route to the
+        text/table/database/qa processors with incremental skip; the
+        manifest persists when a directory is attached."""
+        from ..ingest.agent import BuildRequest
+
+        agent = self.builder_agent
+        agent.on_progress = on_progress
+        try:
+            report = await agent.build(
+                BuildRequest(kb_name=self.name, tasks=list(tasks), rebuild=rebuild)
+            )
+        finally:
+            agent.on_progress = None
+        if self._persist_dir is not None:
+            try:
+                self.manifest.save(self._persist_dir / "manifest.json")
+            except OSError:
+                logger.exception("manifest save failed")
+        await self.warmup()
+        return report
 
     async def build_documents(self, documents: list[Document], rebuild: bool = False):
         status = await self.builder.build_from_documents(documents, rebuild=rebuild)

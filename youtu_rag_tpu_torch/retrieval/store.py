@@ -154,6 +154,9 @@ class TorchVectorStore(BaseVectorStore):
     async def count(self) -> int:
         return 0 if self._index is None else self._index.count()
 
+    async def count_by_document(self, document_id: str) -> int:
+        return 0 if self._index is None else self._index.count_by_document(document_id)
+
     async def clear(self) -> None:
         if self._index is not None:
             self._index.clear()
