@@ -140,6 +140,37 @@ Phases; any failure exits non-zero before the result lines:
      multiple of 12, 64 stored embeddings against a CPU TorchEmbedder
      (plain attention) within ENC_TOL, chunks/s and embed's split into
      tokenization and forward; whether pandas imports is printed;
+  4g. memory and toolkits: (a) a multi-tenant memory store at a shared
+     deployment's size: 262,144 memories of 1,024 users (per user 64
+     working over 4 sessions, 96 episodic, 64 semantic, some with a
+     text2sql category, 32 skills with use and success counts; importance
+     and created_at from the seed) in one bf16 MemoryVectorStore index of
+     262,144 x 256 on the card, seeded through its store's batched
+     ``add_chunks`` with the metadata ``add`` writes, both memory modules on
+     one frozen clock; for 64 users against a CPU twin that holds their
+     nodes: search_memory (top 5), search_memories with min_importance 0.7
+     ($gte on a float column) and with a category, retrieve_all_context (8)
+     return the same node ids with scores within TOL (near-ties may swap),
+     every hit the asking user's and of the asked types (tenant isolation,
+     a hard gate), importance edits move a memory across the $gte line in
+     place, a content edit keeps the count and finds the new text,
+     cleanup_procedural leaves no failing skill, the same answers as the
+     twin; one user's memories saved and loaded into a fresh store on the
+     card answer as the shared store; topk_pruned's launches; reported:
+     the host-clock medians of search_memory, retrieve_all_context and
+     get_working_memory, the filtered kernel's device time beside its bytes
+     bound and the unfiltered kernel on the same index, the filter mask's
+     time, and 1,024 ``add`` calls' ms per memory; (b) agents from configs
+     (``ConfigLoader`` where the host has yaml, else the same configs from
+     CONFIG_DICTS; whether yaml imports is printed): memory_chat through
+     ``get_agent`` (run 1 stores a fact, run 2's instructions carry it
+     under "## Relevant memory" with a stored skill, whose stats move), the
+     meta_retrieval agent over 64 dated documents (its 2021 search returns
+     only 2021 documents), the text2sql toolkit over a KB that
+     ``build_sources`` makes of 4 CSV sources and over a ``sqlite:///``
+     ``database_url`` with a scripted model, each against a CPU twin, and
+     the rag toolkit's add, search and clear on a CUDA KB; no run may
+     report an error;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -221,7 +252,8 @@ Phases; any failure exits non-zero before the result lines:
   8. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 4e, 4f (a) and (c), 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
+4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), 5, 5c, 5d, 5b, 5e and 6a drive it and read
+just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
 """
@@ -281,6 +313,37 @@ EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
 # ... and the IVF scans' on phase 5c's fixed plan
 EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
                     "ivf_topk_int4_dma": 0.4119}
+
+# Phase 4g's configs as the port's ConfigLoader composes them from
+# configs/agents/memory_chat.yaml, configs/agents/meta_retrieval.yaml and
+# configs/tools/text2sql.yaml with no YRT_* variable set (a CPU test,
+# tests/test_torch_loader.py, holds them equal): phase 4g builds its agents
+# from these where the card's host has no yaml, and says so.
+_SIMPLE_BASE = {"type": "simple", "max_turns": 50,
+                "model": {"model": "", "base_url": "", "api_key": ""}}
+CONFIG_DICTS = {
+    ("agents", "memory_chat"): {
+        **_SIMPLE_BASE,
+        "agent": {"name": "memory_chat", "instructions": (
+            "You are a personal assistant with long-term memory. Prior context is\n"
+            "injected before your instructions; use it, and prefer remembered user\n"
+            "preferences over generic defaults.\n")},
+        "memory": {"enabled": True, "user_id": "default", "max_context_items": 8},
+        "toolkits": {"memory": {"name": "memory", "mode": "builtin"}},
+    },
+    ("agents", "meta_retrieval"): {
+        **_SIMPLE_BASE,
+        "agent": {"name": "meta_retrieval", "instructions": (
+            "You answer time-sensitive questions over the knowledge base. Always run\n"
+            "query_analysis first to extract time constraints, search with the\n"
+            "produced filters, widen with expand_filter_scope if recall is thin, and\n"
+            "merge_retrieval_results before answering.\n")},
+        "toolkits": {"meta_retrieval": {"name": "meta_retrieval", "mode": "builtin",
+                                        "config": {"kb": "default"}}},
+    },
+    ("tools", "text2sql"): {"name": "text2sql", "mode": "builtin",
+                            "config": {"kb": "default", "database_url": ""}},
+}
 
 _phase_t0: list[tuple[str, float]] = []
 
@@ -2637,6 +2700,660 @@ def ingest_corpus(seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4g. memory and toolkits
+# ---------------------------------------------------------------------------
+
+MEM_USERS = 1024
+# per user: (type, count); working memories over MEM_SESSIONS sessions
+MEM_PLAN = (("working", 64), ("episodic", 96), ("semantic", 64), ("procedural", 32))
+MEM_PER_USER = sum(n for _, n in MEM_PLAN)  # 256: 262,144 memories in all
+MEM_SESSIONS = 4
+MEM_GATE_USERS = 64
+MEM_ADDS = 1024
+MEM_EPOCH = 1_790_000_000.0  # the frozen clock of both stores; created_at over the 30 days before
+MEM_VOCAB = 8192
+META_DOCS = 64
+
+
+def memory_nodes(node_cls, seed: int, n_users: int) -> tuple[list, list[str]]:
+    """MEM_PER_USER memories per user, drawn from ``seed``: ids
+    ``mem-u<user>-<type>-<i>``, a text of a user tag and 8-14 words of a
+    shared vocabulary, importance on a 0.05 grid, created_at over the 30
+    days before MEM_EPOCH, working memories over MEM_SESSIONS sessions,
+    semantic ones every fourth a text2sql ``schema`` and every fourth a
+    ``sql_pattern`` category, skills with use and success counts. Returns
+    the nodes and their texts."""
+    rng = np.random.default_rng(seed)
+    vocab = np.array(sorted(set(ingest_words(rng, MEM_VOCAB))))
+    nodes = []
+    for u in range(n_users):
+        user = f"user-{u:04d}"
+        for mtype, n in MEM_PLAN:
+            lens = rng.integers(8, 15, size=n)
+            words = rng.choice(vocab, size=(n, 14))
+            imps = np.round(rng.integers(0, 21, size=n) * 0.05, 2)
+            ages = rng.uniform(0, 30 * 86400.0, size=n)
+            uses = rng.integers(0, 8, size=n)
+            wins = rng.integers(0, 9, size=n) % (uses + 1)
+            for i in range(n):
+                meta = {}
+                if mtype == "semantic" and i % 4 in (1, 2):
+                    meta["category"] = "schema" if i % 4 == 1 else "sql_pattern"
+                elif mtype == "procedural":
+                    meta["name"] = f"skill-{u}-{i}"
+                node = node_cls(
+                    id=f"mem-u{u:04d}-{mtype}-{i:03d}", user_id=user, memory_type=mtype,
+                    content=f"u{u:04d} {mtype} " + " ".join(words[i, : lens[i]]),
+                    importance=float(imps[i]), created_at=MEM_EPOCH - float(ages[i]),
+                    session_id=(f"sess-{u:04d}-{i * MEM_SESSIONS // n}" if mtype == "working"
+                                else ""),
+                    metadata=meta)
+                if mtype == "procedural":
+                    node.use_count, node.success_count = int(uses[i]), int(wins[i])
+                nodes.append(node)
+    return nodes, [n.content for n in nodes]
+
+
+def seed_memories(store, nodes: list, vecs: np.ndarray, batch: int = 32768) -> None:
+    """Put ``nodes`` into a MemoryVectorStore through its store's batched
+    ``add_chunks``, each row with the metadata ``MemoryVectorStore.add``
+    writes (``vecs``: ``store.embedder``'s rows for the nodes' texts, as
+    ``add`` embeds them one at a time)."""
+    from youtu_rag_tpu_torch.core.types import Chunk
+
+    asyncio.run(store.store.reserve(len(nodes), vecs.shape[1]))
+    for b in range(0, len(nodes), batch):
+        chunks = []
+        for node, vec in zip(nodes[b:b + batch], vecs[b:b + batch]):
+            meta = {"user_id": node.user_id, "memory_type": node.memory_type,
+                    "session_id": node.session_id, "importance": node.importance,
+                    "created_at": int(node.created_at)}
+            if node.metadata.get("category"):
+                meta["category"] = node.metadata["category"]
+            chunks.append(Chunk(id=node.id, document_id=f"{node.user_id}/{node.memory_type}",
+                                content=node.content, chunk_index=0, metadata=meta,
+                                embedding=vec))
+        asyncio.run(store.store.add_chunks(chunks))
+        for node in nodes[b:b + batch]:
+            store._nodes[node.id] = node
+
+
+def copy_node(node):
+    """A node of its own for the CPU twin (edits mutate nodes in place)."""
+    import dataclasses
+
+    return dataclasses.replace(node, metadata=dict(node.metadata))
+
+
+def memory_hits(found) -> list:
+    """search_memories' (node, score) pairs as same_up_to_ties reads them."""
+    from types import SimpleNamespace
+
+    return [SimpleNamespace(chunk=SimpleNamespace(id=m.id), score=float(s)) for m, s in found]
+
+
+def same_lines(got: str, ref: str) -> bool:
+    """Two retrieve_all_context texts: equal, or the same lines in another
+    order (two memories whose scores lie within TOL may trade places)."""
+    return got == ref or sorted(got.splitlines()) == sorted(ref.splitlines())
+
+
+class FrozenClock:
+    """One clock for the memory modules of both stores (their ``time``):
+    recency is equal on the card and on its CPU twin."""
+
+    def __init__(self, now: float):
+        self.now = now
+
+    def time(self) -> float:
+        return self.now
+
+    def strftime(self, fmt: str, *_):
+        return time.strftime(fmt, time.localtime(self.now))
+
+
+def memory_reads(store, tk, user: str, query: str) -> dict:
+    """The gate reads of one user: search_memory's (top_k 5) hits, with
+    min_importance 0.7, with a category, and retrieve_all_context."""
+    return {
+        "search": asyncio.run(store.search_memories(user, query, top_k=5)),
+        "important": asyncio.run(store.search_memories(user, query, top_k=5,
+                                                       min_importance=0.7)),
+        "category": asyncio.run(store.search_memories(user, query, memory_types=["semantic"],
+                                                      top_k=5, category="sql_pattern")),
+        "tool": asyncio.run(tk.search_memory(query, top_k=5)),
+        "context": asyncio.run(tk.retrieve_all_context(query, max_items=8)),
+    }
+
+
+def check_isolation(reads: dict, user: str, tag: str, what: str) -> None:
+    """Tenant isolation, a hard gate: every hit the asking user's, of the
+    asked types, above the asked importance, in the asked category."""
+    for m, _ in reads["search"] + reads["important"]:  # search_memories' default types
+        check(m.user_id == user and m.memory_type in ("episodic", "semantic", "procedural"),
+              f"{what}: {user}'s search returned {m.id} of {m.user_id} ({m.memory_type})")
+    check(all(m.importance >= 0.7 for m, _ in reads["important"]),
+          f"{what}: a hit below min_importance 0.7 for {user}")
+    check(all(m.user_id == user and m.memory_type == "semantic"
+              and m.metadata.get("category") == "sql_pattern" for m, _ in reads["category"]),
+          f"{what}: a hit outside {user}'s sql_pattern memories")
+    lines = [ln for ln in reads["context"].splitlines() if ln.startswith("- ")]
+    check(lines and all(tag in ln for ln in lines),
+          f"{what}: retrieve_all_context for {user} holds another user's memory")
+
+
+def memory_plane(seed: int, smi: str, part: str) -> dict:
+    """4g (a): the multi-tenant memory store on the card against a CPU twin
+    holding the same nodes of the gate users. Returns the launches and the
+    numbers printed."""
+    from youtu_rag_tpu_torch.index.device_index import _filter_bias
+    from youtu_rag_tpu_torch.index.filters import compile_filter
+    from youtu_rag_tpu_torch.memory import MemoryNode, MemoryVectorStore, VectorMemoryToolkit
+    from youtu_rag_tpu_torch.models.embedder import HashEmbedder
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF, topk_pruned
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    n_users, gate_users = MEM_USERS, MEM_GATE_USERS
+    nodes, texts = memory_nodes(MemoryNode, seed, n_users)
+    emb = HashEmbedder(256)
+    vecs = emb.embed_batch(texts)
+    make_s = time.perf_counter() - t0
+    mem = MemoryVectorStore(emb)
+    check(mem.store.device.type == "cuda", f"the memory store is on {mem.store.device}")
+    t0 = time.perf_counter()
+    seed_memories(mem, nodes, vecs)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    idx = mem.store.index
+    # the CPU twin holds the gate users' nodes, in the card's row order:
+    # every read and write below is one gate user's, and a user's filter
+    # masks every other user's row, so the twin answers as one holding all
+    gates = list(range(0, n_users, n_users // gate_users))[:gate_users]
+    gate_ids = {f"user-{u:04d}" for u in gates}
+    keep = [i for i, n in enumerate(nodes) if n.user_id in gate_ids]
+    twin = MemoryVectorStore(emb, device="cpu")
+    t0 = time.perf_counter()
+    seed_memories(twin, [copy_node(nodes[i]) for i in keep], vecs[keep])
+    twin_s = time.perf_counter() - t0
+    n_mem = asyncio.run(mem.store.count())
+    check(n_mem == len(nodes) and asyncio.run(twin.store.count()) == len(keep)
+          == gate_users * MEM_PER_USER, f"(a) {n_mem} memories stored of {len(nodes)}")
+    vec_mb = idx._vectors.numel() * idx._vectors.element_size() / 1e6
+    col_mb = idx._cols.numel() * idx._cols.element_size() / 1e6
+    print(f"(a) {len(nodes)} memories over {n_users} users ({MEM_PER_USER} each: "
+          f"{', '.join(f'{n} {t}' for t, n in MEM_PLAN)}), texts and HashEmbedder(256) rows in "
+          f"{make_s:.2f} s; one {idx._vectors.dtype} index of {tuple(idx._vectors.shape)} "
+          f"({vec_mb:.1f} MB of rows, {col_mb:.1f} MB of {idx._cols.shape[1]} metadata columns, "
+          f"columns {list(idx.schema.slots)}) seeded "
+          f"through add_chunks in {seed_s:.2f} s on the card [{smi}]; the CPU twin, the "
+          f"{gate_users} gate users' {len(keep)} memories, in {twin_s:.2f} s")
+    out["seed"] = {"memories": len(nodes), "seed_s": seed_s, "twin_s": twin_s,
+                   "vectors_mb": vec_mb, "columns_mb": col_mb}
+
+    by_user: dict[str, dict[str, list]] = {}
+    for n in nodes:
+        by_user.setdefault(n.user_id, {}).setdefault(n.memory_type, []).append(n)
+    queries = {}
+    for u in gates:
+        user = f"user-{u:04d}"
+        words = by_user[user]["semantic"][0].content.split()
+        queries[user] = " ".join(words[2:8])
+
+    def toolkit(store, user):
+        session = by_user[user]["working"][0].session_id
+        return VectorMemoryToolkit({"user_id": user, "session_id": session, "store": store})
+
+    # reads: the card (its launches counted) against the twin
+    reset_launches()
+    got = {user: memory_reads(mem, toolkit(mem, user), user, q) for user, q in queries.items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()["bfloat16"]
+    ref = {user: memory_reads(twin, toolkit(twin, user), user, q) for user, q in queries.items()}
+    n_hits = 0
+    for user, g in got.items():
+        tag = f"u{user[5:]} "
+        check_isolation(g, user, tag, "(a) card")
+        check_isolation(ref[user], user, tag, "(a) twin")
+        for key in ("search", "important", "category"):
+            check(same_up_to_ties(memory_hits(g[key]), memory_hits(ref[user][key]), TOL),
+                  f"(a) {user} {key}: card {memory_hits(g[key])} twin "
+                  f"{memory_hits(ref[user][key])}")
+            n_hits += len(g[key])
+        check(same_lines(g["tool"], ref[user]["tool"]) and
+              same_lines(g["context"], ref[user]["context"]),
+              f"(a) {user}: search_memory / retrieve_all_context differ from the twin's:\n"
+              f"{g['context']}\n--\n{ref[user]['context']}")
+    check(launches > 0, "(a) the memory reads never launched topk_pruned")
+    check(any(g["important"] for g in got.values()) and any(g["category"] for g in got.values()),
+          "(a) the min_importance and category reads found nothing")
+    print(f"  {len(gates)} users' reads (search_memory top 5, min_importance 0.7, the "
+          f"sql_pattern category, retrieve_all_context 8): {n_hits} hits, every one the asking "
+          f"user's and of the asked types, the same node ids as the CPU twin with scores within "
+          f"{TOL} (near-ties may swap); topk_pruned launches {launches}")
+
+    # the kernel on this index: one user's filter against no filter
+    user = f"user-{gates[1]:04d}"
+    filters = {"user_id": user, "memory_type": {"$in": ["episodic", "semantic"]},
+               "importance": {"$gte": 0.7}}
+    qv = np.asarray(emb.embed_batch([queries[user]]), np.float32)
+    qpad = np.zeros((1, idx.d_pad), np.float32)
+    qpad[0, : idx.dim] = qv[0] / max(float(np.linalg.norm(qv[0])), 1e-12)
+    qd = torch.from_numpy(qpad).to(idx.device)
+    compiled = compile_filter(filters, idx.schema)
+    fbias = _filter_bias(idx._cols, idx._bias, compiled)
+    k = 15  # search_memories asks the store for top_k * 3
+    live = int((fbias > NEG_INF / 2).sum())
+    check(0 < live <= MEM_PER_USER, f"(a) the filter keeps {live} rows")
+    x = idx._vectors
+    t_f = time_held_ms(lambda: topk_pruned(qd, x, fbias, k))
+    t_u = time_held_ms(lambda: topk_pruned(qd, x, idx._bias, k))
+    t_m = time_held_ms(lambda: _filter_bias(idx._cols, idx._bias, compiled))
+    t_c = time_held_ms(lambda: torch.as_tensor(compiled.consts, device=idx.device))
+    b_ms, b_by = bound("bfloat16", part, x.shape[0], x.shape[1], 1, k)
+    print(f"  topk_pruned on the memory index [{smi}], q = 1, k = {k}, "
+          f"{tuple(x.shape)} bf16: filtered ({live} rows live: user, $in over types, "
+          f"$gte 0.7) {t_f:.4f} ms, unfiltered {t_u:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); the filter's mask into the bias {t_m:.4f} ms, of which the copy of "
+          f"its {len(compiled.consts)} constants to the card {t_c:.4f} ms (held timer: "
+          f"the copy and the mask's kernels as the host enqueues them)")
+    out["kernel"] = {"filtered_ms": t_f, "unfiltered_ms": t_u, "bound_ms": b_ms,
+                     "mask_ms": t_m, "consts_ms": t_c, "live_rows": live}
+
+    # host-clock medians over the gate users, on the card's store
+    def median_ms(fn) -> float:
+        ts = []
+        for user, q in queries.items():
+            t0 = time.perf_counter()
+            fn(user, q)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    tks = {user: toolkit(mem, user) for user in queries}
+    host = {
+        "search_memory": median_ms(lambda u, q: asyncio.run(tks[u].search_memory(q, top_k=5))),
+        "retrieve_all_context": median_ms(
+            lambda u, q: asyncio.run(tks[u].retrieve_all_context(q, max_items=8))),
+        "get_working_memory": median_ms(lambda u, q: asyncio.run(mem.get_working_memory(
+            u, by_user[u]["working"][0].session_id))),
+    }
+    out["host_ms"] = host
+    print(f"  host clock, median of {len(queries)} [{smi}]: "
+          + ", ".join(f"{k_} {v:.3f} ms" for k_, v in host.items())
+          + f" (get_working_memory scans all {n_mem} nodes in Python, as JAX's)")
+
+    # writes: importance across the $gte line, a content edit, skill cleanup
+    for user in queries:
+        sem = by_user[user]["semantic"]
+        low = next(n for n in sem if n.importance < 0.7)
+        epi = by_user[user]["episodic"][0]
+        stats = {}
+        for name, store in (("card", mem), ("twin", twin)):
+            tk = toolkit(store, user)
+            before = asyncio.run(store.store.count())
+            asyncio.run(tk.update_memory(low.id, importance=0.75))
+            up = asyncio.run(store.search_memories(user, low.content, top_k=5, min_importance=0.7))
+            asyncio.run(tk.update_memory(low.id, importance=0.6))
+            down = asyncio.run(store.search_memories(user, low.content, top_k=5,
+                                                     min_importance=0.7))
+            new_text = f"u{user[5:]} edited {user} moved to Grindavik near the volcano"
+            asyncio.run(tk.update_memory(epi.id, content=new_text))
+            edited = asyncio.run(store.search_memories(user, new_text, memory_types=["episodic"],
+                                                       top_k=3))
+            removed = asyncio.run(store.cleanup_procedural(user))
+            skills = asyncio.run(store.search_memories(user, queries[user],
+                                                       memory_types=["procedural"], top_k=32))
+            after = asyncio.run(store.store.count())
+            check(low.id in [m.id for m, _ in up] and low.id not in [m.id for m, _ in down],
+                  f"(a) {name} {user}: importance 0.75 / 0.6 did not move {low.id} across $gte")
+            check(edited and edited[0][0].id == epi.id and before == after + removed,
+                  f"(a) {name} {user}: the content edit ({before} -> {after} rows, {removed} "
+                  f"skills removed; top {[m.id for m, _ in edited]})")
+            check(all(not (m.use_count >= 3 and m.success_rate < 0.3) for m, _ in skills),
+                  f"(a) {name} {user}: a failing skill is still found after cleanup")
+            stats[name] = (memory_hits(up), memory_hits(down), memory_hits(edited),
+                           memory_hits(skills), removed)
+        (*card_hits, card_removed), (*twin_hits, twin_removed) = stats["card"], stats["twin"]
+        for a, b in zip(card_hits, twin_hits):
+            check(same_up_to_ties(a, b, TOL), f"(a) {user}: the writes answer unlike the twin")
+        check(card_removed == twin_removed, f"(a) {user}: cleanup removed {card_removed} on "
+              f"the card, {twin_removed} on the twin")
+    print(f"  {len(queries)} users' writes on both: importance 0.75 then 0.6 moves a memory "
+          f"across min_importance's $gte 0.7 (in place, no re-embed), a content edit keeps the "
+          f"count and finds the new text first, cleanup_procedural leaves no failing skill; the "
+          f"same answers as the twin")
+
+    # save / load of one user's memories into fresh stores on the card
+    user = f"user-{gates[0]:04d}"
+    own = [n for n in mem._nodes.values() if n.user_id == user]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        one = MemoryVectorStore(HashEmbedder(256))
+        for n in own:
+            asyncio.run(one.add(copy_node(n)))
+        saved = one.save(os.path.join(d, "mem.json"))
+        fresh = MemoryVectorStore(HashEmbedder(256))
+        loaded = asyncio.run(fresh.load(os.path.join(d, "mem.json")))
+    check(saved == loaded == len(own) and fresh.store.device.type == "cuda",
+          f"(a) save/load of {user}: {saved} saved, {loaded} loaded of {len(own)}")
+    # top_k such that the store's 3 x top_k candidates hold every row of the
+    # asked types: two stores with other row layouts break exact ties of
+    # similarity at the candidate boundary by row order, each its own way
+    n_rest = MEM_PER_USER - dict(MEM_PLAN)["working"]
+    for q in (queries[user], own[5].content, own[100].content):
+        for kw in ({"top_k": n_rest // 3 + 1}, {"top_k": n_rest // 3 + 1, "min_importance": 0.7},
+                   {"memory_types": ["working"], "top_k": dict(MEM_PLAN)["working"] // 3 + 1}):
+            a = memory_hits(asyncio.run(fresh.search_memories(user, q, **kw)))
+            b = memory_hits(asyncio.run(mem.search_memories(user, q, **kw)))
+            check(same_up_to_ties(a, b, TOL), f"(a) the reloaded {user} answers {a}, not {b}")
+    print(f"  save/load of {user}'s {saved} memories (JSON, re-embedded on load) into a fresh "
+          f"store on the card: the same answers as the shared store")
+
+    # MEM_ADDS adds, one memory per user, timed on the host clock
+    rng = np.random.default_rng(seed + 1)
+    extra = [MemoryNode(id=f"mem-add-{i:04d}", user_id=f"user-{i % n_users:04d}",
+                        memory_type="semantic", content=f"u{i % n_users:04d} added fact "
+                        + " ".join(rng.choice(texts[i].split()[2:], size=6)),
+                        importance=0.5, created_at=MEM_EPOCH)
+             for i in range(MEM_ADDS)]
+    n_before = asyncio.run(mem.store.count())
+    t0 = time.perf_counter()
+    for n in extra:
+        asyncio.run(mem.add(n))
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) / len(extra) * 1e3
+    check(asyncio.run(mem.store.count()) == n_before + len(extra),
+          f"(a) {len(extra)} adds left {asyncio.run(mem.store.count())} rows of "
+          f"{n_before + len(extra)}")
+    out["add_ms"] = add_ms
+    print(f"  {len(extra)} MemoryVectorStore.add calls (embed, one-row add_chunks, BM25): "
+          f"{add_ms:.3f} ms per memory on the host clock [{smi}]")
+    out["launches"] = launches
+    return out
+
+
+def load_config(kind: str, name: str):
+    """A config through the port's ConfigLoader where the host has yaml,
+    else from CONFIG_DICTS (the same configs, tests/test_torch_loader.py)."""
+    import importlib.util
+
+    from youtu_rag_tpu_torch.agents.config import AgentConfig
+    from youtu_rag_tpu_torch.core.loader import ConfigLoader
+    from youtu_rag_tpu_torch.tools.base import ToolkitConfig
+
+    if importlib.util.find_spec("yaml") is not None:
+        loader = ConfigLoader(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"))
+        return (loader.load_agent_config(name) if kind == "agents"
+                else loader.load_toolkit_config(name))
+    raw = CONFIG_DICTS[kind, name]
+    model = AgentConfig if kind == "agents" else ToolkitConfig
+    return model.model_validate(raw)
+
+
+def check_run(rec, what: str) -> None:
+    """No agent run may report an error, in itself or in a tool's output."""
+    check(rec.error is None, f"{what}: the run reported {rec.error!r}")
+    for t in rec.tool_calls:
+        check(not t.output.startswith(("Error", "error")),
+              f"{what}: tool {t.name} answered {t.output[:200]!r}")
+
+
+def meta_docs(doc_cls, seed: int) -> list:
+    """META_DOCS dated documents over 2019-2022 on two topics."""
+    import datetime
+
+    rng = np.random.default_rng(seed)
+    topics = ("transformer attention retrieval serving", "graph neural network molecules")
+    docs = []
+    for i in range(META_DOCS):
+        year, month = 2019 + i % 4, 1 + int(rng.integers(0, 12))
+        ts = int(datetime.datetime(year, month, 15).timestamp())
+        topic = topics[i % 2]
+        docs.append(doc_cls(f"paper-{i:02d}", f"Paper {i} ({year}-{month:02d}) on {topic}: "
+                            + " ".join(rng.choice(topic.split(), size=12)),
+                            {"publish_ts": ts, "source": f"paper-{i:02d}"}))
+    return docs
+
+
+def memory_chat(client_cls, device):
+    """memory_chat from its config through get_agent: run 1 states a fact
+    (and stores it through the memory tool), a skill is stored, run 2's
+    instructions must carry both."""
+    from youtu_rag_tpu_torch.agents import get_agent
+
+    cfg = load_config("agents", "memory_chat")
+    turns = [client_cls.tool_response("add_memory", {
+        "content": "The user's favourite colour is teal.", "memory_type": "semantic",
+        "importance": 0.9}), client_cls.text_response("Noted: teal."),
+        client_cls.text_response("Your favourite colour is teal.")]
+    kw = {} if device is None else {"device": device}
+    agent = get_agent(cfg, client=client_cls(scripted=turns), **kw)
+    first = asyncio.run(agent.run("Please remember: my favourite colour is teal."))
+    asyncio.run(agent.memory_toolkit.store_skill(
+        "colour-recall", "For questions about the user's favourite colour", ["search_memory"]))
+    second = asyncio.run(agent.run("What is my favourite colour?"))
+    system = agent.client.calls[-1]["messages"][0]
+    skill = next(m for m in agent.memory_toolkit.store._nodes.values()
+                 if m.memory_type == "procedural")
+    stores = [agent.memory_toolkit.store] + [tk.store for tk in agent.router.toolkits
+                                              if hasattr(tk, "store")]
+    return {"runs": (first, second), "system": system.content, "skill": skill,
+            "devices": [s.store.device.type for s in stores],
+            "memories": [sorted((m.memory_type, m.content) for m in s._nodes.values())
+                         for s in stores]}
+
+
+def meta_retrieval_agent(client_cls, device: str, seed: int):
+    """The meta_retrieval config's agent over META_DOCS dated documents in a
+    KB on ``device``, registered under the config's KB name: query
+    analysis, a time-filtered search, scope expansion, another search,
+    merge, an answer."""
+    from youtu_rag_tpu_torch.agents import get_agent
+    from youtu_rag_tpu_torch.core.config import RAGConfig
+    from youtu_rag_tpu_torch.core.types import Document
+    from youtu_rag_tpu_torch.retrieval.kb import GLOBAL_KB_REGISTRY, KnowledgeBase
+
+    cfg = load_config("agents", "meta_retrieval")
+    name = cfg.toolkits["meta_retrieval"].config["kb"]
+    kb = KnowledgeBase(name, RAGConfig(name=name), device=device)
+    asyncio.run(kb.build_documents(meta_docs(Document, seed)))
+    GLOBAL_KB_REGISTRY.register(kb)
+    f = client_cls
+    turns = [f.tool_response("query_analysis", {"query": "attention papers from 2021",
+                                                "session_id": "s"}),
+             f.tool_response("kb_embedding_search", {"query": "transformer attention retrieval",
+                                                     "top_k": 6, "session_id": "s"}),
+             f.tool_response("expand_filter_scope", {"session_id": "s", "factor": 2.0}),
+             f.tool_response("kb_embedding_search", {"query": "attention serving", "top_k": 6,
+                                                     "session_id": "s"}),
+             f.tool_response("merge_retrieval_results", {"session_id": "s", "top_k": 8}),
+             f.text_response("Found the 2021 attention papers.")]
+    try:
+        agent = get_agent(cfg, client=client_cls(scripted=turns))
+        rec = asyncio.run(agent.run("Which attention papers came out in 2021?"))
+    finally:
+        GLOBAL_KB_REGISTRY.remove(name)
+    check(kb.device.type == device, f"(b) the meta_retrieval KB is on {kb.device}")
+    return rec
+
+
+def text2sql_run(tools, kb, table: str, llm, database_url: str = ""):
+    """The text2sql toolkit from its config over ``kb`` (and
+    ``database_url``): schema link, the SQL, and the agent's link →
+    generate → execute → answer."""
+    from youtu_rag_tpu_torch.tools.text2sql import Text2SQLAgent
+
+    cfg = load_config("tools", "text2sql")
+    cfg = cfg.model_copy(update={"config": {**cfg.config, "kb": kb,
+                                            "database_url": database_url}})
+    tk = tools.get_toolkit(cfg.name, cfg)
+    link = asyncio.run(tk.schema_link("which employee has the highest salary?", top_k=2))
+    sql = asyncio.run(tk.execute_sql(
+        f'SELECT employee, salary FROM "{table}" ORDER BY salary DESC LIMIT 1'))
+    return link, sql, asyncio.run(Text2SQLAgent(tk, llm).text2sql("who earns the most?"))
+
+
+def agent_configs(seed: int, smi: str) -> dict:
+    """4g (b): memory_chat, meta_retrieval and text2sql from their configs,
+    and the rag toolkit, on the card; each against a CPU twin. Returns the
+    launches."""
+    import importlib.util
+    import sqlite3
+
+    import pandas as pd
+
+    from youtu_rag_tpu_torch import tools
+    from youtu_rag_tpu_torch.agents.llm import FakeChatClient
+    from youtu_rag_tpu_torch.agents.llm_agent import LLMAgent
+    from youtu_rag_tpu_torch.core.config import RAGConfig
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+    from youtu_rag_tpu_torch.tools.base import ToolkitConfig
+
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    print(f"yaml importable on this host: {have_yaml} ("
+          + ("the configs load through ConfigLoader" if have_yaml else
+             "the configs are built from CONFIG_DICTS, the dicts the CPU tests hold equal to "
+             "ConfigLoader's; host parsing, not the device") + ")")
+    reset_launches()
+
+    # memory_chat on the card (its stores' default device) and on the CPU
+    chat = memory_chat(FakeChatClient, None)
+    ref = memory_chat(FakeChatClient, "cpu")
+    for r, what in ((chat, "card"), (ref, "twin")):
+        for i, rec in enumerate(r["runs"]):
+            check_run(rec, f"(b) memory_chat {what} run {i + 1}")
+        check("## Relevant memory" in r["system"] and "favourite colour is teal" in r["system"]
+              and "colour-recall" in r["system"],
+              f"(b) memory_chat {what}: run 2's instructions lack the remembered fact: "
+              f"{r['system'][-600:]!r}")
+        check((r["skill"].use_count, r["skill"].success_count) == (1, 1),
+              f"(b) memory_chat {what}: the surfaced skill's stats did not move "
+              f"({r['skill'].use_count}, {r['skill'].success_count})")
+    check(chat["devices"] == ["cuda", "cuda"] and ref["devices"] == ["cpu", "cpu"],
+          f"(b) memory_chat stores on {chat['devices']} / {ref['devices']}")
+    check(chat["memories"] == ref["memories"]
+          and [r.final_output for r in chat["runs"]] == [r.final_output for r in ref["runs"]],
+          "(b) memory_chat: the card's stored memories or answers differ from the twin's")
+    print(f"(b) memory_chat (get_agent; stores on {chat['devices']}) [{smi}]: run 1 stored the "
+          f"fact ({chat['runs'][0].tool_calls[0].output}), run 2's instructions carry "
+          f"'## Relevant memory' with it and the stored skill, the skill's stats moved to "
+          f"1 of 1; the same memories and answers as the CPU twin")
+
+    # meta_retrieval over META_DOCS dated documents
+    recs = {}
+    for device in ("cuda", "cpu"):
+        recs[device] = meta_retrieval_agent(FakeChatClient, device, seed)
+        check_run(recs[device], f"(b) meta_retrieval {device}")
+    searches = [t.output for t in recs["cuda"].tool_calls if t.name == "kb_embedding_search"]
+    check(searches and "(2021-" in searches[0]
+          and not any(f"({y}-" in searches[0] for y in (2019, 2020, 2022)),
+          f"(b) meta_retrieval: the 2021 search returned {searches[0][:400]!r}")
+    check([(t.name, t.arguments, t.output) for t in recs["cuda"].tool_calls]
+          == [(t.name, t.arguments, t.output) for t in recs["cpu"].tool_calls],
+          "(b) meta_retrieval: the card's tool outputs differ from the twin's")
+    print(f"  meta_retrieval (get_agent) over {META_DOCS} dated documents: "
+          f"{len(recs['cuda'].tool_calls)} tool calls, the time-filtered search returns only "
+          f"2021 documents, every output the CPU twin's")
+
+    # text2sql over a KB built from 4 CSV sources, then over a sqlite database_url
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        pd.DataFrame({"employee": ["alice", "bob", "carol", "dave", "erin", "frank"],
+                      "department": ["eng", "eng", "sales", "sales", "hr", "eng"],
+                      "salary": [120, 110, 90, 95, 80, 130]}).to_csv(f"{d}/staff.csv",
+                                                                     index=False)
+        pd.DataFrame({"city": ["paris", "rome", "oslo"], "country": ["fr", "it", "no"]}).to_csv(
+            f"{d}/cities.csv", index=False)
+        pd.DataFrame({"sku": ["a1", "b2"], "price": [3.5, 4.0]}).to_csv(f"{d}/prices.csv",
+                                                                        index=False)
+        pd.DataFrame({"team": ["eng", "sales"], "lead": ["alice", "carol"]}).to_csv(
+            f"{d}/teams.csv", index=False)
+        names = ("staff.csv", "cities.csv", "prices.csv", "teams.csv")
+        drafts = [0]
+
+        def rule(messages, tools_):
+            content = messages[-1].content or ""
+            if content.startswith("You translate questions"):
+                drafts[0] += 1
+                if drafts[0] % 2:  # a bad first draft, then the statement
+                    return FakeChatClient.text_response("SELECT nope FROM missing;")
+                table = next(t for t in content.split('"') if t.startswith("staff"))
+                return FakeChatClient.text_response(
+                    f'SELECT employee, salary FROM "{table}" ORDER BY salary DESC LIMIT 1')
+            return FakeChatClient.text_response("frank earns the most (130).")
+
+        outs = {}
+        for device in ("cuda", "cpu"):
+            kb = KnowledgeBase("t2s-4g", RAGConfig(name="t2s-4g"), device=device)
+            report = asyncio.run(kb.build_sources([SourceTask(n, "table", path=f"{d}/{n}")
+                                                   for n in names]))
+            check(report.processed == len(names) and report.failed == 0,
+                  f"(b) text2sql build: {report.summary()}")
+            table = next(t for t in report.tables if t.startswith("staff"))
+            llm = LLMAgent(client=FakeChatClient(rule_fn=rule))
+            db = f"{d}/ext-{device}.sqlite"
+            conn = sqlite3.connect(db)
+            conn.execute(f'CREATE TABLE "{table}" (employee TEXT, department TEXT, '
+                         "salary INTEGER)")
+            conn.executemany(f'INSERT INTO "{table}" VALUES (?, ?, ?)',
+                             [("zed", "eng", 200), ("amy", "hr", 70)])
+            conn.commit()
+            conn.close()
+            outs[device] = (text2sql_run(tools, kb, table, llm),
+                            text2sql_run(tools, kb, table, llm, f"sqlite:///{db}"))
+    (link, sql, res), (ext_link, ext_sql, ext_res) = outs["cuda"]
+    check("CREATE TABLE" in link and json.loads(sql)["rows"] == [["frank", 130]]
+          and res["result"]["rows"][0][0] == "frank" and "frank" in (res["answer"] or ""),
+          f"(b) text2sql over the KB's tables: {link[:200]!r} {sql} {res}")
+    check(json.loads(ext_sql)["rows"][0][0] == "zed" and ext_res["result"]["rows"][0][0] == "zed"
+          and table in ext_link, f"(b) text2sql over database_url: {ext_sql} {ext_res}")
+    check(json.dumps(outs["cuda"], default=str) == json.dumps(outs["cpu"], default=str),
+          "(b) text2sql: the card's schema link, SQL result or answer differ from the twin's")
+    print(f"  text2sql (the text2sql config's toolkit) over a KB of {len(names)} CSV sources "
+          f"built by build_sources: the schema link, the SQL result and the answer (a failed "
+          f"draft, then the statement) equal the CPU twin's; again over a sqlite:/// "
+          f"database_url")
+
+    # the rag toolkit on a CUDA KB
+    tk = tools.get_toolkit("rag", ToolkitConfig(name="rag", config={"name": "rag-4g"}))
+    check(tk.kb.device.type == "cuda", f"(b) rag's KB is on {tk.kb.device}")
+    built = asyncio.run(tk.rag_build(["jupiter is the largest planet", "cats are small felines",
+                                      "sourdough rises with wild yeast"]))
+    found = asyncio.run(tk.rag_retrieve("largest planet jupiter", top_k=1))
+    cleared = asyncio.run(tk.rag_clear())
+    check("3 documents" in built and "jupiter" in found and cleared == "cleared 3 chunks"
+          and asyncio.run(tk.kb.store.count()) == 0, f"(b) rag: {built} / {found} / {cleared}")
+    print(f"  rag on a CUDA KB: {built}; the search finds jupiter; {cleared}")
+    torch.cuda.synchronize()
+    launches = launch_counts()["bfloat16"]
+    check(launches > 0, "(b) the agents' searches never launched topk_pruned")
+    print(f"  topk_pruned launches in (b): {launches}")
+    return {"launches": launches}
+
+
+def memory_and_toolkits(seed: int, smi: str, part: str) -> dict:
+    """4g: (a) the memory plane at a shared deployment's size, (b) agents
+    from configs; both memory modules read one frozen clock throughout."""
+    import youtu_rag_tpu_torch.memory.store as store_mod
+    import youtu_rag_tpu_torch.memory.toolkit as toolkit_mod
+
+    clock = FrozenClock(MEM_EPOCH)
+    saved = store_mod.time, toolkit_mod.time
+    store_mod.time = toolkit_mod.time = clock
+    try:
+        t0 = time.perf_counter()
+        out = memory_plane(seed, smi, part)
+        print(f"  (a) {time.perf_counter() - t0:.1f} s wall")
+        t0 = time.perf_counter()
+        out["agents"] = agent_configs(seed, smi)
+        print(f"  (b) {time.perf_counter() - t0:.1f} s wall")
+    finally:
+        store_mod.time, toolkit_mod.time = saved
+    out["launches"] += out["agents"]["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -3974,6 +4691,9 @@ def main() -> int:
     phase("4f main path, ingest through the staged builder")
     ingest4f = ingest_corpus(args.seed, smi)
 
+    phase("4g memory and toolkits")
+    mem4g = memory_and_toolkits(args.seed, smi, part)
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -4008,7 +4728,7 @@ def main() -> int:
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
-                            if tier == "bfloat16" else 0)),
+                            + mem4g["launches"] if tier == "bfloat16" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],

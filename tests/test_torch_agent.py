@@ -10,7 +10,8 @@ CLI's agentic mode, against the JAX package's on the CPU.
   as JAX's;
 - the JAX package's ``tests/agents/test_simple_agent.py`` and
   ``test_react.py`` loop cases on the port; the parts not ported yet
-  (memory, environments, the builtin toolkits) refuse clearly;
+  (environments, the orchestrator agent types, the excel agent) refuse
+  clearly;
 - ``python -m youtu_rag_tpu_torch.cli_chat --llm-weights-dir
   benchmarks/models/yrt_tiny_chat --device cpu``: the agentic loop calls
   ``kb_embedding_search`` and prints the same transcript as the same loop
@@ -145,20 +146,35 @@ def test_toolkit_schemas_match_jax(kbs):
 
 
 def test_registry_and_unported_parts(kbs):
+    """The registry builds the ported toolkits; what is still not ported
+    raises naming its queue item: agent environments and the orchestrator
+    agent types (Queue A 6.2), the excel agent (the DTR integration)."""
+    from youtu_rag_tpu_torch.agents.factory import ORCHESTRATOR_TYPES, get_agent
+    from youtu_rag_tpu_torch.memory import VectorMemoryToolkit
+
     port_kb, _ = kbs
     tk = get_toolkit("kb_search", ToolkitConfig(name="kb_search", config={"kb": port_kb}))
     assert isinstance(tk, KBSearchToolkit)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        get_toolkit("bash")
+    assert get_toolkit("bash").get_tools_in_openai()[0]["function"]["name"] == "run_bash"
     with pytest.raises(KeyError):
         get_toolkit("no_such_toolkit")
     cfg = AgentConfig()
     cfg.memory.enabled = True
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        asyncio.run(SimpleAgent(cfg, client=FakeChatClient()).build())
+    agent = asyncio.run(SimpleAgent(cfg, client=FakeChatClient(), device="cpu").build())
+    assert isinstance(agent.memory_toolkit, VectorMemoryToolkit)
+    assert agent.memory_toolkit.store.store.device.type == "cpu"
     cfg = AgentConfig.from_dict({"env": {"name": "shell_local"}})
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(NotImplementedError, match="Queue A 6.2"):
         asyncio.run(SimpleAgent(cfg, client=FakeChatClient()).build())
+    assert set(ORCHESTRATOR_TYPES) == {"orchestra", "orchestra_react_sql", "orchestrator",
+                                       "parallel_orchestrator", "workforce"}
+    for agent_type in ORCHESTRATOR_TYPES:
+        with pytest.raises(NotImplementedError, match="Queue A 6.2"):
+            get_agent({"type": agent_type}, client=FakeChatClient())
+    with pytest.raises(NotImplementedError, match="integrations/dtr"):
+        get_agent({"type": "excel"}, client=FakeChatClient())
+    with pytest.raises(ValueError, match="unknown agent type"):
+        get_agent(AgentConfig.model_construct(type="nope"), client=FakeChatClient())
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,11 @@ def test_port_has_sources():
                    "tools/schema.py", "tools/kb_search.py", "native/__init__.py",
                    "ingest/agent.py", "ingest/processors.py", "ingest/tables.py",
                    "ingest/qa_file.py", "ingest/cleanup.py", "ingest/metadata_extractor.py",
-                   "ingest/hichunk.py", "ingest/ocr.py"):
+                   "ingest/hichunk.py", "ingest/ocr.py", "memory/store.py", "memory/toolkit.py",
+                   "tools/builtin.py", "tools/rag_toolkit.py", "tools/meta_retrieval.py",
+                   "tools/text2sql.py", "tools/misc.py", "tools/file_edit.py",
+                   "tools/html_toolkit.py", "tools/web.py", "tools/mcp_client.py",
+                   "db/adapters.py", "agents/factory.py", "core/loader.py", "eval/config.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
@@ -84,7 +88,8 @@ def test_cpu_query_loads_no_jax():
 
 CARD_SCRIPT = """
 import sys
-for name in ("transformers", "tokenizers", "safetensors", "httpx", "pandas", "cffi"):
+for name in ("transformers", "tokenizers", "safetensors", "httpx", "pandas", "cffi", "yaml",
+             "bs4"):
     sys.modules[name] = None  # none of them is required: importing them fails
 import importlib, pkgutil, tempfile
 import numpy as np, torch
@@ -107,15 +112,16 @@ with tempfile.TemporaryDirectory() as d:
     scores = rr.score("quick fox", ["the quick brown fox", "lazy dog"])
     assert len(scores) == 2 and np.isfinite(scores).all()
 print(len(names), sorted(m for m in ("transformers", "tokenizers", "safetensors", "httpx",
-                                    "pandas", "cffi") if sys.modules.get(m) is not None))
+                                    "pandas", "cffi", "yaml", "bs4")
+                         if sys.modules.get(m) is not None))
 """
 
 
 def test_card_path_needs_no_hf_packages():
     """The port requires none of transformers, tokenizers, safetensors,
-    httpx, pandas and cffi (the card's machine need not have them): every
-    port module imports without them, and a pretrained checkpoint (written
-    by the tests' numpy writer) embeds and reranks."""
+    httpx, pandas, cffi, yaml and bs4 (the card's machine need not have
+    them): every port module imports without them, and a pretrained
+    checkpoint (written by the tests' numpy writer) embeds and reranks."""
     out = subprocess.run([sys.executable, "-c", CARD_SCRIPT], capture_output=True, text=True,
                          cwd=REPO, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert out.returncode == 0, out.stderr
@@ -192,6 +198,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
     from youtu_rag_tpu_torch.agents.llm import get_chat_client
     from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient
+    from youtu_rag_tpu_torch.memory import MemoryVectorStore, VectorMemoryToolkit
+    from youtu_rag_tpu_torch.models.embedder import HashEmbedder
     from youtu_rag_tpu_torch.models.reranker import TorchReranker
 
     for make in (lambda: resolve_device(None), lambda: DeviceVectorIndex(8),
@@ -199,10 +207,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: TorchEmbedder.from_pretrained("/nowhere"),
                  lambda: TorchReranker.from_pretrained("/nowhere"), TorchReranker,
                  lambda: LocalChatClient("/nowhere"),
-                 lambda: get_chat_client({"provider": "local", "weights_dir": "/nowhere"})):
+                 lambda: get_chat_client({"provider": "local", "weights_dir": "/nowhere"}),
+                 lambda: MemoryVectorStore(HashEmbedder(16)), VectorMemoryToolkit,
+                 lambda: VectorMemoryToolkit({"user_id": "u"})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert DeviceVectorIndex(8, device="cpu").device.type == "cpu"
+    assert MemoryVectorStore(HashEmbedder(16), device="cpu").store.device.type == "cpu"
+    assert VectorMemoryToolkit({"device": "cpu"}).store.store.device.type == "cpu"
 
 
 def test_cli_without_cuda_raises(tmp_path):

@@ -1,7 +1,8 @@
 """The agent layer: chat clients (remote, fake and the local decoder), the
-ReAct adapter and the single-agent tool loop."""
+ReAct adapter, the single-agent tool loop and ``get_agent``."""
 
 from .config import AgentConfig, ModelConfig
+from .factory import get_agent
 from .llm import (
     BaseChatClient,
     ChatMessage,
@@ -25,5 +26,6 @@ __all__ = [
     "OpenAIChatClient",
     "SimpleAgent",
     "ToolCall",
+    "get_agent",
     "get_chat_client",
 ]

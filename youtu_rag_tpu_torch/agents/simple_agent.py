@@ -7,12 +7,18 @@
   through it; ``chat()`` keeps the history across calls;
 - the tool loop is capped at ``config.max_turns``; each turn's tool calls
   run concurrently (or in order with ``parallel_tool_calls: false``);
-- a given memory toolkit is read before the run and written after it.
+- the memory toolkit (given, or the ``VectorMemoryToolkit`` that
+  ``memory.enabled`` builds for ``memory.user_id``) is read before the run
+  and written after it.
 
-Not ported yet (ROADMAP Queue A 6), and refused at ``build()``: agent
-environments (``env.name``), the vector-memory toolkit the config's
-``memory.enabled`` builds, and the toolkits of the JAX package's
-``tools/builtin.py``.
+The device seam: ``SimpleAgent(..., device=)`` is where the stores this
+agent makes live. ``build()`` hands it to the memory toolkit it makes and,
+as the ``device`` key of each toolkit config that does not name one, to
+the config's toolkits (those that make a store or a KB read it: ``rag``,
+``memory``); ``None`` means the CUDA card, as everywhere in the port.
+Toolkits passed in ``toolkits=`` keep their own. Not ported yet (ROADMAP
+Queue A 6.2), and refused at ``build()``: agent environments
+(``env.name``).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ class SimpleAgent:
         memory_toolkit=None,
         trajectory_sink=None,
         hooks=None,
+        device=None,
     ):
         if isinstance(config, dict):
             config = AgentConfig.from_dict(config)
@@ -48,6 +55,7 @@ class SimpleAgent:
         self._extra_toolkits = toolkits or []
         self.memory_toolkit = memory_toolkit
         self.trajectory_sink = trajectory_sink
+        self.device = device
         from .context import get_context_manager
         from .hooks import HookRunner, get_run_hooks
 
@@ -74,16 +82,22 @@ class SimpleAgent:
         if self.config.env.name:
             raise NotImplementedError(
                 f"env {self.config.env.name!r}: agent environments are not ported yet "
-                "(ROADMAP Queue A 6)")
+                "(ROADMAP Queue A 6.2)")
         if self.config.toolkits:
             from ..tools import get_toolkit
 
             for name, tk_cfg in self.config.toolkits.items():
                 tk_cfg.name = tk_cfg.name or name
+                if self.device is not None and "device" not in tk_cfg.config:
+                    tk_cfg = tk_cfg.model_copy(
+                        update={"config": {**tk_cfg.config, "device": self.device}})
                 toolkits.append(get_toolkit(tk_cfg.name, tk_cfg))
         if self.config.memory.enabled and self.memory_toolkit is None:
-            raise NotImplementedError(
-                "memory.enabled: the vector-memory toolkit is not ported yet (ROADMAP Queue A 6)")
+            from ..memory.toolkit import VectorMemoryToolkit
+
+            self.memory_toolkit = VectorMemoryToolkit(
+                {"user_id": self.config.memory.user_id, "device": self.device}
+            )
         self.router = ToolRouter(toolkits)
         await self.router.build()
         if self.memory_toolkit is not None:

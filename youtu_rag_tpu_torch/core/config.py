@@ -6,8 +6,10 @@ sections composed into one ``RAGConfig``. Device-index knobs live in
 ``IndexConfig`` (block sizes, dtype, IVF) — a *new* section with no
 reference counterpart, since the reference delegates indexing to
 Chroma/FAISS. A copy of ``youtu_rag_tpu/core/config.py``; only the vector
-store's backend literal differs. The device is not a config field: it is
-a constructor argument of the index, the store and the knowledge base.
+store's backend literal differs ("torch"; a config naming the JAX
+package's "tpu" engine reads as "torch"). The device is not a config
+field: it is a constructor argument of the index, the store and the
+knowledge base.
 """
 
 from __future__ import annotations
@@ -209,6 +211,13 @@ class VectorStoreConfig(ConfigBase):
     # 50k x 120-token chunks -> 165 MB) — right for KBs up to ~2M chunks;
     # disable for 10M-chunk single-host deployments or shard hosts.
     lexical_index: bool = True
+
+    @field_validator("backend", mode="before")
+    @classmethod
+    def _device_engine(cls, v: Any) -> Any:
+        # the shared configs/rag/*.yaml name the JAX package's device engine
+        # ("tpu"); in the port the device engine is the torch index
+        return "torch" if v == "tpu" else v
 
 
 class MonitorConfig(ConfigBase):

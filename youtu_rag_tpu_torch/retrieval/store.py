@@ -139,6 +139,13 @@ class TorchVectorStore(BaseVectorStore):
         if self._lexical is not None:
             self._lexical.delete(chunk_ids)
 
+    async def update_metadata(self, chunk_ids: list[str], metadatas: list[dict]) -> int:
+        """Metadata-only update in place on the device (no re-embedding);
+        returns the rows updated (see ``DeviceVectorIndex.update_metadata``)."""
+        if self._index is None:
+            return 0
+        return self._index.update_metadata(chunk_ids, metadatas)
+
     async def delete_by_document_id(self, document_id: str) -> int:
         if self._index is None:
             return 0

@@ -1,23 +1,17 @@
-"""Agent toolkits: the registry, the toolkit base and the KB-search tools.
+"""Agent toolkits: the registry, the toolkit base and the builtin toolkits.
 
-The port's counterpart of ``youtu_rag_tpu/tools/__init__.py``. The port
-has the ``kb_search`` toolkit (``tools/kb_search.py``); the names the JAX
-package registers in ``tools/builtin.py`` and its siblings (web, files,
-code execution, memory, text2sql, MCP, ...) raise ``NotImplementedError``
-until ROADMAP Queue A 6 ports them.
+The port's counterpart of ``youtu_rag_tpu/tools/__init__.py``:
+``get_toolkit`` imports ``tools/builtin.py``, which registers every
+toolkit the JAX package registers (KB search, RAG, meta-retrieval,
+text2sql, vector memory, web, files, code execution, MCP, ...). The
+toolkits that make a store or a KB read its device from their config's
+``device`` key (``None`` → the CUDA card).
 """
 
 from .base import AsyncBaseToolkit, ToolkitConfig, register_tool
 from .schema import function_schema
 
 TOOLKIT_MAP: dict[str, type] = {}
-
-# the JAX package's other toolkits (tools/builtin.py and the modules it imports)
-NOT_PORTED = (
-    "arxiv", "audio", "bash", "codesnip", "document", "file", "file_edit", "github", "html",
-    "image", "mcp", "memory", "memory_simple", "meta_retrieval", "python_executor", "rag",
-    "search", "tabular", "text2sql", "user_interaction", "video", "wikipedia",
-)
 
 
 def register_toolkit(name: str):
@@ -31,13 +25,9 @@ def register_toolkit(name: str):
 
 
 def get_toolkit(name: str, config=None):
-    # populate the registry lazily (kb_search imports this module)
-    from . import kb_search  # noqa: F401
+    # populate the registry lazily (the toolkit modules import this one)
+    from . import builtin  # noqa: F401
 
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"toolkit {name!r} is not ported yet (ROADMAP Queue A 6); the port has "
-            f"{sorted(TOOLKIT_MAP)}")
     if name not in TOOLKIT_MAP:
         raise KeyError(f"unknown toolkit {name!r}; available: {sorted(TOOLKIT_MAP)}")
     return TOOLKIT_MAP[name](config)
