@@ -171,6 +171,38 @@ Phases; any failure exits non-zero before the result lines:
      ``database_url`` with a scripted model, each against a CPU twin, and
      the rag toolkit's add, search and clear on a CUDA KB; no run may
      report an error;
+  4h. agents from configs: orchestrators, environments, the trajectory
+     store: a team's KB (4f's 2,048 files, the hash provider, hybrid) on the
+     card and its CPU twin under two names, and text2sql KBs of 4g's CSV
+     sources with its sqlite ``database_url``; (a) the shipped configs
+     orchestra_example, orchestrator/chain and orchestrator/parallel
+     (max_parallel 4) on 8 of 4f's facts each, workforce_example on 4 and
+     examples/text2sql through ``ConfigLoader`` (it needs yaml) and
+     ``get_agent`` (no ``device``: the card), each against its CPU twin
+     (``device="cpu"``):
+     scripted planners, workers built from the config's worker entries with
+     scripted models that run one kb_hybrid_search of their question;
+     gates: no run or worker run reports an error, each fact's document is
+     in its worker's observation, the final output, the orchestrator's
+     trajectory and events per stream, every worker run (events,
+     trajectory, tool calls, output) the twin's (observations up to
+     near-ties within TOL), text2sql's SQL and answer the twin's, and
+     topk_pruned launched at least once per worker search; (b) each run
+     writes one TrajectoryRecord through a trajectory sink into a
+     ``DBService`` on sqlite and its spans through
+     ``setup_tracing(db_service=...)``: one record per run, the record and
+     the tool and generation trace rows the twin's (ids, clocks and
+     durations left out); (c) a SimpleAgent with ``env: shell_local`` runs
+     run_bash and execute_python_code in its workspace, gone after
+     ``cleanup``, and whether ``BrowserEnv`` builds is printed; (d)
+     orchestra_example with its workers' model ``provider: local``
+     (yrt_tiny_chat): the orchestrator builds them from config as
+     LocalChatClient on cuda, no error, the transcript beside the CPU
+     port's (printed); (e) host-clock median and spread of 16 runs per
+     config, topk_pruned launches and device ms per run, the parallel
+     orchestrator with coalesce_window_ms 0 and 2 (the same results), the
+     StorageMonitor's health of the card's store (healthy, every chunk) and
+     collect_metrics' time;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -252,8 +284,8 @@ Phases; any failure exits non-zero before the result lines:
   8. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), 5, 5c, 5d, 5b, 5e and 6a drive it and read
-just after; launches
+4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), 5, 5c,
+5d, 5b, 5e and 6a drive it and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
 """
@@ -265,12 +297,14 @@ import asyncio
 import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -2324,8 +2358,9 @@ def ingest_words(rng, n: int) -> list[str]:
 
 
 def write_ingest_corpus(root: str, seed: int, version: int = 0,
-                        names: list[str] | None = None) -> list[tuple[str, str]]:
-    """INGEST_DOCS markdown files of ~INGEST_CHARS characters: a title that
+                        names: list[str] | None = None, n_docs: int = INGEST_DOCS,
+                        chars: int = INGEST_CHARS) -> list[tuple[str, str]]:
+    """``n_docs`` markdown files of ~``chars`` characters: a title that
     names the document's entity, one fact sentence ("The <attr> of <entity>
     is <value>."; entity and attribute words belong to this document
     alone), then paragraphs of sentences over a shared vocabulary of 8,000
@@ -2335,12 +2370,12 @@ def write_ingest_corpus(root: str, seed: int, version: int = 0,
     fact question) per document."""
     rng = np.random.default_rng(seed)
     vocab = np.array(sorted(set(ingest_words(rng, 8000))))
-    entities = sorted({w.capitalize() for w in ingest_words(rng, 4 * INGEST_DOCS)})
+    entities = sorted({w.capitalize() for w in ingest_words(rng, 4 * n_docs)})
     rng.shuffle(entities)
-    attrs = sorted(set(ingest_words(rng, 4 * INGEST_DOCS)) - {e.lower() for e in entities})
+    attrs = sorted(set(ingest_words(rng, 4 * n_docs)) - {e.lower() for e in entities})
     rng.shuffle(attrs)
     facts = []
-    for i in range(INGEST_DOCS):
+    for i in range(n_docs):
         name = f"doc{i:04d}.md"
         ent = f"{entities[2 * i]} {entities[2 * i + 1]}"
         attr = f"{attrs[i]} {INGEST_KINDS[i % len(INGEST_KINDS)]}"
@@ -2351,7 +2386,7 @@ def write_ingest_corpus(root: str, seed: int, version: int = 0,
         frng = np.random.default_rng([seed, i, version])
         text = f"# {ent}\n\nThe {attr} of {ent} is {value}."
         sentences, size = [], len(text) + 2
-        while size < INGEST_CHARS:
+        while size < chars:
             s = " ".join(vocab[frng.integers(0, len(vocab), size=int(frng.integers(8, 17)))])
             sentences.append(s.capitalize() + ".")
             size += len(sentences[-1]) + 1
@@ -3193,14 +3228,43 @@ def text2sql_run(tools, kb, table: str, llm, database_url: str = ""):
     return link, sql, asyncio.run(Text2SQLAgent(tk, llm).text2sql("who earns the most?"))
 
 
+TABLE_SOURCES = ("staff.csv", "cities.csv", "prices.csv", "teams.csv")
+
+
+def write_table_sources(d: str) -> tuple[str, ...]:
+    """The four CSV sources of the text2sql KBs (phases 4g and 4h)."""
+    import pandas as pd
+
+    pd.DataFrame({"employee": ["alice", "bob", "carol", "dave", "erin", "frank"],
+                  "department": ["eng", "eng", "sales", "sales", "hr", "eng"],
+                  "salary": [120, 110, 90, 95, 80, 130]}).to_csv(f"{d}/staff.csv", index=False)
+    pd.DataFrame({"city": ["paris", "rome", "oslo"], "country": ["fr", "it", "no"]}).to_csv(
+        f"{d}/cities.csv", index=False)
+    pd.DataFrame({"sku": ["a1", "b2"], "price": [3.5, 4.0]}).to_csv(f"{d}/prices.csv",
+                                                                    index=False)
+    pd.DataFrame({"team": ["eng", "sales"], "lead": ["alice", "carol"]}).to_csv(
+        f"{d}/teams.csv", index=False)
+    return TABLE_SOURCES
+
+
+def write_external_staff(path: str, table: str) -> str:
+    """A sqlite database_url's file: ``table`` with two other employees."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    conn.execute(f'CREATE TABLE "{table}" (employee TEXT, department TEXT, salary INTEGER)')
+    conn.executemany(f'INSERT INTO "{table}" VALUES (?, ?, ?)',
+                     [("zed", "eng", 200), ("amy", "hr", 70)])
+    conn.commit()
+    conn.close()
+    return path
+
+
 def agent_configs(seed: int, smi: str) -> dict:
     """4g (b): memory_chat, meta_retrieval and text2sql from their configs,
     and the rag toolkit, on the card; each against a CPU twin. Returns the
     launches."""
     import importlib.util
-    import sqlite3
-
-    import pandas as pd
 
     from youtu_rag_tpu_torch import tools
     from youtu_rag_tpu_torch.agents.llm import FakeChatClient
@@ -3258,17 +3322,7 @@ def agent_configs(seed: int, smi: str) -> dict:
 
     # text2sql over a KB built from 4 CSV sources, then over a sqlite database_url
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
-        pd.DataFrame({"employee": ["alice", "bob", "carol", "dave", "erin", "frank"],
-                      "department": ["eng", "eng", "sales", "sales", "hr", "eng"],
-                      "salary": [120, 110, 90, 95, 80, 130]}).to_csv(f"{d}/staff.csv",
-                                                                     index=False)
-        pd.DataFrame({"city": ["paris", "rome", "oslo"], "country": ["fr", "it", "no"]}).to_csv(
-            f"{d}/cities.csv", index=False)
-        pd.DataFrame({"sku": ["a1", "b2"], "price": [3.5, 4.0]}).to_csv(f"{d}/prices.csv",
-                                                                        index=False)
-        pd.DataFrame({"team": ["eng", "sales"], "lead": ["alice", "carol"]}).to_csv(
-            f"{d}/teams.csv", index=False)
-        names = ("staff.csv", "cities.csv", "prices.csv", "teams.csv")
+        names = write_table_sources(d)
         drafts = [0]
 
         def rule(messages, tools_):
@@ -3291,14 +3345,7 @@ def agent_configs(seed: int, smi: str) -> dict:
                   f"(b) text2sql build: {report.summary()}")
             table = next(t for t in report.tables if t.startswith("staff"))
             llm = LLMAgent(client=FakeChatClient(rule_fn=rule))
-            db = f"{d}/ext-{device}.sqlite"
-            conn = sqlite3.connect(db)
-            conn.execute(f'CREATE TABLE "{table}" (employee TEXT, department TEXT, '
-                         "salary INTEGER)")
-            conn.executemany(f'INSERT INTO "{table}" VALUES (?, ?, ?)',
-                             [("zed", "eng", 200), ("amy", "hr", 70)])
-            conn.commit()
-            conn.close()
+            db = write_external_staff(f"{d}/ext-{device}.sqlite", table)
             outs[device] = (text2sql_run(tools, kb, table, llm),
                             text2sql_run(tools, kb, table, llm, f"sqlite:///{db}"))
     (link, sql, res), (ext_link, ext_sql, ext_res) = outs["cuda"]
@@ -3351,6 +3398,625 @@ def memory_and_toolkits(seed: int, smi: str, part: str) -> dict:
         store_mod.time, toolkit_mod.time = saved
     out["launches"] += out["agents"]["launches"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# 4h. agents from configs: orchestrators, environments, the trajectory store
+# ---------------------------------------------------------------------------
+
+# shipped config → (facts asked, offset into 4f's asked facts)
+TEAM_KINDS = {"orchestra_example": (8, 0), "orchestrator/chain": (8, 8),
+              "orchestrator/parallel": (8, 16), "workforce_example": (4, 24)}
+TEAM_LOCAL = (28, 30)  # (d): the local-LLM workers' facts among 4f's asked
+TEAM_TIMED_RUNS = 16
+TEAM_KB, TEAM_TWIN = "team-kb", "team-kb-cpu"
+T2S_KB, T2S_TWIN = "team-t2s", "team-t2s-cpu"
+LOOK_UP = "Look up: "
+COUNT_TASK = "Compute: count the facts found"
+HIT_RE = re.compile(r"\[(\d+)\] \(score (-?\d+\.\d+), source ([^)]*)\)\n")
+
+
+def port_agents_package(device=None) -> types.SimpleNamespace:
+    """The port's agent, config, registry and trajectory-store modules as
+    phase 4h drives them, with ``device`` for every agent it builds (the
+    CPU tests hand the JAX package's modules to the same functions)."""
+    import youtu_rag_tpu_torch.db.models as models
+    import youtu_rag_tpu_torch.tracing.tracer as tracer
+    from youtu_rag_tpu_torch.agents import FakeChatClient, SimpleAgent, get_agent
+    from youtu_rag_tpu_torch.core.loader import ConfigLoader
+    from youtu_rag_tpu_torch.db.service import DBService
+    from youtu_rag_tpu_torch.retrieval.kb import GLOBAL_KB_REGISTRY
+
+    return types.SimpleNamespace(
+        get_agent=get_agent, Fake=FakeChatClient, SimpleAgent=SimpleAgent,
+        loader=ConfigLoader(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")),
+        registry=GLOBAL_KB_REGISTRY, DBService=DBService, models=models, tracer=tracer,
+        device={"device": device})
+
+
+def team_workers(cfg) -> dict:
+    """The worker entries of an orchestrator's config, whatever its type."""
+    return cfg.workers or cfg.orchestrator_workers or cfg.workforce_executor_agents
+
+
+def team_config(pkg, kind: str, kb_name: str, database_url: str = ""):
+    """The shipped config ``kind`` through the package's ConfigLoader, with
+    YRT_KB_NAME (and YRT_TEXT2SQL_DB) naming this run's KB; a kb_search
+    toolkit whose config names no KB (chain, parallel, workforce: it would
+    look up "default") is given ``kb_name`` too."""
+    saved = {k: os.environ.get(k) for k in ("YRT_KB_NAME", "YRT_TEXT2SQL_DB")}
+    os.environ["YRT_KB_NAME"], os.environ["YRT_TEXT2SQL_DB"] = kb_name, database_url
+    try:
+        cfg = pkg.loader.load_agent_config(kind)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for w_cfg in team_workers(cfg).values():
+        tk = w_cfg.toolkits.get("kb_search")
+        if tk is not None and "kb" not in tk.config:
+            tk.config["kb"] = kb_name
+    return cfg
+
+
+def subtask(text: str) -> str:
+    """A worker's own subtask, past the context its orchestrator puts first."""
+    for marker in ("Your subtask: ", "Your task: ", "\nTask: "):
+        at = text.rfind(marker)
+        if at >= 0:
+            return text[at + len(marker):].strip()
+    return text.strip()
+
+
+def team_planner(fake, questions: list[str], count: bool = True, prefix: str = LOOK_UP):
+    """The scripted planner, router, assigner, checker, merger, answerer and
+    reporter of every orchestrator type: one searcher subtask per question,
+    then a count (orchestra's analyst, workforce's coder) or a summary
+    (chain's and parallel's writer; orchestra's count only with ``count``);
+    each answer counts the facts found. Subtasks read ``prefix`` + question
+    (the scripted workers look for LOOK_UP; a local model is asked the bare
+    question, the form it was trained on)."""
+    look = [prefix + q for q in questions]
+
+    def found(text: str) -> str:
+        return f"{text.count(': found')} of {len(look)} facts found."
+
+    def rule(messages, tools):
+        system, content = messages[0].content or "", messages[-1].content or ""
+        if "task planner" in system:
+            plan = [{"agent_name": "searcher", "task": t, "completed": False} for t in look]
+            if count:
+                plan.append({"agent_name": "analyst", "task": COUNT_TASK, "completed": False})
+            return fake.text_response("<analysis>one search per question, then a count"
+                                      "</analysis>\n<plan>[\n"
+                                      + ",\n".join(json.dumps(t) for t in plan) + "\n]</plan>")
+        if "Trajectory:" in content:
+            return fake.text_response("Report: " + found(content))
+        searches = [{"agent_name": "searcher", "task": t} for t in look]
+        writer = {"agent_name": "writer", "task": "Write the summary"}
+        if "orchestrator routing" in system:
+            return fake.text_response(json.dumps(searches + [writer]))
+        if "INDEPENDENT" in system:
+            return fake.text_response(json.dumps({"groups": [searches, [writer]]}))
+        if content.startswith("Merge the results"):
+            return fake.text_response("Merged: " + found(content))
+        if "project planner" in system:
+            return fake.text_response(json.dumps(look + [COUNT_TASK]))
+        if content.startswith("Pick the best executor"):
+            task = content.split("\nTask: ", 1)[1].split("\n\nReply JSON only", 1)[0]
+            name = "researcher" if task.startswith(LOOK_UP) else "coder"
+            return fake.text_response(json.dumps({"executor": name, "instruction": task}))
+        if content.startswith("You are reviewing plan progress"):
+            return fake.text_response('{"action": "continue"}')
+        if content.startswith("Extract the final answer"):
+            return fake.text_response("Answer: " + found(content))
+        return fake.text_response("(unscripted)")
+
+    return rule
+
+
+def team_worker(fake, docs: dict[str, str]):
+    """A worker's scripted model: a subtask that names a question gets one
+    kb_hybrid_search of it, then whether the question's document came
+    back; the count gets one python run over the results in its context;
+    anything else a summary of them."""
+
+    def rule(messages, tools):
+        task = subtask(next((m.content for m in messages if m.role == "user"), "") or "")
+        context = next((m.content for m in messages if m.role == "user"), "") or ""
+        question = task[len(LOOK_UP):] if task.startswith(LOOK_UP) else None
+        last = messages[-1]
+        if last.role == "tool":
+            if question is not None:
+                doc = docs[question]
+                return fake.text_response(f"{doc}: {'found' if doc in last.content else 'missing'}")
+            return fake.text_response(f"Computed: {last.content.strip()} facts found.")
+        if question is not None:
+            return fake.tool_response("kb_hybrid_search", {"query": question, "top_k": 5})
+        if task == COUNT_TASK:
+            return fake.tool_response("execute_python_code",
+                                      {"code": f"print({context.count(': found')})"})
+        return fake.text_response(f"Summary: {context.count(': found')} facts found.")
+
+    return rule
+
+
+def record_worker_runs(workers: dict, runs: dict) -> None:
+    """Tee every run of each worker into ``runs[name]``: (task, recorder,
+    the events it emitted). The orchestrators forward a worker's events
+    only in parallel; text2sql's worker emits none."""
+    for name, w in workers.items():
+        log = runs.setdefault(name, [])
+        if hasattr(w, "run_streamed"):
+            def run_streamed(task, _real=w.run_streamed, _log=log, **kw):
+                rec = _real(task, **kw)
+                events, emit = [], rec.emit
+
+                def tee(ev, _events=events, _emit=emit):
+                    _events.append(ev)
+                    _emit(ev)
+
+                rec.emit = tee
+                _log.append((task, rec, events))
+                return rec
+
+            w.run_streamed = run_streamed
+        else:
+            async def run(task, _real=w.run, _log=log):
+                rec = await _real(task)
+                _log.append((task, rec, []))
+                return rec
+
+            w.run = run
+
+
+def event_view(e) -> tuple:
+    """An event without its timestamp (and a task card's duration_ms)."""
+    data = {k: v for k, v in e.data.items() if k != "duration_ms"}
+    return (e.type, e.text, e.name, e.arguments, e.call_id, json.dumps(data, sort_keys=True))
+
+
+def event_key(e) -> str:
+    """The stream an event belongs to: a parallel task's (its worker, group
+    and index) or the orchestrator's own; concurrent tasks interleave."""
+    d = e.data
+    return f"{d.get('parallel_agent') or d.get('agent_name') or ''}/{d.get('group', '')}/" \
+           f"{d.get('task_idx', '')}"
+
+
+def record_rows(db, cls, trace_id: str, drop: tuple) -> list[dict]:
+    import dataclasses
+
+    rows = db.select(cls, where={"trace_id": trace_id}, limit=100_000, order_by="_rowid ASC")
+    return sorted((json.dumps({k: v for k, v in dataclasses.asdict(r).items() if k not in drop},
+                              sort_keys=True) for r in rows))
+
+
+def drive_team_run(pkg, agent, agent_type: str, task: str, kbs: list, db,
+                   docs: dict[str, str]) -> dict:
+    """One orchestrator run, streamed, with ``kbs`` registered under their
+    names for it (the registry as it was after), its trajectory written
+    through a sink into ``db`` and its spans recorded by
+    ``setup_tracing(db_service=db)``. Returns what the gates and the twin
+    comparison read."""
+    import dataclasses
+    import uuid
+
+    saved = {kb.name: pkg.registry.get(kb.name) for kb in kbs}
+    for kb in kbs:
+        pkg.registry.register(kb)
+    models = pkg.models
+    trace_id = f"4h-{uuid.uuid4().hex[:12]}"
+
+    async def sink(record):
+        db.add(models.TrajectoryRecord.from_recorder_dict(record, agent_type=agent_type))
+
+    async def go():
+        with pkg.tracer.get_tracer().trace(trace_id):
+            rec = agent.run_streamed(task)
+            events = [e async for e in rec.stream_events()]
+            try:
+                await rec.wait()
+            except RuntimeError:
+                pass  # rec.error says why
+            await sink(rec.as_record())
+        return rec, events
+
+    runs: dict = {}
+    before = db.count(models.TrajectoryRecord)
+    try:
+        asyncio.run(agent.build())
+        record_worker_runs(getattr(agent, "_workers", None) or getattr(agent, "_executors", None)
+                           or {}, runs)
+        pkg.tracer.setup_tracing(db_service=db)
+        t0 = time.perf_counter()
+        rec, events = asyncio.run(go())
+        seconds = time.perf_counter() - t0
+    finally:
+        pkg.tracer.setup_tracing()
+        for name, prev in saved.items():
+            if prev is None:
+                pkg.registry.remove(name)
+            else:
+                pkg.registry.register(prev)
+        asyncio.run(agent.cleanup())
+    grouped: dict[str, list] = {}
+    for e in events:
+        grouped.setdefault(event_key(e), []).append(event_view(e))
+    workers, observations, searches, errors = {}, [], 0, []
+    for name, log in runs.items():
+        views = []
+        for sub, wrec, evs in log:
+            calls = [(t.name, t.arguments, t.output) for t in wrec.tool_calls]
+            views.append((sub, [event_view(e) for e in evs], wrec.trajectory, calls,
+                          wrec.final_output, wrec.error))
+            errors += [f"{name}: {wrec.error}"] if wrec.error else []
+            if agent_type == "orchestra_react_sql":
+                searches += 1  # the text2sql worker's schema-linking search
+            for tname, args, out in calls:
+                if tname.startswith("kb_"):
+                    searches += 1
+                    try:
+                        doc = docs.get(json.loads(args).get("query"))
+                    except (json.JSONDecodeError, AttributeError):
+                        doc = None
+                    if doc is not None:
+                        observations.append((doc, out))
+        workers[name] = sorted(views, key=lambda v: v[0])
+    trajectory = rec.trajectory
+    if agent_type == "parallel_orchestrator":  # workers finish in any order
+        trajectory = sorted(trajectory, key=lambda t: json.dumps(t, sort_keys=True))
+    newest = db.select(models.TrajectoryRecord, limit=1)
+    record = {}
+    if newest:
+        record = {k: v for k, v in dataclasses.asdict(newest[0]).items()
+                  if k not in ("trace_id", "created_at")}
+        record["tool_calls"] = [{k: v for k, v in t.items() if k != "duration_ms"}
+                                for t in record["tool_calls"]]
+    ids = ("trace_id", "span_id", "created_at", "duration_ms")
+    return {
+        "error": rec.error, "worker_errors": errors, "final": rec.final_output,
+        "trajectory": trajectory, "events": grouped, "workers": workers,
+        "observations": observations, "searches": searches,
+        "missing": [doc for doc, out in observations if doc not in out],
+        "records_added": db.count(models.TrajectoryRecord) - before,
+        "record": record,
+        "tools": record_rows(db, models.ToolTraceRecord, trace_id, ids),
+        "generations": record_rows(db, models.GenerationTraceRecord, trace_id, ids),
+        "seconds": seconds,
+    }
+
+
+def scripted_run(pkg, kind: str, kb, facts: list[tuple[str, str]], db) -> dict:
+    """The shipped config ``kind`` through ``get_agent`` with a scripted
+    planner, its workers built from the config's worker entries with
+    ``team_worker`` models, over ``kb``: one subtask per (document,
+    question) of ``facts``."""
+    cfg = team_config(pkg, kind, kb.name)
+    docs = {q: name for name, q in facts}
+    workers = {name: pkg.SimpleAgent(w_cfg, client=pkg.Fake(rule_fn=team_worker(pkg.Fake, docs)),
+                                     **pkg.device)
+               for name, w_cfg in team_workers(cfg).items()}
+    key = "executors" if cfg.type == "workforce" else "workers"
+    agent = pkg.get_agent(cfg, client=pkg.Fake(rule_fn=team_planner(pkg.Fake, list(docs))),
+                          **{key: workers}, **pkg.device)
+    task = "Answer from the knowledge base: " + " ".join(docs)
+    return drive_team_run(pkg, agent, cfg.type, task, [kb], db, docs)
+
+
+T2S_QUESTION = "Which employee earns the most?"
+
+
+def text2sql_team_run(pkg, kb, database_url: str, db) -> dict:
+    """``examples/text2sql`` through ``get_agent`` (the factory builds its
+    text2sql worker) with one scripted model for the planner, the SQL
+    drafts (a failing one first), the answer and the report, over ``kb``'s
+    tables and the ``database_url`` its config reads."""
+    cfg = team_config(pkg, "examples/text2sql", kb.name, database_url)
+    fake, drafts = pkg.Fake, [0]
+
+    def rule(messages, tools):
+        system, content = messages[0].content or "", messages[-1].content or ""
+        if "task planner" in system:
+            plan = {"agent_name": "text2sql", "task": T2S_QUESTION, "completed": False}
+            return fake.text_response(f"<analysis>one query</analysis><plan>[{json.dumps(plan)}]"
+                                      "</plan>")
+        if content.startswith("You translate questions"):
+            drafts[0] += 1
+            if drafts[0] % 2:
+                return fake.text_response("SELECT nope FROM missing;")
+            table = next(t for t in content.split('"') if t.startswith("staff"))
+            return fake.text_response(
+                f'SELECT employee, salary FROM "{table}" ORDER BY salary DESC LIMIT 1')
+        if "Trajectory:" in content:
+            return fake.text_response("Report: zed earns the most (200).")
+        return fake.text_response("zed earns the most (200).")
+
+    agent = pkg.get_agent(cfg, client=fake(rule_fn=rule), **pkg.device)
+    return drive_team_run(pkg, agent, cfg.type, T2S_QUESTION, [kb], db, {})
+
+
+def parse_hits(text: str) -> list[tuple[float, str, str]] | None:
+    """(score, source, content) of each hit of a KB search observation
+    (``tools/kb_search.py``'s format), or None for other text."""
+    parts = HIT_RE.split(text)
+    if len(parts) < 5 or parts[0]:
+        return None
+    return [(float(parts[i + 1]), parts[i + 2], parts[i + 3].strip("\n"))
+            for i in range(1, len(parts), 4)]
+
+
+def same_observation(got: str, ref: str, tol: float = TOL + 1e-3) -> bool:
+    """Two KB search observations that list the same hits with printed
+    scores within ``tol`` (three decimals), except that hits whose scores
+    lie within ``tol`` of each other may trade places (the card sums in
+    another order than the CPU) and the last may be the one ranked next."""
+    if got == ref:
+        return True
+    g, r = parse_hits(got), parse_hits(ref)
+    if g is None or r is None or len(g) != len(r):
+        return False
+    ref_score = {(src, body): s for s, src, body in r}
+    for i, ((gs, gsrc, gbody), (rs, rsrc, rbody)) in enumerate(zip(g, r)):
+        if abs(gs - rs) > tol:
+            return False
+        if (gsrc, gbody) != (rsrc, rbody):
+            other = ref_score.get((gsrc, gbody))
+            if (other is None and i != len(r) - 1) or (other is not None
+                                                       and abs(other - rs) > tol):
+                return False
+    return True
+
+
+def compare_runs(got: dict, want: dict) -> tuple[list[str], int]:
+    """Where run ``got`` differs from ``want``: the final output, the
+    orchestrator's trajectory and per-stream events, each worker's runs
+    (events, trajectory, tool calls, output), the trajectory record and the
+    trace rows. A KB search's observation may differ only as
+    ``same_observation`` allows; its truncated copies (events 4,000,
+    trajectories 2,000, trace rows 500 characters) then read as the
+    reference's. Returns one line per difference, and how many observations
+    differed by near-ties."""
+    subst: dict[str, str] = {}
+    ties = 0
+    for name, runs in want["workers"].items():
+        for g, w in zip(got["workers"].get(name, []), runs):
+            for (gn, ga, go), (wn, wa, wo) in zip(g[3], w[3]):
+                if go != wo and (gn, ga) == (wn, wa) and same_observation(go, wo):
+                    subst.update({go[:n]: wo[:n] for n in (500, 2000, 4000)})
+                    subst[go] = wo
+                    ties += 1
+
+    def canon(v):
+        if isinstance(v, str):
+            if v in subst:
+                return subst[v]
+            if v.startswith("{"):  # a trace row: its output field
+                try:
+                    row = json.loads(v)
+                except json.JSONDecodeError:
+                    return v
+                if isinstance(row, dict) and row.get("output") in subst:
+                    return json.dumps({**row, "output": subst[row["output"]]}, sort_keys=True)
+            return v
+        if isinstance(v, (list, tuple)):
+            return type(v)(canon(x) for x in v)
+        if isinstance(v, dict):
+            return {k: canon(x) for k, x in v.items()}
+        return v
+
+    diffs = []
+    for key in ("error", "worker_errors", "final", "trajectory", "events", "workers",
+                "searches", "missing", "records_added", "record", "tools", "generations"):
+        mine = canon(got[key])
+        if key in ("tools", "generations"):
+            mine = sorted(mine)
+        if mine != want[key]:
+            diffs.append(f"{key}: {str(mine)[:300]} != {str(want[key])[:300]}")
+    return diffs, ties
+
+
+def spread(xs: list[float]) -> str:
+    return (f"median {statistics.median(xs) * 1e3:.1f} ms (min {min(xs) * 1e3:.1f}, "
+            f"max {max(xs) * 1e3:.1f})")
+
+
+def topk_device_ms(fn) -> tuple[float, float]:
+    """(topk_pruned's kernels, every kernel) device ms of one call of ``fn``
+    (torch.profiler)."""
+    kernels = device_kernels(fn, 1)
+    scan = sum(us for name, (_, us) in kernels.items() if "topk_" in name)
+    return scan / 1e3, sum(us for _, us in kernels.values()) / 1e3
+
+
+def team_agents(seed: int, smi: str) -> dict:
+    """4h: the shipped orchestrator configs on a team's KB (4f's 2,048
+    files) on the card against a CPU twin, the trajectory store, the
+    environments, local-LLM workers built from config, and timings.
+    Returns the main path's topk_pruned launches ((a) and (d))."""
+    from youtu_rag_tpu_torch.agents.env import BrowserEnv
+    from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient
+    from youtu_rag_tpu_torch.core.config import RAGConfig
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+    from youtu_rag_tpu_torch.retrieval.monitoring import StorageMonitor
+
+    card, twin = port_agents_package(None), port_agents_package("cpu")
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        facts = write_ingest_corpus(root, seed)
+        asked = facts[:: INGEST_DOCS // INGEST_QUESTIONS][:INGEST_QUESTIONS]
+        tasks = [SourceTask(name, "text", path=os.path.join(root, name)) for name, _ in facts]
+        t0 = time.perf_counter()
+        kb = KnowledgeBase(TEAM_KB, RAGConfig(name=TEAM_KB))
+        report = asyncio.run(kb.build_sources(tasks))
+        twin_kb = KnowledgeBase(TEAM_TWIN, RAGConfig(name=TEAM_TWIN), device="cpu")
+        twin_report = asyncio.run(twin_kb.build_sources(tasks))
+        check(report.processed == INGEST_DOCS and report.failed == 0 and kb.device.type == "cuda"
+              and twin_report.total_chunks == report.total_chunks,
+              f"the team KB: {report.summary()} / twin {twin_report.summary()}")
+        names = write_table_sources(root)
+        t2s = {}
+        for device, name in ((None, T2S_KB), ("cpu", T2S_TWIN)):
+            t2s_kb = KnowledgeBase(name, RAGConfig(name=name), device=device)
+            rep = asyncio.run(t2s_kb.build_sources([SourceTask(n, "table", path=f"{root}/{n}")
+                                                    for n in names]))
+            check(rep.processed == len(names) and rep.failed == 0, f"text2sql KB {rep.summary()}")
+            table = next(t for t in rep.tables if t.startswith("staff"))
+            t2s[device] = (t2s_kb, "sqlite:///" + write_external_staff(
+                f"{root}/ext-{name}.sqlite", table))
+        print(f"team KB {TEAM_KB!r} on the card and {TEAM_TWIN!r} on the CPU: {INGEST_DOCS} "
+              f"files, {report.total_chunks} chunks each, built in {time.perf_counter() - t0:.1f} s; "
+              f"text2sql KBs of {len(names)} CSV sources with a sqlite database_url [{smi}]")
+        card_db = card.DBService(f"sqlite:///{root}/card.db")
+        twin_db = twin.DBService(f"sqlite:///{root}/twin.db")
+
+        # (a) and (b): each shipped config against its CPU twin, through the trajectory store
+        runs = [(kind, asked[at:at + n]) for kind, (n, at) in TEAM_KINDS.items()]
+        for kind, chosen in runs + [("examples/text2sql", [])]:
+            reset_launches()
+            if chosen:
+                got = scripted_run(card, kind, kb, chosen, card_db)
+            else:
+                got = text2sql_team_run(card, *t2s[None], card_db)
+            torch.cuda.synchronize()
+            n = launch_counts()["bfloat16"]
+            launches += n
+            want = (scripted_run(twin, kind, twin_kb, chosen, twin_db) if chosen
+                    else text2sql_team_run(twin, *t2s["cpu"], twin_db))
+            for side, run in (("card", got), ("twin", want)):
+                check(run["error"] is None and not run["worker_errors"],
+                      f"(a) {kind} {side}: {run['error']} {run['worker_errors']}")
+                check(not run["missing"], f"(a) {kind} {side}: documents missing from their "
+                      f"workers' observations: {run['missing']}")
+                check(run["records_added"] == 1, f"(b) {kind} {side}: {run['records_added']} "
+                      "trajectory records for one run")
+            diffs, ties = compare_runs(got, want)
+            check(not diffs, f"(a) {kind}: the card's run differs from the CPU twin's: {diffs}")
+            check(n >= got["searches"] > 0,
+                  f"(a) {kind}: {n} topk_pruned launches for {got['searches']} searches")
+            if not chosen:
+                sql = got["workers"]["text2sql"][0][3][0]
+                check(json.loads(sql[2])["rows"][0][0] == "zed" and "zed" in got["final"],
+                      f"(a) text2sql: {sql} -> {got['final']!r}")
+            print(f"(a) {kind} [{smi}]: {len(chosen) or 1} question(s), {got['searches']} worker "
+                  f"searches, {n} topk_pruned launches, {got['seconds'] * 1e3:.1f} ms; final "
+                  f"{got['final']!r}; output, events per stream, worker runs and trajectory equal "
+                  f"to the CPU twin's ({ties} observation(s) up to near-ties); (b) 1 trajectory "
+                  f"record, {len(got['tools'])} tool and {len(got['generations'])} generation "
+                  f"trace rows, equal to the twin's")
+
+        # (c) environments
+        from youtu_rag_tpu_torch.agents import AgentConfig, FakeChatClient, SimpleAgent
+
+        f = FakeChatClient
+        agent = SimpleAgent(AgentConfig.from_dict({"env": {"name": "shell_local"}}), client=f(
+            scripted=[f.tool_response("run_bash", {"command": "echo 4h > note.txt && cat note.txt"}),
+                      f.tool_response("execute_python_code",
+                                      {"code": "print(open('note.txt').read().strip() * 2)"}),
+                      f.text_response("done")]))
+        rec = asyncio.run(agent.run("write a note"))
+        ws = agent.env.workspace
+        outs = [t.output for t in rec.tool_calls]
+        check(rec.error is None and outs == ["4h", "4h4h"] and os.path.exists(ws),
+              f"(c) shell_local: {rec.error} {outs}")
+        asyncio.run(agent.cleanup())
+        check(not os.path.exists(ws), f"(c) shell_local left its workspace {ws}")
+        browser = BrowserEnv()
+        try:
+            asyncio.run(browser.build())
+            state = f"built: {browser.get_state()}"
+            asyncio.run(browser.cleanup())
+        except RuntimeError as e:
+            state = f"not built: {e}"
+        print(f"(c) shell_local: run_bash and execute_python_code in its workspace, gone after "
+              f"cleanup; BrowserEnv {state}")
+
+        # (d) orchestra_example with local-LLM workers the orchestrator builds from config
+        chosen = asked[TEAM_LOCAL[0]:TEAM_LOCAL[1]]
+        local = {"provider": "local", "weights_dir": CHAT_WEIGHTS}
+        transcripts = {}
+        for pkg, side_kb in ((card, kb), (twin, twin_kb)):
+            cfg = team_config(pkg, "orchestra_example", side_kb.name)
+            for w_cfg in team_workers(cfg).values():
+                w_cfg.model = w_cfg.model.model_validate(local)
+            docs = {q: name for name, q in chosen}
+            agent = pkg.get_agent(cfg, client=pkg.Fake(
+                rule_fn=team_planner(pkg.Fake, list(docs), count=False, prefix="")), **pkg.device)
+            reset_launches()
+            run = drive_team_run(pkg, agent, cfg.type, " ".join(docs), [side_kb],
+                                 card_db if pkg is card else twin_db, docs)
+            if pkg is card:
+                torch.cuda.synchronize()
+                launches += launch_counts()["bfloat16"]
+                clients = [w.client.inner for w in agent._workers.values()]
+                check(all(isinstance(c, LocalChatClient) and c.device.type == "cuda"
+                          for c in clients), f"(d) worker clients {clients}")
+            check(run["error"] is None and not run["worker_errors"],
+                  f"(d) {'card' if pkg is card else 'CPU'}: {run['error']} {run['worker_errors']}")
+            transcripts[pkg is card] = run
+        for (name, runs_), (_, cpu_runs) in zip(transcripts[True]["workers"].items(),
+                                                transcripts[False]["workers"].items()):
+            for r, c in zip(runs_, cpu_runs):
+                print(f"  (d) {name} on the card: {[(t[0], t[1]) for t in r[3]]} -> {r[4]!r}\n"
+                      f"      on the CPU:  {[(t[0], t[1]) for t in c[3]]} -> {c[4]!r}")
+        print(f"(d) orchestra_example, workers built from config as LocalChatClient on cuda "
+              f"(yrt_tiny_chat, bf16): no error; final {transcripts[True]['final']!r}; "
+              f"transcripts equal to the CPU port's: "
+              f"{transcripts[True]['workers'] == transcripts[False]['workers']}")
+
+        # (e) timings on the host clock, the card's searches inside
+        for kind, chosen in runs + [("examples/text2sql", [])]:
+            secs, counts = [], []
+            for _ in range(TEAM_TIMED_RUNS):
+                reset_launches()
+                run = (scripted_run(card, kind, kb, chosen, card_db) if chosen
+                       else text2sql_team_run(card, *t2s[None], card_db))
+                torch.cuda.synchronize()
+                check(run["error"] is None, f"(e) {kind}: {run['error']}")
+                secs.append(run["seconds"])
+                counts.append(launch_counts()["bfloat16"])
+            scan_ms, all_ms = topk_device_ms(
+                lambda: scripted_run(card, kind, kb, chosen, card_db) if chosen
+                else text2sql_team_run(card, *t2s[None], card_db))
+            print(f"(e) {kind} [{smi}]: {TEAM_TIMED_RUNS} runs, {spread(secs)} on the host clock; "
+                  f"topk_pruned launches per run {sorted(set(counts))}, its kernels "
+                  f"{scan_ms:.4f} ms of {all_ms:.4f} ms device time per run")
+        parallel = dict(runs)["orchestrator/parallel"]
+        by_window = {}
+        for window in (0.0, 2.0):
+            kb.store.config.coalesce_window_ms = window
+            reset_launches()
+            by_window[window] = scripted_run(card, "orchestrator/parallel", kb, parallel, card_db)
+            torch.cuda.synchronize()
+            by_window[window]["launches"] = launch_counts()["bfloat16"]
+        kb.store.config.coalesce_window_ms = 0.0
+        diffs, ties = compare_runs(by_window[2.0], by_window[0.0])
+        check(not diffs, f"(e) parallel with coalesce_window_ms 2 differs from 0: {diffs}")
+        stats = kb.store._search_coalescer.stats if kb.store._search_coalescer else {}
+        print(f"(e) orchestrator/parallel at max_parallel 4 [{smi}]: coalesce_window_ms 0: "
+              f"{by_window[0.0]['launches']} launches, {by_window[0.0]['seconds'] * 1e3:.1f} ms; "
+              f"2: {by_window[2.0]['launches']} launches, {by_window[2.0]['seconds'] * 1e3:.1f} ms "
+              f"(coalescer {stats}); the same results ({ties} up to near-ties)")
+        monitor = StorageMonitor(kb.store, name=TEAM_KB)
+        health = asyncio.run(monitor.check_health())
+        check(health.is_healthy and health.total_chunks == report.total_chunks
+              and health.backend == "torch",
+              f"(e) StorageMonitor.check_health: {health}")
+        metric_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            metrics = asyncio.run(monitor.collect_metrics())
+            metric_s.append(time.perf_counter() - t0)
+        print(f"(e) StorageMonitor on the card's store [{smi}]: healthy, {health.total_chunks} "
+              f"chunks, index {health.index_size_bytes} bytes; collect_metrics {spread(metric_s)} "
+              f"(BM25 {metrics['lexical_index']})")
+        print(f"  topk_pruned launches in (a) and (d): {launches}")
+        card_db.close()
+        twin_db.close()
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4694,6 +5360,9 @@ def main() -> int:
     phase("4g memory and toolkits")
     mem4g = memory_and_toolkits(args.seed, smi, part)
 
+    phase("4h agents from configs: orchestrators, environments, the trajectory store")
+    team4h = team_agents(args.seed, smi)
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -4728,7 +5397,8 @@ def main() -> int:
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
-                            + mem4g["launches"] if tier == "bfloat16" else 0)),
+                            + mem4g["launches"] + team4h["launches"]
+                            if tier == "bfloat16" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],

@@ -9,9 +9,9 @@ CLI's agentic mode, against the JAX package's on the CPU.
 - the KB toolkit's other tools (hybrid search, rerank, file search) answer
   as JAX's;
 - the JAX package's ``tests/agents/test_simple_agent.py`` and
-  ``test_react.py`` loop cases on the port; the parts not ported yet
-  (environments, the orchestrator agent types, the excel agent) refuse
-  clearly;
+  ``test_react.py`` loop cases on the port; the registry builds the
+  environments and the orchestrator agent types, and the part not ported
+  yet (the excel agent) refuses clearly;
 - ``python -m youtu_rag_tpu_torch.cli_chat --llm-weights-dir
   benchmarks/models/yrt_tiny_chat --device cpu``: the agentic loop calls
   ``kb_embedding_search`` and prints the same transcript as the same loop
@@ -146,10 +146,15 @@ def test_toolkit_schemas_match_jax(kbs):
 
 
 def test_registry_and_unported_parts(kbs):
-    """The registry builds the ported toolkits; what is still not ported
-    raises naming its queue item: agent environments and the orchestrator
-    agent types (Queue A 6.2), the excel agent (the DTR integration)."""
+    """The registry builds the ported toolkits, agent environments and the
+    orchestrator agent types; what is still not ported raises naming its
+    integration: the excel agent (DTR)."""
+    from youtu_rag_tpu_torch.agents.env import ShellLocalEnv
     from youtu_rag_tpu_torch.agents.factory import ORCHESTRATOR_TYPES, get_agent
+    from youtu_rag_tpu_torch.agents.orchestra import OrchestraAgent
+    from youtu_rag_tpu_torch.agents.orchestrator import (OrchestratorAgent,
+                                                         ParallelOrchestratorAgent)
+    from youtu_rag_tpu_torch.agents.workforce import WorkforceAgent
     from youtu_rag_tpu_torch.memory import VectorMemoryToolkit
 
     port_kb, _ = kbs
@@ -164,13 +169,18 @@ def test_registry_and_unported_parts(kbs):
     assert isinstance(agent.memory_toolkit, VectorMemoryToolkit)
     assert agent.memory_toolkit.store.store.device.type == "cpu"
     cfg = AgentConfig.from_dict({"env": {"name": "shell_local"}})
-    with pytest.raises(NotImplementedError, match="Queue A 6.2"):
-        asyncio.run(SimpleAgent(cfg, client=FakeChatClient()).build())
+    agent = asyncio.run(SimpleAgent(cfg, client=FakeChatClient()).build())
+    assert isinstance(agent.env, ShellLocalEnv)
+    assert any(schema["function"]["name"] == "run_bash" for schema in agent.router.schemas())
+    asyncio.run(agent.cleanup())
     assert set(ORCHESTRATOR_TYPES) == {"orchestra", "orchestra_react_sql", "orchestrator",
                                        "parallel_orchestrator", "workforce"}
-    for agent_type in ORCHESTRATOR_TYPES:
-        with pytest.raises(NotImplementedError, match="Queue A 6.2"):
-            get_agent({"type": agent_type}, client=FakeChatClient())
+    built = {agent_type: type(get_agent({"type": agent_type}, client=FakeChatClient()))
+             for agent_type in ORCHESTRATOR_TYPES}
+    assert built == {"orchestra": OrchestraAgent, "orchestra_react_sql": OrchestraAgent,
+                     "orchestrator": OrchestratorAgent,
+                     "parallel_orchestrator": ParallelOrchestratorAgent,
+                     "workforce": WorkforceAgent}
     with pytest.raises(NotImplementedError, match="integrations/dtr"):
         get_agent({"type": "excel"}, client=FakeChatClient())
     with pytest.raises(ValueError, match="unknown agent type"):

@@ -1324,3 +1324,82 @@ def test_decoder_generate_on_the_card(cuda_device, kv):
     logits, _ = td.prefill(card, toks.to(cuda_device), mask.to(cuda_device), cache, cfg)
     cpu, _ = td.prefill(params, toks, mask, td.init_cache(cfg, 2, 8), cfg)
     torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 4h (a): the shipped orchestrator configs on a CUDA KB
+# against its CPU twin
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def team_kbs(tmp_path_factory):
+    """A small fact corpus as a KB on the card and its CPU twin, and a
+    text2sql KB on each with its sqlite database_url."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the KB's search launches topk_pruned")
+    import asyncio
+
+    from youtu_rag_tpu_torch.core.config import RAGConfig
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    smoke = _chip_smoke()
+    root = tmp_path_factory.mktemp("team")
+    facts = smoke.write_ingest_corpus(str(root), 0, n_docs=64, chars=3000)
+    names = smoke.write_table_sources(str(root))
+    out = {"smoke": smoke, "facts": facts}
+    for device in (None, "cpu"):
+        tag = "cpu" if device else "cuda"
+        kb = KnowledgeBase(f"team-{tag}", RAGConfig(name=f"team-{tag}"), device=device)
+        asyncio.run(kb.build_sources([SourceTask(n, "text", path=str(root / n))
+                                      for n, _ in facts]))
+        t2s = KnowledgeBase(f"t2s-{tag}", RAGConfig(name=f"t2s-{tag}"), device=device)
+        report = asyncio.run(t2s.build_sources([SourceTask(n, "table", path=str(root / n))
+                                                for n in names]))
+        table = next(t for t in report.tables if t.startswith("staff"))
+        url = "sqlite:///" + smoke.write_external_staff(str(root / f"ext-{tag}.sqlite"), table)
+        out[tag] = (kb, t2s, url)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["orchestra_example", "orchestrator/chain",
+                                  "orchestrator/parallel", "workforce_example",
+                                  "examples/text2sql"])
+def test_orchestrator_config_on_the_card_matches_cpu_twin(team_kbs, kind, tmp_path):
+    """Phase 4h (a)-(b) at a small size: no error, each fact's document in
+    its worker's observation, the run (output, events, worker runs,
+    trajectory record, trace rows) the CPU twin's, and topk_pruned launched
+    for every worker search."""
+    from youtu_rag_tpu_torch.ops.topk import topk_pruned
+
+    smoke = team_kbs["smoke"]
+    asked = team_kbs["facts"][::8][:8]
+    runs = []
+    for tag, device in (("cuda", None), ("cpu", "cpu")):
+        pkg = smoke.port_agents_package(device)
+        kb, t2s, url = team_kbs[tag]
+        db = pkg.DBService(f"sqlite:///{tmp_path}/{tag}.db")
+        topk_pruned.launches = 0
+        run = (smoke.text2sql_team_run(pkg, t2s, url, db) if kind == "examples/text2sql"
+               else smoke.scripted_run(pkg, kind, kb, asked, db))
+        torch.cuda.synchronize()
+        run["launches"] = topk_pruned.launches
+        assert run["error"] is None and not run["worker_errors"] and not run["missing"]
+        assert run["records_added"] == 1
+        runs.append(run)
+    card, twin = runs
+    assert card["launches"] >= card["searches"] > 0 and twin["launches"] == 0
+    diffs, _ = smoke.compare_runs(card, twin)
+    assert not diffs

@@ -48,12 +48,17 @@ def test_port_has_sources():
                    "tools/builtin.py", "tools/rag_toolkit.py", "tools/meta_retrieval.py",
                    "tools/text2sql.py", "tools/misc.py", "tools/file_edit.py",
                    "tools/html_toolkit.py", "tools/web.py", "tools/mcp_client.py",
-                   "db/adapters.py", "agents/factory.py", "core/loader.py", "eval/config.py"):
+                   "db/adapters.py", "agents/factory.py", "core/loader.py", "eval/config.py",
+                   "index/numpy_ref.py", "agents/env.py", "agents/docker_env.py",
+                   "agents/orchestra.py", "agents/orchestrator.py", "agents/workforce.py",
+                   "db/models.py", "db/migrations.py", "db/service.py", "tracing/otlp.py",
+                   "retrieval/monitoring.py", "utils/cache.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
         assert (PORT / "csrc" / src).exists()
     assert (PORT / "native" / "fasthash.c").exists()
+    assert (PORT / "agents" / "data" / "planner_examples.json").exists()
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())

@@ -15,12 +15,14 @@ class LLMAgent:
         model: ModelConfig | None = None,
         instructions: str | None = None,
         client: BaseChatClient | None = None,
+        device=None,
     ):
         self.config = config or AgentConfig(type="llm")
         if instructions is not None:
             self.config.agent.instructions = instructions
         mc = model or self.config.model
-        self.client = client or get_chat_client(mc.resolved())
+        # device: where a local model (provider "local") is placed
+        self.client = client or get_chat_client(mc.resolved(), device=device)
 
     async def run(self, query: str, system: str | None = None) -> str:
         messages = []

@@ -11,14 +11,18 @@
   ``memory.enabled`` builds for ``memory.user_id``) is read before the run
   and written after it.
 
-The device seam: ``SimpleAgent(..., device=)`` is where the stores this
-agent makes live. ``build()`` hands it to the memory toolkit it makes and,
-as the ``device`` key of each toolkit config that does not name one, to
-the config's toolkits (those that make a store or a KB read it: ``rag``,
-``memory``); ``None`` means the CUDA card, as everywhere in the port.
-Toolkits passed in ``toolkits=`` keep their own. Not ported yet (ROADMAP
-Queue A 6.2), and refused at ``build()``: agent environments
-(``env.name``).
+- the config's environment (``env.name``: ``basic``, ``shell_local``,
+  ``browser``; ``agents/env.py``) is built with the agent, its tools join
+  the router, and ``cleanup()`` releases it.
+
+The device seam: ``SimpleAgent(..., device=)`` is where the stores and the
+local model this agent makes live. The chat client it builds from
+``config.model`` (a ``provider: local`` model) gets it, and ``build()``
+hands it to the memory toolkit it makes and, as the ``device`` key of each
+toolkit config that does not name one, to the config's toolkits (those
+that make a store or a KB read it: ``rag``, ``memory``); ``None`` means
+the CUDA card, as everywhere in the port. A client or toolkits passed in
+keep their own.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ class SimpleAgent:
         if isinstance(config, dict):
             config = AgentConfig.from_dict(config)
         self.config = config or AgentConfig()
-        self.client = client or get_chat_client(self.config.model.resolved())
+        self.client = client or get_chat_client(self.config.model.resolved(), device=device)
         self._extra_toolkits = toolkits or []
         self.memory_toolkit = memory_toolkit
         self.trajectory_sink = trajectory_sink
@@ -79,10 +83,13 @@ class SimpleAgent:
         if self._built:
             return self
         toolkits = list(self._extra_toolkits)
+        self.env = None
         if self.config.env.name:
-            raise NotImplementedError(
-                f"env {self.config.env.name!r}: agent environments are not ported yet "
-                "(ROADMAP Queue A 6.2)")
+            from .env import get_env
+
+            self.env = get_env(self.config.env)
+            await self.env.build()
+            toolkits.extend(self.env.get_tools())
         if self.config.toolkits:
             from ..tools import get_toolkit
 
@@ -108,6 +115,8 @@ class SimpleAgent:
     async def cleanup(self) -> None:
         if self.router:
             await self.router.cleanup()
+        if getattr(self, "env", None) is not None:
+            await self.env.cleanup()
         self._built = False
 
     async def __aenter__(self):

@@ -6,8 +6,8 @@ sections composed into one ``RAGConfig``. Device-index knobs live in
 ``IndexConfig`` (block sizes, dtype, IVF) — a *new* section with no
 reference counterpart, since the reference delegates indexing to
 Chroma/FAISS. A copy of ``youtu_rag_tpu/core/config.py``; only the vector
-store's backend literal differs ("torch"; a config naming the JAX
-package's "tpu" engine reads as "torch"). The device is not a config
+store's backend literal differs ("torch" or "numpy"; a config naming the
+JAX package's "tpu" engine reads as "torch"). The device is not a config
 field: it is a constructor argument of the index, the store and the
 knowledge base.
 """
@@ -192,9 +192,11 @@ class IndexConfig(ConfigBase):
 
 
 class VectorStoreConfig(ConfigBase):
-    """Ref: utu/rag/config.py:53-66 (backend literal: the port's torch index)."""
+    """Ref: utu/rag/config.py:53-66. ``backend``: "torch" is the port's
+    device index on the store's device, "numpy" the exact host index
+    (``index/numpy_ref.py``), as in JAX."""
 
-    backend: Literal["torch"] = "torch"
+    backend: Literal["torch", "numpy"] = "torch"
     collection_name: str = "knowledge_base"
     persist_directory: str = "./data/vector_store"
     distance_metric: Literal["cosine", "euclidean", "dot"] = "cosine"

@@ -40,7 +40,7 @@ from __future__ import annotations
 from collections import Counter
 from collections.abc import Mapping
 from math import log
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 
@@ -431,3 +431,10 @@ class LexicalInvertedIndex:
             return []
         scored = self.score_chunks(query, rare_cids)
         return sorted(scored.items(), key=lambda kv: (-kv[1], kv[0]))[:limit]
+
+    def stats(self) -> dict[str, Any]:
+        return {
+            "documents": self._n_live,
+            "terms": len(self._postings),
+            "total_tokens": self._total_len,
+        }

@@ -4,7 +4,10 @@ The port's counterpart of ``youtu_rag_tpu/retrieval/store.py``: the seam
 where the reference swaps Chroma/FAISS and this package plugs in its
 torch ``DeviceVectorIndex``; everything above — retrievers, builders —
 only sees ``BaseVectorStore``. It keeps the JAX store's search coalescer
-and its BM25 upkeep; the index lives on the store's ``device``.
+and its BM25 upkeep; the index lives on the store's ``device``. With
+``backend="numpy"`` the store holds the exact host index
+(``index/numpy_ref.py``) on any device, as JAX's store does, and serves
+``reserve``, ``update_metadata`` and ``health`` for it as JAX's does.
 
 Batching note: ``search`` takes one embedding (reference signature); the
 engine-native ``search_batch`` amortizes a whole query batch through one
@@ -23,6 +26,7 @@ import torch
 from ..core.config import VectorStoreConfig
 from ..core.types import BaseVectorStore, Chunk, HealthStatus
 from ..index.device_index import DeviceVectorIndex
+from ..index.numpy_ref import NumpyVectorIndex
 from ..utils.device import resolve_device
 
 
@@ -43,7 +47,7 @@ class TorchVectorStore(BaseVectorStore):
         self.config = config or VectorStoreConfig()
         self._dim = dim
         self.device = resolve_device(device)
-        self._index: DeviceVectorIndex | None = None
+        self._index: DeviceVectorIndex | NumpyVectorIndex | None = None
         self._lock = asyncio.Lock()
         self._search_coalescer: _SearchCoalescer | None = None
         self._lexical = None
@@ -60,6 +64,8 @@ class TorchVectorStore(BaseVectorStore):
         icfg = self.config.index
         metric = {"cosine": "cosine", "euclidean": "l2", "dot": "ip"}[self.config.distance_metric]
         icfg = icfg.model_copy(update={"metric": metric})
+        if self.config.backend == "numpy":
+            return NumpyVectorIndex(dim, icfg)
         return DeviceVectorIndex(dim, icfg, device=self.device)
 
     @property
@@ -131,7 +137,8 @@ class TorchVectorStore(BaseVectorStore):
             if dim is None:
                 return  # dimension unknown until first add
             self._ensure_index(dim)
-        self._index.reserve(total_rows)
+        if hasattr(self._index, "reserve"):
+            self._index.reserve(total_rows)
 
     async def delete(self, chunk_ids: list[str]) -> None:
         if self._index is not None:
@@ -141,8 +148,9 @@ class TorchVectorStore(BaseVectorStore):
 
     async def update_metadata(self, chunk_ids: list[str], metadatas: list[dict]) -> int:
         """Metadata-only update in place on the device (no re-embedding);
-        returns the rows updated (see ``DeviceVectorIndex.update_metadata``)."""
-        if self._index is None:
+        returns the rows updated (see ``DeviceVectorIndex.update_metadata``).
+        The numpy index has no in-place metadata surface: 0, as in JAX."""
+        if self._index is None or not hasattr(self._index, "update_metadata"):
             return 0
         return self._index.update_metadata(chunk_ids, metadatas)
 
@@ -180,6 +188,20 @@ class TorchVectorStore(BaseVectorStore):
         if self._lexical is not None and self._index is not None:
             self._lexical.rebuild(self._index.iter_live())
 
+    async def lexical_search(
+        self,
+        query: str,
+        top_k: int = 10,
+        filters: dict[str, Any] | None = None,
+    ) -> list[tuple[Chunk, float]]:
+        """Corpus-level BM25 hits as (chunk, score); [] when disabled."""
+        if self._lexical is None or self._index is None:
+            return []
+        hits = self._lexical.search(
+            query, top_k=top_k, predicate=self._filter_predicate(filters)
+        )
+        return self._resolve_lexical_hits(hits)
+
     async def lexical_search_bundle(
         self,
         query: str,
@@ -212,6 +234,25 @@ class TorchVectorStore(BaseVectorStore):
 
         return predicate
 
+    async def rare_term_search(
+        self,
+        query: str,
+        filters: dict[str, Any] | None = None,
+        max_df: int = 3,
+        limit: int = 8,
+    ) -> list[tuple[Chunk, float]]:
+        """Exact-identifier matches (see LexicalInvertedIndex.rare_term_matches)."""
+        if self._lexical is None or self._index is None:
+            return []
+        hits = self._resolve_lexical_hits(
+            self._lexical.rare_term_matches(query, max_df=max_df, limit=limit * 2)
+        )
+        if filters:
+            from ..index.filters import host_eval
+
+            hits = [(c, s) for c, s in hits if host_eval(filters, c.metadata)]
+        return hits[:limit]
+
     def _resolve_lexical_hits(
         self, hits: list[tuple[str, float]]
     ) -> list[tuple[Chunk, float]]:
@@ -222,9 +263,61 @@ class TorchVectorStore(BaseVectorStore):
                 out.append((c, score))
         return out
 
+    # -- extras used by toolkits/monitoring --------------------------------
+
+    async def get_by_filter(
+        self,
+        filters: dict[str, Any],
+        limit: int | None = 1000,
+        offset: int = 0,
+        text: str | None = None,
+    ) -> list[Chunk]:
+        """Host-side metadata scan (ref analog: chroma collection.get with
+        where-clauses). ``offset``/``text`` evaluate in the streaming pass,
+        so a page view materializes at most ``limit`` chunks and the scan
+        stops as soon as the page fills; ``limit=None`` scans everything."""
+        chunks, _ = await self.scan_page(
+            filters, limit=limit, offset=offset, text=text, with_count=False
+        )
+        return chunks
+
+    async def scan_page(
+        self,
+        filters: dict[str, Any] | None,
+        limit: int | None = 50,
+        offset: int = 0,
+        text: str | None = None,
+        with_count: bool = True,
+    ) -> tuple[list[Chunk], int]:
+        """One streaming pass → (page, matched). With ``with_count`` the
+        scan continues past the page to report the exact match count;
+        without it the iteration stops the moment the page fills."""
+        from ..index.filters import host_eval
+
+        if self._index is None:
+            return [], 0
+        text_l = text.lower() if text else None
+        out: list[Chunk] = []
+        matched = 0
+        for c in self._index.iter_live():
+            if filters and not host_eval(filters, c.metadata):
+                continue
+            if text_l is not None and text_l not in c.content.lower():
+                continue
+            if matched >= offset and (limit is None or len(out) < limit):
+                out.append(c)
+            matched += 1
+            if (
+                not with_count
+                and limit is not None
+                and len(out) >= limit
+            ):
+                break
+        return out, matched
+
     async def health(self) -> HealthStatus:
         n = await self.count()
-        nbytes = 0 if self._index is None else self._index.nbytes()
+        nbytes = self._index.nbytes() if isinstance(self._index, DeviceVectorIndex) else 0
         return HealthStatus(
             is_healthy=True,
             backend=self.config.backend,

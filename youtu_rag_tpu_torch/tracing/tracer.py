@@ -1,9 +1,13 @@
-"""In-process span tracing with pluggable processors.
+"""In-process span tracing with pluggable processors: a copy of
+``youtu_rag_tpu/tracing/tracer.py``.
 
-A copy of ``youtu_rag_tpu/tracing/tracer.py`` without its DB and OTLP
-sinks, which belong to slices not ported yet. The retriever opens an
-``embedding`` span around query embedding and a ``retrieval`` span around
-the device search; each span records its duration and attributes."""
+Capability parity with ``utu/tracing/`` (SURVEY.md §5.1): agent/tool/
+generation span kinds, a DB sink persisting tool + generation spans
+(``DBTracingProcessor`` into ``db/service.py``'s ``DBService``;
+``db_tracer.py:16-92``), and an OTLP exporter (``tracing/otlp.py``,
+Phoenix or any OTLP collector). The retriever opens an ``embedding`` span
+around query embedding and a ``retrieval`` span around the device search;
+each span records its duration and attributes."""
 
 from __future__ import annotations
 
@@ -45,6 +49,49 @@ class Span:
 
 class SpanProcessor(Protocol):
     def on_span_end(self, span: Span) -> None: ...
+
+
+class ConsoleProcessor:
+    def on_span_end(self, span: Span) -> None:
+        logger.debug("span %s/%s %s %.1fms", span.kind, span.name, span.trace_id, span.duration_ms)
+
+
+class DBTracingProcessor:
+    """Persists tool + generation spans (ref: DBTracingProcessor)."""
+
+    def __init__(self, db_service):
+        self.db = db_service
+
+    def on_span_end(self, span: Span) -> None:
+        from ..db.models import GenerationTraceRecord, ToolTraceRecord
+
+        try:
+            if span.kind == "tool":
+                self.db.add(
+                    ToolTraceRecord(
+                        trace_id=span.trace_id,
+                        span_id=span.span_id,
+                        name=span.name,
+                        arguments=str(span.attributes.get("arguments", ""))[:2000],
+                        output=str(span.attributes.get("output", ""))[:2000],
+                        duration_ms=span.duration_ms,
+                    )
+                )
+            elif span.kind == "generation":
+                self.db.add(
+                    GenerationTraceRecord(
+                        trace_id=span.trace_id,
+                        span_id=span.span_id,
+                        model=str(span.attributes.get("model", "")),
+                        input_messages=span.attributes.get("input_messages", []),
+                        output=span.attributes.get("output"),
+                        input_tokens=int(span.attributes.get("input_tokens", 0)),
+                        output_tokens=int(span.attributes.get("output_tokens", 0)),
+                        duration_ms=span.duration_ms,
+                    )
+                )
+        except Exception:  # noqa: BLE001 - tracing must never break the run
+            logger.exception("DB span persist failed")
 
 
 class Tracer:
@@ -103,3 +150,21 @@ _GLOBAL = Tracer()
 
 def get_tracer() -> Tracer:
     return _GLOBAL
+
+
+def setup_tracing(db_service=None, otlp_endpoint: str | None = None, console: bool = False) -> Tracer:
+    """Install processors (ref: setup_tracing auto-run at import,
+    utu/tracing/setup.py:30-91 — here explicit)."""
+    t = get_tracer()
+    t.processors.clear()
+    if console:
+        t.add_processor(ConsoleProcessor())
+    if db_service is not None and getattr(db_service, "available", False):
+        t.add_processor(DBTracingProcessor(db_service))
+    if otlp_endpoint:
+        # vendored OTLP/HTTP JSON exporter — no otel packages needed
+        # (OpenInference attribute mapping in tracing/otlp.py)
+        from .otlp import OTLPProcessor
+
+        t.add_processor(OTLPProcessor(otlp_endpoint))
+    return t
