@@ -27,6 +27,7 @@ from youtu_rag_tpu_torch.core.config import IndexConfig, RAGConfig, VectorStoreC
 from youtu_rag_tpu_torch.index.persistence import BuildManifest
 from youtu_rag_tpu_torch.models.embedder import EmbedderFactory, HashEmbedder
 from youtu_rag_tpu_torch.retrieval.kb import GLOBAL_KB_REGISTRY, KBRegistry, KnowledgeBase
+from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
 
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,7 +65,7 @@ def corpus(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def kbs(corpus):
+def kbs(corpus, jax_lib):
     files = sorted(str(p) for p in corpus.iterdir())
     port = KnowledgeBase("port", RAGConfig(name="port"), device="cpu")
     jax_kb = JaxKB("jax", JaxRAGConfig(name="jax"))
@@ -121,7 +122,7 @@ def quant_kbs(request, corpus):
     return port, jax_kb
 
 
-def test_hash_embedder_matches_jax():
+def test_hash_embedder_matches_jax(jax_lib):
     """Each path bit-equal to the JAX package's same path; the C kernel
     normalizes with another rounding than the Python path (1 ulp, 3e-8
     seen)."""

@@ -28,6 +28,7 @@ from youtu_rag_tpu_torch import native
 from youtu_rag_tpu_torch.models import tokenizer as tok_mod
 from youtu_rag_tpu_torch.models.embedder import HashEmbedder
 from youtu_rag_tpu_torch.models.tokenizer import HashTokenizer
+from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -59,26 +60,6 @@ EMBED_TEXTS = CASES + UNICODE_BATCH + [
     "x" * 500,
     " ".join(f"tok{i % 97}" for i in range(3000)),
 ]
-
-
-@pytest.fixture(scope="module")
-def jax_lib(tmp_path_factory):
-    """The JAX package's cffi library. Its shared cache can lose the build
-    race between test workers, after which the JAX package keeps its Python
-    fallback for the process: then build it again in a directory of this
-    module's own."""
-    if jax_native.get_fasthash()[1] is not None:
-        yield jax_native.get_fasthash()
-        return
-    mp = pytest.MonkeyPatch()
-    mp.setenv("YRT_NATIVE_CACHE", str(tmp_path_factory.mktemp("jax_native")))
-    mp.setattr(jax_native, "_tried", False)
-    mp.setattr(jax_native, "_lib", None)
-    mp.setattr(jax_native, "_ffi", None)
-    got = jax_native.get_fasthash()
-    assert got[1] is not None, "the JAX package's native kernel does not build here"
-    yield got
-    mp.undo()
 
 
 def jax_python_ids(text: str, n_buckets: int, monkeypatch) -> list[int]:
