@@ -203,6 +203,22 @@ Phases; any failure exits non-zero before the result lines:
      orchestrator with coalesce_window_ms 0 and 2 (the same results), the
      StorageMonitor's health of the card's store (healthy, every chunk) and
      collect_metrics' time;
+  4i. the API on the card: whether tornado imports on this host is printed;
+     without it the HTTP/SSE routes (create_app, serve_api) cannot run, and
+     the phase says so. ``ApiState()`` (no device: the card) and a CPU twin
+     (``device="cpu"``) take the calls the routes make: 512 of 4f's files
+     through the file store and one staged build into a KB the state
+     creates (on the card; the twin's chunk count; the same files again all
+     skipped, no row added); 64 fact questions through ``kb.search`` and
+     the hybrid retriever (the query route's dense and hybrid calls): one
+     topk_pruned launch each, each fact's document in its hybrid top 5,
+     every list the twin's up to near-ties within TOL, host-clock medians
+     and the scan's device time; the KB saved where the snapshot route
+     saves it and a new ``ApiState()`` on the same data dir, which
+     rehydrates it on the card and answers 8 queries with the same rows and
+     scores; with memory on, ``get_agent`` and the memory routes' toolkit
+     on the card, 256 memories added and 16 searches equal to the twin's,
+     every hit the asking user's;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -284,8 +300,8 @@ Phases; any failure exits non-zero before the result lines:
   8. the last line: {"ok": true, "device": {...}}.
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
-4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), 5, 5c,
-5d, 5b, 5e and 6a drive it and read just after; launches
+4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
+search batch of 4i, 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
 """
@@ -4020,6 +4036,180 @@ def team_agents(seed: int, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4i. the API on the card
+# ---------------------------------------------------------------------------
+
+API_DOCS = 512  # of 4f's corpus
+API_QUESTIONS = 64
+API_RESTORED = 8
+API_MEMORIES = 256
+API_MEMORY_QUERIES = 16
+API_PROFILED = 16
+
+
+def api_build(state, root: str, names: list[str]):
+    """What ``POST /api/files/upload`` and ``POST .../build {"files": ...}``
+    do: each file into the state's file store, then one staged build of
+    them into the KB "api" (created on the state's device)."""
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+
+    for name in names:
+        with open(os.path.join(root, name), "rb") as f:
+            state.files.upload("uploads", name, f.read(), {})
+    kb = state.get_or_create_kb("api")
+    tasks = [SourceTask(name, "text", path=str(state.files.local_path("uploads", name)),
+                        metadata=dict(state.files.stat("uploads", name)["user_metadata"]))
+             for name in names]
+    return kb, asyncio.run(kb.build_sources(tasks))
+
+
+def api_on_card(seed: int, smi: str) -> dict:
+    """4i: the API on the card. Its HTTP/SSE routes need tornado; on a host
+    without it that part cannot run and the phase says so. The API's state
+    (``ApiState``, which every route reaches) runs all the same: on the card
+    by default and against a CPU twin, through the calls its upload, build,
+    query, snapshot and memory routes make. Returns the main path's
+    topk_pruned launches."""
+    import importlib.util
+
+    from youtu_rag_tpu_torch.api.state import ApiState
+
+    spec = importlib.util.find_spec("tornado")
+    if spec is None:
+        print("4i: tornado is missing on this host: the API's HTTP/SSE routes (create_app, "
+              "serve_api) cannot run here, nor can gates on them; the CPU tests hold the routes "
+              "against the JAX package's")
+    else:
+        print(f"4i: tornado imports on this host ({spec.origin}); the routes over HTTP are held "
+              "on the CPU tests only")
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        facts = write_ingest_corpus(root, seed, n_docs=API_DOCS)
+        names = [name for name, _ in facts]
+        asked = facts[:: API_DOCS // API_QUESTIONS][:API_QUESTIONS]
+        data, twin_data = os.path.join(root, "data"), os.path.join(root, "twin")
+        t0 = time.perf_counter()
+        state = ApiState(data_dir=data)  # no device: the card
+        twin = ApiState(data_dir=twin_data, device="cpu")
+        check(state.device.type == "cuda" and twin.device.type == "cpu",
+              f"ApiState() is on {state.device}")
+        kb, report = api_build(state, root, names)
+        twin_kb, twin_report = api_build(twin, root, names)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(kb.device.type == "cuda" and report.processed == API_DOCS and report.failed == 0
+              and twin_report.total_chunks == report.total_chunks,
+              f"the API's KB on {kb.device}: {report.summary()} / twin {twin_report.summary()}")
+        print(f"ApiState() on {state.device}: {API_DOCS} files uploaded and built into "
+              f"{report.total_chunks} chunks in {build_s:.1f} s with the CPU twin's [{smi}]")
+        rows = kb.store.index.size
+        _, rebuild = api_build(state, root, names)
+        check(rebuild.skipped == API_DOCS and rebuild.processed == 0
+              and kb.store.index.size == rows,
+              f"the same files again: {rebuild.summary()}, {kb.store.index.size - rows} rows added")
+
+        # the query route's dense and hybrid calls: one scan each, the twin's answers
+        reset_launches()
+        dense, hybrid, dense_s = [], [], []
+        for _, q in asked:
+            t1 = time.perf_counter()
+            dense.append(asyncio.run(kb.search(q, top_k=5, similarity_threshold=0.0)))
+            torch.cuda.synchronize()
+            dense_s.append(time.perf_counter() - t1)
+        n_dense = launch_counts()["bfloat16"]
+        reset_launches()
+        hybrid_s = []
+        for _, q in asked:
+            t1 = time.perf_counter()
+            hybrid.append(asyncio.run(kb.hybrid_retriever.retrieve(q, top_k=5,
+                                                                   similarity_threshold=0.0)))
+            torch.cuda.synchronize()
+            hybrid_s.append(time.perf_counter() - t1)
+        n_hybrid = launch_counts()["bfloat16"]
+        launches += n_dense + n_hybrid
+        check(n_dense == n_hybrid == API_QUESTIONS,
+              f"topk_pruned launched {n_dense} times for {API_QUESTIONS} dense searches and "
+              f"{n_hybrid} for as many hybrid ones (one each)")
+        missing = [name for (name, _), hits in zip(asked, hybrid)
+                   if name not in [h.chunk.document_id for h in hits]]
+        check(not missing, f"facts not in their hybrid top 5: {missing}")
+        for (_, q), got, hyb in zip(asked, dense, hybrid):
+            ref = asyncio.run(twin_kb.search(q, top_k=5, similarity_threshold=0.0))
+            check(same_up_to_ties(got, ref, TOL), f"dense {q!r}: the card's hits differ from the "
+                  "CPU twin's")
+            ref = asyncio.run(twin_kb.hybrid_retriever.retrieve(q, top_k=5,
+                                                                similarity_threshold=0.0))
+            check(same_up_to_ties(hyb, ref, TOL), f"hybrid {q!r}: the card's hits differ from "
+                  "the CPU twin's")
+        # 16 calls a window: the profiler drops a short window's events
+        kernels = device_kernels(lambda: asyncio.run(
+            kb.search(asked[0][1], top_k=5, similarity_threshold=0.0)), API_PROFILED)
+        scan_us = sum(us for name, (_, us) in kernels.items() if "topk_" in name)
+        device = (f"the scan {scan_us / API_PROFILED / 1e3:.4f} ms and every kernel "
+                  f"{sum(us for _, us in kernels.values()) / API_PROFILED / 1e3:.4f} ms of device "
+                  "time a call" if scan_us else "device time not measured (the profiler "
+                  "recorded no scan)")
+        print(f"dense kb.search (the query route's call, no HTTP) [{smi}]: {spread(dense_s)} "
+              f"host clock over {API_QUESTIONS}; {device}; hybrid {spread(hybrid_s)}")
+
+        # the snapshot route's save, then a restart: a new ApiState rehydrates on the card
+        kb.save(os.path.join(data, "snapshots", "api"))
+        restarted = ApiState(data_dir=data)
+        again = restarted.kbs.get("api")
+        check(again is not None and again.device.type == "cuda"
+              and again.store.index.count() == kb.store.index.count(),
+              f"a new ApiState on the same data dir: {restarted.kbs.names()}")
+        reset_launches()
+        for (_, q), before in zip(asked[:API_RESTORED], dense):
+            got = asyncio.run(again.search(q, top_k=5, similarity_threshold=0.0))
+            check([(h.chunk.id, h.score) for h in got] == [(h.chunk.id, h.score) for h in before],
+                  f"restored {q!r}: {[(h.chunk.id, h.score) for h in got]} != "
+                  f"{[(h.chunk.id, h.score) for h in before]}")
+        torch.cuda.synchronize()
+        n = launch_counts()["bfloat16"]
+        launches += n
+        check(n == API_RESTORED, f"{n} topk_pruned launches for {API_RESTORED} restored searches")
+        print(f"snapshot and restart: the KB rehydrated on {again.device} and answered "
+              f"{API_RESTORED} queries with the same rows and scores")
+
+        # the memory routes' toolkit, after POST /api/memory/config {"memoryEnabled": true}
+        state.memory_enabled = True
+        agent = asyncio.run(state.get_agent())
+        tk, twin_tk = state.memory_toolkit, twin.new_memory_toolkit()
+        check(tk is not None and tk.store.store.device.type == "cuda"
+              and agent.memory_toolkit is tk,
+              f"the memory toolkit is on {tk and tk.store.store.device}")
+        rng = np.random.default_rng([seed, 4])
+        vocab = sorted({w for _, q in facts for w in q.rstrip("?").split()[4:]})
+        for i in range(API_MEMORIES):
+            text = " ".join(rng.choice(vocab, size=8))
+            for toolkit in (tk, twin_tk):
+                asyncio.run(toolkit.add_memory(text, memory_type=("semantic", "episodic")[i % 2],
+                                               importance=float(i % 10) / 10))
+        reset_launches()
+        for i in range(API_MEMORY_QUERIES):
+            q = " ".join(rng.choice(vocab, size=3))
+            got = asyncio.run(tk.store.search_memories(tk.user_id, q, top_k=10))
+            ref = asyncio.run(twin_tk.store.search_memories(twin_tk.user_id, q, top_k=10))
+            check(all(m.user_id == tk.user_id for m, _ in got), f"memory {q!r}: another user's hit")
+            as_hits = [types.SimpleNamespace(chunk=types.SimpleNamespace(id=m.content),
+                                             score=float(s)) for m, s in got]
+            as_ref = [types.SimpleNamespace(chunk=types.SimpleNamespace(id=m.content),
+                                            score=float(s)) for m, s in ref]
+            check(same_up_to_ties(as_hits, as_ref, TOL), f"memory {q!r}: the card's hits differ "
+                  "from the CPU twin's")
+        torch.cuda.synchronize()
+        n = launch_counts()["bfloat16"]
+        launches += n
+        check(n >= API_MEMORY_QUERIES, f"{n} topk_pruned launches for {API_MEMORY_QUERIES} "
+              "memory searches")
+        print(f"memory: {API_MEMORIES} items through the toolkit the memory routes build, "
+              f"{API_MEMORY_QUERIES} searches on the card equal to the twin's, {n} launches")
+        print(f"  topk_pruned launches in 4i: {launches}")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -5363,6 +5553,9 @@ def main() -> int:
     phase("4h agents from configs: orchestrators, environments, the trajectory store")
     team4h = team_agents(args.seed, smi)
 
+    phase("4i the API on the card")
+    api4i = api_on_card(args.seed, smi)
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -5397,7 +5590,7 @@ def main() -> int:
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
-                            + mem4g["launches"] + team4h["launches"]
+                            + mem4g["launches"] + team4h["launches"] + api4i["launches"]
                             if tier == "bfloat16" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],

@@ -52,13 +52,16 @@ def test_port_has_sources():
                    "index/numpy_ref.py", "agents/env.py", "agents/docker_env.py",
                    "agents/orchestra.py", "agents/orchestrator.py", "agents/workforce.py",
                    "db/models.py", "db/migrations.py", "db/service.py", "tracing/otlp.py",
-                   "retrieval/monitoring.py", "utils/cache.py"):
+                   "retrieval/monitoring.py", "utils/cache.py", "api/__init__.py",
+                   "api/state.py", "api/app.py", "serve_api.py", "replay_server.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
         assert (PORT / "csrc" / src).exists()
     assert (PORT / "native" / "fasthash.c").exists()
     assert (PORT / "agents" / "data" / "planner_examples.json").exists()
+    for asset in ("index.html", "app.js", "style.css", "views/chat.js"):
+        assert (PORT / "api" / "static" / asset).exists()
 
 
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -94,13 +97,16 @@ def test_cpu_query_loads_no_jax():
 CARD_SCRIPT = """
 import sys
 for name in ("transformers", "tokenizers", "safetensors", "httpx", "pandas", "cffi", "yaml",
-             "bs4"):
+             "bs4", "tornado"):
     sys.modules[name] = None  # none of them is required: importing them fails
 import importlib, pkgutil, tempfile
 import numpy as np, torch
 import youtu_rag_tpu_torch
+# the two modules that serve over tornado need it (serve_api imports the app
+# when it serves)
+SERVE = {"youtu_rag_tpu_torch.api.app", "youtu_rag_tpu_torch.replay_server"}
 names = [m.name for m in pkgutil.walk_packages(youtu_rag_tpu_torch.__path__, "youtu_rag_tpu_torch.")
-         if "._build" not in m.name]
+         if "._build" not in m.name and m.name not in SERVE]
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, "tests")
@@ -117,15 +123,16 @@ with tempfile.TemporaryDirectory() as d:
     scores = rr.score("quick fox", ["the quick brown fox", "lazy dog"])
     assert len(scores) == 2 and np.isfinite(scores).all()
 print(len(names), sorted(m for m in ("transformers", "tokenizers", "safetensors", "httpx",
-                                    "pandas", "cffi", "yaml", "bs4")
+                                    "pandas", "cffi", "yaml", "bs4", "tornado")
                          if sys.modules.get(m) is not None))
 """
 
 
 def test_card_path_needs_no_hf_packages():
     """The port requires none of transformers, tokenizers, safetensors,
-    httpx, pandas, cffi, yaml and bs4 (the card's machine need not have
-    them): every port module imports without them, and a pretrained
+    httpx, pandas, cffi, yaml, bs4 and tornado (the card's machine need not
+    have them): every port module but the two that serve over tornado
+    imports without them, and a pretrained
     checkpoint (written by the tests' numpy writer) embeds and reranks."""
     out = subprocess.run([sys.executable, "-c", CARD_SCRIPT], capture_output=True, text=True,
                          cwd=REPO, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
@@ -194,13 +201,14 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
     from youtu_rag_tpu_torch.index import DeviceVectorIndex
     from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
     from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
     from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
     from youtu_rag_tpu_torch.utils.device import resolve_device
 
+    from youtu_rag_tpu_torch.api.state import ApiState
     from youtu_rag_tpu_torch.agents.llm import get_chat_client
     from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient
     from youtu_rag_tpu_torch.memory import MemoryVectorStore, VectorMemoryToolkit
@@ -214,12 +222,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
                  lambda: LocalChatClient("/nowhere"),
                  lambda: get_chat_client({"provider": "local", "weights_dir": "/nowhere"}),
                  lambda: MemoryVectorStore(HashEmbedder(16)), VectorMemoryToolkit,
-                 lambda: VectorMemoryToolkit({"user_id": "u"})):
+                 lambda: VectorMemoryToolkit({"user_id": "u"}),
+                 lambda: ApiState(data_dir=str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert DeviceVectorIndex(8, device="cpu").device.type == "cpu"
     assert MemoryVectorStore(HashEmbedder(16), device="cpu").store.device.type == "cpu"
     assert VectorMemoryToolkit({"device": "cpu"}).store.store.device.type == "cpu"
+    assert ApiState(data_dir=str(tmp_path), device="cpu").device.type == "cpu"
 
 
 def test_cli_without_cuda_raises(tmp_path):
