@@ -219,6 +219,33 @@ Phases; any failure exits non-zero before the result lines:
      scores; with memory on, ``get_agent`` and the memory routes' toolkit
      on the card, 256 memories added and 16 searches equal to the twin's,
      every hit the asking user's;
+  4j. the DTR Excel agent and the eval harness on the card (whether
+     matplotlib imports on this host is printed): (a) the committed DTR
+     fixture's (benchmarks/data/dtr/) first four questions of each kind in
+     file order (23) through the linear, mcts and autonomous planners of
+     the ``ExcelAgent`` that ``get_agent`` builds from
+     ``examples/excel_qa`` on the card, with the scripted analyst of
+     ``bench/dtr.py`` and a ``VectorMemoryToolkit`` on the card for
+     experience priming, against a CPU twin: every answer, plan, code
+     string and event sequence and each planner's accuracy the twin's, no
+     answer an error, every question's hit the fixture's known outcome
+     (linear misses the four "hard" questions, mcts and autonomous none;
+     the chart kind is excused, and the exemption printed, where
+     matplotlib is missing), ``search_skills`` on topk_pruned (calls and
+     launches printed); (b)
+     ``wb_sales``'s schema drawn at 100,000 ``orders`` rows, 8 aggregate,
+     superlative and join questions through the linear planner, each
+     answer holding its pandas gold value, the median seconds a question
+     and its sandbox share; (c) the agent on ``yrt_tiny_chat`` on the
+     card: the run ends, the first generate's greedy tokens are a CPU
+     twin's, tokens/s; (d) ``RetrievalBenchmark`` on 4i's KB and its twin
+     (64 qrels, dense and hybrid) and on an int8 KB of the asked
+     documents: the twin's metrics, lists equal up to near-tie swaps
+     within TOL (printed), launches beside ``batch_retrieve`` calls; (e)
+     ``BaseBenchmark`` as ``run_eval`` drives it over those 64 facts (a
+     ``simple`` agent with the KB toolkit on 4i's KB, a scripted model,
+     ``exact_match``): the twin's stats, 64 samples judged in sqlite, one
+     launch a sample, the host-clock ms a sample;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -301,7 +328,8 @@ Phases; any failure exits non-zero before the result lines:
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
 4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
-search batch of 4i, 5, 5c, 5d, 5b, 5e and 6a drive it and read just after; launches
+search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5b, 5e and 6a drive it
+and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
 """
@@ -364,11 +392,12 @@ EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
 EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
                     "ivf_topk_int4_dma": 0.4119}
 
-# Phase 4g's configs as the port's ConfigLoader composes them from
-# configs/agents/memory_chat.yaml, configs/agents/meta_retrieval.yaml and
-# configs/tools/text2sql.yaml with no YRT_* variable set (a CPU test,
-# tests/test_torch_loader.py, holds them equal): phase 4g builds its agents
-# from these where the card's host has no yaml, and says so.
+# Phase 4g's and 4j's configs as the port's ConfigLoader composes them from
+# configs/agents/memory_chat.yaml, configs/agents/meta_retrieval.yaml,
+# configs/tools/text2sql.yaml and configs/agents/examples/excel_qa.yaml with
+# no YRT_* variable set (a CPU test, tests/test_torch_loader.py, holds them
+# equal): phases 4g and 4j build their agents from these where the card's
+# host has no yaml, and say so.
 _SIMPLE_BASE = {"type": "simple", "max_turns": 50,
                 "model": {"model": "", "base_url": "", "api_key": ""}}
 CONFIG_DICTS = {
@@ -393,6 +422,11 @@ CONFIG_DICTS = {
     },
     ("tools", "text2sql"): {"name": "text2sql", "mode": "builtin",
                             "config": {"kb": "default", "database_url": ""}},
+    # phase 4j's Excel agent (configs/agents/examples/excel_qa.yaml)
+    ("agents", "examples/excel_qa"): {
+        **_SIMPLE_BASE, "type": "excel",
+        "agent": {"name": "excel_qa",
+                  "instructions": "You answer analytical questions over spreadsheet data."}},
 }
 
 _phase_t0: list[tuple[str, float]] = []
@@ -4206,7 +4240,369 @@ def api_on_card(seed: int, smi: str) -> dict:
         print(f"memory: {API_MEMORIES} items through the toolkit the memory routes build, "
               f"{API_MEMORY_QUERIES} searches on the card equal to the twin's, {n} launches")
         print(f"  topk_pruned launches in 4i: {launches}")
-    return {"launches": launches}
+        docs = {}
+        for name, _ in asked:
+            with open(os.path.join(root, name)) as f:
+                docs[name] = f.read()
+    # 4j's RetrievalBenchmark and BaseBenchmark run on these KBs, not new ones
+    return {"launches": launches, "kb": kb, "twin_kb": twin_kb, "asked": asked, "docs": docs}
+
+
+# ---------------------------------------------------------------------------
+# 4j. the DTR Excel agent and the eval harness on the card
+# ---------------------------------------------------------------------------
+
+DTR_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "dtr")
+DTR_PLANNERS = ("linear", "mcts", "autonomous")
+DTR_BIG_ORDERS = 100_000  # a workbook analysts open; Excel's limit is 1,048,576 rows
+DTR_BIG_KINDS = {"aggregate": 3, "superlative": 3, "join": 2}  # 8 questions on wb_sales
+DTR_LOCAL_MAX_TOKENS = 64
+FACT = re.compile(r"The .+? of .+? is (\d+)\.")
+
+
+def first_difference(got: dict, want: dict) -> str:
+    for key in got:
+        if got[key] != want.get(key):
+            return f"{key}: {str(got[key])[:300]!r} != {str(want.get(key))[:300]!r}"
+    return "none"
+
+
+def fact_answer_rule(fake):
+    """A scripted model: search the KB for the question (hybrid: a 256-wide
+    hash embedding alone misses one-sentence facts, 4f), then answer with
+    the value the top hit's fact sentence states."""
+
+    def rule(messages, tools):
+        last = messages[-1]
+        if last.role != "tool":
+            question = next(m.content for m in reversed(messages) if m.role == "user")
+            return fake.tool_response("kb_hybrid_search", {"query": question, "top_k": 3})
+        m = FACT.search(last.content or "")
+        return fake.text_response(f"The value is {m.group(1)}." if m else "I do not know.")
+
+    return rule
+
+
+class SandboxClock:
+    """Host seconds inside the SMG sandbox (``SheetStateMachine._run_script``)
+    while active."""
+
+    def __enter__(self):
+        from youtu_rag_tpu_torch.integrations.dtr.smg import SheetStateMachine
+
+        self.seconds, self._cls = 0.0, SheetStateMachine
+        self._real = real = SheetStateMachine._run_script
+
+        async def timed(machine, script):
+            t0 = time.perf_counter()
+            try:
+                return await real(machine, script)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        SheetStateMachine._run_script = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._run_script = self._real
+
+
+def dtr_and_eval(seed: int, smi: str, api: dict) -> dict:
+    """4j: (a) the committed DTR fixture's first four questions of each kind
+    (23) through the linear, mcts and autonomous planners of the Excel agent
+    that ``get_agent`` builds from ``examples/excel_qa`` on cuda, with a
+    memory toolkit on the card for experience priming, against a CPU twin;
+    (b) 8 questions over ``wb_sales`` drawn at 100,000 ``orders`` rows;
+    (c) the agent on ``yrt_tiny_chat`` on cuda; (d) ``RetrievalBenchmark``
+    on 4i's KB and its twin, dense and hybrid, and on an int8 KB of the
+    asked documents; (e) ``BaseBenchmark`` as ``run_eval`` drives it over
+    4i's 64 facts. Returns the main path's topk_pruned and topk_int8_pruned
+    launches."""
+    import importlib.util
+
+    from youtu_rag_tpu_torch import run_eval
+    from youtu_rag_tpu_torch.agents.config import AgentConfig
+    from youtu_rag_tpu_torch.agents.factory import get_agent
+    from youtu_rag_tpu_torch.agents.llm import FakeChatClient
+    from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient
+    from youtu_rag_tpu_torch.bench import dtr
+    from youtu_rag_tpu_torch.db.models import EvaluationSample
+    from youtu_rag_tpu_torch.db.service import DBService
+    from youtu_rag_tpu_torch.eval.retrieval_eval import RetrievalBenchmark
+    from youtu_rag_tpu_torch.memory.toolkit import VectorMemoryToolkit
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+    from youtu_rag_tpu_torch.tools.base import ToolkitConfig
+    import youtu_rag_tpu_torch.models.decoder as decoder
+
+    t_phase = time.perf_counter()
+    mpl = importlib.util.find_spec("matplotlib")
+    print(f"4j: matplotlib imports on this host ({mpl.origin})" if mpl is not None else
+          "4j: matplotlib is missing on this host: the chart questions' sandbox cannot draw "
+          "(the card and its twin answer them alike); the chart kind is excused from the "
+          "gate on the fixture's known outcome")
+    excused = () if mpl is not None else ("chart",)
+    cfg = load_config("agents", "examples/excel_qa")
+    check(cfg.type == "excel", f"examples/excel_qa is of type {cfg.type}")
+    launches = {"topk_pruned": 0, "topk_int8_pruned": 0}
+
+    # (a) the fixture's questions through the three planners, card and twin
+    with open(os.path.join(DTR_DATA, "questions.json")) as f:
+        questions = dtr.first_of_each_kind(json.load(f))
+    check(len(questions) == 23, f"{len(questions)} fixture questions, expected 23")
+    wbs = {wb: os.path.join(DTR_DATA, wb) for wb in ("wb_sales", "wb_ops")}
+    mem = VectorMemoryToolkit({"user_id": "dtr"})  # no device: the card
+    twin_mem = VectorMemoryToolkit({"user_id": "dtr", "device": "cpu"})
+    check(mem.store.store.device.type == "cuda", f"the memory toolkit is on {mem.store.store.device}")
+    searched = [0]
+    search_skills = mem.search_skills
+
+    async def counted(*args, **kw):
+        searched[0] += 1
+        return await search_skills(*args, **kw)
+
+    mem.search_skills = counted
+    card, twin, card_s = {}, {}, {}
+    reset_launches()
+    for planner in DTR_PLANNERS:
+        card[planner], card_s[planner] = [], []
+        for q in questions:
+            t0 = time.perf_counter()
+            card[planner].append(asyncio.run(dtr.run_question(
+                q, wbs[q["workbook"]], planner, config=cfg, memory_toolkit=mem)))
+            card_s[planner].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_skills = counts["bfloat16"]
+    launches["topk_pruned"] += n_skills
+    t0 = time.perf_counter()
+    for planner in DTR_PLANNERS:
+        twin[planner] = [asyncio.run(dtr.run_question(
+            q, wbs[q["workbook"]], planner, config=cfg, device="cpu", memory_toolkit=twin_mem))
+            for q in questions]
+    twin_s = time.perf_counter() - t0
+    for planner in DTR_PLANNERS:
+        for got, want in zip(card[planner], twin[planner]):
+            g, w = dtr.twin_view(got), dtr.twin_view(want)
+            check(g == w, f"{planner} {got['question']!r}: the card's run differs from the CPU "
+                  f"twin's at {first_difference(g, w)}")
+        acc, twin_acc = dtr.accuracy(card[planner]), dtr.accuracy(twin[planner])
+        check(acc == twin_acc, f"{planner}: accuracy {acc} against the twin's {twin_acc}")
+        rows = card[planner]
+        crashed = [r["question"] for r in rows if r["answer"].startswith("error:")]
+        check(not crashed, f"{planner}: the agent raised on {crashed}")
+        wrong = [(r["kind"], r["question"]) for r in rows if r["kind"] not in excused
+                 and bool(r["hit"]) != dtr.expected_hit(planner, r["kind"])]
+        check(not wrong, f"{planner}: the fixture's known outcome differs at {wrong}")
+        depth = [r["depth"] for r in rows if r["depth"] is not None]
+        kinds = sorted({r["kind"] for r in rows})
+        by_kind = {k: dtr.accuracy([r for r in rows if r["kind"] == k]) for k in kinds}
+        print(f"{planner}: accuracy {acc:.4f} (the twin's {twin_acc:.4f}; by kind {by_kind}), "
+              f"{sum(r['llm_calls'] for r in rows) / len(rows):.2f} LLM calls and depth "
+              f"{sum(depth) / max(len(depth), 1):.4f} a question; {spread(card_s[planner])} a "
+              f"question on the card's host [{smi}]")
+    check(n_skills > 0 and all(n == 0 for t, n in counts.items() if t != "bfloat16"),
+          f"search_skills launched {counts} for {searched[0]} calls")
+    print(f"(a) {len(questions)} questions x {len(DTR_PLANNERS)} planners: every answer, plan, "
+          f"code string and event sequence the CPU twin's; search_skills {searched[0]} calls, "
+          f"{n_skills} topk_pruned launches; the twin's runs {twin_s:.1f} s")
+
+    # (b) wb_sales at 100,000 orders rows, through the linear planner
+    t0 = time.perf_counter()
+    big = dtr.gen_workbooks(np.random.default_rng([seed, 18]), n_orders=DTR_BIG_ORDERS)
+    big_questions = dtr.gen_questions(big)
+    picked, left = [], dict(DTR_BIG_KINDS)
+    for q in big_questions:
+        if q["workbook"] == "wb_sales" and left.get(q["kind"], 0) > 0:
+            left[q["kind"]] -= 1
+            picked.append(q)
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        for sheet, df in big["wb_sales"].items():
+            df.to_csv(os.path.join(root, f"{sheet}.csv"), index=False)
+        per_q, sandbox = [], []
+        for q in picked:
+            with SandboxClock() as clock:
+                t1 = time.perf_counter()
+                row = asyncio.run(dtr.run_question(q, root, "linear", config=cfg))
+                per_q.append(time.perf_counter() - t1)
+            sandbox.append(clock.seconds)
+            check(row["hit"], f"100k rows: {q['question']!r} answered {row['answer'][:200]!r}, "
+                  f"gold {q['gold']!r}")
+    med = statistics.median(per_q)
+    print(f"(b) wb_sales at {DTR_BIG_ORDERS} orders rows (drawn in {gen_s:.1f} s): "
+          f"{len(picked)} questions ({DTR_BIG_KINDS}) each answered with its pandas gold value; "
+          f"{med:.3f} s a question (median; min {min(per_q):.3f}, max {max(per_q):.3f}), the "
+          f"sandbox {statistics.median(sandbox):.3f} s of it and the rest "
+          f"{statistics.median([a - b for a, b in zip(per_q, sandbox)]):.3f} s (medians) [{smi}]")
+
+    # (c) the agent on the local chat model, on the card
+    chat_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "benchmarks", "models", "yrt_tiny_chat")
+    local = AgentConfig.model_validate({**cfg.model_dump(), "model": {
+        "provider": "local", "weights_dir": chat_dir, "max_tokens": DTR_LOCAL_MAX_TOKENS}})
+    gens, real_generate = [], decoder.generate
+
+    def spy(params, toks, mask, dcfg, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, lengths = real_generate(params, toks, mask, dcfg, **kw)
+        torch.cuda.synchronize()
+        gens.append({"toks": toks.cpu(), "mask": mask.cpu(), "kw": kw, "out": out.cpu(),
+                     "n": int(lengths[0]), "s": time.perf_counter() - t1,
+                     "device": toks.device.type})
+        return out, lengths
+
+    decoder.generate = spy
+    try:
+        agent = get_agent(local)  # no device: the card
+        t0 = time.perf_counter()
+        q = questions[4]
+        try:
+            rec = asyncio.run(agent.run(q["question"], wbs[q["workbook"]]))
+            err = None
+        except Exception as e:  # noqa: BLE001 - the gate reports it
+            rec, err = None, e
+        run_s = time.perf_counter() - t0
+    finally:
+        decoder.generate = real_generate
+    check(err is None, f"the Excel agent on yrt_tiny_chat raised {err!r}")
+    check(gens and all(g["device"] == "cuda" for g in gens),
+          f"{len(gens)} generate calls, on {sorted({g['device'] for g in gens})}")
+    twin_client = LocalChatClient(chat_dir, device="cpu")
+    first = gens[0]
+    out, lengths = real_generate(twin_client.params, first["toks"], first["mask"], twin_client.cfg,
+                                 **{**first["kw"], "generator": twin_client._generator})
+    n = first["n"]
+    check(int(lengths[0]) == n and torch.equal(out[0, :n].cpu(), first["out"][0, :n]),
+          f"the first generate's greedy tokens differ from the CPU twin's: "
+          f"{first['out'][0, :n].tolist()} / {out[0, :int(lengths[0])].tolist()}")
+    tokens = sum(g["n"] for g in gens)
+    gen_time = sum(g["s"] for g in gens)
+    print(f"(c) the Excel agent on yrt_tiny_chat (cuda, bf16): {q['question']!r} ran to an end in "
+          f"{run_s:.2f} s, {agent.llm_calls} LLM calls, {len(gens)} generates, answer "
+          f"{(rec.final_output or '')[:120]!r}; the first generate's {n} greedy tokens the CPU "
+          f"twin's; {tokens} tokens in {gen_time:.2f} s of generate: "
+          f"{tokens / max(gen_time, 1e-9):.1f} tokens/s [{smi}]")
+
+    # (d) RetrievalBenchmark on 4i's KB and its twin, and on an int8 KB
+    qrels = [{"query": question, "relevant": [name]} for name, question in api["asked"]]
+    kb, twin_kb = api["kb"], api["twin_kb"]
+
+    def retrieval(kb_, hybrid: bool):
+        bench = RetrievalBenchmark(kb_, top_k=15, use_hybrid=hybrid)
+        samples = bench.load_qrels(qrels)
+        calls = [0]
+        retriever = kb_.hybrid_retriever if hybrid else kb_.retriever
+        real_batch = retriever.batch_retrieve
+
+        async def counted_batch(*args, **kw):
+            calls[0] += 1
+            return await real_batch(*args, **kw)
+
+        retriever.batch_retrieve = counted_batch
+        try:
+            report = asyncio.run(bench.run(samples))
+        finally:
+            del retriever.batch_retrieve
+        return report, samples, calls[0]
+
+    for hybrid, kind in ((False, "dense"), (True, "hybrid")):
+        reset_launches()
+        t0 = time.perf_counter()
+        report, samples, calls = retrieval(kb, hybrid)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        n = launch_counts()["bfloat16"]
+        launches["topk_pruned"] += n
+        want, want_samples, _ = retrieval(twin_kb, hybrid)
+        check(report == want, f"RetrievalBenchmark {kind}: {report} against the twin's {want}")
+        swaps = []
+        for s, w in zip(samples, want_samples):
+            if s.retrieved == w.retrieved:
+                continue
+            retriever = kb.hybrid_retriever if hybrid else kb.retriever
+            twin_retriever = twin_kb.hybrid_retriever if hybrid else twin_kb.retriever
+            got_hits = asyncio.run(retriever.retrieve(s.query, top_k=15, similarity_threshold=0.0))
+            ref_hits = asyncio.run(twin_retriever.retrieve(s.query, top_k=15,
+                                                           similarity_threshold=0.0))
+            check(same_up_to_ties(got_hits, ref_hits, TOL),
+                  f"RetrievalBenchmark {kind} {s.query!r}: {s.retrieved} against the twin's "
+                  f"{w.retrieved}, not near-tie swaps")
+            swaps.append((s.query, s.retrieved, w.retrieved))
+        for query, got_docs, want_docs in swaps:
+            print(f"  near-tie swap within {TOL} ({kind}) {query!r}: {got_docs} / {want_docs}")
+        check(n >= 1, f"RetrievalBenchmark {kind} launched topk_pruned {n} times")
+        print(f"(d) RetrievalBenchmark {kind} on 4i's KB ({len(qrels)} qrels, top 15): {report} "
+              f"the twin's; {len(swaps)} lists differ by near-tie swaps; {n} topk_pruned "
+              f"launches for {calls} batch_retrieve call(s); {run_s * 1e3:.1f} ms [{smi}]")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        paths = []
+        for name, text in api["docs"].items():
+            paths.append(os.path.join(root, name))
+            with open(paths[-1], "w") as f:
+                f.write(text)
+        int8 = KnowledgeBase("dtr-eval-int8", tier_config("dtr-eval", "int8"), device="cuda")
+        int8_twin = KnowledgeBase("dtr-eval-int8-cpu", tier_config("dtr-eval", "int8"),
+                                  device="cpu")
+        for kb_ in (int8, int8_twin):
+            asyncio.run(kb_.build_files(sorted(paths)))
+    reset_launches()
+    report, samples, calls = retrieval(int8, False)
+    torch.cuda.synchronize()
+    n8 = launch_counts()["int8"]
+    launches["topk_int8_pruned"] += n8
+    want, want_samples, _ = retrieval(int8_twin, False)
+    check(report == want and [s.retrieved for s in samples] == [w.retrieved for w in want_samples],
+          f"RetrievalBenchmark int8: {report} against the twin's {want}")
+    check(n8 >= 1, f"the int8 KB launched topk_int8_pruned {n8} times")
+    print(f"(d) RetrievalBenchmark dense on an int8 KB of the {len(paths)} asked documents: "
+          f"{report} the twin's, every list equal; {n8} topk_int8_pruned launches for {calls} "
+          "batch_retrieve call(s)")
+
+    # (e) BaseBenchmark as run_eval drives it, over the 64 facts
+    values = {}
+    for name, text in api["docs"].items():
+        m = FACT.search(text)
+        check(m is not None, f"{name} states no fact")
+        values[name] = m.group(1)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        data = os.path.join(root, "facts.jsonl")
+        with open(data, "w") as f:
+            for name, question in api["asked"]:
+                f.write(json.dumps({"question": question, "answer": values[name]}) + "\n")
+        stats, walls = {}, {}
+        for side, kb_, device in (("card", kb, None), ("twin", twin_kb, "cpu")):
+            agent_cfg = AgentConfig(type="simple", toolkits={
+                "kb_search": ToolkitConfig(name="kb_search", config={"kb": kb_})})
+            agent = get_agent(agent_cfg, client=FakeChatClient(
+                rule_fn=fact_answer_rule(FakeChatClient)), device=device)
+            db = DBService(f"sqlite:///{root}/eval-{side}.db")
+            argv = ["--data", data, "--exp-id", "facts", "--processor", "exact_match"]
+            argv += [] if device is None else ["--device", device]
+            reset_launches()
+            t0 = time.perf_counter()
+            stats[side] = asyncio.run(run_eval.main(argv, agent=agent, db=db))
+            if device is None:
+                torch.cuda.synchronize()
+                n_eval = launch_counts()["bfloat16"]
+                launches["topk_pruned"] += n_eval
+            walls[side] = time.perf_counter() - t0
+            judged = db.count(EvaluationSample, {"stage": "judged", "exp_id": "facts"})
+            check(judged == len(api["asked"]), f"{side}: {judged} samples judged in the DB")
+    per_sample = stats["card"]["avg_time_cost"]
+    for s in stats.values():
+        s.pop("avg_time_cost")
+    check(stats["card"] == stats["twin"], f"BaseBenchmark: {stats['card']} against the twin's "
+          f"{stats['twin']}")
+    check(n_eval >= len(api["asked"]),
+          f"{n_eval} topk_pruned launches for {len(api['asked'])} samples")
+    print(f"(e) BaseBenchmark through run_eval (simple agent, kb_hybrid_search on 4i's KB on cuda, "
+          f"exact_match): {stats['card']} the twin's; {len(api['asked'])} samples judged in "
+          f"sqlite; {n_eval} topk_pruned launches; {walls['card'] / len(api['asked']) * 1e3:.1f} ms a "
+          f"sample of run wall time, {per_sample * 1e3:.1f} ms a sample's rollout (host clock, "
+          f"concurrency 4) [{smi}]")
+    print(f"  launches in 4j: {launches}; 4j {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5556,6 +5952,10 @@ def main() -> int:
     phase("4i the API on the card")
     api4i = api_on_card(args.seed, smi)
 
+    phase("4j the DTR Excel agent and the eval harness on the card")
+    dtr4j = dtr_and_eval(args.seed, smi, api4i)
+    del api4i["kb"], api4i["twin_kb"]
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -5591,7 +5991,8 @@ def main() -> int:
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
                             + mem4g["launches"] + team4h["launches"] + api4i["launches"]
-                            if tier == "bfloat16" else 0)),
+                            + dtr4j["topk_pruned"] if tier == "bfloat16" else 0)
+                         + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],

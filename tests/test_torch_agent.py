@@ -52,6 +52,9 @@ from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
 from youtu_rag_tpu_torch.tools import get_toolkit
 from youtu_rag_tpu_torch.tools.base import AsyncBaseToolkit, ToolkitConfig, register_tool
 from youtu_rag_tpu_torch.tools.kb_search import KBSearchToolkit
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 INSTRUCTIONS = ("You are a helpful assistant. Use the kb_embedding_search tool to look up "
                 "facts from the knowledge base before answering.")
@@ -146,9 +149,9 @@ def test_toolkit_schemas_match_jax(kbs):
 
 
 def test_registry_and_unported_parts(kbs):
-    """The registry builds the ported toolkits, agent environments and the
-    orchestrator agent types; what is still not ported raises naming its
-    integration: the excel agent (DTR)."""
+    """The registry builds the ported toolkits, agent environments, the
+    orchestrator agent types and the excel agent (DTR, ported since); an
+    unknown type raises."""
     from youtu_rag_tpu_torch.agents.env import ShellLocalEnv
     from youtu_rag_tpu_torch.agents.factory import ORCHESTRATOR_TYPES, get_agent
     from youtu_rag_tpu_torch.agents.orchestra import OrchestraAgent
@@ -181,8 +184,9 @@ def test_registry_and_unported_parts(kbs):
                      "orchestrator": OrchestratorAgent,
                      "parallel_orchestrator": ParallelOrchestratorAgent,
                      "workforce": WorkforceAgent}
-    with pytest.raises(NotImplementedError, match="integrations/dtr"):
-        get_agent({"type": "excel"}, client=FakeChatClient())
+    from youtu_rag_tpu_torch.integrations.dtr import ExcelAgent
+
+    assert isinstance(get_agent({"type": "excel"}, client=FakeChatClient()), ExcelAgent)
     with pytest.raises(ValueError, match="unknown agent type"):
         get_agent(AgentConfig.model_construct(type="nope"), client=FakeChatClient())
 

@@ -31,7 +31,9 @@ import pytest
 
 from torch_api_helpers import (  # noqa: F401 - port_registry is a fixture
     Served, make_state, multipart, package, port_registry, sse_cards)
-from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
+from torch_native_helpers import jax_lib, jax_tracer_restored  # noqa: F401 - fixtures
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 WALL = {"retrieval_time_ms", "uploaded_at", "time", "created_at", "executed_at", "duration_s",

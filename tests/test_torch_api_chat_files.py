@@ -2,10 +2,13 @@
 (ref: ChatService.modify_query, chat_service.py:486-623), the cases of
 ``tests/api/test_chat_files.py``.
 
-The deep-table-reasoning Excel agent is not ported yet (``get_agent``
-raises for ``excel``), so the spreadsheet route is held with a stand-in
-agent of the same surface (``load_schema`` and ``run(query, table_path)``)."""
+The spreadsheet route is held twice: with a stand-in agent of the Excel
+agent's surface (``load_schema`` and ``run(query, table_path)``), and
+with the real ``ExcelAgent`` and a scripted model on both packages' apps,
+whose answers and SSE cards (the default and the auto-select stream) are
+equal, trace ids and data-dir paths aside."""
 
+import asyncio
 import json
 import tempfile
 
@@ -17,7 +20,14 @@ from youtu_rag_tpu_torch.agents.simple_agent import SimpleAgent
 from youtu_rag_tpu_torch.api.app import create_app
 from youtu_rag_tpu_torch.api.state import ApiState
 from youtu_rag_tpu_torch.core.config import IndexConfig, RAGConfig, VectorStoreConfig
+from youtu_rag_tpu_torch.integrations.dtr.excel_agent import ExcelAgent
 import pytest
+
+from torch_api_helpers import Served, make_state, package, sse_cards
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+from youtu_rag_tpu.integrations.dtr.excel_agent import ExcelAgent as JaxExcelAgent
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 
 def _state():
@@ -90,8 +100,60 @@ class ChatExcelRouteTest(AsyncHTTPTestCase):
         assert "[attached file:" in query and query.endswith("total amount?")
 
 
-def test_factory_excel_agent_not_ported():
-    from youtu_rag_tpu_torch.agents.factory import get_agent
+def excel_rule(F):
+    """A scripted analyst for the route: a one-step plan, its pandas, a
+    verdict and an answer."""
 
-    with pytest.raises(NotImplementedError, match="excel"):
-        get_agent({"type": "excel"}, client=FakeChatClient(), trajectory_sink=None)
+    def rule(messages, tools):
+        content = messages[-1].content or ""
+        if content.startswith("You are a data analyst planning"):
+            return F.text_response('["total the amount column"]')
+        if content.startswith("Write pandas code"):
+            return F.text_response("print(dfs['Sheet1']['amount'].sum())")
+        if content.startswith("Did this step execution succeed"):
+            return F.text_response('{"success": true, "reason": ""}')
+        if content.startswith("Answer the question"):
+            return F.text_response("The total amount is 60.")
+        return F.text_response("?")
+
+    return rule
+
+
+def excel_route(name: str) -> list:
+    """The spreadsheet route of ``name``'s app with the real Excel agent:
+    the plain answer, the SSE cards and the auto-select stream's cards."""
+
+    async def go():
+        pkg = package(name)
+        state = make_state(pkg, "yrt-chatx")
+        excel = ExcelAgent if name == "port" else JaxExcelAgent
+        state.agent = excel(client=pkg.FakeChatClient(rule_fn=excel_rule(pkg.FakeChatClient)))
+        state.files.upload("uploads", "sales.csv", b"amount\n10\n20\n30\n")
+        app = Served(pkg.app.create_app(state))
+        out = []
+        try:
+            for body in ({"query": "total amount?", "file_ids": ["sales.csv"], "stream": False},
+                         {"query": "total amount?", "file_ids": ["sales.csv"]},
+                         {"query": "total amount?", "file_ids": ["sales.csv"],
+                          "auto_select": True}):
+                r = await app.fetch("/api/chat", "POST", body)
+                text = r.body.decode().replace(str(state.data_dir), "<data>")
+                payload = sse_cards(text.encode()) if "stream" not in body else json.loads(text)
+                for card in payload if isinstance(payload, list) else [payload]:
+                    card.pop("trace_id", None)
+                out.append((r.code, payload))
+        finally:
+            await app.close()
+        return out
+
+    return asyncio.run(go())
+
+
+def test_spreadsheet_route_real_excel_agent_matches_jax():
+    got, want = excel_route("port"), excel_route("jax")
+    assert got == want
+    (code, answer), (_, cards), (_, auto) = got
+    assert code == 200 and "60" in answer["answer"]
+    assert [c["type"] for c in cards][-2:] == ["final", "done"] and "60" in cards[-2]["content"]
+    assert any(c["type"] == "tool_call" and "amount" in c["arguments"] for c in cards)
+    assert auto[0]["type"] == "agent_switch" and auto[-1]["auto_selected"] == ["excel"]

@@ -21,6 +21,9 @@ import torch
 
 from torch_api_helpers import Served, make_state, package, port_registry  # noqa: F401
 from youtu_rag_tpu_torch import cli_chat, serve_api
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_STATIC = REPO / "youtu_rag_tpu" / "api" / "static"

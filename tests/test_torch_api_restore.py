@@ -16,7 +16,9 @@ import pytest
 
 from test_torch_api import assert_same, documents, normalize
 from torch_api_helpers import Served, make_state, package, port_registry  # noqa: F401
-from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
+from torch_native_helpers import jax_lib, jax_tracer_restored  # noqa: F401 - fixtures
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 QUERIES = [("What is the color of Zoka?", "dense"), ("code ZX-9981", "hybrid"),
            ("launch code Vexaril", "lexical"), ("moon orbit earth", "dense")]

@@ -28,6 +28,9 @@ from youtu_rag_tpu_torch.ops.attention import (
     flash_attention_stats,
     flash_attention_stats_reference,
 )
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

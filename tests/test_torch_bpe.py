@@ -16,6 +16,9 @@ import pytest
 from youtu_rag_tpu.models.bpe import BPETokenizer as JaxBPE
 from youtu_rag_tpu.models.bpe import _gpt2_word_split as jax_split
 from youtu_rag_tpu_torch.models.bpe import BPETokenizer, _gpt2_word_split, bytes_to_unicode
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 CHAT = Path(__file__).resolve().parent.parent / "benchmarks" / "models" / "yrt_tiny_chat"
 

@@ -38,6 +38,9 @@ import youtu_rag_tpu_torch.tracing.otlp as otlp
 import youtu_rag_tpu_torch.tracing.tracer as tracer
 from youtu_rag_tpu.agents.config import AgentConfig as JaxAgentConfig
 from youtu_rag_tpu_torch.agents.config import AgentConfig
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 
 def package(jax: bool):

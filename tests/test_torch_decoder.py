@@ -40,6 +40,9 @@ from youtu_rag_tpu.models.pretrained import load_pretrained_decoder as jax_load
 from youtu_rag_tpu_torch.models import decoder as td
 from youtu_rag_tpu_torch.models.convert import decoder_params_from_numpy
 from youtu_rag_tpu_torch.models.pretrained import load_pretrained_decoder
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 CHAT = Path(__file__).resolve().parent.parent / "benchmarks" / "models" / "yrt_tiny_chat"

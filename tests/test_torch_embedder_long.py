@@ -19,6 +19,9 @@ from youtu_rag_tpu.parallel.mesh import get_mesh
 from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
 from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 KW = dict(vocab_size=4096, d_model=32, n_layers=2, n_heads=4, d_ff=64, max_len=32, out_dim=16)
 CFG = EncoderConfig(**KW, dtype=torch.float32)

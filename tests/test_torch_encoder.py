@@ -34,6 +34,9 @@ from youtu_rag_tpu_torch.models import encoder as port_encoder
 from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.models.embedder import EmbedderFactory, TorchEmbedder
 from youtu_rag_tpu_torch.models.tokenizer import HashTokenizer
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 WEIGHTS = pathlib.Path(__file__).parents[1] / "benchmarks" / "models" / "yrt_tiny_lex"
 SMALL = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=2, d_ff=256, max_len=512, out_dim=32)

@@ -32,6 +32,9 @@ from youtu_rag_tpu.agents.simple_agent import SimpleAgent as JaxSimpleAgent
 from youtu_rag_tpu_torch.agents.config import AgentConfig, EnvConfig
 from youtu_rag_tpu_torch.agents.llm import FakeChatClient
 from youtu_rag_tpu_torch.agents.simple_agent import SimpleAgent
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 
 def package(jax: bool):

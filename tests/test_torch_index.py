@@ -28,6 +28,9 @@ from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.index import DeviceVectorIndex, index_from_numpy
 from youtu_rag_tpu_torch.index.filters import compile_filter
 from youtu_rag_tpu_torch.index.metadata import MetadataSchema
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 D = 64

@@ -59,12 +59,12 @@ from youtu_rag_tpu_torch.ingest.processors import SourceTask
 from youtu_rag_tpu_torch.models.embedder import HashEmbedder
 from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
 from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
-from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
+from torch_native_helpers import jax_lib, jax_tracer_restored  # noqa: F401 - fixtures
 
 # stored rows are compared bit for bit, and make_kbs(True) names the C hash
 # path on both sides: hold the JAX package to its C path whatever the race
 # for its shared build cache did
-pytestmark = pytest.mark.usefixtures("jax_lib")
+pytestmark = pytest.mark.usefixtures("jax_lib", "jax_tracer_restored")
 
 WORDS = ("alpha beta gamma delta epsilon zeta eta theta iota kappa lambda mu nu xi "
          "omicron pi rho sigma tau upsilon phi chi psi omega").split()

@@ -53,7 +53,16 @@ def test_port_has_sources():
                    "agents/orchestra.py", "agents/orchestrator.py", "agents/workforce.py",
                    "db/models.py", "db/migrations.py", "db/service.py", "tracing/otlp.py",
                    "retrieval/monitoring.py", "utils/cache.py", "api/__init__.py",
-                   "api/state.py", "api/app.py", "serve_api.py", "replay_server.py"):
+                   "api/state.py", "api/app.py", "serve_api.py", "replay_server.py",
+                   "integrations/__init__.py", "integrations/dtr/__init__.py",
+                   "integrations/dtr/session_log.py", "integrations/dtr/table_structure.py",
+                   "integrations/dtr/loader.py", "integrations/dtr/smg.py",
+                   "integrations/dtr/reward.py", "integrations/dtr/schema_link.py",
+                   "integrations/dtr/answer.py", "integrations/dtr/viz.py",
+                   "integrations/dtr/operators.py", "integrations/dtr/mcts_planner.py",
+                   "integrations/dtr/excel_agent.py", "integrations/dtr/framework.py",
+                   "eval/processor.py", "eval/retrieval_eval.py", "eval/benchmark.py",
+                   "run_eval.py", "bench/dtr.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):

@@ -40,6 +40,9 @@ from youtu_rag_tpu_torch.index import ivf as port_ivf
 from youtu_rag_tpu_torch.ops import kmeans as port_kmeans
 from youtu_rag_tpu_torch.ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
 from youtu_rag_tpu_torch.ops.topk import NEG_INF
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_ivf_cases import make_inputs  # noqa: E402

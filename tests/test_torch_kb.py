@@ -27,7 +27,9 @@ from youtu_rag_tpu_torch.core.config import IndexConfig, RAGConfig, VectorStoreC
 from youtu_rag_tpu_torch.index.persistence import BuildManifest
 from youtu_rag_tpu_torch.models.embedder import EmbedderFactory, HashEmbedder
 from youtu_rag_tpu_torch.retrieval.kb import GLOBAL_KB_REGISTRY, KBRegistry, KnowledgeBase
-from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
+from torch_native_helpers import jax_lib, jax_tracer_restored  # noqa: F401 - fixtures
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

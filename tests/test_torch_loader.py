@@ -42,6 +42,9 @@ from youtu_rag_tpu_torch.agents.llm import FakeChatClient
 from youtu_rag_tpu_torch.agents.llm_agent import LLMAgent
 from youtu_rag_tpu_torch.agents.simple_agent import SimpleAgent
 from youtu_rag_tpu_torch.core.loader import ConfigLoader
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = REPO / "configs"
@@ -135,12 +138,12 @@ def chip_smoke():
 
 
 def test_chip_smoke_config_dicts_equal_the_loader(clean_env):
-    """chip_smoke.py phase 4g builds its agents from CONFIG_DICTS where the
-    card's host has no yaml: the same configs as the loader's."""
+    """chip_smoke.py phases 4g and 4j build their agents from CONFIG_DICTS
+    where the card's host has no yaml: the same configs as the loader's."""
     loader = ConfigLoader()
     dicts = chip_smoke().CONFIG_DICTS
-    assert sorted(dicts) == [("agents", "memory_chat"), ("agents", "meta_retrieval"),
-                             ("tools", "text2sql")]
+    assert sorted(dicts) == [("agents", "examples/excel_qa"), ("agents", "memory_chat"),
+                             ("agents", "meta_retrieval"), ("tools", "text2sql")]
     for (group, name), raw in dicts.items():
         assert loader.load_raw(name, group) == raw
     assert (AgentConfig.model_validate(dicts["agents", "memory_chat"]).model_dump()

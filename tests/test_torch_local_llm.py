@@ -27,6 +27,9 @@ from youtu_rag_tpu_torch.agents.local_llm import LocalChatClient, _bucket, rende
 from youtu_rag_tpu_torch.models.bpe import BPETokenizer, bytes_to_unicode
 from youtu_rag_tpu_torch.models.convert import decoder_params_from_numpy
 from youtu_rag_tpu_torch.models.decoder import DecoderConfig
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 CHAT = Path(__file__).resolve().parent.parent / "benchmarks" / "models" / "yrt_tiny_chat"
 KW = dict(vocab_size=320, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=64, max_len=128,

@@ -42,6 +42,9 @@ from youtu_rag_tpu_torch.core.config import IndexConfig, VectorStoreConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.models.embedder import HashEmbedder
 from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 DAY = 86400.0

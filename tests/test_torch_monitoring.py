@@ -31,6 +31,9 @@ from youtu_rag_tpu_torch.core.config import MonitorConfig, VectorStoreConfig
 from youtu_rag_tpu_torch.core.types import Chunk
 from youtu_rag_tpu_torch.retrieval.monitoring import StorageMonitor, UnifiedStorageMonitor
 from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 
 def run(coro):

@@ -28,7 +28,9 @@ from youtu_rag_tpu_torch import native
 from youtu_rag_tpu_torch.models import tokenizer as tok_mod
 from youtu_rag_tpu_torch.models.embedder import HashEmbedder
 from youtu_rag_tpu_torch.models.tokenizer import HashTokenizer
-from torch_native_helpers import jax_lib  # noqa: F401 - a fixture
+from torch_native_helpers import jax_lib, jax_tracer_restored  # noqa: F401 - fixtures
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 REPO = Path(__file__).resolve().parent.parent
 

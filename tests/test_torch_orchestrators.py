@@ -46,6 +46,9 @@ from youtu_rag_tpu.agents.simple_agent import SimpleAgent as JaxSimpleAgent
 from youtu_rag_tpu_torch.agents.config import AgentConfig
 from youtu_rag_tpu_torch.agents.llm import FakeChatClient
 from youtu_rag_tpu_torch.agents.simple_agent import SimpleAgent
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -542,8 +545,9 @@ def test_registry_types_and_refusals():
     for t in factory.ORCHESTRATOR_TYPES:
         assert type(factory.get_agent({"type": t}, client=FakeChatClient())).__name__ == \
             type(jax_factory.get_agent({"type": t}, client=JaxFake())).__name__
-    with pytest.raises(NotImplementedError, match="integrations/dtr"):
-        factory.get_agent({"type": "excel"}, client=FakeChatClient())
+    # the excel type is ported (integrations/dtr): the port's ExcelAgent
+    assert type(factory.get_agent({"type": "excel"}, client=FakeChatClient())).__name__ == \
+        type(jax_factory.get_agent({"type": "excel"}, client=JaxFake())).__name__ == "ExcelAgent"
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,9 @@ from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.models.embedder import EmbedderFactory, TorchEmbedder
 from youtu_rag_tpu_torch.models.wordpiece import WordPieceTokenizer
 from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_bert_checkpoint import VOCAB, write_bert_dir, write_safetensors  # noqa: E402

@@ -39,6 +39,9 @@ from youtu_rag_tpu_torch.models import encoder as port_encoder
 from youtu_rag_tpu_torch.models import reranker as port_reranker_mod
 from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.utils import http as port_http
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_bert_checkpoint import write_bert_dir  # noqa: E402

@@ -33,6 +33,9 @@ from youtu_rag_tpu.parallel.sequence_parallel import pad_to_multiple as jax_pad
 from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens
 from youtu_rag_tpu_torch.parallel import make_sp_encoder, pad_to_multiple
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sp_workers  # noqa: E402

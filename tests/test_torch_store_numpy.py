@@ -34,6 +34,9 @@ from youtu_rag_tpu_torch.index.numpy_ref import NumpyVectorIndex
 from youtu_rag_tpu_torch.retrieval.monitoring import StorageMonitor
 from youtu_rag_tpu_torch.retrieval.retriever import HybridRetriever
 from youtu_rag_tpu_torch.retrieval.store import TorchVectorStore
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 SCORE_TOL = 1e-6
 

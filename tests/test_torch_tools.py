@@ -55,6 +55,9 @@ from youtu_rag_tpu_torch.tools.base import ToolkitConfig
 from youtu_rag_tpu_torch.tools.text2sql import Text2SQLAgent, Text2SQLWorkerAgent
 
 import youtu_rag_tpu_torch.tools.builtin  # noqa: E402,F401,I001 - fills the registry
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOOLKIT_MAP, JAX_TOOLKIT_MAP = tools.TOOLKIT_MAP, jax_tools.TOOLKIT_MAP
 

@@ -30,6 +30,9 @@ from youtu_rag_tpu_torch.ops.topk import (
     topk_pruned_reference,
     unpack_int4,
 )
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 TOL = 1e-4
 N = 2048

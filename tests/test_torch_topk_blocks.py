@@ -50,6 +50,9 @@ from youtu_rag_tpu_torch.ops.topk import (
     xla_topk_int4,
     xla_topk_int8,
 )
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_ivf_cases import IVF_CASES, make_inputs  # noqa: E402

@@ -11,6 +11,9 @@ import pytest
 
 from youtu_rag_tpu.models import wordpiece as jax_wp
 from youtu_rag_tpu_torch.models import wordpiece as port_wp
+from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
+
+pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_bert_checkpoint import VOCAB  # noqa: E402

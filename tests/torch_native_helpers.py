@@ -1,8 +1,15 @@
-"""A fixture shared by the port's tests that hold its native host kernels
-against the JAX package's C path.
+"""Fixtures shared by the port's tests that drive the JAX package.
 
-The JAX package builds ``fasthash.c`` through cffi into one shared cache
-directory. Test workers that start at once race for it, and a worker that
+``jax_tracer_restored``: the JAX package keeps one global tracer with a
+ring of its last 1,000 spans (``youtu_rag_tpu/tracing/tracer.py``), and
+its own span tests read the spans a call adds past the ring's length. A
+port test that runs the JAX package beside the port adds spans to that
+ring; every such module takes this fixture, so it hands the ring back as
+it found it.
+
+``jax_lib``: for the tests that hold the port's native host kernels
+against the JAX package's C path. The JAX package builds ``fasthash.c``
+through cffi into one shared cache directory. Test workers that start at once race for it, and a worker that
 loses keeps the JAX package's Python fallback for the whole process; a
 test that names the C path on both sides would then compare the port's C
 path with JAX's Python path (1-2 ulp apart). Take ``jax_lib`` to run JAX's
@@ -11,6 +18,15 @@ C path whatever the race did."""
 import pytest
 
 import youtu_rag_tpu.native as jax_native
+from youtu_rag_tpu.tracing.tracer import get_tracer as jax_get_tracer
+
+
+@pytest.fixture(scope="module")
+def jax_tracer_restored():
+    """The JAX tracer's spans as the module found them, at its teardown."""
+    saved = list(jax_get_tracer().spans)
+    yield
+    jax_get_tracer().spans[:] = saved
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,10 @@
 """Agent factory: a copy of ``youtu_rag_tpu/agents/factory.py``'s
 ``get_agent``.
 
-``simple``, ``llm`` and the orchestrator types (``orchestra``,
+``simple``, ``llm``, the orchestrator types (``orchestra``,
 ``orchestra_react_sql``, ``orchestrator``, ``parallel_orchestrator``,
-``workforce``) are served; ``excel`` waits for the deep-table-reasoning
-integration and raises ``NotImplementedError``. Keyword arguments reach
+``workforce``) and ``excel`` (the deep-table-reasoning ``ExcelAgent``,
+``integrations/dtr/``) are served. Keyword arguments reach
 the agent's constructor (``client=``, ``toolkits=``, ``workers=``, ...);
 ``device=`` is the port's device seam, which every agent type takes and
 hands to the workers, clients and stores it builds (``None``: the CUDA
@@ -74,7 +74,10 @@ def get_agent(config: AgentConfig | dict, **kwargs):
 
         return WorkforceAgent(config, **kwargs)
     if t == "excel":
-        raise NotImplementedError(
-            "agent type 'excel': the deep-table-reasoning integration (integrations/dtr) "
-            "is not ported yet")
+        # deep-table-reasoning agent (ref: _create_agent_instance maps
+        # ExcelAgent as a first-class chat agent, api/dependencies.py)
+        from ..integrations.dtr.excel_agent import ExcelAgent
+
+        kwargs.pop("trajectory_sink", None)  # recorder-only agent
+        return ExcelAgent(config, **kwargs)
     raise ValueError(f"unknown agent type {t!r}")

@@ -1,7 +1,17 @@
-"""Evaluation configuration (``EvalConfig``), which ``core/loader.py``'s
-``load_eval_config`` validates into. The benchmark runners and processors
-of the JAX package's ``eval/`` are not ported yet."""
+"""Evaluation: the configuration, the benchmark harness, its answer
+processors and the retrieval metrics (``retrieval_eval.py``); the port's
+copy of ``youtu_rag_tpu/eval/``."""
 
 from .config import EvalConfig, EvalDataConfig
+from .benchmark import BaseBenchmark
+from .processor import ProcessorFactory, BaseProcessor, ExactMatchProcessor, LLMJudgeProcessor
 
-__all__ = ["EvalConfig", "EvalDataConfig"]
+__all__ = [
+    "BaseBenchmark",
+    "BaseProcessor",
+    "EvalConfig",
+    "EvalDataConfig",
+    "ExactMatchProcessor",
+    "LLMJudgeProcessor",
+    "ProcessorFactory",
+]
