@@ -321,6 +321,34 @@ Phases; any failure exits non-zero before the result lines:
      and 8 (bf16 and int8 caches) beside the bytes bound, generate's
      tokens/s, a decode step's device split (torch.profiler) and the
      host's cost of generate's per-step read-back of ``done``;
+  6c. training on the card (no kernel: the attention kernels refuse a
+     differentiable call, and the trainers take plain attention): (a)
+     ``train_embedder.main`` in this process at the default EncoderConfig
+     (768 x 12, vocab 32,768, bf16 activations, f32 master weights) with
+     ``--synthetic 512 --siblings 4 --paraphrase 2048``, B = 64, T = 128,
+     200 steps, checkpoints at 100 and 200: every loss finite, the last 20
+     steps' mean below the first 20's, holdout recall@1 higher after than
+     before, no attention launch while training; step 100 restored
+     bit-equal (parameters, moments, count) and 5 resumed steps on the
+     uninterrupted run's batches 101-105 giving its parameters within
+     RESUME_RTOL; a step's device split (torch.profiler); one step's gradients at step
+     100's parameters in f32 with TF32 off against a CPU f32 twin (B 8,
+     T 64) within GRAD_RTOL; ms a step (median and spread), tokens/s and
+     the model FLOPs' time at peak; (b) the saved directory served by
+     TorchEmbedder with "pallas": 64 of 4f's documents at T = 512 with
+     blockwise launches a positive multiple of 12, 16 of them within
+     FT_ENC_TOL of the CPU f32 forward; a KB over the holdout positives, one
+     topk_pruned launch or more per holdout query, whose recall@1 is
+     eval_recall's up to near-ties within TIE_TOL; (c) make_moe_train_step
+     at the same widths with 8 experts, 3 steps: losses and aux losses
+     finite, the experts' token shares; (d) ``train_chat_lm.main`` at
+     yrt_tiny_chat's widths (d 192, 6 layers, vocab 2,048), 200 steps at
+     B = 32 (cut from 400 to keep 6c within its time): the loss falls, the evaluation reported, and its outputs
+     through ``cli_chat --llm-weights-dir`` answer a question without
+     error; (e) make_lm_train_step at Qwen2-0.5B's widths (f32 parameters
+     from the seed, bf16 activations), B = 4, T = 512, 5 steps on one batch
+     with remat (the loss finite and falling), then 2 without: ms a step,
+     tokens/s, the model FLOPs' time at peak, peak memory of each;
   7. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
      "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
@@ -328,7 +356,7 @@ Phases; any failure exits non-zero before the result lines:
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
 4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
-search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5b, 5e and 6a drive it
+search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5b, 5e, 6a and 6c (b) and (d) drive it
 and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
@@ -339,6 +367,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import importlib
+import itertools
 import json
 import os
 import re
@@ -5883,6 +5912,481 @@ def qwen2_width(seed: int, part: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 6c. training on the card
+# ---------------------------------------------------------------------------
+
+# 6c (a): train_embedder's run at the default EncoderConfig's widths
+TRAIN_ARGS = ["--synthetic", "512", "--siblings", "4", "--paraphrase", "2048", "--batch", "64",
+              "--seqlen", "128", "--steps", "200", "--ckpt-every", "100", "--warmup", "20"]
+# One step's gradients on the card (f32, TF32 off) against a CPU f32 twin
+# from the same parameters, B = 8, T = 64: each leaf within GRAD_RTOL of its
+# largest CPU gradient. f32 sums in another order differ by ~1e-7 relative
+# an operation; through 12 layers and the InfoNCE softmax at temperature
+# 0.05 (logits x 20) the CPU parity tests see ~1e-6; a gradient that
+# skipped a path (wq, wk, wv without one, as the kernels would leave them)
+# is off by 100 %.
+GRAD_RTOL = 1e-3
+# A holdout query the KB answers otherwise than eval_recall is a near-tie
+# if eval's margin between its positive and the best other positive is
+# within TIE_TOL: the KB scores the bf16 rows of its index against a bf16
+# query (two roundings of 2^-9 relative each, on scores of magnitude <= 1)
+TIE_TOL = 8e-3
+# The resumed steps 101-105 against the uninterrupted run's parameters
+# after the same steps: each leaf within RESUME_RTOL of the largest change
+# the uninterrupted steps made to it. The same ops on bit-equal inputs
+# repeat bit for bit where the card's kernels are deterministic; a wrong
+# learning rate, count or moment moves a leaf by a whole step's change.
+RESUME_RTOL = 1e-3
+# The fine-tuned encoder's bf16 embeddings against its CPU f32 forward, 16
+# documents at T = 512: the reading is 8.5e-4 (bf16's 2^-9 relative per
+# rounding, through 12 layers, on L2-normalised vectors whose elements are
+# ~0.036); 5e-3 leaves room on both sides and is well below the elements'
+# size, where ENC_TOL's 3e-2 is not.
+FT_ENC_TOL = 5e-3
+# 6c (e): the decoder step at Qwen2-0.5B's widths
+LM_STEP_B, LM_STEP_T = 4, 512
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def encoder_step_flops(cfg, b: int, t: int) -> float:
+    """Model FLOPs of one InfoNCE step (two forwards of [b, t] and their
+    backwards, 3x the forward; remat's recompute not counted): the layer
+    GEMMs, attention's two products and the output projection."""
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_layers
+    per_token = 2 * n * (4 * d * d + 2 * d * f) + 4 * n * t * d + 2 * d * cfg.out_dim
+    return 3.0 * 2 * b * t * per_token
+
+
+def decoder_step_flops(cfg, b: int, t: int) -> float:
+    """Model FLOPs of one LM step: 3x the forward's GEMMs (q, k, v, o, the
+    gated MLP, the tied head) and attention's two products."""
+    d, f, n, kv = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.kv_dim
+    per_token = (2 * n * (2 * d * d + 2 * d * kv + 3 * d * f) + 4 * n * t * d
+                 + 2 * d * cfg.vocab_size)
+    return 3.0 * b * t * per_token
+
+
+def tree_to(tree: dict, device, dtype=None) -> dict:
+    return {k: tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.detach().to(device=device, dtype=dtype or v.dtype).clone()
+            for k, v in tree.items()}
+
+
+def trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            trees_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def train_split(step, update, wall_ms: float) -> dict:
+    """One training step's device time by kind (torch.profiler, kernel
+    names): the GEMMs (cuBLAS and CUTLASS kernels), the optimizer (a
+    profile of ``update`` alone, the same update on the same gradients),
+    the rest of the forward and backward (elementwise, norms, casts, the
+    loss); the host's share, the step's wall time less its device time;
+    and the five kernels that take the most device time. ms each."""
+    kernels = device_kernels(step, 1)
+    total = sum(us for _, us in kernels.values()) / 1e3
+    gemm = sum(us for n, (_, us) in kernels.items()
+               if any(w in n.lower() for w in GEMM_KERNELS)) / 1e3
+    opt_ms = sum(us for _, us in device_kernels(update, 1).values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    return {"device": total, "GEMMs": gemm, "optimizer": opt_ms,
+            "the rest of forward and backward": max(total - gemm - opt_ms, 0.0),
+            "host (wall less device)": max(wall_ms - total, 0.0),
+            "top": [(n[:72], c, us / 1e3) for n, (c, us) in top]}
+
+
+def print_split(split: dict) -> None:
+    print("  a step's device split (torch.profiler, one step): " + "; ".join(
+        f"{k} {split[k]:.2f} ms" for k in ("device", "GEMMs", "optimizer",
+                                           "the rest of forward and backward",
+                                           "host (wall less device)")))
+    for name, count, ms in split["top"]:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {name}")
+
+
+def encoder_fine_tune(seed: int, root: str, part: str) -> dict:
+    """6c (a): train_embedder's main in this process on the card, a
+    checkpoint at step 100, then the checkpoint's restore, a resumed run's
+    learning rates and one step's gradients against a CPU f32 twin."""
+    import dataclasses
+
+    from youtu_rag_tpu_torch import train_embedder
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models.checkpoint import TrainCheckpointer
+    from youtu_rag_tpu_torch.models.encoder import count_params, load_encoder_config
+    from youtu_rag_tpu_torch.models.tokenizer import HashTokenizer
+
+    out = os.path.join(root, "ft")
+    marks, snap = [], {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        snap["final"] = params  # updated in place: the last step's parameters
+        if step == 100:
+            snap["params"], snap["opt"] = tree_to(params, "cpu"), tree_to(opt_state, "cpu")
+        if 100 < step <= 105:
+            snap[step] = tree_to(params, "cpu")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    report = train_embedder.main(TRAIN_ARGS + ["--out", out, "--seed", str(seed)],
+                                 on_step=on_step)
+    wall = time.perf_counter() - t0
+    train_launches = attention_counts()
+    losses = report["losses"]
+    check(len(losses) == 200 and all(np.isfinite(losses)), f"6c (a): losses {losses[:5]}...")
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(last < first, f"6c (a): the last 20 steps' mean loss {last} is not below the first "
+          f"20's {first}")
+    r0, r1 = report["recall_before"]["recall@1"], report["recall_after"]["recall@1"]
+    check(r1 > r0, f"6c (a): holdout recall@1 {r1} after is not above {r0} before")
+    check(sum(train_launches.values()) == 0,
+          f"6c (a): training launched attention kernels: {train_launches}")
+    step_ms = np.diff(marks) * 1e3
+    targs = train_embedder.parse_args(TRAIN_ARGS + ["--seed", str(seed)])
+    b, t = targs.batch, targs.seqlen
+    cfg = dataclasses.replace(load_encoder_config(os.path.join(out, "encoder_config.json")),
+                              max_len=t)
+    med = float(np.median(step_ms))
+    flops = encoder_step_flops(cfg, b, t)
+    bound_ms = flops / BF16_PEAK[part] * 1e3
+    print(f"  {report['pairs']} train pairs; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"the first 20 {first:.4f}, the last 20 {last:.4f}); holdout recall@1 {r0} -> {r1}, "
+          f"recall@5 {report['recall_before']['recall@5']} -> {report['recall_after']['recall@5']}")
+    print(f"  ms a step (B {b}, T {t}, steps 2-200): median {med:.2f}, p10 "
+          f"{np.percentile(step_ms, 10):.2f}, p90 {np.percentile(step_ms, 90):.2f}, max "
+          f"{step_ms.max():.2f}; {2 * b * t / med * 1e3:.0f} tokens/s; model FLOPs "
+          f"{flops / 1e12:.2f} T a step, {bound_ms:.2f} ms at {BF16_PEAK[part] / 1e12:.0f} "
+          f"TFLOP/s ({100 * bound_ms / med:.1f} % of the step); the run {wall:.1f} s")
+
+    # the checkpoint: step 100 restored bit-equal, then 5 resumed steps on
+    # the uninterrupted run's batches 101-105 give its parameters
+    ck = TrainCheckpointer(os.path.join(out, "ckpt"))
+    check(ck.all_steps() == [100, 200], f"6c (a): checkpoints {ck.all_steps()}")
+    tc = train_embedder.train_config(targs)
+    opt = tr.make_optimizer(tc)
+    t0 = time.perf_counter()
+    params, state, meta = ck.restore(100, params_like=snap["final"],
+                                     opt_state_like=opt.init(snap["final"]))
+    restore_s = time.perf_counter() - t0
+    check(trees_equal(params, snap["params"]) and trees_equal(state, snap["opt"])
+          and int(state["count"]) == 100 and np.isfinite(meta["loss"]),
+          "6c (a): the step-100 checkpoint does not restore bit-equal")
+    pairs, _ = train_embedder.training_pairs(targs)
+    tok = HashTokenizer(cfg.vocab_size, cfg.max_len)  # train_embedder.main's
+    step_fn = tr.make_train_step(cfg, tc, opt)
+    run_batches = train_embedder.make_batches(pairs, tok, b, t, 105, targs.seed)
+    worst, prev = 0.0, snap["params"]
+    for i, batch in enumerate(itertools.islice(run_batches, 100, 105)):
+        params, state, m = step_fn(params, state, batch)
+        check(np.isfinite(float(m["loss"])), "6c (a): a resumed loss is not finite")
+        want = snap[101 + i]
+        for name, got, w, w0 in zip(tr.leaf_names(want), tr.leaves(params), tr.leaves(want),
+                                    tr.leaves(prev)):
+            moved = float((w - w0).abs().max())
+            diff = float((got.detach().cpu() - w).abs().max())
+            check(diff <= RESUME_RTOL * moved,
+                  f"6c (a): resumed step {101 + i}'s {name} is {diff} from the run's "
+                  f"(the run's step moved it {moved})")
+            worst = max(worst, diff / moved if moved else 0.0)
+        prev = want
+    check(int(state["count"]) == 105, "6c (a): the resumed count")
+    print(f"  checkpoint steps {ck.all_steps()}; step 100 restored bit-equal in {restore_s:.1f} s "
+          f"(params, optimizer moments, count 100); 5 resumed steps give the uninterrupted "
+          f"run's parameters after steps 101-105 within {worst:.2e} of a step's change (gate "
+          f"{RESUME_RTOL})")
+
+    # where a step's time goes, on the last resumed batch
+    (_, _), grads = tr.value_and_grad(tr.info_nce_loss, params, tr.as_batch(batch, "cuda"),
+                                      cfg, tc)
+    print_split(train_split(lambda: step_fn(params, state, batch),
+                            lambda: opt.update(grads, state, params), med))
+    del grads
+
+    # one step's gradients at the step-100 parameters (the final ones fit
+    # their batches to a loss near 0, where the gradients are rounding),
+    # card f32 (TF32 off) against the CPU f32 twin
+    params = tree_to(snap["params"], "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, dtype=torch.float32, attention_impl="xla")
+    batch = next(train_embedder.make_batches(pairs, tok, 8, 64, 1, seed + 7))
+    tc0 = tr.TrainConfig(remat=False)
+    (card_loss, _), card_g = tr.value_and_grad(tr.info_nce_loss, params,
+                                                tr.as_batch(batch, "cuda"), f32, tc0)
+    cpu_params = snap["params"]
+    t0 = time.perf_counter()
+    (cpu_loss, _), cpu_g = tr.value_and_grad(tr.info_nce_loss, cpu_params,
+                                              tr.as_batch(batch, "cpu"), f32, tc0)
+    cpu_s = time.perf_counter() - t0
+    worst, worst_name = 0.0, ""
+    names = list(tr.leaf_names(params))
+    for name, g, w in zip(names, card_g, cpu_g):
+        scale = float(w.abs().max())
+        if scale == 0.0:
+            check(float(g.abs().max()) == 0.0, f"6c (a): {name} has a gradient only on the card")
+            continue
+        rel = float((g.cpu() - w).abs().max()) / scale
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"  gradients, card f32 vs CPU f32 (B 8, T 64; CPU {cpu_s:.1f} s): loss "
+          f"{float(card_loss):.6f} vs {float(cpu_loss):.6f}; the worst leaf {worst_name} at "
+          f"{worst:.2e} of its largest gradient (gate {GRAD_RTOL}); {len(names)} leaves, "
+          f"{count_params(params) / 1e6:.1f} M parameters")
+    check(worst <= GRAD_RTOL, f"6c (a): {worst_name}'s gradient differs by {worst} relative")
+    del cpu_params, cpu_g, card_g, snap, params, state
+    return {"out": out, "report": report, "pairs": pairs}
+
+
+def fine_tuned_serves(seed: int, root: str, ft: dict) -> dict:
+    """6c (b): the saved directory served by TorchEmbedder on the card with
+    "pallas": 64 of 4f's documents at T = 512 (blockwise), 16 of them
+    against the CPU f32 forward; then a KB over the holdout positives whose
+    searches launch topk_pruned, its recall@1 against eval_recall's."""
+    import dataclasses
+
+    from youtu_rag_tpu_torch import train_embedder
+    from youtu_rag_tpu_torch.core.types import Document
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.retrieval.kb import KnowledgeBase
+
+    served = TorchEmbedder.from_weights_dir(ft["out"], device="cuda")
+    check(served.cfg.attention_impl == "xla" and served.cfg.max_len == 512,
+          f"6c (b): the saved config reads {served.cfg}")
+    emb = TorchEmbedder(config=dataclasses.replace(served.cfg, attention_impl="pallas"),
+                        params=served.params, device="cuda")
+    docs_dir = os.path.join(root, "docs")
+    os.makedirs(docs_dir)
+    names = [f"doc{i:04d}.md" for i in range(64)]
+    write_ingest_corpus(docs_dir, seed, names=names)
+    texts = [open(os.path.join(docs_dir, n)).read() for n in names]
+    reset_launches()
+    vecs = emb.embed_batch(texts)
+    torch.cuda.synchronize()
+    block_launches = attention_counts()["blockwise_attention"]
+    check(block_launches > 0 and block_launches % 12 == 0,
+          f"6c (b): {block_launches} blockwise launches for 64 documents at T = 512")
+    f32 = dataclasses.replace(served.cfg, dtype=torch.float32, attention_impl="xla")
+    cpu = TorchEmbedder(config=f32, params=tree_to(served.params, "cpu"), device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.embed_batch(texts[:16])
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(vecs[:16] - ref).max())
+    check(np.isfinite(vecs).all() and err <= FT_ENC_TOL,
+          f"6c (b): embeddings {err} from the CPU f32 forward")
+    print(f"  64 documents at T = 512 through the fine-tuned encoder ('pallas'): "
+          f"{block_launches} blockwise launches; 16 of them against the CPU f32 forward "
+          f"({cpu_s:.1f} s): max |diff| {err:.2e} (gate {FT_ENC_TOL})")
+    del cpu
+
+    # a KB over the holdout positives, searched with each holdout query
+    args = train_embedder.parse_args(TRAIN_ARGS + ["--seed", str(seed)])
+    _, holdout = train_embedder.training_pairs(args)
+    kb = KnowledgeBase("ft_holdout", device="cuda")
+    serve_with(kb, emb)
+    asyncio.run(kb.build_documents([Document(id=f"h{i:03d}", content=p)
+                                    for i, (_, p, _) in enumerate(holdout)]))
+    q = emb.embed_batch([h[0] for h in holdout])
+    d = emb.embed_batch([h[1] for h in holdout])
+    scores = q @ d.T
+    margin = np.diag(scores) - np.max(np.where(np.eye(len(holdout), dtype=bool), -np.inf, scores),
+                                      axis=1)
+    reset_launches()
+    tops = []
+    for query, _, _ in holdout:
+        hits = asyncio.run(kb.retriever.retrieve(query, top_k=5, similarity_threshold=0.0))
+        tops.append(hits[0].chunk.document_id if hits else None)
+    torch.cuda.synchronize()
+    launches = launch_counts()["bfloat16"]
+    check(launches >= len(holdout), f"6c (b): {launches} topk_pruned launches for "
+          f"{len(holdout)} queries")
+    kb_hit = np.array([top == f"h{i:03d}" for i, top in enumerate(tops)])
+    eval_hit = margin >= 0
+    differ = np.flatnonzero(kb_hit != eval_hit)
+    check(all(abs(margin[i]) <= TIE_TOL for i in differ),
+          f"6c (b): the KB and eval_recall differ beyond near-ties at {differ.tolist()}: "
+          f"margins {margin[differ].tolist()}")
+    r_eval = train_embedder.eval_recall(served.params, served.cfg, holdout,
+                                        tokenizer=served.tokenizer)["recall@1"]
+    check(abs(r_eval - kb_hit.mean()) <= len(differ) / len(holdout) + 1e-4,
+          f"6c (b): the KB's recall@1 {kb_hit.mean()} against eval_recall's {r_eval}")
+    print(f"  a KB of {len(holdout)} holdout positives: {launches} topk_pruned launches; "
+          f"recall@1 {kb_hit.mean():.4f} through the retriever, {eval_hit.mean():.4f} from the "
+          f"same embeddings, eval_recall {r_eval}; {len(differ)} near-ties differ (margins "
+          f"{[round(float(margin[i]), 5) for i in differ]}, gate {TIE_TOL})")
+    return {"blockwise_attention": block_launches, "topk_pruned": launches}
+
+
+def moe_step(seed: int, pairs: list) -> None:
+    """6c (c): make_moe_train_step at the default widths, 8 experts, 3
+    steps at B = 64, T = 128; the experts' token shares."""
+    from youtu_rag_tpu_torch import train_embedder
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, count_params
+    from youtu_rag_tpu_torch.models.tokenizer import HashTokenizer
+    from youtu_rag_tpu_torch.parallel.expert_parallel import expert_shares, init_moe_params
+
+    cfg = EncoderConfig(max_len=128)
+    tc = tr.MoETrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10, n_experts=8)
+    params = tree_to(init_moe_params(cfg, 8, torch.Generator().manual_seed(seed)), "cuda")
+    opt = tr.make_optimizer(tc)
+    state, step = opt.init(params), tr.make_moe_train_step(cfg, tc, opt)
+    batches = list(train_embedder.make_batches(pairs, HashTokenizer(cfg.vocab_size, 512), 64, 128,
+                                               3, seed + 3))
+    ms = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, aux = float(m["loss"]), float(m["aux_loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.isfinite(loss) and np.isfinite(aux), f"6c (c): loss {loss}, aux {aux}")
+        print(f"  MoE step: loss {loss:.4f}, contrastive {float(m['contrastive_loss']):.4f}, aux "
+              f"{aux:.4f}, {ms[-1]:.1f} ms")
+    b = tr.as_batch(batches[-1], "cuda")
+    shares = expert_shares(params, b["q_ids"], b["q_mask"], cfg, 8)
+    print(f"  {count_params(params) / 1e6:.1f} M parameters; the experts' token shares, mean over "
+          f"{cfg.n_layers} layers: {np.round(shares.mean(axis=0), 4).tolist()} (layer min "
+          f"{shares.min():.4f}, max {shares.max():.4f})")
+    del params, state
+
+
+def chat_lm(seed: int, root: str) -> int:
+    """6c (d): train_chat_lm at yrt_tiny_chat's widths, 200 steps at B = 32,
+    then its outputs through cli_chat --llm-weights-dir. Returns the
+    topk_pruned launches of the CLI's searches."""
+    from youtu_rag_tpu_torch import train_chat_lm
+
+    out = os.path.join(root, "lm")
+    losses, marks = [], []
+
+    def on_step(step, params, opt_state, metrics):
+        losses.append(float(metrics["loss"]))
+        marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    report = train_chat_lm.main(["--steps", "200", "--batch", "32", "--eval-every", "200",
+                                 "--seed", str(seed), "--out", out], on_step=on_step)
+    wall = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(np.isfinite(losses).all() and last < first,
+          f"6c (d): the loss does not fall: first 20 {first}, last 20 {last}")
+    ev = report["evals"][-1]
+    step_ms = np.diff(marks) * 1e3
+    print(f"  {report['params']:,} parameters, T {report['max_len']}, vocab {report['vocab']}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 20 {first:.4f}, last 20 {last:.4f}); "
+          f"{float(np.median(step_ms)):.2f} ms a step (median, data included); eval@{ev['step']}: "
+          f"action_valid {ev['action_valid']}, query_exact {ev['query_exact']}, answer_exact "
+          f"{ev['answer_exact']}; the run {wall:.1f} s")
+    facts = os.path.join(root, "facts")
+    os.makedirs(facts)
+    asked = write_fact_corpus(facts, seed)[:1]
+    reset_launches()
+    blocks, calls, _ = run_cli(["--paths", facts, "--llm-weights-dir", out], [asked[0][0]])
+    launches = launch_counts()["bfloat16"]
+    check(len(blocks) == 1 and "[error" not in blocks[0],
+          f"6c (d): cli_chat on the trained model: {blocks}")
+    print(f"  cli_chat --llm-weights-dir on the trained model: > {asked[0][0]}\n    "
+          + blocks[0].replace("\n", "\n    ") + f"\n  ({len(calls)} tool calls, {launches} "
+          "topk_pruned launches)")
+    return launches
+
+
+def decoder_step(seed: int, part: str) -> None:
+    """6c (e): make_lm_train_step at Qwen2-0.5B's widths (f32 parameters from
+    the seed, bf16 activations), B = 4, T = 512, 5 steps on one batch with
+    remat on, then 2 with it off; peak memory of each."""
+    from youtu_rag_tpu_torch.models import decoder as td
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models import train_lm as tl
+    from youtu_rag_tpu_torch.models.encoder import count_params
+
+    c = QWEN2_05B
+    cfg = td.DecoderConfig(
+        vocab_size=c["vocab_size"], d_model=c["hidden_size"], n_layers=c["num_hidden_layers"],
+        n_heads=c["num_attention_heads"], n_kv_heads=c["num_key_value_heads"],
+        d_ff=c["intermediate_size"], max_len=LM_STEP_T, arch="llama", dtype=torch.bfloat16,
+        rope_base=c["rope_theta"], ln_eps=c["rms_norm_eps"], tie_embeddings=True,
+        eos_token_id=c["eos_token_id"], qkv_bias=True)
+    t0 = time.perf_counter()
+    params = td.init_decoder_params(cfg, torch.Generator().manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(seed + 5)
+    b, t = LM_STEP_B, LM_STEP_T
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, t), generator=g),
+             "mask": torch.ones(b, t), "loss_mask": torch.ones(b, t)}
+    batch["loss_mask"][:, :64] = 0.0
+    out = {}
+    for remat, steps in ((True, 5), (False, 2)):
+        tc = tl.LMTrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=100, remat=remat)
+        opt = tl.make_lm_optimizer(tc)
+        state, step = opt.init(params), tl.make_lm_train_step(cfg, tc, opt)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = (losses, ms, torch.cuda.max_memory_allocated() / 2**30)
+        if remat:
+            (_, _), grads = tr.value_and_grad(lambda p, bt: (tl.lm_loss(p, bt, cfg, tc), {}),
+                                              params, tr.as_batch(batch, "cuda"))
+            split = train_split(lambda: step(params, state, batch),
+                                lambda: opt.update(grads, state, params),
+                                float(np.median(ms[1:])))
+            del grads
+        del state
+    losses, ms, peak_on = out[True]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"6c (e): the loss does not fall over 5 steps: {losses}")
+    flops = decoder_step_flops(cfg, b, t)
+    med = float(np.median(ms[1:]))
+    print(f"  {count_params(params) / 1e6:.1f} M parameters (initialized in {init_s:.1f} s); "
+          f"remat on: losses {[round(x, 4) for x in losses]}; {med:.1f} ms a step (median of "
+          f"steps 2-5), {b * t / med * 1e3:.0f} tokens/s, model FLOPs {flops / 1e12:.2f} T "
+          f"({flops / BF16_PEAK[part] * 1e3:.2f} ms at peak); peak memory {peak_on:.2f} GiB; "
+          f"remat off: {[round(x, 1) for x in out[False][1]]} ms, peak {out[False][2]:.2f} GiB")
+    print_split(split)
+    del params
+
+
+def training_on_card(seed: int, part: str) -> dict:
+    """6c: (a)-(e) above, each part's wall time printed. Returns the main
+    path's launches of rows 1 and 6 in 6c."""
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        t0 = time.perf_counter()
+        ft = encoder_fine_tune(seed, root, part)
+        t1 = time.perf_counter()
+        print(f"  (a) {t1 - t0:.1f} s")
+        served = fine_tuned_serves(seed, root, ft)
+        t2 = time.perf_counter()
+        print(f"  (b) {t2 - t1:.1f} s")
+        pairs = ft["pairs"]
+        del ft
+        torch.cuda.empty_cache()
+        moe_step(seed, pairs)
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        print(f"  (c) {t3 - t2:.1f} s")
+        cli_launches = chat_lm(seed, root)
+        t4 = time.perf_counter()
+        print(f"  (d) {t4 - t3:.1f} s")
+        decoder_step(seed, part)
+        torch.cuda.empty_cache()
+        print(f"  (e) {time.perf_counter() - t4:.1f} s")
+    return {"blockwise_attention": served["blockwise_attention"],
+            "topk_pruned": served["topk_pruned"] + cli_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5979,6 +6483,9 @@ def main() -> int:
     phase("6b the local LLM: Qwen2-0.5B widths")
     qwen2_width(args.seed, part)
 
+    phase("6c training on the card")
+    train6c = training_on_card(args.seed, part)
+
     phase("7 summary")
     kernels = []
     for tier in TIERS:
@@ -5991,7 +6498,8 @@ def main() -> int:
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
                             + mem4g["launches"] + team4h["launches"] + api4i["launches"]
-                            + dtr4j["topk_pruned"] if tier == "bfloat16" else 0)
+                            + dtr4j["topk_pruned"] + train6c["topk_pruned"]
+                            if tier == "bfloat16" else 0)
                          + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
@@ -6009,6 +6517,7 @@ def main() -> int:
             "replaces": REPLACES[kname],
             "launches": (enc["launches"][kname] + f["launches"]
                          + (bert4e["launches"] + ingest4f["launches"]["blockwise_attention"]
+                            + train6c["blockwise_attention"]
                             if kname == "blockwise_attention" else 0)),
             "max_abs_err": max(err3b[kname], f["err"],
                                bert4e["errs"]["attention"] if kname == "blockwise_attention"

@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "youtu_rag_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "youtu_rag_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "youtu_rag_tpu", "optax", "orbax", "flax"}
 
 
 def port_sources():
@@ -62,7 +62,11 @@ def test_port_has_sources():
                    "integrations/dtr/operators.py", "integrations/dtr/mcts_planner.py",
                    "integrations/dtr/excel_agent.py", "integrations/dtr/framework.py",
                    "eval/processor.py", "eval/retrieval_eval.py", "eval/benchmark.py",
-                   "run_eval.py", "bench/dtr.py"):
+                   "run_eval.py", "bench/dtr.py", "models/train.py", "models/train_lm.py",
+                   "models/checkpoint.py", "models/data_synth.py", "models/lm_synth.py",
+                   "models/paraphrase_synth.py", "parallel/expert_parallel.py",
+                   "meta/__init__.py", "meta/generators.py", "train_embedder.py",
+                   "train_chat_lm.py", "gen_simple_agent.py", "gen_tool.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):
@@ -249,3 +253,25 @@ def test_cli_without_cuda_raises(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=REPO, timeout=120, input="")
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_tool_prompt_names_no_jax_module():
+    """A generated toolkit imports the port's base class, never the JAX
+    package's."""
+    from youtu_rag_tpu_torch.meta.generators import TOOL_GEN_PROMPT
+
+    assert "youtu_rag_tpu." not in TOOL_GEN_PROMPT
+    assert "youtu_rag_tpu_torch.tools.base" in TOOL_GEN_PROMPT
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("train_embedder", ["--synthetic", "4", "--preset", "tiny", "--steps", "1"]),
+    ("train_chat_lm", ["--steps", "1"]),
+])
+def test_trainers_without_cuda_raise(entry, argv, no_cuda, tmp_path):
+    import importlib
+
+    mod = importlib.import_module(f"youtu_rag_tpu_torch.{entry}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv + ["--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()

@@ -45,3 +45,16 @@ def jax_lib(tmp_path_factory):
     assert got[1] is not None, "the JAX package's native kernel does not build here"
     yield got
     mp.undo()
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """torch's intra-op threads at 1 for the module, then as they were: the
+    trainers' tests run tiny models, which gain nothing from more threads
+    and lose much to oversubscription beside the suite's other workers."""
+    import torch
+
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)

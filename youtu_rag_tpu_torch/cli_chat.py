@@ -26,13 +26,8 @@ import glob
 import os
 import sys
 
-
-# the system prompt the committed tiny chat LM was trained against (a copy
-# of the JAX package's models/lm_synth.py DEFAULT_KB_INSTRUCTIONS)
-DEFAULT_KB_INSTRUCTIONS = (
-    "You are a helpful assistant. Use the kb_embedding_search tool to "
-    "look up facts from the knowledge base before answering."
-)
+# the system prompt the chat LM trains against (models/lm_synth.py)
+from .models.lm_synth import DEFAULT_KB_INSTRUCTIONS
 
 
 def parse_args(argv=None):

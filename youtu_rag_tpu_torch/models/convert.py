@@ -1,8 +1,8 @@
 """Carry an encoder's or a decoder's parameters across as numpy arrays.
 
-``encoder_params_from_numpy`` and ``decoder_params_from_numpy`` turn a
-parameter tree of numpy arrays into the port's parameter dict on a device:
-the JAX package's tree (``jax.tree.map(np.asarray, params)``), so that both
+``encoder_params_from_numpy``, ``moe_params_from_numpy`` and
+``decoder_params_from_numpy`` turn a parameter tree of numpy arrays into
+the port's parameter dict on a device: the JAX package's tree (``jax.tree.map(np.asarray, params)``), so that both
 packages compute the same function, or the tree ``models/pretrained.py``
 reads from a checkpoint. The port imports nothing of the JAX package: whoever holds JAX
 parameters converts them to numpy on its side.
@@ -62,6 +62,28 @@ def encoder_params_from_numpy(tree: dict, cfg: EncoderConfig,
     numpy arrays. Raises ``ValueError`` on a missing key or a shape that
     ``cfg`` does not give; keys ``cfg`` does not read are left out, and a
     bert tree may lack the optional keys (``_BERT_OPTIONAL``)."""
+    return _carry(_expected_shapes(cfg), tree, cfg, device, "encoder")
+
+
+def moe_params_from_numpy(tree: dict, cfg: EncoderConfig, n_experts: int,
+                          device: str | torch.device = "cpu") -> dict:
+    """``encoder_params_from_numpy`` for an ``init_moe_params`` tree (the
+    JAX package's ``parallel/expert_parallel.py`` layout): each layer's
+    ``w1``/``b1``/``w2``/``b2`` replaced by the router [L, D, E] and the
+    expert stacks ``ew1`` [L, E, D, F], ``eb1`` [L, E, F], ``ew2``
+    [L, E, F, D], ``eb2`` [L, E, D]."""
+    if cfg.arch != "preln_rope":
+        raise ValueError(f"the MoE encoder is preln_rope, not {cfg.arch!r}")
+    shapes = _expected_shapes(cfg)
+    L, D, Fd, E = cfg.n_layers, cfg.d_model, cfg.d_ff, n_experts
+    layers = {k: v for k, v in shapes["layers"].items() if k not in ("w1", "b1", "w2", "b2")}
+    layers.update(router=(L, D, E), ew1=(L, E, D, Fd), eb1=(L, E, Fd), ew2=(L, E, Fd, D),
+                  eb2=(L, E, D))
+    shapes["layers"] = layers
+    return _carry(shapes, tree, cfg, device, "MoE encoder")
+
+
+def _carry(shapes: dict, tree: dict, cfg: EncoderConfig, device, what: str) -> dict:
     optional = _BERT_OPTIONAL if cfg.arch == "bert" else ()
 
     def walk(want: dict, got: dict, path: str) -> dict:
@@ -71,7 +93,7 @@ def encoder_params_from_numpy(tree: dict, cfg: EncoderConfig,
             if key not in got:
                 if not path and key in optional:
                     continue
-                raise ValueError(f"encoder parameters: {where} is missing")
+                raise ValueError(f"{what} parameters: {where} is missing")
             if isinstance(shape, dict):
                 out[key] = walk(shape, got[key], f"{where}/")
                 continue
@@ -79,12 +101,12 @@ def encoder_params_from_numpy(tree: dict, cfg: EncoderConfig,
             fits = arr.ndim == len(shape) and all(w is None or a == w
                                                   for a, w in zip(arr.shape, shape))
             if not fits or (key == "pos_emb" and arr.shape[0] < cfg.max_len):
-                raise ValueError(f"encoder parameters: {where} has shape {arr.shape}, "
+                raise ValueError(f"{what} parameters: {where} has shape {arr.shape}, "
                                  f"the config gives {shape}")
             out[key] = torch.from_numpy(arr.copy()).to(device)
         return out
 
-    return walk(_expected_shapes(cfg), tree, "")
+    return walk(shapes, tree, "")
 
 
 def _decoder_shapes(cfg: DecoderConfig) -> dict[str, Any]:

@@ -50,8 +50,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from .encoder import DTYPES
+from .encoder import DTYPES, layer_views
 
 NEG_INF = -1e9
 
@@ -181,8 +182,9 @@ def cast_params_for_serving(params: dict, dtype: torch.dtype = torch.bfloat16) -
 
 
 def _layers(params: dict, cfg: DecoderConfig) -> list[dict]:
-    """Layer i's parameters as views of the stacked tensors."""
-    return [{k: v[i] for k, v in params["layers"].items()} for i in range(cfg.n_layers)]
+    """Layer i's parameters as views of the stacked tensors (one ``unbind``
+    a tensor, ``encoder.layer_views``)."""
+    return layer_views(params["layers"], cfg.n_layers)
 
 
 def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -190,8 +192,12 @@ def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products: JAX's ``preferred_element_type=f32`` einsum. Two bf16 (or
     f16) operands on the card run one GEMM with an f32 output, without f32
     copies (the head's is the largest matrix of a decode step, the KV
-    cache the largest operand of attention)."""
-    if x.is_cuda and x.dtype == w.dtype and x.dtype in (torch.bfloat16, torch.float16):
+    cache the largest operand of attention). Under differentiation it
+    takes the f32 copies (the same sums), since the GEMM with an f32
+    output need not have a backward."""
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if (x.is_cuda and not grad and x.dtype == w.dtype
+            and x.dtype in (torch.bfloat16, torch.float16)):
         if w.dim() == 2:
             return torch.mm(x.reshape(-1, x.shape[-1]), w,
                             out_dtype=torch.float32).reshape(*x.shape[:-1], w.shape[-1])
@@ -327,17 +333,28 @@ def _causal_bias(mask: torch.Tensor) -> torch.Tensor:
     return (1.0 - causal * pad) * NEG_INF
 
 
+def _layer(x: torch.Tensor, lp: dict, bias: torch.Tensor, rope, cfg: DecoderConfig) -> torch.Tensor:
+    q, k, v = _qkv(_norm(x, lp, "ln1", cfg), lp, rope, cfg)
+    return _block(x, lp, q, k, v, bias, cfg)
+
+
 def causal_logits(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
-                  cfg: DecoderConfig) -> torch.Tensor:
+                  cfg: DecoderConfig, remat: bool = False) -> torch.Tensor:
     """The teacher-forced forward, no cache: [B, T, vocab] f32 logits.
     ``mask`` is 1 for real tokens (left or right padding; the positions
-    come from the mask)."""
+    come from the mask). ``remat=True`` recomputes each layer in the
+    backward pass (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``):
+    without it the backward keeps every layer's [B, H, T, T] f32 attention
+    matrix live (1 GB a layer at B = 32, T = 1024)."""
     pos_ids = position_ids_from_mask(mask)
     x = _embed(params, tokens, pos_ids, cfg)
     bias, rope = _causal_bias(mask), _rope_tables(pos_ids, cfg)
     for lp in _layers(params, cfg):
-        q, k, v = _qkv(_norm(x, lp, "ln1", cfg), lp, rope, cfg)
-        x = _block(x, lp, q, k, v, bias, cfg)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(_layer, x, lp, bias, rope, cfg,
+                                                  use_reentrant=False)
+        else:
+            x = _layer(x, lp, bias, rope, cfg)
     return _logits(params, x, cfg)
 
 

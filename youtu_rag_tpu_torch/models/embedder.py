@@ -87,6 +87,7 @@ class HashEmbedder(BaseEmbedder):
         n = np.linalg.norm(vec)
         return vec / n if n > 0 else vec
 
+    @torch.inference_mode()
     def embed_batch(self, texts: list[str]) -> np.ndarray:
         if self._use_native:
             from ..native import hash_embed_batch_native
@@ -259,6 +260,7 @@ class TorchEmbedder(BaseEmbedder):
             b *= 2
         return b
 
+    @torch.inference_mode()
     def embed_batch(self, texts: list[str]) -> np.ndarray:
         """Synchronous batched embed → [n, embed_dim] f32, L2-normalized.
 

@@ -172,6 +172,11 @@ def init_encoder_params(cfg: EncoderConfig, generator: torch.Generator | None = 
     return params
 
 
+def count_params(params: dict) -> int:
+    """The number of scalars in a parameter tree."""
+    return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in params.values())
+
+
 def save_params_npz(params: dict, path) -> None:
     """One npz, nested keys joined by '/' (the JAX package's layout)."""
     flat: dict[str, np.ndarray] = {}
@@ -203,6 +208,14 @@ def load_params_npz(path, device: str | torch.device = "cpu") -> dict:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+
+def layer_views(layers: dict, n: int) -> list[dict]:
+    """Layers 0..n-1's parameters as views of the stacked tensors, one
+    ``unbind`` a tensor: a backward pass then stacks each weight's gradient
+    once, where indexing would add a full-size [L, ...] tensor a layer."""
+    cols = {name: w.unbind(0) for name, w in layers.items()}
+    return [{name: c[i] for name, c in cols.items()} for i in range(n)]
 
 
 def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -375,9 +388,7 @@ def _bert_encode(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
         x32 = x32 + params["type_emb"][type_ids.long()].float()
     eps = cfg.ln_eps
     x = _layer_norm(x32, params["emb_ln_scale"], params["emb_ln_bias"], eps).to(dt)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    for lp in layer_views(params["layers"], cfg.n_layers):
         x = _layer_norm(x + _bert_attention(x, mask, lp, cfg), lp["ln1_scale"], lp["ln1_bias"],
                         eps)
         x = _layer_norm(x + _ffn(x, lp, dt, approximate=cfg.gelu_approximate), lp["ln2_scale"],
@@ -392,7 +403,6 @@ def _bert_encode(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
     return _l2_normalize(pooled), x[:, 0, :].float()
 
 
-@torch.inference_mode()
 def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
                   cfg: EncoderConfig,
                   type_ids: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -401,16 +411,17 @@ def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
     token_ids [B, T] integer, mask [B, T] float (1 = real token), type_ids
     [B, T] integer segment ids (bert only; None: all 0), on the parameters'
     device. Returns (embeddings [B, embed_dim] f32 L2-normalized, cls_state
-    [B, d_model] f32)."""
+    [B, d_model] f32). Differentiable with ``attention_impl="xla"`` (the
+    trainers' setting); the attention kernels refuse a differentiable call.
+    The serving callers (``TorchEmbedder.embed_batch``, ``rerank_scores``,
+    the sequence-parallel forward) run it under ``torch.inference_mode``."""
     _check_arch(cfg)
     token_ids = token_ids.long()
     if cfg.arch == "bert":
         return _bert_encode(params, token_ids, mask, cfg, type_ids)
     dt = cfg.dtype
     x = params["tok_emb"][token_ids].to(dt)  # [B, T, D]
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    for lp in layer_views(params["layers"], cfg.n_layers):
         h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
         x = x + _attention(h, mask, lp, cfg)
         h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])

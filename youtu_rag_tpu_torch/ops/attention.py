@@ -29,7 +29,13 @@ Each wrapper (``blockwise_attention``, ``flash_attention``,
 tensors and counts the launch in its ``.launches``; for CPU tensors it runs
 its plain PyTorch version (``*_reference``). On every device it raises ``ValueError`` outside the
 kernel's range: hd 64 or 128, bf16 or f32; T a multiple of 128 and at
-least 256 (the stats entry: T and T_kv multiples of 128).
+least 256 (the stats entry: T and T_kv multiples of 128). The kernels have
+no backward, so each wrapper also raises ``ValueError`` for a
+differentiable call (grad mode on and q, k or v requiring grad), on the
+CPU route too, as JAX refuses to differentiate a Pallas call: the CUDA
+kernels write a fresh tensor with no ``grad_fn``, and training through
+them would leave ``wq``, ``wk`` and ``wv`` without a gradient. Training
+takes plain attention (``attention_impl="xla"``).
 """
 
 from __future__ import annotations
@@ -75,7 +81,11 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check_span(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bias: torch.Tensor) -> str:
     """q [B, H, T, hd] against a K/V span [B, H, T_kv, hd] and its bias
-    [B, T_kv], T and T_kv multiples of 128. Returns the device type."""
+    [B, T_kv], T and T_kv multiples of 128, not under differentiation.
+    Returns the device type."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise ValueError(f"{name}: the kernel has no backward; differentiate through "
+                         "plain attention (attention_impl='xla')")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or (
             k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]):
         raise ValueError(f"{name}: q [B, H, T, hd] and k, v [B, H, T_kv, hd] do not match: "
