@@ -90,10 +90,11 @@ Phases; any failure exits non-zero before the result lines:
      version; then save and load into a fresh CUDA KB that builds IVF
      again and answers the same;
   4b. main path, small corpus, encoder (provider "tpu"): (a) the default
-     full-width encoder (768 x 12 layers, seeded, attention_impl "pallas")
-     through a CUDA KB of the phase-4 corpus and three exact-identifier
-     documents, held to the same KB on the CPU (the kernels' plain
-     versions) by ENC_TOL; blockwise launches a multiple of 12; (b) the
+     encoder's width (768, seeded, attention_impl "pallas", the KB's
+     default checked) at ENC4B_LAYERS of its 12 layers through a CUDA KB of
+     the phase-4 corpus and three exact-identifier documents, held to the
+     same KB on the CPU (the kernels' plain versions) by ENC_TOL; blockwise
+     launches a multiple of the layers; (b) the
      committed yrt_tiny_lex as its config says (no attention launches),
      ranking the exact-identifier documents, then served with "pallas",
      which must give the same top documents;
@@ -280,6 +281,33 @@ Phases; any failure exits non-zero before the result lines:
      held timer, L2 cold) beside its bound (the probed rows, the queries
      and the result), the earlier design (the candidates kernel and
      merge_blocks), the DMA kernel on the same plan and its plain version;
+  5f. main path, full size, sharded over a mesh (``parallel.mesh``, a
+     local mesh of 4 shards on the card unless named): (a) phase 5's
+     1,048,576 x 768 rows per tier in a ShardedVectorIndex, the unsharded
+     index's hits (bf16 within TOL, int8 and int4 bit-equal), 4 launches a
+     search, the search's device time (the 4 kernels and the merge) beside
+     the unsharded kernel on the same rows, its bound and the merge's
+     share; (b) configs/rag/ivf_int8.yaml's index (read by ConfigLoader,
+     held equal to IVF_SETTINGS) over 5c's clustered rows per tier, filtered
+     (part 0, which every 8th row's metadata names) and not: 4 DMA-kernel
+     launches a search, every filtered hit of part 0, recall@10 against the sharded brute search within 0.02 of 5c's
+     unsharded recall; (c) appends past two capacity doublings, deletes,
+     compact() and a save / load_index(mesh=...) round trip, bf16 and int8,
+     the hits of an unsharded twin after every step; (d) ApiState(mesh=...)
+     builds 512 of 4f's files (hash provider): each fact's document in its
+     hybrid top 5, the dense lists 4i's unsharded KB's up to near-ties, a
+     restart reloading the snapshot sharded, then the encoder provider
+     through the mesh's data-parallel embedder (dp 4, T = 256): on one
+     card its 4 slices share the device, so this checks the padding to a
+     multiple of dp and the one merged forward, bit-equal to the
+     undistributed embedder's (the CPU tests hold the split across
+     devices); (e) a NCCL
+     process group of one (init_process_group, a HashStore) and a group
+     mesh over it: a 262,144-row bf16 index grown through the ring, the
+     local mesh's hits bit for bit; (f) tp 2 at Qwen2-0.5B's widths (6b's
+     seeded weights): 32 greedy tokens of 2 prompts of 512 in f32 (TF32
+     off) equal to the replicated run's, the bf16 first step within
+     BF16_TOL, ms a decode step beside the replicated run's;
   5b. main path, full size, encoder: the default encoder embeds 128 texts
      at T = 512 (embeddings/s, the forward's device time and its split by
      kernel), and the same encoder with max_len 8192 embeds two long
@@ -356,7 +384,8 @@ Phases; any failure exits non-zero before the result lines:
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
 4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
-search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5b, 5e, 6a and 6c (b) and (d) drive it
+search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5f (a)-(e), 5b, 5e, 6a and 6c (b) and
+(d) drive it
 and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
@@ -1825,9 +1854,19 @@ def check_encoder_answers(got, ref, what: str) -> float:
     return err
 
 
+# 4b (a)'s depth: the default encoder's width at 4 of its 12 layers. At 12
+# its CPU twin took 128.2 s of 4b's 132.0 and the script 998.8 s of its
+# 1,200 on an NVIDIA H100 80GB HBM3, 700.00 W (the card's host is shared:
+# the phases other than 4b and 5f took 1.12x their time on an earlier
+# run, and 1.32x on the slowest run seen); 4d and 5b keep the 12-layer
+# default.
+ENC4B_LAYERS = 4
+
+
 def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
-    """4b: (a) the default full-width encoder, (b) yrt_tiny_lex. Returns
-    ((a)'s embedder and main-path launch counts, the max differences)."""
+    """4b: (a) the default encoder's width at ENC4B_LAYERS layers, (b)
+    yrt_tiny_lex. Returns ((a)'s KB's default 12-layer embedder, which 4d
+    and 5b take, and (a)'s main-path launch counts; the max differences)."""
     import dataclasses
 
     from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
@@ -1845,9 +1884,11 @@ def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
         # (a) the default encoder through a CUDA KB, against its CPU twin
         t0 = time.perf_counter()
         kb = KnowledgeBase("smoke-enc", encoder_config("smoke-enc"), device="cuda")
-        cfg = kb.embedder.cfg
-        check(cfg == EncoderConfig(attention_impl="pallas"),
-              f"the CUDA KB's default encoder is {cfg}")
+        default = kb.embedder
+        check(default.cfg == EncoderConfig(attention_impl="pallas"),
+              f"the CUDA KB's default encoder is {default.cfg}")
+        cfg = dataclasses.replace(default.cfg, n_layers=ENC4B_LAYERS)
+        serve_with(kb, TorchEmbedder(config=cfg, device="cuda"))
         reset_launches()
         status, got = asyncio.run(_drive_kb(kb, files))
         order = identifier_order(kb)
@@ -1910,7 +1951,7 @@ def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
         errs["b"] = max(errs["b"], check_encoder_answers(got2, got, "(b) pallas vs xla"))
         print(f"  served again with 'pallas': {n_bw} blockwise launches, same top documents "
               f"and identifier order")
-    return {"embedder": kb.embedder, "launches": main_counts}, errs
+    return {"embedder": default, "launches": main_counts}, errs
 
 
 # ---------------------------------------------------------------------------
@@ -4733,31 +4774,40 @@ def library_call(tier: str, qdev, x, scales, bias, k: int):
     return ("none: PyTorch has no one-call product of int8 queries with packed int4 rows", None)
 
 
-def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
-    """Returns (each tier's results, the bf16 and int8 indexes' device
-    tensors and queries, which phase 5d reuses)."""
-    from youtu_rag_tpu_torch.core.config import IndexConfig
+def full_size_data(seed: int, rows: int = ROWS, d: int = 768, qn: int = 8):
+    """Phase 5's data: seeded unit vectors drawn on the card (a host draw
+    took ~19 s) and handed to ``add`` as numpy, their chunks, and queries
+    (query 0 a stored row: its top-1 is known). Returns (vecs, chunks,
+    queries)."""
     from youtu_rag_tpu_torch.core.types import Chunk
-    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
 
-    kernels = ops()
-    rows, d, qn, top_k, batch = ROWS, 768, 8, 10, 65536
-    rng = np.random.default_rng(seed)
-    t0 = time.perf_counter()
-    # one set of unit vectors for the three tiers, drawn on the card (a
-    # host draw took ~19 s) and handed to ``add`` as numpy
     v = torch.randn(rows, d, generator=torch.Generator(device="cuda").manual_seed(seed),
                     device="cuda")
     vecs = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
     del v
     chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
-    queries = rng.standard_normal((qn, d), dtype=np.float32)
-    queries[0] = vecs[rows // 2]  # a stored row: top-1 known
+    queries = np.random.default_rng(seed).standard_normal((qn, d), dtype=np.float32)
+    queries[0] = vecs[rows // 2]
+    return vecs, chunks, queries
+
+
+def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Returns (each tier's results, and under "data" the vectors, chunks,
+    queries and each tier's index and hits, which phase 5f reuses; the bf16
+    and int8 indexes' device tensors and queries, which phase 5d reuses)."""
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+
+    kernels = ops()
+    rows, d, qn, top_k, batch = ROWS, 768, 8, 10, 65536
+    t0 = time.perf_counter()
+    # one set of unit vectors for the three tiers
+    vecs, chunks, queries = full_size_data(seed, rows, d, qn)
     qpad = queries / np.linalg.norm(queries, axis=1, keepdims=True)  # as search() prepares it
     qdev = torch.from_numpy(qpad.astype(np.float32)).cuda()
     print(f"full size: {rows} x {d} unit vectors made in {time.perf_counter() - t0:.1f} s")
 
-    out, keep = {}, {}
+    out, keep = {"data": {"vecs": vecs, "chunks": chunks, "queries": queries, "hits": {}}}, {}
     for tier in TIERS:
         kernel, plain, quantize = kernels[tier]
         index = DeviceVectorIndex(d, IndexConfig(storage_dtype=tier, metric="cosine"), device="cuda")
@@ -4784,6 +4834,8 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
         check(len(hits) == qn and all(len(h) == top_k for h in hits), f"{tier}: wrong shape")
         check(all(np.isfinite(s) for h in hits for _, s in h), f"{tier}: non-finite scores")
         check(hits[0][0][0].id == f"c{rows // 2}", f"{tier}: query 0 top hit {hits[0][0][0].id}")
+        out["data"]["hits"][tier] = hit_lists(hits)
+        out["data"].setdefault("index", {})[tier] = index  # 5f shards its rows
 
         # the same device tensors the search used, through the plain version
         got_rows = torch.tensor([[index._id_to_row[c.id] for c, _ in h] for h in hits],
@@ -4967,8 +5019,10 @@ def ivf_bound(tier: str, part: str, n_valid: int, br: int, d: int, qn: int, k: i
 
 
 def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
-    """Returns (each tier's results, the bf16 and int8 indexes' device
-    tensors, queries and adaptive plans, which phase 5d reuses)."""
+    """Returns (each tier's results, with its recall@10, and under "data"
+    the clustered rows, queries and indexes, which phase 5f reuses; the bf16 and int8
+    indexes' device tensors, queries and adaptive plans, which phase 5d
+    reuses)."""
     from youtu_rag_tpu_torch.core.config import IndexConfig
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
@@ -4978,12 +5032,13 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
     t0 = time.perf_counter()
     vecs, queries = clustered_rows(seed, rows, d, qn)
     queries[0] = vecs[rows // 3]  # a stored row: top-1 known
+    out: dict = {"data": {"vecs": vecs, "queries": queries}}
     qpad = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
     qdev = torch.from_numpy(qpad).cuda()  # as search() prepares them
     chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
     print(f"IVF full size: {rows} x {d} clustered unit vectors made in "
           f"{time.perf_counter() - t0:.1f} s")
-    out, keep = {}, {}
+    keep = {}
     for tier in TIERS:
         kernel, plain, _ = ivf_ops()[tier]
         brute = ops()[tier][0]
@@ -5049,7 +5104,8 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
         ivf_rows = got[1][:, :top_k].cpu().numpy()
         recall = float(np.mean([len(set(a) & set(r)) / top_k for a, r in zip(ivf_rows, brute_rows)]))
         n_valid = int(nv)
-        res = {"launches": counts[tier], "err": err}
+        res = {"launches": counts[tier], "err": err, "recall": recall}
+        out["data"].setdefault("index", {})[tier] = index  # 5f shards its rows
         print(f"  search matches the plain version on its plan; n_valid {n_valid} of {total} "
               f"blocks; recall@10 against {KERNEL_NAMES[tier]} {recall:.3f}")
         # what one call runs on the card: one kernel (the queries' prep and
@@ -5229,6 +5285,504 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
         out[name] = {"launches": counts[name], "err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     return out
+
+
+# ---------------------------------------------------------------------------
+# 5f. main path, full size, sharded over a mesh
+# ---------------------------------------------------------------------------
+
+SHARDS = 4  # one card holds the 4 shards of a local mesh
+GROUP_ROWS = 1 << 18  # (e): the index over a process group of one
+GROWTH_ROWS = (3_000, 4_000, 6_000)  # (c): from 4,096 rows of capacity past two doublings
+GROWTH_D = 256
+TP_NEW = 32  # (f): greedy tokens
+TP_PROMPT = 512
+TP_STEPS = 16  # (f): decode steps timed
+
+
+def hit_lists(hits) -> list[list[tuple[str, float]]]:
+    return [[(c.id, float(s)) for c, s in h] for h in hits]
+
+
+def same_lists(got, want, tol: float) -> bool:
+    """``same_up_to_ties`` on (id, score) lists: ``tol`` 0 asks for the same
+    ids and bit-equal scores."""
+    if tol == 0.0:
+        return got == want
+    ns = types.SimpleNamespace
+    return all(same_up_to_ties([ns(chunk=ns(id=i), score=s) for i, s in g],
+                               [ns(chunk=ns(id=i), score=s) for i, s in w], tol)
+               for g, w in zip(got, want, strict=True))
+
+
+def mesh_of(n: int):
+    """A local mesh of ``n`` shards, all on the card."""
+    from youtu_rag_tpu_torch.parallel import get_mesh
+
+    return get_mesh({"db": n}, devices=["cuda"] * n)
+
+
+def fill(index, chunks, vecs, batch: int = 65536) -> float:
+    index.reserve(len(chunks))
+    t0 = time.perf_counter()
+    for start in range(0, len(chunks), batch):
+        index.add(chunks[start : start + batch], vecs[start : start + batch])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def shard_parts(kernel, qdev, x, extra, b, k: int, n: int):
+    """Each shard's kernel result with its rows made global (the merge's input)."""
+    rows = x.shape[0] // n
+    parts = []
+    for j in range(n):
+        sl = slice(j * rows, (j + 1) * rows)
+        s, i = kernel(qdev, x[sl], *[e[sl] for e in extra], b[sl], k)
+        parts.append((s, i + j * rows))
+    return parts
+
+
+def adopt(index, mesh, config=None):
+    """A ShardedVectorIndex over ``mesh`` (and ``config``, by default
+    ``index``'s) that holds ``index``'s rows as they are: a local mesh's
+    shards are views of one [capacity, d] tensor, so it takes the same
+    tensors and host state (no copy, no fill; phase 5's and 5c's indexes
+    are filled once). Its IVF state is not taken."""
+    from youtu_rag_tpu_torch.parallel import ShardedVectorIndex
+
+    sharded = ShardedVectorIndex(index.dim, config or index.config, mesh=mesh)
+    for name in ("capacity", "size", "live_count", "schema", "_vectors", "_cols", "_bias",
+                 "_scales", "_host_q8", "_host_s8", "_chunks", "_id_to_row", "_doc_rows"):
+        setattr(sharded, name, getattr(index, name))
+    return sharded
+
+
+def device_ms(fn, calls: int = 10, part=lambda name: False) -> tuple[float, float]:
+    """(device ms of one call of ``fn``, of it the kernels ``part`` names),
+    by torch.profiler: the sum of the call's kernels, whatever the host's
+    enqueue gaps between them."""
+    kernels = device_kernels(fn, calls)
+    total = sum(us for _, us in kernels.values()) / calls / 1e3
+    return total, sum(us for name, (_, us) in kernels.items() if part(name)) / calls / 1e3
+
+
+def sharded_brute(part: str, smi: str, prev: dict) -> dict:
+    """5f (a): phase 5's 1,048,576 x 768 index of each tier seen as 4 shards
+    on the card (``adopt``): the unsharded index's hits (phase 5's), 4
+    launches a search; a search's device time (4 kernels and the merge)
+    beside one kernel over every row, its bound, and the merge's share."""
+    rows, d, top_k = ROWS, 768, 10
+    queries = prev["queries"]
+    qn = queries.shape[0]
+    qdev = torch.from_numpy(queries / np.linalg.norm(queries, axis=1, keepdims=True)).cuda()
+    mesh = mesh_of(SHARDS)
+    out: dict = {"launches": {}}
+    for tier in TIERS:
+        kernel = ops()[tier][0]
+        index = adopt(prev["index"].pop(tier), mesh)
+        reset_launches()
+        hits = index.search(queries, top_k=top_k)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        name = KERNEL_NAMES[tier]
+        check(counts[tier] == SHARDS and sum(counts.values()) == SHARDS,
+              f"5f (a) {tier}: one search launched {counts}, not {SHARDS} {name}")
+        out["launches"][name] = counts[tier]
+        got, want = hit_lists(hits), prev["hits"][tier]
+        check(all(len(h) == top_k for h in got), f"5f (a) {tier}: short hit lists")
+        check(same_lists(got, want, TOL if tier == "bfloat16" else 0.0),
+              f"5f (a) {tier}: the sharded hits {got[:2]} differ from the unsharded {want[:2]}")
+        # device time: the sharded search's kernels and merge, the merge
+        # alone, one kernel over every row
+        x, b = index._vectors, index._bias
+        extra = () if tier == "bfloat16" else (index._scales,)
+        k = top_k if tier != "int4" else 64  # int4: the re-rank's candidates
+        sharded_ms, scan_ms = device_ms(lambda: index._run_brute(qdev, x, index._scales, b, k),
+                                        part=lambda n: "topk_scan_kernel" in n)
+        parts = shard_parts(kernel, qdev, x, extra, b, k, SHARDS)
+        merge_ms, _ = device_ms(lambda: index._layout.merge(parts, k))
+        one_ms, _ = device_ms(lambda: kernel(qdev, x, *extra, b, k))
+        bms, by = bound(tier, part, rows, d, qn, k)
+        out[tier] = {"ms": sharded_ms, "scan_ms": scan_ms, "merge_ms": merge_ms,
+                     "unsharded_ms": one_ms, "bound_ms": bms}
+        print(f"5f (a) {tier}: hits = the unsharded index's; {counts[tier]} {name} launches a "
+              f"search; a search's device time {sharded_ms:.4f} ms (k = {k}; the {SHARDS} scans "
+              f"{scan_ms:.4f} ms; the merge alone {merge_ms:.4f} ms, "
+              f"{merge_ms / sharded_ms * 100 if sharded_ms else float('nan'):.1f} %) against "
+              f"one call over every row "
+              f"{one_ms:.4f} ms and a bound of {bms:.4f} ms ({by}) [{smi}]")
+        del index, x, b, extra, parts, hits
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_ivf(part: str, smi: str, prev: dict) -> dict:
+    """5f (b): configs/rag/ivf_int8.yaml's index (read through the config
+    loader) over phase 5c's clustered rows (its index of each tier seen as
+    4 shards, ``adopt``), IVF built over the shards, filtered and not:
+    every filtered hit passes the filter, the DMA kernel launches once per
+    shard a search, recall@10 against the sharded brute search within 0.02
+    of the unsharded IVF's (phase 5c's)."""
+    from youtu_rag_tpu_torch.core.loader import ConfigLoader
+
+    icfg = ConfigLoader().load_rag_config("ivf_int8").vector_store.index
+    check({k: getattr(icfg, k) for k in IVF_SETTINGS} == IVF_SETTINGS,
+          f"5f (b): configs/rag/ivf_int8.yaml says {icfg}, phases 5c and 5d copy {IVF_SETTINGS}")
+    rows, top_k = ROWS, 10
+    queries = prev["queries"]
+    qdev = torch.from_numpy(queries / np.linalg.norm(queries, axis=1, keepdims=True)).cuda()
+    mesh = mesh_of(SHARDS)
+    out: dict = {"launches": {}}
+    for tier in TIERS:
+        # the yaml's config (5c's own index has since run with the margin off)
+        index = adopt(prev["index"].pop(tier), mesh, icfg.model_copy(update={"storage_dtype": tier}))
+        # every 8th row a part; the filter asks for part 0 (rows without one fail it)
+        ids = [f"c{i}" for i in range(0, rows, 8)]
+        t0 = time.perf_counter()
+        index.update_metadata(ids, [{"part": i % 4} for i in range(len(ids))])
+        t1 = time.perf_counter()
+        index.build_ivf()
+        torch.cuda.synchronize()
+        meta_s, build_s = t1 - t0, time.perf_counter() - t1
+        name, launches = IVF_NAMES[tier], 0
+        for filters in (None, {"part": 0}):
+            reset_launches()
+            hits = index.search(queries, top_k=top_k, filters=filters)
+            torch.cuda.synchronize()
+            counts, brute = ivf_counts(), launch_counts()
+            check(counts[tier] == SHARDS and sum(counts.values()) == SHARDS
+                  and sum(brute.values()) == 0,
+                  f"5f (b) {tier}: a search launched {counts} and brute {brute}, not {SHARDS} {name}")
+            launches += counts[tier]
+            check(all(len(h) == top_k for h in hits), f"5f (b) {tier}: short hit lists")
+            if filters:
+                check(all((c.metadata or {}).get("part") == 0 for h in hits for c, _ in h),
+                      f"5f (b) {tier}: a filtered hit fails the filter")
+            else:
+                check(hits[0][0][0].id == f"c{rows // 3}", f"5f (b) {tier}: query 0's top hit")
+        out["launches"][name] = launches
+        # recall@10 as 5c measures it: the kernel's rows against the brute kernel's
+        x, b, sc = index._vectors, index._bias, index._scales
+        k = top_k if tier != "int4" else 64
+        ivf_rows = index._run_sharded_ivf(qdev, x, sc, b, k)[1][:, :top_k].cpu().numpy()
+        brute_rows = index._run_brute(qdev, x, sc, b, top_k)[1].cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(r)) / top_k
+                                for a, r in zip(ivf_rows, brute_rows)]))
+        base = prev["recall"][tier]
+        check(recall >= base - 0.02,
+              f"5f (b) {tier}: recall@10 {recall:.3f} against the unsharded IVF's {base}")
+        ms, scan_ms = device_ms(lambda: index._run_sharded_ivf(qdev, x, sc, b, k),
+                                part=lambda n: "ivf_tma_kernel" in n)
+        out[tier] = {"recall": recall, "ms": ms, "scan_ms": scan_ms}
+        print(f"5f (b) {tier}: 5c's index as {SHARDS} shards, its chunks' metadata set in "
+              f"{meta_s:.1f} s, build_ivf {build_s:.2f} s; {SHARDS} {name} launches a search, "
+              f"filtered or not, every filtered hit of part 0; recall@10 against the sharded "
+              f"brute search {recall:.3f} (unsharded IVF, 5c: {base:.3f}); a search's device time "
+              f"{ms:.4f} ms (k = {k}; the {SHARDS} scans {scan_ms:.4f} ms, the {SHARDS} plans and "
+              f"the merge the rest) [{smi}]")
+        del index, x, b, sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_maintenance(seed: int, smi: str) -> dict:
+    """5f (c): appends past two capacity doublings, deletes, compact() and a
+    snapshot reloaded with load_index(mesh=...), on 4 shards and against an
+    unsharded twin, bf16 and int8: the twin's hits after every step."""
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.core.types import Chunk
+    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.index.persistence import load_index, save_index
+    from youtu_rag_tpu_torch.parallel import ShardedVectorIndex
+
+    d = GROWTH_D
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    mesh = mesh_of(SHARDS)
+    launches = {}
+    for tier in ("bfloat16", "int8"):
+        cfg = IndexConfig(storage_dtype=tier, min_capacity=4096, auto_compact_ratio=0.0)
+        sharded = ShardedVectorIndex(d, cfg, mesh=mesh)
+        twin = DeviceVectorIndex(d, cfg, device="cuda")
+        tol = TOL if tier == "bfloat16" else 0.0
+        caps, n, steps = [sharded.capacity], 0, 0
+        q, searches, main = None, 0, 0
+
+        def compare(what, index=sharded, ref=twin):
+            # the sharded search's launches alone: the twin's compare it
+            nonlocal searches, main
+            reset_launches()
+            got = hit_lists(index.search(q, top_k=10))
+            counts = launch_counts()
+            searches, main = searches + 1, main + counts[tier]
+            check(counts[tier] == SHARDS and sum(counts.values()) == SHARDS,
+                  f"5f (c) {tier} {what}: a search launched {counts}, not {SHARDS}")
+            want = hit_lists(ref.search(q, top_k=10))
+            check(same_lists(got, want, tol), f"5f (c) {tier} {what}: {got[0]} != {want[0]}")
+
+        for m in GROWTH_ROWS:
+            v = torch.randn(m, d, generator=g, device="cuda")
+            v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+            chunks = [Chunk(f"r{n + i}", f"doc{(n + i) // 16}", "", i % 16) for i in range(m)]
+            sharded.add(chunks, v)
+            twin.add(chunks, v)
+            n += m
+            caps.append(sharded.capacity)
+            q = np.concatenate([v[:4], np.random.default_rng(seed + n).standard_normal(
+                (4, d)).astype(np.float32)])
+            compare(f"after {n} rows")
+            steps += 1
+        check(caps[-1] >= 4 * caps[0] and sharded.capacity == twin.capacity,
+              f"5f (c) {tier}: capacities {caps} (twin {twin.capacity})")
+        dead = [f"r{i}" for i in range(0, n, 3)]
+        check(sharded.delete(dead) == twin.delete(dead) == len(dead), "5f (c): deletes")
+        compare("after deletes")
+        sharded.compact()
+        twin.compact()
+        check(sharded.size == twin.size == sharded.count(), "5f (c): compaction")
+        compare("after compact()")
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+            save_index(sharded, os.path.join(root, "index"))
+            save_index(twin, os.path.join(root, "twin"))
+            again = load_index(os.path.join(root, "index"), mesh=mesh)
+            twin_again = load_index(os.path.join(root, "twin"), device="cuda")
+        check(isinstance(again, ShardedVectorIndex) and again.n_shards == SHARDS,
+              f"5f (c): load_index(mesh=...) gave {type(again).__name__}")
+        # a reload re-inserts the dequantized rows, so it meets the twin's reload
+        compare("after a snapshot round trip", again, twin_again)
+        torch.cuda.synchronize()
+        check(main == SHARDS * searches, f"5f (c) {tier}: {main} launches for {searches} searches")
+        launches[KERNEL_NAMES[tier]] = main
+        print(f"5f (c) {tier}: {n} rows appended, capacity {' -> '.join(map(str, caps))}; "
+              f"{len(dead)} deleted; compact(); a snapshot reloaded on the mesh: the unsharded "
+              f"twin's hits after each of {steps + 3} steps; {main} launches for {searches} "
+              f"searches")
+        del sharded, twin, again, twin_again
+    return {"launches": launches}
+
+
+def sharded_kb(seed: int, smi: str, unsharded_kb) -> dict:
+    """5f (d): ``ApiState(mesh=...)`` builds a KB from 512 of 4f's files on
+    the hash provider (4 launches a search), each fact's document in its
+    hybrid top 5, the dense lists the unsharded card KB's (4i's) up to
+    near-ties; a restart reloads the snapshot onto the mesh; then the
+    encoder provider on the same mesh at T = 256 takes the data-parallel
+    embedder (dp 4). Its 4 slices share the card, so it runs one merged
+    forward: this checks the padding to a multiple of dp and that forward,
+    bit-equal to the undistributed embedder's; the split across devices is
+    the CPU tests' (``test_dp_embedder_*``)."""
+    from youtu_rag_tpu_torch.api.state import ApiState
+    from youtu_rag_tpu_torch.core.config import EmbeddingConfig
+    from youtu_rag_tpu_torch.ingest.processors import SourceTask
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+    from youtu_rag_tpu_torch.parallel import ShardedVectorIndex
+
+    mesh = mesh_of(SHARDS)
+    out = {"launches": {"topk_pruned": 0}}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        facts = write_ingest_corpus(root, seed, n_docs=API_DOCS)
+        names = [name for name, _ in facts]
+        asked = facts[:: API_DOCS // API_QUESTIONS][:API_QUESTIONS]
+        data = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        state = ApiState(data_dir=data, mesh=mesh)
+        kb, report = api_build(state, root, names)
+        torch.cuda.synchronize()
+        check(isinstance(kb.store._index, ShardedVectorIndex) and kb.store._index.n_shards == SHARDS
+              and report.processed == API_DOCS and report.failed == 0,
+              f"5f (d): the mesh's KB {type(kb.store._index).__name__}: {report.summary()}")
+        print(f"5f (d): ApiState(mesh={mesh}) built {report.total_chunks} chunks from "
+              f"{API_DOCS} files in {time.perf_counter() - t0:.1f} s")
+        reset_launches()
+        dense = [asyncio.run(kb.search(q, top_k=5, similarity_threshold=0.0)) for _, q in asked]
+        hybrid = [asyncio.run(kb.hybrid_retriever.retrieve(q, top_k=5, similarity_threshold=0.0))
+                  for _, q in asked]
+        torch.cuda.synchronize()
+        n = launch_counts()["bfloat16"]
+        check(n == 2 * API_QUESTIONS * SHARDS,
+              f"5f (d): {n} topk_pruned launches for {2 * API_QUESTIONS} searches on {SHARDS} shards")
+        missing = [name for (name, _), h in zip(asked, hybrid)
+                   if name not in [r.chunk.document_id for r in h]]
+        check(not missing, f"5f (d): facts not in their hybrid top 5: {missing}")
+        for (_, q), got in zip(asked, dense):
+            ref = asyncio.run(unsharded_kb.search(q, top_k=5, similarity_threshold=0.0))
+            check(same_up_to_ties(got, ref, TOL), f"5f (d) {q!r}: the mesh's dense hits differ "
+                  "from the unsharded KB's")
+        kb.save(os.path.join(data, "snapshots", "api"))
+        reset_launches()
+        again = ApiState(data_dir=data, mesh=mesh).kbs.get("api")
+        check(again is not None and isinstance(again.store._index, ShardedVectorIndex),
+              "5f (d): the restart's KB is not sharded")
+        for (_, q), before in zip(asked[:API_RESTORED], dense):
+            got = asyncio.run(again.search(q, top_k=5, similarity_threshold=0.0))
+            check([(h.chunk.id, h.score) for h in got] == [(h.chunk.id, h.score) for h in before],
+                  f"5f (d) restored {q!r}: other hits")
+        torch.cuda.synchronize()
+        n += launch_counts()["bfloat16"]
+        out["launches"]["topk_pruned"] = n
+
+        # the encoder provider on the mesh: dp 4, its slices all on the card
+        cfg = state.rag_config.model_copy(deep=True)
+        cfg.knowledge_builder.embedding = EmbeddingConfig(provider="tpu")
+        enc = state.get_or_create_kb("enc", cfg)
+        check(isinstance(enc.embedder, TorchEmbedder) and enc.embedder._dp == SHARDS,
+              f"5f (d): the encoder KB's embedder {type(enc.embedder).__name__}")
+        files = names[:INGEST_ENC_DOCS // 4]
+        tasks = [SourceTask(n_, "text", path=str(state.files.local_path("uploads", n_)))
+                 for n_ in files]
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = asyncio.run(enc.build_sources(tasks))
+        torch.cuda.synchronize()
+        att = attention_counts()["blockwise_attention"]
+        check(rep.processed == len(files) and att > 0 and att % 12 == 0,
+              f"5f (d): the encoder build {rep.summary()}, {att} blockwise launches")
+        out["launches"]["blockwise_attention"] = att
+        texts = [c.content for c in list(enc.store.index.iter_live())[:61]]  # padded to 64
+        one = TorchEmbedder(batch_size=enc.embedder.batch_size)  # undistributed, the card
+        check(np.array_equal(enc.embedder.embed_batch(texts), one.embed_batch(texts)),
+              "5f (d): the data-parallel embeddings differ from the undistributed embedder's")
+        print(f"5f (d): {API_QUESTIONS} dense and {API_QUESTIONS} hybrid searches at {SHARDS} "
+              f"launches each, the unsharded KB's lists; a restart reloaded the mesh's KB; the "
+              f"encoder's dp-{SHARDS} embedder (one merged forward on the card) built "
+              f"{rep.total_chunks} chunks of {len(files)} files in "
+              f"{time.perf_counter() - t0:.1f} s ({att} blockwise launches); {len(texts)} texts "
+              f"padded to a multiple of {SHARDS}, bit-equal to the undistributed embedder's "
+              f"[{smi}]")
+    return out
+
+
+def group_of_one(smi: str, vecs: np.ndarray, queries: np.ndarray) -> dict:
+    """5f (e): ``init_process_group("nccl", world_size=1)``, a group mesh of
+    4 shards on it and a 262,144-row bf16 index over it (grown through the
+    ring, whose ring has one place): the local mesh's hits. Collectives
+    across cards need a machine with several."""
+    import torch.distributed as dist
+
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.core.types import Chunk
+    from youtu_rag_tpu_torch.parallel import ShardedVectorIndex, get_mesh
+
+    rows, d = GROUP_ROWS, vecs.shape[1]
+    chunks = [Chunk(f"c{i}", f"doc{i // 64}", "", i % 64) for i in range(rows)]
+    local = ShardedVectorIndex(d, IndexConfig(min_capacity=4096), mesh=mesh_of(SHARDS))
+    fill(local, chunks, vecs[:rows])
+    want = hit_lists(local.search(queries, top_k=10))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = get_mesh({"db": SHARDS}, devices=["cuda"] * SHARDS)
+        check(mesh.distributed and mesh.group(("db",)) is not None, f"5f (e): {mesh}")
+        index = ShardedVectorIndex(d, IndexConfig(min_capacity=4096), mesh=mesh)
+        fill_s = fill(index, chunks, vecs[:rows])
+        reset_launches()
+        got = hit_lists(index.search(queries, top_k=10))
+        torch.cuda.synchronize()
+        n = launch_counts()["bfloat16"]
+        check(n == SHARDS, f"5f (e): {n} launches a search")
+        check(got == want, f"5f (e): the group's hits {got[0]} != the local mesh's {want[0]}")
+        print(f"5f (e): NCCL, world size 1: a group mesh of {SHARDS} shards, {rows} rows grown to "
+              f"capacity {index.capacity} through the ring in {fill_s:.1f} s, {n} launches a "
+              f"search, the hits of the local mesh, bit for bit [{smi}]")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": {"topk_pruned": n}}
+
+
+def tp_decoding(seed: int, smi: str) -> dict:
+    """5f (f): tp 2 on a local mesh (both shards on the card) at Qwen2-0.5B's
+    widths, phase 6b's seeded weights: in f32 with TF32 off 32 greedy tokens
+    from 2 prompts of 512 equal the replicated run's; in bf16 the first
+    step's logits within 6b's 0.15 of the replicated run's; ms per decode
+    step beside the replicated run's."""
+    import dataclasses
+
+    from youtu_rag_tpu_torch.models import decoder as td
+    from youtu_rag_tpu_torch.models.convert import decoder_params_from_numpy
+    from youtu_rag_tpu_torch.models.pretrained import load_pretrained_decoder
+    from youtu_rag_tpu_torch.parallel import get_mesh
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        write_qwen2_checkpoint(root, seed)
+        tree, cfg = load_pretrained_decoder(root, max_len=2048)
+    mesh = get_mesh({"tp": 2}, devices=["cuda"] * 2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    prompt = torch.randint(0, cfg.vocab_size, (2, TP_PROMPT), generator=g, device="cuda")
+    pmask = torch.ones(2, TP_PROMPT, device="cuda")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = decoder_params_from_numpy(tree, f32, "cuda")
+        tpd = td.shard_decoder(params, f32, mesh)
+        want, want_len = td.generate(params, prompt, pmask, f32, max_new_tokens=TP_NEW)
+        got, got_len = td.tp_generate(tpd, prompt, pmask, max_new_tokens=TP_NEW)
+        check(torch.equal(got, want) and torch.equal(got_len, want_len),
+              f"5f (f): f32 TP tokens {got[0, :8].tolist()} != replicated {want[0, :8].tolist()}")
+        del params, tpd
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    params = td.cast_params_for_serving(decoder_params_from_numpy(tree, cfg, "cuda"))
+    del tree
+    tpd = td.shard_decoder(params, cfg, mesh)
+    cache, caches = td.init_cache(cfg, 2, TP_PROMPT + TP_STEPS, "cuda"), tpd.init_cache(
+        2, TP_PROMPT + TP_STEPS)
+    first, _ = td.prefill(params, prompt, pmask, cache, cfg)
+    tp_first = td.tp_prefill(tpd, prompt, pmask, caches)
+    err = float((tp_first - first).abs().max())
+    check(err <= BF16_TOL, f"5f (f): bf16 TP first-step logits {err} from the replicated run's")
+    attn = torch.cat([pmask, torch.zeros(2, TP_STEPS, device="cuda")], 1)
+    pos = torch.full((2,), TP_PROMPT, dtype=torch.int32, device="cuda")
+    tok = torch.argmax(first, -1).to(torch.int32)
+
+    def steps(step) -> float:  # ms a step over TP_STEPS steps, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TP_STEPS):
+            attn[:, TP_PROMPT + i] = 1.0
+            step(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TP_STEPS
+
+    one_ms = steps(lambda i: td.decode_step(params, tok, TP_PROMPT + i, attn, pos + i, cache, cfg))
+    tp_ms = steps(lambda i: td.tp_decode_step(tpd, tok, TP_PROMPT + i, attn, pos + i, caches))
+    print(f"5f (f): tp 2 at Qwen2-0.5B widths ({cfg.n_layers} layers): f32 (TF32 off) "
+          f"{TP_NEW} greedy tokens of 2 prompts of {TP_PROMPT} = the replicated run's; bf16 "
+          f"first step within {err:.4f} (gate {BF16_TOL}); a decode step (B 2, bf16) "
+          f"{tp_ms:.3f} ms on tp 2 against {one_ms:.3f} ms replicated, host clock [{smi}]")
+    return {"tp_ms": tp_ms, "one_ms": one_ms, "err": err}
+
+
+def sharded_main_path(seed: int, part: str, smi: str, full: dict, full_ivf: dict,
+                      api_kb) -> dict:
+    """5f: the serving path over a mesh, (a)-(f). Returns the main path's
+    launches by kernel."""
+    launches: dict[str, int] = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    brute = sharded_brute(part, smi, full["data"])
+    add(brute["launches"])
+    print(f"-- 5f (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    prev_ivf = {**full_ivf["data"], "recall": {t: full_ivf[t]["recall"] for t in TIERS}}
+    add(sharded_ivf(part, smi, prev_ivf)["launches"])
+    print(f"-- 5f (b): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    add(sharded_maintenance(seed, smi)["launches"])
+    print(f"-- 5f (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    add(sharded_kb(seed, smi, api_kb)["launches"])
+    print(f"-- 5f (d): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    add(group_of_one(smi, full["data"]["vecs"], full["data"]["queries"])["launches"])
+    print(f"-- 5f (e): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tp = tp_decoding(seed, smi)
+    print(f"-- 5f (f): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"5f launches: {launches}")
+    return {"launches": launches, "brute": brute, "tp": tp}
 
 
 # ---------------------------------------------------------------------------
@@ -6458,7 +7012,7 @@ def main() -> int:
 
     phase("4j the DTR Excel agent and the eval harness on the card")
     dtr4j = dtr_and_eval(args.seed, smi, api4i)
-    del api4i["kb"], api4i["twin_kb"]
+    del api4i["twin_kb"]  # 5f holds its sharded KB against api4i["kb"]
 
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
@@ -6469,6 +7023,11 @@ def main() -> int:
     phase("5d ops path, full size, per-block")
     full_blocks = ops_full_size(part, keep5, keep5c)
     del keep5, keep5c
+    torch.cuda.empty_cache()
+
+    phase("5f main path, full size, sharded over a mesh")
+    sharded5f = sharded_main_path(args.seed, part, smi, full, full_ivf, api4i.pop("kb"))
+    del full["data"], full_ivf["data"]  # and with them phase 5's and 5c's indexes
     torch.cuda.empty_cache()
 
     phase("5b main path, full size, encoder")
@@ -6500,7 +7059,8 @@ def main() -> int:
                             + mem4g["launches"] + team4h["launches"] + api4i["launches"]
                             + dtr4j["topk_pruned"] + train6c["topk_pruned"]
                             if tier == "bfloat16" else 0)
-                         + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)),
+                         + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)
+                         + sharded5f["launches"].get(kname, 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
@@ -6518,6 +7078,7 @@ def main() -> int:
             "launches": (enc["launches"][kname] + f["launches"]
                          + (bert4e["launches"] + ingest4f["launches"]["blockwise_attention"]
                             + train6c["blockwise_attention"]
+                            + sharded5f["launches"].get(kname, 0)
                             if kname == "blockwise_attention" else 0)),
             "max_abs_err": max(err3b[kname], f["err"],
                                bert4e["errs"]["attention"] if kname == "blockwise_attention"
@@ -6535,7 +7096,7 @@ def main() -> int:
             "route": "cuda",
             "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],
-            "launches": launches4c[tier] + f["launches"],
+            "launches": launches4c[tier] + f["launches"] + sharded5f["launches"].get(kname, 0),
             "max_abs_err": max(err3c[tier], err3x[kname], err3f[kname], err4c[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],

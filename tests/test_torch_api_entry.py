@@ -21,6 +21,8 @@ import torch
 
 from torch_api_helpers import Served, make_state, package, port_registry  # noqa: F401
 from youtu_rag_tpu_torch import cli_chat, serve_api
+from youtu_rag_tpu_torch.core.types import Document
+from youtu_rag_tpu_torch.parallel import ShardedVectorIndex
 from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
 
 pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
@@ -53,10 +55,50 @@ def test_serve_api_builds_the_state_it_is_asked_for(tmp_path, port_registry):
     assert args.device is None and args.shards == 0 and args.port == 8080
 
 
-def test_serve_api_shards_raise(tmp_path):
-    args = serve_api.parse_args(["--shards", "2", "--device", "cpu", "--data-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
+def test_serve_api_shards_raise(tmp_path, monkeypatch, port_registry):
+    """``--shards N`` shards every KB N ways on the serving device: the card,
+    which a host without CUDA lacks, so it raises; with ``--device`` the N
+    shards lie on that device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = serve_api.parse_args(["--shards", "2", "--data-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_api.build_state(args)
+    args = serve_api.parse_args(["--shards", "2", "--device", "cpu", "--data-dir", str(tmp_path),
+                                 "--embedding-provider", "hash"])
+    state = serve_api.build_state(args)
+    assert state.mesh.shape == {"db": 2} and state.device == torch.device("cpu")
+    kb = state.get_or_create_kb("sharded")
+    asyncio.run(kb.build_documents([Document("d1", "some text to index")]))
+    assert isinstance(kb.store._index, ShardedVectorIndex) and kb.store._index.n_shards == 2
+
+
+def test_serve_api_shards_lie_on_one_card_of_several(tmp_path, monkeypatch):
+    """Without ``--device``, on a host with two cards, ``--shards 3`` puts the
+    three shards on the card (``resolve_device``), which the sharded index
+    accepts; the mesh allocates nothing, so no card is needed here."""
+    from youtu_rag_tpu_torch.api import state as api_state
+    from youtu_rag_tpu_torch.parallel.sharded_index import ShardLayout
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_state(**kw):
+        seen.update(kw)
+        raise Stop  # the state itself would allocate on the card
+
+    monkeypatch.setattr(api_state, "ApiState", fake_state)
+    with pytest.raises(Stop):
+        serve_api.build_state(serve_api.parse_args(["--shards", "3", "--data-dir",
+                                                    str(tmp_path)]))
+    mesh = seen["mesh"]
+    assert mesh.shape == {"db": 3} and seen["device"] is None
+    assert {str(d) for d in mesh.devices.reshape(-1)} == {"cuda"}
+    layout = ShardLayout(mesh)
+    assert layout.n_shards == 3 and layout.n_local == 3 and layout.device == torch.device("cuda")
 
 
 def test_serve_api_without_cuda_raises(tmp_path):

@@ -3,8 +3,9 @@
 A port of ``youtu_rag_tpu/api/state.py`` with the port's device seam:
 ``ApiState(device=...)`` places every KB, memory toolkit and agent it
 builds on that device (``None`` is the CUDA card and raises on a host
-without one; ``"cpu"`` runs the plain path). The JAX package's ``mesh``
-(a sharded index over several devices) has no counterpart yet.
+without one; ``"cpu"`` runs the plain path). ``ApiState(mesh=...)`` (a
+``parallel.mesh.Mesh``) shards every KB it creates over the mesh's ``db``
+axis, as the JAX package's does; the rest lives on the mesh's device.
 
 Replaces the reference's globals + dependency injection
 (``utu/rag/api/dependencies.py:22-202``, MinIO client
@@ -167,7 +168,15 @@ class ApiState:
         rag_config: RAGConfig | None = None,
         db: DBService | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
+        # the optional mesh: every KB this state creates shards its index
+        # over it (ShardedVectorIndex), the multi-device serving path
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.sharded_index import mesh_device
+
+            device = mesh_device(mesh, device)
         # every KB, memory toolkit and agent this state builds lives here
         self.device = resolve_device(device)
         self.data_dir = Path(data_dir)
@@ -249,7 +258,7 @@ class ApiState:
         if kb is None:
             self.validate_kb_name(name)
             cfg = config or self.rag_config.model_copy(update={"name": name})
-            kb = self.kbs.get_or_create(name, cfg, device=self.device)
+            kb = self.kbs.get_or_create(name, cfg, device=self.device, mesh=self.mesh)
             # table registry + incremental manifest live under the data dir
             # so text2sql tables and skip-unchanged survive restarts
             kb.attach_persistence(self.data_dir / "kbs" / name)
@@ -349,7 +358,7 @@ class ApiState:
                     logger.exception("corrupt kb meta %s; using defaults", meta)
             if self.kbs.get(name) is not None:
                 continue
-            kb = self.kbs.get_or_create(name, cfg, device=self.device)
+            kb = self.kbs.get_or_create(name, cfg, device=self.device, mesh=self.mesh)
             kb.attach_persistence(meta.parent)
             self.monitor.register(name, kb.store)
             GLOBAL_KB_REGISTRY.register(kb)

@@ -39,7 +39,7 @@ Facts of the JAX index that this one copies on purpose: ``compact()`` (and
 int4-dequantized vectors, so after either the re-rank sees int4 precision
 only; ``nbytes()`` leaves out the scales.
 
-Not ported (ROADMAP Queue A 3): AOT tier warming and the append pacing
+Not ported (ROADMAP Queue A 9): AOT tier warming and the append pacing
 probe. The array updates that JAX writes as donated jit kernels are in-place tensor
 writes here; searches run under the index lock and on the same stream, so
 a search never observes half an append.
@@ -117,12 +117,13 @@ class DeviceVectorIndex:
         self._vec_cols = self.d_pad // 2 if self._int4 else self.d_pad
         self._store_dtype = _STORE_DTYPES[self.config.storage_dtype]
         self.capacity = _pow2_at_least(self.config.min_capacity, self.config.block_rows)
+        rows = self._device_rows()
         self.size = 0  # rows ever appended (including tombstones)
         self.live_count = 0
         self.schema = MetadataSchema(max_columns=self.config.max_metadata_columns)
-        self._vectors = torch.zeros((self.capacity, self._vec_cols), dtype=self._store_dtype,
+        self._vectors = torch.zeros((rows, self._vec_cols), dtype=self._store_dtype,
                                     device=self.device)
-        self._scales = (torch.zeros(self.capacity, dtype=torch.float32, device=self.device)
+        self._scales = (torch.zeros(rows, dtype=torch.float32, device=self.device)
                         if self._quant else None)
         # int4 two-stage search: an int8 shadow copy in HOST RAM re-ranks
         # the kernel's candidates (d bytes/row of host memory, no device
@@ -131,10 +132,9 @@ class DeviceVectorIndex:
         self._host_q8 = (np.zeros((self.capacity, self.d_pad), np.int8)
                          if self._host_rerank else None)
         self._host_s8 = np.zeros(self.capacity, np.float32) if self._host_rerank else None
-        self._cols = torch.full((self.capacity, self.schema.max_columns), MISSING_I32,
+        self._cols = torch.full((rows, self.schema.max_columns), MISSING_I32,
                                 dtype=torch.int32, device=self.device)
-        self._bias = torch.full((self.capacity,), NEG_INF, dtype=torch.float32,
-                                device=self.device)
+        self._bias = torch.full((rows,), NEG_INF, dtype=torch.float32, device=self.device)
         # host-side
         self._chunks: list[Chunk | None] = []
         self._id_to_row: dict[str, int] = {}
@@ -144,6 +144,43 @@ class DeviceVectorIndex:
         self._ivf_tune_counter = 0
         self._ivf_recall_est: float | None = None
         self._ivf_tune_streak = 0  # consecutive comfortable observations
+
+    # -- placement ---------------------------------------------------------
+    #
+    # Row ids are global. The device arrays hold the rows this process
+    # holds: all of them here; a sharded index over a process group
+    # (``parallel.sharded_index``) keeps its own shards' rows and overrides
+    # these hooks.
+
+    def _device_rows(self) -> int:
+        """Rows of the device arrays at the current capacity."""
+        return self.capacity
+
+    def _write_rows(self, start: int, vec, cols, bias, scales) -> None:
+        """Store rows ``start .. start + len(bias) - 1`` (device tensors)."""
+        end = start + bias.shape[0]
+        self._vectors[start:end] = vec
+        self._cols[start:end] = cols
+        self._bias[start:end] = bias
+        if self._quant:
+            self._scales[start:end] = scales
+
+    def _set_rows(self, name: str, rows: list[int], values) -> None:
+        """``self.<name>[rows] = values`` (a scalar or one value per row)."""
+        getattr(self, name)[torch.as_tensor(rows, device=self.device)] = values
+
+    def _host_bias(self, bias: np.ndarray) -> torch.Tensor:
+        """A host bias over every row, as the device arrays hold it."""
+        return torch.from_numpy(bias).to(self.device)
+
+    def _stored_rows(self, rows: list[int]) -> tuple[np.ndarray, np.ndarray | None, np.ndarray]:
+        """The stored (vectors, scales or None, cols) of ``rows`` on the
+        host, the snapshot's arrays: bf16 storage widened to f32 (exact)."""
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        vec = self._vectors[idx]
+        scales = self._scales[idx].cpu().numpy() if self._quant else None
+        return ((vec if self._quant else vec.float()).cpu().numpy(), scales,
+                self._cols[idx].cpu().numpy())
 
     # -- mutation ----------------------------------------------------------
 
@@ -257,11 +294,8 @@ class DeviceVectorIndex:
                     self.delete(stale)
                 self._grow(self.size + s_n)
                 start = self.size
-                self._vectors[start : start + s_n] = dev_vec[sl]
-                self._cols[start : start + s_n] = dev_cols[sl]
-                self._bias[start : start + s_n] = dev_bias[sl]
-                if self._quant:
-                    self._scales[start : start + s_n] = dev_scales[sl]
+                self._write_rows(start, dev_vec[sl], dev_cols[sl], dev_bias[sl],
+                                 dev_scales[sl] if self._quant else None)
                 if self._host_rerank:
                     self._host_q8[start : start + s_n] = q8pad[sl]
                     self._host_s8[start : start + s_n] = s8pad[sl]
@@ -297,9 +331,8 @@ class DeviceVectorIndex:
                 cols.append(self.schema.encode_row(meta))
             if not rows:
                 return 0
-            self._cols[torch.as_tensor(rows, device=self.device)] = torch.as_tensor(
-                cols, dtype=torch.int32, device=self.device
-            )
+            self._set_rows("_cols", rows,
+                           torch.as_tensor(cols, dtype=torch.int32, device=self.device))
             return len(rows)
 
     def delete(self, chunk_ids: list[str]) -> int:
@@ -308,7 +341,7 @@ class DeviceVectorIndex:
             rows = [self._id_to_row[cid] for cid in chunk_ids if cid in self._id_to_row]
             if not rows:
                 return 0
-            self._bias[torch.as_tensor(rows, device=self.device)] = NEG_INF
+            self._set_rows("_bias", rows, NEG_INF)
             for cid in chunk_ids:
                 row = self._id_to_row.pop(cid, None)
                 if row is None:
@@ -373,6 +406,10 @@ class DeviceVectorIndex:
         if self._host_q8 is not None:
             self._host_q8 = self._host_q8[idx]
             self._host_s8 = self._host_s8[idx]
+        self._gather_rows(idx)
+
+    def _gather_rows(self, idx: np.ndarray) -> None:
+        """Gather the device arrays' rows by ``idx`` (positions in them)."""
         if self._should_stage_reorder():
             return self._apply_permutation_host(idx)
         gidx = torch.as_tensor(idx, device=self.device)
@@ -518,7 +555,7 @@ class DeviceVectorIndex:
                         if c is not None and host_eval(filters, c.metadata)
                     ]
                     hb[keep] = 0.0
-                    bias = bias + torch.from_numpy(hb).to(self.device)
+                    bias = bias + self._host_bias(hb)
             scores, rows = self._run_search(queries, vectors, self._scales, bias, k_req)
             # reference capture, not a copy: structural mutations replace
             # the list; add() appends and delete() writes None, both benign

@@ -1,8 +1,8 @@
 """Index persistence: snapshot + restore + incremental-build manifest.
 
-The port's copy of ``youtu_rag_tpu/index/persistence.py`` without the
-mesh, writing and reading the same layout, so a snapshot written by either
-package loads in the other:
+The port's copy of ``youtu_rag_tpu/index/persistence.py``, writing and
+reading the same layout, so a snapshot written by either package loads in
+the other, onto one device or a mesh:
 
 - ``save_index``/``load_index``: one ``.npz`` with the live rows' arrays
   (``vectors`` as f32 for bf16/f32 storage, ``vectors_q`` + ``scales`` for
@@ -49,13 +49,9 @@ def save_index(index: DeviceVectorIndex, path: str | Path) -> None:
 
     with index._lock:
         live = [(r, c) for r, c in enumerate(index._chunks) if c is not None]
-        rows = torch.as_tensor([r for r, _ in live], dtype=torch.int64, device=index.device)
-        vectors = index._vectors[rows]
-        if not index._quant:  # the raw storage, widened (bf16 → f32 is exact)
-            vectors = vectors[:, : index.dim].float()
-        vectors = vectors.cpu().numpy()
-        scales = index._scales[rows].cpu().numpy() if index._quant else None
-        cols = index._cols[rows].cpu().numpy()
+        vectors, scales, cols = index._stored_rows([r for r, _ in live])
+    if not index._quant:  # bf16 or f32 storage, as f32 at the index's width
+        vectors = vectors[:, : index.dim]
     arrays: dict[str, np.ndarray] = {}
     if index._int4:
         # raw packed nibbles at their full width (the columns interleave
@@ -103,8 +99,10 @@ def save_index(index: DeviceVectorIndex, path: str | Path) -> None:
 
 
 def load_index(path: str | Path, config: IndexConfig | None = None,
-               device: str | torch.device | None = None) -> DeviceVectorIndex:
-    """Restore a snapshot onto ``device`` (``None`` → the CUDA card)."""
+               device: str | torch.device | None = None, mesh=None) -> DeviceVectorIndex:
+    """Restore a snapshot onto ``device`` (``None`` → the CUDA card), or,
+    given a ``mesh`` (``parallel.mesh``), into a ``ShardedVectorIndex`` over
+    its ``db`` axis on the mesh's devices."""
     path = Path(path)
     meta = json.loads(Path(f"{path}.json").read_text())
     if meta["format_version"] != _FORMAT_VERSION:
@@ -122,7 +120,12 @@ def load_index(path: str | Path, config: IndexConfig | None = None,
             vectors = data["vectors"].astype(np.float32)
 
     cfg = config or IndexConfig.model_validate(meta["config"])
-    index = DeviceVectorIndex(meta["dim"], cfg, device=device)
+    if mesh is not None:
+        from ..parallel.sharded_index import ShardedVectorIndex
+
+        index = ShardedVectorIndex(meta["dim"], cfg, mesh=mesh)
+    else:
+        index = DeviceVectorIndex(meta["dim"], cfg, device=device)
     index.schema = MetadataSchema.from_dict(meta["schema"])
     chunks = [
         Chunk(c["id"], c["document_id"], c["content"], c["chunk_index"], c["metadata"])

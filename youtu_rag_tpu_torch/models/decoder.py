@@ -250,16 +250,18 @@ def _split_heads(y: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return y.reshape(b, t, n_heads, head_dim).transpose(1, 2)
 
 
-def _qkv(x: torch.Tensor, lp: dict, rope, cfg: DecoderConfig):
+def _qkv(x: torch.Tensor, lp: dict, rope, cfg: DecoderConfig, heads: tuple[int, int] | None = None):
     """q [B, H, T, hd] and k, v [B, Hkv, T, hd] from one projection GEMM,
-    rotated for llama."""
+    rotated for llama. ``heads`` = (H, Hkv) of a tensor-parallel shard
+    (default: the config's)."""
     y = torch.matmul(x, lp["wqkv"].to(x.dtype))
     if "bqkv" in lp:
         y = y + lp["bqkv"].to(x.dtype)
-    d, kv = cfg.d_model, cfg.kv_dim
-    q = _split_heads(y[..., :d], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(y[..., d : d + kv], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(y[..., d + kv :], cfg.n_kv_heads, cfg.head_dim)
+    n_h, n_kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    d, kv = n_h * cfg.head_dim, n_kv * cfg.head_dim
+    q = _split_heads(y[..., :d], n_h, cfg.head_dim)
+    k = _split_heads(y[..., d : d + kv], n_kv, cfg.head_dim)
+    v = _split_heads(y[..., d + kv :], n_kv, cfg.head_dim)
     if rope is not None:
         q, k = _rope_at(q, rope), _rope_at(k, rope)
     return q, k, v
@@ -280,25 +282,34 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
     return y.transpose(1, 2).reshape(b, tq, h * hd)
 
 
-def _mlp(h: torch.Tensor, lp: dict, cfg: DecoderConfig) -> torch.Tensor:
+def _mlp_out(h: torch.Tensor, lp: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """The MLP up to its output projection, before the output bias."""
     dt = h.dtype
     if cfg.arch == "gpt2":
         y = torch.matmul(h, lp["w1"].to(dt)) + lp["b1"].to(dt)
         y = F.gelu(y, approximate="tanh")  # HF gelu_new
-        return torch.matmul(y, lp["w2"].to(dt)) + lp["b2"].to(dt)
+        return torch.matmul(y, lp["w2"].to(dt))
     g = torch.matmul(h, lp["w_gate"].to(dt))
     u = torch.matmul(h, lp["w1"].to(dt))
     return torch.matmul(F.silu(g) * u, lp["w2"].to(dt))
 
 
+def _attn_out(x: torch.Tensor, lp: dict, q, k, v, bias, cfg: DecoderConfig) -> torch.Tensor:
+    """Attention through the output projection, before the output bias."""
+    return torch.matmul(_attend(q, k, v, bias, cfg), lp["wo"].to(x.dtype))
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor, lp: dict, bias: str) -> torch.Tensor:
+    """``x + (y + lp[bias])``, the bias where the layer has one."""
+    return x + (y + lp[bias].to(x.dtype) if bias in lp else y)
+
+
 def _block(x: torch.Tensor, lp: dict, q, k, v, bias, cfg: DecoderConfig) -> torch.Tensor:
     """The rest of a layer once q, k and v are known: attention, the output
-    projection, the residuals and the MLP."""
-    a = torch.matmul(_attend(q, k, v, bias, cfg), lp["wo"].to(x.dtype))
-    if "bo" in lp:
-        a = a + lp["bo"].to(x.dtype)
-    x = x + a
-    return x + _mlp(_norm(x, lp, "ln2", cfg), lp, cfg)
+    projection, the residuals and the MLP. Tensor parallelism runs the same
+    pieces with an all-reduce after ``_attn_out`` and ``_mlp_out``."""
+    x = _residual(x, _attn_out(x, lp, q, k, v, bias, cfg), lp, "bo")
+    return _residual(x, _mlp_out(_norm(x, lp, "ln2", cfg), lp, cfg), lp, "b2")
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
@@ -312,6 +323,12 @@ def _logits(params: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
 def _embed(params: dict, tokens: torch.Tensor, pos_ids: torch.Tensor,
            cfg: DecoderConfig) -> torch.Tensor:
     x = F.embedding(tokens.long(), params["tok_emb"]).to(cfg.dtype)
+    return _pos_embed(x, params, pos_ids, cfg)
+
+
+def _pos_embed(x: torch.Tensor, params: dict, pos_ids: torch.Tensor,
+               cfg: DecoderConfig) -> torch.Tensor:
+    """gpt2's learned positions added to the token embeddings ``x``."""
     if cfg.arch == "gpt2":
         pos = torch.clamp(pos_ids.long(), 0, cfg.max_len - 1)
         x = x + F.embedding(pos, params["pos_emb"]).to(cfg.dtype)
@@ -331,6 +348,12 @@ def _causal_bias(mask: torch.Tensor) -> torch.Tensor:
     causal = torch.tril(torch.ones((t, t), dtype=torch.float32, device=mask.device))[None, None]
     pad = mask.float()[:, None, None, :]
     return (1.0 - causal * pad) * NEG_INF
+
+
+def _slot_bias(attn_mask: torch.Tensor) -> torch.Tensor:
+    """A decode step's ``(1 - attn_mask) * NEG_INF`` over the cache's slots:
+    [B, 1, 1, maxT] f32."""
+    return (1.0 - attn_mask.float())[:, None, None, :] * NEG_INF
 
 
 def _layer(x: torch.Tensor, lp: dict, bias: torch.Tensor, rope, cfg: DecoderConfig) -> torch.Tensor:
@@ -364,11 +387,12 @@ def causal_logits(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
 
 
 def init_cache(cfg: DecoderConfig, batch: int, max_len: int | None = None,
-               device: str | torch.device = "cpu") -> dict:
+               device: str | torch.device = "cpu", n_kv_heads: int | None = None) -> dict:
     """Static-shape KV cache [L, B, Hkv, maxT, hd] of zeros; with
     ``kv_cache_dtype == "int8"`` int8 values and f32 scales [L, B, Hkv,
-    maxT]."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len or cfg.max_len, cfg.head_dim)
+    maxT]. ``n_kv_heads``: a tensor-parallel shard's (default: Hkv)."""
+    shape = (cfg.n_layers, batch, n_kv_heads or cfg.n_kv_heads, max_len or cfg.max_len,
+             cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -417,6 +441,18 @@ def _read_kv(cache: dict, i: int, dtype: torch.dtype) -> tuple[torch.Tensor, tor
     return cache["k"][i], cache["v"][i]
 
 
+def _cached_qkv(x: torch.Tensor, lp: dict, rope, cache: dict, i: int, t0: int, read: bool,
+                cfg: DecoderConfig, heads: tuple[int, int] | None = None):
+    """Layer i's q, k and v of ``x``, k and v written into the cache from
+    slot ``t0``. With ``read`` (a decode step) the layer's whole cache takes
+    the place of k and v; a prefill attends to its full-precision k and v."""
+    q, k, v = _qkv(_norm(x, lp, "ln1", cfg), lp, rope, cfg, heads)
+    _write_kv(cache, i, k, v, t0)
+    if read:
+        k, v = _read_kv(cache, i, q.dtype)
+    return q, k, v
+
+
 def prefill(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cache: dict,
             cfg: DecoderConfig) -> tuple[torch.Tensor, dict]:
     """The causal pass over the (left-padded) prompt [B, T], writing K/V
@@ -427,9 +463,7 @@ def prefill(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cache: dict,
     x = _embed(params, tokens, pos_ids, cfg)
     bias, rope = _causal_bias(mask), _rope_tables(pos_ids, cfg)
     for i, lp in enumerate(_layers(params, cfg)):
-        q, k, v = _qkv(_norm(x, lp, "ln1", cfg), lp, rope, cfg)
-        _write_kv(cache, i, k, v, 0)
-        x = _block(x, lp, q, k, v, bias, cfg)
+        x = _block(x, lp, *_cached_qkv(x, lp, rope, cache, i, 0, False, cfg), bias, cfg)
     return _logits(params, x[:, -1:, :], cfg)[:, 0], cache
 
 
@@ -442,13 +476,9 @@ def decode_step(params: dict, token: torch.Tensor, t_index: int, attn_mask: torc
     (logits [B, V] f32, the cache)."""
     pos = pos_ids.reshape(-1, 1)
     x = _embed(params, token.reshape(-1, 1), pos, cfg)
-    bias = (1.0 - attn_mask.float())[:, None, None, :] * NEG_INF
-    rope = _rope_tables(pos, cfg)
+    bias, rope = _slot_bias(attn_mask), _rope_tables(pos, cfg)
     for i, lp in enumerate(_layers(params, cfg)):
-        q, k, v = _qkv(_norm(x, lp, "ln1", cfg), lp, rope, cfg)
-        _write_kv(cache, i, k, v, int(t_index))
-        kc, vc = _read_kv(cache, i, q.dtype)
-        x = _block(x, lp, q, kc, vc, bias, cfg)
+        x = _block(x, lp, *_cached_qkv(x, lp, rope, cache, i, int(t_index), True, cfg), bias, cfg)
     return _logits(params, x, cfg)[:, 0], cache
 
 
@@ -501,25 +531,37 @@ def generate(params: dict, prompt: torch.Tensor, prompt_mask: torch.Tensor, cfg:
     ``done`` after each step (one device sync per token) and runs no step
     once every row is done, which changes no output: JAX's loop exits
     there too."""
-    dev = prompt.device
     b, tp = prompt.shape
-    cache = init_cache(cfg, b, tp + max_new_tokens, device=dev)
-    logits, cache = prefill(params, prompt, prompt_mask, cache, cfg)
+    cache = init_cache(cfg, b, tp + max_new_tokens, device=prompt.device)
+    return _generate_loop(
+        lambda: prefill(params, prompt, prompt_mask, cache, cfg)[0],
+        lambda tok, t, attn, pos: decode_step(params, tok, t, attn, pos, cache, cfg)[0],
+        prompt_mask, cfg.eos_token_id, max_new_tokens, temperature, top_k, top_p, generator)
+
+
+def _generate_loop(start, step, prompt_mask: torch.Tensor, eos: int, max_new_tokens: int,
+                   temperature: float, top_k: int, top_p: float,
+                   generator: torch.Generator | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``generate``'s loop over a model given as ``start()`` (the prefill:
+    the last position's logits [B, V]) and ``step(token, t_index,
+    attn_mask, pos_ids)`` (a decode step's logits)."""
+    dev = prompt_mask.device
+    b, tp = prompt_mask.shape
+    logits = start()
     attn_mask = torch.cat([prompt_mask.float(),
                            torch.zeros((b, max_new_tokens), dtype=torch.float32, device=dev)], -1)
     pos = prompt_mask.to(torch.int32).sum(-1)  # the next position id
-    eos = cfg.eos_token_id
     out = torch.full((b, max_new_tokens), eos, dtype=torch.int32, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    for step in range(max_new_tokens):
-        tok = sample_token(logits, generator, temperature, top_k, top_p)
+    for i in range(max_new_tokens):
+        tok = sample_token(logits.to(dev), generator, temperature, top_k, top_p)
         tok = torch.where(done, torch.full_like(tok, eos), tok)
-        out[:, step] = tok
+        out[:, i] = tok
         done = done | (tok == eos)
         if bool(done.all()):
             break
-        attn_mask[:, tp + step] = 1.0
-        logits, cache = decode_step(params, tok, tp + step, attn_mask, pos + step, cache, cfg)
+        attn_mask[:, tp + i] = 1.0
+        logits = step(tok, tp + i, attn_mask, pos + i)
     is_eos = out == eos
     first_eos = torch.argmax(is_eos.to(torch.int32), dim=-1)
     lengths = torch.where(is_eos.any(-1), first_eos, torch.full_like(first_eos, max_new_tokens))
@@ -539,3 +581,250 @@ def left_pad_batch(seqs: list[list[int]], pad_id: int,
             toks[i, t - len(s):] = np.asarray(s, np.int32)
             mask[i, t - len(s):] = 1.0
     return toks, mask
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a ("dp", "tp") mesh
+# ---------------------------------------------------------------------------
+
+
+def decoder_sharding_spec(cfg: DecoderConfig) -> dict:
+    """JAX's Megatron spec for a ('dp','tp') mesh over the port's tree, one
+    tuple per tensor naming the mesh axis each dimension splits over: q/k/v
+    (``wqkv``: each of its q, k and v column groups) and FFN-in split by
+    columns, o and FFN-out by rows (an all-reduce follows each), the
+    vocabulary of ``tok_emb`` by rows and of an untied ``lm_head`` by
+    columns; the norms, ``bo``, ``b2`` and ``pos_emb`` replicated."""
+    col, row, colb, rep2 = (None, None, "tp"), (None, "tp", None), (None, "tp"), (None, None)
+    if cfg.arch == "gpt2":
+        layers = {"ln1_scale": rep2, "ln1_bias": rep2, "wqkv": col, "bqkv": colb, "wo": row,
+                  "bo": rep2, "ln2_scale": rep2, "ln2_bias": rep2, "w1": col, "b1": colb,
+                  "w2": row, "b2": rep2}
+        spec = {"tok_emb": ("tp", None), "pos_emb": rep2, "layers": layers,
+                "final_ln_scale": (None,), "final_ln_bias": (None,)}
+    else:
+        layers = {"ln1_scale": rep2, "wqkv": col, "wo": row, "ln2_scale": rep2,
+                  "w_gate": col, "w1": col, "w2": row}
+        if cfg.qkv_bias:
+            layers["bqkv"] = colb
+        spec = {"tok_emb": ("tp", None), "layers": layers, "final_ln_scale": (None,)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = (None, "tp")
+    return spec
+
+
+def cache_sharding_spec(cfg: DecoderConfig | None = None) -> dict:
+    """KV heads over 'tp', the batch over 'dp' (``decoder_sharding_spec``'s
+    match)."""
+    spec = {"k": (None, "dp", "tp", None, None), "v": (None, "dp", "tp", None, None)}
+    if cfg is not None and cfg.kv_cache_dtype == "int8":
+        spec["k_scale"] = spec["v_scale"] = (None, "dp", "tp", None)
+    return spec
+
+
+def _tp_slice(name: str, t: torch.Tensor, rank: int, tp: int, cfg: DecoderConfig,
+              spec: dict) -> torch.Tensor:
+    """Tensor-parallel rank ``rank``'s part of parameter ``name`` (``spec``:
+    the flattened ``decoder_sharding_spec``)."""
+    if "tp" not in spec[name]:
+        return t
+    axis = spec[name].index("tp")
+    if name in ("wqkv", "bqkv"):  # q, k and v column groups each split
+        d, kv = cfg.d_model, cfg.kv_dim
+        parts = [t[..., :d], t[..., d : d + kv], t[..., d + kv :]]
+        return torch.cat([p.chunk(tp, dim=-1)[rank] for p in parts], dim=-1).contiguous()
+    return t.chunk(tp, dim=axis)[rank].contiguous()
+
+
+class _LocalComm:
+    """The tp shards of one dp row in this process: an all-reduce sums the
+    parts in rank order on the first shard's device."""
+
+    def __init__(self, devices: list[torch.device]):
+        self.devices = devices
+
+    def all_reduce(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device)
+        return [total if d == total.device else total.to(d) for d in self.devices]
+
+    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """Joined along the last axis, on the first shard's device."""
+        return torch.cat([p.to(self.devices[0]) for p in parts], dim=-1)
+
+
+class _GroupComm:
+    """One tp shard per rank of a process group."""
+
+    def __init__(self, group, devices: list[torch.device]):
+        self.group = group
+        self.devices = devices
+        self.size = torch.distributed.get_world_size(group)
+
+    def all_reduce(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
+        (p,) = parts
+        p = p.contiguous()
+        torch.distributed.all_reduce(p, group=self.group)
+        return [p]
+
+    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        (p,) = parts
+        out = [torch.empty_like(p) for _ in range(self.size)]
+        torch.distributed.all_gather(out, p.contiguous(), group=self.group)
+        return torch.cat(out, dim=-1)
+
+
+@dataclass
+class TPDecoder:
+    """A decoder placed on a ('dp', 'tp') mesh (``shard_decoder``): for each
+    of this process's dp rows, the tp shards' parameters on their devices
+    and the row's collective; every dp row serves its slice of the batch."""
+
+    cfg: DecoderConfig
+    dp: int
+    tp: int
+    rows: list[int]  # this process's dp rows
+    tp_ranks: list[list[int]]  # [row][shard]: each shard's tp rank
+    shards: list[list[dict]]  # [row][shard] parameters
+    devices: list[list[torch.device]]
+    comms: list
+    dp_group: object = None  # the dp axis's process group (a group mesh)
+
+    @property
+    def local_heads(self) -> tuple[int, int]:
+        return self.cfg.n_heads // self.tp, self.cfg.n_kv_heads // self.tp
+
+    def init_cache(self, batch: int, max_len: int | None = None) -> list[list[dict]]:
+        """Each shard's KV cache (``cache_sharding_spec``): batch / dp rows,
+        Hkv / tp heads, on the shard's device."""
+        return [[init_cache(self.cfg, batch // self.dp, max_len, device=dev,
+                            n_kv_heads=self.local_heads[1]) for dev in devs]
+                for devs in self.devices]
+
+
+def shard_decoder(params: dict, cfg: DecoderConfig, mesh) -> TPDecoder:
+    """Place ``params`` on a ('dp', 'tp') mesh (``parallel.mesh``) as
+    ``decoder_sharding_spec`` says: every device of the mesh gets its tp
+    rank's slices (replicated over dp). On a group mesh a process keeps its
+    own slot's. The heads, kv heads, FFN width and vocabulary must divide by
+    tp."""
+    dp, tp = mesh.shape.get("dp", 1), mesh.shape["tp"]
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what} {n} does not split over tp = {tp}")
+    axes = ("dp", "tp") if "dp" in mesh.shape else ("tp",)
+    devs, procs = mesh.layout(axes)
+    devs, procs = devs[0].reshape(dp, tp), procs[0].reshape(dp, tp)
+    me = torch.distributed.get_rank() if mesh.distributed else 0
+    rows = sorted({i for i in range(dp) for j in range(tp) if procs[i, j] == me})
+    spec = decoder_sharding_spec(cfg)
+    spec = {**spec, **spec["layers"]}
+    tp_ranks, shards, devices, comms = [], [], [], []
+    for i in rows:
+        ranks = [j for j in range(tp) if procs[i, j] == me]
+        row_devs = [devs[i, j] for j in ranks]
+        shards.append([_tree_map_named(params, lambda n, t, j=j, d=d: _tp_slice(
+            n, t, j, tp, cfg, spec).to(d)) for j, d in zip(ranks, row_devs)])
+        tp_ranks.append(ranks)
+        devices.append(row_devs)
+        if mesh.distributed:
+            if len(ranks) != 1:
+                raise ValueError("a group mesh holds one (dp, tp) slot per process")
+            comms.append(_GroupComm(mesh.group(("tp",)), row_devs))
+        else:
+            comms.append(_LocalComm(row_devs))
+    dp_group = mesh.group(("dp",)) if mesh.distributed and "dp" in mesh.shape else None
+    return TPDecoder(cfg, dp, tp, rows, tp_ranks, shards, devices, comms, dp_group)
+
+
+def _tree_map_named(tree: dict, fn) -> dict:
+    return {k: _tree_map_named(v, fn) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
+
+
+def _tp_row_forward(tpd: TPDecoder, r: int, tokens: torch.Tensor, mask_or_bias,
+                    pos_ids: torch.Tensor, caches: list[dict], t0: int, prefill_mode: bool):
+    """One dp row's forward through its tp shards: the vocabulary-sharded
+    embedding (an all-reduce of the masked lookups), per layer attention on
+    the shard's heads and the row-split output projection (all-reduce), the
+    column-split MLP and its row-split output (all-reduce), then the
+    shards' logits joined. Writes each shard's cache at slot ``t0`` on.
+    Returns the last position's logits [b, V] f32."""
+    cfg, comm, devs, shards = tpd.cfg, tpd.comms[r], tpd.devices[r], tpd.shards[r]
+    vt = cfg.vocab_size // tpd.tp
+    parts = []
+    for p, dev, j in zip(shards, devs, tpd.tp_ranks[r]):
+        local = tokens.to(dev).long() - j * vt
+        inside = (local >= 0) & (local < vt)
+        e = F.embedding(local.clamp(0, vt - 1), p["tok_emb"]).to(cfg.dtype)
+        parts.append(torch.where(inside[..., None], e, torch.zeros_like(e)))
+    pos = [pos_ids.to(d) for d in devs]
+    xs = [_pos_embed(x, p, q, cfg) for x, p, q in zip(comm.all_reduce(parts), shards, pos)]
+    make_bias = _causal_bias if prefill_mode else _slot_bias
+    biases = [make_bias(mask_or_bias.to(d)) for d in devs]
+    ropes = [_rope_tables(q, cfg) for q in pos]
+    layers = [_layers(p, cfg) for p in shards]
+    for i in range(cfg.n_layers):
+        lps = [ls[i] for ls in layers]
+        attn = comm.all_reduce([
+            _attn_out(x, lp, *_cached_qkv(x, lp, rope, cache, i, t0, not prefill_mode, cfg,
+                                          tpd.local_heads), bias, cfg)
+            for x, lp, bias, rope, cache in zip(xs, lps, biases, ropes, caches)])
+        xs = [_residual(x, a, lp, "bo") for x, a, lp in zip(xs, attn, lps)]
+        mlp = comm.all_reduce([_mlp_out(_norm(x, lp, "ln2", cfg), lp, cfg)
+                               for x, lp in zip(xs, lps)])
+        xs = [_residual(x, m, lp, "b2") for x, m, lp in zip(xs, mlp, lps)]
+    return comm.all_gather([_logits(p, x[:, -1:, :], cfg)[:, 0] for x, p in zip(xs, shards)])
+
+
+def _tp_rows(tpd: TPDecoder, fn, batch: int) -> torch.Tensor:
+    """``fn(r, rows)`` for each of this process's dp rows on its slice of the
+    batch, joined in batch order (over the dp group on a group mesh)."""
+    per = batch // tpd.dp
+    outs = [fn(r, slice(i * per, (i + 1) * per)) for r, i in enumerate(tpd.rows)]
+    out = torch.cat([o.to(outs[0].device) for o in outs])
+    n_dp = torch.distributed.get_world_size(tpd.dp_group) if tpd.dp_group is not None else 1
+    if n_dp > 1:
+        parts = [torch.empty_like(out) for _ in range(n_dp)]
+        torch.distributed.all_gather(parts, out.contiguous(), group=tpd.dp_group)
+        out = torch.cat(parts)
+    return out
+
+
+def tp_prefill(tpd: TPDecoder, tokens: torch.Tensor, mask: torch.Tensor,
+               caches: list[list[dict]]) -> torch.Tensor:
+    """``prefill`` on the mesh: each dp row its slice of the (left-padded)
+    batch [B, T]; writes every shard's cache. Returns the last position's
+    logits [B, V] f32 (on the first shard's device)."""
+    if tokens.shape[0] % tpd.dp:
+        raise ValueError(f"batch {tokens.shape[0]} does not split over dp = {tpd.dp}")
+    pos = position_ids_from_mask(mask)
+    return _tp_rows(tpd, lambda r, sl: _tp_row_forward(tpd, r, tokens[sl], mask[sl], pos[sl],
+                                                       caches[r], 0, True), tokens.shape[0])
+
+
+def tp_decode_step(tpd: TPDecoder, token: torch.Tensor, t_index: int, attn_mask: torch.Tensor,
+                   pos_ids: torch.Tensor, caches: list[list[dict]]) -> torch.Tensor:
+    """``decode_step`` on the mesh: logits [B, V] f32 of the next token."""
+    return _tp_rows(tpd, lambda r, sl: _tp_row_forward(
+        tpd, r, token[sl].reshape(-1, 1), attn_mask[sl], pos_ids[sl].reshape(-1, 1), caches[r],
+        int(t_index), False), token.shape[0])
+
+
+@torch.inference_mode()
+def tp_generate(tpd: TPDecoder, prompt: torch.Tensor, prompt_mask: torch.Tensor,
+                max_new_tokens: int = 128, temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0, generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``generate`` on the mesh (its loop, tokens and lengths): ``tp_prefill``,
+    then ``tp_decode_step`` until every row has emitted EOS. Greedy tokens
+    equal the replicated run's."""
+    dev = tpd.devices[0][0]
+    prompt, prompt_mask = prompt.to(dev), prompt_mask.to(dev)
+    b, tp_len = prompt.shape
+    caches = tpd.init_cache(b, tp_len + max_new_tokens)
+    return _generate_loop(
+        lambda: tp_prefill(tpd, prompt, prompt_mask, caches),
+        lambda tok, t, attn, pos: tp_decode_step(tpd, tok, t, attn, pos, caches),
+        prompt_mask, tpd.cfg.eos_token_id, max_new_tokens, temperature, top_k, top_p, generator)

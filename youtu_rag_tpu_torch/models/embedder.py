@@ -23,7 +23,6 @@ import torch
 
 from ..core.config import EmbeddingConfig
 from ..core.types import BaseEmbedder
-from ..parallel.sequence_parallel import make_sp_encoder
 from ..utils.device import resolve_device, serving_attention
 from ..utils.http import post_json_with_retry
 from ..utils.log import get_logger
@@ -188,9 +187,17 @@ class CoalescingEmbedder(BaseEmbedder):
 class TorchEmbedder(BaseEmbedder):
     """The encoder forward on ``device`` (``None`` → the CUDA card),
     batched with padding to power-of-two buckets: lengths from 16 up to
-    ``max_len``, batches of at least 8 (``TpuEmbedder`` without its
-    data-parallel mesh). Without ``params`` the encoder starts from seed 0;
-    without ``tokenizer`` it tokenizes with ``HashTokenizer``.
+    ``max_len``, batches of at least 8. Without ``params`` the encoder
+    starts from seed 0; without ``tokenizer`` it tokenizes with
+    ``HashTokenizer``.
+
+    With ``mesh`` (a local ``parallel.mesh.Mesh`` with a ``dp`` axis) the
+    forward is data-parallel, as ``TpuEmbedder``'s: a batch pads to a
+    multiple of dp (the floor the smallest multiple of dp >= 8, or 4 for
+    long texts), splits into dp contiguous slices, one per device of the
+    axis, and gathers back in order. Slices that fall on the same device run
+    as one forward, so on one device the result is the undistributed
+    forward's, bit for bit.
 
     With ``sp_mesh`` (an int S, the shards on this device, or a
     ``torch.distributed`` process group; ``parallel/sequence_parallel.py``)
@@ -200,7 +207,17 @@ class TorchEmbedder(BaseEmbedder):
 
     def __init__(self, config: EncoderConfig | None = None, params: dict | None = None,
                  batch_size: int = 128, device: str | torch.device | None = None,
-                 sp_mesh=None, long_max_len: int | None = None, tokenizer=None):
+                 sp_mesh=None, long_max_len: int | None = None, tokenizer=None, mesh=None):
+        self._dp_devices = None
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("data-parallel embedding takes a local mesh; on a process "
+                                 "group each process embeds its own texts")
+            self._dp_devices = list(mesh.layout(("dp",))[0][0])
+            if device is not None and torch.device(device) != self._dp_devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first {self._dp_devices[0]}")
+            device = self._dp_devices[0]
+        self._dp = len(self._dp_devices) if mesh is not None else 1
         self.device = resolve_device(device)
         # the serving default (blockwise from T = 256 on the card; shorter
         # buckets take plain attention either way)
@@ -208,10 +225,18 @@ class TorchEmbedder(BaseEmbedder):
         if params is None:
             params = init_encoder_params(self.cfg, torch.Generator().manual_seed(0))
         self.params = params_to_device(params, self.device)
+        # one copy of the parameters on each device of the dp axis
+        self._params_on = {self.device: self.params}
+        for dev in self._dp_devices or ():
+            if dev not in self._params_on:
+                self._params_on[dev] = params_to_device(params, dev)
         self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size, self.cfg.max_len)
         self.batch_size = batch_size
         self._sp_fwd = None
         if sp_mesh is not None:
+            # imported here: parallel's package imports the models
+            from ..parallel.sequence_parallel import make_sp_encoder
+
             self._sp_fwd = make_sp_encoder(self.cfg, sp_mesh)
             self._sp_size = self._sp_fwd.ring_size
             self._long_max = long_max_len or 8 * self.cfg.max_len
@@ -242,7 +267,10 @@ class TorchEmbedder(BaseEmbedder):
         ``device``: WordPiece → the bert trunk → its pooling → L2.
         ``attention_impl`` defaults to "pallas" on CUDA (the blockwise
         kernel at T >= 256) and "xla" elsewhere; ``dtype`` to bf16."""
-        device = resolve_device(kwargs.pop("device", None))
+        device = kwargs.pop("device", None)
+        if device is None and kwargs.get("mesh") is not None:
+            device = kwargs["mesh"].layout(("dp",))[0][0][0]
+        device = resolve_device(device)
         params, cfg, tokenizer = load_pretrained_encoder(
             model_dir, pooling=pooling, dtype=dtype,
             attention_impl=attention_impl or serving_attention(device), max_len=max_len)
@@ -291,7 +319,7 @@ class TorchEmbedder(BaseEmbedder):
             chunk = texts[i : i + step]
             seqs = [self.tokenizer.encode(t, self._long_max) for t in chunk]
             t_b = self._bucket(max(len(s) for s in seqs), max(16 * self._sp_size, 16))
-            n_b = self._bucket(len(chunk), 4)
+            n_b = self._bucket(len(chunk), self._dp * -(-4 // self._dp))
             ids = np.zeros((n_b, t_b), np.int32)
             mask = np.zeros((n_b, t_b), np.float32)
             for j, s in enumerate(seqs):
@@ -305,14 +333,30 @@ class TorchEmbedder(BaseEmbedder):
     def _embed_short(self, batch: list[str]) -> np.ndarray:
         ids, mask = self.tokenizer.batch(batch)
         t_b = min(self._bucket(ids.shape[1], 16), self.cfg.max_len)
-        n_b = self._bucket(len(batch), 8)
+        # buckets double from a multiple of dp, so they stay multiples of it
+        n_b = self._bucket(len(batch), self._dp * -(-8 // self._dp))
         ids_p = np.zeros((n_b, t_b), np.int32)
         mask_p = np.zeros((n_b, t_b), np.float32)
         ids_p[: len(batch), : min(ids.shape[1], t_b)] = ids[:, :t_b]
         mask_p[: len(batch), : min(mask.shape[1], t_b)] = mask[:, :t_b]
-        emb, _ = encode_tokens(self.params, torch.from_numpy(ids_p).to(self.device),
-                               torch.from_numpy(mask_p).to(self.device), self.cfg)
-        return emb[: len(batch)].cpu().numpy()
+        return self._forward(ids_p, mask_p)[: len(batch)]
+
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """Embeddings of the padded [n, T] batch: data-parallel over the dp
+        devices with a mesh (device j takes rows j·n/dp .. (j + 1)·n/dp - 1;
+        a device's consecutive slices run as one forward), else one forward."""
+        devices = self._dp_devices or [self.device]
+        per = ids.shape[0] // len(devices)
+        runs: list[list] = []  # [device, first row, end row]
+        for j, dev in enumerate(devices):
+            if runs and runs[-1][0] == dev:
+                runs[-1][2] = (j + 1) * per
+            else:
+                runs.append([dev, j * per, (j + 1) * per])
+        outs = [encode_tokens(self._params_on[dev], torch.from_numpy(ids[a:b]).to(dev),
+                              torch.from_numpy(mask[a:b]).to(dev), self.cfg)[0]
+                for dev, a, b in runs]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     async def embed_texts(self, texts: list[str]) -> list[list[float]]:
         return self.embed_batch(texts).tolist()
@@ -368,13 +412,15 @@ class EmbedderFactory:
     """Provider dispatch (the JAX factory's). ``auto`` resolves from the
     environment: the ``service`` provider if ``YRT_EMBEDDING_URL`` /
     ``UTU_EMBEDDING_URL`` is set, else ``tpu`` (the encoder on ``device``,
-    which on a host without CUDA raises unless ``device="cpu"``)."""
+    which on a host without CUDA raises unless ``device="cpu"``). ``mesh``
+    makes the encoder data-parallel (``TorchEmbedder``); the other
+    providers ignore it."""
 
     @staticmethod
     def create(config: EmbeddingConfig | None = None,
-               device: str | torch.device | None = None) -> BaseEmbedder:
+               device: str | torch.device | None = None, mesh=None) -> BaseEmbedder:
         config = config or EmbeddingConfig()
-        inner = EmbedderFactory._create_inner(config, device)
+        inner = EmbedderFactory._create_inner(config, device, mesh)
         if config.coalesce_window_ms > 0:
             return CoalescingEmbedder(
                 inner, window_ms=config.coalesce_window_ms, max_batch=config.batch_size
@@ -382,7 +428,7 @@ class EmbedderFactory:
         return inner
 
     @staticmethod
-    def _create_inner(config: EmbeddingConfig, device) -> BaseEmbedder:
+    def _create_inner(config: EmbeddingConfig, device, mesh=None) -> BaseEmbedder:
         provider = config.provider
         if provider == "auto":
             url = os.environ.get("YRT_EMBEDDING_URL") or os.environ.get("UTU_EMBEDDING_URL")
@@ -396,13 +442,13 @@ class EmbedderFactory:
         if provider == "tpu":
             if config.pretrained_dir:
                 return TorchEmbedder.from_pretrained(
-                    config.pretrained_dir, batch_size=config.batch_size, device=device
+                    config.pretrained_dir, batch_size=config.batch_size, device=device, mesh=mesh
                 )
             if config.weights_dir:
                 return TorchEmbedder.from_weights_dir(
-                    config.weights_dir, batch_size=config.batch_size, device=device
+                    config.weights_dir, batch_size=config.batch_size, device=device, mesh=mesh
                 )
-            return TorchEmbedder(batch_size=config.batch_size, device=device)
+            return TorchEmbedder(batch_size=config.batch_size, device=device, mesh=mesh)
         if provider in ("openai", "service"):
             # the env fallbacks apply independently: a configured base_url
             # with a secret passed through the environment still sends it

@@ -30,15 +30,24 @@ logger = get_logger("retrieval.kb")
 
 
 class KnowledgeBase:
-    """A named KB on ``device`` (``None`` → the CUDA card)."""
+    """A named KB on ``device`` (``None`` → the CUDA card), or with its index
+    sharded over ``mesh`` (``parallel.mesh``). On a local mesh the encoder
+    provider embeds data-parallel over the same devices (the mesh's devices
+    as one ``dp`` axis); a group mesh gets no data-parallel embedder, as in
+    JAX (each process embeds what it is given)."""
 
     def __init__(self, name: str, config: RAGConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.name = name
         self.config = config or RAGConfig(name=name)
-        self.store = TorchVectorStore(self.config.vector_store, device=device)
+        self.store = TorchVectorStore(self.config.vector_store, device=device, mesh=mesh)
+        dp_mesh = None
+        if mesh is not None and not mesh.distributed:
+            from ..parallel.mesh import Mesh
+
+            dp_mesh = Mesh(mesh.devices.reshape(-1), ("dp",))
         self.embedder = EmbedderFactory.create(self.config.knowledge_builder.embedding,
-                                               device=self.store.device)
+                                               device=self.store.device, mesh=dp_mesh)
         self.reranker = RerankerFactory.create(self.config.reranker, device=self.store.device)
         self.retriever = VectorRetriever(
             self.store, self.embedder, self.config.retriever, reranker=self.reranker
@@ -189,14 +198,14 @@ class KnowledgeBase:
         return {"directory": str(d), "chunks": self.store._index.count()}
 
     def load(self, directory: str) -> dict[str, Any]:
-        """Restore a snapshot into this KB, on the KB's own device
-        (replaces current contents). The index keeps the snapshot's own
-        config (its storage tier included); the snapshot's width must match
-        this KB's embedder."""
+        """Restore a snapshot into this KB, on the KB's own device or mesh
+        (a sharded KB stays sharded; replaces current contents). The index
+        keeps the snapshot's own config (its storage tier included); the
+        snapshot's width must match this KB's embedder."""
         from ..index.persistence import load_index
 
         d = Path(directory)
-        idx = load_index(d / "index", device=self.device)
+        idx = load_index(d / "index", device=self.device, mesh=self.store._mesh)
         emb_dim = getattr(self.embedder, "dimension", None)
         if emb_dim and emb_dim != idx.dim:
             raise ValueError(
@@ -231,10 +240,10 @@ class KBRegistry:
         return self._kbs.get(name)
 
     def get_or_create(self, name: str, config: RAGConfig | None = None,
-                      device: str | torch.device | None = None) -> KnowledgeBase:
+                      device: str | torch.device | None = None, mesh=None) -> KnowledgeBase:
         kb = self._kbs.get(name)
         if kb is None:
-            kb = KnowledgeBase(name, config, device=device)
+            kb = KnowledgeBase(name, config, device=device, mesh=mesh)
             self._kbs[name] = kb
         return kb
 

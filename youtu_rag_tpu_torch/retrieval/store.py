@@ -4,7 +4,9 @@ The port's counterpart of ``youtu_rag_tpu/retrieval/store.py``: the seam
 where the reference swaps Chroma/FAISS and this package plugs in its
 torch ``DeviceVectorIndex``; everything above — retrievers, builders —
 only sees ``BaseVectorStore``. It keeps the JAX store's search coalescer
-and its BM25 upkeep; the index lives on the store's ``device``. With
+and its BM25 upkeep; the index lives on the store's ``device``, or, given
+a ``mesh`` (``parallel.mesh``), shards over its ``db`` axis
+(``parallel.sharded_index.ShardedVectorIndex``). With
 ``backend="numpy"`` the store holds the exact host index
 (``index/numpy_ref.py``) on any device, as JAX's store does, and serves
 ``reserve``, ``update_metadata`` and ``health`` for it as JAX's does.
@@ -32,7 +34,8 @@ from ..utils.device import resolve_device
 
 class TorchVectorStore(BaseVectorStore):
     """Vector store backed by the port's device index on ``device``
-    (``None`` → the CUDA card; a host without one raises).
+    (``None`` → the CUDA card; a host without one raises), or sharded over
+    ``mesh`` (on the mesh's devices; ``device`` then must name none other).
 
     The index dimension is fixed lazily on the first ``add_chunks`` call
     (from the embedding length), like Chroma collections materializing on
@@ -43,10 +46,17 @@ class TorchVectorStore(BaseVectorStore):
         config: VectorStoreConfig | None = None,
         dim: int | None = None,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         self.config = config or VectorStoreConfig()
         self._dim = dim
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is not None:
+            from ..parallel.sharded_index import mesh_device
+
+            self.device = mesh_device(mesh, device)
+        else:
+            self.device = resolve_device(device)
         self._index: DeviceVectorIndex | NumpyVectorIndex | None = None
         self._lock = asyncio.Lock()
         self._search_coalescer: _SearchCoalescer | None = None
@@ -66,6 +76,10 @@ class TorchVectorStore(BaseVectorStore):
         icfg = icfg.model_copy(update={"metric": metric})
         if self.config.backend == "numpy":
             return NumpyVectorIndex(dim, icfg)
+        if self._mesh is not None:
+            from ..parallel.sharded_index import ShardedVectorIndex
+
+            return ShardedVectorIndex(dim, icfg, mesh=self._mesh)
         return DeviceVectorIndex(dim, icfg, device=self.device)
 
     @property

@@ -5,7 +5,11 @@
     python -m youtu_rag_tpu_torch.serve_api --llm-weights-dir benchmarks/models/yrt_tiny_chat
 
 Every knowledge base, memory toolkit and local model the API builds lives
-on the CUDA card unless ``--device`` names another device."""
+on the CUDA card unless ``--device`` names another device. ``--shards N``
+shards every KB's index N ways on that device (``parallel.sharded_index``'s
+local mesh). Serving across cards takes one process per card, joined by
+``parallel.mesh.init_distributed`` into a group mesh, which this command
+does not start."""
 
 from __future__ import annotations
 
@@ -20,8 +24,8 @@ def parse_args(argv=None):
     p.add_argument("--agent-config", default=None, help="configs/agents/<name> to load")
     p.add_argument(
         "--shards", type=int, default=0,
-        help="shard every KB index over N devices (multi-device serving; 0 = one "
-        "device). Not ported yet: N > 0 raises.",
+        help="shard every KB index N ways on the serving device (0 = unsharded); "
+        "serving across cards takes one process per card",
     )
     p.add_argument(
         "--search-coalesce-ms", type=float, default=0.0,
@@ -55,10 +59,14 @@ def build_state(args):
     """The ``ApiState`` the command line describes."""
     from .api.state import ApiState
 
+    mesh = None
     if args.shards:
-        raise NotImplementedError(
-            "--shards: a sharded index over several devices is not ported yet "
-            "(ROADMAP Queue A 8); serve one device with --shards 0")
+        from .parallel.mesh import get_mesh
+        from .utils.device import resolve_device
+
+        device = resolve_device(args.device)  # the card unless --device names another
+        mesh = get_mesh({"db": args.shards}, devices=[device] * args.shards)
+        print(f"serving with a {args.shards}-way sharded index on {device}")
 
     agent_config = None
     if args.agent_config:
@@ -101,7 +109,7 @@ def build_state(args):
 
     return ApiState(
         data_dir=args.data_dir, agent_config=agent_config,
-        rag_config=rag_config, device=args.device,
+        rag_config=rag_config, device=args.device, mesh=mesh,
     )
 
 
