@@ -377,6 +377,26 @@ Phases; any failure exits non-zero before the result lines:
      from the seed, bf16 activations), B = 4, T = 512, 5 steps on one batch
      with remat (the loss finite and falling), then 2 without: ms a step,
      tokens/s, the model FLOPs' time at peak, peak memory of each;
+  6d. training and inference over a mesh, every mesh a local one whose
+     slots are the card: (0) allow_tf32 set True survives a brute and an
+     IVF search, an f32 encoder forward and a k-means fit; (a)
+     make_sharded_train_step over dp 2 x tp 2 at the default widths, B 64,
+     T 128, against make_train_step: one f32 step (TF32 off) with its loss
+     within MESH_LOSS_RTOL, its gradients within GRAD_RTOL of each leaf's
+     largest and its parameters' changes within MESH_FLIP_SHARE, then 3
+     bf16-activation steps of each (ms a step, peak memory, the replicas
+     bit-equal); (b) make_sharded_moe_train_step over dp 2 x ep 4, 8
+     experts, the same gates and aux_loss > 0; (c)
+     make_sharded_lm_train_step over dp 2 x tp 2 at Qwen2-0.5B's widths, B
+     4, T 512, remat, 2 f32 steps (completions of unequal counts) and 2 bf16
+     ones; (d) make_pp_encoder, S 4 x 3 layers, M 8, B 32, T 512, "pallas",
+     against encode_tokens within ENC_TOL, blockwise launches M·L from the
+     schedule; (e) make_ep_encoder and make_ep_encoder_a2a (dropless), 8
+     experts over ep 4, B 16, T 512, against moe_encode_tokens, 12
+     blockwise launches each; (f) make_sp_encoder over dp 1 x sp 4 x tp 2 on
+     5e's documents at T 4096 against 5e's unsharded forward, hop launches
+     layers x tp x sp; (g) ``train_embedder.main --dp 2 --tp 2``, 10 steps
+     at the small preset, its npz served; (h) ``dryrun_multichip(4)`` on four slots of the card;
   7. one JSON line, {"kernels": [{"name": ..., "route", "source",
      "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
      "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
@@ -384,8 +404,8 @@ Phases; any failure exits non-zero before the result lines:
 
 The main path's launch counts are set to 0 just before phases 4, 4b (a),
 4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
-search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5f (a)-(e), 5b, 5e, 6a and 6c (b) and
-(d) drive it
+search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5f (a)-(e), 5b, 5e, 6a, 6c (b) and
+(d) and 6d (d)-(f) and (h) drive it
 and read just after; launches
 made to compare or time a kernel are not counted. Every phase prints its
 wall time.
@@ -6042,6 +6062,8 @@ def ring_full_size(seed: int, part: str, embedder) -> dict:
           f"top-1 neighbours {near} (unsharded {near_ref})")
     check(near == near_ref == [j ^ 1 for j in range(8)], "ring: top-1 neighbours differ")
     check(diff <= ENC_TOL, f"ring: embeddings differ from the unsharded forward by {diff}")
+    # 6d (f) holds the ring with tensor parallelism to the same forward
+    out.update(unsharded=(ids_d, mask_d, ref), ring_ms=fwd_ms)
     # f32 at T = 2048 (Tl 512): JAX's own test tolerance
     f32 = TorchEmbedder(config=dataclasses.replace(cfg, dtype=torch.float32),
                         params=embedder.params, device="cuda", sp_mesh=4)
@@ -6941,6 +6963,542 @@ def training_on_card(seed: int, part: str) -> dict:
             "topk_pruned": served["topk_pruned"] + cli_launches}
 
 
+# ---------------------------------------------------------------------------
+# 6d. training and inference over a mesh
+# ---------------------------------------------------------------------------
+
+# One sharded step against the one-device step, f32 with TF32 off. The
+# losses: rtol 2e-4 (JAX's own for its sharded steps). The gradients the
+# step applies (summed over dp, gathered over tp or ep): each leaf within
+# GRAD_RTOL (6c's 1e-3) of its largest one-device gradient; they carry
+# what the sharding computes, since Adam's update is blind to a gradient's
+# scale (a first update is ~lr · sign(g): a gradient counted tp times
+# moves the parameters as the right one does). The parameters after the
+# step: the share of elements whose change differs from the one-device
+# step's by more than 1e-3 of the leaf's largest change, at most
+# MESH_FLIP_SHARE, among the elements whose gradient exceeds GRAD_RTOL of
+# the leaf's largest: an element whose gradient is within the sums'
+# rounding of 0 (a key bias's, 0 in exact arithmetic, is all of them)
+# takes either sign and moves by up to 2 lr in the other run. And over
+# every element, each leaf's norm of the difference of the changes at most
+# MESH_CHANGE_RTOL of the norm of the one-device change (the readings on an
+# H100 80GB HBM3 at 700.00 W: 5.73e-05, 1.16e-06 and 2.42e-04 for (a), (b)
+# and (c)), which holds the optimizer's per-shard moments and the clip's
+# global norm on the unresolved elements too.
+MESH_LOSS_RTOL = 2e-4
+MESH_FLIP_SHARE = 1e-3
+MESH_CHANGE_RTOL = 1e-3
+MESH_B, MESH_T = 64, 128  # the encoder steps' batch (6c's)
+
+
+def card_init(fn, seed: int):
+    """``fn(generator)`` with its tensors drawn on the card from ``seed``."""
+    with torch.device("cuda"):
+        return fn(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def card_mesh(axes: dict):
+    """A local mesh of ``axes`` whose every slot is the card."""
+    from youtu_rag_tpu_torch.parallel.mesh import get_mesh
+
+    return get_mesh(axes, devices=["cuda"] * int(np.prod(list(axes.values()))))
+
+
+def token_batch(seed: int, b: int, t: int, vocab: int) -> dict:
+    """q/d ids and masks of ragged rows (lengths t/4..t), from a numpy seed."""
+    r = np.random.default_rng(seed)
+    out = {}
+    for side in "qd":
+        n = r.integers(t // 4, t + 1, b)
+        mask = (np.arange(t)[None] < n[:, None]).astype(np.float32)
+        ids = (r.integers(1, vocab, (b, t)) * mask).astype(np.int64)
+        out[f"{side}_ids"] = torch.from_numpy(ids)
+        out[f"{side}_mask"] = torch.from_numpy(mask)
+    return out
+
+
+def timed_steps(step, params, state, batches) -> tuple[list[float], list[float], object, object]:
+    """(losses, ms of each step, params, state) over ``batches``."""
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, params, state
+
+
+def grads_agree(got: dict, want: list, names: list[str]) -> tuple[float, str]:
+    """The worst leaf's max |got - want| over its largest |want| (GRAD_RTOL's
+    measure); ``got`` a full gradient tree, ``want`` the one-device list."""
+    from youtu_rag_tpu_torch.models import train as tr
+
+    worst, worst_name = 0.0, ""
+    for name, g, w in zip(names, tr.leaves(got), want):
+        scale = float(w.abs().max())
+        diff = float((g.detach() - w.detach()).abs().max())
+        if scale == 0.0:
+            check(diff == 0.0, f"6d: {name} has a gradient only in the sharded step")
+            continue
+        if diff / scale > worst:
+            worst, worst_name = diff / scale, name
+    return worst, worst_name
+
+
+def changes_agree(full_after: dict, one_after: dict, before: dict,
+                  grads: list) -> tuple[float, str, float, str]:
+    """(the largest share of a leaf's elements whose change differs from the
+    one-device step's by more than 1e-3 of the leaf's largest change, among
+    the elements whose one-device gradient ``grads`` exceeds GRAD_RTOL of
+    the leaf's largest, where its sign is resolved, and that leaf; the
+    largest norm of the difference over the norm of the change, over every
+    element, and that leaf)."""
+    from youtu_rag_tpu_torch.models import train as tr
+
+    share, ratio, worst_name, ratio_name = 0.0, 0.0, "", ""
+    for name, a, b, p0, g in zip(tr.leaf_names(before), tr.leaves(full_after),
+                                 tr.leaves(one_after), tr.leaves(before), grads):
+        da, db = (a.detach() - p0).float(), (b.detach() - p0).float()
+        moved = float(db.abs().max())
+        if moved == 0.0:
+            check(float(da.abs().max()) == 0.0, f"6d: {name} moved only in the sharded step")
+            continue
+        resolved = g.detach().abs() > GRAD_RTOL * float(g.detach().abs().max())
+        if bool(resolved.any()):
+            sh = float(((da - db).abs() > 1e-3 * moved)[resolved].float().mean())
+            if sh > share:
+                share, worst_name = sh, name
+        r = float((da - db).norm() / db.norm())
+        if r > ratio:
+            ratio, ratio_name = r, name
+    return share, worst_name, ratio, ratio_name
+
+
+def sharded_against_one(what: str, make_sharded, make_one, p0: dict, batches32, batches16):
+    """6d (a)-(c)'s gates and times: the f32 steps (TF32 off) of the sharded
+    and the one-device step from ``p0``, the first one's gradients too; then
+    bf16-activation steps of each: ms a step, every replica bit-equal,
+    finite losses. ``make_sharded(dtype, params)`` returns (step, placed,
+    state), the step with ``.grads``; ``make_one(dtype, params)`` (step,
+    params, state, loss_fn) for ``value_and_grad``."""
+    from youtu_rag_tpu_torch.models import train as tr
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        step, placed, state = make_sharded(torch.float32, p0)
+        _, g_sh = step.grads(placed, batches32[0])
+        l_sh, _, placed, state = timed_steps(step, placed, state, batches32)
+        sharded_after = placed.gather()
+        del placed, state
+        step, params, state, loss_fn = make_one(torch.float32, tree_to(p0, "cuda"))
+        (_, _), g_one = tr.value_and_grad(loss_fn, params,
+                                          tr.as_batch(batches32[0], params["tok_emb"].device))
+        grad_rel, grad_name = grads_agree(g_sh, g_one, tr.leaf_names(params))
+        del g_sh
+        l_one, _, params, state = timed_steps(step, params, state, batches32)
+        del state
+        share, name, ratio, ratio_name = changes_agree(sharded_after, params, p0, g_one)
+        del sharded_after, params, g_one
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_sh, l_one))
+    grads_read = (f"the worst leaf {grad_name} at {grad_rel:.2e} of its largest" if grad_name
+                  else "every leaf equal")
+    share_read = (f"a share {share:.2e} of {name}'s resolved elements off" if name
+                  else "no resolved element off")
+    print(f"  {what}, f32 (TF32 off), {len(batches32)} step(s): losses sharded "
+          f"{[round(x, 6) for x in l_sh]}, one device {[round(x, 6) for x in l_one]} (worst "
+          f"relative {rel:.2e}, gate {MESH_LOSS_RTOL}); gradients: {grads_read} (gate "
+          f"{GRAD_RTOL}); the parameters' change: {share_read} by more than 1e-3 of the leaf's "
+          f"largest change (gate {MESH_FLIP_SHARE}); the worst norm ratio {ratio:.2e} "
+          f"({ratio_name or 'none'}, gate {MESH_CHANGE_RTOL})")
+    check(rel <= MESH_LOSS_RTOL, f"6d {what}: losses differ by {rel} relative")
+    check(grad_rel <= GRAD_RTOL, f"6d {what}: {grad_name}'s gradient differs by {grad_rel}")
+    check(share <= MESH_FLIP_SHARE, f"6d {what}: {share} of {name}'s changes differ")
+    check(ratio <= MESH_CHANGE_RTOL, f"6d {what}: {ratio_name}'s change differs by a norm "
+          f"ratio {ratio}")
+
+    torch.cuda.reset_peak_memory_stats()
+    step, placed, state = make_sharded(torch.bfloat16, p0)
+    l_sh, ms_sh, placed, state = timed_steps(step, placed, state, batches16)
+    peak_sh = torch.cuda.max_memory_allocated() / 2**30
+    reps = len(placed)
+    equal = all(all(torch.equal(a, b) for a, b in zip(tr.leaves(placed[0]), tr.leaves(r)))
+                for r in placed[1:])
+    del placed, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, params, state, _ = make_one(torch.bfloat16, tree_to(p0, "cuda"))
+    l_one, ms_one, params, state = timed_steps(step, params, state, batches16)
+    peak_one = torch.cuda.max_memory_allocated() / 2**30
+    del params, state
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(l_sh)) and all(np.isfinite(l_one)), f"6d {what}: bf16 losses {l_sh}")
+    check(equal, f"6d {what}: the {reps} dp replicas are not bit-equal")
+    med_sh, med_one = float(np.median(ms_sh[1:])), float(np.median(ms_one[1:]))
+    print(f"  {what}, bf16 activations, {len(batches16)} steps: sharded {med_sh:.1f} ms a step "
+          f"(median of steps 2-{len(batches16)}; {[round(x, 1) for x in ms_sh]}), peak "
+          f"{peak_sh:.2f} GiB; one device {med_one:.1f} ms ({[round(x, 1) for x in ms_one]}), "
+          f"peak {peak_one:.2f} GiB; sharded/one {med_sh / med_one:.2f}x; {reps} replica(s) "
+          f"of the parameters (the dp rows share the card), bit-equal; losses "
+          f"{[round(x, 4) for x in l_sh]} vs {[round(x, 4) for x in l_one]}")
+    return {"ms": med_sh, "one_ms": med_one}
+
+
+def mesh_encoder_steps(seed: int) -> dict:
+    """6d (a): make_sharded_train_step over dp 2 x tp 2 at the default
+    widths, B 64, T 128, against make_train_step."""
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, init_encoder_params
+
+    def cfg(dt):
+        return EncoderConfig(max_len=MESH_T, dtype=dt)
+
+    tc = tr.TrainConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100)
+    p0 = card_init(lambda g: init_encoder_params(cfg(torch.float32), g), seed)
+
+    def make_sharded(dt, p):
+        params, state, step = tr.make_sharded_train_step(cfg(dt), tc, card_mesh({"dp": 2, "tp": 2}),
+                                                         init_params=p)
+        return step, params, state
+
+    def make_one(dt, p):
+        opt = tr.make_optimizer(tc)
+        return (tr.make_train_step(cfg(dt), tc, opt), p, opt.init(p),
+                lambda q, b: tr.info_nce_loss(q, b, cfg(dt), tc))
+
+    vocab = cfg(torch.float32).vocab_size
+    b32 = [token_batch(seed + 10, MESH_B, MESH_T, vocab)]
+    b16 = [token_batch(seed + 11 + i, MESH_B, MESH_T, vocab) for i in range(3)]
+    return sharded_against_one("(a) encoder dp 2 x tp 2", make_sharded, make_one, p0, b32, b16)
+
+
+def mesh_moe_steps(seed: int) -> dict:
+    """6d (b): make_sharded_moe_train_step over dp 2 x ep 4, 8 experts, at
+    the default widths, against make_moe_train_step; aux_loss > 0."""
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+    from youtu_rag_tpu_torch.parallel.expert_parallel import init_moe_params
+
+    def cfg(dt):
+        return EncoderConfig(max_len=MESH_T, dtype=dt)
+
+    tc = tr.MoETrainConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100, n_experts=8)
+    p0 = card_init(lambda g: init_moe_params(cfg(torch.float32), 8, g), seed + 1)
+    aux = []
+
+    def watch(step):
+        def run(p, s, b):
+            p, s, m = step(p, s, b)
+            aux.append(float(m["aux_loss"]))
+            return p, s, m
+        run.grads = step.grads
+        return run
+
+    def make_sharded(dt, p):
+        params, state, step = tr.make_sharded_moe_train_step(
+            cfg(dt), tc, card_mesh({"dp": 2, "ep": 4}), init_params=p)
+        return watch(step), params, state
+
+    def make_one(dt, p):
+        opt = tr.make_optimizer(tc)
+        return (tr.make_moe_train_step(cfg(dt), tc, opt), p, opt.init(p),
+                lambda q, b: tr.moe_info_nce_loss(q, b, cfg(dt), tc))
+
+    vocab = cfg(torch.float32).vocab_size
+    b32 = [token_batch(seed + 20, MESH_B, MESH_T, vocab)]
+    b16 = [token_batch(seed + 21 + i, MESH_B, MESH_T, vocab) for i in range(3)]
+    out = sharded_against_one("(b) MoE dp 2 x ep 4, 8 experts", make_sharded, make_one, p0, b32,
+                              b16)
+    check(all(a > 0 and np.isfinite(a) for a in aux), f"6d (b): aux losses {aux}")
+    print(f"  (b) the sharded steps' aux losses {[round(a, 4) for a in aux]}")
+    return out
+
+
+def mesh_lm_steps(seed: int) -> dict:
+    """6d (c): make_sharded_lm_train_step over dp 2 x tp 2 at Qwen2-0.5B's
+    widths, B 4, T 512, remat on: 2 f32 steps against make_lm_train_step,
+    then 2 bf16 steps; ms a step and peak memory."""
+    from youtu_rag_tpu_torch.models import decoder as td
+    from youtu_rag_tpu_torch.models import train_lm as tl
+
+    c = QWEN2_05B
+
+    def cfg(dt):
+        return td.DecoderConfig(
+            vocab_size=c["vocab_size"], d_model=c["hidden_size"],
+            n_layers=c["num_hidden_layers"], n_heads=c["num_attention_heads"],
+            n_kv_heads=c["num_key_value_heads"], d_ff=c["intermediate_size"], max_len=LM_STEP_T,
+            arch="llama", dtype=dt, rope_base=c["rope_theta"], ln_eps=c["rms_norm_eps"],
+            tie_embeddings=True, eos_token_id=c["eos_token_id"], qkv_bias=True)
+
+    tc = tl.LMTrainConfig(learning_rate=3e-4, warmup_steps=0, total_steps=100, remat=True)
+    p0 = card_init(lambda g: td.init_decoder_params(cfg(torch.float32), g, device=g.device),
+                   seed + 2)
+    b, t = LM_STEP_B, LM_STEP_T
+
+    def batch(s):
+        g = torch.Generator().manual_seed(seed + 30 + s)
+        out = {"tokens": torch.randint(0, c["vocab_size"], (b, t), generator=g),
+               "mask": torch.ones(b, t), "loss_mask": torch.ones(b, t)}
+        out["loss_mask"][:, : t // 8 * (s + 1)] = 0.0  # the completions: unequal counts
+        out["loss_mask"][0, t // 8 :] = 0.0
+        return out
+
+    def make_sharded(dt, p):
+        opt = tl.make_lm_optimizer(tc)
+        step, place_params, place_batch = tl.make_sharded_lm_train_step(
+            cfg(dt), tc, opt, card_mesh({"dp": 2, "tp": 2}), p)
+        placed = place_params(p)
+
+        def run(pp, s, bt):
+            return step(pp, s, place_batch(bt))
+
+        run.grads = lambda pp, bt: step.grads(pp, place_batch(bt))
+        return run, placed, opt.init(placed)
+
+    def make_one(dt, p):
+        opt = tl.make_lm_optimizer(tc)
+        return (tl.make_lm_train_step(cfg(dt), tc, opt), p, opt.init(p),
+                lambda q, b: (tl.lm_loss(q, b, cfg(dt), tc), None))
+
+    return sharded_against_one("(c) LM dp 2 x tp 2, Qwen2-0.5B widths, B 4, T 512, remat",
+                               make_sharded, make_one, p0, [batch(0), batch(1)],
+                               [batch(2), batch(3)])
+
+
+def mesh_pp_forward(seed: int, part: str) -> dict:
+    """6d (d): make_pp_encoder, S = 4 stages of 3 layers, M = 8
+    microbatches, B 32, T 512, "pallas", bf16, under no_grad, against
+    encode_tokens on the card. Blockwise launches: one per (stage,
+    microbatch) the schedule runs, times the stage's layers."""
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens, init_encoder_params
+    from youtu_rag_tpu_torch.parallel.pipeline_parallel import make_pp_encoder, shard_params_pp
+
+    cfg = EncoderConfig(attention_impl="pallas")
+    n_st, n_mb, b, t = 4, 8, 32, 512
+    params = card_init(lambda g: init_encoder_params(cfg, g), seed + 3)
+    ids = token_batch(seed + 40, b, t, cfg.vocab_size)
+    ids, mask = ids["q_ids"].cuda(), ids["q_mask"].cuda()
+    mesh = card_mesh({"pp": n_st})
+    fn = make_pp_encoder(cfg, mesh, n_micro=n_mb)
+    placed = shard_params_pp(params, mesh)
+    pairs = sum(1 for tick in range(n_mb + n_st - 1) for s in range(n_st) if 0 <= tick - s < n_mb)
+    want = pairs * (cfg.n_layers // n_st)
+    reset_launches()
+    emb, _ = fn(placed, ids, mask)
+    torch.cuda.synchronize()
+    counts = attention_counts()
+    check(counts["blockwise_attention"] == want and counts["flash_attention"] == 0,
+          f"6d (d): launches {counts}, the schedule's {want} blockwise")
+    with torch.inference_mode():
+        ref, _ = encode_tokens(params, ids, mask, cfg)
+        diff = float((emb - ref).abs().max())
+        pp_ms = time_ms(lambda: fn(placed, ids, mask), bursts=3, burst=2, warmup=1)
+        one_ms = time_ms(lambda: encode_tokens(params, ids, mask, cfg), bursts=3, burst=2, warmup=1)
+    bubble = (n_st - 1) / (n_mb + n_st - 1)
+    print(f"  (d) PP, S {n_st} x {cfg.n_layers // n_st} layers, M {n_mb}, B {b}, T {t}: "
+          f"{n_mb + n_st - 1} ticks, {pairs} stage runs, blockwise launches {want}; max |diff| "
+          f"{diff:.3g} from encode_tokens (gate {ENC_TOL}); {pp_ms:.2f} ms device vs "
+          f"{one_ms:.2f} ms unsharded ({pp_ms / one_ms:.2f}x; the schedule's bubble "
+          f"{bubble:.3f} of a stage's ticks, idle on a mesh of cards, not on one card)")
+    check(diff <= ENC_TOL, f"6d (d): PP differs from encode_tokens by {diff}")
+    return {"blockwise_attention": want, "ms": pp_ms, "one_ms": one_ms}
+
+
+def mesh_ep_forwards(seed: int) -> dict:
+    """6d (e): make_ep_encoder and make_ep_encoder_a2a (dropless), 8 experts
+    over ep 4, B 16, T 512, "pallas", against moe_encode_tokens; attention
+    runs once a forward for every shard on the card: 12 blockwise
+    launches each."""
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+    from youtu_rag_tpu_torch.parallel import expert_parallel as epm
+
+    cfg = EncoderConfig(attention_impl="pallas")
+    n_e, ep, b, t = 8, 4, 16, 512
+    params = card_init(lambda g: epm.init_moe_params(cfg, n_e, g), seed + 4)
+    batch = token_batch(seed + 50, b, t, cfg.vocab_size)
+    ids, mask = batch["q_ids"].cuda(), batch["q_mask"].cuda()
+    mesh = card_mesh({"ep": ep})
+    placed = epm.shard_params_ep(params, mesh)
+    fns = {"psum": epm.make_ep_encoder(cfg, mesh, n_e),
+           "a2a": epm.make_ep_encoder_a2a(cfg, mesh, n_e, capacity_factor=float(ep),
+                                          expert_capacity_factor=float(n_e))}
+    out = {"blockwise_attention": 0}
+    with torch.inference_mode():
+        ref, _ = epm.moe_encode_tokens(params, ids, mask, cfg, n_e)
+        one_ms = time_ms(lambda: epm.moe_encode_tokens(params, ids, mask, cfg, n_e), bursts=3,
+                         burst=2, warmup=1)
+        for name, fn in fns.items():
+            reset_launches()
+            emb, _ = fn(placed, ids, mask)
+            torch.cuda.synchronize()
+            counts = attention_counts()
+            check(counts["blockwise_attention"] == cfg.n_layers,
+                  f"6d (e) {name}: launches {counts}, want {cfg.n_layers} blockwise")
+            out["blockwise_attention"] += counts["blockwise_attention"]
+            diff = float((emb - ref).abs().max())
+            ms = time_ms(lambda: fn(placed, ids, mask), bursts=3, burst=2, warmup=1)
+            print(f"  (e) EP {name}, {n_e} experts over ep {ep}, B {b}, T {t}: max |diff| "
+                  f"{diff:.3g} from moe_encode_tokens (gate {ENC_TOL}); {ms:.2f} ms device vs "
+                  f"{one_ms:.2f} ms unsharded; blockwise launches {counts['blockwise_attention']}")
+            check(diff <= ENC_TOL, f"6d (e) {name}: differs by {diff}")
+    return out
+
+
+def mesh_sp_tp(ring: dict, embedder) -> dict:
+    """6d (f): make_sp_encoder over dp 1 x sp 4 x tp 2 on 5e's 8 documents
+    at T 4096 against 5e's unsharded forward; each hop launches the stats
+    kernel on a tp shard's heads: layers x tp x sp launches."""
+    from youtu_rag_tpu_torch.parallel.sequence_parallel import make_sp_encoder
+
+    cfg = embedder.cfg
+    ids, mask, ref = ring["unsharded"]
+    fn = make_sp_encoder(cfg, card_mesh({"dp": 1, "sp": 4, "tp": 2}), dp_axis="dp",
+                         tp_axis="tp")
+    want = cfg.n_layers * 2 * 4
+    with torch.inference_mode():
+        reset_launches()
+        emb, _ = fn(embedder.params, ids, mask)
+        torch.cuda.synchronize()
+        counts = attention_counts()
+        ms = time_ms(lambda: fn(embedder.params, ids, mask), bursts=3, burst=2, warmup=1)
+    check(counts["flash_attention_stats"] == want and counts["blockwise_attention"] == 0,
+          f"6d (f): launches {counts}, want {want} hops")
+    diff = float(np.abs(emb.cpu().numpy() - ref).max())
+    print(f"  (f) SP x TP, dp 1 x sp 4 x tp 2, 8 documents at T 4096 (Tl 1024, 6 heads a shard): "
+          f"max |diff| {diff:.3g} from 5e's unsharded forward (gate {ENC_TOL}); {ms:.2f} ms "
+          f"device vs the sp-4 ring's {ring['ring_ms']:.2f} ms; flash_attention_stats launches "
+          f"{counts['flash_attention_stats']} ({cfg.n_layers} layers x 2 tp x 4 hops)")
+    check(diff <= ENC_TOL, f"6d (f): differs from the unsharded forward by {diff}")
+    return {"flash_attention_stats": counts["flash_attention_stats"]}
+
+
+def mesh_train_embedder(seed: int, root: str) -> None:
+    """6d (g): train_embedder.main --dp 2 --tp 2 for 10 steps on the card at
+    the default preset (768 x 12): the gathered full tree's checkpoint and
+    npz, whose compressed writes take most of this part's time; the npz
+    serves in TorchEmbedder. Then --resume to step 12: the restored full
+    tree placed on the mesh again, whose holdout recall before its steps
+    is the first run's after its last."""
+    from youtu_rag_tpu_torch import train_embedder
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+
+    out = os.path.join(root, "ft_mesh")
+
+    def run(steps: int, *extra: str) -> dict:
+        return train_embedder.main(["--synthetic", "64", "--paraphrase", "128", "--batch", "64",
+                                    "--seqlen", "128", "--steps", str(steps), "--ckpt-every",
+                                    "10", "--warmup", "2", "--holdout", "32", "--dp", "2",
+                                    "--tp", "2", "--seed", str(seed), "--out", out, *extra])
+
+    t0 = time.perf_counter()
+    report = run(10)
+    wall = time.perf_counter() - t0
+    losses = report["losses"]
+    check(len(losses) == 10 and all(np.isfinite(losses)), f"6d (g): losses {losses}")
+    emb = TorchEmbedder.from_weights_dir(out, device="cuda")
+    vec = emb.embed_batch(["What is the batch lot recorded for KL-4407?"])
+    check(vec.shape == (1, emb.dimension) and abs(float(np.linalg.norm(vec)) - 1.0) < 1e-3,
+          f"6d (g): the npz serves {vec.shape}")
+    del emb
+    t1 = time.perf_counter()
+    resumed = run(12, "--resume")
+    wall_resume = time.perf_counter() - t1
+    check(len(resumed["losses"]) == 2 and all(np.isfinite(resumed["losses"])),
+          f"6d (g): resumed losses {resumed['losses']}")
+    check(resumed["recall_before"] == report["recall_after"],
+          f"6d (g): resumed at {resumed['recall_before']}, saved at {report['recall_after']}")
+    print(f"  (g) train_embedder --dp 2 --tp 2, 10 steps: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, recall@1 {report['recall_before']['recall@1']} -> "
+          f"{report['recall_after']['recall@1']}; its npz served by TorchEmbedder; {wall:.1f} s; "
+          f"--resume to step 12: recall {resumed['recall_before']} as saved, losses "
+          f"{[round(x, 4) for x in resumed['losses']]}, {wall_resume:.1f} s")
+
+
+def mesh_dryrun() -> dict:
+    """6d (h): dryrun_multichip(4) on four slots of the card."""
+    from youtu_rag_tpu_torch.dryrun import dryrun_multichip
+
+    reset_launches()
+    out = dryrun_multichip(4, devices=["cuda"] * 4)
+    torch.cuda.synchronize()
+    counts = {**{KERNEL_NAMES[t]: n for t, n in launch_counts().items()},
+              **{IVF_NAMES[t]: n for t, n in ivf_counts().items()}, **attention_counts(),
+              **blocks_counts()}
+    print(f"  (h) dryrun_multichip(4): {out}; launches {counts}")
+    check(counts["topk_pruned"] > 0 and counts["topk_int4_pruned"] > 0
+          and counts["ivf_topk_dma"] > 0, f"6d (h): the sharded index launched {counts}")
+    return counts
+
+
+def tf32_kept(seed: int) -> None:
+    """6d (0): a caller's allow_tf32 = True survives a brute search, an IVF
+    search, an f32 encoder forward and a k-means fit on the card."""
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.core.types import Chunk
+    from youtu_rag_tpu_torch.index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens, init_encoder_params
+    from youtu_rag_tpu_torch.ops import kmeans_fit
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = np.random.default_rng(seed).standard_normal((8192, 128)).astype(np.float32)
+        idx = DeviceVectorIndex(128, IndexConfig(block_rows=256, n_lists=16, n_probe=4),
+                                device="cuda")
+        idx.add([Chunk(f"c{i}", "doc", "", i) for i in range(len(x))], x)
+        seen = [idx.search(x[:4], top_k=3)[0][0][0].id]
+        idx.build_ivf()
+        seen.append(idx.search(x[:4], top_k=3)[0][0][0].id)
+        after_search = torch.backends.cuda.matmul.allow_tf32
+        cfg = EncoderConfig(n_layers=2, dtype=torch.float32)
+        params = card_init(lambda g: init_encoder_params(cfg, g), seed)
+        with torch.inference_mode():
+            encode_tokens(params, torch.randint(1, 1000, (2, 64), device="cuda"),
+                          torch.ones(2, 64, device="cuda"), cfg)
+        kmeans_fit(torch.from_numpy(x).cuda(), 16)
+        torch.cuda.synchronize()
+        kept = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"  (0) allow_tf32 set True: after a brute and an IVF search {after_search}, after an "
+          f"f32 encoder forward and a k-means fit {kept}; top hits {seen}")
+    check(after_search is True and kept is True, "6d (0): the port changed allow_tf32")
+    check(seen == ["c0", "c0"], f"6d (0): top hits {seen}")
+
+
+def mesh_main_path(seed: int, part: str, ring: dict, embedder) -> dict:
+    """6d: (0)-(h) above, each part's wall time printed. Returns the main
+    path's launches by kernel name."""
+    launches: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            if isinstance(v, int):
+                launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        parts = [("(0)", lambda: tf32_kept(seed)),
+                 ("(a)", lambda: mesh_encoder_steps(seed)),
+                 ("(b)", lambda: mesh_moe_steps(seed)),
+                 ("(c)", lambda: mesh_lm_steps(seed)),
+                 ("(d)", lambda: add(mesh_pp_forward(seed, part))),
+                 ("(e)", lambda: add(mesh_ep_forwards(seed))),
+                 ("(f)", lambda: add(mesh_sp_tp(ring, embedder))),
+                 ("(g)", lambda: mesh_train_embedder(seed, root)),
+                 ("(h)", lambda: add(mesh_dryrun()))]
+        for name, fn in parts:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            print(f"  {name} {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -7045,6 +7603,9 @@ def main() -> int:
     phase("6c training on the card")
     train6c = training_on_card(args.seed, part)
 
+    phase("6d training and inference over a mesh")
+    mesh6d = mesh_main_path(args.seed, part, ring, long4d["embedder"])
+
     phase("7 summary")
     kernels = []
     for tier in TIERS:
@@ -7060,7 +7621,7 @@ def main() -> int:
                             + dtr4j["topk_pruned"] + train6c["topk_pruned"]
                             if tier == "bfloat16" else 0)
                          + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)
-                         + sharded5f["launches"].get(kname, 0)),
+                         + sharded5f["launches"].get(kname, 0) + mesh6d.get(kname, 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
@@ -7079,7 +7640,8 @@ def main() -> int:
                          + (bert4e["launches"] + ingest4f["launches"]["blockwise_attention"]
                             + train6c["blockwise_attention"]
                             + sharded5f["launches"].get(kname, 0)
-                            if kname == "blockwise_attention" else 0)),
+                            if kname == "blockwise_attention" else 0)
+                         + mesh6d.get(kname, 0)),
             "max_abs_err": max(err3b[kname], f["err"],
                                bert4e["errs"]["attention"] if kname == "blockwise_attention"
                                else 0.0),
@@ -7096,7 +7658,8 @@ def main() -> int:
             "route": "cuda",
             "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],
-            "launches": launches4c[tier] + f["launches"] + sharded5f["launches"].get(kname, 0),
+            "launches": (launches4c[tier] + f["launches"] + sharded5f["launches"].get(kname, 0)
+                         + mesh6d.get(kname, 0)),
             "max_abs_err": max(err3c[tier], err3x[kname], err3f[kname], err4c[tier], f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
@@ -7113,7 +7676,7 @@ def main() -> int:
             "source": ("youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh" if kname.startswith("ivf")
                        else "youtu_rag_tpu_torch/csrc/topk_blocks.cu"),
             "replaces": REPLACES[kname],
-            "launches": f["launches"],
+            "launches": f["launches"] + mesh6d.get(kname, 0),
             "max_abs_err": max(err3d[kname], err3x[kname], err3f.get(kname, 0.0), f["err"]),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
@@ -7126,7 +7689,7 @@ def main() -> int:
         "route": "cuda",
         "source": "youtu_rag_tpu_torch/csrc/attention_wgmma.cuh",
         "replaces": REPLACES["flash_attention_stats"],
-        "launches": long4d["launches"] + ring["launches"],
+        "launches": long4d["launches"] + ring["launches"] + mesh6d["flash_attention_stats"],
         "max_abs_err": max(err3e, ring["err"]),
         "ms": ring["ms"],
         "plain_ms": ring["plain_ms"],

@@ -1403,3 +1403,128 @@ def test_orchestrator_config_on_the_card_matches_cpu_twin(team_kbs, kind, tmp_pa
     assert card["launches"] >= card["searches"] > 0 and twin["launches"] == 0
     diffs, _ = smoke.compare_runs(card, twin)
     assert not diffs
+
+
+# -------------------------------------------------- the mesh forwards on the card
+
+
+def _mesh_inputs(cuda_device, b: int, t: int, seed: int):
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(1, 512, (b, t))).to(cuda_device)
+    mask = torch.ones(b, t, device=cuda_device)
+    mask[0, t // 2 :] = 0
+    return ids, mask
+
+
+@pytest.mark.cuda
+def test_pipeline_forward_launches_blockwise_per_stage_run(cuda_device):
+    """make_pp_encoder with "pallas" at T 256: one blockwise launch per
+    (stage, microbatch) the schedule runs, per layer of the stage: M·L."""
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens, init_encoder_params
+    from youtu_rag_tpu_torch.parallel.mesh import get_mesh
+    from youtu_rag_tpu_torch.parallel.pipeline_parallel import make_pp_encoder, shard_params_pp
+
+    cfg = EncoderConfig(vocab_size=512, d_model=128, n_layers=4, n_heads=2, d_ff=256,
+                        out_dim=64, attention_impl="pallas")
+    params = {k: (v.to(cuda_device) if not isinstance(v, dict) else
+                  {n: w.to(cuda_device) for n, w in v.items()})
+              for k, v in init_encoder_params(cfg, torch.Generator().manual_seed(0)).items()}
+    mesh = get_mesh({"pp": 2}, devices=[cuda_device] * 2)
+    ids, mask = _mesh_inputs(cuda_device, 8, 256, 1)
+    before = blockwise_attention.launches
+    emb, _ = make_pp_encoder(cfg, mesh, n_micro=4)(shard_params_pp(params, mesh), ids, mask)
+    torch.cuda.synchronize()
+    assert blockwise_attention.launches - before == 4 * cfg.n_layers
+    with torch.inference_mode():
+        ref, _ = encode_tokens(params, ids, mask, cfg)
+    np.testing.assert_allclose(emb.cpu().numpy(), ref.cpu().numpy(), atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["psum", "a2a"])
+def test_expert_parallel_forwards_run_attention_once_on_the_card(cuda_device, form):
+    """Every ep shard on one card: attention runs once a layer for all of
+    them (n_layers blockwise launches a forward), within the encoder's
+    bf16 tolerance of moe_encode_tokens."""
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig
+    from youtu_rag_tpu_torch.parallel import expert_parallel as epm
+    from youtu_rag_tpu_torch.parallel.mesh import get_mesh
+
+    cfg = EncoderConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+                        out_dim=64, attention_impl="pallas")
+    params = epm.init_moe_params(cfg, 4, torch.Generator().manual_seed(0))
+    params = {k: (v.to(cuda_device) if not isinstance(v, dict) else
+                  {n: w.to(cuda_device) for n, w in v.items()}) for k, v in params.items()}
+    mesh = get_mesh({"ep": 2}, devices=[cuda_device] * 2)
+    fn = (epm.make_ep_encoder(cfg, mesh, 4) if form == "psum" else
+          epm.make_ep_encoder_a2a(cfg, mesh, 4, capacity_factor=2.0, expert_capacity_factor=4.0))
+    ids, mask = _mesh_inputs(cuda_device, 4, 256, 2)
+    with torch.inference_mode():
+        before = blockwise_attention.launches
+        emb, _ = fn(epm.shard_params_ep(params, mesh), ids, mask)
+        torch.cuda.synchronize()
+        assert blockwise_attention.launches - before == cfg.n_layers
+        ref, _ = epm.moe_encode_tokens(params, ids, mask, cfg, 4)
+    np.testing.assert_allclose(emb.cpu().numpy(), ref.cpu().numpy(), atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_sp_with_tp_launches_a_hop_per_tp_shard(cuda_device):
+    """sp 2 × tp 2 on the card, Tl 256: each hop launches
+    flash_attention_stats once per tp shard (layers · tp · sp), within the
+    encoder's bf16 tolerance of the unsharded forward."""
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens, init_encoder_params
+    from youtu_rag_tpu_torch.parallel.mesh import get_mesh
+    from youtu_rag_tpu_torch.parallel.sequence_parallel import make_sp_encoder
+
+    cfg = EncoderConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, d_ff=256,
+                        out_dim=64, max_len=512, attention_impl="pallas")
+    params = {k: (v.to(cuda_device) if not isinstance(v, dict) else
+                  {n: w.to(cuda_device) for n, w in v.items()})
+              for k, v in init_encoder_params(cfg, torch.Generator().manual_seed(0)).items()}
+    mesh = get_mesh({"sp": 2, "tp": 2}, devices=[cuda_device] * 4)
+    ids, mask = _mesh_inputs(cuda_device, 2, 512, 3)
+    with torch.inference_mode():
+        before = flash_attention_stats.launches
+        emb, _ = make_sp_encoder(cfg, mesh, tp_axis="tp")(params, ids, mask)
+        torch.cuda.synchronize()
+        assert flash_attention_stats.launches - before == cfg.n_layers * 2 * 2
+        ref, _ = encode_tokens(params, ids, mask, cfg)
+    np.testing.assert_allclose(emb.cpu().numpy(), ref.cpu().numpy(), atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_keeps_a_callers_tf32_and_matches_one_device(cuda_device):
+    """A dp 2 × tp 2 step on the card, f32 with TF32 off: the loss is the
+    one-device step's within 2e-4; a search, a forward and a k-means fit
+    leave a caller's allow_tf32 = True as it was."""
+    from youtu_rag_tpu_torch.models import train as tr
+    from youtu_rag_tpu_torch.models.encoder import EncoderConfig, init_encoder_params
+    from youtu_rag_tpu_torch.ops import kmeans_fit
+    from youtu_rag_tpu_torch.parallel.mesh import get_mesh
+
+    cfg = EncoderConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+                        out_dim=64, max_len=64, dtype=torch.float32)
+    tc = tr.TrainConfig(warmup_steps=0, total_steps=10, remat=False)
+    p0 = {k: (v.to(cuda_device) if not isinstance(v, dict) else
+              {n: w.to(cuda_device) for n, w in v.items()})
+          for k, v in init_encoder_params(cfg, torch.Generator().manual_seed(0)).items()}
+    ids, mask = _mesh_inputs(cuda_device, 8, 64, 4)
+    batch = {"q_ids": ids, "q_mask": mask, "d_ids": ids.flip(1), "d_mask": mask}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        placed, state, step = tr.make_sharded_train_step(
+            cfg, tc, get_mesh({"dp": 2, "tp": 2}, devices=[cuda_device] * 4), init_params=p0)
+        _, _, m = step(placed, state, batch)
+        one, _ = tr.info_nce_loss(p0, batch, cfg, tc)
+        np.testing.assert_allclose(float(m["loss"]), float(one), rtol=2e-4)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        idx = DeviceVectorIndex(64, IndexConfig(block_rows=64), device=cuda_device)
+        x = np.random.default_rng(5).standard_normal((256, 64)).astype(np.float32)
+        idx.add([Chunk(f"c{i}", "doc", "", i) for i in range(256)], x)
+        assert idx.search(x[:1], top_k=1)[0][0][0].id == "c0"
+        kmeans_fit(torch.from_numpy(x).to(cuda_device), 4)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -67,7 +67,9 @@ def test_port_has_sources():
                    "models/paraphrase_synth.py", "parallel/expert_parallel.py",
                    "meta/__init__.py", "meta/generators.py", "train_embedder.py",
                    "train_chat_lm.py", "gen_simple_agent.py", "gen_tool.py",
-                   "parallel/mesh.py", "parallel/sharded_index.py", "tracing/profiler.py"):
+                   "parallel/mesh.py", "parallel/sharded_index.py", "tracing/profiler.py",
+                   "ops/precision.py", "parallel/comm.py", "parallel/placement.py",
+                   "parallel/pipeline_parallel.py", "dryrun.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_int4_pruned.cu", "topk_select.cuh",
                 "topk_scorers.cuh", "ivf_topk.cu", "attention.cu", "topk_blocks.cu"):

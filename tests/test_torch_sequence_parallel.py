@@ -2,10 +2,10 @@
 against the JAX package's ``make_sp_encoder`` and the port's unsharded
 ``encode_tokens``, on the CPU.
 
-The cases of ``tests/parallel/test_sequence_parallel.py`` but the two
-tensor-parallel ones, with the ring as an int S (the shards on one
-device); JAX runs on its 8 virtual CPU devices, the flash hop in interpret
-mode. The same parameters go to both packages (numpy through
+The cases of ``tests/parallel/test_sequence_parallel.py``, with the ring
+as an int S (the shards on one device) or, for the tensor-parallel ones, a
+local mesh of 8 CPU slots; JAX runs on its 8 virtual CPU devices, the
+flash hop in interpret mode. The same parameters go to both packages (numpy through
 ``encoder_params_from_numpy``). Tolerances are JAX's own: 2e-5 on the
 embeddings, 2e-4 on the CLS state (f32; sums in another order).
 
@@ -33,6 +33,7 @@ from youtu_rag_tpu.parallel.sequence_parallel import pad_to_multiple as jax_pad
 from youtu_rag_tpu_torch.models.convert import encoder_params_from_numpy
 from youtu_rag_tpu_torch.models.encoder import EncoderConfig, encode_tokens
 from youtu_rag_tpu_torch.parallel import make_sp_encoder, pad_to_multiple
+from youtu_rag_tpu_torch.parallel.mesh import Mesh
 from torch_native_helpers import jax_tracer_restored  # noqa: F401 - a fixture
 
 pytestmark = pytest.mark.usefixtures("jax_tracer_restored")
@@ -178,9 +179,32 @@ def test_sp_single_device_ring(small):
     assert_pair(got, tuple(np.asarray(x) for x in want))
 
 
-def test_tp_axis_raises_not_implemented(small):
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
+@pytest.mark.parametrize("axes,dp_axis,b,t", [({"dp": 2, "sp": 2, "tp": 2}, "dp", 4, 32),
+                                               ({"sp": 2, "tp": 4}, None, 2, 16)])
+def test_tp_axis_matches_jax_and_unsharded(small, axes, dp_axis, b, t):
+    """Megatron TP inside the ring on a local mesh of 8 CPU slots (JAX's
+    ``test_sp_with_tp_megatron`` and ``test_sp_tp_only``): dp 2 × sp 2 ×
+    tp 2 and sp 2 × tp 4 against JAX's mesh of 8 host devices and the
+    unsharded forward."""
+    jcfg, jparams, tcfg, tparams = small
+    ids, mask = _batch(np.random.default_rng(5), b=b, t=t)
+    mesh = Mesh(np.array(["cpu"] * 8, dtype=object).reshape(list(axes.values())), list(axes))
+    fn = make_sp_encoder(tcfg, mesh, dp_axis=dp_axis, tp_axis="tp")
+    emb, cls = fn(tparams, torch.from_numpy(ids), torch.from_numpy(mask))
+    got = (emb.numpy(), cls.numpy())
+    assert_pair(got, unsharded(tcfg, tparams, ids, mask))
+    want = jax_sp(jcfg, get_mesh(axes), dp_axis=dp_axis, tp_axis="tp")(jparams, ids, mask)
+    assert_pair(got, tuple(np.asarray(x) for x in want))
+
+
+def test_tp_axis_needs_a_mesh_and_divisible_heads(small):
+    """An int or process-group ring has no tp axis to name; heads and FFN
+    width must split over tp."""
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         make_sp_encoder(small[2], 4, tp_axis="tp")
+    mesh = Mesh(np.array(["cpu"] * 8, dtype=object).reshape(1, 8), ("sp", "tp"))
+    with pytest.raises(ValueError, match="n_heads 4 does not split over tp = 8"):
+        make_sp_encoder(small[2], mesh, tp_axis="tp")
 
 
 def test_rope_offset_matches_the_unsharded_positions():

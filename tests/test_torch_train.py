@@ -505,12 +505,65 @@ def test_train_embedder_end_to_end(tmp_path):
     assert counts == {s: s for s in range(5, 9)} and len(again["losses"]) == 4
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
-def test_train_embedder_refuses_a_mesh(flags, tmp_path):
+@pytest.mark.parametrize("flags", [["--dp", "2", "--tp", "2"], ["--dp", "2"], ["--tp", "2"]],
+                         ids=["dp2-tp2", "dp2", "tp2"])
+def test_train_embedder_on_a_mesh_equals_one_device(flags, tmp_path, monkeypatch):
+    """``--dp``/``--tp`` train the (dp, tp) step on ``cpu`` slots: after 2
+    steps in f32 (the run's config with its dtype swapped) its losses,
+    checkpoint and npz are the one-device run's, within the sharded steps'
+    tolerances (losses rtol 2e-4, parameters rtol 2e-4 / atol 2e-5), and
+    the npz serves."""
+    import functools
+
+    from youtu_rag_tpu_torch import train_embedder
+    from youtu_rag_tpu_torch.models.embedder import TorchEmbedder
+
+    monkeypatch.setattr(port_encoder, "EncoderConfig",
+                        functools.partial(port_encoder.EncoderConfig, dtype=torch.float32))
+    run = ARGS + ["--steps", "2", "--ckpt-every", "2"]
+    one = train_embedder.main(run + ["--out", str(tmp_path / "one")])
+    mesh = train_embedder.main(run + flags + ["--out", str(tmp_path / "mesh")])
+    np.testing.assert_allclose(mesh["losses"], one["losses"], rtol=2e-4)
+    want = np.load(tmp_path / "one" / "encoder_params.npz")
+    got = np.load(tmp_path / "mesh" / "encoder_params.npz")
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5, err_msg=k)
+    ckpt_one = TrainCheckpointer(tmp_path / "one" / "ckpt").restore(2)
+    ckpt_mesh = TrainCheckpointer(tmp_path / "mesh" / "ckpt").restore(2)
+    assert paths(ckpt_mesh[0]) == paths(ckpt_one[0])
+    assert int(ckpt_mesh[1]["count"]) == int(ckpt_one[1]["count"]) == 2
+    for name in paths(ckpt_one[1]["nu"]):
+        np.testing.assert_allclose(get(ckpt_mesh[1]["nu"], name), get(ckpt_one[1]["nu"], name),
+                                   rtol=2e-4, atol=1e-10, err_msg=name)
+    vec = TorchEmbedder.from_weights_dir(tmp_path / "mesh", device="cpu").embed_batch(["KL-4407"])
+    assert vec.shape == (1, 128) and np.isclose(np.linalg.norm(vec), 1.0, atol=1e-5)
+
+
+def test_train_embedder_on_a_mesh_resumes(tmp_path):
+    """A sharded run resumes from its (full-tree) checkpoint: the count
+    carries on and the optimizer state is placed again."""
     from youtu_rag_tpu_torch import train_embedder
 
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        train_embedder.main(ARGS + flags + ["--out", str(tmp_path)])
+    out = tmp_path / "ft"
+    train_embedder.main(ARGS + ["--steps", "2", "--ckpt-every", "2", "--dp", "2", "--tp", "2",
+                                "--out", str(out)])
+    counts = {}
+    again = train_embedder.main(
+        ARGS + ["--steps", "4", "--resume", "--dp", "2", "--tp", "2", "--out", str(out)],
+        on_step=lambda s, p, o, m: counts.setdefault(s, int(o["count"])))
+    assert counts == {3: 3, 4: 4} and np.isfinite(again["losses"]).all()
+
+
+def test_train_embedder_mesh_without_a_device_needs_cuda(tmp_path):
+    from youtu_rag_tpu_torch import train_embedder
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    args = [a for a in ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_embedder.main(args + ["--dp", "2", "--tp", "2", "--steps", "2",
+                                    "--out", str(tmp_path)])
 
 
 def test_train_embedder_data_helpers_match_jax(tmp_path):

@@ -56,6 +56,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.types import Chunk
 from ..ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
+from ..ops.precision import f32_matmul
 from ..ops.topk import (
     NEG_INF,
     topk_int4_pruned,
@@ -787,9 +788,8 @@ def _residual_rerank(queries: torch.Tensor, cand: torch.Tensor, bias: torch.Tens
     pass; padding candidates (approx <= NEG_INF/2) stay NEG_INF, so they
     cannot duplicate real rows. Ties go to the lower candidate slot."""
     q_n, k2 = rows.shape
-    if queries.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    s = torch.einsum("qd,qkd->qk", queries.float(), cand.reshape(q_n, k2, -1))
+    with f32_matmul():
+        s = torch.einsum("qd,qkd->qk", queries.float(), cand.reshape(q_n, k2, -1))
     s = s + bias[rows.long()]
     s = torch.where(approx_scores > NEG_INF / 2, s, torch.full_like(s, NEG_INF))
     top_s, top_i = torch.sort(s, dim=1, descending=True, stable=True)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.kmeans import kmeans_assign, kmeans_fit
+from ..ops.precision import f32_matmul
 from ..utils.log import get_logger
 
 logger = get_logger("index.ivf")
@@ -135,9 +136,8 @@ def probe_blocks(
     Returns (block_ids int32 [max_blocks], n_valid int32 0-d), both on the
     queries' device: the selected blocks in ascending id, then the others."""
     dev = queries.device
-    if queries.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    sims = queries.float() @ centroids.float().T  # [q, C]
+    with f32_matmul():
+        sims = queries.float() @ centroids.float().T  # [q, C]
     # a stable descending sort: torch.topk promises no tie order, and
     # jax.lax.top_k puts the lower cluster first
     top_sims, top_c = torch.sort(sims, dim=1, descending=True, stable=True)

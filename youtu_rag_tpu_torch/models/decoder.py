@@ -52,7 +52,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from .encoder import DTYPES, layer_views
+from ..parallel.comm import GroupAxis, LocalAxis
+from .encoder import DTYPES, _checkpointed, _vocab_parallel_lookup, layer_views, tp_layer_views
 
 NEG_INF = -1e9
 
@@ -622,57 +623,84 @@ def cache_sharding_spec(cfg: DecoderConfig | None = None) -> dict:
     return spec
 
 
+def tp_part(name: str, t: torch.Tensor, rank: int, tp: int, dim: int,
+            cfg: DecoderConfig) -> torch.Tensor:
+    """Tensor-parallel rank ``rank``'s part of parameter ``name``, split on
+    ``dim``: ``wqkv`` / ``bqkv`` take their share of each of the q, k and v
+    column groups."""
+    if name in ("wqkv", "bqkv"):
+        d, kv = cfg.d_model, cfg.kv_dim
+        parts = [t[..., :d], t[..., d : d + kv], t[..., d + kv :]]
+        return torch.cat([p.chunk(tp, dim=-1)[rank] for p in parts], dim=-1).contiguous()
+    return t.chunk(tp, dim=dim)[rank].contiguous()
+
+
+def tp_join(name: str, parts: list[torch.Tensor], dim: int, cfg: DecoderConfig) -> torch.Tensor:
+    """The full parameter from its ``tp_part`` parts (in rank order)."""
+    if name in ("wqkv", "bqkv"):
+        n = len(parts)
+        d, kv = cfg.d_model // n, cfg.kv_dim // n
+        groups = [[p[..., :d] for p in parts], [p[..., d : d + kv] for p in parts],
+                  [p[..., d + kv :] for p in parts]]
+        return torch.cat([torch.cat(g, dim=-1) for g in groups], dim=-1)
+    return torch.cat(parts, dim)
+
+
 def _tp_slice(name: str, t: torch.Tensor, rank: int, tp: int, cfg: DecoderConfig,
               spec: dict) -> torch.Tensor:
     """Tensor-parallel rank ``rank``'s part of parameter ``name`` (``spec``:
     the flattened ``decoder_sharding_spec``)."""
     if "tp" not in spec[name]:
         return t
-    axis = spec[name].index("tp")
-    if name in ("wqkv", "bqkv"):  # q, k and v column groups each split
-        d, kv = cfg.d_model, cfg.kv_dim
-        parts = [t[..., :d], t[..., d : d + kv], t[..., d + kv :]]
-        return torch.cat([p.chunk(tp, dim=-1)[rank] for p in parts], dim=-1).contiguous()
-    return t.chunk(tp, dim=axis)[rank].contiguous()
+    return tp_part(name, t, rank, tp, spec[name].index("tp"), cfg)
 
 
-class _LocalComm:
-    """The tp shards of one dp row in this process: an all-reduce sums the
-    parts in rank order on the first shard's device."""
-
-    def __init__(self, devices: list[torch.device]):
-        self.devices = devices
-
-    def all_reduce(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p.to(total.device)
-        return [total if d == total.device else total.to(d) for d in self.devices]
-
-    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """Joined along the last axis, on the first shard's device."""
-        return torch.cat([p.to(self.devices[0]) for p in parts], dim=-1)
+def check_tp(cfg: DecoderConfig, tp: int) -> None:
+    """Heads, kv heads and the FFN width must split over tp."""
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff)):
+        if n % tp:
+            raise ValueError(f"{what} {n} does not split over tp = {tp}")
 
 
-class _GroupComm:
-    """One tp shard per rank of a process group."""
+def tp_causal_logits(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
+                     cfg: DecoderConfig, axis, remat: bool = False) -> torch.Tensor:
+    """``causal_logits`` with Megatron tensor parallelism over ``axis`` (a
+    ``parallel.comm`` axis), differentiable: ``params`` is one replica's
+    placed tree (``parallel.placement``; the leaves ``decoder_sharding_spec``
+    splits are lists of this process's shards). Per layer the normed
+    activations are copied into the shards, each attends with its heads
+    and runs its MLP columns, the row-split outputs reduce before the
+    output biases; the head's vocabulary columns gather at the end.
+    [B, T, vocab] f32 logits on the axis' first device, replicated."""
+    tp = axis.size
+    check_tp(cfg, tp)
+    heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+    pos_ids = position_ids_from_mask(mask)
+    x = _vocab_parallel_lookup(params["tok_emb"], tokens.long(), axis, lambda e: e.to(cfg.dtype))
+    x = _pos_embed(x, params, pos_ids, cfg)
+    biases = [_causal_bias(mask).to(d) for d in axis.devices]
+    rope = _rope_tables(pos_ids, cfg)
+    ropes = [None if rope is None else tuple(r.to(d) for r in rope) for d in axis.devices]
 
-    def __init__(self, group, devices: list[torch.device]):
-        self.group = group
-        self.devices = devices
-        self.size = torch.distributed.get_world_size(group)
+    def layer(x, lp, lps):
+        parts = [_attn_out(hj, lpj, *_qkv(hj, lpj, rj, cfg, heads), bj, cfg)
+                 for hj, lpj, rj, bj in zip(axis.copy(_norm(x, lp, "ln1", cfg)), lps, ropes,
+                                            biases)]
+        x = _residual(x, axis.reduce(parts), lp, "bo")
+        parts = [_mlp_out(hj, lpj, cfg) for hj, lpj in zip(axis.copy(_norm(x, lp, "ln2", cfg)),
+                                                            lps)]
+        return _residual(x, axis.reduce(parts), lp, "b2")
 
-    def all_reduce(self, parts: list[torch.Tensor]) -> list[torch.Tensor]:
-        (p,) = parts
-        p = p.contiguous()
-        torch.distributed.all_reduce(p, group=self.group)
-        return [p]
-
-    def all_gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        (p,) = parts
-        out = [torch.empty_like(p) for _ in range(self.size)]
-        torch.distributed.all_gather(out, p.contiguous(), group=self.group)
-        return torch.cat(out, dim=-1)
+    step = _checkpointed(layer, remat)
+    for lp, lps in tp_layer_views(params["layers"], cfg.n_layers):
+        x = step(x, lp, lps)
+    x = _norm(x, params, "final_ln", cfg)
+    head = params["tok_emb"] if cfg.tie_embeddings else params["lm_head"]
+    if not isinstance(head, list):
+        return _f32_matmul(x, head.t() if cfg.tie_embeddings else head)
+    return axis.gather([_f32_matmul(xj, w.t() if cfg.tie_embeddings else w)
+                        for xj, w in zip(axis.copy(x), head)], -1)
 
 
 @dataclass
@@ -710,10 +738,9 @@ def shard_decoder(params: dict, cfg: DecoderConfig, mesh) -> TPDecoder:
     own slot's. The heads, kv heads, FFN width and vocabulary must divide by
     tp."""
     dp, tp = mesh.shape.get("dp", 1), mesh.shape["tp"]
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
-        if n % tp:
-            raise ValueError(f"{what} {n} does not split over tp = {tp}")
+    check_tp(cfg, tp)
+    if cfg.vocab_size % tp:
+        raise ValueError(f"vocab_size {cfg.vocab_size} does not split over tp = {tp}")
     axes = ("dp", "tp") if "dp" in mesh.shape else ("tp",)
     devs, procs = mesh.layout(axes)
     devs, procs = devs[0].reshape(dp, tp), procs[0].reshape(dp, tp)
@@ -732,9 +759,9 @@ def shard_decoder(params: dict, cfg: DecoderConfig, mesh) -> TPDecoder:
         if mesh.distributed:
             if len(ranks) != 1:
                 raise ValueError("a group mesh holds one (dp, tp) slot per process")
-            comms.append(_GroupComm(mesh.group(("tp",)), row_devs))
+            comms.append(GroupAxis(mesh.group(("tp",)), row_devs[0]))
         else:
-            comms.append(_LocalComm(row_devs))
+            comms.append(LocalAxis(row_devs))
     dp_group = mesh.group(("dp",)) if mesh.distributed and "dp" in mesh.shape else None
     return TPDecoder(cfg, dp, tp, rows, tp_ranks, shards, devices, comms, dp_group)
 
@@ -775,7 +802,7 @@ def _tp_row_forward(tpd: TPDecoder, r: int, tokens: torch.Tensor, mask_or_bias,
         mlp = comm.all_reduce([_mlp_out(_norm(x, lp, "ln2", cfg), lp, cfg)
                                for x, lp in zip(xs, lps)])
         xs = [_residual(x, m, lp, "b2") for x, m, lp in zip(xs, mlp, lps)]
-    return comm.all_gather([_logits(p, x[:, -1:, :], cfg)[:, 0] for x, p in zip(xs, shards)])
+    return comm.gather([_logits(p, x[:, -1:, :], cfg)[:, 0] for x, p in zip(xs, shards)])
 
 
 def _tp_rows(tpd: TPDecoder, fn, batch: int) -> torch.Tensor:

@@ -35,12 +35,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.attention import (
     blockwise_attention,
     blockwise_attention_reference,
     flash_attention,
 )
+from ..ops.precision import f32_matmul
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 ATTENTION_IMPLS = ("xla", "pallas", "flash", "pallas_interpret")
@@ -249,9 +251,11 @@ def _rope(x: torch.Tensor, base: float, pos_offset=0) -> torch.Tensor:
 
 
 def _ffn(h: torch.Tensor, lp: dict, dt: torch.dtype, approximate: bool = True) -> torch.Tensor:
+    """The FFN up to ``b2``, which the layer adds (after the reduce of a
+    tensor-parallel shard's partial sums)."""
     h = torch.matmul(h, lp["w1"].to(dt)) + lp["b1"].to(dt)
     h = F.gelu(h, approximate="tanh" if approximate else "none")
-    return torch.matmul(h, lp["w2"].to(dt)) + lp["b2"].to(dt)
+    return torch.matmul(h, lp["w2"].to(dt))
 
 
 def masked_pool_sums(x: torch.Tensor, mask: torch.Tensor):
@@ -324,18 +328,21 @@ def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: tor
         if impl == "flash" or (impl == "pallas" and t > 4096):
             return flash_attention(q, k, v, bias2d)
         return blockwise_attention(q, k, v, bias2d)
-    if q.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     mask_bias = (1.0 - mask[:, None, None, :].float()) * -1e9
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))  # f32 sums of exact products
-    scores = scores / np.sqrt(hd) + mask_bias
-    attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(attn, v)
+    with f32_matmul():
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))  # f32 sums of exact products
+        scores = scores / np.sqrt(hd) + mask_bias
+        attn = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.matmul(attn, v)
 
 
 def _attention(x: torch.Tensor, mask: torch.Tensor, lp: dict, cfg: EncoderConfig) -> torch.Tensor:
-    b, t, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    """RoPE attention through the output projection. The heads are the
+    ones ``wq`` holds (all of them, or a tensor-parallel shard's, whose
+    ``wo`` rows then give a partial sum)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = lp["wq"].shape[-1] // hd
 
     def proj(w):
         return torch.matmul(x, w.to(x.dtype)).view(b, t, h, hd).transpose(1, 2)  # [B, H, T, hd]
@@ -344,18 +351,20 @@ def _attention(x: torch.Tensor, mask: torch.Tensor, lp: dict, cfg: EncoderConfig
     k = _rope(proj(lp["wk"]), cfg.rope_base)
     v = proj(lp["wv"])
     y = _attention_core(q, k, v, mask, cfg)
-    y = y.transpose(1, 2).reshape(b, t, d)
+    y = y.transpose(1, 2).reshape(b, t, h * hd)
     return torch.matmul(y, lp["wo"].to(x.dtype))
 
 
 def _bert_attention(x: torch.Tensor, mask: torch.Tensor, lp: dict,
                     cfg: EncoderConfig) -> torch.Tensor:
-    """BERT-family attention: biased q/k/v/o projections, no RoPE. q, k and v
-    reach ``_attention_core`` as [B, T, H, hd] views transposed to
+    """BERT-family attention: biased q/k/v projections, no RoPE, the output
+    projection up to ``bo`` (the layer adds it, as ``_ffn``'s ``b2``). q, k
+    and v reach ``_attention_core`` as [B, T, H, hd] views transposed to
     [B, H, T, hd] (strides T·D, hd, D, 1), which the kernels take as they
-    are."""
-    b, t, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    are. The heads are ``wq``'s (``_attention``)."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = lp["wq"].shape[-1] // hd
 
     def proj(w, bias):
         y = torch.matmul(x, w.to(x.dtype)) + bias.to(x.dtype)
@@ -365,34 +374,30 @@ def _bert_attention(x: torch.Tensor, mask: torch.Tensor, lp: dict,
     k = proj(lp["wk"], lp["bk"])
     v = proj(lp["wv"], lp["bv"])
     y = _attention_core(q, k, v, mask, cfg)
-    y = y.transpose(1, 2).reshape(b, t, d)
-    return torch.matmul(y, lp["wo"].to(x.dtype)) + lp["bo"].to(x.dtype)
+    return torch.matmul(y.transpose(1, 2).reshape(b, t, h * hd), lp["wo"].to(x.dtype))
 
 
-def _bert_encode(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
-                 cfg: EncoderConfig, type_ids: torch.Tensor | None = None):
-    """BERT-family forward (post-LN residuals, learned positions), the math of
-    ``transformers.BertModel``."""
-    dt = cfg.dtype
-    t = token_ids.shape[1]
+def _bert_embed(params: dict, tok32: torch.Tensor, cfg: EncoderConfig,
+                type_ids: torch.Tensor | None) -> torch.Tensor:
+    """The embedding LayerNorm of the f32 token embeddings ``tok32`` [B, T,
+    D] plus the learned positions and token types, cast to ``cfg.dtype``."""
+    t = tok32.shape[1]
     if t > params["pos_emb"].shape[0]:
         raise ValueError(
             f"sequence length {t} exceeds the checkpoint's learned position "
             f"table ({params['pos_emb'].shape[0]}); BERT-family models cannot "
             "extrapolate positions — truncate or chunk the input"
         )
-    x32 = params["tok_emb"][token_ids].float() + params["pos_emb"][:t][None].float()
+    x32 = tok32 + params["pos_emb"][:t][None].float()
     if type_ids is None:
         x32 = x32 + params["type_emb"][0][None, None].float()
     else:
         x32 = x32 + params["type_emb"][type_ids.long()].float()
-    eps = cfg.ln_eps
-    x = _layer_norm(x32, params["emb_ln_scale"], params["emb_ln_bias"], eps).to(dt)
-    for lp in layer_views(params["layers"], cfg.n_layers):
-        x = _layer_norm(x + _bert_attention(x, mask, lp, cfg), lp["ln1_scale"], lp["ln1_bias"],
-                        eps)
-        x = _layer_norm(x + _ffn(x, lp, dt, approximate=cfg.gelu_approximate), lp["ln2_scale"],
-                        lp["ln2_bias"], eps)
+    return _layer_norm(x32, params["emb_ln_scale"], params["emb_ln_bias"], cfg.ln_eps).to(cfg.dtype)
+
+
+def _bert_epilogue(params: dict, x: torch.Tensor, mask: torch.Tensor, cfg: EncoderConfig):
+    """cls or mean pooling, the optional ``out_proj``, L2; and the CLS state."""
     if cfg.pooling == "cls":
         pooled = x[:, 0, :].float()
     else:
@@ -403,31 +408,11 @@ def _bert_encode(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
     return _l2_normalize(pooled), x[:, 0, :].float()
 
 
-def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
-                  cfg: EncoderConfig,
-                  type_ids: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward pass.
-
-    token_ids [B, T] integer, mask [B, T] float (1 = real token), type_ids
-    [B, T] integer segment ids (bert only; None: all 0), on the parameters'
-    device. Returns (embeddings [B, embed_dim] f32 L2-normalized, cls_state
-    [B, d_model] f32). Differentiable with ``attention_impl="xla"`` (the
-    trainers' setting); the attention kernels refuse a differentiable call.
-    The serving callers (``TorchEmbedder.embed_batch``, ``rerank_scores``,
-    the sequence-parallel forward) run it under ``torch.inference_mode``."""
-    _check_arch(cfg)
-    token_ids = token_ids.long()
-    if cfg.arch == "bert":
-        return _bert_encode(params, token_ids, mask, cfg, type_ids)
-    dt = cfg.dtype
-    x = params["tok_emb"][token_ids].to(dt)  # [B, T, D]
-    for lp in layer_views(params["layers"], cfg.n_layers):
-        h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-        x = x + _attention(h, mask, lp, cfg)
-        h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-        x = x + _ffn(h, lp, dt)
+def _preln_epilogue(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
+                    cfg: EncoderConfig, x: torch.Tensor):
+    """The final LayerNorm, the pooling and its lexical epilogue; and the
+    CLS state."""
     x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
-
     sums = masked_pool_sums(x, mask)
     if cfg.lex_pool and cfg.lex_buckets:
         emb = _lex_bucket_concat(params, token_ids, mask, cfg, *sums)
@@ -436,6 +421,187 @@ def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
     else:
         emb = pool_project(params, *sums)
     return emb, x[:, 0, :].float()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a ("dp", "tp") mesh
+# ---------------------------------------------------------------------------
+
+
+def param_sharding_spec(cfg: EncoderConfig) -> dict:
+    """JAX's Megatron placement for a ('dp', 'tp') mesh, one tuple per tensor
+    naming the mesh axis each dimension splits over (``decoder_sharding_spec``'s
+    idiom): wq/wk/wv and w1 (and their biases) split by columns, wo and w2 by
+    rows; the vocabulary of ``tok_emb`` by rows; ``out_proj`` and ``lex_proj``
+    by columns; everything else replicated."""
+    col, row, colb, rep2 = (None, None, "tp"), (None, "tp", None), (None, "tp"), (None, None)
+    if cfg.arch == "bert":
+        return {
+            "tok_emb": ("tp", None),
+            "pos_emb": rep2,
+            "type_emb": rep2,
+            "emb_ln_scale": (None,),
+            "emb_ln_bias": (None,),
+            "layers": {
+                "wq": col, "bq": colb, "wk": col, "bk": colb, "wv": col, "bv": colb,
+                "wo": row, "bo": rep2, "ln1_scale": rep2, "ln1_bias": rep2,
+                "w1": col, "b1": colb, "w2": row, "b2": rep2,
+                "ln2_scale": rep2, "ln2_bias": rep2,
+            },
+            "score_head": rep2,
+        }
+    lex = {}
+    if cfg.lex_pool:
+        lex = {"tok_weight": (None,), "lex_mix": ()}
+        if not cfg.lex_buckets:
+            lex["lex_proj"] = (None, "tp")
+    return {
+        "tok_emb": ("tp", None),
+        **lex,
+        "layers": {
+            "ln1_scale": rep2, "ln1_bias": rep2, "wq": col, "wk": col, "wv": col, "wo": row,
+            "ln2_scale": rep2, "ln2_bias": rep2, "w1": col, "b1": colb, "w2": row, "b2": rep2,
+        },
+        "final_ln_scale": (None,),
+        "final_ln_bias": (None,),
+        "out_proj": (None, "tp"),
+        "score_head": rep2,
+    }
+
+
+def check_tp_split(cfg: EncoderConfig, n: int, axis: str = "tp") -> None:
+    """Heads and the FFN width must split over the ``n`` shards of a
+    tensor-parallel ``axis``."""
+    for what, v in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
+        if v % n:
+            raise ValueError(f"{what} {v} does not split over {axis} = {n}")
+
+
+# the epilogue's tp-split leaves and the dimension each splits on
+_EPILOGUE_SPLIT = {"tok_emb": 0, "out_proj": 1, "lex_proj": 1}
+
+
+def _vocab_parallel_lookup(tok, ids: torch.Tensor, axis, cast) -> torch.Tensor:
+    """``cast(tok[ids])`` for a table whose rows (the vocabulary) split over
+    ``axis``: each shard looks up the ids in its range, zeros elsewhere, and
+    the parts reduce (one of them is nonzero, so the sum is exact). A
+    replicated table is one lookup."""
+    if not isinstance(tok, list):
+        return cast(tok[ids])
+    vt = tok[0].shape[0]
+    parts = []
+    for w, j, d in zip(tok, axis.ranks, axis.devices):
+        local = ids.to(d) - j * vt
+        e = cast(w[local.clamp(0, vt - 1)])
+        inside = ((local >= 0) & (local < vt))[..., None]
+        parts.append(torch.where(inside, e, torch.zeros_like(e)))
+    return axis.reduce(parts)
+
+
+def one_shard(device) -> object:
+    """The axis of one shard on ``device`` (a ``parallel.comm.LocalAxis``):
+    the forward with nothing split is the sharded one over it."""
+    from ..parallel.comm import LocalAxis  # the parallel package imports this module
+
+    return LocalAxis([device])
+
+
+def tp_layer_views(layers: dict, n_layers: int) -> list[tuple[dict, list[dict]]]:
+    """Per layer: (the replicated leaves' views, one dict of split leaves'
+    views per local shard) of a placed ``layers`` tree, whose split leaves
+    are lists of this process's shards (``parallel.placement``). A tree
+    with nothing split is one shard holding every leaf."""
+    rep = layer_views({k: v for k, v in layers.items() if not isinstance(v, list)}, n_layers)
+    split = {k: v for k, v in layers.items() if isinstance(v, list)}
+    if not split:
+        return [(lp, [lp]) for lp in rep]
+    n_local = len(next(iter(split.values())))
+    shards = [layer_views({k: v[j] for k, v in split.items()}, n_layers) for j in range(n_local)]
+    return [(rep[i], [s[i] for s in shards]) for i in range(n_layers)]
+
+
+def _checkpointed(fn, remat: bool):
+    if remat and torch.is_grad_enabled():
+        return lambda *a: torch.utils.checkpoint.checkpoint(fn, *a, use_reentrant=False)
+    return fn
+
+
+def _preln_layer(x: torch.Tensor, mask: torch.Tensor, lp: dict, cfg: EncoderConfig,
+                 axis=None, lps: list[dict] | None = None) -> torch.Tensor:
+    """One pre-LN layer (the repo's trunk). Over a tensor-parallel ``axis``
+    (a ``parallel.comm`` axis) the LayerNorm output is copied into the
+    shards ``lps``, each runs its heads and FFN columns, and the row-split
+    outputs reduce before ``b2``; without one it is a single shard, ``lp``."""
+    axis, lps = axis or one_shard(x.device), lps or [lp]
+    masks = axis.copy(mask)
+    h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    x = x + axis.reduce([_attention(hj, mj, lpj, cfg)
+                         for hj, mj, lpj in zip(axis.copy(h), masks, lps)])
+    h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    y = axis.reduce([_ffn(hj, lpj, cfg.dtype) for hj, lpj in zip(axis.copy(h), lps)])
+    return x + (y + lp["b2"].to(cfg.dtype))
+
+
+def _bert_layer(x: torch.Tensor, mask: torch.Tensor, lp: dict, cfg: EncoderConfig,
+                axis=None, lps: list[dict] | None = None) -> torch.Tensor:
+    """One BERT layer (post-LN residuals), split over ``axis`` as
+    ``_preln_layer`` is: the reduces come before ``bo`` and ``b2``."""
+    axis, lps = axis or one_shard(x.device), lps or [lp]
+    dt, eps = cfg.dtype, cfg.ln_eps
+    masks = axis.copy(mask)
+    y = axis.reduce([_bert_attention(xj, mj, lpj, cfg)
+                     for xj, mj, lpj in zip(axis.copy(x), masks, lps)])
+    x = _layer_norm(x + (y + lp["bo"].to(dt)), lp["ln1_scale"], lp["ln1_bias"], eps)
+    y = axis.reduce([_ffn(xj, lpj, dt, approximate=cfg.gelu_approximate)
+                     for xj, lpj in zip(axis.copy(x), lps)])
+    return _layer_norm(x + (y + lp["b2"].to(dt)), lp["ln2_scale"], lp["ln2_bias"], eps)
+
+
+def encode_tokens(params: dict, token_ids: torch.Tensor, mask: torch.Tensor,
+                  cfg: EncoderConfig, type_ids: torch.Tensor | None = None, axis=None,
+                  remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward pass.
+
+    token_ids [B, T] integer, mask [B, T] float (1 = real token), type_ids
+    [B, T] integer segment ids (bert only; None: all 0), on the parameters'
+    device. Returns (embeddings [B, embed_dim] f32 L2-normalized, cls_state
+    [B, d_model] f32). Differentiable with ``attention_impl="xla"`` (the
+    trainers' setting); the attention kernels refuse a differentiable call.
+    The serving callers (``TorchEmbedder.embed_batch``, ``rerank_scores``,
+    the sequence-parallel forward) run it under ``torch.inference_mode``.
+
+    With ``axis`` (a ``parallel.comm`` axis) it is Megatron tensor
+    parallelism: ``params`` is one replica's placed tree, whose leaves
+    ``param_sharding_spec`` splits are lists of this process's shards (all
+    of them on a local axis, its own on a process group) and whose others
+    are tensors on the axis' first device. The embedding is a
+    vocabulary-parallel lookup, the layers split their heads and FFN
+    columns (``_preln_layer``), and the epilogue gathers the split
+    ``out_proj`` / ``lex_proj`` (and, for the lexical pool, ``tok_emb``);
+    the result is replicated on the axis' first device. ``remat``
+    recomputes each layer in the backward."""
+    _check_arch(cfg)
+    ids = token_ids.long()
+    dt = cfg.dtype
+    tok = params["tok_emb"]
+    axis = axis or one_shard((tok[0] if isinstance(tok, list) else tok).device)
+    bert = cfg.arch == "bert"
+    if bert:
+        x = _bert_embed(params, _vocab_parallel_lookup(tok, ids, axis, lambda e: e.float()), cfg,
+                        type_ids)
+    else:
+        x = _vocab_parallel_lookup(tok, ids, axis, lambda e: e.to(dt))
+    body = _bert_layer if bert else _preln_layer
+    layer = _checkpointed(lambda x, lp, lps: body(x, mask, lp, cfg, axis, lps), remat)
+    for lp, lps in tp_layer_views(params["layers"], cfg.n_layers):
+        x = layer(x, lp, lps)
+    epi = {k: v for k, v in params.items() if k != "layers" and not isinstance(v, list)}
+    for k, dim in _EPILOGUE_SPLIT.items():
+        if isinstance(params.get(k), list) and (k != "tok_emb" or cfg.lex_pool):
+            epi[k] = axis.gather(params[k], dim)
+    if bert:
+        return _bert_epilogue(epi, x, mask, cfg)
+    return _preln_epilogue(epi, ids, mask, cfg, x)
 
 
 @torch.inference_mode()

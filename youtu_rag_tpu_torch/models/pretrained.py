@@ -116,9 +116,9 @@ def _strip_prefix(raw: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def convert_bert_params(raw: dict[str, np.ndarray]) -> dict:
     """HF BertModel state dict → the stacked parameter tree (numpy f32) that
-    ``encoder._bert_encode`` reads: per-layer weights stacked on axis 0,
-    Linear weights transposed to [in, out]; the pooler and a 1- or 2-label
-    classifier head when present."""
+    ``encoder.encode_tokens`` reads for ``arch="bert"``: per-layer weights
+    stacked on axis 0, Linear weights transposed to [in, out]; the pooler
+    and a 1- or 2-label classifier head when present."""
     raw = _strip_prefix(raw)
 
     def take(key: str) -> np.ndarray:

@@ -26,9 +26,17 @@ JAX refuses to differentiate a Pallas call, so training configs keep
 forward in the backward (``torch.utils.checkpoint``, JAX's
 ``jax.checkpoint`` around ``encode_tokens``).
 
-The sharded steps over a (dp, tp) or (dp, ep) mesh
-(``make_sharded_train_step``, ``make_sharded_moe_train_step``) are not
-ported yet (ROADMAP Queue A 8).
+The sharded steps (``make_sharded_train_step`` over a ("dp", "tp") mesh,
+``make_sharded_moe_train_step`` over ("dp", "ep")) compute what JAX's GSPMD
+steps compute: the single-device step's loss and update on the global
+batch. The parameters and the moments are placed on the mesh
+(``parallel.placement``; Megatron's split of ``param_sharding_spec``, the
+experts over ep); each replica runs its rows of the batch
+(``encode_tokens`` and ``expert_parallel.ep_forward`` over its axis), the InfoNCE logits
+take every dp row's embeddings (all-gathered with a gradient: the
+negatives are the global batch), the Switch loss takes its token shares
+and mean probabilities over every row, each gradient is summed over the dp
+rows and the clip reads the global norm of the whole tree.
 """
 
 from __future__ import annotations
@@ -41,7 +49,21 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from .encoder import EncoderConfig, encode_tokens
+from ..parallel.expert_parallel import (
+    _check_ep,
+    ep_forward,
+    init_moe_params,
+    moe_sharding_spec,
+    switch_aux,
+)
+from ..parallel.placement import Placement, resolve_spec
+from .encoder import (
+    EncoderConfig,
+    check_tp_split,
+    encode_tokens,
+    init_encoder_params,
+    param_sharding_spec,
+)
 
 
 @dataclass(frozen=True)
@@ -79,12 +101,15 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
-def leaves(tree: dict) -> list[torch.Tensor]:
+def leaves(tree) -> list[torch.Tensor]:
     """A parameter tree's tensors in its key order (the order of
-    ``value_and_grad``'s gradients)."""
+    ``value_and_grad``'s gradients); lists (a placed tree's replicas and
+    shards, ``parallel.placement``) in their order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
     out = []
-    for v in tree.values():
-        out.extend(leaves(v) if isinstance(v, dict) else [v])
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        out.extend(leaves(v))
     return out
 
 
@@ -96,9 +121,12 @@ def leaf_names(tree: dict, prefix: str = "") -> list[str]:
     return out
 
 
-def _zeros_like(tree: dict) -> dict:
-    return {k: _zeros_like(v) if isinstance(v, dict) else torch.zeros_like(v, dtype=torch.float32)
-            for k, v in tree.items()}
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like(v) for v in tree]
+    return torch.zeros_like(tree, dtype=torch.float32)
 
 
 class ChainedAdamW:
@@ -123,12 +151,17 @@ class ChainedAdamW:
                 "nu": _zeros_like(params)}
 
     @torch.no_grad()
-    def update(self, grads: dict | list, state: dict, params: dict):
+    def update(self, grads: dict | list, state: dict, params, norm_sq: torch.Tensor | None = None):
+        """``norm_sq``: the gradients' global squared norm where the leaves
+        are not the whole tree (a placed tree's shards and replicas:
+        ``Placement.grad_norm_sq``); by default the sum over ``grads``."""
         ps = leaves(params)
         gs = leaves(grads) if isinstance(grads, dict) else list(grads)
         mus, nus = leaves(state["mu"]), leaves(state["nu"])
         # clip_by_global_norm: keep g below max_norm, else (g / ||g||) * max_norm
-        g_norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))
+        if norm_sq is None:
+            norm_sq = sum(torch.sum(g.float() ** 2) for g in gs)
+        g_norm = torch.sqrt(norm_sq)
         keep = g_norm < self.max_norm
         gs = [torch.where(keep, g, (g / g_norm) * self.max_norm) for g in gs]
         count = int(state["count"])
@@ -263,3 +296,123 @@ def make_moe_train_step(cfg: EncoderConfig, tc: MoETrainConfig, optimizer: Chain
         return params, opt_state, metrics
 
     return train_step
+
+
+# ------------------------------------------------------------- sharded steps
+
+
+def sharding_spec_for(params: dict, cfg: EncoderConfig, mesh) -> dict:
+    """``param_sharding_spec`` shaped exactly like ``params``: leaves it does
+    not know (a pretrained import's pooler and score bias) and leaves whose
+    split dimension the mesh does not divide (an arbitrary vocabulary over
+    tp) replicate."""
+    return resolve_spec(params, param_sharding_spec(cfg), mesh.shape)
+
+
+def _rows(batch: dict, placement: Placement, replica) -> dict:
+    rows = placement.batch_rows(replica, batch["q_ids"].shape[0])
+    return {k: v[rows].to(replica.device) for k, v in batch.items()}
+
+
+def _sharded_step(placement: Placement, optimizer: ChainedAdamW, loss_fn):
+    """``step(placed, opt_state, batch)``: the global loss (``loss_fn``), its
+    gradients summed over the dp rows, the clip's global norm over the
+    placed tree, and one update of every replica. ``step.grads(placed,
+    batch)`` gives (metrics, the full tree of the gradients the step
+    applies) without the update: Adam's step is blind to a gradient's scale
+    (a first update is ~lr · sign(g)), so checks hold the gradients."""
+    def grads_of(placed, batch):
+        batch = as_batch(batch, placement.replicas[0].device)
+        (_, metrics), grads = value_and_grad(loss_fn, placed, batch)
+        return metrics, placement.sync_grads(grads)
+
+    def step(placed, opt_state, batch):
+        metrics, grads = grads_of(placed, batch)
+        placed, opt_state = optimizer.update(grads, opt_state, placed,
+                                             norm_sq=placement.grad_norm_sq(grads, placed))
+        return placed, opt_state, metrics
+
+    def full_grads(placed, batch):
+        metrics, grads = grads_of(placed, batch)
+        return metrics, placement.gather_flat(placed, grads)
+
+    step.grads = full_grads
+    return step
+
+
+def make_sharded_train_step(cfg: EncoderConfig, tc: TrainConfig, mesh, seed: int = 0,
+                            init_params: dict | None = None):
+    """The InfoNCE step over a ("dp", "tp") ``parallel.mesh`` mesh. Returns
+    (params, opt_state, step_fn): the parameters (``init_params``, the
+    fine-tune path, or seeded from ``seed``) placed per
+    ``sharding_spec_for`` (a ``parallel.placement.Placed``; ``.gather()``
+    gives the full tree), the optimizer state placed alike, and
+    ``step_fn(params, opt_state, batch) -> (params, opt_state, metrics)``
+    over the global batch (every rank passes the whole batch; each dp row
+    takes its slice). Heads and FFN width must divide by tp."""
+    check_tp_split(cfg, mesh.shape.get("tp", 1))
+    optimizer = make_optimizer(tc)
+    if init_params is None:
+        init_params = init_encoder_params(cfg, torch.Generator().manual_seed(seed))
+    placement = Placement(mesh, sharding_spec_for(init_params, cfg, mesh), "tp")
+    params = placement.place(init_params)
+
+    def loss_fn(placed, batch):
+        qs, ds = [], []
+        for r, tree in zip(placement.replicas, placed):
+            sub = _rows(batch, placement, r)
+            b = sub["q_ids"].shape[0]
+            t = max(sub["q_ids"].shape[1], sub["d_ids"].shape[1])
+            emb, _ = encode_tokens(
+                tree, torch.cat([_pad_to(sub["q_ids"], t), _pad_to(sub["d_ids"], t)]),
+                torch.cat([_pad_to(sub["q_mask"], t), _pad_to(sub["d_mask"], t)]), cfg,
+                axis=r.axis, remat=tc.remat)
+            qs.append(emb[:b])
+            ds.append(emb[b:])
+        loss, acc = _contrastive(placement.gather_dp(qs), placement.gather_dp(ds),
+                                 tc.temperature)
+        return loss, {"loss": loss.detach(), "accuracy": acc}
+
+    return params, optimizer.init(params), _sharded_step(placement, optimizer, loss_fn)
+
+
+def make_sharded_moe_train_step(cfg: EncoderConfig, tc: MoETrainConfig, mesh, seed: int = 0,
+                                init_params: dict | None = None, ep_axis: str = "ep"):
+    """The MoE InfoNCE step over a ("dp", ``ep_axis``) mesh: the experts split
+    over ep (``moe_sharding_spec``), routers and the dense trunk
+    replicated, the batch over dp. Returns (params, opt_state, step_fn) as
+    ``make_sharded_train_step`` does; ``n_experts`` must divide by ep."""
+    _check_ep(tc.n_experts, mesh.shape.get(ep_axis, 1))
+    optimizer = make_optimizer(tc)
+    if init_params is None:
+        init_params = init_moe_params(cfg, tc.n_experts, torch.Generator().manual_seed(seed))
+    placement = Placement(mesh, moe_sharding_spec(init_params, mesh, ep_axis), ep_axis)
+    params = placement.place(init_params)
+    n_e = tc.n_experts
+
+    def side(placed, batch, ids_key, mask_key):
+        """One side's embeddings over every dp row and its Switch loss."""
+        embs, counts, prob_sums = [], [], []
+        for r, tree in zip(placement.replicas, placed):
+            sub = _rows(batch, placement, r)
+            fwd = _maybe_remat(lambda p, i, m, ax=r.axis: ep_forward(p, i, m, cfg, n_e, ax, True),
+                               tc.remat)
+            emb, _, c, q = fwd(tree, sub[ids_key], sub[mask_key])
+            embs.append(emb)
+            counts.append(c)
+            prob_sums.append(q)
+        # [L, E] each, over every dp row
+        aux = switch_aux(placement.sum_dp(counts), placement.reduce_dp(prob_sums),
+                         batch[ids_key].numel(), n_e)
+        return placement.gather_dp(embs), aux
+
+    def loss_fn(placed, batch):
+        q_emb, q_aux = side(placed, batch, "q_ids", "q_mask")
+        d_emb, d_aux = side(placed, batch, "d_ids", "d_mask")
+        contrastive, acc = _contrastive(q_emb, d_emb, tc.temperature)
+        aux = 0.5 * (q_aux + d_aux)
+        loss = contrastive + tc.aux_loss_weight * aux
+        return loss, {"loss": loss.detach(), "contrastive_loss": contrastive.detach(),
+                      "aux_loss": aux.detach(), "accuracy": acc}
+
+    return params, optimizer.init(params), _sharded_step(placement, optimizer, loss_fn)

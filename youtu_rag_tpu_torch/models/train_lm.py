@@ -14,8 +14,12 @@ optimizer is elementwise and the clip reads the global norm, so training
 the fused tensor is training JAX's three. ``split_qkv`` gives the JAX
 layout back for the shared ``decoder_params.npz``.
 
-The (dp, tp)-sharded step (``make_sharded_lm_train_step``) is not ported
-yet (ROADMAP Queue A 8).
+``make_sharded_lm_train_step`` is the (dp, tp)-sharded step: the
+parameters Megatron-split as ``decoder_sharding_spec`` says (the decoder's
+own TP slicing, ``tp_part``), the batch over dp. Its loss is the
+single-device one over the global batch: the completion tokens' summed
+cross-entropy and their count each add up over every dp row before the
+divide, so dp rows with different completion counts weigh as one batch.
 """
 
 from __future__ import annotations
@@ -26,8 +30,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .decoder import DecoderConfig, causal_logits
-from .train import ChainedAdamW, as_batch, value_and_grad
+from ..parallel.placement import Placement, resolve_spec
+from .decoder import (
+    DecoderConfig,
+    causal_logits,
+    check_tp,
+    decoder_sharding_spec,
+    tp_causal_logits,
+    tp_join,
+    tp_part,
+)
+from .train import ChainedAdamW, _sharded_step, as_batch, value_and_grad
 from .train import make_optimizer as _make_optimizer
 
 
@@ -51,13 +64,8 @@ def lm_loss(params: dict, batch: dict, cfg: DecoderConfig, tc: LMTrainConfig) ->
     ``smooth_labels`` (``(1 - a) * onehot + a / V``), which is
     ``F.cross_entropy``'s ``label_smoothing=a``."""
     logits = causal_logits(params, batch["tokens"], batch["mask"], cfg, remat=tc.remat)
-    labels = batch["tokens"][:, 1:].long()
-    lmask = batch["loss_mask"][:, 1:].float()
-    lg = logits[:, :-1]
-    ce = F.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1), reduction="none",
-                         label_smoothing=tc.label_smoothing).reshape(labels.shape)
-    denom = torch.clamp_min(lmask.sum(), 1.0)
-    return (ce * lmask).sum() / denom
+    num, den = _masked_ce(logits, batch, tc)
+    return num / torch.clamp_min(den, 1.0)
 
 
 def make_lm_train_step(cfg: DecoderConfig, tc: LMTrainConfig, optimizer: ChainedAdamW):
@@ -74,6 +82,53 @@ def make_lm_train_step(cfg: DecoderConfig, tc: LMTrainConfig, optimizer: Chained
         return params, opt_state, {"loss": loss}
 
     return train_step
+
+
+def _masked_ce(logits: torch.Tensor, batch: dict, tc: LMTrainConfig):
+    """(summed cross-entropy of the completion tokens, their count)."""
+    labels = batch["tokens"][:, 1:].long()
+    lmask = batch["loss_mask"][:, 1:].float()
+    lg = logits[:, :-1]
+    ce = F.cross_entropy(lg.reshape(-1, lg.shape[-1]), labels.reshape(-1), reduction="none",
+                         label_smoothing=tc.label_smoothing).reshape(labels.shape)
+    return (ce * lmask).sum(), lmask.sum()
+
+
+def make_sharded_lm_train_step(cfg: DecoderConfig, tc: LMTrainConfig, optimizer: ChainedAdamW,
+                               mesh, params: dict):
+    """The (dp, tp)-sharded step on a ``parallel.mesh`` mesh. Returns
+    (train_step, place_params, place_batch), as JAX's: ``place_params``
+    places a full tree (a ``parallel.placement.Placed``; ``optimizer.init``
+    of it is the placed state, ``.gather()`` the full tree), ``place_batch``
+    puts a batch on the mesh's first device (every rank passes the whole
+    batch; each dp row takes its slice), ``train_step(params, opt_state,
+    batch) -> (params, opt_state, {"loss"})``. Leaves whose split dimension
+    tp does not divide replicate; heads, kv heads and the FFN width must
+    divide."""
+    check_tp(cfg, mesh.shape.get("tp", 1))
+    spec = resolve_spec(params, decoder_sharding_spec(cfg), mesh.shape)
+    placement = Placement(mesh, spec, "tp",
+                          slicer=lambda name, t, rank, n, dim: tp_part(name, t, rank, n, dim, cfg),
+                          joiner=lambda name, parts, dim: tp_join(name, parts, dim, cfg))
+
+    def place_batch(batch: dict) -> dict:
+        batch = as_batch(batch, placement.replicas[0].device)
+        placement.batch_rows(placement.replicas[0], batch["tokens"].shape[0])  # dp divides
+        return batch
+
+    def loss_fn(placed, batch):
+        nums, dens = [], []
+        for r, tree in zip(placement.replicas, placed):
+            rows = placement.batch_rows(r, batch["tokens"].shape[0])
+            sub = {k: v[rows].to(r.device) for k, v in batch.items()}
+            logits = tp_causal_logits(tree, sub["tokens"], sub["mask"], cfg, r.axis, tc.remat)
+            num, den = _masked_ce(logits, sub, tc)
+            nums.append(num)
+            dens.append(den)
+        loss = placement.reduce_dp(nums) / torch.clamp_min(placement.sum_dp(dens), 1.0)
+        return loss, {"loss": loss.detach()}
+
+    return _sharded_step(placement, optimizer, loss_fn), placement.place, place_batch
 
 
 def split_qkv(params: dict, cfg: DecoderConfig) -> dict:

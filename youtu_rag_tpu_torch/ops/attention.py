@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from . import _build
+from .precision import f32_matmul
 
 CLAMP = -1e30  # the JAX kernels' bias clamp
 FLASH_BLOCK_K = 2048  # JAX flash_attention's default key block
@@ -120,9 +121,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     """``f32(q)·f32(k)ᵀ`` (TF32 off) times the f32 scale, plus the clamped
     bias broadcast over heads and queries: two separate f32 operations,
     as in the JAX kernels."""
-    if q.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    with f32_matmul():
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     bias = torch.clamp_min(bias.float(), CLAMP)
     return s * _scale(q.shape[-1]) + bias[:, None, None, :]
 
@@ -135,7 +135,8 @@ def blockwise_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    with f32_matmul():
+        return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
 def _online_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -156,7 +157,8 @@ def _online_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: tor
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
-        pv = torch.matmul(p.to(v.dtype).float(), v[:, :, k0 : k0 + bk].float())
+        with f32_matmul():
+            pv = torch.matmul(p.to(v.dtype).float(), v[:, :, k0 : k0 + bk].float())
         acc = acc * alpha + pv
         m = m_new
     return acc, m, l

@@ -76,6 +76,7 @@ import functools
 import torch
 
 from . import _build
+from .precision import f32_matmul
 from .topk import (
     NEG_INF,
     _bf16_scores,
@@ -147,11 +148,11 @@ def ivf_topk_dma_reference(queries, database, bias, block_ids, n_valid, k: int, 
     probe order, score them (``topk_pruned_reference``'s arithmetic),
     stable sort."""
     rows = _probed_rows(block_ids, n_valid, block_rows)
-    if database.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     q = queries.to(torch.bfloat16).float()
     x = database[rows].to(torch.bfloat16).float()
-    return _probed_topk(q @ x.T + bias.float()[rows][None, :], rows, k, block_rows)
+    with f32_matmul():
+        scores = q @ x.T
+    return _probed_topk(scores + bias.float()[rows][None, :], rows, k, block_rows)
 
 
 def _scaled_reference(queries, x_int, x_max, db_scales, bias, rows, k, block_rows):

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .precision import f32_matmul
+
 
 def kmeans_init(n: int, n_clusters: int, seed: int) -> np.ndarray:
     """Rows of the initial centroids (host draw, deterministic per seed)."""
@@ -34,10 +36,9 @@ def kmeans_lloyd(x: torch.Tensor, init_centroids: torch.Tensor, iters: int) -> t
     x = x.float()
     cent = init_centroids.float()
     c = cent.shape[0]
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     for _ in range(iters):
-        assign = torch.argmax(x @ cent.T, dim=1)
+        with f32_matmul():
+            assign = torch.argmax(x @ cent.T, dim=1)
         sums = torch.zeros_like(cent).index_add_(0, assign, x)
         counts = torch.bincount(assign, minlength=c).float()[:, None]
         new = torch.where(counts > 0, sums / counts.clamp_min(1.0), cent)
@@ -54,6 +55,5 @@ def kmeans_fit(x: torch.Tensor, n_clusters: int, iters: int = 10, seed: int = 0)
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest centroid by inner product for each row of ``x`` [N, d] (int32)."""
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.argmax(x.float() @ centroids.float().T, dim=1).to(torch.int32)
+    with f32_matmul():
+        return torch.argmax(x.float() @ centroids.float().T, dim=1).to(torch.int32)

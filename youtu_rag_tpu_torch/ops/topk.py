@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .precision import f32_matmul
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -153,11 +154,10 @@ def _bf16_scores(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tens
     """[q, N] f32 ``f32(bf16 q) · f32(bf16 x) + bias``. Casts to bf16 and
     back to f32 before the matmul (a bf16 matmul would round the scores to
     bf16), with TF32 off."""
-    if database.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     q = queries.to(torch.bfloat16).float()
     x = database.to(torch.bfloat16).float()
-    return q @ x.T + bias.float()[None, :]
+    with f32_matmul():
+        return q @ x.T + bias.float()[None, :]
 
 
 def topk_pruned_reference(queries: torch.Tensor, database: torch.Tensor,
@@ -173,9 +173,8 @@ def _exact_dot(qq: torch.Tensor, xq: torch.Tensor, x_max: int) -> torch.Tensor:
     nearest). In f32 with TF32 off while every partial sum stays below 2²⁴
     (then any summation order is exact), else in float64."""
     if qq.shape[1] * 127 * x_max < 2**24:
-        if xq.is_cuda:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        return qq.float() @ xq.float().T
+        with f32_matmul():
+            return qq.float() @ xq.float().T
     return (qq.double() @ xq.double().T).float()
 
 

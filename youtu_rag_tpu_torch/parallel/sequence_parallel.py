@@ -22,6 +22,20 @@ The ring (``sp_mesh``, the JAX mesh's ``sp`` axis) is one of two things:
   the whole [B, T] batch and takes its own shard; dp × sp is the caller's
   (one sp group per dp replica, each given its slice of the batch).
 
+JAX's form takes a mesh and the names of its axes, ``make_sp_encoder(cfg,
+mesh, sp_axis, dp_axis, tp_axis)``; here ``mesh`` may also be a
+``parallel.mesh.Mesh``. With ``tp_axis`` the layers run Megatron tensor
+parallelism inside the ring: wq/wk/wv and w1 (with b1) split by columns,
+so each tp shard rings its own heads, and wo and w2 by rows, their partial
+outputs reduced over tp before b2 (``parallel.comm``). The shards take
+their slices of the full parameters at each call. ``dp_axis`` splits the
+batch. A local Mesh puts every slot on one device (the ring folded into
+the batch, the tp shards one after another, the dp rows as one batch); a
+group Mesh holds one (dp, sp, tp) slot per rank, and every rank returns
+the whole batch's result. The forward is differentiable with plain
+attention (the ring's hop and sums carry their gradients on a process
+group too); the flash hop's kernel refuses a differentiable call.
+
 Copied from JAX exactly: the flash branch (``attention_impl`` "pallas",
 "flash" or "pallas_interpret", Tl >= 256, Tl % 128 == 0, hd % 64 == 0; each
 hop ``flash_attention_stats``, "pallas_interpret" its plain version on any
@@ -31,7 +45,6 @@ rule and the output is ``(acc / max(l, 1e-30)).to(q.dtype)``. The padding
 bias is -1e9. Each shard's RoPE offset is ``shard * Tl``. Parity notes: the
 SP forward pools through ``pool_project`` only, never the lexical pools
 (as JAX's), and its LayerNorms use eps 1e-6 whatever ``cfg.ln_eps`` says.
-Tensor parallelism (JAX's ``tp_axis``) is not ported (ROADMAP Queue A 8).
 """
 
 from __future__ import annotations
@@ -39,17 +52,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..models.encoder import (
     EncoderConfig,
     _check_arch,
-    _ffn,
     _layer_norm,
     _rope,
+    check_tp_split,
+    layer_views,
     masked_pool_sums,
     pool_project,
 )
 from ..ops.attention import CLAMP, flash_attention_stats, flash_attention_stats_reference
+from ..ops.precision import f32_matmul
+from .comm import GroupAxis, LocalAxis
+from .mesh import Mesh
 
 FLASH_IMPLS = ("pallas", "flash", "pallas_interpret")
 PAD_BIAS = -1e9  # the padding keys' bias, riding the ring with K/V
@@ -88,6 +106,20 @@ class _LocalRing:
         return x.reshape(self.size, -1, *x.shape[1:])[0]
 
 
+class _RingShift(torch.autograd.Function):
+    """A process-group ring's hop with its gradient: the forward sends to
+    rank + 1 and receives from rank - 1, the backward the other way."""
+
+    @staticmethod
+    def forward(ctx, ring, *xs):
+        ctx.ring = ring
+        return ring.p2p(xs, ring.next, ring.prev)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + ctx.ring.p2p(grads, ctx.ring.prev, ctx.ring.next)
+
+
 class _GroupRing:
     """One shard per rank of a ``torch.distributed`` process group."""
 
@@ -97,6 +129,7 @@ class _GroupRing:
         self.rank = dist.get_rank(group)
         self.next = dist.get_global_rank(group, (self.rank + 1) % self.size)
         self.prev = dist.get_global_rank(group, (self.rank - 1) % self.size)
+        self._sum = GroupAxis(group, torch.device("cpu"))
 
     def split(self, x: torch.Tensor) -> torch.Tensor:
         tl = x.shape[1] // self.size
@@ -105,22 +138,23 @@ class _GroupRing:
     def offsets(self, b: int, tl: int, device) -> float:
         return float(self.rank * tl)
 
-    def shift(self, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        if self.size == 1:
-            return xs
+    def p2p(self, xs, to: int, frm: int) -> tuple[torch.Tensor, ...]:
         outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in xs]
-        ops = [dist.P2POp(dist.isend, x.contiguous(), self.next, self.group, tag)
+        ops = [dist.P2POp(dist.isend, x.contiguous(), to, self.group, tag)
                for tag, x in enumerate(xs)]
-        ops += [dist.P2POp(dist.irecv, out, self.prev, self.group, tag)
+        ops += [dist.P2POp(dist.irecv, out, frm, self.group, tag)
                 for tag, out in enumerate(outs)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return tuple(outs)
 
+    def shift(self, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        if self.size == 1:
+            return xs
+        return _RingShift.apply(self, *xs)
+
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.clone()
-        dist.all_reduce(x, group=self.group)
-        return x
+        return self._sum.reduce([x])
 
     def first(self, x: torch.Tensor) -> torch.Tensor:
         return self.psum(x if self.rank == 0 else torch.zeros_like(x))
@@ -150,8 +184,6 @@ def _ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: tor
         # -1e30, not -inf: the combine computes exp(m - m_new), NaN at -inf - -inf
         m = torch.full(rows, CLAMP, dtype=torch.float32, device=q.device)
     else:
-        if q.is_cuda:
-            torch.backends.cuda.matmul.allow_tf32 = False
         qf = q.float()
         m = torch.full(rows, float("-inf"), dtype=torch.float32, device=q.device)
     for j in range(ring.size):
@@ -165,36 +197,78 @@ def _ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: tor
             l = l * a_old + l_h * a_hop
             acc = acc * a_old[..., None] + acc_h * a_hop[..., None]
         else:
-            s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale
-            s = s + bias[:, None, None, :]
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.matmul(p, v.float())
+            with f32_matmul():
+                s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale
+                s = s + bias[:, None, None, :]
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.matmul(p, v.float())
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
-def make_sp_encoder(cfg: EncoderConfig, sp_mesh, tp_axis: str | None = None):
-    """The sequence-sharded forward over the ring ``sp_mesh`` (module
-    docstring). Returns ``fn(params, token_ids, mask) -> (emb [B, out_dim]
-    f32, cls [B, d_model] f32)``, ``encode_tokens``' contract: token_ids
-    and mask [B, T] tensors on the parameters' device, T a multiple of S
-    (``pad_to_multiple``; padding has mask 0)."""
+def _mesh_axes(cfg: EncoderConfig, mesh: Mesh, sp_axis: str, dp_axis, tp_axis):
+    """(ring, tp axis, dp size, dp group, this rank's dp row) of a Mesh."""
+    names = tuple(a for a in (dp_axis, sp_axis, tp_axis) if a is not None)
+    devs, procs = mesh.layout(names)
+    if devs.shape[0] != 1:
+        raise ValueError(f"mesh {mesh.shape}: axes other than {names} must have size 1")
+    sizes = [mesh.shape[a] for a in names]
+    tp = mesh.shape[tp_axis] if tp_axis else 1
+    dp = mesh.shape[dp_axis] if dp_axis else 1
+    check_tp_split(cfg, tp)
+    if not mesh.distributed:
+        devices = {torch.device(d) for d in devs.reshape(-1)}
+        if len(devices) != 1:
+            raise ValueError("a local SP mesh holds every slot on one device; across devices "
+                             "take a process group (one slot per rank)")
+        (dev,) = devices
+        return _LocalRing(mesh.shape[sp_axis]), LocalAxis([dev] * tp), dp, None, 0
+    grid, owners = devs[0].reshape(sizes), procs[0].reshape(sizes)
+    slots = list(zip(*np.nonzero(owners == dist.get_rank())))
+    if len(slots) != 1:
+        raise ValueError("a group SP mesh holds one (dp, sp, tp) slot per process")
+    coords = dict(zip(names, slots[0]))
+    dev = torch.device(grid[slots[0]])
+    tp_ax = GroupAxis(mesh.group((tp_axis,)), dev) if tp_axis else LocalAxis([dev])
+    dp_group = mesh.group((dp_axis,)) if dp_axis else None
+    return (_GroupRing(mesh.group((sp_axis,))), tp_ax, dp, dp_group,
+            int(coords[dp_axis]) if dp_axis else 0)
+
+
+def make_sp_encoder(cfg: EncoderConfig, mesh, sp_axis: str = "sp", dp_axis: str | None = None,
+                    tp_axis: str | None = None):
+    """The sequence-sharded forward (module docstring). ``mesh`` is an int S
+    (the ring's shards on one device), a ``torch.distributed`` process group
+    (one shard per rank) or a ``parallel.mesh.Mesh`` with the named axes.
+    Returns ``fn(params, token_ids, mask) -> (emb [B, out_dim] f32, cls [B,
+    d_model] f32)``, ``encode_tokens``' contract: ``params`` the full tree,
+    token_ids and mask [B, T] tensors on the parameters' device, T a
+    multiple of S (``pad_to_multiple``; padding has mask 0), B of dp."""
     _check_arch(cfg)
-    if tp_axis is not None:
-        raise NotImplementedError("tensor parallelism in the SP encoder (tp_axis) is not ported "
-                                  "yet (ROADMAP Queue A 8)")
-    ring = _ring_of(sp_mesh)
-    h, hd, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
+    if isinstance(mesh, Mesh):
+        ring, tp_ax, dp, dp_group, dp_row = _mesh_axes(cfg, mesh, sp_axis, dp_axis, tp_axis)
+    elif tp_axis is not None or dp_axis is not None:
+        raise ValueError("tp_axis and dp_axis name axes of a parallel.mesh.Mesh; an int or a "
+                         "process group is one sp ring")
+    else:
+        ring, tp_ax, dp, dp_group, dp_row = _ring_of(mesh), None, 1, None, 0
+    tp = tp_ax.size if tp_ax is not None else 1
+    h, hd, dt = cfg.n_heads // tp, cfg.head_dim, cfg.dtype
     scale = 1.0 / float(np.sqrt(hd))
 
-    @torch.inference_mode()
     def forward(params: dict, token_ids: torch.Tensor, mask: torch.Tensor):
         b, t = token_ids.shape
         if t % ring.size:
             raise ValueError(f"T={t} is not a multiple of the ring's {ring.size} shards")
+        if b % dp:
+            raise ValueError(f"batch {b} does not split over dp = {dp}")
+        if dp_group is not None:
+            rows = slice(dp_row * (b // dp), (dp_row + 1) * (b // dp))
+            token_ids, mask = token_ids[rows], mask[rows]
+            b = b // dp
         tl = t // ring.size
         ids = ring.split(token_ids.long())
         msk = ring.split(mask.float())
@@ -202,27 +276,43 @@ def make_sp_encoder(cfg: EncoderConfig, sp_mesh, tp_axis: str | None = None):
         pos0 = ring.offsets(b, tl, ids.device)
         x = params["tok_emb"][ids].to(dt)  # [G, Tl, D]
         kv_bias = (1.0 - msk) * PAD_BIAS  # [G, Tl]: 0 live, -1e9 padding
+        axis = tp_ax or LocalAxis([x.device])  # a ring without tp: one shard, all heads
 
         def proj(xin, w):
             return torch.matmul(xin, w.to(xin.dtype)).view(g, tl, h, hd).transpose(1, 2)
 
-        for i in range(cfg.n_layers):
-            lp = {name: w[i] for name, w in params["layers"].items()}
-            hn = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
-            q = _rope(proj(hn, lp["wq"]), cfg.rope_base, pos0)
-            k = _rope(proj(hn, lp["wk"]), cfg.rope_base, pos0)
-            v = proj(hn, lp["wv"])
+        def col(w, j):
+            return w.chunk(tp, dim=-1)[j]
+
+        def row(w, j):
+            return w.chunk(tp, dim=-2)[j]
+
+        def attention(hn, lp, j):
+            q = _rope(proj(hn, col(lp["wq"], j)), cfg.rope_base, pos0)
+            k = _rope(proj(hn, col(lp["wk"], j)), cfg.rope_base, pos0)
+            v = proj(hn, col(lp["wv"], j))
             y = _ring_attention(q, k, v, kv_bias, ring, scale, cfg.attention_impl)
-            y = y.transpose(1, 2).reshape(g, tl, h * hd)
-            x = x + torch.matmul(y, lp["wo"].to(x.dtype))
+            return torch.matmul(y.transpose(1, 2).reshape(g, tl, h * hd), row(lp["wo"], j).to(dt))
+
+        def ffn(hn, lp, j):
+            hh = torch.matmul(hn, col(lp["w1"], j).to(dt)) + col(lp["b1"], j).to(dt)
+            return torch.matmul(F.gelu(hh, approximate="tanh"), row(lp["w2"], j).to(dt))
+
+        for lp in layer_views(params["layers"], cfg.n_layers):
+            hn = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+            x = x + axis.reduce([attention(hj, lp, j) for hj, j in zip(axis.copy(hn), axis.ranks)])
             hn = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-            x = x + _ffn(hn, lp, dt)
+            y = axis.reduce([ffn(hj, lp, j) for hj, j in zip(axis.copy(hn), axis.ranks)])
+            x = x + (y + lp["b2"].to(dt))  # b2 after the reduce, or it counts tp times
         x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"])
 
         # masked mean pool: the shards' sums and counts add up over the ring
         summed, cnt = masked_pool_sums(x, msk)
         emb = pool_project(params, ring.psum(summed), ring.psum(cnt))
         cls = ring.first(x[:, 0, :].float())  # global position 0 is shard 0's
+        if dp_group is not None:
+            dp_ax = GroupAxis(dp_group, emb.device)
+            emb, cls = dp_ax.gather([emb], 0), dp_ax.gather([cls], 0)
         return emb, cls
 
     forward.ring_size = ring.size

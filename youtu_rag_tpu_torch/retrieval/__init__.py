@@ -1,4 +1,4 @@
-from .store import TorchVectorStore
+from .store import TorchVectorStore, VectorStoreFactory
 from .retriever import VectorRetriever, HybridRetriever
 from .context import ContextAssembler
 
@@ -7,4 +7,5 @@ __all__ = [
     "HybridRetriever",
     "TorchVectorStore",
     "VectorRetriever",
+    "VectorStoreFactory",
 ]

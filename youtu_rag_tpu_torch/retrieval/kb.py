@@ -24,7 +24,7 @@ from ..models.reranker import RerankerFactory
 from ..utils.log import get_logger
 from .context import ContextAssembler
 from .retriever import HybridRetriever, VectorRetriever
-from .store import TorchVectorStore
+from .store import TorchVectorStore, VectorStoreFactory
 
 logger = get_logger("retrieval.kb")
 
@@ -40,7 +40,8 @@ class KnowledgeBase:
                  device: str | torch.device | None = None, mesh=None):
         self.name = name
         self.config = config or RAGConfig(name=name)
-        self.store = TorchVectorStore(self.config.vector_store, device=device, mesh=mesh)
+        self.store: TorchVectorStore = VectorStoreFactory.create(self.config.vector_store,
+                                                                 mesh=mesh, device=device)
         dp_mesh = None
         if mesh is not None and not mesh.distributed:
             from ..parallel.mesh import Mesh

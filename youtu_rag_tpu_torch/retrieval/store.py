@@ -420,3 +420,14 @@ class _SearchCoalescer:
                     if not it[3].done():
                         it[3].set_result(hits[row : row + k])
                     row += k
+
+
+class VectorStoreFactory:
+    """Backend dispatch, as the JAX package's ``VectorStoreFactory``: the
+    port's store on ``device`` (``None`` → the CUDA card) or sharded over
+    ``mesh``."""
+
+    @staticmethod
+    def create(config: VectorStoreConfig | None = None, dim: int | None = None, mesh=None,
+               device: str | torch.device | None = None) -> TorchVectorStore:
+        return TorchVectorStore(config, dim=dim, device=device, mesh=mesh)

@@ -8,7 +8,9 @@
                                     with the span removed
               --synthetic GROUPS    identifier sibling groups (data_synth)
               --paraphrase PAIRS    zero-overlap paraphrase pairs
-  step        the InfoNCE step of models/train.py on one device
+  step        the InfoNCE step of models/train.py on one device, or with
+              --dp/--tp the sharded step (make_sharded_train_step) over a
+              local mesh of dp x tp slots on the training device
   checkpoints TrainCheckpointer under <out>/ckpt (resume with --resume)
   eval        recall@1/@5 of query -> positive over a holdout split,
               before and after
@@ -19,8 +21,12 @@
     python -m youtu_rag_tpu_torch.train_embedder --synthetic 64 --preset tiny --device cpu
 
 It trains on the CUDA card unless ``--device`` names another device; a
-host without CUDA refuses the default. ``--dp``/``--tp`` above 1 (the
-sharded step) are not ported yet (ROADMAP Queue A 8).
+host without CUDA refuses the default. ``--dp N --tp M`` run the (dp, tp)
+step of ``models/train.py`` on a ``parallel.mesh`` mesh of N x M slots,
+every slot on the training device (the one card, or ``--device cpu``):
+the dp rows share one replica of the parameters there, the tp shards split
+the heads and the FFN. The checkpoints, the evaluation and the outputs
+take the gathered full tree, so they are the one-device run's files.
 """
 
 from __future__ import annotations
@@ -192,9 +198,8 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel shards (above 1: not ported yet, ROADMAP Queue A 8)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel shards (above 1: not ported yet, ROADMAP Queue A 8)")
+                   help="data-parallel slots (0: 1, the slots share the training device)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel slots")
     p.add_argument("--preset", choices=list(SIZES), default="base")
     p.add_argument(
         "--pretrained", type=Path, default=None,
@@ -286,12 +291,9 @@ def train_config(args):
 def main(argv=None, on_step=None) -> dict:
     """Train as the command line says; returns the report (also written to
     ``<out>/report.json``). ``on_step(step, params, opt_state, metrics)``,
-    where given, runs after every step."""
+    where given, runs after every step (with ``--dp``/``--tp``, on the
+    placed trees: ``params.gather()`` is the full one)."""
     args = parse_args(argv)
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the sharded train step is not ported yet "
-            "(ROADMAP Queue A 8); train on one device")
 
     from .models.checkpoint import TrainCheckpointer
     from .models.convert import encoder_params_from_numpy
@@ -354,19 +356,41 @@ def main(argv=None, on_step=None) -> dict:
             params["tok_weight"] = _idf_tok_weight(train_pairs, tokenizer, cfg.vocab_size)
         params = {k: ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict)
                       else v.to(device)) for k, v in params.items()}
-    optimizer = make_optimizer(tc)
-    opt_state = optimizer.init(params)
-    step_fn = make_train_step(cfg, tc, optimizer)
     print(f"encoder: {count_params(params) / 1e6:.1f}M params")
+    dp = args.dp or 1
+    placement = None  # a sharded run's; checkpoints and the npz hold the full trees
+    if dp * args.tp > 1:
+        from .models.train import make_sharded_train_step
+        from .parallel.mesh import get_mesh
+
+        mesh = get_mesh({"dp": dp, "tp": args.tp}, devices=[device] * (dp * args.tp))
+        params, opt_state, step_fn = make_sharded_train_step(cfg, tc, mesh, init_params=params)
+        placement = params.placement
+        print(f"mesh: dp={dp} tp={args.tp} on {device}")
+    else:
+        optimizer = make_optimizer(tc)
+        opt_state = optimizer.init(params)
+        step_fn = make_train_step(cfg, tc, optimizer)
+
+    def full(params, opt_state):
+        if placement is None:
+            return params, opt_state
+        return params.gather(), placement.gather_opt_state(opt_state)
+
     args.out.mkdir(parents=True, exist_ok=True)
     ckpt = TrainCheckpointer(args.out / "ckpt")
     start = 0
     if args.resume and ckpt.latest_step() is not None:
         start = ckpt.latest_step()
-        params, opt_state, _ = ckpt.restore(start, params_like=params, opt_state_like=opt_state)
+        like_params, like_state = full(params, opt_state)
+        params, opt_state, _ = ckpt.restore(start, params_like=like_params,
+                                            opt_state_like=like_state)
+        if placement is not None:
+            params, opt_state = placement.place(params), placement.place_opt_state(opt_state)
         print(f"resumed from step {start}")
 
-    before = eval_recall(params, cfg, holdout, tokenizer=tokenizer) if holdout else {}
+    before = (eval_recall(params if placement is None else params.gather(), cfg, holdout,
+                          tokenizer=tokenizer) if holdout else {})
     if before:
         print(f"recall before: {before}")
 
@@ -385,10 +409,12 @@ def main(argv=None, on_step=None) -> dict:
                   f"acc {float(metrics['accuracy']):.3f}  "
                   f"({(time.perf_counter() - t0) / (step - start):.2f}s/step)")
         if step % args.ckpt_every == 0:
-            ckpt.save(step, params, opt_state, metadata={"loss": losses[-1]})
-    ckpt.save(args.steps, params, opt_state, metadata={"final": True})
+            ckpt.save(step, *full(params, opt_state), metadata={"loss": losses[-1]})
+    ckpt.save(args.steps, *full(params, opt_state), metadata={"final": True})
     ckpt.close()
 
+    if placement is not None:
+        params = params.gather()
     after = eval_recall(params, cfg, holdout, tokenizer=tokenizer) if holdout else {}
     out_npz = args.out / "encoder_params.npz"
     save_params_npz(params, out_npz)
