@@ -138,8 +138,8 @@ Phases; any failure exits non-zero before the result lines:
      left, their facts no longer answered); (c) the encoder provider (the
      default 768 x 12 encoder from the seed, "pallas") over the first 256
      files: every source's chunks at T = 256, blockwise launches a positive
-     multiple of 12, 64 stored embeddings against a CPU TorchEmbedder
-     (plain attention) within ENC_TOL, chunks/s and embed's split into
+     multiple of 12, INGEST_ENC_CHECKED stored embeddings against a CPU
+     TorchEmbedder (plain attention) within ENC_TOL, chunks/s and embed's split into
      tokenization and forward; whether pandas imports is printed;
   4g. memory and toolkits: (a) a multi-tenant memory store at a shared
      deployment's size: 262,144 memories of 1,024 users (per user 64
@@ -173,7 +173,7 @@ Phases; any failure exits non-zero before the result lines:
      the rag toolkit's add, search and clear on a CUDA KB; no run may
      report an error;
   4h. agents from configs: orchestrators, environments, the trajectory
-     store: a team's KB (4f's 2,048 files, the hash provider, hybrid) on the
+     store: a team's KB (1,024 of 4f's files, the hash provider, hybrid) on the
      card and its CPU twin under two names, and text2sql KBs of 4g's CSV
      sources with its sqlite ``database_url``; (a) the shipped configs
      orchestra_example, orchestrator/chain and orchestrator/parallel
@@ -199,11 +199,20 @@ Phases; any failure exits non-zero before the result lines:
      orchestra_example with its workers' model ``provider: local``
      (yrt_tiny_chat): the orchestrator builds them from config as
      LocalChatClient on cuda, no error, the transcript beside the CPU
-     port's (printed); (e) host-clock median and spread of 16 runs per
+     port's (printed); (e) host-clock median and spread of 8 runs per
      config, topk_pruned launches and device ms per run, the parallel
      orchestrator with coalesce_window_ms 0 and 2 (the same results), the
      StorageMonitor's health of the card's store (healthy, every chunk) and
-     collect_metrics' time;
+     collect_metrics' time; (g) the operator commands over the card's
+     trajectory DB, each held against the DB itself: ``python -m
+     youtu_rag_tpu_torch.db_dump`` (every table's count and min(50, count)
+     rows), ``trace_search --name kb_hybrid_search`` (every tool line of
+     that name, min(30, count) of them, then min(30, count) generation
+     lines), ``analysis.tool_usage --json`` (runs and calls per tool as
+     counted from the DB's TrajectoryRecords, spans per tool from its
+     ToolTraceRecords) and ``db_dump --clear
+     evaluation_samples`` on a copy given 8 more samples (all cleared, the
+     other tables as they were);
   4i. the API on the card: whether tornado imports on this host is printed;
      without it the HTTP/SSE routes (create_app, serve_api) cannot run, and
      the phase says so. ``ApiState()`` (no device: the card) and a CPU twin
@@ -247,6 +256,23 @@ Phases; any failure exits non-zero before the result lines:
      ``simple`` agent with the KB toolkit on 4i's KB, a scripted model,
      ``exact_match``): the twin's stats, 64 samples judged in sqlite, one
      launch a sample, the host-clock ms a sample;
+  4k. the MCP tool server on the card (``start_tools_mcp``): (a) in process,
+     a router over ``rag`` and ``codesnip`` with no device (the card) and a
+     CPU twin (``--device cpu``'s config), driven only through
+     ``handle_message``: initialize, tools/list (the four rag tools and
+     run_snippet), one rag_build of MCP_DOCS short fact documents and
+     MCP_QUESTIONS rag_retrieve calls: each fact's document in its top 5,
+     exactly one topk_pruned launch a retrieve, the twin's text (or, where
+     the text differs, the twin's hits up to near-ties within TOL),
+     run_snippet ``print(7*6)`` gives "42", an unknown method -32601; the
+     same questions on a build of MCP_STDIO_DOCS of them in process (one
+     launch each); (b) the port's ``MCPToolkit`` over stdio against ``python
+     -m youtu_rag_tpu_torch.start_tools_mcp --toolkits rag codesnip`` on the
+     card: its start-up time, phase 2's kernel libraries loaded and none
+     built, the MCP_STDIO_DOCS build's answers equal to (a)'s in-process
+     ones; (c) whether tornado imports is printed: without it the SSE
+     transport cannot run here (the CPU tests hold it); host-clock medians
+     of a retrieve in process and over stdio, the scan's device time;
   5. main path, full size: 1,048,576 × 768 cosine indexes of each tier
      filled through ``add`` from one set of seeded vectors, searched with
      q = 8, top_k = 10 (int4 asks its kernel for 64 candidates and
@@ -415,6 +441,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import importlib
 import itertools
 import json
@@ -1874,13 +1901,15 @@ def check_encoder_answers(got, ref, what: str) -> float:
     return err
 
 
-# 4b (a)'s depth: the default encoder's width at 4 of its 12 layers. At 12
+# 4b (a)'s depth: the default encoder's width at 2 of its 12 layers. At 12
 # its CPU twin took 128.2 s of 4b's 132.0 and the script 998.8 s of its
 # 1,200 on an NVIDIA H100 80GB HBM3, 700.00 W (the card's host is shared:
 # the phases other than 4b and 5f took 1.12x their time on an earlier
-# run, and 1.32x on the slowest run seen); 4d and 5b keep the 12-layer
-# default.
-ENC4B_LAYERS = 4
+# run, and 1.32x on the slowest run seen), so it went to 4; at 4 the twin
+# took 44.7 s and the script 1,033 s once 4h (g) and 4k came in, so it went
+# to 2 (every layer runs the same kernel at the same shapes); 4d and 5b keep
+# the 12-layer default.
+ENC4B_LAYERS = 2
 
 
 def encoder_corpus(seed: int) -> tuple[dict, dict[str, float]]:
@@ -2487,6 +2516,11 @@ INGEST_QUESTIONS = 64
 INGEST_REWRITTEN = 16
 INGEST_CLEANED = 8
 INGEST_ENC_DOCS = 256
+# 4f (c)'s stored embeddings held against the CPU twin's forward (768 x 12,
+# T = 256, 0.41 s each on the card's host): 16, cut from 64, which took
+# 26.5 s of the script's 1,033 s on an NVIDIA H100 80GB HBM3, 700.00 W once
+# 4h (g) and 4k came in; every one is a chunk's whole forward.
+INGEST_ENC_CHECKED = 16
 INGEST_SYLLABLES = np.array([c + v for c in "bcdfghklmnprstvz" for v in "aeiou"])
 INGEST_KINDS = ("code", "number", "period", "rating", "index", "channel", "berth", "total")
 
@@ -2854,7 +2888,8 @@ def ingest_corpus(seed: int, smi: str) -> dict:
         out["encoder"] = {"chunks": n_enc, "wall_s": enc_wall, "chunks_per_s": n_enc / enc_wall,
                           "embed_s": embed_s, "tokenize_s": tok_s[0], "forward_s": fwd_s[0],
                           "buckets": buckets}
-        enc_ids = sorted(enc_kb.store.index._id_to_row)[:: max(n_enc // 64, 1)][:64]
+        enc_ids = sorted(enc_kb.store.index._id_to_row)[
+            :: max(n_enc // INGEST_ENC_CHECKED, 1)][:INGEST_ENC_CHECKED]
         # plain attention on the host: the reference, and 2x the wrapper's
         # plain blockwise version there
         cpu_emb = TorchEmbedder(config=dataclasses.replace(emb.cfg, attention_impl="xla"),
@@ -2866,9 +2901,8 @@ def ingest_corpus(seed: int, smi: str) -> dict:
         enc_err = float(np.abs(got - ref).max())
         check(np.isfinite(got).all() and enc_err <= ENC_TOL,
               f"(c) stored embeddings differ from the CPU twin's by {enc_err} > {ENC_TOL}")
-        print(f"  64 stored embeddings against the CPU twin's TorchEmbedder (plain attention, "
-              f"{cpu_s:.1f} s) [{smi}]: "
-              f"max |diff| {enc_err:.4g} (ENC_TOL {ENC_TOL})")
+        print(f"  {len(enc_ids)} stored embeddings against the CPU twin's TorchEmbedder (plain "
+              f"attention, {cpu_s:.1f} s) [{smi}]: max |diff| {enc_err:.4g} (ENC_TOL {ENC_TOL})")
     out["launches"] = {"topk_pruned": counts["bfloat16"], "blockwise_attention": n_bw}
     out["errs"] = {"encoder": enc_err}
     return out
@@ -3548,7 +3582,17 @@ def memory_and_toolkits(seed: int, smi: str, part: str) -> dict:
 TEAM_KINDS = {"orchestra_example": (8, 0), "orchestrator/chain": (8, 8),
               "orchestrator/parallel": (8, 16), "workforce_example": (4, 24)}
 TEAM_LOCAL = (28, 30)  # (d): the local-LLM workers' facts among 4f's asked
-TEAM_TIMED_RUNS = 16
+# 4h (e)'s timed runs per config, cut from 16 when 4h (g) and 4k came in:
+# on an NVIDIA H100 80GB HBM3, 700.00 W the 16 took ~15 s of 4h's 55.3 and
+# the script 968 s of its 1,200 (the phases 4h (g) and 4k add ~15 s; the
+# card's host runs up to 1.32x slower on some runs). 8 keep a median and a
+# spread for every config.
+TEAM_TIMED_RUNS = 8
+# 4h's team KB: 1,024 of 4f's files, cut from its 2,048 (the KB on the card
+# and its CPU twin took 33.4 s of the script's 1,033 s on an NVIDIA H100
+# 80GB HBM3, 700.00 W once 4h (g) and 4k came in); the facts asked are
+# spread over the 1,024 as they were over the 2,048.
+TEAM_DOCS = 1024
 TEAM_KB, TEAM_TWIN = "team-kb", "team-kb-cpu"
 T2S_KB, T2S_TWIN = "team-t2s", "team-t2s-cpu"
 LOOK_UP = "Look up: "
@@ -3972,7 +4016,7 @@ def topk_device_ms(fn) -> tuple[float, float]:
 
 
 def team_agents(seed: int, smi: str) -> dict:
-    """4h: the shipped orchestrator configs on a team's KB (4f's 2,048
+    """4h: the shipped orchestrator configs on a team's KB (TEAM_DOCS of 4f's
     files) on the card against a CPU twin, the trajectory store, the
     environments, local-LLM workers built from config, and timings.
     Returns the main path's topk_pruned launches ((a) and (d))."""
@@ -3986,15 +4030,16 @@ def team_agents(seed: int, smi: str) -> dict:
     card, twin = port_agents_package(None), port_agents_package("cpu")
     launches = 0
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as root:
-        facts = write_ingest_corpus(root, seed)
-        asked = facts[:: INGEST_DOCS // INGEST_QUESTIONS][:INGEST_QUESTIONS]
+        facts = write_ingest_corpus(root, seed, names=[f"doc{i:04d}.md"
+                                                       for i in range(TEAM_DOCS)])[:TEAM_DOCS]
+        asked = facts[:: TEAM_DOCS // INGEST_QUESTIONS][:INGEST_QUESTIONS]
         tasks = [SourceTask(name, "text", path=os.path.join(root, name)) for name, _ in facts]
         t0 = time.perf_counter()
         kb = KnowledgeBase(TEAM_KB, RAGConfig(name=TEAM_KB))
         report = asyncio.run(kb.build_sources(tasks))
         twin_kb = KnowledgeBase(TEAM_TWIN, RAGConfig(name=TEAM_TWIN), device="cpu")
         twin_report = asyncio.run(twin_kb.build_sources(tasks))
-        check(report.processed == INGEST_DOCS and report.failed == 0 and kb.device.type == "cuda"
+        check(report.processed == TEAM_DOCS and report.failed == 0 and kb.device.type == "cuda"
               and twin_report.total_chunks == report.total_chunks,
               f"the team KB: {report.summary()} / twin {twin_report.summary()}")
         names = write_table_sources(root)
@@ -4007,7 +4052,7 @@ def team_agents(seed: int, smi: str) -> dict:
             table = next(t for t in rep.tables if t.startswith("staff"))
             t2s[device] = (t2s_kb, "sqlite:///" + write_external_staff(
                 f"{root}/ext-{name}.sqlite", table))
-        print(f"team KB {TEAM_KB!r} on the card and {TEAM_TWIN!r} on the CPU: {INGEST_DOCS} "
+        print(f"team KB {TEAM_KB!r} on the card and {TEAM_TWIN!r} on the CPU: {TEAM_DOCS} "
               f"files, {report.total_chunks} chunks each, built in {time.perf_counter() - t0:.1f} s; "
               f"text2sql KBs of {len(names)} CSV sources with a sqlite database_url [{smi}]")
         card_db = card.DBService(f"sqlite:///{root}/card.db")
@@ -4154,9 +4199,100 @@ def team_agents(seed: int, smi: str) -> dict:
               f"chunks, index {health.index_size_bytes} bytes; collect_metrics {spread(metric_s)} "
               f"(BM25 {metrics['lexical_index']})")
         print(f"  topk_pruned launches in (a) and (d): {launches}")
+        db_commands(card_db, os.path.join(root, "card.db"))
         card_db.close()
         twin_db.close()
     return {"launches": launches}
+
+
+def command(module: str, *args: str) -> str:
+    """The standard output of ``python -m <module> <args>`` run from the
+    checkout; fails the phase on a non-zero exit."""
+    out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, f"{module} {' '.join(args)}: exit {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def db_commands(db, path: str) -> None:
+    """4h (g): the operator commands over the card's trajectory DB, each
+    held against what ``db`` (its DBService) reads."""
+    import shutil
+
+    from youtu_rag_tpu_torch.db.models import (EvaluationSample, GenerationTraceRecord,
+                                               ToolTraceRecord, TrajectoryRecord)
+    from youtu_rag_tpu_torch.db.service import DBService
+    from youtu_rag_tpu_torch.db_dump import TABLES
+
+    t0 = time.perf_counter()
+    url = f"sqlite:///{path}"
+    dump = command("youtu_rag_tpu_torch.db_dump", "--db", url)
+    header = re.compile(r"== (\w+) \((\d+) total, showing (\d+)\) ==")
+    shown, name = {}, None
+    for line in dump.splitlines():
+        m = header.fullmatch(line)
+        if m:
+            name = m.group(1)
+            shown[name] = [int(m.group(2)), int(m.group(3)), 0]
+        else:
+            check(name is not None and line.startswith("{"), f"(g) db_dump line {line[:80]!r}")
+            shown[name][2] += 1
+    counts = {name: db.count(cls) for name, cls in TABLES.items()}
+    check(list(shown) == list(TABLES) and all(
+        shown[n] == [c, min(50, c), min(50, c)] for n, c in counts.items()),
+        f"(g) db_dump's (total, shown, rows) {shown} for the DB's counts {counts}")
+
+    tool = "kb_hybrid_search"  # the tool 4h's scripted workers call
+    lines = [json.loads(x) for x in command("youtu_rag_tpu_torch.trace_search", "--db", url,
+                                            "--name", tool).splitlines()]
+    tools = [x for x in lines if x["kind"] == "tool"]
+    gens = lines[len(tools):]
+    n_tool = db.count(ToolTraceRecord, {"name": tool})
+    n_gen = db.count(GenerationTraceRecord)
+    check(n_tool > 0 and all(x["name"] == tool for x in tools)
+          and len(tools) == min(30, n_tool) and len(gens) == min(30, n_gen)
+          and all(x["kind"] == "generation" for x in gens),
+          f"(g) trace_search --name {tool}: {len(tools)} tool and {len(gens)} generation lines "
+          f"for {n_tool} and {n_gen} rows")
+
+    report = json.loads(command("youtu_rag_tpu_torch.analysis.tool_usage", "--db", url, "--json"))
+    runs = db.select(TrajectoryRecord, limit=1000)
+    per_tool: dict[str, int] = {}
+    for r in runs:
+        for c in r.tool_calls or []:
+            per_tool[c.get("name", "?")] = per_tool.get(c.get("name", "?"), 0) + 1
+    spans: dict[str, int] = {}
+    for r in db.select(ToolTraceRecord, limit=10_000):
+        spans[r.name] = spans.get(r.name, 0) + 1
+    got = report["trajectories"]
+    latency = {name: v["calls"] for name, v in report["tool_latency"].items()}
+    check(got["runs"] == len(runs) == counts["trajectories"] and got["calls_per_tool"] == per_tool
+          and latency == spans and sum(spans.values()) == counts["tool_traces"],
+          f"(g) tool_usage: {got['runs']} runs, {got['calls_per_tool']}, spans {latency}; the DB: "
+          f"{len(runs)} runs, {per_tool}, spans {spans}")
+
+    copy = path + ".copy"
+    shutil.copy(path, copy)
+    side = DBService(f"sqlite:///{copy}")
+    for i in range(8):
+        side.add(EvaluationSample(dataset="4h", index=i, raw_question=f"q{i}"))
+    side.close()
+    cleared = command("youtu_rag_tpu_torch.db_dump", "--db", f"sqlite:///{copy}", "--clear",
+                      "evaluation_samples")
+    side = DBService(f"sqlite:///{copy}")
+    left = {name: side.count(cls) for name, cls in TABLES.items()}
+    side.close()
+    n_clear = counts["evaluation_samples"] + 8
+    check(cleared.strip() == f"cleared {n_clear} rows from evaluation_samples"
+          and left == {**counts, "evaluation_samples": 0},
+          f"(g) --clear evaluation_samples: {cleared.strip()!r}, rows left {left}, before {counts}")
+    print(f"(g) db_dump (a subprocess): {counts} rows, each table's count and min(50, count) "
+          f"rows; trace_search --name {tool}: {len(tools)} tool lines of {n_tool} rows and "
+          f"{len(gens)} generation lines; tool_usage --json: {got['runs']} runs, calls per tool "
+          f"{got['calls_per_tool']}, spans per tool {latency}, as the DB counts; --clear "
+          f"evaluation_samples on a copy given 8 samples: {n_clear} cleared, the rest as it "
+          f"was; {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4696,6 +4832,227 @@ def dtr_and_eval(seed: int, smi: str, api: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4k. the MCP tool server on the card
+# ---------------------------------------------------------------------------
+
+MCP_DOCS = 2048  # 4f's file count, one short fact document each
+MCP_QUESTIONS = 64
+MCP_STDIO_DOCS = 512  # every fourth document: (a)'s asked ones among them
+MCP_PROFILED = 16
+
+
+def mcp_corpus(seed: int, root: str) -> tuple[list[str], list[str]]:
+    """MCP_DOCS short documents, each 4f's title and fact sentence without
+    its paragraphs, and one question each."""
+    facts = write_ingest_corpus(root, seed, n_docs=MCP_DOCS, chars=0)
+    texts = []
+    for name, _ in facts:
+        with open(os.path.join(root, name)) as f:
+            texts.append(f.read().strip())
+    return texts, [q for _, q in facts]
+
+
+def rpc_call(rid: int, name: str, arguments: dict) -> dict:
+    return {"jsonrpc": "2.0", "id": rid, "method": "tools/call",
+            "params": {"name": name, "arguments": arguments}}
+
+
+async def mcp_serve(mcp, router, msgs: list[dict]) -> tuple[list, list[float]]:
+    """Each message through ``handle_message`` (the router built first);
+    the responses and each one's host seconds."""
+    await router.build()
+    schemas = router.schemas()
+    out, secs = [], []
+    for m in msgs:
+        t0 = time.perf_counter()
+        out.append(await mcp.handle_message(m, router, schemas))
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def reply_text(resp: dict) -> str:
+    return resp["result"]["content"][0]["text"]
+
+
+async def mcp_start(tk) -> float:
+    """Start the port's MCP client over stdio (spawn to tools/list): seconds."""
+    t0 = time.perf_counter()
+    await tk.build()
+    return time.perf_counter() - t0
+
+
+async def mcp_stdio(tk, docs: list[str], questions: list[str]) -> dict:
+    """Over the started client: the build, each retrieve timed, run_snippet."""
+    out = {"names": sorted(t["function"]["name"] for t in tk.get_tools_in_openai()),
+           "build": await tk.call_tool("rag_build", {"texts": docs}), "answers": [], "secs": []}
+    for q in questions:
+        t1 = time.perf_counter()
+        out["answers"].append(await tk.call_tool("rag_retrieve", {"query": q}))
+        out["secs"].append(time.perf_counter() - t1)
+    out["snippet"] = await tk.call_tool("run_snippet", {"code": "print(7*6)"})
+    return out
+
+
+@contextlib.contextmanager
+def client_loop(tk):
+    """An event loop on a thread of its own for the MCP client ``tk``, whose
+    server process is stopped, and the loop closed, on the way out."""
+    loop = asyncio.new_event_loop()
+    runner = threading.Thread(target=loop.run_forever, daemon=True)
+    runner.start()
+    try:
+        yield loop
+    finally:
+        asyncio.run_coroutine_threadsafe(tk.cleanup(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        runner.join(timeout=60)
+        loop.close()
+
+
+def mcp_on_card(seed: int, smi: str) -> dict:
+    """4k: the MCP tool server (``start_tools_mcp``) over ``rag`` and
+    ``codesnip``, its KBs on the card: in process through
+    ``handle_message`` against a CPU twin, then over stdio from the port's
+    MCP client. Returns the main path's topk_pruned launches."""
+    import importlib.util
+
+    from youtu_rag_tpu_torch import start_tools_mcp as mcp
+    from youtu_rag_tpu_torch.ops import _build
+    from youtu_rag_tpu_torch.tools.base import ToolkitConfig
+    from youtu_rag_tpu_torch.tools.mcp_client import MCPToolkit
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as root:
+        docs, questions = mcp_corpus(seed, root)
+    at = list(range(0, MCP_DOCS, MCP_DOCS // MCP_QUESTIONS))[:MCP_QUESTIONS]
+    asked = [questions[i] for i in at]
+
+    # (b)'s server process starts (torch's import, the CUDA context, the
+    # toolkits: ~10 s of its own) on a loop of its own while (a) builds its
+    # KBs and runs the CPU twin; the card's timed calls wait for it
+    lib = _build.library_path("topk_pruned")
+    check(lib.exists(), f"phase 2 built no {lib.name}")
+    built, stamp = sorted(os.listdir(_build.BUILD_DIR)), lib.stat().st_mtime_ns
+    path = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    tk = MCPToolkit(ToolkitConfig(mode="mcp", config={
+        "command": sys.executable, "env": {"PYTHONPATH": path}, "timeout": 120.0,
+        "args": ["-m", "youtu_rag_tpu_torch.start_tools_mcp", "--toolkits", "rag", "codesnip"]}))
+    with client_loop(tk) as loop:
+        started = asyncio.run_coroutine_threadsafe(mcp_start(tk), loop)
+        # (a) in process, through handle_message alone
+        card = mcp.make_router(["rag", "codesnip"])
+        twin = mcp.make_router(["rag", "codesnip"], "cpu")
+        check(card.toolkits[0].kb.device.type == "cuda"
+              and twin.toolkits[0].kb.device.type == "cpu",
+              f"the rag toolkit's KB is on {card.toolkits[0].kb.device}")
+        head = [{"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                 "params": {"protocolVersion": "2024-11-05"}},
+                {"jsonrpc": "2.0", "method": "notifications/initialized"},
+                {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+                rpc_call(3, "rag_build", {"texts": docs}),
+                rpc_call(4, "run_snippet", {"code": "print(7*6)"}),
+                {"jsonrpc": "2.0", "id": 5, "method": "resources/list"}]
+        retrieves = [rpc_call(10 + i, "rag_retrieve", {"query": q}) for i, q in enumerate(asked)]
+        t0 = time.perf_counter()
+        got_head, _ = asyncio.run(mcp_serve(mcp, card, head))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        want_head, _ = asyncio.run(mcp_serve(mcp, twin, head))
+        want, twin_secs = asyncio.run(mcp_serve(mcp, twin, retrieves))
+        small_docs = docs[:: MCP_DOCS // MCP_STDIO_DOCS]
+        small = mcp.make_router(["rag"])
+        asyncio.run(mcp_serve(mcp, small, [rpc_call(3, "rag_build",
+                                                    {"texts": small_docs})]))
+        # the card's timed calls once the server process has started
+        start_s = started.result(timeout=300)
+        reset_launches()
+        got, secs = asyncio.run(mcp_serve(mcp, card, retrieves))
+        torch.cuda.synchronize()
+        n_a = launch_counts()["bfloat16"]
+        check(got_head[1] is None and got_head == want_head,
+              f"(a) initialize, tools/list, rag_build, run_snippet, an unknown method: "
+              f"{got_head} against the twin's {want_head}")
+        tools = [t["name"] for t in got_head[2]["result"]["tools"]]
+        check(tools == ["rag_build", "rag_clear", "rag_retrieve", "rag_stats", "run_snippet"],
+              f"(a) tools/list: {tools}")
+        check(reply_text(got_head[3]) == f"indexed {MCP_DOCS} chunks from {MCP_DOCS} documents",
+              f"(a) rag_build: {reply_text(got_head[3])!r}")
+        check(reply_text(got_head[4]) == "42" and not got_head[4]["result"]["isError"],
+              f"(a) run_snippet print(7*6): {got_head[4]}")
+        check(got_head[5].get("error", {}).get("code") == -32601,
+              f"(a) resources/list: {got_head[5]}")
+        check(n_a == MCP_QUESTIONS, f"(a) {n_a} topk_pruned launches for {MCP_QUESTIONS} "
+              "rag_retrieve calls (one each)")
+        missing = [q for i, q, r in zip(at, asked, got) if docs[i] not in reply_text(r)]
+        check(not missing, f"(a) facts not in their rag_retrieve top 5: {missing[:4]}")
+        ties = 0
+        for q, g, w in zip(asked, got, want):
+            if reply_text(g) == reply_text(w):
+                continue
+            ties += 1
+            hits = [asyncio.run(r.toolkits[0].kb.search(q, top_k=5, similarity_threshold=0.0))
+                    for r in (card, twin)]
+            check(same_up_to_ties(*hits, TOL), f"(a) rag_retrieve {q!r}: the card's hits "
+                  "differ from the CPU twin's")
+        msg = retrieves[0]
+        schemas = card.schemas()
+        kernels = device_kernels(lambda: asyncio.run(mcp.handle_message(msg, card, schemas)),
+                                 MCP_PROFILED)
+        scan_us = sum(us for name, (_, us) in kernels.items() if "topk_" in name)
+        device = (f"the scan {scan_us / MCP_PROFILED / 1e3:.4f} ms and every kernel "
+                  f"{sum(us for _, us in kernels.values()) / MCP_PROFILED / 1e3:.4f} ms of "
+                  "device time a call" if scan_us else "device time not measured (the "
+                  "profiler recorded no scan)")
+        print(f"(a) in process [{smi}]: initialize, tools/list {tools}, rag_build of "
+              f"{MCP_DOCS} short fact documents ({build_s:.1f} s, the CPU twin's build apart), "
+              f"run_snippet '42', an unknown method -32601: the twin's responses; "
+              f"{MCP_QUESTIONS} rag_retrieve through handle_message: every fact in its top 5, "
+              f"{n_a} topk_pruned launches, the twin's text ({ties} up to near-ties within "
+              f"{TOL}); {spread(secs)} host clock a retrieve (the CPU twin, while the server "
+              f"process started, {spread(twin_secs)}); "
+              f"{device}")
+        del card, twin
+
+        # (a) again on the smaller build that (b) serves
+        reset_launches()
+        ref, _ = asyncio.run(mcp_serve(mcp, small, retrieves))
+        torch.cuda.synchronize()
+        n_small = launch_counts()["bfloat16"]
+        check(n_small == MCP_QUESTIONS, f"(a) {n_small} topk_pruned launches for "
+              f"{MCP_QUESTIONS} rag_retrieve calls on the {MCP_STDIO_DOCS}-document build")
+        del small
+
+        # (b) over stdio: the port's MCP client against a server process on the card
+        out = asyncio.run_coroutine_threadsafe(mcp_stdio(tk, small_docs, asked), loop).result(
+            timeout=300)
+        check(sorted(os.listdir(_build.BUILD_DIR)) == built and lib.stat().st_mtime_ns == stamp,
+              "(b) the server process built a kernel library instead of loading phase 2's")
+        stdio_build = f"indexed {MCP_STDIO_DOCS} chunks from {MCP_STDIO_DOCS} documents"
+        check(out["names"] == tools and out["snippet"] == "42" and out["build"] == stdio_build,
+              f"(b) over stdio: tools {out['names']}, run_snippet {out['snippet']!r}, "
+              f"{out['build']!r}")
+        differ = [q for q, a, r in zip(asked, out["answers"], ref) if a != reply_text(r)]
+        check(not differ, f"(b) over stdio, answers that differ from the in-process server's on "
+              f"the same build: {differ[:4]}")
+        spec = importlib.util.find_spec("tornado")
+        sse = ("tornado is missing on this host: the SSE transport (--transport sse) cannot run "
+               "here; the CPU tests hold it" if spec is None else
+               f"tornado imports on this host ({spec.origin}); the SSE transport is held by the "
+               "CPU tests only")
+        print(f"(b) over stdio [{smi}]: the server process started (spawn to tools/list, while "
+              f"(a) built) in {start_s:.1f} s and loaded phase 2's kernel libraries (none built); "
+              f"{MCP_STDIO_DOCS} documents, {MCP_QUESTIONS} rag_retrieve answers equal to the "
+              f"in-process server's on the same build ({n_small} launches there); "
+              f"{spread(out['secs'])} host clock a retrieve (the first "
+              f"{out['secs'][0] * 1e3:.1f} ms)\n(c) {sse}")
+        launches = n_a + n_small
+        print(f"  topk_pruned launches in 4k: {launches}; 4k "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # 5. main path at full size
 # ---------------------------------------------------------------------------
 
@@ -5000,6 +5357,71 @@ def device_kernels(fn, calls: int) -> dict[str, tuple[int, float]]:
     return {}
 
 
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "event wait", 7: "event record", 10: "alloc", 11: "free"}
+
+
+def graph_nodes(fn) -> list[tuple[str, str]]:
+    """What one call of ``fn`` enqueues on the card, from the driver: the call
+    captured into a CUDA graph, its nodes as (kind, kernel name; "" for other
+    kinds and where the driver gives no name). Exact where the profiler is
+    not: torch.profiler may lose a short window's device records, at times
+    all of them, attempt after attempt."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    p, size = ctypes.c_void_p, ctypes.c_size_t
+
+    def call(name, *args):
+        err = getattr(cu, name)(*args)
+        check(err == 0, f"graph_nodes: {name} returned CUDA error {err}")
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    raw = p(graph.raw_cuda_graph())
+    n = size(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (p * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", p(node), ctypes.byref(kind))
+        label = ""
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: func, 7 uints, kernelParams, extra, kern, ctx
+            params = (p * 10)()
+            call("cuGraphKernelNodeGetParams_v2", p(node), params)
+            name = ctypes.c_char_p()
+            for handle, getter in ((params[0], "cuFuncGetName"), (params[7], "cuKernelGetName")):
+                get = getattr(cu, getter, None)  # (drivers of CUDA 12.3 and later)
+                if handle and get is not None and get(ctypes.byref(name), p(handle)) == 0:
+                    label = (name.value or b"").decode()
+                    break
+        out.append((GRAPH_NODE_KINDS.get(kind.value, f"type {kind.value}"), label))
+    del graph
+    return out
+
+
+def graph_text(nodes: list[tuple[str, str]]) -> str:
+    return "; ".join(kind + (f" {name[:60]}" if name else "") for kind, name in nodes)
+
+
+def check_one_scan(label: str, fn, wrapper) -> list[tuple[str, str]]:
+    """One call of ``fn`` enqueues one kernel, ``wrapper``'s (one launch of its
+    count, an ``ivf_tma_kernel`` where the driver names it), and memsets:
+    checked on the call's CUDA graph."""
+    before = wrapper.launches
+    nodes = graph_nodes(fn)
+    kernels = [name for kind, name in nodes if kind == "kernel"]
+    check(wrapper.launches - before == 1 and len(kernels) == 1
+          and all(kind in ("kernel", "memset") for kind, _ in nodes)
+          and (not kernels[0] or "ivf_tma_kernel" in kernels[0]),
+          f"{label}: one call enqueued {nodes} ({wrapper.launches - before} launches)")
+    return nodes
+
+
 SCAN_KERNELS = ("topk_scan_kernel", "ivf_tma_kernel")
 
 
@@ -5134,13 +5556,18 @@ def full_size_ivf(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict
         call()
         per_call = kernel.launches - before
         check(per_call == 1, f"{tier}: {per_call} launches per call")
-        # (the profiler may drop events of so short a window: kinds, not counts)
+        # what one call enqueues, from the driver (exact) ...
+        nodes = check_one_scan(tier, call, kernel)
+        # ... and what five ran by the profiler, which may lose some or all of
+        # so short a window's records (kinds, not counts: every kind recorded
+        # must be the scan or the memset)
         ran = device_kernels(call, 5)
         names = [n for n in ran if "memset" not in n.lower()]
-        check(len(names) == 1 and "ivf_tma_kernel" in names[0],
+        check(len(names) <= 1 and all("ivf_tma_kernel" in n for n in names),
               f"{tier}: five calls ran {sorted(ran)}")
-        print(f"  one call: {per_call} launch; five calls on the card: " + "; ".join(
-            f"{n.split('(')[0][:60]} x{c}" for n, (c, _) in ran.items()))
+        print(f"  one call: {per_call} launch; its CUDA graph: {graph_text(nodes)}; five calls "
+              "on the card: " + ("; ".join(f"{n.split('(')[0][:60]} x{c}" for n, (c, _) in ran.items())
+                                 or "the profiler recorded none"))
 
         for label, margin in (("adaptive", IVF_SETTINGS["ivf_adaptive_margin"]), ("fixed", 0.0)):
             if margin == 0.0:
@@ -5271,6 +5698,8 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
             names = [kn for kn in ran if "memset" not in kn.lower()]
             check(len(names) <= 1 and all("ivf_tma_kernel" in kn for kn in names),
                   f"{name}: five merged calls ran {sorted(ran)}")
+            # (the driver's view of one call, which the profiler may not give)
+            check_one_scan(f"{name} merged", lambda: kernel(*a, block_rows=br), kernel)
             n_valid = int(t["nv"])
             ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=True)
             cand_ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
@@ -7572,6 +8001,9 @@ def main() -> int:
     dtr4j = dtr_and_eval(args.seed, smi, api4i)
     del api4i["twin_kb"]  # 5f holds its sharded KB against api4i["kb"]
 
+    phase("4k the MCP tool server on the card")
+    mcp4k = mcp_on_card(args.seed, smi)
+
     phase("5 main path, full size")
     full, keep5 = full_size(args.seed, part)
 
@@ -7618,7 +8050,8 @@ def main() -> int:
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
                             + mem4g["launches"] + team4h["launches"] + api4i["launches"]
-                            + dtr4j["topk_pruned"] + train6c["topk_pruned"]
+                            + dtr4j["topk_pruned"] + mcp4k["launches"]
+                            + train6c["topk_pruned"]
                             if tier == "bfloat16" else 0)
                          + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)
                          + sharded5f["launches"].get(kname, 0) + mesh6d.get(kname, 0)),

@@ -82,7 +82,10 @@ class MCPStdioClient:
 
     async def close(self) -> None:
         if self._proc is not None:
-            self._proc.kill()
+            try:
+                self._proc.kill()
+            except ProcessLookupError:  # the server exited already (say, at start-up)
+                pass
             await self._proc.wait()
             self._proc = None
 
