@@ -64,19 +64,19 @@ Phases; any failure exits non-zero before the result lines:
   3d. kernel vs plain, per-block: the four per-block kernels (``topk``,
      ``topk_int8``, ``ivf_topk``, ``ivf_topk_int8``) against their plain
      versions over BLOCKS_CASES (k 1 to 1024 and k = block_rows, q 1 to
-     64, block_rows 256 to 4096, IVF also 4, 6 and 12; NEG_INF and -inf rows,
-     a block scoring -inf throughout, fewer live rows than k, no live row
-     with position 0 all -inf (the tail's last slot from position 1, the
-     pad or a one-block plan's -inf); plans with n_valid 0, 1, half and
-     max_blocks, ids ascending and shuffled): every candidate slot of
-     ``csrc/topk_blocks.cu``, the fill and the pad included, and the merged
-     result: brute the merged candidates against
-     ``fused_topk(backend="pallas_interpret")`` (bf16) or the merged plain
-     candidates, IVF the merged call (the per-block entries of
-     ``csrc/ivf_scan_tma.cuh``, one launch per 64 queries) against the
-     merged plain candidates, ties in probe order; rows equal (bf16: a swap
-     of two rows scoring within TOL of each other allowed), bf16 scores
-     within TOL, int8 bit-equal, the tail slot for slot;
+     64, block_rows 4 to 4096; NEG_INF and -inf rows, a block scoring -inf
+     throughout, fewer live rows than k, no live row with position 0 all
+     -inf (the tail's last slot from position 1, the pad or a one-block
+     plan's -inf); plans with n_valid 0, 1, half and max_blocks, ids
+     ascending and shuffled; brute takes each case's shape once, the plan
+     dropped): every candidate slot of ``csrc/topk_blocks.cu``, the fill
+     and the pad included, and the merged call (``csrc/ivf_scan_tma.cuh``'s
+     per-block entries, brute over the identity plan; one launch per 64
+     queries) against the merged plain candidates (``topk``: through
+     ``fused_topk(backend="pallas_interpret")``), ties in row or probe
+     order; rows equal (bf16: a swap of two rows scoring within TOL of each
+     other allowed), bf16 scores within TOL, int8 bit-equal, the tail slot
+     for slot;
   4. main path, small corpus: about 20 markdown files through the port's
      KnowledgeBase (hash embedder → device index → kernel → retrievers)
      as three KBs, one per storage tier (bf16, int8, int4), each checked
@@ -279,7 +279,9 @@ Phases; any failure exits non-zero before the result lines:
      re-ranks them on the host), checked against the plain versions on the
      same device tensors, and timed with CUDA events beside their bounds,
      the plain versions, a one-call PyTorch yardstick where one exists and
-     the recorded time of the kernel's earlier design (EARLIER_MS);
+     the recorded time of the kernel's earlier design (EARLIER_MS), and
+     each call's device time split by kernel (torch.profiler; where it
+     lost records, the call's CUDA graph and its held time instead);
   5c. main path, full size, IVF: ``configs/rag/ivf_int8.yaml``'s index
      settings (block_rows 1024, n_lists 1024, n_probe 64, adaptive margin
      0.15, recall target 0.95) over 1,048,576 × 768 clustered unit vectors
@@ -299,14 +301,16 @@ Phases; any failure exits non-zero before the result lines:
      ``ivf_topk_int8`` on 5c's adaptive plan at its block_rows 1024; each
      checked against its plain version (merged and as candidates) and, on
      its live slots, against the pruned or DMA kernel on the same tensors
-     (the same rows and scores; against the bf16 DMA kernel, which sums on
-     the tensor cores, as compare_topk holds two bf16 results), then
-     timed: brute the candidates kernel (CUDA events) beside its bound,
-     the merge alone, its plain version and a one-call PyTorch yardstick;
-     IVF the merged call (one kernel on the card and no sort, torch.profiler;
-     held timer, L2 cold) beside its bound (the probed rows, the queries
-     and the result), the earlier design (the candidates kernel and
-     merge_blocks), the DMA kernel on the same plan and its plain version;
+     (int8 the same rows and score bits; bf16, which sums on the tensor
+     cores, as compare_topk holds two bf16 results); then each merged call
+     is one kernel and no sort (the host's torch.sort refused, the kinds
+     torch.profiler records, the call's CUDA graph: one memset and one
+     ``ivf_tma_kernel``), timed (held timer, L2 cold) beside its bound
+     (brute phase 5's: the rows read once and the result; IVF the probed
+     rows), the earlier design (the candidates kernel and merge_blocks:
+     "kernel + merge") and its kernel alone, the plain version, and brute
+     the pruned kernel and a one-call PyTorch yardstick, IVF the DMA kernel
+     on the same plan; each call's gates and timings take seconds printed;
   5f. main path, full size, sharded over a mesh (``parallel.mesh``, a
      local mesh of 4 shards on the card unless named): (a) phase 5's
      1,048,576 x 768 rows per tier in a ShardedVectorIndex, the unsharded
@@ -675,9 +679,9 @@ def ivf_plan_table() -> None:
     holds (``<entry>_ctas_per_sm``, before the wrapper's cap of 2) and the
     plan, rows x stages, "dev" where the lists live in device memory and
     "wide" where the query tile does. Fails where a cell has no plan."""
-    from youtu_rag_tpu_torch.ops.ivf import _library, scan_plan
+    from youtu_rag_tpu_torch.ops.topk import _tma_library, scan_plan
 
-    lib = _library()
+    lib = _tma_library()
     print("IVF TMA plans, ctas_per_sm/rows x stages[ dev][ wide], k across:",
           " ".join(str(k) for k in PLAN_KS))
     for entry in TMA_ENTRIES:
@@ -1290,6 +1294,10 @@ def blocks_kernel_cases(seed: int) -> dict[str, float]:
     stored = {"bfloat16": (x.to(torch.bfloat16), ()), "int8": (xq, (xs,))}
     max_err = dict.fromkeys(BLOCKS_NAMES, 0.0)
     n_checked = 0
+    # the brute kernels take every case's (q, k, block_rows, bias) once, the
+    # plan dropped: block_rows 4-4096, k = block_rows, every tail
+    brute_seen = set()
+    added_s = 0.0  # seconds of the brute checks on the planned cases' shapes
     for q, k, br, kind, plan_kind in BLOCKS_CASES:
         nr = n - n % br  # the rows whole blocks cover
         queries = torch.randn(q, BLOCKS_D, generator=g, device="cuda")
@@ -1302,42 +1310,48 @@ def blocks_kernel_cases(seed: int) -> dict[str, float]:
             ids, nv, n_valid = blocks_plan(nr // br, *plan_kind, g)
             plan = (ids, nv)
             probe = ids[:n_valid].tolist()
+        brute_new = (q, k, br, kind) not in brute_seen
+        brute_seen.add((q, k, br, kind))
         for name, (kernel, plain, tier, ivf) in blocks_ops().items():
-            if ivf != (plan_kind is not None):
+            if ivf != (plan_kind is not None) and (ivf or not brute_new):
                 continue
+            t0 = time.perf_counter()
             xt, extra = stored[tier]
             xt, extra = xt[:nr], tuple(e[:nr] for e in extra)
-            args = (queries, xt, *extra, b, *plan, k)
-            what = f"{name} q={q} k={k} block_rows={br} {kind} plan={plan_kind}"
-            got = kernel(*args, block_rows=br, candidates=True)
-            torch.cuda.synchronize()
+            args = (queries, xt, *extra, b, *(plan if ivf else ()), k)
+            what = (f"{name} q={q} k={k} block_rows={br} {kind}"
+                    + (f" plan={plan_kind}" if ivf else ""))
             want = plain(*args, block_rows=br, candidates=True)
-            err = compare_blocks(tier, got, want, full, what + " candidates")
-            if name == "topk":
-                merged = merge_blocks(*got, k)
-                ref = fused_topk(queries, xt, b, k, block_rows=br, backend="pallas_interpret")
-            elif not ivf:
-                merged, ref = merge_blocks(*got, k), merge_blocks(*want, k)
-            else:  # the merged call: csrc/ivf_scan_tma.cuh's per-block entry, one launch
-                before = kernel.launches
-                merged = kernel(*args, block_rows=br)
+            err = 0.0
+            if ivf or plan_kind is None:  # (the brute candidates at block_rows >= 256)
+                got = kernel(*args, block_rows=br, candidates=True)
                 torch.cuda.synchronize()
-                check(kernel.launches - before == -(-q // 64), f"{what}: merged call's launches")
-                ref = merge_blocks(*want, k)
+                err = compare_blocks(tier, got, want, full, what + " candidates")
+            # the merged call: csrc/ivf_scan_tma.cuh's per-block entry (brute:
+            # the identity plan), one launch per 64 queries, the merge inside
+            before = kernel.launches
+            merged = kernel(*args, block_rows=br)
+            torch.cuda.synchronize()
+            check(kernel.launches - before == -(-q // 64), f"{what}: merged call's launches")
+            ref = (fused_topk(queries, xt, b, k, block_rows=br, backend="pallas_interpret")
+                   if name == "topk" and plan_kind is None else merge_blocks(*want, k))
             err = max(err, compare_blocks(tier, merged, ref, full, what))
             if kind == "mixed" and k >= len(BLOCK_TIES):
-                # exact ties in position order: block order, or probe order
+                # exact ties in position order: block (row) order, or probe order
                 live = [r for r in BLOCK_TIES if b[r] == 0]
-                ties = (live if probe is None else
+                ties = (live if not ivf else
                         [r for p in probe for r in live if r // br == p])
                 top = merged[1][0, : len(ties)].tolist()
                 check(top == ties, f"{what}: tie order {top}, expected {ties}")
             max_err[name] = max(max_err[name], err)
             n_checked += 1
+            if not ivf and plan_kind is not None:
+                added_s += time.perf_counter() - t0
     torch.cuda.synchronize()
     print(f"per-block kernel vs plain: {len(BLOCKS_CASES)} cases, {n_checked} kernel checks ok "
-          "(candidates, and merged: IVF through the merged kernel; block_rows 4-4096, k to 1024 "
-          "and k = block_rows, tails past position 0), max_abs_err "
+          f"(candidates, and merged through the merged kernels, brute over {len(brute_seen)} "
+          "cases: block_rows 4-4096, k to 1024 and k = block_rows, tails past position 0; "
+          f"those of the planned cases' shapes {added_s:.2f} s), max_abs_err "
           + ", ".join(f"{name} {e}" for name, e in max_err.items()))
     return max_err
 
@@ -1436,12 +1450,13 @@ def query_k_cases(seed: int) -> dict[str, float]:
     queries = torch.randn(8, d, generator=g, device="cuda")
     queries /= queries.norm(dim=1, keepdim=True)
     full = plain_scores(queries, stored["bfloat16"][0], bias).cpu()
-    # the per-block IVF wrappers: the candidates (csrc/topk_blocks.cu) and
-    # the merged call (csrc/ivf_scan_tma.cuh) in the shared and device list
+    # the per-block wrappers: the candidates (csrc/topk_blocks.cu) and the
+    # merged calls (csrc/ivf_scan_tma.cuh) in the shared and device list
     # classes, k = block_rows included
     big_blocks = [("ivf_topk_dma", 2048, 1024, False), ("topk", 2048, 4096, True),
                   ("ivf_topk_int8", 2048, 4096, True), ("ivf_topk_int8", 2048, 4096, False),
-                  ("ivf_topk", 1024, 4096, False), ("ivf_topk", 4096, 4096, False)]
+                  ("ivf_topk", 1024, 4096, False), ("ivf_topk", 4096, 4096, False),
+                  ("topk", 4096, 4096, False), ("topk_int8", 2048, 4096, False)]
     for name, k, br, cand in big_blocks:
         wrapper, plain, tier, kind = wrappers[name]
         kplan = plan if br == 1024 else (*ivf_plan(n // br, n // br // 2, g), br)
@@ -1457,7 +1472,7 @@ def query_k_cases(seed: int) -> dict[str, float]:
         max_err[name] = max(max_err[name], err)
         n_checked += 1
     print(f"any q and k above 1024: {n_checked} checks ok (q {QUERY_COUNTS} through "
-          f"{len(wrappers)} wrappers, the per-block IVF ones merged by their kernel and as "
+          f"{len(wrappers)} wrappers, the per-block ones merged by their kernel and as "
           f"candidates; k {BIG_K} brute; k 2048 IVF, per-block k 1024-4096), max_abs_err "
           + ", ".join(f"{n} {e}" for n, e in max_err.items()))
     return max_err
@@ -5079,27 +5094,36 @@ def time_ms(fn, bursts: int = 5, burst: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_split(fn, calls: int = 10, top: int = 4) -> None:
+def profile_split(fn, calls: int = 10, top: int = 4, graph: bool = False) -> None:
     """Device time per call of the ``top`` kernels ``fn`` launches, and of
-    all of them (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # an operator's row repeats its kernels' time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.count >= calls:
-            rows.append((us / calls, e.key))
+    all of them (torch.profiler, through ``device_kernels``: a window that
+    records no device event is profiled again). Where the profiler lost
+    records (a kind fewer than ``calls`` times; with ``graph``, fewer
+    kernels than ``calls`` times those of one call's CUDA graph), it says
+    so and prints no split; with ``graph`` it then names what one call
+    enqueues (``graph_nodes``) and gives the held call's time in all (CUDA
+    events) instead. No time is printed that was not measured."""
+    ran = device_kernels(fn, calls)
+    rows = [(us / calls, key) for key, (count, us) in ran.items() if us > 0 and count >= calls]
+    lost = not rows or any(count < calls for count, _ in ran.values())
+    nodes = graph_nodes(fn) if graph else []
+    if graph:
+        recorded = sum(count for key, (count, _) in ran.items()
+                       if not any(w in key.lower() for w in ("memset", "memcpy")))
+        lost = lost or recorded < calls * sum(kind == "kernel" for kind, _ in nodes)
+    if lost:
+        seen = ", ".join(f"{short_kernel(key)} x{count}" for key, (count, _) in ran.items())
+        print(f"  device time per call: torch.profiler lost records of {calls} calls (recorded: "
+              f"{seen or 'none'})" + (f"; one call enqueues {graph_text(nodes)}; the held call "
+                                      f"{time_held_ms(fn):.4f} ms in all (CUDA events)"
+                                      if graph else ""))
+        return
     print(f"  device time per call: {sum(us for us, _ in rows) / 1e3:.4f} ms in all; " + "; ".join(
-        f"{name.replace('(anonymous namespace)::', '').split('(')[0].split('<')[0][:48]} {us / 1e3:.4f} ms"
-        for us, name in sorted(rows, reverse=True)[:top]))
+        f"{short_kernel(name)} {us / 1e3:.4f} ms" for us, name in sorted(rows, reverse=True)[:top]))
+
+
+def short_kernel(name: str) -> str:
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0][:48]
 
 
 def bound(tier: str, part: str, n: int, d: int, qn: int, k: int) -> tuple[float, str]:
@@ -5257,7 +5281,7 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
               f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]"
               + ("" if earlier is None else f"; the __dp4a scorer's recorded time {earlier} ms, "
                  f"now {res['ms']:.4f} ms against a bound of {res['bound_ms']:.4f} ms"))
-        profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel))
+        profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel), graph=True)
         out[tier] = res
         if tier != "int4":
             keep[tier] = {"q": qdev, "x": x, "extra": extra, "bias": b}
@@ -5673,8 +5697,8 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
         torch.cuda.synchronize()
         live = got[0] > NEG_INF / 2
         what = f"{name}: the live slots against the {'DMA' if takes_plan else 'pruned'} kernel's"
-        if takes_plan and tier == "bfloat16":
-            # the bf16 DMA kernel sums on the tensor cores, in another order
+        if tier == "bfloat16":
+            # the merged bf16 call sums on the tensor cores, in another order
             compare_topk(got, other, full, what)
         else:
             check(torch.equal(live, other[0] > NEG_INF / 2)
@@ -5682,29 +5706,32 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
                   and torch.equal(got[0][live].view(torch.int32), other[0][live].view(torch.int32)),
                   f"{what} differ")
         plain_ms = time_ms(lambda: plain(*a, block_rows=br), bursts=3, burst=5)
+        t0 = time.perf_counter()
+        # the merged call is one kernel (csrc/ivf_scan_tma.cuh) after a
+        # memset: no candidates, no sort. The host issues no torch.sort ...
+        sort = torch.sort
+        torch.sort = lambda *_, **__: check(False, f"{name}: the merged call sorts")
+        try:
+            kernel(*a, block_rows=br)
+        finally:
+            torch.sort = sort
+        # ... and what the card ran (the profiler may drop events of so
+        # short a window: kinds, not counts; every kind recorded must be
+        # the scan or the memset)
+        ran = device_kernels(lambda: kernel(*a, block_rows=br), 5)
+        names = [kn for kn in ran if "memset" not in kn.lower()]
+        check(len(names) <= 1 and all("ivf_tma_kernel" in kn for kn in names),
+              f"{name}: five merged calls ran {sorted(ran)}")
+        # (the driver's view of one call, which the profiler may not give)
+        nodes = check_one_scan(f"{name} merged", lambda: kernel(*a, block_rows=br), kernel)
+        ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=True)
+        cand_ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
+        earlier_ms = time_held_ms(
+            lambda: merge_blocks(*kernel(*a, block_rows=br, candidates=True), k), cold=True)
+        ran_text = ("; ".join(f"{kn.split('(')[0][:60]} x{c}" for kn, (c, _) in ran.items())
+                    or "no device event recorded")
         if takes_plan:
-            # the merged call is one kernel (csrc/ivf_scan_tma.cuh) after a
-            # memset: no candidates, no sort. The host issues no torch.sort ...
-            sort = torch.sort
-            torch.sort = lambda *_, **__: check(False, f"{name}: the merged call sorts")
-            try:
-                kernel(*a, block_rows=br)
-            finally:
-                torch.sort = sort
-            # ... and what the card ran (the profiler may drop events of so
-            # short a window: kinds, not counts; every kind recorded must be
-            # the scan or the memset)
-            ran = device_kernels(lambda: kernel(*a, block_rows=br), 5)
-            names = [kn for kn in ran if "memset" not in kn.lower()]
-            check(len(names) <= 1 and all("ivf_tma_kernel" in kn for kn in names),
-                  f"{name}: five merged calls ran {sorted(ran)}")
-            # (the driver's view of one call, which the profiler may not give)
-            check_one_scan(f"{name} merged", lambda: kernel(*a, block_rows=br), kernel)
             n_valid = int(t["nv"])
-            ms = time_held_ms(lambda: kernel(*a, block_rows=br), cold=True)
-            cand_ms = time_held_ms(lambda: kernel(*a, block_rows=br, candidates=True), cold=True)
-            earlier_ms = time_held_ms(
-                lambda: merge_blocks(*kernel(*a, block_rows=br, candidates=True), k), cold=True)
             dma_ms = time_held_ms(lambda: dma[tier](*a, block_rows=br), cold=True)
             bms, by = ivf_bound(tier, part, n_valid, br, d, q.shape[0], k)
             print(f"  {name} {rows}x{d} block_rows={br}, n_valid {n_valid} of "
@@ -5714,23 +5741,23 @@ def ops_full_size(part: str, brute: dict, ivf: dict) -> dict[str, dict]:
                   f"its kernel alone {cand_ms:.4f} ms; {IVF_NAMES[tier]} (DMA kernel, same "
                   f"plan) {dma_ms:.4f} ms; plain {plain_ms:.4f} ms; library null [none: no one "
                   f"PyTorch call takes a top-k over gathered blocks]; five calls on the card: "
-                  + ("; ".join(f"{kn.split('(')[0][:60]} x{c}" for kn, (c, _) in ran.items())
-                     or "no device event recorded") + f"; max_abs_err {err}")
+                  f"{ran_text}; max_abs_err {err}")
             library_ms = None
         else:
-            ms = time_ms(lambda: kernel(*a, block_rows=br, candidates=True))
             other_ms = time_ms(lambda: pruned[tier](*a))
             desc, lib = library_call(tier, q, x, *(t["extra"] or (None,)), b, k)
-            # the candidates a call just wrote sit in L2 for its merge
-            merge_ms = time_held_ms(lambda: merge_blocks(*cand, k))
-            call_ms = time_held_ms(lambda: kernel(*a, block_rows=br))
             library_ms = None if lib is None else time_ms(lib)
-            bms, by = blocks_bound(tier, part, rows, d, q.shape[0], rows // br, k)
-            print(f"  {name} {rows}x{d} block_rows={br}, q = {q.shape[0]}, k = {k}: "
-                  f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); merge {merge_ms:.4f} ms; "
-                  f"kernel + merge {call_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-                  f"library {'null' if lib is None else format(library_ms, '.4f') + ' ms'} "
-                  f"[{desc}]; {KERNEL_NAMES[tier]} {other_ms:.4f} ms; max_abs_err {err}")
+            # rows, bias (and scales) read once and [q, k] written: phase 5's bound
+            bms, by = bound(tier, part, rows, d, q.shape[0], k)
+            print(f"  {name} {rows}x{d} block_rows={br}, q = {q.shape[0]}, k = {k}: merged call "
+                  f"{ms:.4f} ms (one kernel, L2 cold), bound {bms:.4f} ms ({by}); earlier "
+                  f"design (csrc/topk_blocks.cu candidates + merge_blocks: kernel + merge) "
+                  f"{earlier_ms:.4f} ms, its kernel alone {cand_ms:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; library "
+                  f"{'null' if lib is None else format(library_ms, '.4f') + ' ms'} [{desc}]; "
+                  f"{KERNEL_NAMES[tier]} {other_ms:.4f} ms; one call's graph: {graph_text(nodes)}; "
+                  f"five calls on the card: {ran_text}; max_abs_err {err}")
+        print(f"  ({name}: the merged call's gates and timings {time.perf_counter() - t0:.2f} s)")
         out[name] = {"launches": counts[name], "err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
     return out
@@ -8105,9 +8132,9 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            # the merged IVF calls: csrc/ivf_topk.cu's ivf_blocks_* entries
-            "source": ("youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh" if kname.startswith("ivf")
-                       else "youtu_rag_tpu_torch/csrc/topk_blocks.cu"),
+            # the merged calls: csrc/ivf_topk.cu's topk_merged_* and ivf_blocks_*
+            # entries (the candidates stay on csrc/topk_blocks.cu)
+            "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],
             "launches": f["launches"] + mesh6d.get(kname, 0),
             "max_abs_err": max(err3d[kname], err3x[kname], err3f.get(kname, 0.0), f["err"]),

@@ -758,18 +758,18 @@ def test_ivf_scan_has_a_plan_for_every_width_and_k(cuda_device, entry):
     SM (csrc/ivf_scan_tma.cuh, make_plan); at d = 768 the plans the
     adaptive-plan searches use are the narrow ones (int4: 7 stages, two
     CTAs on an SM at the search's k = 64)."""
-    from youtu_rag_tpu_torch.ops.ivf import _ctas_per_sm, scan_plan
+    from youtu_rag_tpu_torch.ops.topk import _tma_ctas_per_sm, scan_plan
 
     for d in (c2_width(entry, d) for d in C2_WIDTHS):
         for k in C2_KS:
             rows, stages, _, wide = scan_plan(entry, d, k)
             assert rows > 0 and stages > 0, (d, k)
-            assert _ctas_per_sm(entry, d, k) >= 1, (d, k)
+            assert _tma_ctas_per_sm(entry, d, k) >= 1, (d, k)
             assert not wide or (entry.endswith("bf16") and d > 4096), (d, k)
     stages = 7 if entry.endswith("int4") else 4
     assert scan_plan(entry, 768, 10)[:2] == (32, stages) and not any(scan_plan(entry, 768, 10)[2:])
     if entry.endswith("int4"):
-        assert _ctas_per_sm(entry, 768, 64) == 2
+        assert _tma_ctas_per_sm(entry, 768, 64) == 2
 
 
 @pytest.mark.cuda
@@ -1044,6 +1044,82 @@ def test_ivf_blocks_merged_reads_unaligned_bias_and_scales(cuda_device, tier):
     live = ws > NEG_INF / 2
     assert torch.equal(gs > NEG_INF / 2, live) and torch.equal(gi, wi)
     torch.testing.assert_close(gs, ws, rtol=0, atol=0 if tier == "int8" else TOL)
+
+
+# (block_rows, k, bias kind, q, n) of the merged brute call: block_rows 4
+# and 12 (a 32-row stage spans blocks), 6 with n % 4 == 0 (one bulk copy a
+# stage across blocks) and n % 4 != 0 (bias and scales element by element),
+# 1024 and 2048; k = block_rows; the tails: position 0's fill, no live row
+# with block 0 all -inf (the last slot from block 1 at k = 128, the pad at
+# k = 10, (-inf, 0) in a one-block index); exact ties in row order; two
+# launches at q = 70
+MERGED_CASES = {
+    "rows4-k4": (4, 4, "mixed", 8, 1024),
+    "rows4-k1-dead": (4, 1, "dead", 3, 1024),
+    "rows12-k12": (12, 12, "mixed", 8, 1020),
+    "rows12-dead-k5": (12, 5, "dead", 3, 1020),
+    "rows6-n1020": (6, 6, "mixed", 8, 1020),
+    "rows6-n1026": (6, 6, "dead", 8, 1026),
+    "rows1024-q70": (1024, 10, "mixed", 70, 4096),
+    "rows1024-k1024-none": (1024, 1024, "none", 8, 4096),
+    "rows2048-ties": (2048, 10, "ties", 3, 4096),
+    "rows2048-k2048": (2048, 2048, "mixed", 8, 4096),
+    "allinf-block0-dead-k128": (256, 128, "allinf0-dead", 3, 1024),
+    "allinf-block0-dead-k10": (256, 10, "allinf0-dead", 3, 1024),
+    "one-block-all-inf": (256, 128, "allinf0-dead", 3, 256),
+    "allinf-block0-k32": (256, 32, "allinf0", 3, 1024),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(MERGED_CASES))
+def test_brute_merged_matches_plain_version(cuda_device, case, tier):
+    """``topk`` / ``topk_int8`` merged (``csrc/ivf_topk.cu``'s
+    ``topk_merged_*``: the ring over the identity plan, the merge inside)
+    against the plain versions (the per-block lists and ``merge_blocks``)
+    on the same card tensors: one launch per 64 queries; every slot no live
+    row fills the same row and score bits; live slots the same rows, int8
+    scores bit-equal, bf16 within TOL (a row may give way to one whose
+    plain score is within TOL); exact ties in row order."""
+    block_rows, k, kind, q, n = MERGED_CASES[case]
+    qs, x, bias = ivf_case_inputs(q, 128, n, kind, seed=len(case))
+    kernel, plain = (topk, topk_reference) if tier == "bf16" else (topk_int8, topk_int8_reference)
+    xt = torch.from_numpy(x).to(cuda_device)
+    extra = ()
+    if tier == "bf16":
+        xt = xt.to(torch.bfloat16)
+    else:
+        xt, xs = quantize_rows_int8(xt)
+        extra = (xs,)
+    qd = torch.from_numpy(qs).to(cuda_device)
+    bd = torch.from_numpy(bias).to(cuda_device)
+    if case == "rows6-n1026":  # bias and scales 4 bytes past a 16-byte boundary
+        bd = torch.cat([bd[:1], bd])[1:]
+        extra = tuple(torch.cat([e[:1], e])[1:] for e in extra)
+        assert bd.data_ptr() % 16 and all(e.data_ptr() % 16 for e in extra)
+    args = (qd, xt, *extra, bd, k)
+    before = kernel.launches
+    gs, gi = kernel(*args, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + -(-q // 64)
+    ws, wi = plain(*args, block_rows=block_rows)
+    gs, gi, ws, wi = (a.cpu() for a in (gs, gi, ws, wi))
+    assert gs.shape == gi.shape == (q, k)
+    live = ws > NEG_INF / 2
+    assert torch.equal(gs > NEG_INF / 2, live)
+    assert torch.equal(gi[~live], wi[~live])
+    assert torch.equal(gs[~live].view(torch.int32), ws[~live].view(torch.int32))
+    if kind == "ties":
+        assert gi[0, :5].tolist() == [20, 300, 600, 700, 900]
+    if tier == "int8":
+        assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32))
+        return
+    torch.testing.assert_close(gs[live], ws[live], rtol=0, atol=TOL)
+    full = (qd.to(torch.bfloat16).float() @ xt.float().T + bd).cpu()
+    swapped = live & (gi != wi)
+    rows = torch.arange(q)[:, None].expand(q, k)
+    assert ((full[rows[swapped], gi[swapped].long()] - ws[swapped]).abs() <= TOL).all()
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import shutil
 import statistics
@@ -159,7 +160,10 @@ def traced_call(lib, fn, args, block_rows: int) -> dict:
 def main() -> int:
     import torch
 
-    from youtu_rag_tpu_torch.ops import _build, ivf
+    from youtu_rag_tpu_torch.ops import _build
+
+    # by its path: youtu_rag_tpu_torch.ops.topk is also the name of a function
+    ring = importlib.import_module("youtu_rag_tpu_torch.ops.topk")
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiers", default="bfloat16,int8,int4")
@@ -172,7 +176,7 @@ def main() -> int:
     br = 1024
     g = torch.Generator(device="cuda").manual_seed(0)
     lib_trace = None
-    n_cta_of = ivf._n_cta
+    n_cta_of = ring._tma_n_cta
     for label, call, n_valid, fn, args in ivf_calls(g):
         if fn.__name__ not in names:
             continue
@@ -194,9 +198,9 @@ def main() -> int:
         empty = (*args[:-2], torch.zeros_like(args[-2]), args[-1])
         res["empty plan, cold"] = held_ms(lambda: fn(*empty, block_rows=br), cold=True)
         for n_cta in (33, 66, 132, 264):
-            ivf._n_cta = lambda *a, n_cta=n_cta, **kw: n_cta  # noqa: E731
+            ring._tma_n_cta = lambda *a, n_cta=n_cta, **kw: n_cta  # noqa: E731
             res[f"n_cta {n_cta}, cold"] = held_ms(call, cold=True)
-        ivf._n_cta = n_cta_of
+        ring._tma_n_cta = n_cta_of
         if lib_trace is None:
             lib_trace = trace_library()
         own = _build._loaded["ivf_topk"]

@@ -4,10 +4,11 @@
 // copies, scores them on the tensor cores and merges the CTAs' lists.
 // Three tiers: Bf16, Int8 and Int4 (packed nibbles) below. Included by
 // ivf_topk.cu, whose entries ivf_topk_bf16, ivf_topk_int8 and
-// ivf_topk_int4 (the DMA contract) and ivf_blocks_bf16 and ivf_blocks_int8
-// (the per-block contract, the kProbe template flag) it defines; the brute
-// scans and the per-block candidates (topk_blocks.cu) stay on
-// topk_select.cuh's scan.
+// ivf_topk_int4 (the DMA contract), ivf_blocks_bf16 and ivf_blocks_int8
+// (the per-block contract, the kProbe template flag) and topk_merged_bf16
+// and topk_merged_int8 (the per-block contract over the identity plan: the
+// brute per-block kernels merged) it defines; the brute pruned scans and
+// the per-block candidates (topk_blocks.cu) stay on topk_select.cuh's scan.
 //
 // DMA contract (the TPU kernels' pallas_ivf_topk_dma, pallas_ivf_topk_int8_dma
 // and pallas_ivf_topk_int4_dma):
@@ -56,6 +57,19 @@
 //    else position 1's first NEG_INF entry (its own c0, 0 past n_valid),
 //    or (-inf, base) when max_blocks is 1. The scan keeps each query's c0
 //    of positions 0 and 1 by atomicMax in the tile's counters (7. below).
+//
+// The identity plan (ids null; the topk_merged entries: pallas_topk and
+// pallas_topk_int8 merged, as ops/topk.py's merge_blocks computes it from
+// their candidates): position i is block i, all max_blocks = n /
+// block_rows of them valid, so virtual row v is stored row v, the tail's
+// ids[0] and ids[1] are 0 and 1, and the order is (score desc, row asc).
+// Nothing of the plan is read on the device. A stage's rows are one run
+// even where it spans blocks (one bulk copy each for the rows, bias and
+// scales), so only n % 4 != 0 or unaligned bias and scales take 8.'s
+// element copies. A runtime test of ids, not a template flag: the flag
+// would compile the kProbe kernels twice (11 more instantiations), and the
+// build counts against the chip run's time; the test costs thread 0 one
+// uniform branch per run and the merge one per written row.
 //
 // Design. The rows a plan probes are few (phase 5c's adaptive plan: ~60
 // blocks of 1024 rows, 48.5 MB in int8) and are read once per 8-query tile,
@@ -158,10 +172,12 @@
 //     lowest column scoring >= NEG_INF of positions 0 and 1 (a ballot, then
 //     an atomicMax of block_rows - column, 0 meaning none, in counters the
 //     launch's memset zeroes).
-//     This replaces topk_blocks.cu's design for the merged call (one CTA
-//     per listed block and 8 queries, most of them past n_valid and idle,
-//     each valid one streaming its block alone; k_pad candidates per block
-//     and query written to device memory; a torch sort to merge them).
+//     This replaces topk_blocks.cu's design for the merged calls, IVF and
+//     brute (one CTA per listed block and 8 queries, for IVF most of them
+//     past n_valid and idle, each valid one streaming its block alone;
+//     k_pad candidates per block and query written to device memory, 8.4
+//     MB at 1,048,576 rows, block_rows 1024, q = 8; a torch sort to merge
+//     them).
 //  8. Both contracts: where block_rows % 4 != 0 or bias or scales start off
 //     a 16-byte boundary, thread 0 copies the bias and scales of a stage
 //     element by element (4-byte cp.async, arriving on the stage's barrier,
@@ -745,9 +761,18 @@ struct Args {
   int* counter;         // [2, tiles], zero at launch: the tiles' tickets, then their stages
   float* out_s;         // [q, k]
   int* out_i;           // [q, k]
-  RowSource src;
+  RowSource src;         // ids and n_valid null: the identity plan
   int q, d, k, queries_bf16;
 };
+
+// The plan's stored row of virtual row v and the block at position i; the
+// identity plan (ids null) maps both to themselves
+__device__ __forceinline__ int stored_row(const RowSource& s, int v) {
+  return s.ids ? s.row(v) : v;
+}
+__device__ __forceinline__ int block_id(const RowSource& s, int i) {
+  return s.ids ? __ldg(s.ids + i) : i;
+}
 
 // The counters past the tickets and stage pairs, [tiles, kFirstCols]:
 // kProbe [kQT, 2], per query block_rows minus the lowest column of
@@ -776,14 +801,16 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   const int k = a.k, d = a.d, R = p.rows, S = p.stages;
   const int k_pad = (k + 3) & ~3;
   const int br = a.src.block_rows;
-  // bias and scales element by element where a bulk copy cannot take them
-  // (runs off 4-row boundaries, or tensors off 16-byte ones)
-  const bool aux_copy = br % 4 != 0 || ((reinterpret_cast<uintptr_t>(a.bias) |
-                                         reinterpret_cast<uintptr_t>(a.xscale)) & 15) != 0;
-
+  const bool identity = a.src.ids == nullptr;  // every block, in order (no read)
   // the plan's virtual rows [0, total), taken a stage of R at a time
-  const int nv = min(max(*a.src.n_valid, 0), a.src.max_blocks);
+  const int nv = identity ? a.src.max_blocks : min(max(*a.src.n_valid, 0), a.src.max_blocks);
   const int total = nv * br;
+  // bias and scales element by element where a bulk copy cannot take them
+  // (runs off 4-row boundaries, or tensors off 16-byte ones); the identity
+  // plan's runs are whole stages, cut only at the last row
+  const bool aux_copy = (identity ? total : br) % 4 != 0 ||
+                        ((reinterpret_cast<uintptr_t>(a.bias) |
+                          reinterpret_cast<uintptr_t>(a.xscale)) & 15) != 0;
   int* next_pair = a.counter + gridDim.y + blockIdx.y;
   // thread 0: stages of its own issued, the pair claim in flight, the
   // stages left of the pair in hand and the next of them
@@ -822,8 +849,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     mbar_expect_tx(bars + 8 * slot, len * per_row);
     for (int r = 0; r < len;) {
       const int v = v0 + r;
-      const int run = min(len - r, br - v % br);
-      const int row = a.src.row(v);
+      const int run = identity ? len - r : min(len - r, br - v % br);
+      const int row = stored_row(a.src, v);
       bulk_load(smem_addr(st + (size_t)r * p.row_bytes),
                 static_cast<const unsigned char*>(a.x) + (size_t)row * p.row_bytes,
                 run * p.row_bytes, bars + 8 * slot);
@@ -1224,7 +1251,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       const int e = 32 * r + lane;
       if (e < n_out) {
         a.out_s[(size_t)qi * k + e] = ls[r];
-        a.out_i[(size_t)qi * k + e] = a.src.row(li[r]);
+        a.out_i[(size_t)qi * k + e] = stored_row(a.src, li[r]);
       }
     }
   } else {
@@ -1271,7 +1298,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       if (!kProbe && fill_v < 0 && (int)bi < fill_end) fill_v = (int)bi;
       if (lane == 0) {
         a.out_s[(size_t)qi * k + t] = key_score(bk);
-        a.out_i[(size_t)qi * k + t] = a.src.row((int)bi);
+        a.out_i[(size_t)qi * k + t] = stored_row(a.src, (int)bi);
       }
       if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
         const int mm = bl / 32;
@@ -1313,7 +1340,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     }
   }
   if constexpr (!kProbe) {
-    const int fill = fill_v >= 0 ? a.src.row(fill_v) : 0;  // the fill (contract above)
+    const int fill = fill_v >= 0 ? stored_row(a.src, fill_v) : 0;  // the fill (contract above)
     for (int t = n_out + lane; t < k; t += 32) {
       a.out_s[(size_t)qi * k + t] = kNegInf;
       a.out_i[(size_t)qi * k + t] = fill;
@@ -1325,7 +1352,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       const unsigned ubr = (unsigned)br;
       const int* first = first_cols + warp * 2;
       const int e0 = nv > 0 ? __ldcg(first) : 0;
-      const int fill = (int)((unsigned)__ldg(a.src.ids) * ubr + (e0 ? br - e0 : 0));
+      const int fill = (int)((unsigned)block_id(a.src, 0) * ubr + (e0 ? br - e0 : 0));
       float last_s = kNegInf;
       int last_i = fill;
       if (n_out == 0 && nv > 0 && e0 == 0) {  // no live row; position 0 all -inf
@@ -1335,7 +1362,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
           last_s = __uint_as_float(0xff800000u);  // -inf
         } else {
           const int e1 = __ldcg(first + 1);
-          last_i = (int)((unsigned)__ldg(a.src.ids + 1) * ubr + (e1 ? br - e1 : 0));
+          last_i = (int)((unsigned)block_id(a.src, 1) * ubr + (e1 ? br - e1 : 0));
         }
       }
       for (int t = n_out + lane; t < k; t += 32) {
@@ -1408,12 +1435,14 @@ int plan_of(int d, int k, int* out) {
 // Returns cudaGetLastError() (0 = ok), cudaErrorInvalidValue for shapes
 // outside the contract (a wide plan with f32 queries among them) or
 // cudaErrorInvalidConfiguration where no plan fits one CTA's shared
-// memory. The counters: int32 [2, tiles], then [tiles, kFirstCols].
+// memory. The counters: int32 [2, tiles], then [tiles, kFirstCols]. The
+// identity plan (ids and n_valid null) takes max_blocks = n / block_rows.
 template <class T, bool kProbe>
 int launch(const Args& a, int n, int n_cta, void* stream) {
   const int br = a.src.block_rows;
   if (a.q < 1 || a.q > kMaxQ || a.k < 1 || !T::width_ok(a.d) || n_cta < 1 ||
       n_cta > max_ctas() || br < 1 || n % br || a.src.max_blocks < 1 ||
+      (!a.src.ids != !a.src.n_valid) || (!a.src.ids && a.src.max_blocks != n / br) ||
       (a.queries_bf16 && T::kScaled))
     return (int)cudaErrorInvalidValue;
   const Plan<T> p = make_plan<T>(a.d, a.k, max_ctas());
@@ -1448,8 +1477,9 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
 
 // The IVF source defines its entries with this macro:
 // <name>_launch, <name>_ctas_per_sm and <name>_plan; PROBE selects the
-// per-block contract.
-#define IVF_TMA_C_INTERFACE(NAME, T, PROBE)                                                   \
+// per-block contract, IDENTITY the identity plan (ids and n_valid ignored,
+// max_blocks n / block_rows: the same kernels, no plan read).
+#define IVF_TMA_C_INTERFACE(NAME, T, PROBE, IDENTITY)                                         \
   extern "C" {                                                                                \
   int NAME##_ctas_per_sm(int d, int k) { return ivf_tma::ctas_per_sm<T, PROBE>(d, k); }      \
   int NAME##_plan(int d, int k, int* out) { return ivf_tma::plan_of<T>(d, k, out); }         \
@@ -1466,7 +1496,8 @@ int launch(const Args& a, int n, int n_cta, void* stream) {
                     static_cast<int*>(counter),                                               \
                     static_cast<float*>(out_s),                                               \
                     static_cast<int*>(out_i),                                                 \
-                    RowSource{static_cast<const int*>(ids), static_cast<const int*>(n_valid), \
+                    RowSource{IDENTITY ? nullptr : static_cast<const int*>(ids),              \
+                              IDENTITY ? nullptr : static_cast<const int*>(n_valid),          \
                               max_blocks, block_rows},                                        \
                     q,                                                                        \
                     d,                                                                        \

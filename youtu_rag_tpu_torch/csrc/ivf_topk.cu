@@ -9,9 +9,18 @@
 //                                                  lax.top_k merge at :110-114)
 //   ivf_blocks_int8  <- pallas_ivf_topk_int8      (pallas_call at :188, _ivf_kernel_int8, merge
 //                                                  at :192-196)
+// and of youtu_rag_tpu/ops/topk.py:
+//   topk_merged_bf16 <- pallas_topk               (pallas_call at :174, _topk_kernel, with its
+//                                                  lax.top_k merge at :184-189)
+//   topk_merged_int8 <- pallas_topk_int8          (pallas_call at :407, _topk_kernel_int8, merge
+//                                                  at :411-415)
 // The ivf_blocks entries keep the per-block contract (probe-order ties, the
-// per-block fill in the slots no live row fills; see ivf_scan_tma.cuh) and compute the merged result in the same one launch;
-// topk_blocks.cu keeps the unmerged candidates. The DMA entries' contract:
+// per-block fill in the slots no live row fills; see ivf_scan_tma.cuh) and
+// compute the merged result in the same one launch; the topk_merged entries
+// are the same kernels over the identity plan (block i at position i, every
+// block valid, no plan read), which is the brute per-block contract merged:
+// ties in row order and merge_blocks' tail. topk_blocks.cu keeps the
+// unmerged candidates of both. The DMA entries' contract:
 // the exact top k (score desc, probe position asc, row in block asc) over
 // the rows of blocks ids[0 .. n_valid) only, block b covering stored rows
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
@@ -40,25 +49,27 @@
 // lists keep the virtual row, so ties come in probe order.
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
-// (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale), read once
-// per 8-query tile.
+// (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale; the
+// topk_merged entries every row), read once per 8-query tile.
 
 #include "ivf_scan_tma.cuh"
 
 // <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
 //               x (int4: packed [n, d/2]), xscale, bias, ids int32 [max_blocks],
-//               n_valid int32 [1],
+//               n_valid int32 [1] (topk_merged: both ignored, max_blocks = n / block_rows),
 //               cand_s, cand_i [tiles, n_cta, 8, k_pad4], counter int32 [2 + 16, tiles],
 //               out_s, out_i, q, n, d (the unpacked width), k, max_blocks, block_rows,
 //               n_cta, stream);
 // <name>_plan(d, k, out int32 [4]): rows, stages, lists in device memory, wide
 // (a wide plan takes bf16 queries)
-IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false)
-IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false)
-IVF_TMA_C_INTERFACE(ivf_topk_int4, ivf_tma::Int4, false)
+IVF_TMA_C_INTERFACE(ivf_topk_bf16, ivf_tma::Bf16, false, false)
+IVF_TMA_C_INTERFACE(ivf_topk_int8, ivf_tma::Int8, false, false)
+IVF_TMA_C_INTERFACE(ivf_topk_int4, ivf_tma::Int4, false, false)
 // (the DMA entries use one int of each tile's kFirstCols: the last live row)
-IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true)
-IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true)
+IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true, false)
+IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true, false)
+IVF_TMA_C_INTERFACE(topk_merged_bf16, ivf_tma::Bf16, true, true)
+IVF_TMA_C_INTERFACE(topk_merged_int8, ivf_tma::Int8, true, true)
 
 extern "C" const char* ivf_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,10 +1,14 @@
 // Per-block top-k candidates over a bf16 or int8 index, for Hopper
 // (sm_90a): every block of block_rows rows writes its own top k, padded to
-// k_pad = round_up(k, 128); the caller merges the [n_blocks, q, k_pad]
-// candidates (ops/topk.py::merge_blocks, a stable sort over positions).
-// The IVF entries serve ops/ivf.py's candidates=True only: the merged IVF
-// call runs ivf_topk.cu's ivf_blocks_* entries (ivf_scan_tma.cuh), one
-// launch with the merge inside.
+// k_pad = round_up(k, 128), and returns the unmerged [n_blocks, q, k_pad]
+// candidates. Only candidates=True reaches this source: ops/topk.py's
+// topk and topk_int8 and ops/ivf.py's ivf_topk and ivf_topk_int8 with
+// candidates=True (the port's inspection path; the JAX functions return
+// only the merged result). Their merged calls run ivf_topk.cu's
+// topk_merged_* and ivf_blocks_* entries (ivf_scan_tma.cuh), one launch
+// with the merge inside; ops/topk.py::merge_blocks (a stable sort over
+// positions) is the plain versions' merge, which the card's path never
+// calls.
 //
 // Replaces the TPU kernels:
 //   topk_blocks_bf16      <- youtu_rag_tpu/ops/topk.py::pallas_topk          (pallas_call :174, _topk_kernel)
@@ -31,9 +35,7 @@
 // kBlocks flag: one CTA per (block, 8-query tile), the 128-row score tile,
 // warp j keeping query j's sorted list in shared memory (the two k
 // classes), with no threshold shared across blocks; the epilogue writes
-// the fill and the pad. The merge stays outside, as the JAX package leaves
-// it to XLA: it must order ties by candidate position, which for the IVF
-// entries is probe order, not row order.
+// the fill and the pad. The candidates are the result: no merge here.
 //
 // Bound: HBM bytes. The kernel reads each scanned row once (2d or d bytes,
 // plus 4 or 8 bytes of bias and scale) per 8-query tile, and writes

@@ -27,7 +27,7 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
 - inputs: what JAX takes, on every device: any ``block_rows`` that divides
   N, any d % 128 == 0 (int4: the packed width d/2 % 128 == 0) and k, bias
   and scales at any offset (on CUDA each entry picks a shared-memory plan
-  for (d, k), ``scan_plan``).
+  for (d, k), ``ops/topk.py::scan_plan``).
 
 Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
 once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
@@ -70,12 +70,8 @@ returns their unmerged ``[max_blocks, q, k_pad]`` lists.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from . import _build
 from .precision import f32_matmul
 from .topk import (
     NEG_INF,
@@ -86,21 +82,13 @@ from .topk import (
     _check_cuda,
     _check_k,
     _device_of,
-    _empty,
     _exact_dot,
-    _list_ctas,
-    _query_tiles,
+    _ring_tiles,
     _scaled_scores,
     _sorted_topk,
     quantize_rows_int8,
     unpack_int4,
 )
-
-_LIB = "ivf_topk"
-_ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
-          "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
-          "ivf_topk_int8": "ivf_blocks_int8"}
-_FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
 
 
 # ---------------------------------------------------------------------------
@@ -184,56 +172,6 @@ def ivf_topk_int4_dma_reference(queries, database_p, db_scales, bias, block_ids,
 # ---------------------------------------------------------------------------
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    if lib.ivf_topk_error_string.restype is not ctypes.c_char_p:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, entry in _ENTRY.items():
-            launch = getattr(lib, f"{entry}_launch")
-            launch.argtypes = [p, i] + [p] * 10 + [i] * 7 + [p]
-            launch.restype = i
-            per_sm = getattr(lib, f"{entry}_ctas_per_sm")
-            per_sm.argtypes = [i, i]
-            per_sm.restype = i
-            plan = getattr(lib, f"{entry}_plan")
-            plan.argtypes = [i, i, p]
-            plan.restype = i
-        lib.ivf_topk_error_string.argtypes = [i]
-        lib.ivf_topk_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _cuda_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
-    return RuntimeError(f"{entry} failed: CUDA error {err} "
-                        f"({lib.ivf_topk_error_string(err).decode()})")
-
-
-@functools.lru_cache(maxsize=None)
-def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
-    """The shared-memory plan of an entry of ``csrc/ivf_topk.cu`` at (d, k):
-    (rows per stage, stages, lists in device memory, wide). A wide plan
-    (bf16 only) reads the query tile from device memory and takes bf16
-    queries (``csrc/ivf_scan_tma.cuh``, 9.); rows 0: none fits."""
-    lib = _library()
-    out = (ctypes.c_int * 4)()
-    err = getattr(lib, f"{entry}_plan")(d, k, out)
-    if err != 0:
-        raise _cuda_error(lib, entry, err)
-    return tuple(out)
-
-
-@functools.lru_cache(maxsize=None)
-def _ctas_per_sm(entry: str, d: int, k: int) -> int:
-    """Scan CTAs one SM holds at (d, k), at most two (the register cap)."""
-    lib = _library()
-    per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
-    if per_sm < 0:
-        raise _cuda_error(lib, entry, -per_sm)
-    if per_sm == 0:
-        raise RuntimeError(f"{entry}: d={d}, k={k} needs more shared memory than one SM has")
-    return min(per_sm, 2)
-
-
 def _check_plan(name: str, n: int, block_ids: torch.Tensor, n_valid: torch.Tensor,
                 block_rows: int, device) -> torch.Tensor:
     """The plan's checks (JAX asks only that block_rows divide the rows);
@@ -257,63 +195,7 @@ def _tiles(fn, queries, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: 
            block_rows: int):
     """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
-    return _query_tiles(lambda qt: _launch_tma(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
-                                               block_rows),
-                        queries, _empty((0, k), x.device))
-
-
-def _n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 1) -> int:
-    """Scan CTAs per 8-query tile: as many as fit at once on the card
-    (shared by ``tiles`` query tiles), at least 512 rows of the longest
-    plan each (fewer above SHARED_K: _list_ctas)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    wave = _ctas_per_sm(entry, d, k) * sms // tiles
-    return _list_ctas(max(1, min(wave, -(-rows // 512))), qn, k)
-
-
-def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
-                block_rows: int):
-    """Launch an entry of ``csrc/ivf_topk.cu`` (one kernel that prepares
-    the queries, scans and merges, after a memset of its counters; the DMA
-    or, for ``ivf_topk*``, the per-block contract) on the current stream (no
-    sync) for one tile of at most MAX_Q queries, as the caller gives them:
-    f32, or bf16 for a bf16 entry (another float type is cast here; a wide
-    plan takes them cast here to bf16, as the kernel would round them)."""
-    entry = _ENTRY[fn.__name__]
-    lib = _library()
-    dev = x.device
-    keep = (torch.float32, torch.bfloat16) if xscale is None else (torch.float32,)
-    if xscale is None and scan_plan(entry, d, k)[3]:
-        keep = (torch.bfloat16,)
-    if queries.dtype not in keep:
-        queries = queries.to(torch.bfloat16 if xscale is None else torch.float32)
-    queries = queries.contiguous()
-    if queries.data_ptr() % 16:  # the kernel reads them in 16-byte units
-        queries = queries.clone()
-    qn = queries.shape[0]
-    max_blocks = block_ids.numel()
-    tiles = -(-qn // 8)
-    # one wave: the card's CTAs split over the launch's 8-query tiles
-    n_cta = _n_cta(entry, d, k, 8 * tiles, max_blocks * block_rows, dev, tiles)
-    # the CTAs' lists, [tiles, n_cta, 8, k rounded up to 4]
-    cand = (tiles, n_cta, 8, -(-k // 4) * 4)
-    cand_s = torch.empty(cand, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(cand, dtype=torch.int32, device=dev)
-    # tickets, stage pairs, the per-block entries' first columns
-    counter = torch.empty((2 + _FIRST_COLS) * tiles, dtype=torch.int32, device=dev)
-    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    err = getattr(lib, f"{entry}_launch")(
-        queries.data_ptr(), int(queries.dtype == torch.bfloat16), x.data_ptr(),
-        None if xscale is None else xscale.data_ptr(), bias.data_ptr(), block_ids.data_ptr(),
-        nv.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), counter.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks, block_rows, n_cta,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise _cuda_error(lib, entry, err)
-    fn.launches += 1
-    return out_s, out_i
+    return _ring_tiles(fn, queries, x, xscale, bias, k, d, n, block_rows, block_ids, nv)
 
 
 def ivf_topk_dma(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
@@ -453,10 +335,8 @@ def ivf_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
     nv = _check_ids("ivf_topk", block_ids, n_valid, x.device)
     if candidates:
         return _blocks_tiles(ivf_topk, "ivf_topk_blocks_bf16", queries, False, x, None, bias, k,
-                             d, n, block_rows, True, block_ids, nv)
-    return _query_tiles(lambda qt: _launch_tma(ivf_topk, qt, x, None, bias, block_ids, nv, k, d,
-                                               n, block_rows),
-                        queries, _empty((0, k), x.device))
+                             d, n, block_rows, block_ids, nv)
+    return _ring_tiles(ivf_topk, queries, x, None, bias, k, d, n, block_rows, block_ids, nv)
 
 
 def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
@@ -475,10 +355,9 @@ def ivf_topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: to
     nv = _check_ids("ivf_topk_int8", block_ids, n_valid, database_q.device)
     if candidates:
         return _blocks_tiles(ivf_topk_int8, "ivf_topk_blocks_int8", queries, True, database_q,
-                             db_scales, bias, k, d, n, block_rows, True, block_ids, nv)
-    return _query_tiles(lambda qt: _launch_tma(ivf_topk_int8, qt, database_q, db_scales, bias,
-                                               block_ids, nv, k, d, n, block_rows),
-                        queries, _empty((0, k), database_q.device))
+                             db_scales, bias, k, d, n, block_rows, block_ids, nv)
+    return _ring_tiles(ivf_topk_int8, queries, database_q, db_scales, bias, k, d, n, block_rows,
+                       block_ids, nv)
 
 
 ivf_topk_dma.launches = 0

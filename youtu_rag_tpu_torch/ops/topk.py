@@ -35,9 +35,14 @@ row of a block that scores ``>= NEG_INF``, in block order (see
 
 Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``,
 ``topk``, ``topk_int8``) launches its hand-written CUDA kernel
-(``csrc/<name>.cu``; the per-block ones ``csrc/topk_blocks.cu``) for CUDA
-tensors and counts the launch in its ``.launches``; for CPU tensors it runs
-its plain PyTorch version (``*_reference``). Every wrapper takes any number
+(``csrc/<name>.cu``) for CUDA tensors and counts the launch in its
+``.launches``; for CPU tensors it runs its plain PyTorch version
+(``*_reference``). The per-block ones merged launch ``csrc/ivf_topk.cu``'s
+``topk_merged_bf16`` / ``topk_merged_int8`` (``_launch_tma``: the IVF
+scans' ring over the identity plan, which scans, selects and merges in one
+kernel after a memset, so no candidates reach device memory and no sort
+runs); with ``candidates=True`` they launch ``csrc/topk_blocks.cu``.
+``merge_blocks`` is the plain versions' merge. Every wrapper takes any number
 of queries: on CUDA it launches once per tile of at most ``MAX_Q`` queries
 (``_query_tiles``, shared with ``ops/ivf.py``) and joins the results; with
 no query it returns an empty result without a launch. The ``xla_*``
@@ -273,7 +278,8 @@ def _blocks_of(scores: torch.Tensor, k: int, block_rows: int, base: torch.Tensor
 
 
 def merge_blocks(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
-    """The per-block kernels' merge (``topk.py:184-189``): the candidates
+    """The per-block functions' merge (``topk.py:184-189``), in the plain
+    versions (the kernels merge inside their one launch): the candidates
     [blocks, q, k_pad] laid out per query in block order, a stable
     descending sort over those positions (``lax.top_k``: ties to the lower
     position), the first k. Returns (scores [q, k] f32, rows [q, k] int32)."""
@@ -500,6 +506,125 @@ def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales:
         queries, _empty((0, k), database_p.device))
 
 
+# The scan-and-merge ring, csrc/ivf_topk.cu (csrc/ivf_scan_tma.cuh): one
+# launch per MAX_Q queries that prepares the queries, scans, selects and
+# merges, after a memset of its counters. ops/ivf.py's wrappers take a probe
+# plan to it; topk and topk_int8 take their merged calls (the identity plan).
+_TMA_LIB = "ivf_topk"
+_TMA_ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
+              "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
+              "ivf_topk_int8": "ivf_blocks_int8", "topk": "topk_merged_bf16",
+              "topk_int8": "topk_merged_int8"}
+_FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
+
+
+def _tma_library() -> ctypes.CDLL:
+    lib = _build.load(_TMA_LIB)
+    if lib.ivf_topk_error_string.restype is not ctypes.c_char_p:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for entry in _TMA_ENTRY.values():
+            launch = getattr(lib, f"{entry}_launch")
+            launch.argtypes = [p, i] + [p] * 10 + [i] * 7 + [p]
+            launch.restype = i
+            per_sm = getattr(lib, f"{entry}_ctas_per_sm")
+            per_sm.argtypes = [i, i]
+            per_sm.restype = i
+            plan = getattr(lib, f"{entry}_plan")
+            plan.argtypes = [i, i, p]
+            plan.restype = i
+        lib.ivf_topk_error_string.argtypes = [i]
+        lib.ivf_topk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _tma_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{entry} failed: CUDA error {err} "
+                        f"({lib.ivf_topk_error_string(err).decode()})")
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
+    """The shared-memory plan of an entry of ``csrc/ivf_topk.cu`` at (d, k):
+    (rows per stage, stages, lists in device memory, wide). A wide plan
+    (bf16 only) reads the query tile from device memory and takes bf16
+    queries (``csrc/ivf_scan_tma.cuh``, 9.); rows 0: none fits."""
+    lib = _tma_library()
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, f"{entry}_plan")(d, k, out)
+    if err != 0:
+        raise _tma_error(lib, entry, err)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _tma_ctas_per_sm(entry: str, d: int, k: int) -> int:
+    """Scan CTAs one SM holds at (d, k), at most two (the register cap)."""
+    lib = _tma_library()
+    per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
+    if per_sm < 0:
+        raise _tma_error(lib, entry, -per_sm)
+    if per_sm == 0:
+        raise RuntimeError(f"{entry}: d={d}, k={k} needs more shared memory than one SM has")
+    return min(per_sm, 2)
+
+
+def _tma_n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 1) -> int:
+    """Scan CTAs per 8-query tile: as many as fit at once on the card
+    (shared by ``tiles`` query tiles), at least 512 rows of the longest
+    plan each (fewer above SHARED_K: _list_ctas)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wave = _tma_ctas_per_sm(entry, d, k) * sms // tiles
+    return _list_ctas(max(1, min(wave, -(-rows // 512))), qn, k)
+
+
+def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
+                block_rows: int):
+    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` (one kernel that
+    prepares the queries, scans and merges, after a memset of its counters)
+    on the current stream (no sync) for one tile of at most MAX_Q queries,
+    as the caller gives them: f32, or bf16 for a bf16 entry (another float
+    type is cast here; a wide plan takes them cast here to bf16, as the
+    kernel would round them). ``block_ids`` and ``nv`` are a probe plan
+    (int32 [max_blocks] and [1]), or None for the identity plan of
+    ``topk`` / ``topk_int8``: every block of ``block_rows`` rows, in order,
+    nothing of it on the device."""
+    entry = _TMA_ENTRY[fn.__name__]
+    lib = _tma_library()
+    dev = x.device
+    keep = (torch.float32, torch.bfloat16) if xscale is None else (torch.float32,)
+    if xscale is None and scan_plan(entry, d, k)[3]:
+        keep = (torch.bfloat16,)
+    if queries.dtype not in keep:
+        queries = queries.to(torch.bfloat16 if xscale is None else torch.float32)
+    queries = queries.contiguous()
+    if queries.data_ptr() % 16:  # the kernel reads them in 16-byte units
+        queries = queries.clone()
+    qn = queries.shape[0]
+    max_blocks = n // block_rows if block_ids is None else block_ids.numel()
+    tiles = -(-qn // 8)
+    # one wave: the card's CTAs split over the launch's 8-query tiles
+    n_cta = _tma_n_cta(entry, d, k, 8 * tiles, max_blocks * block_rows, dev, tiles)
+    # the CTAs' lists, [tiles, n_cta, 8, k rounded up to 4]
+    cand = (tiles, n_cta, 8, -(-k // 4) * 4)
+    cand_s = torch.empty(cand, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(cand, dtype=torch.int32, device=dev)
+    # tickets, stage pairs, the per-block entries' first columns
+    counter = torch.empty((2 + _FIRST_COLS) * tiles, dtype=torch.int32, device=dev)
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = getattr(lib, f"{entry}_launch")(
+        queries.data_ptr(), int(queries.dtype == torch.bfloat16), x.data_ptr(), ptr(xscale),
+        bias.data_ptr(), ptr(block_ids), ptr(nv), cand_s.data_ptr(), cand_i.data_ptr(),
+        counter.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k, max_blocks,
+        block_rows, n_cta, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise _tma_error(lib, entry, err)
+    fn.launches += 1
+    return out_s, out_i
+
+
 _BLOCKS_LIB = "topk_blocks"
 _BLOCKS_ENTRIES = ("topk_blocks_bf16", "topk_blocks_int8", "ivf_topk_blocks_bf16",
                    "ivf_topk_blocks_int8")
@@ -544,19 +669,26 @@ def _launch_blocks(fn, entry: str, queries, qscale, x, xscale, bias, k: int, d: 
 
 
 def _blocks_tiles(fn, entry: str, queries, quantized: bool, x, xscale, bias, k: int, d: int,
-                  n: int, block_rows: int, candidates: bool, block_ids=None, n_valid=None):
-    """A per-block kernel over MAX_Q-query tiles (``_query_tiles``): the
-    candidates [blocks, q, k_pad] joined along q, then merged unless
-    ``candidates``."""
+                  n: int, block_rows: int, block_ids=None, n_valid=None):
+    """The candidates of a per-block kernel of ``csrc/topk_blocks.cu`` over
+    MAX_Q-query tiles (``_query_tiles``), [blocks, q, k_pad] joined along q."""
     n_blocks = n // block_rows if block_ids is None else block_ids.numel()
 
     def launch(qt):
         return _launch_blocks(fn, entry, *_kernel_queries(qt, quantized), x, xscale, bias, k, d,
                               n, block_rows, block_ids, n_valid)
 
-    cand = _query_tiles(launch, queries, _empty((n_blocks, 0, _round_up(k, _LANE)), x.device),
+    return _query_tiles(launch, queries, _empty((n_blocks, 0, _round_up(k, _LANE)), x.device),
                         dim=1)
-    return cand if candidates else merge_blocks(*cand, k)
+
+
+def _ring_tiles(fn, queries, x, xscale, bias, k: int, d: int, n: int, block_rows: int,
+                block_ids=None, nv=None):
+    """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles
+    (``_launch_tma``; no plan: the identity plan of ``topk`` / ``topk_int8``)."""
+    return _query_tiles(lambda qt: _launch_tma(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
+                                               block_rows),
+                        queries, _empty((0, k), x.device))
 
 
 def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
@@ -568,8 +700,9 @@ def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: i
     queries [q, d] (cast to bf16); database [N, d] (bf16; another float
     type is cast to bf16, as JAX does) with d % 128 == 0 and
     N % block_rows == 0; bias [N] f32; 1 <= k <= block_rows. On CUDA: one
-    launch per MAX_Q queries; the kernel and the merge (a torch sort) run
-    on the current stream, without a sync."""
+    launch per MAX_Q queries on the current stream, without a sync; merged,
+    ``csrc/ivf_topk.cu``'s ``topk_merged_bf16`` (scan, selection and merge
+    in the one kernel), the candidates ``csrc/topk_blocks.cu``."""
     n, d = database.shape
     _check_blocks("topk", n, d, k, block_rows)
     if _device_of("topk", queries, database, bias) == "cpu":
@@ -577,23 +710,27 @@ def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: i
                               candidates=candidates)
     x = database.to(torch.bfloat16).contiguous()
     n = _check_cuda("topk", queries, x, bias, torch.bfloat16, d)
-    return _blocks_tiles(topk, "topk_blocks_bf16", queries, False, x, None, bias, k, d, n,
-                         block_rows, candidates)
+    if candidates:
+        return _blocks_tiles(topk, "topk_blocks_bf16", queries, False, x, None, bias, k, d, n,
+                             block_rows)
+    return _ring_tiles(topk, queries, x, None, bias, k, d, n, block_rows)
 
 
 def topk_int8(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
               bias: torch.Tensor, k: int, *, block_rows: int = 2048, candidates: bool = False):
     """The int8 form of ``topk`` (``pallas_topk_int8``): database_q [N, d]
     int8, db_scales [N] f32; queries quantized per row here
-    (``quantize_rows_int8``)."""
+    (``quantize_rows_int8``; the merged call on CUDA inside the kernel)."""
     n, d = database_q.shape
     _check_blocks("topk_int8", n, d, k, block_rows)
     if _device_of("topk_int8", queries, database_q, db_scales, bias) == "cpu":
         return topk_int8_reference(queries, database_q, db_scales, bias, k,
                                    block_rows=block_rows, candidates=candidates)
     n = _check_cuda("topk_int8", queries, database_q, bias, torch.int8, d, db_scales)
-    return _blocks_tiles(topk_int8, "topk_blocks_int8", queries, True, database_q, db_scales,
-                         bias, k, d, n, block_rows, candidates)
+    if candidates:
+        return _blocks_tiles(topk_int8, "topk_blocks_int8", queries, True, database_q, db_scales,
+                             bias, k, d, n, block_rows)
+    return _ring_tiles(topk_int8, queries, database_q, db_scales, bias, k, d, n, block_rows)
 
 
 def fused_topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int, *,
