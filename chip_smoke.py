@@ -6,22 +6,22 @@
 Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
-  2. build: compiles the path's six kernel sources from csrc/ at once (one
+  2. build: compiles the path's five kernel sources from csrc/ at once (one
      nvcc per source) and prints each build's time and ptxas' register and
      spill report and warnings (the scan kernels in three k classes; the
      attention source's Hopper kernels, attention_wgmma.cuh's
      attention_kernel for hd 64 and 128 and its three entries, blockwise,
      flash and the hop's stats, and its mma.sync kernels for f32), then one
-     line per attention kernel, brute int4 scan kernel (the tensor-core
-     scorer) and IVF kernel (ivf_scan_tma.cuh: the bf16, int8 and int4 DMA
-     entries and the bf16 / int8 per-block ones) with its registers and
+     line per attention kernel and ring kernel (ivf_scan_tma.cuh: the bf16,
+     int8 and int4 DMA entries, whose int4 kernels the brute int4 scan
+     takes, and the bf16 / int8 per-block ones) with its registers and
      spills, and the TMA IVF entries' shared-memory plan and CTAs per SM for
      d 128-8192 (int4 256-8192) x k 1-4096 (fails where a cell has none);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
      quantized tensors; then the int4 kernel alone over INT4_CASES (d 256
-     and 4096, row counts that are not a multiple of 16);
+     and 4096, row counts that are not a multiple of 64);
   3x. kernel vs plain, any query count and k above 1024: q = 0 (no launch,
      an empty result), 65, 100 and 130 (one launch per 64 queries) through
      all ten top-k wrappers (the per-block IVF ones merged by their kernel
@@ -281,7 +281,9 @@ Phases; any failure exits non-zero before the result lines:
      the plain versions, a one-call PyTorch yardstick where one exists and
      the recorded time of the kernel's earlier design (EARLIER_MS), and
      each call's device time split by kernel (torch.profiler; where it
-     lost records, the call's CUDA graph and its held time instead);
+     lost records, the call's CUDA graph and its held time instead); int4
+     also at k = 10, and one call's CUDA graph: one ring kernel after its
+     memset (no merge launch, no quantization kernels, no sort);
   5c. main path, full size, IVF: ``configs/rag/ivf_int8.yaml``'s index
      settings (block_rows 1024, n_lists 1024, n_probe 64, adaptive margin
      0.15, recall target 0.95) over 1,048,576 × 768 clustered unit vectors
@@ -487,15 +489,15 @@ REPLACES = {  # the pallas_call of each TPU kernel
     "ivf_topk": "youtu_rag_tpu/ops/ivf.py:103",
     "ivf_topk_int8": "youtu_rag_tpu/ops/ivf.py:188",
 }
-SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention",
-           "topk_blocks")
+SOURCES = ("topk_pruned", "topk_int8_pruned", "ivf_topk", "attention", "topk_blocks")
 # Each redesigned kernel's time before its redesign, as PERF.md §6 records
 # it (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W): the hop on the
 # mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the brute int4
-# scan on the __dp4a scorer (k = 64), the IVF scans on topk_select.cuh's
-# scan with a merge launch after it (phase 5c's adaptive plan; int4 with
-# the tensor-core scorer, k = 64).
-EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.4772,
+# scan on PR 8's design (topk_select.cuh's scan with the tensor-core scorer,
+# then a merge launch; k = 64), the IVF scans on topk_select.cuh's scan with
+# a merge launch after it (phase 5c's adaptive plan; int4 with the
+# tensor-core scorer, k = 64).
+EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.3314,
               "ivf_topk_int4_dma": 0.1544, "ivf_topk_dma": 0.0918, "ivf_topk_int8_dma": 0.0879}
 # ... and the IVF scans' on phase 5c's fixed plan
 EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
@@ -659,9 +661,9 @@ def build_all() -> None:
     print(f"all builds: {time.perf_counter() - t0:.1f} s wall")
     from youtu_rag_tpu_torch.bench.ab_kernels import ptxas_report
 
-    for name in ("attention", "topk_int4_pruned", "ivf_topk"):
+    for name in ("attention", "ivf_topk"):
         for kernel, regs, spills in ptxas_report(done[name]["log"]):
-            if kernel.startswith(("attention", "ivf_tma")) or "Int4Scorer" in kernel:
+            if kernel.startswith(("attention", "ivf_tma")):
                 print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
     ivf_plan_table()
 
@@ -709,9 +711,10 @@ KERNEL_CASES = [
     for n in (4096, 65536)
     for k in (1, 10, 50, 128, 256, 1024)
 ]
-# the int4 kernel alone (its tensor-core scorer takes 16-row warp tiles):
-# d 256 (two chunk rounds) and 4096 (32), row counts that are not a
-# multiple of 16 (the last warp tile of the last CTA partly past the end)
+# the int4 kernel alone (the ring's 64-row stages, 16-row warp groups): d
+# 256 (one half-round of chunks) and 4096 (eight rounds), row counts that
+# are not a multiple of 64 or 16 (the last stage partly past the end, its
+# rows not a multiple of 4: bias and scales by element copies)
 INT4_CASES = [(q, d, n, k) for q in (1, 8, 64) for d in (256, 4096) for n in (4099, 20011)
               for k in (1, 64, 1024)]
 
@@ -926,8 +929,8 @@ IVF_N, IVF_D = 65536, 256
 IVF_CASES = [(q, k, br) for q in (1, 8, 64) for k in (1, 10, 128, 129, 1024)
              for br in (64, 1024, 4096)]
 IVF_GARBAGE = 1 << 28  # an id past n_valid that points far outside the index
-# the int4 kernel alone at block_rows 4, 8 and 12: its 32-row stages and
-# 16-row groups straddle blocks (IVF4_N rows: a multiple of 12 and of 16)
+# the int4 kernel alone at block_rows 4, 8 and 12: its 64-row stages and
+# 16-row groups straddle blocks (IVF4_N rows: a multiple of 12 and of 64)
 IVF4_N = 49152
 IVF4_CASES = [(q, k, br) for q in (8, 64) for k in (1, 64, 1024, 2048) for br in (4, 8, 12)]
 # the three kernels (csrc/ivf_scan_tma.cuh) alone: query counts around the
@@ -5262,7 +5265,7 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
         print(f"{tier}: search (q = {qn}, top_k = {top_k}, kernel k = {k_kernel}) matches the plain version")
 
         res = {"launches": launches, "err": err, "k": k_kernel}
-        for k in (k_kernel, 256, 1024):
+        for k in (k_kernel, 256, 1024) + ((10,) if tier == "int4" else ()):
             ms = time_ms(lambda: kernel(qdev, x, *extra, b, k))
             bms, by = bound(tier, part, rows, d, qn, k)
             row_bytes = {"bfloat16": 2 * d, "int8": d, "int4": d // 2}[tier]
@@ -5279,9 +5282,15 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
         earlier = EARLIER_MS.get(KERNEL_NAMES[tier])
         print(f"  plain {res['plain_ms']:.4f} ms; library "
               f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]"
-              + ("" if earlier is None else f"; the __dp4a scorer's recorded time {earlier} ms, "
-                 f"now {res['ms']:.4f} ms against a bound of {res['bound_ms']:.4f} ms"))
+              + ("" if earlier is None else f"; PR 8's design (a scan kernel, then a merge "
+                 f"launch) recorded {earlier} ms, now {res['ms']:.4f} ms against a bound of "
+                 f"{res['bound_ms']:.4f} ms"))
         profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel), graph=True)
+        if tier == "int4":
+            # one kernel after its memsets: no merge launch, no query quantization, no sort
+            nodes = check_one_scan("int4 brute", lambda: kernel(qdev, x, *extra, b, k_kernel),
+                                   kernel)
+            print(f"  one topk_int4_pruned call (k = {k_kernel}) enqueues {graph_text(nodes)}")
         out[tier] = res
         if tier != "int4":
             keep[tier] = {"q": qdev, "x": x, "extra": extra, "bias": b}
@@ -8072,7 +8081,9 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": f"youtu_rag_tpu_torch/csrc/{kname}.cu",
+            # the int4 scan: csrc/ivf_topk.cu's topk_pruned_int4 entry
+            "source": ("youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh" if tier == "int4"
+                       else f"youtu_rag_tpu_torch/csrc/{kname}.cu"),
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]

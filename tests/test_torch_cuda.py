@@ -163,8 +163,10 @@ def assert_bit_equal(got, want):
 @pytest.mark.parametrize("n", [4099, 20011])
 @pytest.mark.parametrize("d", [256, 768, 4096])
 def test_int4_tensor_core_scorer_is_bit_equal(cuda_device, d, n, k):
-    """The int4 scan's mma.sync scorer over 16-row warp tiles: row counts
-    that are not a multiple of 16, one to 32 chunk rounds per row."""
+    """The int4 scan's mma.sync scoring (the ring's 64-row stages of 16-row
+    warp groups): row counts that are not a multiple of 16 (nor of 4: bias
+    and scales by element copies), half a round to eight rounds of chunks
+    per row."""
     rng = np.random.default_rng(d + n + k)
     x = rng.standard_normal((n, d)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
@@ -180,6 +182,73 @@ def test_int4_tensor_core_scorer_is_bit_equal(cuda_device, d, n, k):
     assert_bit_equal(got, topk_int4_pruned_reference(*args))
     live = [r for r in [3] + list(range(n - 5, n)) if bias[r] == 0]
     assert got[1][0, : min(k, len(live))].tolist() == live[: min(k, len(live))]
+
+
+def assert_pruned_equal(got, want):
+    """The pruned contract: live slots (plain score > NEG_INF) bit-equal to
+    the plain version's, rows and scores; every other slot (NEG_INF, 0)."""
+    s, i, ws, wi = (t.cpu() for t in (*got, *want))
+    live = ws > NEG_INF
+    assert torch.equal(s[live].view(torch.int32), ws[live].view(torch.int32))
+    assert torch.equal(i[live], wi[live])
+    assert bool((s[~live] == NEG_INF).all()) and bool((i[~live] == 0).all())
+
+
+# (d, n, k, q): widths of one to four 512-column rounds, row counts below one
+# 32-row stage and one past a multiple of 16, k in every list class of the
+# ring (registers, shared memory, device memory)
+INT4_RING_CASES = [(d, n, k, q) for d in (256, 768, 1024) for n in (1, 4, 7, 4096 + 3)
+                   for k in (1, 10, 64, 256, 1024, 2048) if k <= n for q in (1, 8, 9, 64, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, n, k, q", INT4_RING_CASES)
+def test_int4_ring_is_bit_equal_with_the_pruned_fill(cuda_device, d, n, k, q):
+    """topk_int4_pruned on the ring (csrc/ivf_topk.cu's topk_pruned_int4):
+    one launch per 64 queries; live slots bit-equal to the plain version,
+    the rest (NEG_INF, 0); a zero query row (every live row ties at its
+    bias: rows ascending), NEG_INF and -inf rows, and in every other case
+    bias and scales 4 bytes past a 16-byte boundary."""
+    seed = d + n + k + q
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    qs[0] = 0.0
+    bias = np.zeros(n, np.float32)
+    bias[::5] = NEG_INF
+    bias[3::11] = -np.inf
+    xq, xs = quantize_rows_int4(torch.from_numpy(x).to(cuda_device))
+    b = torch.from_numpy(bias).to(cuda_device)
+    if seed % 2:
+        b, xs = _offset(b), _offset(xs)
+    args = (torch.from_numpy(qs).to(cuda_device), xq, xs, b, k)
+    before = topk_int4_pruned.launches
+    got = topk_int4_pruned(*args)
+    torch.cuda.synchronize()
+    assert topk_int4_pruned.launches - before == -(-q // 64)
+    assert_pruned_equal(got, topk_int4_pruned_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", ["none", "one", "half of k"])
+@pytest.mark.parametrize("k", [1, 10, 64, 256, 1024, 2048])
+def test_int4_ring_fills_what_no_live_row_fills(cuda_device, k, live):
+    """Fewer live rows than k (none at all, one, k / 2 scattered): the live
+    ones first, bit-equal, then (NEG_INF, 0) in every other slot."""
+    n, d = 4096 + 3, 768
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    qs = rng.standard_normal((9, d)).astype(np.float32)
+    bias = np.full(n, NEG_INF, np.float32)
+    alive = {"none": [], "one": [n - 1], "half of k": rng.choice(n, k // 2, replace=False)}[live]
+    bias[alive] = 0.0
+    xq, xs = quantize_rows_int4(torch.from_numpy(x).to(cuda_device))
+    args = (torch.from_numpy(qs).to(cuda_device), xq, xs, torch.from_numpy(bias).to(cuda_device), k)
+    got = topk_int4_pruned(*args)
+    torch.cuda.synchronize()
+    assert_pruned_equal(got, topk_int4_pruned_reference(*args))
+    assert int((got[0] > NEG_INF).sum()) == 9 * len(alive)
 
 
 @pytest.mark.cuda
@@ -756,8 +825,9 @@ def c2_width(entry, d):
 def test_ivf_scan_has_a_plan_for_every_width_and_k(cuda_device, entry):
     """Every (d, k) of the grid has a shared-memory plan and a CTA fits an
     SM (csrc/ivf_scan_tma.cuh, make_plan); at d = 768 the plans the
-    adaptive-plan searches use are the narrow ones (int4: 7 stages, two
-    CTAs on an SM at the search's k = 64)."""
+    adaptive-plan searches use are the narrow ones (int4: three 64-row
+    stages, the bytes of an int8 stage each, two CTAs on an SM at the
+    search's k = 64)."""
     from youtu_rag_tpu_torch.ops.topk import _tma_ctas_per_sm, scan_plan
 
     for d in (c2_width(entry, d) for d in C2_WIDTHS):
@@ -766,8 +836,8 @@ def test_ivf_scan_has_a_plan_for_every_width_and_k(cuda_device, entry):
             assert rows > 0 and stages > 0, (d, k)
             assert _tma_ctas_per_sm(entry, d, k) >= 1, (d, k)
             assert not wide or (entry.endswith("bf16") and d > 4096), (d, k)
-    stages = 7 if entry.endswith("int4") else 4
-    assert scan_plan(entry, 768, 10)[:2] == (32, stages) and not any(scan_plan(entry, 768, 10)[2:])
+    shape = (64, 3) if entry.endswith("int4") else (32, 4)
+    assert scan_plan(entry, 768, 10)[:2] == shape and not any(scan_plan(entry, 768, 10)[2:])
     if entry.endswith("int4"):
         assert _tma_ctas_per_sm(entry, 768, 64) == 2
 

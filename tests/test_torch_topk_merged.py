@@ -167,6 +167,7 @@ def test_ring_library_types_every_entry(ring):
     """Every entry's launch takes 20 arguments, pointers as c_void_p (a
     64-bit pointer passed as a C int would be cut)."""
     lib = T._tma_library()
+    assert {"topk_merged_bf16", "topk_merged_int8", "topk_pruned_int4"} <= set(T._TMA_ENTRY.values())
     for entry in set(T._TMA_ENTRY.values()):
         types_ = getattr(lib, f"{entry}_launch").argtypes
         assert len(types_) == len(ARG_NAMES)

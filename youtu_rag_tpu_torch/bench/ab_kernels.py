@@ -43,7 +43,7 @@ import subprocess
 import sys
 import threading
 
-SOURCES = ("topk_pruned", "topk_int8_pruned", "topk_int4_pruned", "ivf_topk", "attention")
+SOURCES = ("topk_pruned", "topk_int8_pruned", "ivf_topk", "attention")
 HOLD_CYCLES = 4_000_000  # chip_smoke.py's spin: longer than the host takes to enqueue a call
 # (name, wrapper, shape); the persistent grid's rounds are the shape's
 # B * H * T / 128 items over 132 CTAs

@@ -64,16 +64,14 @@ TRACE_PATCHES = (
      "    if (i == 0) TRACE(4);\n    TRACE_STAGE(i, 0);\n"),
     ("    if (threadIdx.x == 0 && more) issue(i + S);\n",
      "    if (threadIdx.x == 0 && more) issue(i + S);\n    TRACE_STAGE(i, 1);\n"),
-    ("          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n        }\n"
-     "      }\n    }\n  }\n",
-     "          pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));\n        }\n"
-     "      }\n    }\n    TRACE_STAGE(i, 2);\n  }\n"),
+    ("                              lane);\n      }\n    }\n  }\n",
+     "                              lane);\n      }\n    }\n    TRACE_STAGE(i, 2);\n  }\n"),
     ("  // this CTA's lists as candidates", "  TRACE(5);\n  // this CTA's lists as candidates"),
     ("  if (!last_cta) return;\n", "  TRACE(6);\n  if (!last_cta) return;\n"),
     ("  __syncthreads();\n  if (!selects) return;\n",
      "  __syncthreads();\n  TRACE(7);\n  if (!selects) return;\n"),
-    ("  if constexpr (kProbe) {\n    if (n_out < k) {\n",
-     "  TRACE(8);\n  if constexpr (kProbe) {\n    if (n_out < k) {\n"),
+    ("  if constexpr (!kProbe) {\n    // the fill (contract above)",
+     "  TRACE(8);\n  if constexpr (!kProbe) {\n    // the fill (contract above)"),
 )
 TRACE_C = """
 extern "C" int ivf_trace_read(void* dst) {

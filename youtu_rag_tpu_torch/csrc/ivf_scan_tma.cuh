@@ -5,10 +5,12 @@
 // Three tiers: Bf16, Int8 and Int4 (packed nibbles) below. Included by
 // ivf_topk.cu, whose entries ivf_topk_bf16, ivf_topk_int8 and
 // ivf_topk_int4 (the DMA contract), ivf_blocks_bf16 and ivf_blocks_int8
-// (the per-block contract, the kProbe template flag) and topk_merged_bf16
-// and topk_merged_int8 (the per-block contract over the identity plan: the
-// brute per-block kernels merged) it defines; the brute pruned scans and
-// the per-block candidates (topk_blocks.cu) stay on topk_select.cuh's scan.
+// (the per-block contract, the kProbe template flag), topk_merged_bf16 and
+// topk_merged_int8 (the per-block contract over the identity plan: the
+// brute per-block kernels merged) and topk_pruned_int4 (the DMA contract
+// over the identity plan: the brute int4 scan, pallas_topk_int4_pruned) it
+// defines; the brute bf16 and int8 pruned scans and the per-block
+// candidates (topk_blocks.cu) stay on topk_select.cuh's scan.
 //
 // DMA contract (the TPU kernels' pallas_ivf_topk_dma, pallas_ivf_topk_int8_dma
 // and pallas_ivf_topk_int4_dma):
@@ -36,7 +38,9 @@
 //    there is none (the TPU kernel merges every block with a live row while
 //    its list is not full, and a merge's dead picks repeat the running
 //    list's top entry). The scan records the last live v of each tile by
-//    atomicMax in the counters the launch's memset zeroes (7. below).
+//    atomicMax in the counters the launch's memset zeroes (7. below). Over
+//    the identity plan (topk_pruned_int4) r is 0, the pruned kernels' fill:
+//    their running top-k starts from (NEG_INF, 0).
 //  - any q (8-query tiles on the grid's y, up to 64 per launch) and any k
 //    (4.'s list classes).
 //
@@ -60,9 +64,10 @@
 //
 // The identity plan (ids null; the topk_merged entries: pallas_topk and
 // pallas_topk_int8 merged, as ops/topk.py's merge_blocks computes it from
-// their candidates): position i is block i, all max_blocks = n /
-// block_rows of them valid, so virtual row v is stored row v, the tail's
-// ids[0] and ids[1] are 0 and 1, and the order is (score desc, row asc).
+// their candidates; topk_pruned_int4 with one block of all n rows): position
+// i is block i, all max_blocks = n / block_rows of them valid, so virtual
+// row v is stored row v, the tail's ids[0] and ids[1] are 0 and 1, and the
+// order is (score desc, row asc).
 // Nothing of the plan is read on the device. A stage's rows are one run
 // even where it spans blocks (one bulk copy each for the rows, bias and
 // scales), so only n % 4 != 0 or unaligned bias and scales take 8.'s
@@ -83,10 +88,15 @@
 //     from a counter of the tile, the next pair's atomicAdd always in
 //     flight, so a CTA whose SM streams faster takes more and the CTAs
 //     finish together.
-//  2. A ring of S stages of R rows (R 32 or 16, S up to 4, int4 up to 7;
-//     the host picks them from d and k, 9. below: int8 at d = 768 holds
-//     4 x 32 rows, 99 KB in flight per CTA, int4 7 x 32 packed rows, 88 KB,
-//     and both still fit two CTAs on an SM at the search's k). Thread 0 fills a stage with 1-D bulk copies
+//  2. A ring of S stages of R rows (R 32 or 16, S up to 4; int4 64 rows
+//     and S up to 3, or 32 and up to 7; the host picks them from d and k,
+//     9. below: int8 at d = 768 holds 4 x 32 rows, 99 KB in flight per CTA,
+//     int4 3 x 64 packed rows, 75 KB, and both still fit two CTAs on an SM
+//     at the search's k). The ring has a fixed cost per stage (a barrier,
+//     the refill, a selection pass per 32 rows, its latency chain), so
+//     int4's stages hold as many bytes as int8's: in 32-row stages (half
+//     the bytes) the int4 stream over 1,048,576 x 768 took 0.186 ms without
+//     selection, 66 % of its bound (H100 SXM, 700 W). Thread 0 fills a stage with 1-D bulk copies
 //     (cp.async.bulk, completing on the stage's mbarrier): per run of rows
 //     inside one block, the rows, their bias and (int8, int4) their scales. A
 //     stage may hold rows of several blocks (block_rows 4, 8, 12); where
@@ -99,14 +109,15 @@
 //     rows it holds; once the stages run past the plan, thread 0 arrives on
 //     the next slot's barrier with no rows, which ends the CTA's scan.
 //  3. Scoring on the tensor cores: warp w takes the 16 rows 16 (w / 4) ..
-//     of the stage and a quarter of the width, the 16-byte chunks c with
+//     of the stage (64-row stages: also 16 (w / 4 + 2) ..) and a quarter of
+//     the width, the 16-byte chunks c with
 //     c / 4 % 4 == w % 4, and computes their dots with the 8 queries with
 //     mma.sync (int8: m16n8k32 s8 x s8, exact; bf16: m16n8k16, f32 sums).
 //     Lane (g, t) reads chunk 4 (w % 4) + t + 16 i of rows g and g + 8 and
 //     of query g; the k order inside a step is free as long as A and B
 //     agree, so words 0 and 1 of the chunk are the step's two k groups, then
 //     words 2 and 3, and no fragment needs a shuffle. The four quarters'
-//     partial dots go to a double-buffered tile [4, kQT, 32] (one
+//     partial dots go to a double-buffered tile [4, kQT, R] (one
 //     __syncthreads per stage); selection adds them (int8 and int4 as
 //     integers).
 //     int4 (Int4::dots): packed chunk c of a row (16 bytes: columns 16c..
@@ -115,24 +126,34 @@
 //     0x88888888, masked to its low or high nibbles, is four biased u8
 //     values u = x + 8, so mma.sync m16n8k32 u8 x s8 sums dot(q, u) exactly
 //     and quarter 0 subtracts 8 sum(q), kept per query beside the tile
-//     (topk_scorers.cuh's Int4Scorer arithmetic). The d/32 packed chunks
+//     (no sign extension per nibble; topk_scorers.cuh's mma_u8s8). The d/32 packed chunks
 //     would split over the quarters unevenly by the rule above (d = 768:
 //     8/8/4/4), so int4 takes rounds of 16 chunks, chunk 16r + 4 quarter +
 //     t to lane t with its four words as four steps, and the 8 chunks past
 //     the last round (d % 512 == 256) as 16 halves of 8 bytes, half
 //     4 quarter + t to lane t, two steps: d/128 steps per quarter at every d.
-//  4. Selection as topk_select.cuh's scan: warp j keeps query j's sorted
-//     list and lane L takes row L of the stage; only a row that beats the
-//     list's k-th entry inserts. Up to k = 32 the list lives in registers,
-//     entry i in lane i, and an insertion is one ballot and one shuffle
-//     (kListWarp). Up to k = 64 and 128 it lives in two or four registers
-//     a lane, entry 32 r + lane in register r (kListWarp2, kListWarp4), and
-//     a stage's rows that beat entry k - 1 go in together: a bitonic sort of
-//     the 32 (15 exchanges between lanes), then Batcher's merge into the
-//     list (its last 32 against them reversed, then a bitonic merge), so a
-//     stage costs the same whether 1 or 32 rows insert (one at a time, into
-//     shared memory, the first stages of a CTA cost ~5 us at k = 64). Above
-//     k = 128, topk_select.cuh's shared and device classes.
+//  4. Selection: warp j keeps query j's sorted list and lane L takes rows
+//     L, L + 32, .. of the stage; only a row that beats the list's entry
+//     k - 1 goes in. Up to k = 32 the list lives in registers, entry i in
+//     lane i, and an insertion is one ballot and one shuffle (kListWarp).
+//     Up to k = 64 and 128 it lives in two or four registers a lane, entry
+//     32 r + lane in register r (kListWarp2, kListWarp4); up to k = 1024 in
+//     shared memory (kListShared), above in the CTA's slot of the candidates
+//     (kListDevice). Above k = 32 a row that beats entry k - 1 joins the
+//     warp's buffer in shared memory (a ballot, a prefix count, one store),
+//     and the buffer goes into the list 32 entries at once: a bitonic sort
+//     of the 32 (15 exchanges between lanes), then, for a register list,
+//     Batcher's merge (its last 32 against them reversed, then a bitonic
+//     merge), for a list in memory a merge by rank (flush_memory: each entry
+//     moves by the count of new ones before it, so it costs the entries
+//     below the best new one, not k). A warp merges only when some warp's
+//     buffer held 32 at the stage's barrier (__syncthreads_or), and then
+//     every warp does, so the CTA waits for one merge where it would wait
+//     for eight in turn. Merging each stage's rows as they came cost the
+//     int4 scan 0.134 ms of 0.321 at k = 64 (every stage inserts at first,
+//     and most still do ~60 stages in); one entry at a time into a shared
+//     list costs k / 32 steps an entry (the int4 scan at k = 1024: 8.95 ms;
+//     times on an H100 SXM at 700 W, 1,048,576 x 768, q = 8).
 //  5. Query prep in the prologue, by every thread, with its loads in flight
 //     at once (one round trip at d <= 1024): bf16 rounds f32 queries to
 //     bf16 (__floats2bfloat162_rn, as .to(torch.bfloat16)) or takes bf16
@@ -146,22 +167,20 @@
 //     last CTA of a query tile to finish (a ticket from atomicAdd on the
 //     tile's counter, which the launch zeroes with cudaMemsetAsync; each
 //     call has its own) merges them, warp j query j, in (score desc, row
-//     asc) order, ties between lists to the lower list. Each list keeps a
-//     window of its next W entries in shared memory (all windows loaded at
-//     once in 16-byte loads; W 4 or 8), which its lane refills from the
-//     candidates when it runs out; a lane keeps the heads of its lists in
-//     registers, and each step is three warp reductions (redux.sync) of an
-//     order-preserving key. A register list (4.) merges instead as it
-//     selects: the lists offer their window's entries a position at a
-//     time, each lane holding one, and the warp sorts and merges the 32 it
-//     holds when a lane would take a second; a list whose entry does not
-//     beat entry k - 1 offers no more, and those still offering past their
-//     windows stream the rest from the candidates, the next list's first 32
-//     entries loading while one merges. Its cost follows the entries that
-//     enter, not k steps (at k = 64 over 264 lists the tournament took
-//     ~43 us). The last CTA alone runs the merge, once, so its code is kept
-//     small: unrolled copies of the merge network cost more in instruction
-//     fetches than they save.
+//     asc) order. Each list's first W entries come into shared memory at
+//     once (16-byte loads; W 4 or 8). The merged list is a list of 4.'s
+//     classes (k <= 32 one register a lane; shared memory up to 1024; the
+//     query's output row above), and takes entries as the scan's lists do:
+//     through a buffer, 32 at a time. The lists offer their windows a
+//     position at a time (first every list's best, then every second
+//     best, ..); a list whose entry does not beat entry k - 1 offers no
+//     more, and those still offering past their windows stream the rest
+//     from the candidates 32 entries at a time, the next list's first 32
+//     loading while one is offered. Its cost follows the entries that
+//     enter, not k: one step per output slot (a head tournament of three
+//     warp reductions) took ~0.6 us a step on an H100 (k = 256 over 264
+//     lists: 163 us). The last CTA alone runs the merge, once, so its code
+//     is kept small: one merge in each loop, no unrolled copies.
 //  7. The lists and the merge key on v, not on the stored row, so ties come
 //     in probe order whichever CTA took a stage; the merge stops at the
 //     first entry that is not live and writes the fill (DMA) or the tail
@@ -184,7 +203,8 @@
 //     which then counts two arrivals); the rows go by bulk copies as before
 //     (d % 128 == 0 keeps every row a 16-byte multiple).
 //  9. Any d and k (make_plan). The query tile (16d bytes bf16, 8d int8,
-//     8 (d + 64) int4), the lists (64k bytes) and at least one stage
+//     8 (d + 64) int4), the lists (64k bytes; 129 <= k <= 1024), the
+//     buffers (64 (R + 32) bytes; k > 32) and at least one stage
 //     (R (row bytes + 8)) share one CTA's 232,448 bytes. A plan first keeps the lists in shared memory
 //     (the shapes of 2.), then in device memory (kListDevice, which k >
 //     1024 takes anyway); past that (bf16 from d ~ 4,700) the wide plan
@@ -212,6 +232,10 @@ constexpr int kMergeBatch = 9;      // ... in the merge (every window at once up
 constexpr int kWindowMax = 8;       // merge: entries of a list kept in shared memory
 constexpr int kPair = 2;            // stages a CTA takes from the tile's counter at once
 constexpr int kListsPerLane = 9;    // merge: lists a lane owns at most (n_cta <= 288)
+// a warp's buffer of entries waiting to merge into its list (4.): 32 more
+// than a stage of R rows can add, so that it takes a stage below 32
+template <class T>
+constexpr int kBuf = T::kStageRows + 32;
 
 constexpr float kRecip127 = 1.0f / 127.0f;  // f32(1 / 127), as the jitted quantizer folds it
 
@@ -299,6 +323,121 @@ __device__ __forceinline__ void list_entry(const float (&ls)[L], const int (&li)
   i = __shfl_sync(kFull, ti, e % 32);
 }
 
+// The first 32 entries of a warp's buffer of n (fewer: padded with the
+// lists' initial entry (NEG_INF, 0)), entry `lane` in (cs, ci); the rest
+// move down 32 places, a chunk at a time, each read before it is written.
+__device__ __forceinline__ void buffer_take(float* bs, int* bi, int n, float& cs, int& ci,
+                                            int lane) {
+  __syncwarp();
+  cs = lane < n ? bs[lane] : kNegInf;
+  ci = lane < n ? bi[lane] : 0;
+  for (int base = 32; base < n; base += 32) {
+    const bool has = base + lane < n;
+    const float rs = has ? bs[base + lane] : 0.f;
+    const int ri = has ? bi[base + lane] : 0;
+    __syncwarp();
+    if (has) {
+      bs[base - 32 + lane] = rs;
+      bi[base - 32 + lane] = ri;
+    }
+    __syncwarp();
+  }
+}
+
+// A register list takes the first min(n, 32) entries of a warp's buffer
+// (bs, bi) at once (sorted, then merge32; the pad (NEG_INF, 0) is the
+// list's initial entry), and (ts, ti) becomes its entry k - 1. Entries 32 ..
+// n - 1 move down 32 places; returns how many are left.
+template <int L>
+__device__ __forceinline__ int flush_buffer(float* bs, int* bi, int n, float (&ls)[L],
+                                            int (&li)[L], int k, float& ts, int& ti, int lane) {
+  float cs;
+  int ci;
+  buffer_take(bs, bi, n, cs, ci, lane);
+  sort32(cs, ci, lane);
+  merge32<L>(ls, li, cs, ci, lane);
+  list_entry<L>(ls, li, k - 1, ts, ti);
+  return n > 32 ? n - 32 : 0;
+}
+
+// The same for a sorted list of k entries in shared or device memory (ls,
+// li), as a merge of the 32 sorted entries into it: list entry j moves to
+// j + (the new entries that rank before it), new entry `lane` goes to
+// lane + (the list entries that rank before it or tie it), and what lands
+// at k or past it drops out. The list moves up 32 entries at a time from
+// its end, each chunk read before it is written and written below the
+// chunk above it (the places are increasing), down to where the best new
+// entry goes in; so a merge costs the entries it moves, not k.
+__device__ __forceinline__ int flush_memory(float* bs, int* bi, int n, float* ls, int* li, int k,
+                                            float& ts, int& ti, int lane) {
+  float cs;
+  int ci;
+  buffer_take(bs, bi, n, cs, ci, lane);
+  sort32(cs, ci, lane);
+  // this new entry's place in the list: the first entry it beats
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (better(cs, ci, ls[mid], li[mid]))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  const int at = lane + lo;
+  const int first = __shfl_sync(kFull, lo, 0);  // where the best new entry goes in
+  for (int top = k; top > first; top -= 32) {
+    const int j = top - 32 + lane;
+    const bool moves = j >= first;
+    float s = kNegInf;
+    int i = 0;
+    if (moves) {
+      s = ls[j];
+      i = li[j];
+    }
+    // the new entries that rank before list entry j: a prefix of the lanes
+    int c_lo = 0, c_hi = 32;
+#pragma unroll
+    for (int step = 0; step < 6; ++step) {
+      const int mid = (c_lo + c_hi) >> 1;
+      const float ms = __shfl_sync(kFull, cs, mid & 31);
+      const int mi = __shfl_sync(kFull, ci, mid & 31);
+      if (c_lo < c_hi) {
+        if (better(ms, mi, s, i))
+          c_lo = mid + 1;
+        else
+          c_hi = mid;
+      }
+    }
+    __syncwarp();
+    if (moves && j + c_lo < k) {
+      ls[j + c_lo] = s;
+      li[j + c_lo] = i;
+    }
+    __syncwarp();
+  }
+  if (at < k) {
+    ls[at] = cs;
+    li[at] = ci;
+  }
+  __syncwarp();
+  ts = ls[k - 1];
+  ti = li[k - 1];
+  return n > 32 ? n - 32 : 0;
+}
+
+// A warp's entries that beat its list's entry k - 1 (`in`, this lane's
+// (s, i)) join the buffer behind its n entries; returns the new count.
+__device__ __forceinline__ int buffer_append(float* bs, int* bi, int n, bool in, float s, int i,
+                                             int lane) {
+  const unsigned got = __ballot_sync(kFull, in);
+  if (in) {
+    const int at = n + __popc(got & ((1u << lane) - 1u));
+    bs[at] = s;
+    bi[at] = i;
+  }
+  return n + __popc(got);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -346,15 +485,6 @@ __device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
 // one arrival on `bar` once every cp.async this thread issued has landed
 __device__ __forceinline__ void copy4_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-// f32 score -> an unsigned key in the same order (-0 as +0), and back
-__device__ __forceinline__ unsigned order_key(float s) {
-  const unsigned b = __float_as_uint(s + 0.f);
-  return b & 0x80000000u ? ~b : b | 0x80000000u;
-}
-__device__ __forceinline__ float key_score(unsigned key) {
-  return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
 }
 
 // d = A . B + d over one k16 step: A 16 x 16 bf16 (row major), B 16 x 8 bf16
@@ -422,6 +552,7 @@ __device__ __forceinline__ void quarter_dots(const unsigned char* qt, int q_row,
 struct Bf16 {
   static constexpr bool kScaled = false;
   static constexpr int kStages = 4;  // stages in the ring at most
+  static constexpr int kStageRows = kMaxRows;  // R at most
   typedef float Acc;
   static __host__ __device__ bool width_ok(int d) { return d % 128 == 0; }
   static __host__ __device__ int row_bytes(int d) { return 2 * d; }
@@ -491,6 +622,7 @@ struct Bf16 {
 struct Int8 {
   static constexpr bool kScaled = true;
   static constexpr int kStages = 4;
+  static constexpr int kStageRows = kMaxRows;
   typedef int Acc;
   static __host__ __device__ bool width_ok(int d) { return d % 128 == 0; }
   static __host__ __device__ int row_bytes(int d) { return d; }
@@ -601,7 +733,10 @@ struct Int8 {
 // int32 (3. and 5. above)
 struct Int4 {
   static constexpr bool kScaled = true;
-  static constexpr int kStages = 7;  // a stage holds half an int8 one's bytes
+  static constexpr int kStages = 7;  // 32-row stages, where 64-row ones do not fit
+  // 64-row stages: the bytes of an int8 stage, so the ring's cost per stage
+  // spreads over as many bytes (2.)
+  static constexpr int kStageRows = 2 * kMaxRows;
   static constexpr int kQPad = 64;   // bytes past each query row: its 16-byte loads in other banks
   typedef int Acc;
   // the packed width a multiple of 128, as the TPU kernel asserts
@@ -689,11 +824,13 @@ struct Int4 {
 // Stage geometry and shared-memory layout, the same on host and device.
 // Shared memory: S mbarriers | query tile (not for a wide plan) | qscale
 // f32 [kQT] | partial dots [2, kQuarters, kQT, 32] (T::Acc) | lists (k
-// scores, k rows per query; not for device lists) | S stages of R rows,
-// R biases and R scales.
+// scores, k rows per query; not for device lists; a register list's
+// buffer, kBuf scores and kBuf rows per query, instead) | S stages of R
+// rows, R biases and R scales.
 // The last CTA's merge reuses everything past the mbarriers: per query
 // the windows' scores [n_cta, W] and rows [n_cta, W] (n_cta counted up to
-// a multiple of 4).
+// a multiple of 4), then (129 <= k <= 1024) the merged lists, k scores and
+// k rows per query, then the buffers.
 template <class T>
 struct Plan {
   int rows;    // R, rows per stage: 32 or 16 (a wide plan also 8)
@@ -708,16 +845,29 @@ struct Plan {
   __host__ __device__ size_t qscale_off() const { return q_off() + (wide ? 0 : T::q_bytes(d)); }
   __host__ __device__ size_t parts_off() const { return qscale_off() + sizeof(float) * kQT; }
   __host__ __device__ size_t lists_off() const {
-    return parts_off() + sizeof(typename T::Acc) * 2 * kQuarters * kQT * kMaxRows;
+    return parts_off() + sizeof(typename T::Acc) * 2 * kQuarters * kQT * T::kStageRows;
+  }
+  // the selecting warps' list class (4.): shared lists take k entries per
+  // query here, and every class above k = 32 a buffer of kBuf
+  __host__ __device__ int list_class() const { return dev_lists ? kListDevice : tma_list_kind(k); }
+  __host__ __device__ size_t buf_off() const {
+    return lists_off() + (list_class() == kListShared ? (size_t)kQT * k * 8 : 0);
   }
   __host__ __device__ size_t ring_off() const {
-    const size_t lists = dev_lists ? 0 : (size_t)kQT * k * 8;
-    return 16 * ((lists_off() + lists + 15) / 16);
+    const size_t buf = list_class() == kListWarp ? 0 : (size_t)kQT * kBuf<T> * 8;
+    return 16 * ((buf_off() + buf + 15) / 16);
   }
   // a stage: rows, then biases, then scales (every part a multiple of 16 bytes)
   __host__ __device__ size_t stage_bytes() const { return (size_t)rows * (row_bytes + 8); }
-  __host__ __device__ size_t merge_bytes(int n_cta) const {
+  // the merge's: the windows, then (shared lists) the merged lists, then the buffers
+  __host__ __device__ size_t merge_list_off(int n_cta) const {
     return barriers() + (size_t)kQT * ((n_cta + 3) & ~3) * 8 * window;
+  }
+  __host__ __device__ size_t merge_buf_off(int n_cta) const {
+    return merge_list_off(n_cta) + (list_class() == kListShared ? (size_t)kQT * k * 8 : 0);
+  }
+  __host__ __device__ size_t merge_bytes(int n_cta) const {
+    return merge_buf_off(n_cta) + (size_t)kQT * kBuf<T> * 8;
   }
   __host__ __device__ size_t smem(int n_cta) const {
     const size_t scan = ring_off() + stages * stage_bytes();
@@ -726,25 +876,26 @@ struct Plan {
   }
 };
 
-// R and S for width d and top-k k: the first of 7, 6, 5 (int4 only), 4, 3
-// and 2 x 32, 4, 3 and 2 x 16, 1 x 32 and 1 x 16 rows that fits (the merge
+// R and S for width d and top-k k: the first of 3 and 2 x 64, 7, 6 and 5
+// x 32 (int4 only), 4, 3 and 2 x 32, 4, 3 and 2 x 16, 1 x 32 and 1 x 16
+// rows that fits (the merge
 // at a window of 4) with the lists in shared memory (k <= 1024), then with
 // the lists in device memory, then (bf16) the same and 4, 3, 2 and 1 x 8
 // as a wide plan (9. above); rows = 0 if none does.
 template <class T>
 Plan<T> make_plan(int d, int k, int max_cta) {
-  const int shapes[][2] = {{32, 7}, {32, 6}, {32, 5}, {32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3},
+  const int shapes[][2] = {{64, 3}, {64, 2}, {32, 7}, {32, 6}, {32, 5}, {32, 4}, {32, 3}, {32, 2}, {16, 4}, {16, 3},
                            {16, 2}, {32, 1}, {16, 1}, {8, 4},  {8, 3},  {8, 2},  {8, 1}};
   for (int dev = list_kind(k) == kListDevice; dev <= 1; ++dev)
     for (const auto& rs : shapes) {
       // 8-row stages only with the query tile in device memory
-      if (rs[0] < 16 || rs[1] > T::kStages) continue;
+      if (rs[0] < 16 || rs[0] > T::kStageRows || rs[1] > T::kStages) continue;
       const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4, dev, 0};
       if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
     }
   if (!T::kScaled)
     for (const auto& rs : shapes) {
-      if (rs[1] > T::kStages) continue;
+      if (rs[0] > T::kStageRows || rs[1] > T::kStages) continue;
       const Plan<T> p{rs[0], rs[1], T::row_bytes(d), d, k, 4, 1, 1};
       if (p.smem(max_cta) <= (size_t)kSmemLimit) return p;
     }
@@ -891,7 +1042,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   }
   // kListWarp2/4: the list in registers, entry 32 r + lane in (wl_s[r], wl_i[r])
   constexpr int kRegList = kListRegsPerLane<kList>;
-  if constexpr (kList != kListDevice && kRegList == 0) {
+  if constexpr (kList == kListShared) {
     for (int e = threadIdx.x; e < kQT * k; e += kThreads) {
       list_s[e] = kNegInf;
       list_i[e] = 0;
@@ -907,7 +1058,6 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   const bool selects = warp < q_valid;
   // this list's candidates
   const size_t slot_out = (((size_t)blockIdx.y * n_cta + cta) * kQT + warp) * k_pad;
-  int n_live = 0;  // kListDevice: entries filled so far (the rest are initial)
   [[maybe_unused]] int last_live = -1;  // DMA: the last live v this warp scored
   if constexpr (kList == kListDevice) {
     if (selects) {
@@ -931,7 +1081,21 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     wl_s[r] = kNegInf;
     wl_i[r] = 0;
   }
+  // above k = 32: this warp's buffer of entries waiting to merge in (4.)
+  float* buf_s = reinterpret_cast<float*>(smem + p.buf_off()) + warp * 2 * kBuf<T>;
+  int* buf_i = reinterpret_cast<int*>(buf_s + kBuf<T>);
+  int n_buf = 0;
+  // the buffer's first 32 entries into the list (fewer: padded); returns the rest
+  auto flush = [&]() {
+    if constexpr (kRegList > 0)
+      return flush_buffer(buf_s, buf_i, n_buf, wl_s, wl_i, k, thr_s, thr_i, lane);
+    else
+      return flush_memory(buf_s, buf_i, n_buf, my_s, my_i, k, thr_s, thr_i, lane);
+  };
+  int flush_all = 0;  // a selecting warp's buffer held 32 at the last barrier
 
+  constexpr int kRows = T::kStageRows;   // the partial dots' row stride
+  constexpr int kHalves = kRows / 32;     // the rows a lane selects in a stage
   for (int i = 0;; ++i) {
     const int slot = i % S;
     mbar_wait(bars + 8 * slot, (i / S) & 1);
@@ -939,109 +1103,116 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     if (v0 < 0) break;  // the same for every thread: the scan is over
     const int len = min(R, total - v0);
     const unsigned char* st = ring + slot * p.stage_bytes();
-    Acc* part = parts + (i & 1) * kQuarters * kQT * kMaxRows;  // [kQuarters, kQT, 32]
-    if (kGroupRows * group < len) {  // rows past len are scored and never selected
-      Acc acc[4] = {0, 0, 0, 0};
-      T::template dots<kWide>(q_read, st + (size_t)kGroupRows * group * p.row_bytes, d, quarter,
-                              lane, acc, q_valid, R > 8 ? 8 : 0);
-      const int g = lane >> 2, t = lane & 3;
-      Acc* out = part + quarter * kQT * kMaxRows + kGroupRows * group + g;
+    Acc* part = parts + (i & 1) * kQuarters * kQT * kRows;  // [kQuarters, kQT, kRows]
+    // the warp's row groups: group, group + 2, .. (rows past len are scored
+    // and never selected)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) out[(2 * t + (e & 1)) * kMaxRows + 8 * (e >> 1)] = acc[e];
+    for (int grp = group; grp < kRows / kGroupRows; grp += kWarps / kQuarters) {
+      if (kGroupRows * grp < len) {
+        Acc acc[4] = {0, 0, 0, 0};
+        T::template dots<kWide>(q_read, st + (size_t)kGroupRows * grp * p.row_bytes, d, quarter,
+                                lane, acc, q_valid, R > 8 ? 8 : 0);
+        const int g = lane >> 2, t = lane & 3;
+        Acc* out = part + quarter * kQT * kRows + kGroupRows * grp + g;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[(2 * t + (e & 1)) * kRows + 8 * (e >> 1)] = acc[e];
+      }
     }
-    // the bias and scale of the row this lane selects, out of the stage
-    // before it is refilled
-    float b = 0.f, xs = 0.f;
-    if (selects && lane < len) {
-      b = reinterpret_cast<const float*>(st + (size_t)R * p.row_bytes)[lane];
-      if constexpr (T::kScaled)
-        xs = reinterpret_cast<const float*>(st + (size_t)R * (p.row_bytes + 4))[lane];
+    // the bias and scale of the rows this lane selects (lane, lane + 32, ..),
+    // out of the stage before it is refilled
+    float b[kHalves], xs[kHalves];
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      b[h] = xs[h] = 0.f;
+      if (selects && 32 * h + lane < len) {
+        b[h] = reinterpret_cast<const float*>(st + (size_t)R * p.row_bytes)[32 * h + lane];
+        if constexpr (T::kScaled)
+          xs[h] = reinterpret_cast<const float*>(st + (size_t)R * (p.row_bytes + 4))[32 * h + lane];
+      }
     }
     // the partial dots are complete and the stage consumed; the other
     // buffer is free for the next stage, whose scoring starts only after
     // every warp passed this barrier, that is, after every warp finished
     // selecting from it
-    __syncthreads();
+    if constexpr (kList == kListWarp)
+      __syncthreads();
+    else
+      flush_all = __syncthreads_or(selects && n_buf >= 32);
     if (threadIdx.x == 0 && more) issue(i + S);
 
-    if (selects) {
-      const bool ok = lane < len;
+    // when a warp's buffer held 32 at the barrier, every warp merges its
+    // buffer in, down to fewer than 32 (a stage then adds at most kRows)
+    if constexpr (kList != kListWarp)
+      if (flush_all && selects && n_buf > 0) {
+        n_buf = flush();
+        while (n_buf >= 32) n_buf = flush();
+      }
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      if (!selects || 32 * h >= len) break;  // warp-uniform
+      const int vh = v0 + 32 * h;  // the virtual row of lane 0
+      const bool ok = lane < len - 32 * h;
       // the list's key: the virtual row
-      const int row = ok ? v0 + lane : 0;
+      const int row = ok ? vh + lane : 0;
       float s = 0.f;
       if (ok) {
-        const Acc* in = part + warp * kMaxRows + lane;
-        const float t = T::to_f32(((in[0] + in[kQT * kMaxRows]) + in[2 * kQT * kMaxRows]) +
-                                  in[3 * kQT * kMaxRows]);
+        const Acc* in = part + warp * kRows + 32 * h + lane;
+        const float t = T::to_f32(((in[0] + in[kQT * kRows]) + in[2 * kQT * kRows]) +
+                                  in[3 * kQT * kRows]);
         if constexpr (T::kScaled)
           // the TPU kernels' epilogue, rounded op by op (no contraction)
-          s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, xs)), b);
+          s = __fadd_rn(__fmul_rn(t, __fmul_rn(qs_w, xs[h])), b[h]);
         else
-          s = t + b;
+          s = t + b[h];
       }
       if constexpr (!kProbe) {
         const unsigned lv = __ballot_sync(kFull, ok && s > kNegInf);
-        if (lv) last_live = max(last_live, v0 + 31 - __clz(lv));
+        if (lv) last_live = max(last_live, vh + 31 - __clz(lv));
       }
       if constexpr (kProbe) {
-        if (v0 < 2 * br) {  // positions 0 and 1: their lowest columns scoring >= NEG_INF
+        if (vh < 2 * br) {  // positions 0 and 1: their lowest columns scoring >= NEG_INF
           const bool seen = ok && s >= kNegInf;
           const unsigned m0 = __ballot_sync(kFull, seen && row < br);
           const unsigned m1 = __ballot_sync(kFull, seen && row >= br && row < 2 * br);
           int* first = a.counter + 2 * gridDim.y + (blockIdx.y * kQT + warp) * 2;
-          if (lane == 0 && m0) atomicMax(first, br - (v0 + __ffs(m0) - 1));
-          if (lane == 0 && m1) atomicMax(first + 1, 2 * br - (v0 + __ffs(m1) - 1));
+          if (lane == 0 && m0) atomicMax(first, br - (vh + __ffs(m0) - 1));
+          if (lane == 0 && m1) atomicMax(first + 1, 2 * br - (vh + __ffs(m1) - 1));
         }
       }
-      if constexpr (kRegList > 0) {
-        // a stage at a time: its rows that beat entry k - 1, sorted, merged in
-        const bool in = ok && better(s, row, thr_s, thr_i);
-        if (__ballot_sync(kFull, in)) {
-          float cs = in ? s : kNegInf;
-          int ci = in ? row : 0;
-          sort32(cs, ci, lane);
-          merge32<kRegList>(wl_s, wl_i, cs, ci, lane);
-          list_entry<kRegList>(wl_s, wl_i, k - 1, thr_s, thr_i);
-        }
-      } else {
+      if constexpr (kList == kListWarp) {
+        // entry i in lane i: a row that beats entry k - 1 goes in at once,
+        // the entries below it moving up a lane
         unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
         while (pending) {
           const int src = __ffs(pending) - 1;
           const float ss = __shfl_sync(kFull, s, src);
           const int rr = __shfl_sync(kFull, row, src);
-          if constexpr (kList == kListWarp) {
-            // entry i in lane i: the entries below the new one move up a lane
-            const int at = __popc(__ballot_sync(kFull, lane < k && better(reg_s, reg_i, ss, rr)));
-            const float up_s = __shfl_up_sync(kFull, reg_s, 1);
-            const int up_i = __shfl_up_sync(kFull, reg_i, 1);
-            if (lane == at) {
-              reg_s = ss;
-              reg_i = rr;
-            } else if (lane > at) {
-              reg_s = up_s;
-              reg_i = up_i;
-            }
-            thr_s = __shfl_sync(kFull, reg_s, k - 1);
-            thr_i = __shfl_sync(kFull, reg_i, k - 1);
-          } else {
-            if constexpr (kList == kListDevice) {
-              warp_insert_device(my_s, my_i, k, n_live, ss, rr, lane);
-              n_live = min(n_live + 1, k);
-            } else {
-              static_assert(kList == kListShared, "the other classes keep registers");
-              warp_insert_smem(my_s, my_i, k, ss, rr, lane);
-            }
-            thr_s = my_s[k - 1];
-            thr_i = my_i[k - 1];
+          const int at = __popc(__ballot_sync(kFull, lane < k && better(reg_s, reg_i, ss, rr)));
+          const float up_s = __shfl_up_sync(kFull, reg_s, 1);
+          const int up_i = __shfl_up_sync(kFull, reg_i, 1);
+          if (lane == at) {
+            reg_s = ss;
+            reg_i = rr;
+          } else if (lane > at) {
+            reg_s = up_s;
+            reg_i = up_i;
           }
+          thr_s = __shfl_sync(kFull, reg_s, k - 1);
+          thr_i = __shfl_sync(kFull, reg_i, k - 1);
           pending &= pending - 1;
           // entry k-1 moved: drop the candidates that no longer beat it
           pending &= __ballot_sync(kFull, better(s, row, thr_s, thr_i));
         }
+      } else {
+        // the rows that beat entry k - 1 join the buffer
+        n_buf = buffer_append(buf_s, buf_i, n_buf, ok && better(s, row, thr_s, thr_i), s, row,
+                              lane);
       }
     }
   }
 
+  if constexpr (kList != kListWarp)
+    while (selects && n_buf > 0) n_buf = flush();
   // this CTA's lists as candidates (kListDevice: already there)
   if constexpr (kList == kListWarp) {
     if (selects && lane < k) {
@@ -1074,11 +1245,11 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   __threadfence();
 
   // The merge: warp j merges query q0 + j's n_cta sorted lists into the
-  // top k in (score desc, virtual row asc), ties between lists to the lower
-  // list (topk_merge_kernel's order). Per warp in shared memory: the windows'
+  // top k in (score desc, virtual row asc) (the lists hold distinct virtual
+  // rows: no ties between lists). Per warp in shared memory: the windows'
   // scores [n_cta, W] and rows [n_cta, W], each part 16-byte aligned (the
   // lists counted up to a multiple of 4; W is a power of two from 4). Lane
-  // L owns lists L + 32 m; their heads and positions sit in its registers.
+  // L offers lists L + 32 m.
   const int W = p.window, n_pad = (n_cta + 3) & ~3;
   const size_t per_warp = (size_t)n_pad * 2 * W;
   float* win_all = reinterpret_cast<float*>(smem + p.barriers());
@@ -1124,130 +1295,155 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
     const int lv = __ldcg(first_cols);
     fill_end = lv > 0 ? (lv - 1) / br * br : 0;
   }
-  if constexpr (kRegList > 0) {
-    // A register list (kListWarp2/4) merges as it selects (6. above). A
-    // list whose entry does not beat the merged list's entry k - 1 offers
-    // no more: its later entries are worse, and entry k - 1 only improves.
-    // (1) The windows a position at a time, list by list: each lane holds
-    // one offered entry, and the warp sorts and merges the 32 it holds when
-    // a lane would take a second. (2) The lists still offering past their
-    // windows, one at a time, the next one's first 32 entries loading while
-    // one merges. The last CTA alone runs this code, once, so it is kept
-    // small (one merge in each loop, no unrolled copies): instruction
-    // fetches, not the merges, set its time.
-    float ls[kRegList > 0 ? kRegList : 1];
-    int li[kRegList > 0 ? kRegList : 1];
+  // The merged list (6. above): up to k = 128 in registers, entry 32 r +
+  // lane in (ls[r], li[r]) (k <= 32 in one), up to 1024 in shared memory
+  // past the windows, above in this query's output row; it holds virtual
+  // rows until the outputs are written. A list whose entry does not beat
+  // the merged list's entry k - 1 offers no more: its later entries are
+  // worse, and entry k - 1 only improves. (1) The windows a position at a
+  // time, list by list; (2) the lists still offering past their windows,
+  // one at a time, 32 entries at a time, the next list's first 32 loading
+  // while one is offered. Offered entries that beat entry k - 1 wait in the
+  // warp's buffer, and go in 32 at a time (flush_buffer, flush_memory).
+  constexpr int kMergeRegs = kList == kListWarp ? 1 : kRegList;  // 0: in memory
+  float ls[kMergeRegs > 0 ? kMergeRegs : 1];
+  int li[kMergeRegs > 0 ? kMergeRegs : 1];
 #pragma unroll
-    for (int r = 0; r < kRegList; ++r) {
-      ls[r] = kNegInf;
-      li[r] = 0;
+  for (int r = 0; r < (kMergeRegs > 0 ? kMergeRegs : 1); ++r) {
+    ls[r] = kNegInf;
+    li[r] = 0;
+  }
+  float* ms = reinterpret_cast<float*>(smem + p.merge_list_off(n_cta)) + warp * 2 * k;
+  int* mi = reinterpret_cast<int*>(ms + k);
+  if (p.list_class() == kListDevice) {
+    ms = a.out_s + (size_t)qi * k;
+    mi = a.out_i + (size_t)qi * k;
+  }
+  if constexpr (kMergeRegs == 0) {
+    for (int t = lane; t < k; t += 32) {
+      ms[t] = kNegInf;
+      mi[t] = 0;
     }
-    float ts = kNegInf;  // entry k - 1
-    int ti = 0;
-    float hs = kNegInf;  // the entry this lane holds
-    int hi = 0;
-    bool held = false;
-    unsigned open = 0;  // bit m: list lane + 32 m still offers
-    for (int m = 0; m < kListsPerLane; ++m)
-      if (lane + 32 * m < n_cta) open |= 1u << m;
-    const int wk = min(W, k), n_offers = wk * kListsPerLane;
+  }
+  float* mb_s = reinterpret_cast<float*>(smem + p.merge_buf_off(n_cta)) + warp * 2 * kBuf<T>;
+  int* mb_i = reinterpret_cast<int*>(mb_s + kBuf<T>);
+  int m_buf = 0;
+  float ts = kNegInf;  // entry k - 1
+  int ti = 0;
+  auto offer = [&](bool in, float cs, int ci) {
+    m_buf = buffer_append(mb_s, mb_i, m_buf, in, cs, ci, lane);
+    if (m_buf >= 32) {
+      if constexpr (kMergeRegs > 0)
+        m_buf = flush_buffer(mb_s, mb_i, m_buf, ls, li, k, ts, ti, lane);
+      else
+        m_buf = flush_memory(mb_s, mb_i, m_buf, ms, mi, k, ts, ti, lane);
+    }
+  };
+  auto drain = [&]() {
+    while (m_buf > 0) {
+      if constexpr (kMergeRegs > 0)
+        m_buf = flush_buffer(mb_s, mb_i, m_buf, ls, li, k, ts, ti, lane);
+      else
+        m_buf = flush_memory(mb_s, mb_i, m_buf, ms, mi, k, ts, ti, lane);
+    }
+  };
+  unsigned open = 0;  // bit m: list lane + 32 m still offers
+  for (int m = 0; m < kListsPerLane; ++m)
+    if (lane + 32 * m < n_cta) open |= 1u << m;
+  const int wk = min(W, k);
+  // (a position ends the pass once every list has stopped offering)
 #pragma unroll 1
-    for (int o = 0; o <= n_offers; ++o) {  // o == n_offers: what is still held
-      const int e = o / kListsPerLane, m = o % kListsPerLane;
+  for (int e = 0; e < wk && __any_sync(kFull, open != 0); ++e) {
+#pragma unroll 1
+    for (int m = 0; m < kListsPerLane; ++m) {
+      if (!__any_sync(kFull, open >> m & 1)) continue;
       float cs = kNegInf;
       int ci = 0;
       bool in = false;
-      if (o < n_offers && (open >> m & 1)) {
+      if (open >> m & 1) {
         const int l = lane + 32 * m;
         cs = win_s[l * W + e];
         ci = win_i[l * W + e];
         in = better(cs, ci, ts, ti);
         if (!in) open &= ~(1u << m);
       }
-      if (__ballot_sync(kFull, held && (in || o == n_offers))) {
-        sort32(hs, hi, lane);
-        merge32<kRegList>(ls, li, hs, hi, lane);
-        list_entry<kRegList>(ls, li, k - 1, ts, ti);
-        hs = kNegInf;
-        hi = 0;
-        held = false;
-      }
-      if (in) {
-        hs = cs;
-        hi = ci;
-        held = true;
-      }
+      offer(in, cs, ci);
     }
-    // (2): the open lists in turn (-1: none left)
-    int m_next = 0;
-    unsigned pend = 0;
-    auto next_list = [&]() {
-      while (!pend && m_next < kListsPerLane) {
-        pend = __ballot_sync(kFull, (open >> m_next & 1) && wk < k);
-        if (!pend) ++m_next;
-      }
-      if (!pend) return -1;
-      const int l = __ffs(pend) - 1 + 32 * m_next;
-      pend &= pend - 1;
+  }
+  drain();
+  // a list offered its window against an older entry k - 1: it goes on
+  // only if its last window entry beats the merged list's entry k - 1 now
+  for (int m = 0; m < kListsPerLane; ++m) {
+    const int l = lane + 32 * m;
+    if ((open >> m & 1) && !better(win_s[l * W + wk - 1], win_i[l * W + wk - 1], ts, ti))
+      open &= ~(1u << m);
+  }
+  // (2): the open lists in turn (-1: none left)
+  int m_next = 0;
+  unsigned pend = 0;
+  auto next_list = [&]() {
+    while (!pend && m_next < kListsPerLane) {
+      pend = __ballot_sync(kFull, (open >> m_next & 1) && wk < k);
       if (!pend) ++m_next;
-      return l;
-    };
-    // entry `base` + lane of list l, or none
-    auto entry_of = [&](int l, int base, float& cs, int& ci) {
-      cs = kNegInf;
-      ci = 0;
-      if (l >= 0 && base + lane < k) {
-        const size_t off = ((size_t)l * kQT + warp) * k_pad + base + lane;
-        cs = __ldcg(tile_s + off);
-        ci = __ldcg(tile_i + off);
-      }
-    };
-    int l = next_list();
-    float cs, ns;
-    int ci, ni;
-    entry_of(l, wk, cs, ci);
-    int nl = next_list();  // the next list, its first 32 loading while this one merges
-    entry_of(nl, wk, ns, ni);
-#pragma unroll 1
-    for (int base = wk; l >= 0;) {
-      const bool in = base + lane < k && better(cs, ci, ts, ti);
-      const unsigned got = __ballot_sync(kFull, in);
-      bool done = !got;  // this list's entries from `base` on are worse
-      if (got) {
-        if (!in) {
-          cs = kNegInf;
-          ci = 0;
-        }
-        merge32<kRegList>(ls, li, cs, ci, lane);  // a sorted run: a prefix, then none
-        list_entry<kRegList>(ls, li, k - 1, ts, ti);
-        base += 32;
-        done = got != kFull || base >= k;
-      }
-      if (done) {
-        l = nl;
-        cs = ns;
-        ci = ni;
-        base = wk;
-        nl = next_list();
-        entry_of(nl, wk, ns, ni);
-      } else {
-        entry_of(l, base, cs, ci);  // this list's next 32
-      }
     }
-    // the live entries, a prefix of slots 0 .. k - 1 (the fill or the tail below)
-    int live = 0;
+    if (!pend) return -1;
+    const int l = __ffs(pend) - 1 + 32 * m_next;
+    pend &= pend - 1;
+    if (!pend) ++m_next;
+    return l;
+  };
+  // entry `base` + lane of list l, or none
+  auto entry_of = [&](int l, int base, float& cs, int& ci) {
+    cs = kNegInf;
+    ci = 0;
+    if (l >= 0 && base + lane < k) {
+      const size_t off = ((size_t)l * kQT + warp) * k_pad + base + lane;
+      cs = __ldcg(tile_s + off);
+      ci = __ldcg(tile_i + off);
+    }
+  };
+  int l = next_list();
+  float cs, ns;
+  int ci, ni;
+  entry_of(l, wk, cs, ci);
+  int nl = next_list();  // the next list, its first 32 loading while this one is offered
+  entry_of(nl, wk, ns, ni);
+#pragma unroll 1
+  for (int base = wk; l >= 0;) {
+    const bool in = base + lane < k && better(cs, ci, ts, ti);
+    const unsigned got = __ballot_sync(kFull, in);
+    offer(in, cs, ci);
+    base += 32;
+    // a sorted run: once an entry falls short, so do the rest
+    if (got != kFull || base >= k) {
+      l = nl;
+      cs = ns;
+      ci = ni;
+      base = wk;
+      nl = next_list();
+      entry_of(nl, wk, ns, ni);
+    } else {
+      entry_of(l, base, cs, ci);  // this list's next 32
+    }
+  }
+  drain();
+  // the live entries, a prefix of slots 0 .. k - 1 (the fill or the tail
+  // below), and the DMA fill's first entry
+  int live = 0;
+  if constexpr (kMergeRegs > 0) {
 #pragma unroll
-    for (int r = 0; r < kRegList; ++r) {
-      live += __popc(__ballot_sync(kFull, ls[r] > kNegInf));
+    for (int r = 0; r < kMergeRegs; ++r) {
+      live += __popc(__ballot_sync(kFull, 32 * r + lane < k && ls[r] > kNegInf));
       if constexpr (!kProbe) {
-        const unsigned m = __ballot_sync(kFull, ls[r] > kNegInf && li[r] < fill_end);
+        const unsigned m = __ballot_sync(kFull, 32 * r + lane < k && ls[r] > kNegInf &&
+                                                    li[r] < fill_end);
         const int first = __shfl_sync(kFull, li[r], m ? __ffs(m) - 1 : 0);
         if (fill_v < 0 && m) fill_v = first;
       }
     }
-    n_out = min(live, k);
+    n_out = live;
 #pragma unroll
-    for (int r = 0; r < kRegList; ++r) {
+    for (int r = 0; r < kMergeRegs; ++r) {
       const int e = 32 * r + lane;
       if (e < n_out) {
         a.out_s[(size_t)qi * k + e] = ls[r];
@@ -1255,92 +1451,29 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
       }
     }
   } else {
-    // the heads of this lane's lists (key 0, row INT_MAX: no list, or spent)
-    unsigned hk[kListsPerLane];
-    int hr[kListsPerLane], hp[kListsPerLane];
-#pragma unroll
-    for (int m = 0; m < kListsPerLane; ++m) {
-      const int l = lane + 32 * m;
-      hp[m] = 0;
-      hk[m] = l < n_cta ? order_key(win_s[l * W]) : 0u;
-      hr[m] = l < n_cta ? win_i[l * W] : INT_MAX;
+    __syncwarp();
+    for (int base = 0; base < k; base += 32) {
+      const int e = base + lane;
+      const float s = e < k ? ms[e] : kNegInf;
+      const int v = e < k ? mi[e] : 0;
+      const unsigned m = __ballot_sync(kFull, s > kNegInf);
+      live += __popc(m);
+      if constexpr (!kProbe) {
+        const unsigned f = __ballot_sync(kFull, s > kNegInf && v < fill_end);
+        const int first = __shfl_sync(kFull, v, f ? __ffs(f) - 1 : 0);
+        if (fill_v < 0 && f) fill_v = first;
+      }
+      if (e < k && s > kNegInf) {
+        a.out_s[(size_t)qi * k + e] = s;
+        a.out_i[(size_t)qi * k + e] = stored_row(a.src, v);
+      }
+      if (m != kFull) break;
     }
-    // this lane's best head as (key, row, list); lists ascend with m, so the
-    // first of a tie wins
-    auto lane_best = [&](unsigned& bk, int& bi, int& bl) {
-      bk = 0;
-      bi = INT_MAX;
-      bl = INT_MAX;
-#pragma unroll
-      for (int m = 0; m < kListsPerLane; ++m)
-        if (hk[m] > bk || (hk[m] == bk && hr[m] < bi)) {
-          bk = hk[m];
-          bi = hr[m];
-          bl = lane + 32 * m;
-        }
-    };
-    // the warp's best of the lanes' (key, row, list): key max, then row min,
-    // then list min
-    auto warp_best = [](unsigned key, int row, int list, unsigned& bk, unsigned& bi, unsigned& bl) {
-      bk = __reduce_max_sync(kFull, key);
-      bi = __reduce_min_sync(kFull, key == bk ? (unsigned)row : 0xffffffffu);
-      bl = __reduce_min_sync(kFull, key == bk && (unsigned)row == bi ? (unsigned)list : 0xffffffffu);
-    };
-    for (int t = 0; t < k; ++t) {
-      unsigned lk, bk, bi, bl;
-      int li, ll;
-      lane_best(lk, li, ll);
-      warp_best(lk, li, ll, bk, bi, bl);
-      if (bk <= order_key(kNegInf)) {  // the live entries are spent: the fill or the tail
-        n_out = t;
-        break;
-      }
-      if (!kProbe && fill_v < 0 && (int)bi < fill_end) fill_v = (int)bi;
-      if (lane == 0) {
-        a.out_s[(size_t)qi * k + t] = key_score(bk);
-        a.out_i[(size_t)qi * k + t] = stored_row(a.src, (int)bi);
-      }
-      if (bl < (unsigned)n_cta && lane == bl % 32) {  // the list's next head
-        const int mm = bl / 32;
-        int np = 0;
-#pragma unroll
-        for (int m = 0; m < kListsPerLane; ++m)
-          if (m == mm) np = ++hp[m];
-        unsigned key = 0u;
-        int row = INT_MAX;
-        if (np < k) {
-          if ((np & (W - 1)) == 0) {  // the list's next W entries
-            const size_t off = ((size_t)bl * kQT + warp) * k_pad + np;
-            float4 vs[kWindowMax / 4];
-            int4 vi[kWindowMax / 4];
-#pragma unroll
-            for (int c = 0; c < kWindowMax / 4; ++c)
-              if (4 * c < W && np + 4 * c < k) {
-                vs[c] = __ldcg(reinterpret_cast<const float4*>(tile_s + off) + c);
-                vi[c] = __ldcg(reinterpret_cast<const int4*>(tile_i + off) + c);
-              }
-#pragma unroll
-            for (int c = 0; c < kWindowMax / 4; ++c)
-              if (4 * c < W && np + 4 * c < k) {
-                reinterpret_cast<float4*>(win_s + bl * W)[c] = vs[c];
-                reinterpret_cast<int4*>(win_i + bl * W)[c] = vi[c];
-              }
-          }
-          key = order_key(win_s[bl * W + (np & (W - 1))]);
-          row = win_i[bl * W + (np & (W - 1))];
-        }
-#pragma unroll
-        for (int m = 0; m < kListsPerLane; ++m)
-          if (m == mm) {
-            hk[m] = key;
-            hr[m] = row;
-          }
-      }
-      __syncwarp();
-    }
+    n_out = live;
   }
   if constexpr (!kProbe) {
-    const int fill = fill_v >= 0 ? stored_row(a.src, fill_v) : 0;  // the fill (contract above)
+    // the fill (contract above); the identity plan's pruned fill is row 0
+    const int fill = fill_v >= 0 && !identity ? stored_row(a.src, fill_v) : 0;
     for (int t = n_out + lane; t < k; t += 32) {
       a.out_s[(size_t)qi * k + t] = kNegInf;
       a.out_i[(size_t)qi * k + t] = fill;

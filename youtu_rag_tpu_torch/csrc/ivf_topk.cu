@@ -14,13 +14,18 @@
 //                                                  lax.top_k merge at :184-189)
 //   topk_merged_int8 <- pallas_topk_int8          (pallas_call at :407, _topk_kernel_int8, merge
 //                                                  at :411-415)
+//   topk_pruned_int4 <- pallas_topk_int4_pruned   (pallas_call at :665,
+//                                                  _topk_kernel_int4_pruned)
 // The ivf_blocks entries keep the per-block contract (probe-order ties, the
 // per-block fill in the slots no live row fills; see ivf_scan_tma.cuh) and
 // compute the merged result in the same one launch; the topk_merged entries
 // are the same kernels over the identity plan (block i at position i, every
 // block valid, no plan read), which is the brute per-block contract merged:
 // ties in row order and merge_blocks' tail. topk_blocks.cu keeps the
-// unmerged candidates of both. The DMA entries' contract:
+// unmerged candidates of both. topk_pruned_int4 is ivf_topk_int4's kernels
+// over the identity plan with one block of all n rows (any n): the brute
+// int4 scan, its dead slots (NEG_INF, 0) as the pruned kernels leave them.
+// The DMA entries' contract:
 // the exact top k (score desc, probe position asc, row in block asc) over
 // the rows of blocks ids[0 .. n_valid) only, block b covering stored rows
 // [b * block_rows, (b + 1) * block_rows); entries of ids past n_valid are
@@ -30,7 +35,7 @@
 // entry takes what JAX does: any block_rows that divides n, any d % 128 ==
 // 0 (int4 d % 256 == 0: its packed width a multiple of 128) and any k,
 // bias and scales at any 4-byte alignment. The scores are the brute
-// kernels' (topk_pruned.cu, topk_int8_pruned.cu, topk_int4_pruned.cu):
+// kernels' (topk_pruned.cu, topk_int8_pruned.cu, and topk_pruned_int4):
 // bf16 f32(q)·f32(x) + bias, int8/int4 the exact integer dot with the
 // op-by-op f32 epilogue.
 //
@@ -50,13 +55,15 @@
 //
 // Bound: like the brute scans, HBM reads: n_valid * block_rows rows
 // (2d, d or d/2 bytes each, plus 4 or 8 bytes of bias and scale; the
-// topk_merged entries every row), read once per 8-query tile.
+// topk_merged entries and topk_pruned_int4 every row), read once per
+// 8-query tile.
 
 #include "ivf_scan_tma.cuh"
 
 // <name>_launch(queries f32 (bf16 also: queries_bf16 = 1), queries_bf16,
 //               x (int4: packed [n, d/2]), xscale, bias, ids int32 [max_blocks],
-//               n_valid int32 [1] (topk_merged: both ignored, max_blocks = n / block_rows),
+//               n_valid int32 [1] (topk_merged, topk_pruned_int4: both ignored,
+//               max_blocks = n / block_rows),
 //               cand_s, cand_i [tiles, n_cta, 8, k_pad4], counter int32 [2 + 16, tiles],
 //               out_s, out_i, q, n, d (the unpacked width), k, max_blocks, block_rows,
 //               n_cta, stream);
@@ -70,6 +77,8 @@ IVF_TMA_C_INTERFACE(ivf_blocks_bf16, ivf_tma::Bf16, true, false)
 IVF_TMA_C_INTERFACE(ivf_blocks_int8, ivf_tma::Int8, true, false)
 IVF_TMA_C_INTERFACE(topk_merged_bf16, ivf_tma::Bf16, true, true)
 IVF_TMA_C_INTERFACE(topk_merged_int8, ivf_tma::Int8, true, true)
+// the DMA kernels of ivf_topk_int4 over the identity plan (no new instance)
+IVF_TMA_C_INTERFACE(topk_pruned_int4, ivf_tma::Int4, false, true)
 
 extern "C" const char* ivf_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,6 +1,6 @@
 // Exact masked top-k selection shared by the port's scan kernels, for
-// Hopper (sm_90a). Included by topk_pruned.cu (bf16), topk_int8_pruned.cu
-// and topk_int4_pruned.cu (brute scans) and topk_blocks.cu (per-block
+// Hopper (sm_90a). Included by topk_pruned.cu (bf16) and topk_int8_pruned.cu
+// (brute scans) and topk_blocks.cu (per-block
 // candidates, see below); the scoring differs between them, and each
 // source passes it in as a Scorer (topk_scorers.cuh, contract below). The
 // IVF scans (ivf_scan_tma.cuh) take its selection helpers, its list
@@ -20,16 +20,13 @@
 //  1. topk_scan_kernel: CTA b owns a contiguous row range and keeps one
 //     sorted top-k list per query of its query tile (8 queries) in shared
 //     memory. It walks the range in tiles of 128 rows:
-//     - scoring: bf16 and int8 (Scorer::group): each of the 8 warps takes
-//       4 groups of R = 4 rows; each lane reads 16-byte chunks of the 4
-//       rows (coalesced across the warp) and accumulates the 4 x 8 partial
-//       dots; a transposing butterfly (31 shuffles) leaves lane L holding
-//       the full dot of (row L/8, query L%8). int4 (Scorer::warp_tile):
-//       each warp scores its 16 rows of the tile against the 8 queries on
-//       the tensor cores and lane (g, t) holds the dots of rows g and g + 8
-//       with queries 2t and 2t + 1. Either way the dots go into a shared
-//       score tile (double-buffered, so one __syncthreads per tile
-//       separates scoring from selection);
+//     - scoring (Scorer::group): each of the 8 warps takes 4 groups of
+//       R = 4 rows; each lane reads 16-byte chunks of the 4 rows (coalesced
+//       across the warp) and accumulates the 4 x 8 partial dots; a
+//       transposing butterfly (31 shuffles) leaves lane L holding the full
+//       dot of (row L/8, query L%8), which goes into a shared score tile
+//       (double-buffered, so one __syncthreads per tile separates scoring
+//       from selection);
 //     - selection: warp j alone owns the list of query j. It finishes its
 //       query's 128 scores (the bias and, for the quantized tiers, the
 //       scales, all loaded at the start of the tile so that their latency
@@ -73,23 +70,15 @@
 //
 // A Scorer provides:
 //   static constexpr bool kScaled;      // score = f32(acc) * (qs * xs) + bias
-//   static constexpr int kWarpRows;     // kR (group) or 16 (warp_tile)
-//   static bool width_ok(int d);        // d is the unpacked width
+//   static bool width_ok(int d);
 //   static size_t q_bytes(int d);       // shared bytes of the query tile
 //   __device__ static void load_queries(unsigned char* qt, const void* queries,
 //                                       int q0, int q_valid, int d);
-// and, for kWarpRows == kR,
 //   __device__ static float group(const unsigned char* qt, const void* x,
 //                                 int row0, int row_end, int d, int lane);
-// which returns the lane's dot of (row row0 + lane/8, query lane%8) as f32,
-// before the scales and the bias (rows row0.. are contiguous stored rows,
-// those at or past row_end score nothing); for kWarpRows == 16,
-//   __device__ static void warp_tile(const unsigned char* qt, const void* x,
-//                                    int ra, int rb, int d, int lane, float (&out)[4]);
-// which scores the warp's 16 rows at once: lane (g, t) = (lane / 4, lane % 4)
-// is given the stored rows ra and rb of the warp's rows g and g + 8 (-1 past
-// the range) and returns out[e], the dot of row (e < 2 ? ra : rb) with
-// query 2t + (e & 1), as f32 before the scales and the bias.
+// where group returns the lane's dot of (row row0 + lane/8, query lane%8)
+// as f32, before the scales and the bias (rows row0.. are contiguous stored
+// rows, those at or past row_end score nothing).
 
 #pragma once
 
@@ -377,25 +366,10 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
       tile_bias[c] = ok ? bias[row] : 0.f;
       if constexpr (Scorer::kScaled) tile_xs[c] = ok ? xscale[row] : 0.f;
     }
-    if constexpr (Scorer::kWarpRows == kTile / kWarps) {
-      // the warp's 16 rows of the tile at once
-      const int r0 = warp * Scorer::kWarpRows, g = lane / 4, t = lane % 4;
-      int rows[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int v = tile0 + r0 + g + 8 * h;
-        rows[h] = v < row_end ? v : -1;
-      }
-      float dots[4];
-      Scorer::warp_tile(qt, x, rows[0], rows[1], d, lane, dots);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tile[(2 * t + (e & 1)) * kTile + r0 + g + 8 * (e >> 1)] = dots[e];
-    } else {
-      for (int step = 0; step < kSteps; ++step) {
-        const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
-        const float v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
-        tile[(lane % kQT) * kTile + r0 + lane / kQT] = v;
-      }
+    for (int step = 0; step < kSteps; ++step) {
+      const int r0 = (step * kWarps + warp) * kR;  // first row of the group, in the tile
+      const float v = Scorer::group(qt, x, tile0 + r0, row_end, d, lane);
+      tile[(lane % kQT) * kTile + r0 + lane / kQT] = v;
     }
     // the tile is complete; the other buffer is free for the next tile,
     // whose scoring starts only after every warp passed this barrier, that

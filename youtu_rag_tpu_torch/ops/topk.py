@@ -34,14 +34,17 @@ row of a block that scores ``>= NEG_INF``, in block order (see
 ``csrc/topk_blocks.cu``).
 
 Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``,
-``topk``, ``topk_int8``) launches its hand-written CUDA kernel
-(``csrc/<name>.cu``) for CUDA tensors and counts the launch in its
-``.launches``; for CPU tensors it runs its plain PyTorch version
-(``*_reference``). The per-block ones merged launch ``csrc/ivf_topk.cu``'s
-``topk_merged_bf16`` / ``topk_merged_int8`` (``_launch_tma``: the IVF
-scans' ring over the identity plan, which scans, selects and merges in one
-kernel after a memset, so no candidates reach device memory and no sort
-runs); with ``candidates=True`` they launch ``csrc/topk_blocks.cu``.
+``topk``, ``topk_int8``) launches a hand-written CUDA kernel for CUDA
+tensors and counts the launch in its ``.launches``; for CPU tensors it runs
+its plain PyTorch version (``*_reference``). The bf16 and int8 pruned
+scans launch ``csrc/<name>.cu``. ``topk_int4_pruned`` and the per-block
+ones merged launch an entry of ``csrc/ivf_topk.cu`` (``_launch_tma``: the
+IVF scans' ring over the identity plan, which prepares the queries, scans,
+selects and merges in one kernel after a memset, so no candidates reach
+another launch and no sort runs): ``topk_pruned_int4`` (one block of all n
+rows; the slots no live row fills come back ``(NEG_INF, 0)``, as from the
+bf16 and int8 scans) and ``topk_merged_bf16`` / ``topk_merged_int8``;
+with ``candidates=True`` the per-block ones launch ``csrc/topk_blocks.cu``.
 ``merge_blocks`` is the plain versions' merge. Every wrapper takes any number
 of queries: on CUDA it launches once per tile of at most ``MAX_Q`` queries
 (``_query_tiles``, shared with ``ops/ivf.py``) and joins the results; with
@@ -491,30 +494,32 @@ def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales:
                      bias: torch.Tensor, k: int):
     """Exact masked top-k over int4-packed rows (``pallas_topk_int4_pruned``).
 
-    queries [q, d] float, quantized per row to int8 here; database_p
-    [N, d/2] int8 packed nibbles (``quantize_rows_int4``) with
-    (d/2) % 128 == 0; db_scales [N] f32 (amax/7); bias [N] f32;
-    1 <= k <= N."""
+    queries [q, d] float, quantized per row to int8 (``quantize_rows_int8``;
+    on CUDA inside the kernel, which takes them as f32); database_p [N, d/2]
+    int8 packed nibbles (``quantize_rows_int4``) with (d/2) % 128 == 0;
+    db_scales [N] f32 (amax/7); bias [N] f32; 1 <= k <= N. On CUDA:
+    ``csrc/ivf_topk.cu``'s ``topk_pruned_int4``, once per MAX_Q queries on
+    the current stream, without a sync."""
     _rows_k("topk_int4_pruned", k, database_p.shape[0])
     if _device_of("topk_int4_pruned", queries, database_p, db_scales, bias) == "cpu":
         return topk_int4_pruned_reference(queries, database_p, db_scales, bias, k)
     d = 2 * database_p.shape[1]
     n = _check_cuda("topk_int4_pruned", queries, database_p, bias, torch.int8, d, db_scales)
-    return _query_tiles(
-        lambda qt: _launch(topk_int4_pruned, *_kernel_queries(qt, True), database_p, db_scales,
-                           bias, k, d, n),
-        queries, _empty((0, k), database_p.device))
+    # the ring's identity plan with one block of all n rows (block_rows n
+    # divides any n)
+    return _ring_tiles(topk_int4_pruned, queries, database_p, db_scales, bias, k, d, n, n)
 
 
 # The scan-and-merge ring, csrc/ivf_topk.cu (csrc/ivf_scan_tma.cuh): one
 # launch per MAX_Q queries that prepares the queries, scans, selects and
 # merges, after a memset of its counters. ops/ivf.py's wrappers take a probe
-# plan to it; topk and topk_int8 take their merged calls (the identity plan).
+# plan to it; topk and topk_int8 take their merged calls and
+# topk_int4_pruned every call (the identity plan).
 _TMA_LIB = "ivf_topk"
 _TMA_ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
               "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
               "ivf_topk_int8": "ivf_blocks_int8", "topk": "topk_merged_bf16",
-              "topk_int8": "topk_merged_int8"}
+              "topk_int8": "topk_merged_int8", "topk_int4_pruned": "topk_pruned_int4"}
 _FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
 
 
@@ -586,8 +591,8 @@ def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: 
     type is cast here; a wide plan takes them cast here to bf16, as the
     kernel would round them). ``block_ids`` and ``nv`` are a probe plan
     (int32 [max_blocks] and [1]), or None for the identity plan of
-    ``topk`` / ``topk_int8``: every block of ``block_rows`` rows, in order,
-    nothing of it on the device."""
+    ``topk`` / ``topk_int8`` / ``topk_int4_pruned``: every block of
+    ``block_rows`` rows, in order, nothing of it on the device."""
     entry = _TMA_ENTRY[fn.__name__]
     lib = _tma_library()
     dev = x.device
@@ -685,7 +690,7 @@ def _blocks_tiles(fn, entry: str, queries, quantized: bool, x, xscale, bias, k: 
 def _ring_tiles(fn, queries, x, xscale, bias, k: int, d: int, n: int, block_rows: int,
                 block_ids=None, nv=None):
     """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles
-    (``_launch_tma``; no plan: the identity plan of ``topk`` / ``topk_int8``)."""
+    (``_launch_tma``; no plan: the identity plan)."""
     return _query_tiles(lambda qt: _launch_tma(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
                                                block_rows),
                         queries, _empty((0, k), x.device))
