@@ -7,16 +7,18 @@ Phases; any failure exits non-zero before the result lines:
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a CUDA device;
   2. build: compiles the path's five kernel sources from csrc/ at once (one
-     nvcc per source) and prints each build's time and ptxas' register and
-     spill report and warnings (the scan kernels in three k classes; the
-     attention source's Hopper kernels, attention_wgmma.cuh's
-     attention_kernel for hd 64 and 128 and its three entries, blockwise,
-     flash and the hop's stats, and its mma.sync kernels for f32), then one
-     line per attention kernel and ring kernel (ivf_scan_tma.cuh: the bf16,
-     int8 and int4 DMA entries, whose int4 kernels the brute int4 scan
-     takes, and the bf16 / int8 per-block ones) with its registers and
-     spills, and the TMA IVF entries' shared-memory plan and CTAs per SM for
-     d 128-8192 (int4 256-8192) x k 1-4096 (fails where a cell has none);
+     nvcc per source: the ring's three, ivf_topk_bf16.cu, ivf_topk_int8.cu
+     and ivf_topk_int4.cu, attention.cu and topk_blocks.cu) and prints each
+     build's time and ptxas' register and spill report and warnings (the
+     per-block candidates' scan kernels in three k classes; the attention
+     source's Hopper kernels, attention_wgmma.cuh's attention_kernel for hd
+     64 and 128 and its three entries, blockwise, flash and the hop's stats,
+     and its mma.sync kernels for f32), then one line per attention kernel
+     and ring kernel (ivf_scan_tma.cuh: the bf16, int8 and int4 DMA
+     entries, whose kernels the brute scans take, and the bf16 / int8
+     per-block ones) with its registers and spills, and the TMA IVF
+     entries' shared-memory plan and CTAs per SM for d 128-8192 (int4
+     256-8192) x k 1-8192 (fails where a cell has none);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -121,11 +123,11 @@ Phases; any failure exits non-zero before the result lines:
      T = 512 (device and embed_batch, WordPiece apart), the forward's split
      (attention kernel, GEMMs, the rest), the forward with SDPA in the
      kernel's place, and cross-encoder pairs/s at B = 64, T = 512;
-  4f. main path, ingest through the staged builder: 2,048 markdown files
+  4f. main path, ingest through the staged builder: 1,024 markdown files
      of ~6,000 characters written from the seed (one fact sentence each)
      through ``KnowledgeBase(...).build_sources`` on the card with the
      default ChunkingConfig: (a) the default hash provider (the native C
-     tokenizer and hash embedder, the bf16 index): the report (2,048
+     tokenizer and hash embedder, the bf16 index): the report (1,024
      processed, none failed), a CPU twin with the same chunk ids and
      bit-equal stored embeddings, 64 fact questions each answered from
      their document in the hybrid top 5 on both (the dense top 50 the same
@@ -281,9 +283,14 @@ Phases; any failure exits non-zero before the result lines:
      the plain versions, a one-call PyTorch yardstick where one exists and
      the recorded time of the kernel's earlier design (EARLIER_MS), and
      each call's device time split by kernel (torch.profiler; where it
-     lost records, the call's CUDA graph and its held time instead); int4
-     also at k = 10, and one call's CUDA graph: one ring kernel after its
-     memset (no merge launch, no quantization kernels, no sort);
+     lost records, the call's CUDA graph and its held time instead); every
+     tier at k = 10, 64, 256 and 1024, each beside its bound and the
+     PyTorch call's time at that k, and one call's CUDA graph per tier: one
+     ring kernel after its memset (no merge launch, no host cast or
+     quantization of the queries, no sort); then rows 1-2 at the main
+     path's other shapes (BRUTE_SHAPES: 4g's filtered memory index, a 5f
+     shard, 4k's MCP knowledge base), held to their plain versions and timed
+     (held, L2 cold past its size) beside their bounds and PyTorch's;
   5c. main path, full size, IVF: ``configs/rag/ivf_int8.yaml``'s index
      settings (block_rows 1024, n_lists 1024, n_probe 64, adaptive margin
      0.15, recall target 0.95) over 1,048,576 × 768 clustered unit vectors
@@ -386,7 +393,7 @@ Phases; any failure exits non-zero before the result lines:
      ``train_embedder.main`` in this process at the default EncoderConfig
      (768 x 12, vocab 32,768, bf16 activations, f32 master weights) with
      ``--synthetic 512 --siblings 4 --paraphrase 2048``, B = 64, T = 128,
-     200 steps, checkpoints at 100 and 200: every loss finite, the last 20
+     TRAIN_STEPS steps, checkpoints at 100 and TRAIN_STEPS: every loss finite, the last 20
      steps' mean below the first 20's, holdout recall@1 higher after than
      before, no attention launch while training; step 100 restored
      bit-equal (parameters, moments, count) and 5 resumed steps on the
@@ -402,8 +409,9 @@ Phases; any failure exits non-zero before the result lines:
      eval_recall's up to near-ties within TIE_TOL; (c) make_moe_train_step
      at the same widths with 8 experts, 3 steps: losses and aux losses
      finite, the experts' token shares; (d) ``train_chat_lm.main`` at
-     yrt_tiny_chat's widths (d 192, 6 layers, vocab 2,048), 200 steps at
-     B = 32 (cut from 400 to keep 6c within its time): the loss falls, the evaluation reported, and its outputs
+     yrt_tiny_chat's widths (d 192, 6 layers, vocab 2,048), CHAT_LM_STEPS
+     at B = 32 (cut from 400, then 200, to keep 6c within its time): the
+     loss falls, the evaluation reported, and its outputs
      through ``cli_chat --llm-weights-dir`` answer a question without
      error; (e) make_lm_train_step at Qwen2-0.5B's widths (f32 parameters
      from the seed, bf16 activations), B = 4, T = 512, 5 steps on one batch
@@ -489,15 +497,17 @@ REPLACES = {  # the pallas_call of each TPU kernel
     "ivf_topk": "youtu_rag_tpu/ops/ivf.py:103",
     "ivf_topk_int8": "youtu_rag_tpu/ops/ivf.py:188",
 }
-SOURCES = ("topk_pruned", "topk_int8_pruned", "ivf_topk", "attention", "topk_blocks")
+# one nvcc each, all started together (build_all); the ring one source per tier
+SOURCES = ("ivf_topk_bf16", "ivf_topk_int8", "ivf_topk_int4", "attention", "topk_blocks")
 # Each redesigned kernel's time before its redesign, as PERF.md §6 records
 # it (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W): the hop on the
-# mma.sync kernel at [2, 12, 8192, 64] against 8192 keys, the brute int4
-# scan on PR 8's design (topk_select.cuh's scan with the tensor-core scorer,
-# then a merge launch; k = 64), the IVF scans on topk_select.cuh's scan with
-# a merge launch after it (phase 5c's adaptive plan; int4 with the
-# tensor-core scorer, k = 64).
-EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_int4_pruned": 0.3314,
+# mma.sync kernel at [2, 12, 8192, 64] against 8192 keys; the brute scans on
+# topk_select.cuh's scan with a merge launch after it (bf16 and int8 at k =
+# 10 on the CUDA-core scorers; int4 at k = 64 on the tensor-core scorer);
+# the IVF scans on topk_select.cuh's scan with a merge launch after it
+# (phase 5c's adaptive plan; int4 with the tensor-core scorer, k = 64).
+EARLIER_MS = {"flash_attention_stats": 1.9755, "topk_pruned": 0.6301,
+              "topk_int8_pruned": 0.4068, "topk_int4_pruned": 0.3314,
               "ivf_topk_int4_dma": 0.1544, "ivf_topk_dma": 0.0918, "ivf_topk_int8_dma": 0.0879}
 # ... and the IVF scans' on phase 5c's fixed plan
 EARLIER_FIXED_MS = {"ivf_topk_dma": 0.4670, "ivf_topk_int8_dma": 0.3168,
@@ -661,7 +671,7 @@ def build_all() -> None:
     print(f"all builds: {time.perf_counter() - t0:.1f} s wall")
     from youtu_rag_tpu_torch.bench.ab_kernels import ptxas_report
 
-    for name in ("attention", "ivf_topk"):
+    for name in ("attention", "ivf_topk_bf16", "ivf_topk_int8", "ivf_topk_int4"):
         for kernel, regs, spills in ptxas_report(done[name]["log"]):
             if kernel.startswith(("attention", "ivf_tma")):
                 print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
@@ -671,19 +681,18 @@ def build_all() -> None:
 # the (d, k) grid of the TMA IVF entries' shared-memory plans (int4 takes
 # d % 256 == 0: its first width is 256)
 PLAN_WIDTHS = (128, 768, 1024, 2048, 4096, 8192)
-PLAN_KS = (1, 10, 128, 1024, 2048, 4096)
+PLAN_KS = (1, 10, 128, 1024, 2048, 4096, 8192)  # 8192: phase 3x's int8 BIG_K
 TMA_ENTRIES = ("ivf_topk_bf16", "ivf_topk_int8", "ivf_topk_int4", "ivf_blocks_bf16",
                "ivf_blocks_int8")
 
 
 def ivf_plan_table() -> None:
-    """Per TMA IVF entry of csrc/ivf_topk.cu and (d, k): the CTAs one SM
+    """Per TMA IVF entry of csrc/ivf_topk_<tier>.cu and (d, k): the CTAs one SM
     holds (``<entry>_ctas_per_sm``, before the wrapper's cap of 2) and the
     plan, rows x stages, "dev" where the lists live in device memory and
     "wide" where the query tile does. Fails where a cell has no plan."""
     from youtu_rag_tpu_torch.ops.topk import _tma_library, scan_plan
 
-    lib = _tma_library()
     print("IVF TMA plans, ctas_per_sm/rows x stages[ dev][ wide], k across:",
           " ".join(str(k) for k in PLAN_KS))
     for entry in TMA_ENTRIES:
@@ -692,7 +701,7 @@ def ivf_plan_table() -> None:
                 d = 256
             cells = []
             for k in PLAN_KS:
-                per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
+                per_sm = getattr(_tma_library(entry), f"{entry}_ctas_per_sm")(d, k)
                 rows, stages, dev, wide = scan_plan(entry, d, k)
                 check(per_sm >= 1 and rows > 0, f"{entry} d={d} k={k}: no plan ({per_sm})")
                 cells.append(f"{per_sm}/{rows}x{stages}{' dev' if dev else ''}"
@@ -2528,7 +2537,10 @@ def bert_corpus(seed: int, smi: str) -> dict:
 # 4f. main path, ingest through the staged builder
 # ---------------------------------------------------------------------------
 
-INGEST_DOCS = 2048
+# 4f's files: 1,024, cut from 2,048 (the hash build and its CPU twin took
+# ~40 s of a 1,190-s run of the script on an NVIDIA H100 80GB HBM3, 700.00
+# W, whose 1,200-s limit it must keep; the gates are the same)
+INGEST_DOCS = 1024
 INGEST_CHARS = 6000  # per file: ~8 chunks of the default ChunkingConfig (1,000 / 200)
 INGEST_QUESTIONS = 64
 INGEST_REWRITTEN = 16
@@ -2682,7 +2694,7 @@ def stored_rows(kb, ids: list[str]) -> torch.Tensor:
 
 
 def ingest_corpus(seed: int, smi: str) -> dict:
-    """4f: 2,048 markdown files through ``KnowledgeBase.build_sources`` on
+    """4f: INGEST_DOCS markdown files through ``KnowledgeBase.build_sources`` on
     the card: (a) the hash provider against a CPU twin, (b) incremental
     builds and cleanup, (c) the encoder provider over the first 256 files.
     Returns the main path's launches and the numbers printed."""
@@ -4949,7 +4961,7 @@ def mcp_on_card(seed: int, smi: str) -> dict:
     # (b)'s server process starts (torch's import, the CUDA context, the
     # toolkits: ~10 s of its own) on a loop of its own while (a) builds its
     # KBs and runs the CPU twin; the card's timed calls wait for it
-    lib = _build.library_path("topk_pruned")
+    lib = _build.library_path("ivf_topk_bf16")
     check(lib.exists(), f"phase 2 built no {lib.name}")
     built, stamp = sorted(os.listdir(_build.BUILD_DIR)), lib.stat().st_mtime_ns
     path = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
@@ -5195,6 +5207,9 @@ def full_size_data(seed: int, rows: int = ROWS, d: int = 768, qn: int = 8):
     return vecs, chunks, queries
 
 
+SWEEP_KS = (10, 64, 256, 1024)  # phase 5's brute scans and their library calls
+
+
 def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
     """Returns (each tier's results, and under "data" the vectors, chunks,
     queries and each tier's index and hits, which phase 5f reuses; the bf16
@@ -5265,38 +5280,93 @@ def full_size(seed: int, part: str) -> tuple[dict[str, dict], dict[str, dict]]:
         print(f"{tier}: search (q = {qn}, top_k = {top_k}, kernel k = {k_kernel}) matches the plain version")
 
         res = {"launches": launches, "err": err, "k": k_kernel}
-        for k in (k_kernel, 256, 1024) + ((10,) if tier == "int4" else ()):
+        for k in SWEEP_KS:
             ms = time_ms(lambda: kernel(qdev, x, *extra, b, k))
             bms, by = bound(tier, part, rows, d, qn, k)
             row_bytes = {"bfloat16": 2 * d, "int8": d, "int4": d // 2}[tier]
             gbs = (rows * (row_bytes + (4 if tier == "bfloat16" else 8))) / ms / 1e6
+            desc, call = library_call(tier, qdev, x, *(extra or (None,)), b, k)
+            lib_ms = None if call is None else time_ms(call)
             print(f"  {KERNEL_NAMES[tier]} {rows}x{d} q={qn} k={k}: {ms:.4f} ms/batch, {gbs:.1f} GB/s "
                   f"({gbs / (HBM_PEAK[part] / 1e9) * 100:.1f}% of {HBM_PEAK[part] / 1e12:.2f} TB/s); "
-                  f"bound {bms:.4f} ms ({by})")
+                  f"bound {bms:.4f} ms ({by}); library "
+                  f"{'null' if call is None else format(lib_ms, '.4f') + ' ms'}")
             res.setdefault("sweep", {})[k] = ms
+            res.setdefault("library_sweep", {})[k] = lib_ms
             if k == k_kernel:
-                res.update(ms=ms, bound_ms=bms, bound_by=by)
+                res.update(ms=ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
         res["plain_ms"] = time_ms(lambda: plain(qdev, x, *extra, b, k_kernel), bursts=3, burst=5)
-        desc, call = library_call(tier, qdev, x, *(extra or (None,)), b, k_kernel)
-        res["library_ms"] = None if call is None else time_ms(call)
         earlier = EARLIER_MS.get(KERNEL_NAMES[tier])
-        print(f"  plain {res['plain_ms']:.4f} ms; library "
-              f"{'null' if call is None else format(res['library_ms'], '.4f') + ' ms'} [{desc}]"
-              + ("" if earlier is None else f"; PR 8's design (a scan kernel, then a merge "
+        print(f"  k = {k_kernel}: plain {res['plain_ms']:.4f} ms; library "
+              f"[{desc if call else 'null'}]"
+              + ("" if earlier is None else f"; the earlier design (a scan kernel, then a merge "
                  f"launch) recorded {earlier} ms, now {res['ms']:.4f} ms against a bound of "
                  f"{res['bound_ms']:.4f} ms"))
         profile_split(lambda: kernel(qdev, x, *extra, b, k_kernel), graph=True)
-        if tier == "int4":
-            # one kernel after its memsets: no merge launch, no query quantization, no sort
-            nodes = check_one_scan("int4 brute", lambda: kernel(qdev, x, *extra, b, k_kernel),
-                                   kernel)
-            print(f"  one topk_int4_pruned call (k = {k_kernel}) enqueues {graph_text(nodes)}")
+        # one kernel after its memsets: no merge launch, no host cast or
+        # quantization of the queries, no sort
+        nodes = check_one_scan(f"{tier} brute", lambda: kernel(qdev, x, *extra, b, k_kernel),
+                               kernel)
+        print(f"  one {KERNEL_NAMES[tier]} call (k = {k_kernel}) enqueues {graph_text(nodes)}")
         out[tier] = res
         if tier != "int4":
             keep[tier] = {"q": qdev, "x": x, "extra": extra, "bias": b}
         del index, x, b, extra, hits
         torch.cuda.empty_cache()
+    out["shapes"] = brute_shapes(seed, part)
     return out, keep
+
+
+# Rows 1-2 at the main path's other shapes: (rows, width, queries, k, tiers,
+# one user's filter in the bias). (b) phase 4g's memory index, 1,024 users'
+# 256 memories each, with a user's filter (search_memories asks the store
+# for top_k * 3); (c) one of phase 5f's four shards of phase 5's index; (d)
+# phase 4k's MCP knowledge base, 2,048 one-chunk documents at the hash
+# embedder's width.
+BRUTE_SHAPES = {"(b) 4g memory, filtered": (1 << 18, 256, 1, 15, ("bfloat16",), True),
+                "(c) a 5f shard": (1 << 18, 768, 8, 10, ("bfloat16", "int8"), False),
+                "(d) 4k MCP KB": (2048, 512, 1, 10, ("bfloat16",), False)}
+L2_BYTES = 50 << 20
+
+
+def brute_shapes(seed: int, part: str) -> dict[str, dict]:
+    """Rows 1-2 at BRUTE_SHAPES on seeded unit rows: each call held to its
+    plain version, then its device time (``time_held_ms``, L2 cold where
+    the index's bytes exceed the L2) beside its bound and one PyTorch call's
+    (``library_call``). Returns {"<tier> <shape>": {ms, bound_ms,
+    library_ms, err}}."""
+    from youtu_rag_tpu_torch.ops.topk import NEG_INF
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    for label, (rows, d, qn, k, tiers, filtered) in BRUTE_SHAPES.items():
+        x = torch.randn(rows, d, generator=g, device="cuda")
+        x /= x.norm(dim=1, keepdim=True)
+        q = torch.randn(qn, d, generator=g, device="cuda")
+        q /= q.norm(dim=1, keepdim=True)
+        bias = torch.zeros(rows, device="cuda")
+        if filtered:  # one user's 256 rows, one in five of them live
+            bias.fill_(NEG_INF)
+            bias[513 * 256 : 514 * 256 : 5] = 0.0
+        full = plain_scores(q, x.to(torch.bfloat16), bias).cpu()
+        for tier in tiers:
+            kernel, plain, quantize = ops()[tier]
+            stored = (x.to(torch.bfloat16),) if quantize is None else quantize(x)
+            what = f"{KERNEL_NAMES[tier]} {label}"
+            err = compare_tier(tier, kernel(q, *stored, bias, k), plain(q, *stored, bias, k), full,
+                               what)
+            cold = stored[0].numel() * stored[0].element_size() > L2_BYTES
+            ms = time_held_ms(lambda: kernel(q, *stored, bias, k), cold=cold)
+            bms, by = bound(tier, part, rows, d, qn, k)
+            desc, call = library_call(tier, q, stored[0], *(stored[1:] or (None,)), bias, k)
+            lib_ms = None if call is None else time_held_ms(call, cold=cold)
+            print(f"  {what} ({rows} x {d}, q = {qn}, k = {k}, L2 {'cold' if cold else 'warm'}): "
+                  f"{ms:.4f} ms held, bound {bms:.4f} ms ({by}), {bms / ms * 100:.0f} % of it; "
+                  f"library {'null' if call is None else format(lib_ms, '.4f') + ' ms'} [{desc}]")
+            out[f"{tier} {label}"] = {"ms": ms, "bound_ms": bms, "library_ms": lib_ms, "err": err}
+        del x, q, bias, full, stored
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5883,7 +5953,7 @@ def sharded_brute(part: str, smi: str, prev: dict) -> dict:
         extra = () if tier == "bfloat16" else (index._scales,)
         k = top_k if tier != "int4" else 64  # int4: the re-rank's candidates
         sharded_ms, scan_ms = device_ms(lambda: index._run_brute(qdev, x, index._scales, b, k),
-                                        part=lambda n: "topk_scan_kernel" in n)
+                                        part=lambda n: any(s in n for s in SCAN_KERNELS))
         parts = shard_parts(kernel, qdev, x, extra, b, k, SHARDS)
         merge_ms, _ = device_ms(lambda: index._layout.merge(parts, k))
         one_ms, _ = device_ms(lambda: kernel(qdev, x, *extra, b, k))
@@ -6958,9 +7028,16 @@ def qwen2_width(seed: int, part: str) -> dict:
 # 6c. training on the card
 # ---------------------------------------------------------------------------
 
-# 6c (a): train_embedder's run at the default EncoderConfig's widths
+# 6c (a): train_embedder's run at the default EncoderConfig's widths:
+# TRAIN_STEPS steps, 120, cut from 200 (0.18-0.22 s a step; the checkpoint
+# at 100 and the resumed steps 101-105 stay), and 6c (d)'s train_chat_lm,
+# CHAT_LM_STEPS, 100, cut from 200 (~0.21 s a step; its loss at 100 already
+# 2.07 from 7.58), for the script's 1,200-s limit (a run before these cuts
+# took 1,190 s on an NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_STEPS, CHAT_LM_STEPS = 120, 100
 TRAIN_ARGS = ["--synthetic", "512", "--siblings", "4", "--paraphrase", "2048", "--batch", "64",
-              "--seqlen", "128", "--steps", "200", "--ckpt-every", "100", "--warmup", "20"]
+              "--seqlen", "128", "--steps", str(TRAIN_STEPS), "--ckpt-every", "100",
+              "--warmup", "20"]
 # One step's gradients on the card (f32, TF32 off) against a CPU f32 twin
 # from the same parameters, B = 8, T = 64: each leaf within GRAD_RTOL of its
 # largest CPU gradient. f32 sums in another order differ by ~1e-7 relative
@@ -7081,7 +7158,8 @@ def encoder_fine_tune(seed: int, root: str, part: str) -> dict:
     wall = time.perf_counter() - t0
     train_launches = attention_counts()
     losses = report["losses"]
-    check(len(losses) == 200 and all(np.isfinite(losses)), f"6c (a): losses {losses[:5]}...")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"6c (a): losses {losses[:5]}...")
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
     check(last < first, f"6c (a): the last 20 steps' mean loss {last} is not below the first "
           f"20's {first}")
@@ -7100,7 +7178,7 @@ def encoder_fine_tune(seed: int, root: str, part: str) -> dict:
     print(f"  {report['pairs']} train pairs; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
           f"the first 20 {first:.4f}, the last 20 {last:.4f}); holdout recall@1 {r0} -> {r1}, "
           f"recall@5 {report['recall_before']['recall@5']} -> {report['recall_after']['recall@5']}")
-    print(f"  ms a step (B {b}, T {t}, steps 2-200): median {med:.2f}, p10 "
+    print(f"  ms a step (B {b}, T {t}, steps 2-{TRAIN_STEPS}): median {med:.2f}, p10 "
           f"{np.percentile(step_ms, 10):.2f}, p90 {np.percentile(step_ms, 90):.2f}, max "
           f"{step_ms.max():.2f}; {2 * b * t / med * 1e3:.0f} tokens/s; model FLOPs "
           f"{flops / 1e12:.2f} T a step, {bound_ms:.2f} ms at {BF16_PEAK[part] / 1e12:.0f} "
@@ -7109,7 +7187,7 @@ def encoder_fine_tune(seed: int, root: str, part: str) -> dict:
     # the checkpoint: step 100 restored bit-equal, then 5 resumed steps on
     # the uninterrupted run's batches 101-105 give its parameters
     ck = TrainCheckpointer(os.path.join(out, "ckpt"))
-    check(ck.all_steps() == [100, 200], f"6c (a): checkpoints {ck.all_steps()}")
+    check(ck.all_steps() == [100, TRAIN_STEPS], f"6c (a): checkpoints {ck.all_steps()}")
     tc = train_embedder.train_config(targs)
     opt = tr.make_optimizer(tc)
     t0 = time.perf_counter()
@@ -7299,7 +7377,7 @@ def moe_step(seed: int, pairs: list) -> None:
 
 
 def chat_lm(seed: int, root: str) -> int:
-    """6c (d): train_chat_lm at yrt_tiny_chat's widths, 200 steps at B = 32,
+    """6c (d): train_chat_lm at yrt_tiny_chat's widths, CHAT_LM_STEPS at B = 32,
     then its outputs through cli_chat --llm-weights-dir. Returns the
     topk_pruned launches of the CLI's searches."""
     from youtu_rag_tpu_torch import train_chat_lm
@@ -7312,7 +7390,8 @@ def chat_lm(seed: int, root: str) -> int:
         marks.append(time.perf_counter())
 
     t0 = time.perf_counter()
-    report = train_chat_lm.main(["--steps", "200", "--batch", "32", "--eval-every", "200",
+    report = train_chat_lm.main(["--steps", str(CHAT_LM_STEPS), "--batch", "32",
+                                 "--eval-every", str(CHAT_LM_STEPS),
                                  "--seed", str(seed), "--out", out], on_step=on_step)
     wall = time.perf_counter() - t0
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
@@ -8081,9 +8160,8 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            # the int4 scan: csrc/ivf_topk.cu's topk_pruned_int4 entry
-            "source": ("youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh" if tier == "int4"
-                       else f"youtu_rag_tpu_torch/csrc/{kname}.cu"),
+            # the ring's topk_pruned_<tier> entry (csrc/ivf_topk_<tier>.cu)
+            "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],
             "launches": (launches4[tier] + f["launches"]
                          + (chat6a["launches"] + ingest4f["launches"]["topk_pruned"]
@@ -8093,7 +8171,9 @@ def main() -> int:
                             if tier == "bfloat16" else 0)
                          + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)
                          + sharded5f["launches"].get(kname, 0) + mesh6d.get(kname, 0)),
-            "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"]),
+            "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"],
+                               *(s["err"] for key, s in full["shapes"].items()
+                                 if key.startswith(tier + " "))),
             "ms": f["ms"],
             "plain_ms": f["plain_ms"],
             "bound_ms": f["bound_ms"],
@@ -8143,7 +8223,7 @@ def main() -> int:
         kernels.append({
             "name": kname,
             "route": "cuda",
-            # the merged calls: csrc/ivf_topk.cu's topk_merged_* and ivf_blocks_*
+            # the merged calls: the ring's topk_merged_* and ivf_blocks_*
             # entries (the candidates stay on csrc/topk_blocks.cu)
             "source": "youtu_rag_tpu_torch/csrc/ivf_scan_tma.cuh",
             "replaces": REPLACES[kname],

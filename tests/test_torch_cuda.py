@@ -204,7 +204,7 @@ INT4_RING_CASES = [(d, n, k, q) for d in (256, 768, 1024) for n in (1, 4, 7, 409
 @pytest.mark.cuda
 @pytest.mark.parametrize("d, n, k, q", INT4_RING_CASES)
 def test_int4_ring_is_bit_equal_with_the_pruned_fill(cuda_device, d, n, k, q):
-    """topk_int4_pruned on the ring (csrc/ivf_topk.cu's topk_pruned_int4):
+    """topk_int4_pruned on the ring (csrc/ivf_topk_int4.cu's topk_pruned_int4):
     one launch per 64 queries; live slots bit-equal to the plain version,
     the rest (NEG_INF, 0); a zero query row (every live row ties at its
     bias: rows ascending), NEG_INF and -inf rows, and in every other case
@@ -249,6 +249,104 @@ def test_int4_ring_fills_what_no_live_row_fills(cuda_device, k, live):
     torch.cuda.synchronize()
     assert_pruned_equal(got, topk_int4_pruned_reference(*args))
     assert int((got[0] > NEG_INF).sum()) == 9 * len(alive)
+
+
+PRUNED = {"bf16": (None, topk_pruned, topk_pruned_reference),
+          "int8": (quantize_rows_int8, topk_int8_pruned, topk_int8_pruned_reference)}
+
+
+def assert_pruned_close(got, want, scores, tol=TOL):
+    """The bf16 pruned contract: the live slots' count, scores within
+    ``tol`` and rows equal up to near-ties (rows whose full-matrix scores
+    sit within ``tol`` of the k-th live score may swap); every other slot
+    (NEG_INF, 0)."""
+    s, i, ws, wi = (t.cpu() for t in (*got, *want))
+    live = ws > NEG_INF
+    assert torch.equal(live, s > NEG_INF)
+    assert bool((s[~live] == NEG_INF).all()) and bool((i[~live] == 0).all())
+    for a in range(ws.shape[0]):
+        n = int(live[a].sum())
+        if n == 0:
+            continue
+        assert float((s[a, :n] - ws[a, :n]).abs().max()) <= tol
+        diff = set(i[a, :n].tolist()) ^ set(wi[a, :n].tolist())
+        kth = float(ws[a, n - 1])
+        assert all(abs(float(scores[a, r]) - kth) <= tol for r in diff), (a, sorted(diff)[:8])
+
+
+# (name, n, d, q, k, bias, query dtype): (b) phase 4g's memory index with one
+# user's filter (k = top_k * 3), (d) phase 4k's MCP knowledge base, every
+# row masked, row counts below one 32-row stage and off a multiple of 4,
+# int8 at phase 3x's k = 8192 (device lists, fewer CTAs), bf16 queries as
+# bf16, and d = 8192 (bf16: the wide plan, the query tile in device memory)
+PRUNED_RING_CASES = [
+    ("memory plane", 1 << 18, 256, 1, 15, "user", "f32"),
+    ("MCP KB", 2048, 512, 1, 10, "zero", "f32"),
+    ("all masked", 4099, 256, 9, 10, "masked", "f32"),
+    ("all masked, shared lists", 4099, 256, 9, 1024, "masked", "f32"),
+    *[(f"n={n}", n, 256, q, k, "mixed", "f32") for n in (1, 7, 33, 63)
+      for k in sorted({1, min(10, n), n}) for q in (1, 9)],
+    ("k=8192", 16384, 256, 9, 8192, "mixed", "f32"),
+    ("k=8192, one launch of 64", 16384, 256, 64, 8192, "mixed", "f32"),
+    ("bf16 queries", 4096, 256, 8, 64, "mixed", "bf16"),
+    ("d=8192", 1024, 8192, 3, 10, "mixed", "f32"),
+    ("d=8192, k=1024", 1024, 8192, 3, 1024, "mixed", "f32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("name, n, d, q, k, kind, qdtype", PRUNED_RING_CASES,
+                         ids=[c[0] for c in PRUNED_RING_CASES])
+def test_pruned_ring_matches_plain_version(cuda_device, tier, name, n, d, q, k, kind, qdtype):
+    """topk_pruned and topk_int8_pruned on the ring (the topk_pruned_bf16 /
+    _int8 entries over the identity plan, one block of all n rows): one
+    launch per 64 queries; live slots as the plain version's on the same
+    card tensors (bf16 scores within 1e-4, rows up to near-ties; int8 rows
+    and score bits equal, the queries quantized in the kernel as
+    quantize_rows_int8 rounds them), ties in row order, and every other
+    slot (NEG_INF, 0)."""
+    rng = np.random.default_rng(n + d + q + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[n // 2 :: max(1, n // 5)] = x[n // 3]  # exact ties
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    qs[0] = x[n // 3]
+    bias = np.zeros(n, np.float32)
+    if kind == "user":  # one user's 256 rows, one in five live (chip_smoke.py's (b))
+        bias[:] = NEG_INF
+        bias[513 * 256 : 514 * 256 : 5] = 0.0
+    elif kind == "masked":
+        bias[:] = NEG_INF
+        bias[1::3] = -np.inf
+    elif kind == "mixed":
+        bias[::5] = NEG_INF
+        bias[3::11] = -np.inf
+    quantize, kernel, plain = PRUNED[tier]
+    xd = torch.from_numpy(x).to(cuda_device)
+    stored = (xd.to(torch.bfloat16),) if quantize is None else quantize(xd)
+    queries = torch.from_numpy(qs).to(cuda_device)
+    if qdtype == "bf16":
+        queries = queries.to(torch.bfloat16)
+    args = (queries, *stored, torch.from_numpy(bias).to(cuda_device), k)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == -(-q // 64)
+    want = plain(*args)
+    if tier == "int8":
+        assert_pruned_equal(got, want)
+    else:
+        scores = (queries.to(torch.bfloat16).float() @ stored[0].float().T
+                  + torch.from_numpy(bias).to(cuda_device)).cpu()
+        assert_pruned_close(got, want, scores)
+    s, i = (t.cpu() for t in got)
+    for a in range(q):
+        for j in range(int((s[a] > NEG_INF).sum()) - 1):
+            assert s[a, j] > s[a, j + 1] or i[a, j] < i[a, j + 1], (a, j)
+    if kind in ("masked",):
+        assert not bool((s > NEG_INF).any())
 
 
 @pytest.mark.cuda
@@ -1046,7 +1144,7 @@ def test_per_block_kernel_rejects_out_of_contract(cuda_device, name):
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
 @pytest.mark.parametrize("case", [*IVF_CASES, *IVF_WIDE_CASES])
 def test_ivf_blocks_merged_matches_plain_version(cuda_device, case, tier, qdtype):
-    """The merged per-block call (``csrc/ivf_topk.cu``'s ``ivf_blocks_*``
+    """The merged per-block call (the ring's ``ivf_blocks_*``
     entries) on the IVF cases the CPU parity tests share, against
     ``ivf_topk*_reference`` on the same card tensors: one launch per 64
     queries; every slot no live row fills (the tail) the same row and score
@@ -1145,7 +1243,7 @@ MERGED_CASES = {
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
 @pytest.mark.parametrize("case", list(MERGED_CASES))
 def test_brute_merged_matches_plain_version(cuda_device, case, tier):
-    """``topk`` / ``topk_int8`` merged (``csrc/ivf_topk.cu``'s
+    """``topk`` / ``topk_int8`` merged (the ring's
     ``topk_merged_*``: the ring over the identity plan, the merge inside)
     against the plain versions (the per-block lists and ``merge_blocks``)
     on the same card tensors: one launch per 64 queries; every slot no live

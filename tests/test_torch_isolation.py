@@ -71,8 +71,8 @@ def test_port_has_sources():
                    "ops/precision.py", "parallel/comm.py", "parallel/placement.py",
                    "parallel/pipeline_parallel.py", "dryrun.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
-    for src in ("topk_pruned.cu", "topk_int8_pruned.cu", "topk_select.cuh", "topk_scorers.cuh",
-                "ivf_topk.cu", "ivf_scan_tma.cuh", "attention.cu", "attention_wgmma.cuh",
+    for src in ("topk_select.cuh", "topk_scorers.cuh", "ivf_topk_bf16.cu", "ivf_topk_int8.cu",
+                "ivf_topk_int4.cu", "ivf_scan_tma.cuh", "attention.cu", "attention_wgmma.cuh",
                 "topk_blocks.cu"):
         assert (PORT / "csrc" / src).exists()
     assert (PORT / "native" / "fasthash.c").exists()

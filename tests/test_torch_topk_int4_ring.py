@@ -1,7 +1,7 @@
 """The host side of the brute int4 scan on the card, without a card.
 
 ``ops/topk.py::topk_int4_pruned`` on a CUDA tensor launches
-``csrc/ivf_topk.cu``'s ``topk_pruned_int4`` entry through ``_launch_tma``:
+``csrc/ivf_topk_int4.cu``'s ``topk_pruned_int4`` entry through ``_launch_tma``:
 the ring's int4 DMA kernels over the identity plan (no plan tensor, one
 block of all n rows), which quantize the queries, scan, select and merge in
 one kernel after a memset. Here the CUDA branch runs on CPU tensors against
@@ -31,7 +31,8 @@ def card(monkeypatch):
     """The wrapper's CUDA branch on CPU tensors: the stand-in ring library,
     an H100's SM count, no stream, no quantization on the host."""
     fake = _FakeRing()
-    monkeypatch.setattr(_build, "load", lambda name: fake if name == T._TMA_LIB else None)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: fake if name in T._TMA_LIB.values() else None)
     monkeypatch.setattr(T, "_device_of", lambda name, *tensors: "cuda")
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=SMS))
@@ -65,7 +66,7 @@ def test_int4_wrapper_launches_the_identity_entry_per_64_queries(card, qn, launc
     """One topk_pruned_int4 launch per 64 queries: the plan pointers null,
     one block of all n rows (block_rows = n divides n, odd n included), the
     grid one wave split over the tile's 8-query groups (at most one CTA per
-    512 rows), results [q, k]."""
+    128 rows: one ring fill), results [q, k]."""
     d, k = 256, min(10, n)
     queries, xp, xs, bias = _inputs(qn, n, d)
     s, i = topk_int4_pruned(queries, xp, xs, bias, k)
@@ -82,7 +83,7 @@ def test_int4_wrapper_launches_the_identity_entry_per_64_queries(card, qn, launc
         assert (a["q"], a["n"], a["d"], a["k"]) == (tile_q, n, d, k)
         assert a["block_rows"] == n and n % a["block_rows"] == 0
         assert a["max_blocks"] == n // a["block_rows"] == 1
-        assert a["n_cta"] == max(1, min(2 * SMS // tiles, -(-n // 512)))
+        assert a["n_cta"] == max(1, min(2 * SMS // tiles, -(-n // T._IDENTITY_ROWS_PER_CTA)))
         assert a["x"] == xp.data_ptr() and a["xscale"] == xs.data_ptr()
         assert a["bias"] == bias.data_ptr()
 
@@ -120,7 +121,7 @@ def test_int4_wrapper_takes_the_ring_at_every_k(card, k):
     topk_int4_pruned(queries, xp, xs, bias, k)
     (launch,) = card.launches
     assert launch["entry"] == "topk_pruned_int4" and _named(launch)["k"] == k
-    cand = T._list_ctas(min(2 * SMS, n // 512), 8, k)
+    cand = T._list_ctas(min(2 * SMS, n // T._IDENTITY_ROWS_PER_CTA), 8, k)
     assert _named(launch)["n_cta"] == cand
 
 
@@ -159,5 +160,5 @@ def test_int4_entry_is_typed_with_the_ring(card):
     """The int4 entry is one of the ring library's, typed like the others
     (``test_torch_topk_merged.py::test_ring_library_types_every_entry``)."""
     assert T._TMA_ENTRY["topk_int4_pruned"] == "topk_pruned_int4"
-    lib = T._tma_library()
+    lib = T._tma_library("topk_pruned_int4")
     assert len(lib.topk_pruned_int4_launch.argtypes) == len(ARG_NAMES)

@@ -1,7 +1,8 @@
 """The host side of the merged per-block calls on the card, without a card.
 
-``ops/topk.py::_launch_tma`` launches an entry of ``csrc/ivf_topk.cu``: the
-IVF wrappers' with their probe plan, ``topk`` / ``topk_int8`` merged with
+``ops/topk.py::_launch_tma`` launches an entry of the ring
+(``csrc/ivf_topk_<tier>.cu``): the IVF wrappers' with their probe plan,
+``topk`` / ``topk_int8`` merged with
 the identity plan (no plan tensor: every block, in order). Here the
 library is a stand-in that records each launch's arguments, so these tests
 hold what the wrapper hands the kernel: the entry, the null plan, the
@@ -37,7 +38,7 @@ class _Entry:
 
 
 class _FakeRing:
-    """``csrc/ivf_topk.cu`` as the wrapper sees it: every entry's plan
+    """The ring's libraries as the wrapper sees them: every entry's plan
     (32 rows x 4 stages, lists in shared memory), 2 CTAs an SM, and
     launches recorded as {"entry", "args"}, returning ``self.err``."""
 
@@ -61,7 +62,8 @@ class _FakeRing:
 @pytest.fixture
 def ring(monkeypatch):
     fake = _FakeRing()
-    monkeypatch.setattr(_build, "load", lambda name: fake if name == T._TMA_LIB else None)
+    monkeypatch.setattr(_build, "load",
+                        lambda name: fake if name in T._TMA_LIB.values() else None)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(multi_processor_count=SMS))
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -75,7 +77,7 @@ def ring(monkeypatch):
     T._tma_ctas_per_sm.cache_clear()
 
 
-# the launch's arguments, in csrc/ivf_topk.cu's order
+# the launch's arguments, in the ring's entries' order
 ARG_NAMES = ("queries", "queries_bf16", "x", "xscale", "bias", "ids", "n_valid", "cand_s",
              "cand_i", "counter", "out_s", "out_i", "q", "n", "d", "k", "max_blocks",
              "block_rows", "n_cta", "stream")
@@ -97,7 +99,8 @@ def _inputs(qn, n, d, seed=0):
 def test_merged_call_launches_the_identity_entry_per_64_queries(ring, tier, qn, launches):
     """topk / topk_int8 merged: the topk_merged entry once per 64 queries,
     the plan pointers null, max_blocks = N / block_rows, the grid one wave
-    split over the tile's 8-query groups (at most one CTA per 512 rows),
+    split over the tile's 8-query groups (at most one CTA per 128 rows: one
+    ring fill; a probe plan's 512),
     the CTAs' lists [tiles, n_cta, 8, k rounded up to 4], results [q, k]."""
     n, d, k, br = 65536, 128, 10, 2048
     queries, x, bias = _inputs(qn, n, d)
@@ -119,7 +122,7 @@ def test_merged_call_launches_the_identity_entry_per_64_queries(ring, tier, qn, 
         assert a["ids"] is None and a["n_valid"] is None
         assert (a["q"], a["n"], a["d"], a["k"]) == (tile_q, n, d, k)
         assert (a["max_blocks"], a["block_rows"]) == (n // br, br)
-        assert a["n_cta"] == min(2 * SMS // tiles, n // 512)
+        assert a["n_cta"] == min(2 * SMS // tiles, n // T._IDENTITY_ROWS_PER_CTA)
         assert a["queries_bf16"] == 0 and a["x"] == stored.data_ptr()
         assert (a["xscale"] is None) == (tier == "bf16")
 
@@ -165,11 +168,13 @@ def test_merged_call_raises_on_a_launch_error(ring):
 
 def test_ring_library_types_every_entry(ring):
     """Every entry's launch takes 20 arguments, pointers as c_void_p (a
-    64-bit pointer passed as a C int would be cut)."""
-    lib = T._tma_library()
-    assert {"topk_merged_bf16", "topk_merged_int8", "topk_pruned_int4"} <= set(T._TMA_ENTRY.values())
+    64-bit pointer passed as a C int would be cut), in the library of its
+    tier (one source per tier)."""
+    assert {"topk_merged_bf16", "topk_merged_int8", "topk_pruned_bf16", "topk_pruned_int8",
+            "topk_pruned_int4"} <= set(T._TMA_ENTRY.values())
     for entry in set(T._TMA_ENTRY.values()):
-        types_ = getattr(lib, f"{entry}_launch").argtypes
+        assert T._TMA_LIB[entry] == "ivf_topk_" + entry.rsplit("_", 1)[1]
+        types_ = getattr(T._tma_library(entry), f"{entry}_launch").argtypes
         assert len(types_) == len(ARG_NAMES)
         for name, t in zip(ARG_NAMES, types_):
             want = ctypes.c_int if name in ("queries_bf16", "q", "n", "d", "k", "max_blocks",

@@ -43,7 +43,6 @@ import subprocess
 import sys
 import threading
 
-SOURCES = ("topk_pruned", "topk_int8_pruned", "ivf_topk", "attention")
 HOLD_CYCLES = 4_000_000  # chip_smoke.py's spin: longer than the host takes to enqueue a call
 # (name, wrapper, shape); the persistent grid's rounds are the shape's
 # B * H * T / 128 items over 132 CTAs
@@ -62,7 +61,7 @@ IVF_SETTINGS = dict(block_rows=1024, n_lists=1024, n_probe=64, ivf_adaptive_marg
 def short_kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled form: the Hopper attention kernel
     with its head width and entry, the mma.sync attention kernel with its
-    type, the scan kernels with their scorer, k class and row source."""
+    type, the scan kernels with their tier or scorer, k class and row source."""
     entries = ("blockwise", "flash", "stats")
     m = re.search(r"attention_wgmma16attention_kernelILi(\d+)EL([ib])(\d)E", mangled)
     if m:
@@ -72,11 +71,10 @@ def short_kernel_name(mangled: str) -> str:
         entry = "stats" if m.group(4) == "1" else entries[int(m.group(3))]
         dtype = "f32" if m.group(1) == "f" else "bf16"
         return f"attention.cu mma.sync attention_kernel<{dtype}, hd {m.group(2)}, {entry}>"
-    m = re.search(r"topk_scan_kernelI\w+?(\w{4}Scorer)ELi(\d)ELb([01])ELb([01])E", mangled)
-    if m:
+    m = re.search(r"topk_scan_kernelI\w+?(\w{4}Scorer)ELi(\d)ELb([01])E", mangled)
+    if m:  # the per-block candidates' scan
         k_class = ("k <= 128", "k <= 1024", "k > 1024")[int(m.group(2))]
-        return (f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}, "
-                f"blocks={m.group(4)}>")
+        return f"topk_scan_kernel<{m.group(1)}, {k_class}, ivf={m.group(3)}>"
     m = re.search(r"ivf_tma14ivf_tma_kernelINS_(\d)(\w+?)ELi(\d)E(?:Lb([01])E)?(?:Lb([01])E)?",
                   mangled)
     if m:
@@ -85,7 +83,7 @@ def short_kernel_name(mangled: str) -> str:
         contract = ", per-block" if m.group(4) == "1" else ""
         wide = ", wide" if m.group(5) == "1" else ""
         return f"ivf_tma_kernel<{m.group(2)[: int(m.group(1))]}, {k_class}{contract}{wide}>"
-    return "topk_merge_kernel" if "topk_merge_kernel" in mangled else mangled
+    return mangled
 
 
 def ptxas_report(log: str) -> list[tuple[str, int, str]]:
@@ -247,9 +245,11 @@ def measure(tree: str) -> dict:
         topk_pruned,
     )
 
+    # every source of the tree, whatever it holds
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     logs = {}
     threads = [threading.Thread(target=lambda n=n: logs.update({n: _build.build(n, verbose=True)}))
-               for n in SOURCES]
+               for n in sources]
     for th in threads:
         th.start()
     for th in threads:
@@ -280,7 +280,7 @@ def measure(tree: str) -> dict:
             mask = b.to(torch.bfloat16)[:, None, None, :]  # chip_smoke.py's time_attention
             calls[f"sdpa {list(shape)}"] = lambda qkv=qkv, mask=mask: sdpa(*qkv, attn_mask=mask)
     out = {"tree": tree, "package": os.path.dirname(youtu_rag_tpu_torch.__file__),
-           "registers": {f"{n}: {k}": f"{r} registers, spills {sp}" for n in SOURCES
+           "registers": {f"{n}: {k}": f"{r} registers, spills {sp}" for n in sources
                          for k, r, sp in ptxas_report(logs[n]["log"])}}
     for name, fn in calls.items():
         out[name] = {"burst_ms": burst_ms(fn), "held_ms": held_ms(fn)}

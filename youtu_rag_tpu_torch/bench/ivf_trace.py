@@ -14,7 +14,7 @@ the streaming:
 - ``empty plan``: n_valid 0 (launch, query prep, list writes, the merge);
 - ``n_cta``: the grid's CTAs per query tile forced to other counts.
 
-Then it builds a copy of the tree's ``csrc/ivf_topk.cu`` whose scan kernel
+Then it builds a copy of the tree's ``csrc/ivf_topk_<tier>.cu`` whose scan kernel
 records ``%globaltimer`` (ns) in thread 0 of each CTA of the first query
 tile at nine points (start, queries prepared, first stages issued,
 prologue done, first stage arrived, stages done, ticket taken, the merge's
@@ -88,11 +88,11 @@ extern "C" int ivf_trace_clear() {
 """
 
 
-def trace_library() -> ctypes.CDLL:
-    """``csrc/ivf_topk.cu`` built from a copy carrying TRACE_PATCHES."""
+def trace_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built from a copy carrying TRACE_PATCHES."""
     from youtu_rag_tpu_torch.ops import _build
 
-    src = _build.BUILD_DIR / "trace"
+    src = _build.BUILD_DIR / f"trace_{name}"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, src)
     header = src / "ivf_scan_tma.cuh"
@@ -102,11 +102,11 @@ def trace_library() -> ctypes.CDLL:
             raise RuntimeError(f"trace patch does not apply: {old!r}")
         text = text.replace(old, new)
     header.write_text(text)
-    with open(src / "ivf_topk.cu", "a") as f:
+    with open(src / f"{name}.cu", "a") as f:
         f.write(TRACE_C)
-    lib = src / "ivf_topk.so"
+    lib = src / f"{name}.so"
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(src / "ivf_topk.cu")], check=True)
+                    str(src / f"{name}.cu")], check=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -170,10 +170,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    _build.build("ivf_topk")
     br = 1024
     g = torch.Generator(device="cuda").manual_seed(0)
-    lib_trace = None
+    traced = {}  # library name: its traced copy
     n_cta_of = ring._tma_n_cta
     for label, call, n_valid, fn, args in ivf_calls(g):
         if fn.__name__ not in names:
@@ -199,14 +198,15 @@ def main() -> int:
             ring._tma_n_cta = lambda *a, n_cta=n_cta, **kw: n_cta  # noqa: E731
             res[f"n_cta {n_cta}, cold"] = held_ms(call, cold=True)
         ring._tma_n_cta = n_cta_of
-        if lib_trace is None:
-            lib_trace = trace_library()
-        own = _build._loaded["ivf_topk"]
-        _build._loaded["ivf_topk"] = lib_trace
+        name = ring._TMA_LIB[ring._TMA_ENTRY[fn.__name__]]
+        if name not in traced:
+            traced[name] = trace_library(name)
+        own = _build.load(name)
+        _build._loaded[name] = traced[name]
         try:
-            res["trace"] = traced_call(lib_trace, fn, args, br)
+            res["trace"] = traced_call(traced[name], fn, args, br)
         finally:
-            _build._loaded["ivf_topk"] = own
+            _build._loaded[name] = own
         print(json.dumps(res), flush=True)
     return 0
 

@@ -1,16 +1,17 @@
-// The IVF scans for Hopper (sm_90a): the exact masked top-k over the rows
-// of the probed blocks ids[0 .. n_valid), in ONE launch that prepares the
-// queries, streams the probed rows through a ring of bulk asynchronous
-// copies, scores them on the tensor cores and merges the CTAs' lists.
-// Three tiers: Bf16, Int8 and Int4 (packed nibbles) below. Included by
-// ivf_topk.cu, whose entries ivf_topk_bf16, ivf_topk_int8 and
-// ivf_topk_int4 (the DMA contract), ivf_blocks_bf16 and ivf_blocks_int8
-// (the per-block contract, the kProbe template flag), topk_merged_bf16 and
-// topk_merged_int8 (the per-block contract over the identity plan: the
-// brute per-block kernels merged) and topk_pruned_int4 (the DMA contract
-// over the identity plan: the brute int4 scan, pallas_topk_int4_pruned) it
-// defines; the brute bf16 and int8 pruned scans and the per-block
-// candidates (topk_blocks.cu) stay on topk_select.cuh's scan.
+// The IVF and brute scans for Hopper (sm_90a): the exact masked top-k over
+// the rows of the probed blocks ids[0 .. n_valid), or over every row, in
+// ONE launch that prepares the queries, streams the rows through a ring of
+// bulk asynchronous copies, scores them on the tensor cores and merges the
+// CTAs' lists. Three tiers: Bf16, Int8 and Int4 (packed nibbles) below.
+// Included by ivf_topk_bf16.cu, ivf_topk_int8.cu and ivf_topk_int4.cu, one
+// source per tier, whose entries ivf_topk_<tier> (the DMA contract),
+// ivf_blocks_bf16 and ivf_blocks_int8 (the per-block contract, the kProbe
+// template flag), topk_merged_bf16 and topk_merged_int8 (the per-block
+// contract over the identity plan: the brute per-block kernels merged) and
+// topk_pruned_<tier> (the DMA contract over the identity plan: the brute
+// pruned scans, pallas_topk_pruned, pallas_topk_int8_pruned and
+// pallas_topk_int4_pruned) they define; the per-block candidates
+// (topk_blocks.cu) stay on topk_select.cuh's scan.
 //
 // DMA contract (the TPU kernels' pallas_ivf_topk_dma, pallas_ivf_topk_int8_dma
 // and pallas_ivf_topk_int4_dma):
@@ -39,8 +40,8 @@
 //    its list is not full, and a merge's dead picks repeat the running
 //    list's top entry). The scan records the last live v of each tile by
 //    atomicMax in the counters the launch's memset zeroes (7. below). Over
-//    the identity plan (topk_pruned_int4) r is 0, the pruned kernels' fill:
-//    their running top-k starts from (NEG_INF, 0).
+//    the identity plan (the topk_pruned entries) r is 0, the pruned
+//    kernels' fill: their running top-k starts from (NEG_INF, 0).
 //  - any q (8-query tiles on the grid's y, up to 64 per launch) and any k
 //    (4.'s list classes).
 //
@@ -64,7 +65,7 @@
 //
 // The identity plan (ids null; the topk_merged entries: pallas_topk and
 // pallas_topk_int8 merged, as ops/topk.py's merge_blocks computes it from
-// their candidates; topk_pruned_int4 with one block of all n rows): position
+// their candidates; the topk_pruned entries with one block of all n rows): position
 // i is block i, all max_blocks = n / block_rows of them valid, so virtual
 // row v is stored row v, the tail's ids[0] and ids[1] are 0 and 1, and the
 // order is (score desc, row asc).
@@ -186,7 +187,9 @@
 //     first entry that is not live and writes the fill (DMA) or the tail
 //     (kProbe). DMA: each selecting warp keeps the last live v it scored
 //     (a ballot a stage) and lane 0 takes it to the tile's counter by one
-//     atomicMax before the CTA's ticket. kProbe: while it
+//     atomicMax before the CTA's ticket, which the last CTA loads beside
+//     the windows (a probe plan's only: the identity plan's fill is row 0,
+//     so the pruned scans neither write nor read it). kProbe: while it
 //     scans v < 2 * block_rows, each selecting warp records its query's
 //     lowest column scoring >= NEG_INF of positions 0 and 1 (a ballot, then
 //     an atomicMax of block_rows - column, 0 meaning none, in counters the
@@ -560,7 +563,8 @@ struct Bf16 {
 
   // queries f32 or (queries_bf16) bf16 [q, d], 16-byte aligned; rows past
   // q are zero. 16-byte loads, kBatch in flight per thread (d = 768: every
-  // load of the tile at once)
+  // load of the tile at once); the ring's first fill (`loaded`) goes out
+  // behind the first loads, before their values are used
   template <class Hook>
   static __device__ void prepare(unsigned char* qt, float*, const void* queries, bool queries_bf16,
                                  int q0, int q_valid, int d, Hook&& loaded) {
@@ -576,11 +580,11 @@ struct Bf16 {
           const int c = base + u * kThreads;
           v[u] = c < valid ? __ldg(src + c) : make_uint4(0, 0, 0, 0);
         }
+        if (base == threadIdx.x) loaded();
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
           if (base + u * kThreads < chunks) dst[base + u * kThreads] = v[u];
       }
-      loaded();
       return;
     }
     // a chunk: 4 f32, rounded to 4 bf16 (8 bytes) as .to(torch.bfloat16)
@@ -595,6 +599,7 @@ struct Bf16 {
         const int c = base + u * kThreads;
         v[u] = c < valid ? __ldg(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
+      if (base == threadIdx.x) loaded();
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int c = base + u * kThreads;
@@ -605,7 +610,6 @@ struct Bf16 {
         }
       }
     }
-    loaded();
   }
 
   template <bool kWide = false>
@@ -1236,7 +1240,7 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   }
   int* first_cols = a.counter + 2 * gridDim.y + blockIdx.y * kFirstCols;
   if constexpr (!kProbe)
-    if (lane == 0 && last_live >= 0) atomicMax(first_cols, last_live + 1);
+    if (lane == 0 && last_live >= 0 && !identity) atomicMax(first_cols, last_live + 1);
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last_cta = atomicAdd(a.counter + blockIdx.y, 1) == n_cta - 1;
@@ -1251,6 +1255,9 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   // lists counted up to a multiple of 4; W is a power of two from 4). Lane
   // L offers lists L + 32 m.
   const int W = p.window, n_pad = (n_cta + 3) & ~3;
+  // DMA over a probe plan: the tile's last live v (7. above), loaded beside
+  // the windows (the identity plan's fill is row 0: no load)
+  const int last_v = !kProbe && !identity ? __ldcg(first_cols) : 0;
   const size_t per_warp = (size_t)n_pad * 2 * W;
   float* win_all = reinterpret_cast<float*>(smem + p.barriers());
   const float* tile_s = a.cand_s + (size_t)blockIdx.y * n_cta * kQT * k_pad;
@@ -1290,11 +1297,8 @@ __global__ void __launch_bounds__(kThreads, 2) ivf_tma_kernel(const Args a, cons
   int n_out = k;  // the slots the live entries fill
   // DMA: the fill's entries lie before the last block with a live row
   // (v < fill_end), the first in the merged order (-1: none)
-  int fill_v = -1, fill_end = 0;
-  if constexpr (!kProbe) {
-    const int lv = __ldcg(first_cols);
-    fill_end = lv > 0 ? (lv - 1) / br * br : 0;
-  }
+  int fill_v = -1;
+  const int fill_end = last_v > 0 ? (last_v - 1) / br * br : 0;
   // The merged list (6. above): up to k = 128 in registers, entry 32 r +
   // lane in (ls[r], li[r]) (k <= 32 in one), up to 1024 in shared memory
   // past the windows, above in this query's output row; it holds virtual

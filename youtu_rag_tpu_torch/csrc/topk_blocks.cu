@@ -4,8 +4,8 @@
 // candidates. Only candidates=True reaches this source: ops/topk.py's
 // topk and topk_int8 and ops/ivf.py's ivf_topk and ivf_topk_int8 with
 // candidates=True (the port's inspection path; the JAX functions return
-// only the merged result). Their merged calls run ivf_topk.cu's
-// topk_merged_* and ivf_blocks_* entries (ivf_scan_tma.cuh), one launch
+// only the merged result). Their merged calls run the ring's topk_merged_*
+// and ivf_blocks_* entries (ivf_topk_bf16.cu, ivf_topk_int8.cu), one launch
 // with the merge inside; ops/topk.py::merge_blocks (a stable sort over
 // positions) is the plain versions' merge, which the card's path never
 // calls.
@@ -25,14 +25,14 @@
 //     >= NEG_INF, or, when every row scores -inf, (-inf, base) first and
 //     (NEG_INF, base) after, base being the block's first stored row;
 //   - then (NEG_INF, 0) up to k_pad.
-// Scores are the brute kernels': bf16 f32(q)·f32(x) + bias; int8 the exact
+// Scores are the pruned kernels': bf16 f32(q)·f32(x) + bias; int8 the exact
 // integer dot, then f32(acc) * (qs[q] * xs[row]) + bias[row] rounded op by
 // op.
 //
 // Design. The TPU grid walks the blocks in order and selects each block
 // with k passes of max / first-argmax over a [q_pad, block_rows] score
-// tile in VMEM. Here the scan kernel of topk_select.cuh runs with its
-// kBlocks flag: one CTA per (block, 8-query tile), the 128-row score tile,
+// tile in VMEM. Here the scan kernel of topk_select.cuh runs one CTA per
+// (block, 8-query tile), the 128-row score tile,
 // warp j keeping query j's sorted list in shared memory (the two k
 // classes), with no threshold shared across blocks; the epilogue writes
 // the fill and the pad. The candidates are the result: no merge here.

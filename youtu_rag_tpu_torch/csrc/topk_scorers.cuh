@@ -1,9 +1,8 @@
-// The two scorers of the port's scan kernels (see topk_select.cuh for the
-// Scorer contract): bf16 rows (Bf16Scorer) and int8 rows (Int8Scorer)
-// score a 4-row group per warp step on the CUDA cores. Shared by the brute
-// sources (topk_pruned.cu, topk_int8_pruned.cu) and the per-block
-// candidates (topk_blocks.cu). The ring (ivf_scan_tma.cuh) scores on the
-// tensor cores, its int4 tier with mma_u8s8 below.
+// The two scorers of the per-block candidates' scan kernel (topk_blocks.cu;
+// see topk_select.cuh for the Scorer contract): bf16 rows (Bf16Scorer) and
+// int8 rows (Int8Scorer) score a 4-row group per warp step on the CUDA
+// cores. The ring (ivf_scan_tma.cuh), which runs every other top-k call,
+// scores on the tensor cores, its int4 tier with mma_u8s8 below.
 
 #pragma once
 

@@ -1,72 +1,48 @@
-// Exact masked top-k selection shared by the port's scan kernels, for
-// Hopper (sm_90a). Included by topk_pruned.cu (bf16) and topk_int8_pruned.cu
-// (brute scans) and topk_blocks.cu (per-block
-// candidates, see below); the scoring differs between them, and each
-// source passes it in as a Scorer (topk_scorers.cuh, contract below). The
-// IVF scans (ivf_scan_tma.cuh) take its selection helpers, its list
-// classes and RowSource, and run a kernel of their own.
+// Exact masked per-block top-k selection, for Hopper (sm_90a): the scan
+// kernel of topk_blocks.cu (the per-block candidates), with its scoring
+// passed in as a Scorer (topk_scorers.cuh, contract below). The ring
+// (ivf_scan_tma.cuh), which runs every merged and brute top-k call, takes
+// its list classes, RowSource and constants, and runs a kernel of its own.
 //
-// Contract of every kernel built from this header (the TPU kernels'):
-//   result = the k best (score desc, row asc) per query, as
-//            (f32 scores [q, k], int32 rows [q, k]);
-//   slots that no live row fills keep the initial entry (NEG_INF, row 0),
-//   as the TPU kernels' running top-k starts from (NEG_INF, 0). A row whose
-//   bias is NEG_INF scores NEG_INF exactly (a small product added to the
-//   float32 minimum rounds back to it) and never enters a list: only a
-//   strictly better entry displaces one.
+// Contract (the TPU per-block kernels'): CTA b owns exactly one block of
+// block_rows stored rows: rows [b * block_rows, (b + 1) * block_rows)
+// (brute) or, with the kIvf flag, block ids[b] of the probe plan (a block
+// at b >= n_valid, n_valid read on the device, is not read and counts as
+// all NEG_INF). Each selecting warp writes its block's own list, k_out =
+// k_pad entries, as the TPU's per-block kernels (_select_topk) leave it:
+// the live rows in (score desc, row asc), then the fill _select_topk picks
+// once they run out (see the epilogue), then (NEG_INF, 0) past k. A row
+// whose bias is NEG_INF scores NEG_INF exactly (a small product added to
+// the float32 minimum rounds back to it) and never enters a list: only a
+// strictly better entry displaces one.
 //
-// Design. The TPU grid runs in order, so its pruned kernels carry one
-// running top-k across all blocks. Hopper CTAs run at the same time, so:
-//  1. topk_scan_kernel: CTA b owns a contiguous row range and keeps one
-//     sorted top-k list per query of its query tile (8 queries) in shared
-//     memory. It walks the range in tiles of 128 rows:
-//     - scoring (Scorer::group): each of the 8 warps takes 4 groups of
-//       R = 4 rows; each lane reads 16-byte chunks of the 4 rows (coalesced
-//       across the warp) and accumulates the 4 x 8 partial dots; a
-//       transposing butterfly (31 shuffles) leaves lane L holding the full
-//       dot of (row L/8, query L%8), which goes into a shared score tile
-//       (double-buffered, so one __syncthreads per tile separates scoring
-//       from selection);
-//     - selection: warp j alone owns the list of query j. It finishes its
-//       query's 128 scores (the bias and, for the quantized tiers, the
-//       scales, all loaded at the start of the tile so that their latency
-//       hides under the scoring loads), and a score that cannot beat the
-//       list's current k-th entry skips insertion: the per-row form of the
-//       TPU kernels' block prune. After warm-up almost no row inserts, so
-//       the loop is a streaming read of the index.
-//     At the end warp j writes its list as the CTA's candidates [n_cta, q, k].
-//  2. topk_merge_kernel: one warp per query merges the n_cta sorted
-//     candidate lists into [q, k] with the same (score desc, row asc)
-//     order, so the result equals a stable descending sort.
-// Queries are covered in tiles of 8 by the grid's second dimension; each
-// tile reads the index again (q = 64 reads it 8 times).
-//
-// Brute scans: CTA b owns the contiguous rows [b * rows_per_cta, (b + 1) *
-// rows_per_cta).
-//
-// Per-block candidates (the kBlocks template flag, topk_blocks.cu). CTA b
-// owns exactly one block of block_rows stored rows: rows [b * block_rows,
-// (b + 1) * block_rows) (brute) or, with the kIvf flag, block ids[b] of
-// the probe plan (a block at b >= n_valid, n_valid read on the device, is
-// not read and counts as all NEG_INF). There is no merge: each
-// selecting warp writes its block's own list, k_out = k_pad entries, as
-// the TPU's per-block kernels (_select_topk) leave it: the live rows in
-// (score desc, row asc), then the fill _select_topk picks once they run
-// out (see the epilogue), then (NEG_INF, 0) past k.
+// Design. The TPU grid walks the blocks in order and selects each one with
+// k passes of max / first-argmax over its score tile. Here each CTA keeps
+// one sorted list per query of its query tile (8 queries, the grid's second
+// dimension) and walks its block in tiles of 128 rows:
+//  - scoring (Scorer::group): each of the 8 warps takes 4 groups of R = 4
+//    rows; each lane reads 16-byte chunks of the 4 rows (coalesced across
+//    the warp) and accumulates the 4 x 8 partial dots; a transposing
+//    butterfly (31 shuffles) leaves lane L holding the full dot of (row
+//    L/8, query L%8), which goes into a shared score tile (double-buffered,
+//    so one __syncthreads per tile separates scoring from selection);
+//  - selection: warp j alone owns the list of query j. It finishes its
+//    query's 128 scores (the bias and, for the quantized tiers, the scales,
+//    loaded at the start of the tile so that their latency hides under the
+//    scoring loads), and a score that cannot beat the list's current k-th
+//    entry skips insertion.
 //
 // Three k classes (ListKind). Up to kSmallK = 128 an insertion stages the
 // shifted list entries in registers (kSmallK / 32 per lane). Above it, up
-// to kMaxK = 1024, the lists stay in dynamic shared memory as before (8
-// queries x k x 8 B = 64 KB at k = 1024) and an insertion shifts them
-// through shared memory, 32 entries at a time from the top, so no register
-// array grows with k. Above kMaxK (the JAX kernels take any k up to their
-// block_rows, which the JAX index grows to 8192) 8 lists would outgrow the
-// 227 KB a CTA may have, so each selecting warp keeps its query's list in
-// its own slot of the candidate buffer in device memory ([n_cta, q, k],
-// or [blocks, q, k_pad]), where the epilogue would write it anyway; an
-// insertion shifts only the entries filled so far (the rest are all the
-// initial (NEG_INF, 0)). The wrappers bound that buffer by launching fewer
-// CTAs. Simple first: this class is right, not yet fast.
+// to kMaxK = 1024, the lists stay in dynamic shared memory (8 queries x k x
+// 8 B = 64 KB at k = 1024) and an insertion shifts them through shared
+// memory, 32 entries at a time from the top, so no register array grows
+// with k. Above kMaxK (the JAX kernels take any k up to their block_rows,
+// which the JAX index grows to 8192) 8 lists would outgrow the 227 KB a CTA
+// may have, so each selecting warp keeps its query's list in its own slot
+// of the candidates in device memory ([blocks, q, k_pad]), where the
+// epilogue would write it anyway; an insertion shifts only the entries
+// filled so far (the rest are all the initial (NEG_INF, 0)).
 //
 // A Scorer provides:
 //   static constexpr bool kScaled;      // score = f32(acc) * (qs * xs) + bias
@@ -111,8 +87,8 @@ __host__ __device__ inline int list_kind(int k) {
   return k <= kSmallK ? kListRegs : (k <= kMaxK ? kListShared : kListDevice);
 }
 
-// A probe plan's blocks: the per-block IVF candidates' (kIvf) and the IVF
-// scans' of ivf_scan_tma.cuh (unused by the brute scans). Virtual row v,
+// A probe plan's blocks: the per-block IVF candidates' (kIvf) and the
+// ring's of ivf_scan_tma.cuh (ids null there: the identity plan). Virtual row v,
 // v < n_valid * block_rows, is the stored row ids[v / block_rows] *
 // block_rows + v % block_rows.
 struct RowSource {
@@ -275,19 +251,17 @@ __host__ __device__ inline size_t scan_smem_bytes(int d, int k) {
 
 // Shared memory: the Scorer's query tile, score tiles f32 [2, kQT, kTile],
 // then per query a list of k scores and k rows (not for kListDevice).
-template <class Scorer, int kList, bool kIvf, bool kBlocks>
+template <class Scorer, int kList, bool kIvf>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
                  const float* __restrict__ qscale,    // [q] (kScaled only)
                  const void* __restrict__ x,          // [n, row bytes]
                  const float* __restrict__ xscale,    // [n] (kScaled only)
                  const float* __restrict__ bias,      // [n]
-                 float* __restrict__ cand_s,          // [n_cta, q, k_out]
-                 int* __restrict__ cand_i,            // [n_cta, q, k_out]
-                 int q, int n, int d, int k, int k_out,
-                 int rows_per_cta,                 // kBlocks: block_rows
+                 float* __restrict__ cand_s,          // [n_blocks, q, k_out]
+                 int* __restrict__ cand_i,            // [n_blocks, q, k_out]
+                 int q, int n, int d, int k, int k_out, int block_rows,
                  RowSource src) {                  // kIvf only
-  static_assert(kBlocks || !kIvf, "an IVF scan reads one block per CTA");
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* qt = smem;
   float* tiles = reinterpret_cast<float*>(smem + Scorer::q_bytes(d));
@@ -331,29 +305,22 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   }
   float qs_w = 0.f;
   if constexpr (Scorer::kScaled) qs_w = selects ? qscale[q0 + warp] : 0.f;
-  // stored rows [row_begin, row_end)
-  int row_begin, row_end;
-  int base = 0;       // kBlocks: the block's first stored row
-  bool valid = true;  // kBlocks: the block is read (IVF: cta < n_valid)
-  int c0 = INT_MAX;   // kBlocks: this lane's lowest row scoring >= NEG_INF
-  if constexpr (kBlocks) {
-    if constexpr (kIvf) {
-      valid = cta < min(max(*src.n_valid, 0), src.max_blocks);
-      // ids[cta] * block_rows in int32 as the TPU kernel computes it (an
-      // id past n_valid is never read, only written back in the fill)
-      base = (int)((unsigned)__ldg(src.ids + cta) * (unsigned)rows_per_cta);
-    } else {
-      base = cta * rows_per_cta;
-    }
-    row_begin = base;
-    row_end = valid ? base + rows_per_cta : base;
+  // the block's stored rows [base, row_end)
+  int base;           // the block's first stored row
+  bool valid = true;  // the block is read (IVF: cta < n_valid)
+  int c0 = INT_MAX;   // this lane's lowest row scoring >= NEG_INF
+  if constexpr (kIvf) {
+    valid = cta < min(max(*src.n_valid, 0), src.max_blocks);
+    // ids[cta] * block_rows in int32 as the TPU kernel computes it (an id
+    // past n_valid is never read, only written back in the fill)
+    base = (int)((unsigned)__ldg(src.ids + cta) * (unsigned)block_rows);
   } else {
-    row_begin = cta * rows_per_cta;
-    row_end = min(n, row_begin + rows_per_cta);
+    base = cta * block_rows;
   }
+  const int row_end = valid ? base + block_rows : base;
 
   int buf = 0;
-  for (int tile0 = row_begin; tile0 < row_end; tile0 += kTile, buf ^= 1) {
+  for (int tile0 = base; tile0 < row_end; tile0 += kTile, buf ^= 1) {
     float* tile = tiles + buf * kQT * kTile;  // [kQT, kTile]
     // the bias (and scale) of the rows this lane selects, loaded now so
     // that their latency hides under the scoring loads
@@ -390,8 +357,7 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
           else
             s = t + tile_bias[c];
           // rows ascend along the loop: the first such row is the lowest
-          if constexpr (kBlocks)
-            if (s >= kNegInf && c0 == INT_MAX) c0 = row;
+          if (s >= kNegInf && c0 == INT_MAX) c0 = row;
         }
         unsigned pending = __ballot_sync(kFull, ok && better(s, row, thr_s, thr_i));
         while (pending) {
@@ -417,31 +383,27 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   }
 
   if (selects) {
-    if constexpr (kBlocks) {
 #pragma unroll
-      for (int o = 16; o >= 1; o >>= 1) c0 = min(c0, __shfl_xor_sync(kFull, c0, o));
-      if (!valid) c0 = base;  // the TPU kernel's all-NEG_INF block: column 0
-    }
+    for (int o = 16; o >= 1; o >>= 1) c0 = min(c0, __shfl_xor_sync(kFull, c0, o));
+    if (!valid) c0 = base;  // the TPU kernel's all-NEG_INF block: column 0
     // kListDevice: the list already sits in this slot; each lane rewrites
     // only the entries it reads
     size_t out = ((size_t)cta * q + q0 + warp) * k_out;
     for (int t = lane; t < k_out; t += 32) {
-      float s = kNegInf;  // the pad past k (k_out == k outside kBlocks)
+      float s = kNegInf;  // the pad past k
       int r = 0;
       if (t < k) {
         s = my_s[t];
         r = my_i[t];
-        if constexpr (kBlocks) {
-          if (!(s > kNegInf)) {
-            // a slot no live row fills: _select_topk's pick once the live
-            // rows are used up is the first column >= the max, each pick
-            // overwritten with NEG_INF. That is (NEG_INF, c0) for the lowest
-            // column c0 scoring >= NEG_INF (a tombstone counts, a -inf row
-            // does not); in a block scoring -inf throughout, (-inf, base)
-            // first and then (NEG_INF, base).
-            r = c0 != INT_MAX ? c0 : base;
-            s = (c0 == INT_MAX && t == 0) ? -INFINITY : kNegInf;
-          }
+        if (!(s > kNegInf)) {
+          // a slot no live row fills: _select_topk's pick once the live
+          // rows are used up is the first column >= the max, each pick
+          // overwritten with NEG_INF. That is (NEG_INF, c0) for the lowest
+          // column c0 scoring >= NEG_INF (a tombstone counts, a -inf row
+          // does not); in a block scoring -inf throughout, (-inf, base)
+          // first and then (NEG_INF, base).
+          r = c0 != INT_MAX ? c0 : base;
+          s = (c0 == INT_MAX && t == 0) ? -INFINITY : kNegInf;
         }
       }
       cand_s[out + t] = s;
@@ -450,133 +412,19 @@ topk_scan_kernel(const void* __restrict__ queries,    // [q, d] (Scorer's type)
   }
 }
 
-// One warp per query: merge n_cta sorted lists of k into the top k.
-// Shared memory: per list its position and its current head (score, row).
-__global__ void __launch_bounds__(32)
-topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand_i,
-                  float* __restrict__ out_s, int* __restrict__ out_i,
-                  int q, int k, int n_cta) {
-  extern __shared__ __align__(16) unsigned char msmem[];
-  int* pos = reinterpret_cast<int*>(msmem);
-  float* head_s = reinterpret_cast<float*>(pos + n_cta);
-  int* head_i = reinterpret_cast<int*>(head_s + n_cta);
-  const int lane = threadIdx.x;
-  const int qi = blockIdx.x;
-  // list l belongs to lane l % 32, which alone reads and writes its entries
-  for (int l = lane; l < n_cta; l += 32) {
-    size_t off = ((size_t)l * q + qi) * k;
-    pos[l] = 0;
-    head_s[l] = cand_s[off];
-    head_i[l] = cand_i[off];
-  }
-
-  auto local_best = [&](float& bs, int& bi, int& bl) {
-    bs = -INFINITY;
-    bi = 0x7fffffff;
-    bl = 0x7fffffff;
-    for (int l = lane; l < n_cta; l += 32) {
-      float s = head_s[l];
-      int i = head_i[l];
-      if (better(s, i, bs, bi) || (s == bs && i == bi && l < bl)) {
-        bs = s;
-        bi = i;
-        bl = l;
-      }
-    }
-  };
-
-  float ls;
-  int li, ll;
-  local_best(ls, li, ll);
-  for (int t = 0; t < k; ++t) {
-    float bs = ls;
-    int bi = li, bl = ll;
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) {
-      float os = __shfl_xor_sync(kFull, bs, o);
-      int oi = __shfl_xor_sync(kFull, bi, o);
-      int ol = __shfl_xor_sync(kFull, bl, o);
-      if (better(os, oi, bs, bi) || (os == bs && oi == bi && ol < bl)) {
-        bs = os;
-        bi = oi;
-        bl = ol;
-      }
-    }
-    if (lane == 0) {
-      out_s[(size_t)qi * k + t] = bs;
-      out_i[(size_t)qi * k + t] = bi;
-    }
-    if (bl < n_cta && lane == bl % 32) {
-      int p = ++pos[bl];
-      if (p < k) {
-        size_t off = ((size_t)bl * q + qi) * k + p;
-        head_s[bl] = cand_s[off];
-        head_i[bl] = cand_i[off];
-      } else {
-        head_s[bl] = -INFINITY;
-        head_i[bl] = 0x7fffffff;
-      }
-      local_best(ls, li, ll);
-    }
-    __syncwarp();
-  }
-}
-
 typedef void (*ScanKernel)(const void*, const float*, const void*, const float*, const float*,
                            float*, int*, int, int, int, int, int, int, RowSource);
 
-template <class Scorer, bool kIvf, bool kBlocks = false>
+template <class Scorer, bool kIvf>
 ScanKernel scan_kernel_for(int k) {
   switch (list_kind(k)) {
     case kListRegs:
-      return topk_scan_kernel<Scorer, kListRegs, kIvf, kBlocks>;
+      return topk_scan_kernel<Scorer, kListRegs, kIvf>;
     case kListShared:
-      return topk_scan_kernel<Scorer, kListShared, kIvf, kBlocks>;
+      return topk_scan_kernel<Scorer, kListShared, kIvf>;
     default:
-      return topk_scan_kernel<Scorer, kListDevice, kIvf, kBlocks>;
+      return topk_scan_kernel<Scorer, kListDevice, kIvf>;
   }
-}
-
-// Scan CTAs that fit on one SM for width d and top-k k (the register cap
-// of __launch_bounds__ allows 2), or minus a CUDA error code.
-template <class Scorer>
-int scan_ctas_per_sm(int d, int k) {
-  ScanKernel kern = scan_kernel_for<Scorer, false>(k);
-  int smem = (int)scan_smem_bytes<Scorer>(d, k);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -(int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kWarps * 32, smem);
-  if (err != cudaSuccess) return -(int)err;
-  return blocks;
-}
-
-// Brute: all n rows; the contract wants n >= k. Launches the scan and the
-// merge on `stream`. Returns cudaGetLastError() (0 = ok) or
-// cudaErrorInvalidValue for shapes outside the contract.
-template <class Scorer>
-int topk_launch(const void* queries, const float* qscale, const void* x, const float* xscale,
-                const float* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,
-                int q, int n, int d, int k, int n_cta, void* stream) {
-  if (q < 1 || q > kMaxQ || k < 1 || !Scorer::width_ok(d) || n_cta < 1 || n < k)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  ScanKernel kern = scan_kernel_for<Scorer, false>(k);
-  int smem = (int)scan_smem_bytes<Scorer>(d, k);
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int rows_per_cta = (n + n_cta - 1) / n_cta;
-  dim3 grid(n_cta, (q + kQT - 1) / kQT);
-  kern<<<grid, kWarps * 32, smem, st>>>(queries, qscale, x, xscale, bias,
-                                        static_cast<float*>(cand_s), static_cast<int*>(cand_i),
-                                        q, n, d, k, k, rows_per_cta, RowSource{});
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  size_t merge_smem = (size_t)n_cta * (2 * sizeof(int) + sizeof(float));
-  topk_merge_kernel<<<q, 32, merge_smem, st>>>(
-      static_cast<const float*>(cand_s), static_cast<const int*>(cand_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), q, k, n_cta);
-  return (int)cudaGetLastError();
 }
 
 // Per-block candidates: one CTA per (block, 8-query tile), each writing its
@@ -593,7 +441,7 @@ int blocks_launch(const void* queries, const float* qscale, const void* x, const
       (!kIvf && n_blocks != n / block_rows))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  ScanKernel kern = scan_kernel_for<Scorer, kIvf, true>(k);
+  ScanKernel kern = scan_kernel_for<Scorer, kIvf>(k);
   int smem = (int)scan_smem_bytes<Scorer>(d, k);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -606,24 +454,6 @@ int blocks_launch(const void* queries, const float* qscale, const void* x, const
 }
 
 }  // namespace
-
-// Each brute source defines its C interface with this macro: <name>_launch,
-// <name>_ctas_per_sm and <name>_error_string.
-#define TOPK_C_INTERFACE(NAME, SCORER)                                                        \
-  extern "C" {                                                                                \
-  const char* NAME##_error_string(int err) {                                                  \
-    return cudaGetErrorString(static_cast<cudaError_t>(err));                                 \
-  }                                                                                           \
-  int NAME##_ctas_per_sm(int d, int k) { return scan_ctas_per_sm<SCORER>(d, k); }            \
-  int NAME##_launch(const void* queries, const void* qscale, const void* x, const void* xscale, \
-                    const void* bias, void* cand_s, void* cand_i, void* out_s, void* out_i,   \
-                    int q, int n, int d, int k, int n_cta, void* stream) {                    \
-    return topk_launch<SCORER>(queries, static_cast<const float*>(qscale), x,                 \
-                               static_cast<const float*>(xscale),                             \
-                               static_cast<const float*>(bias), cand_s, cand_i, out_s, out_i, \
-                               q, n, d, k, n_cta, stream);                                    \
-  }                                                                                           \
-  }
 
 // The per-block source defines one entry per (scorer, row source) with this
 // macro: <name>_launch (ids and n_valid are null for the brute entries).

@@ -29,7 +29,7 @@ Counterpart of ``youtu_rag_tpu/ops/ivf.py``'s DMA kernels
   and scales at any offset (on CUDA each entry picks a shared-memory plan
   for (d, k), ``ops/topk.py::scan_plan``).
 
-Each wrapper launches its entry of ``csrc/ivf_topk.cu`` for CUDA tensors,
+Each wrapper launches its entry of ``csrc/ivf_topk_<tier>.cu`` for CUDA tensors,
 once per tile of at most ``MAX_Q`` queries (``ops/topk.py::_query_tiles``;
 none for no query), and counts the launches in its ``.launches``;
 ``n_valid`` stays on the device (no ``.item()``), so nothing waits between
@@ -59,7 +59,7 @@ which differs from the DMA kernels' above:
 - any ``block_rows >= k`` that divides N, bias and scales at any offset.
 
 On CUDA the merged call (``candidates=False``) launches
-``csrc/ivf_topk.cu``'s ``ivf_blocks_bf16`` / ``ivf_blocks_int8`` (the
+``csrc/ivf_topk_<tier>.cu``'s ``ivf_blocks_bf16`` / ``ivf_blocks_int8`` (the
 DMA kernels' ``csrc/ivf_scan_tma.cuh`` under its ``kProbe`` flag): one
 launch per tile of at most ``MAX_Q`` queries, after one memset of its
 counters, with the queries' cast or quantization and the merge inside; no
@@ -193,7 +193,7 @@ def _check_ids(name: str, block_ids: torch.Tensor, n_valid: torch.Tensor, device
 
 def _tiles(fn, queries, x, xscale, bias, block_ids, n_valid, k: int, d: int, n: int,
            block_rows: int):
-    """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles."""
+    """``fn``'s entry of ``csrc/ivf_topk_<tier>.cu`` over MAX_Q-query tiles."""
     nv = _check_plan(fn.__name__, n, block_ids, n_valid, block_rows, x.device)
     return _ring_tiles(fn, queries, x, xscale, bias, k, d, n, block_rows, block_ids, nv)
 

@@ -36,15 +36,15 @@ row of a block that scores ``>= NEG_INF``, in block order (see
 Each wrapper (``topk_pruned``, ``topk_int8_pruned``, ``topk_int4_pruned``,
 ``topk``, ``topk_int8``) launches a hand-written CUDA kernel for CUDA
 tensors and counts the launch in its ``.launches``; for CPU tensors it runs
-its plain PyTorch version (``*_reference``). The bf16 and int8 pruned
-scans launch ``csrc/<name>.cu``. ``topk_int4_pruned`` and the per-block
-ones merged launch an entry of ``csrc/ivf_topk.cu`` (``_launch_tma``: the
-IVF scans' ring over the identity plan, which prepares the queries, scans,
-selects and merges in one kernel after a memset, so no candidates reach
-another launch and no sort runs): ``topk_pruned_int4`` (one block of all n
-rows; the slots no live row fills come back ``(NEG_INF, 0)``, as from the
-bf16 and int8 scans) and ``topk_merged_bf16`` / ``topk_merged_int8``;
-with ``candidates=True`` the per-block ones launch ``csrc/topk_blocks.cu``.
+its plain PyTorch version (``*_reference``). The pruned scans and the
+per-block ones merged launch an entry of the ring, ``csrc/ivf_topk_<tier>.cu``
+(``_launch_tma``: the IVF scans' kernels over the identity plan, which
+prepare the queries, scan, select and merge in one kernel after a memset,
+so no candidates reach another launch, no sort runs and the host neither
+casts nor quantizes the queries): ``topk_pruned_bf16`` / ``_int8`` /
+``_int4`` (one block of all n rows; the slots no live row fills come back
+``(NEG_INF, 0)``) and ``topk_merged_bf16`` / ``topk_merged_int8``; with
+``candidates=True`` the per-block ones launch ``csrc/topk_blocks.cu``.
 ``merge_blocks`` is the plain versions' merge. Every wrapper takes any number
 of queries: on CUDA it launches once per tile of at most ``MAX_Q`` queries
 (``_query_tiles``, shared with ``ops/ivf.py``) and joins the results; with
@@ -324,40 +324,6 @@ def topk_int8_reference(queries: torch.Tensor, database_q: torch.Tensor, db_scal
 # ---------------------------------------------------------------------------
 
 
-def _library(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    launch = getattr(lib, f"{name}_launch")
-    if launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        launch.argtypes = [p] * 9 + [i] * 5 + [p]
-        launch.restype = ctypes.c_int
-        per_sm = getattr(lib, f"{name}_ctas_per_sm")
-        per_sm.argtypes = [i, i]
-        per_sm.restype = i
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [i]
-        err.restype = ctypes.c_char_p
-    return lib
-
-
-def _cuda_error(lib: ctypes.CDLL, name: str, err: int) -> RuntimeError:
-    msg = getattr(lib, f"{name}_error_string")(err).decode()
-    return RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
-
-
-@functools.lru_cache(maxsize=None)
-def _ctas_per_sm(name: str, d: int, k: int) -> int:
-    """Scan CTAs one SM holds at (d, k): two (the kernel's register cap)
-    unless the shared memory of k's lists leaves room for fewer."""
-    lib = _library(name)
-    per_sm = getattr(lib, f"{name}_ctas_per_sm")(d, k)
-    if per_sm < 0:
-        raise _cuda_error(lib, name, -per_sm)
-    if per_sm == 0:
-        raise RuntimeError(f"{name}: d={d}, k={k} needs more shared memory than one SM has")
-    return min(per_sm, 2)
-
-
 def _list_ctas(n_cta: int, qn: int, k: int) -> int:
     """Above SHARED_K the kernel keeps each (CTA, query) list in the
     candidate buffer [n_cta, q, k] itself: fewer CTAs bound it to
@@ -365,13 +331,6 @@ def _list_ctas(n_cta: int, qn: int, k: int) -> int:
     if k <= SHARED_K:
         return n_cta
     return max(1, min(n_cta, CAND_BYTES // (qn * k * 8)))
-
-
-def _scan_ctas(name: str, n: int, d: int, k: int, qn: int, device: torch.device) -> int:
-    """Row-range CTAs of the scan kernel: as many as fit at once on the
-    card, at least 512 rows each (``_list_ctas`` above SHARED_K)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _list_ctas(max(1, min(_ctas_per_sm(name, d, k) * sms, -(-n // 512))), qn, k)
 
 
 def _query_tiles(launch, queries: torch.Tensor, empty: tuple, dim: int = 0):
@@ -416,30 +375,6 @@ def _check_cuda(name: str, queries, x, bias, dtype, width, scales=None) -> int:
     return n
 
 
-def _launch(fn, queries, qscale, x, xscale, bias, k: int, d: int, n: int):
-    """Launch ``csrc/<fn.__name__>.cu`` on the current stream (no sync) for
-    one tile of at most MAX_Q queries."""
-    name = fn.__name__
-    qn = queries.shape[0]
-    lib = _library(name)
-    dev = x.device
-    n_cta = _scan_ctas(name, n, d, k, qn, dev)
-    cand_s = torch.empty((n_cta, qn, k), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_cta, qn, k), dtype=torch.int32, device=dev)
-    out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = getattr(lib, f"{name}_launch")(
-        queries.data_ptr(), ptr(qscale), x.data_ptr(), ptr(xscale), bias.data_ptr(),
-        cand_s.data_ptr(), cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        qn, n, d, k, n_cta, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise _cuda_error(lib, name, err)
-    fn.launches += 1
-    return out_s, out_i
-
-
 def _device_of(name: str, *tensors: torch.Tensor) -> str:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -455,39 +390,39 @@ def _rows_k(name: str, k: int, n: int) -> None:
 
 
 def topk_pruned(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: int):
-    """Exact masked top-k over bf16 rows: (scores [q, k] f32 desc, rows [q, k] int32).
+    """Exact masked top-k over bf16 rows (``pallas_topk_pruned``):
+    (scores [q, k] f32 desc, rows [q, k] int32).
 
-    queries [q, d] (any float dtype; cast to bf16), database [N, d] bf16
-    contiguous with d % 128 == 0, bias [N] f32, 1 <= k <= N. On CUDA:
-    launches on the current stream, once per MAX_Q queries, and does not
-    synchronize."""
+    queries [q, d] (any float dtype; rounded to bf16: on CUDA f32 ones
+    inside the kernel), database [N, d] bf16 contiguous with d % 128 == 0,
+    bias [N] f32, 1 <= k <= N. On CUDA: the ring's ``topk_pruned_bf16``
+    (``csrc/ivf_topk_bf16.cu``), once per MAX_Q queries on the current
+    stream, without a sync."""
     _rows_k("topk_pruned", k, database.shape[0])
     if _device_of("topk_pruned", queries, database, bias) == "cpu":
         return topk_pruned_reference(queries, database, bias, k)
     d = database.shape[1]
     n = _check_cuda("topk_pruned", queries, database, bias, torch.bfloat16, d)
-    return _query_tiles(
-        lambda qt: _launch(topk_pruned, *_kernel_queries(qt, False), database, None, bias, k,
-                           d, n),
-        queries, _empty((0, k), database.device))
+    # the ring's identity plan with one block of all n rows (block_rows n
+    # divides any n)
+    return _ring_tiles(topk_pruned, queries, database, None, bias, k, d, n, n)
 
 
 def topk_int8_pruned(queries: torch.Tensor, database_q: torch.Tensor, db_scales: torch.Tensor,
                      bias: torch.Tensor, k: int):
     """Exact masked top-k over int8 rows (``pallas_topk_int8_pruned``).
 
-    queries [q, d] float, quantized per row here (``quantize_rows_int8``);
-    database_q [N, d] int8 contiguous with d % 128 == 0; db_scales [N] f32;
-    bias [N] f32; 1 <= k <= N."""
+    queries [q, d] float, quantized per row (``quantize_rows_int8``; on CUDA
+    inside the kernel, which takes them as f32); database_q [N, d] int8
+    contiguous with d % 128 == 0; db_scales [N] f32; bias [N] f32;
+    1 <= k <= N. On CUDA: the ring's ``topk_pruned_int8``
+    (``csrc/ivf_topk_int8.cu``), as ``topk_pruned``."""
     _rows_k("topk_int8_pruned", k, database_q.shape[0])
     if _device_of("topk_int8_pruned", queries, database_q, db_scales, bias) == "cpu":
         return topk_int8_pruned_reference(queries, database_q, db_scales, bias, k)
     d = database_q.shape[1]
     n = _check_cuda("topk_int8_pruned", queries, database_q, bias, torch.int8, d, db_scales)
-    return _query_tiles(
-        lambda qt: _launch(topk_int8_pruned, *_kernel_queries(qt, True), database_q, db_scales,
-                           bias, k, d, n),
-        queries, _empty((0, k), database_q.device))
+    return _ring_tiles(topk_int8_pruned, queries, database_q, db_scales, bias, k, d, n, n)
 
 
 def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales: torch.Tensor,
@@ -497,44 +432,52 @@ def topk_int4_pruned(queries: torch.Tensor, database_p: torch.Tensor, db_scales:
     queries [q, d] float, quantized per row to int8 (``quantize_rows_int8``;
     on CUDA inside the kernel, which takes them as f32); database_p [N, d/2]
     int8 packed nibbles (``quantize_rows_int4``) with (d/2) % 128 == 0;
-    db_scales [N] f32 (amax/7); bias [N] f32; 1 <= k <= N. On CUDA:
-    ``csrc/ivf_topk.cu``'s ``topk_pruned_int4``, once per MAX_Q queries on
-    the current stream, without a sync."""
+    db_scales [N] f32 (amax/7); bias [N] f32; 1 <= k <= N. On CUDA: the
+    ring's ``topk_pruned_int4`` (``csrc/ivf_topk_int4.cu``), as
+    ``topk_pruned``."""
     _rows_k("topk_int4_pruned", k, database_p.shape[0])
     if _device_of("topk_int4_pruned", queries, database_p, db_scales, bias) == "cpu":
         return topk_int4_pruned_reference(queries, database_p, db_scales, bias, k)
     d = 2 * database_p.shape[1]
     n = _check_cuda("topk_int4_pruned", queries, database_p, bias, torch.int8, d, db_scales)
-    # the ring's identity plan with one block of all n rows (block_rows n
-    # divides any n)
     return _ring_tiles(topk_int4_pruned, queries, database_p, db_scales, bias, k, d, n, n)
 
 
-# The scan-and-merge ring, csrc/ivf_topk.cu (csrc/ivf_scan_tma.cuh): one
-# launch per MAX_Q queries that prepares the queries, scans, selects and
+# The scan-and-merge ring, csrc/ivf_topk_<tier>.cu (csrc/ivf_scan_tma.cuh):
+# one launch per MAX_Q queries that prepares the queries, scans, selects and
 # merges, after a memset of its counters. ops/ivf.py's wrappers take a probe
-# plan to it; topk and topk_int8 take their merged calls and
-# topk_int4_pruned every call (the identity plan).
-_TMA_LIB = "ivf_topk"
+# plan to it; topk and topk_int8 take their merged calls and the pruned
+# scans every call (the identity plan). Each wrapper's entry, and the
+# library (one source per tier) that holds it:
 _TMA_ENTRY = {"ivf_topk_dma": "ivf_topk_bf16", "ivf_topk_int8_dma": "ivf_topk_int8",
               "ivf_topk_int4_dma": "ivf_topk_int4", "ivf_topk": "ivf_blocks_bf16",
               "ivf_topk_int8": "ivf_blocks_int8", "topk": "topk_merged_bf16",
-              "topk_int8": "topk_merged_int8", "topk_int4_pruned": "topk_pruned_int4"}
+              "topk_int8": "topk_merged_int8", "topk_pruned": "topk_pruned_bf16",
+              "topk_int8_pruned": "topk_pruned_int8", "topk_int4_pruned": "topk_pruned_int4"}
+_TMA_LIB = {entry: "ivf_topk_" + entry.rsplit("_", 1)[1] for entry in _TMA_ENTRY.values()}
 _FIRST_COLS = 16  # the per-block entries' counters past [2, tiles]: [tiles, 8 queries, 2]
+# Rows each CTA of a launch takes at least: a probe plan's max_blocks *
+# block_rows only bound the rows it probes, so 512 each; the identity plan's
+# are exact, so one ring's fill (4 stages of 32 rows), which spreads a small
+# index's stream and selection over more CTAs (2,048 rows: 16, not 4)
+_PLAN_ROWS_PER_CTA, _IDENTITY_ROWS_PER_CTA = 512, 128
 
 
-def _tma_library() -> ctypes.CDLL:
-    lib = _build.load(_TMA_LIB)
-    if lib.ivf_topk_error_string.restype is not ctypes.c_char_p:
+def _tma_library(entry: str) -> ctypes.CDLL:
+    """The loaded library of the ring that holds ``entry``, every entry of it typed."""
+    lib = _build.load(_TMA_LIB[entry])
+    if getattr(lib, f"{entry}_launch").argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        for entry in _TMA_ENTRY.values():
-            launch = getattr(lib, f"{entry}_launch")
+        for name in _TMA_LIB:
+            if _TMA_LIB[name] != _TMA_LIB[entry]:
+                continue
+            launch = getattr(lib, f"{name}_launch")
             launch.argtypes = [p, i] + [p] * 10 + [i] * 7 + [p]
             launch.restype = i
-            per_sm = getattr(lib, f"{entry}_ctas_per_sm")
+            per_sm = getattr(lib, f"{name}_ctas_per_sm")
             per_sm.argtypes = [i, i]
             per_sm.restype = i
-            plan = getattr(lib, f"{entry}_plan")
+            plan = getattr(lib, f"{name}_plan")
             plan.argtypes = [i, i, p]
             plan.restype = i
         lib.ivf_topk_error_string.argtypes = [i]
@@ -549,11 +492,11 @@ def _tma_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
 
 @functools.lru_cache(maxsize=None)
 def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
-    """The shared-memory plan of an entry of ``csrc/ivf_topk.cu`` at (d, k):
+    """The shared-memory plan of an entry of the ring at (d, k):
     (rows per stage, stages, lists in device memory, wide). A wide plan
     (bf16 only) reads the query tile from device memory and takes bf16
     queries (``csrc/ivf_scan_tma.cuh``, 9.); rows 0: none fits."""
-    lib = _tma_library()
+    lib = _tma_library(entry)
     out = (ctypes.c_int * 4)()
     err = getattr(lib, f"{entry}_plan")(d, k, out)
     if err != 0:
@@ -564,7 +507,7 @@ def scan_plan(entry: str, d: int, k: int) -> tuple[int, int, int, int]:
 @functools.lru_cache(maxsize=None)
 def _tma_ctas_per_sm(entry: str, d: int, k: int) -> int:
     """Scan CTAs one SM holds at (d, k), at most two (the register cap)."""
-    lib = _tma_library()
+    lib = _tma_library(entry)
     per_sm = getattr(lib, f"{entry}_ctas_per_sm")(d, k)
     if per_sm < 0:
         raise _tma_error(lib, entry, -per_sm)
@@ -573,28 +516,29 @@ def _tma_ctas_per_sm(entry: str, d: int, k: int) -> int:
     return min(per_sm, 2)
 
 
-def _tma_n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 1) -> int:
+def _tma_n_cta(entry: str, d: int, k: int, qn: int, rows: int, device, tiles: int = 1,
+               least: int = _PLAN_ROWS_PER_CTA) -> int:
     """Scan CTAs per 8-query tile: as many as fit at once on the card
-    (shared by ``tiles`` query tiles), at least 512 rows of the longest
-    plan each (fewer above SHARED_K: _list_ctas)."""
+    (shared by ``tiles`` query tiles), at least ``least`` rows of the
+    longest plan each (fewer above SHARED_K: _list_ctas)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     wave = _tma_ctas_per_sm(entry, d, k) * sms // tiles
-    return _list_ctas(max(1, min(wave, -(-rows // 512))), qn, k)
+    return _list_ctas(max(1, min(wave, -(-rows // least))), qn, k)
 
 
 def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: int,
                 block_rows: int):
-    """Launch ``fn``'s entry of ``csrc/ivf_topk.cu`` (one kernel that
+    """Launch ``fn``'s entry of the ring (one kernel that
     prepares the queries, scans and merges, after a memset of its counters)
     on the current stream (no sync) for one tile of at most MAX_Q queries,
     as the caller gives them: f32, or bf16 for a bf16 entry (another float
     type is cast here; a wide plan takes them cast here to bf16, as the
     kernel would round them). ``block_ids`` and ``nv`` are a probe plan
     (int32 [max_blocks] and [1]), or None for the identity plan of
-    ``topk`` / ``topk_int8`` / ``topk_int4_pruned``: every block of
+    ``topk`` / ``topk_int8`` and the pruned scans: every block of
     ``block_rows`` rows, in order, nothing of it on the device."""
     entry = _TMA_ENTRY[fn.__name__]
-    lib = _tma_library()
+    lib = _tma_library(entry)
     dev = x.device
     keep = (torch.float32, torch.bfloat16) if xscale is None else (torch.float32,)
     if xscale is None and scan_plan(entry, d, k)[3]:
@@ -608,7 +552,8 @@ def _launch_tma(fn, queries, x, xscale, bias, block_ids, nv, k: int, d: int, n: 
     max_blocks = n // block_rows if block_ids is None else block_ids.numel()
     tiles = -(-qn // 8)
     # one wave: the card's CTAs split over the launch's 8-query tiles
-    n_cta = _tma_n_cta(entry, d, k, 8 * tiles, max_blocks * block_rows, dev, tiles)
+    n_cta = _tma_n_cta(entry, d, k, 8 * tiles, max_blocks * block_rows, dev, tiles,
+                       _PLAN_ROWS_PER_CTA if block_ids is not None else _IDENTITY_ROWS_PER_CTA)
     # the CTAs' lists, [tiles, n_cta, 8, k rounded up to 4]
     cand = (tiles, n_cta, 8, -(-k // 4) * 4)
     cand_s = torch.empty(cand, dtype=torch.float32, device=dev)
@@ -689,7 +634,7 @@ def _blocks_tiles(fn, entry: str, queries, quantized: bool, x, xscale, bias, k: 
 
 def _ring_tiles(fn, queries, x, xscale, bias, k: int, d: int, n: int, block_rows: int,
                 block_ids=None, nv=None):
-    """``fn``'s entry of ``csrc/ivf_topk.cu`` over MAX_Q-query tiles
+    """``fn``'s entry of the ring over MAX_Q-query tiles
     (``_launch_tma``; no plan: the identity plan)."""
     return _query_tiles(lambda qt: _launch_tma(fn, qt, x, xscale, bias, block_ids, nv, k, d, n,
                                                block_rows),
@@ -706,7 +651,7 @@ def topk(queries: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, k: i
     type is cast to bf16, as JAX does) with d % 128 == 0 and
     N % block_rows == 0; bias [N] f32; 1 <= k <= block_rows. On CUDA: one
     launch per MAX_Q queries on the current stream, without a sync; merged,
-    ``csrc/ivf_topk.cu``'s ``topk_merged_bf16`` (scan, selection and merge
+    the ring's ``topk_merged_bf16`` (scan, selection and merge
     in the one kernel), the candidates ``csrc/topk_blocks.cu``."""
     n, d = database.shape
     _check_blocks("topk", n, d, k, block_rows)
