@@ -16,9 +16,25 @@ Phases; any failure exits non-zero before the result lines:
      and its mma.sync kernels for f32), then one line per attention kernel
      and ring kernel (ivf_scan_tma.cuh: the bf16, int8 and int4 DMA
      entries, whose kernels the brute scans take, and the bf16 / int8
-     per-block ones) with its registers and spills, and the TMA IVF
-     entries' shared-memory plan and CTAs per SM for d 128-8192 (int4
-     256-8192) x k 1-8192 (fails where a cell has none);
+     per-block ones) with its registers and spills;
+  2b. the index's tier warm-up (``ensure_tier_ready`` and the next-tier
+     warm), before any ring library is loaded in the process: the run's
+     provenance (``utils/provenance.py``: seed, commit, time, the card's
+     name and power limit); then per tier, bf16 and int8, a never-warmed
+     index and a warmed one (bf16 cold first, int8 warm first) each fill
+     524,288 × 768 seeded unit rows at that capacity, search q = 1 and 8
+     at k 10 and grow to 1,048,576 rows of capacity by a 65,536-row append;
+     prints the wall time of the index's first searches, of the growth
+     and of the first searches after it, warmed and cold, beside the
+     median of five more and the card's name and power limit; fails
+     unless the warmed index's library was loaded by the end of its fill,
+     ensure_tier_ready launched both signatures at 1,048,576 and marked
+     them warmed, the cold one warmed nothing, query 0's top hit is its
+     stored row, and the hits after the growth are equal, warmed and cold
+     (ids and scores, bit for bit);
+  2c. the ring's plans: the TMA IVF entries' shared-memory plan and CTAs
+     per SM for d 128-8192 (int4 256-8192) x k 1-8192 (fails where a cell
+     has none);
   3. kernel vs plain, top-k: each top-k kernel against its plain PyTorch
      version on the card, over the shapes and edge cases of KERNEL_CASES
      (k up to 1024): bf16 within TOL, int8 and int4 bit-equal on the same
@@ -442,13 +458,16 @@ Phases; any failure exits non-zero before the result lines:
      "bound_by", "library_ms"}, ...]}: one entry per kernel, thirteen;
   8. the last line: {"ok": true, "device": {...}}.
 
-The main path's launch counts are set to 0 just before phases 4, 4b (a),
+The main path's launch counts are set to 0 just before phases 2b, 4, 4b (a),
 4c, 4d, 4e, 4f (a) and (c), 4g (a) and (b), each run of 4h (a) and (d), each
 search batch of 4i, 4j (a), (d) and (e), 5, 5c, 5d, 5f (a)-(e), 5b, 5e, 6a, 6c (b) and
 (d) and 6d (d)-(f) and (h) drive it
 and read just after; launches
-made to compare or time a kernel are not counted. Every phase prints its
-wall time.
+made to compare or time a kernel are not counted. An index's tier
+warm-up launches the brute scans too, on the writer in ``add`` before a
+growth (``ensure_tier_ready``): the wrappers count those launches in the
+phase that drives the ``add``. Its background thread loads a library and
+launches nothing. Every phase prints its wall time.
 """
 
 from __future__ import annotations
@@ -612,6 +631,15 @@ def blocks_ops():
             "ivf_topk_int8": (v.ivf_topk_int8, v.ivf_topk_int8_reference, "int8", True)}
 
 
+def settle_warm() -> None:
+    """Wait for the indexes' background tier warms (threads "yrt-warm-<cap>",
+    which build and load a kernel library)."""
+    for t in threading.enumerate():
+        if t.name.startswith("yrt-warm-"):
+            t.join(300)
+            check(not t.is_alive(), f"the tier warm {t.name} still runs after 300 s")
+
+
 def reset_launches() -> None:
     for wrapper, _, _ in [*ops().values(), *ivf_ops().values()]:
         wrapper.launches = 0
@@ -675,7 +703,6 @@ def build_all() -> None:
         for kernel, regs, spills in ptxas_report(done[name]["log"]):
             if kernel.startswith(("attention", "ivf_tma")):
                 print(f"  {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
-    ivf_plan_table()
 
 
 # the (d, k) grid of the TMA IVF entries' shared-memory plans (int4 takes
@@ -707,6 +734,118 @@ def ivf_plan_table() -> None:
                 cells.append(f"{per_sm}/{rows}x{stages}{' dev' if dev else ''}"
                              f"{' wide' if wide else ''}")
             print(f"  {entry} d={d}: " + ", ".join(cells))
+
+
+# ---------------------------------------------------------------------------
+# 2b. the index's tier warm-up
+# ---------------------------------------------------------------------------
+
+WARM_ROWS = 1 << 19  # 2b fills 524,288 rows, then grows the index to 1,048,576
+WARM_GROW = 1 << 16  # the append that grows it
+WARM_STEADY = 5  # searches after the first two, for the steady time
+
+
+def search_ms(index, queries, top_k: int = 10):
+    """(the hits, the wall time of one search in ms: host prep, the launch
+    under the index lock, the results back on the host)."""
+    t0 = time.perf_counter()
+    hits = index.search(queries, top_k=top_k)
+    return hits, (time.perf_counter() - t0) * 1e3
+
+
+def tier_warm_up(seed: int, smi: str) -> dict:
+    """2b: per tier a never-warmed index (``ColdIndex``: the warm-up's two
+    entry points are no-ops) and a warmed one, in a process that has loaded
+    no ring library yet: bf16 cold first, int8 warm first. Each fills
+    WARM_ROWS × 768 rows at capacity WARM_ROWS (the warmed one's background
+    warm loads its tier's library at 75 %), searches q = 1 and 8 at k 10
+    (the signatures; the warmed one's thread marks them warmed at 1,048,576),
+    grows by WARM_GROW rows (the warmed one runs ``ensure_tier_ready`` first)
+    and searches again. Returns the phase's launches by tier, those of
+    ``ensure_tier_ready`` among them."""
+    from youtu_rag_tpu_torch.core.config import IndexConfig
+    from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
+    from youtu_rag_tpu_torch.ops import _build
+    from youtu_rag_tpu_torch.ops.topk import _TMA_ENTRY, _TMA_LIB
+    from youtu_rag_tpu_torch.utils.provenance import run_provenance
+
+    class ColdIndex(DeviceVectorIndex):
+        def _maybe_warm_next_tier(self) -> None:
+            return
+
+        def ensure_tier_ready(self, cap: int) -> None:
+            return
+
+    prov = run_provenance(seed)["provenance"]
+    print(f"provenance: {json.dumps(prov)}")
+    check(prov["device_name"] == torch.cuda.get_device_name(0) and prov["card"] == smi,
+          f"provenance names {prov.get('device_name')!r} / {prov.get('card')!r}, not {smi!r}")
+    d, batch, rows, cap = 768, 65536, WARM_ROWS, 2 * WARM_ROWS
+    t0 = time.perf_counter()
+    vecs, chunks, queries = full_size_data(seed, rows + WARM_GROW, d, 8)
+    top_row = f"c{(rows + WARM_GROW) // 2}"
+    print(f"{rows + WARM_GROW} x {d} unit vectors made in {time.perf_counter() - t0:.1f} s")
+    kernels = ops()
+    reset_launches()
+    for tier, arms in (("bfloat16", ("cold", "warm")), ("int8", ("warm", "cold"))):
+        kernel = kernels[tier][0]
+        lib = _TMA_LIB[_TMA_ENTRY[kernel.__name__]]
+        hits = {}
+        for arm in arms:
+            cls = DeviceVectorIndex if arm == "warm" else ColdIndex
+            index = cls(d, IndexConfig(storage_dtype=tier, min_capacity=rows), device="cuda")
+            loaded = [_build.is_loaded(lib)]
+            t0 = time.perf_counter()
+            for start in range(0, rows, batch):
+                index.add(chunks[start : start + batch], vecs[start : start + batch])
+            torch.cuda.synchronize()
+            settle_warm()
+            fill_s = time.perf_counter() - t0
+            loaded.append(_build.is_loaded(lib))
+            first = {qn: search_ms(index, queries[:qn])[1] for qn in (1, 8)}
+            settle_warm()  # the warmed index's thread loads nothing new here
+            before = kernel.launches
+            t0 = time.perf_counter()
+            index.add(chunks[rows:], vecs[rows:])
+            torch.cuda.synchronize()
+            grow_ms = (time.perf_counter() - t0) * 1e3
+            ensure = kernel.launches - before  # ensure_tier_ready's, on this thread
+            check(index.capacity == cap, f"2b {tier} {arm}: capacity {index.capacity}")
+            after, steady = {}, {}
+            for qn in (1, 8):
+                got, after[qn] = search_ms(index, queries[:qn])
+                hits[arm, qn] = hit_lists(got)
+                steady[qn] = statistics.median(search_ms(index, queries[:qn])[1]
+                                               for _ in range(WARM_STEADY))
+                check(got[0][0][0].id == top_row, f"2b {tier} {arm}: query 0's top hit "
+                      f"{got[0][0][0].id}, not {top_row}")
+                check(len(got) == qn and all(len(h) == 10 for h in got)
+                      and all(np.isfinite(sc) for h in got for _, sc in h),
+                      f"2b {tier} {arm} q={qn}: wrong shape or a non-finite score")
+            print(f"{tier} {arm}: library {lib} loaded before the fill {loaded[0]}, after it "
+                  f"{loaded[1]}; filled {rows} rows in {fill_s:.1f} s; first searches of the "
+                  f"index q=1 {first[1]:.3f} ms, q=8 {first[8]:.3f} ms; growth to {cap} rows "
+                  f"{grow_ms:.1f} ms ({ensure} warm launches in it); first search after the "
+                  f"growth q=1 {after[1]:.3f} ms, q=8 {after[8]:.3f} ms; then the median of "
+                  f"{WARM_STEADY} q=1 {steady[1]:.3f} ms, q=8 {steady[8]:.3f} ms; {smi}")
+            if arm == "warm":
+                check(loaded[1], f"2b {tier}: the warm-up left {lib} unloaded after the fill")
+                check(ensure == 2, f"2b {tier}: ensure_tier_ready made {ensure} launches, not 2")
+                want = {(cap, ("sig", (qn, 10, "auto"))) for qn in (1, 8)}
+                check(want <= index._warmed, f"2b {tier}: warmed {sorted(index._warmed)}")
+            else:
+                check(ensure == 0 and not index._warmed, f"2b {tier}: the cold index warmed")
+            del index
+            torch.cuda.empty_cache()
+        for qn in (1, 8):
+            check(hits["warm", qn] == hits["cold", qn],
+                  f"2b {tier} q={qn}: the warmed index's hits differ from the cold one's")
+        print(f"{tier}: after the growth, warmed and cold hits are equal (ids and scores, bit "
+              f"for bit) at q = 1 and 8")
+    counts = launch_counts()
+    print(f"2b launches {counts} (ensure_tier_ready's among them)")
+    check(counts["bfloat16"] > 0 and counts["int8"] > 0, f"2b launches {counts}")
+    return {"launches": counts}
 
 
 # ---------------------------------------------------------------------------
@@ -5157,6 +5296,13 @@ def bound(tier: str, part: str, n: int, d: int, qn: int, k: int) -> tuple[float,
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def int_mm_rows(qn: int) -> int:
+    """The query rows ``library_call`` pads int8 queries to: torch._int_mm
+    takes more than 16 rows, in multiples of 8, so the larger of 32 and
+    ``qn`` rounded up to a multiple of 8."""
+    return max(32, -(-qn // 8) * 8)
+
+
 def library_call(tier: str, qdev, x, scales, bias, k: int):
     """One PyTorch call computing the same function (the port never calls
     it), with its description; None where PyTorch has none."""
@@ -5174,8 +5320,7 @@ def library_call(tier: str, qdev, x, scales, bias, k: int):
 
         qq, qs = quantize_rows_int8(qdev)
         qn = qq.shape[0]
-        # torch._int_mm takes more than 16 rows, in multiples of 8: pad the queries
-        qpad = torch.zeros((32, qq.shape[1]), dtype=torch.int8, device=qq.device)
+        qpad = torch.zeros((int_mm_rows(qn), qq.shape[1]), dtype=torch.int8, device=qq.device)
         qpad[:qn] = qq
         sc = qs[:, None] * scales[None, :]
 
@@ -5186,7 +5331,8 @@ def library_call(tier: str, qdev, x, scales, bias, k: int):
             call()
         except (RuntimeError, TypeError) as e:
             return (f"none: torch._int_mm refused these shapes ({e})", None)
-        return ("torch.topk(torch._int_mm(q_pad32, x.T)[:q].float() * (qs x xs) + bias, k)", call)
+        return (f"torch.topk(torch._int_mm(q_pad{qpad.shape[0]}, x.T)[:q].float() * (qs x xs) "
+                "+ bias, k)", call)
     return ("none: PyTorch has no one-call product of int8 queries with packed int4 rows", None)
 
 
@@ -8064,6 +8210,12 @@ def main() -> int:
     phase("2 build")
     build_all()
 
+    phase("2b the index's tier warm-up")
+    warm2b = tier_warm_up(args.seed, smi)
+
+    phase("2c the ring's plans")
+    ivf_plan_table()
+
     phase("3 kernel vs plain, top-k")
     err3 = kernel_cases(args.seed)
 
@@ -8170,7 +8322,8 @@ def main() -> int:
                             + train6c["topk_pruned"]
                             if tier == "bfloat16" else 0)
                          + (dtr4j["topk_int8_pruned"] if tier == "int8" else 0)
-                         + sharded5f["launches"].get(kname, 0) + mesh6d.get(kname, 0)),
+                         + sharded5f["launches"].get(kname, 0) + mesh6d.get(kname, 0)
+                         + warm2b["launches"].get(tier, 0)),
             "max_abs_err": max(err3[tier], err3x[kname], err4[tier], f["err"],
                                *(s["err"] for key, s in full["shapes"].items()
                                  if key.startswith(tier + " "))),

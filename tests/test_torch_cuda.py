@@ -8,6 +8,7 @@ imports nothing of JAX, so on the card it runs without the JAX package:
 
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -59,6 +60,15 @@ from torch_ivf_cases import make_inputs as ivf_case_inputs  # noqa: E402
 
 TOL = 1e-4  # unit vectors; f32 sums in another order than cuBLAS
 N = 4096
+
+
+def join_warm_threads():
+    """Wait for the indexes' background tier warms ("yrt-warm-<cap>"),
+    which build and load a library and launch nothing."""
+    for t in threading.enumerate():
+        if t.name.startswith("yrt-warm-"):
+            t.join(120)
+            assert not t.is_alive(), t.name
 
 
 @pytest.fixture
@@ -457,6 +467,44 @@ def test_cuda_index_refuses_plain_backends(cuda_device, backend):
         idx.search(q, 5, backend=backend)
     with pytest.raises(ValueError, match="unknown backend"):
         idx.search(q, 5, backend="triton")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bfloat16", "int8"])
+def test_tier_warm_up_matches_a_cold_index(cuda_device, storage):
+    """``ensure_tier_ready`` on the card loads the tier's library and
+    launches each seen signature once at the new capacity, through the
+    search's wrapper (counted there); searches after the growth return a never-warmed index's rows and scores, bit
+    for bit."""
+    from youtu_rag_tpu_torch.ops import _build
+    from youtu_rag_tpu_torch.ops.topk import _TMA_ENTRY, _TMA_LIB
+
+    kernel = topk_pruned if storage == "bfloat16" else topk_int8_pruned
+    rng = np.random.default_rng(3)
+    embs = rng.standard_normal((9000, 256)).astype(np.float32)
+    chunks = [Chunk(f"c{i}", "d", "", i) for i in range(9000)]
+    cfg = IndexConfig(min_capacity=8192, block_rows=1024, storage_dtype=storage)
+    warm, cold = (DeviceVectorIndex(256, cfg, device=cuda_device) for _ in range(2))
+    cold._maybe_warm_next_tier = lambda: None
+    cold.ensure_tier_ready = lambda cap: None
+    queries = (rng.standard_normal((1, 256)), rng.standard_normal((8, 256)))
+    for ix in (warm, cold):
+        ix.add(chunks[:8192], embs[:8192])
+        for q in queries:
+            ix.search(q, 10)
+    join_warm_threads()  # the 75 % warm of 16,384 rows
+    assert _build.is_loaded(_TMA_LIB[_TMA_ENTRY[kernel.__name__]])
+    before = kernel.launches
+    warm.ensure_tier_ready(16384)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert {(16384, ("sig", s)) for s in warm._seen_sigs} <= warm._warmed
+    for ix in (warm, cold):
+        ix.add(chunks[8192:], embs[8192:])  # a growth to 16,384 rows
+        assert ix.capacity == 16384
+    for q in (*queries, rng.standard_normal((70, 256))):
+        got, want = warm.search(q, 10), cold.search(q, 10)
+        assert [[(c.id, s) for c, s in h] for h in got] == [[(c.id, s) for c, s in h] for h in want]
 
 
 ATTENTION = {"blockwise": (blockwise_attention, blockwise_attention_reference),

@@ -69,7 +69,8 @@ def test_port_has_sources():
                    "train_chat_lm.py", "gen_simple_agent.py", "gen_tool.py",
                    "parallel/mesh.py", "parallel/sharded_index.py", "tracing/profiler.py",
                    "ops/precision.py", "parallel/comm.py", "parallel/placement.py",
-                   "parallel/pipeline_parallel.py", "dryrun.py"):
+                   "parallel/pipeline_parallel.py", "dryrun.py", "index/device_index.py",
+                   "utils/devices.py", "utils/provenance.py"):
         assert f"youtu_rag_tpu_torch/{module}" in names
     for src in ("topk_select.cuh", "topk_scorers.cuh", "ivf_topk_bf16.cu", "ivf_topk_int8.cu",
                 "ivf_topk_int4.cu", "ivf_scan_tma.cuh", "attention.cu", "attention_wgmma.cuh",

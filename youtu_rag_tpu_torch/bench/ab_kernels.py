@@ -56,8 +56,17 @@ ATTENTION_CALLS = (
     ("flash_attention_stats", "flash_attention_stats", (2, 12, 8192, 64)),
     ("flash_attention_stats ring hop", "flash_attention_stats", (32, 12, 1024, 64)),
 )
-IVF_SETTINGS = dict(block_rows=1024, n_lists=1024, n_probe=64, ivf_adaptive_margin=0.15,
-                    ivf_recall_target=0.95)  # configs/rag/ivf_int8.yaml's index
+
+
+def ivf_index_config(tier: str):
+    """``configs/rag/ivf_int8.yaml``'s index at storage ``tier``, read
+    through the config loader as ``chip_smoke.py`` phase 5f reads it."""
+    from youtu_rag_tpu_torch.core.loader import ConfigLoader
+
+    icfg = ConfigLoader().load_rag_config("ivf_int8").vector_store.index
+    return icfg.model_copy(update={"storage_dtype": tier})
+
+
 def short_kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled form: the Hopper attention kernel
     with its head width and entry, the mma.sync attention kernel with its
@@ -147,7 +156,7 @@ def held_ms(fn, calls: int = 20, warmup: int = 3, cold: bool = False) -> float:
 
 def ivf_calls(g):
     """The three IVF scans on chip_smoke.py phase 5c's plans: per tier an
-    IVF index with IVF_SETTINGS over one set of 1,048,576 × 768 clustered
+    IVF index with ``ivf_index_config``'s settings over one set of 1,048,576 × 768 clustered
     unit rows (1024 centers, spread 0.7), the search's adaptive probe plan
     and the fixed one (margin off) for 8 queries near centers 0..7, k as
     the search asks (10; int4 64), and for bf16 and int8 the per-block
@@ -158,7 +167,6 @@ def ivf_calls(g):
     import numpy as np
     import torch
 
-    from youtu_rag_tpu_torch.core.config import IndexConfig
     from youtu_rag_tpu_torch.core.types import Chunk
     from youtu_rag_tpu_torch.index.device_index import DeviceVectorIndex
     from youtu_rag_tpu_torch.index.ivf import plan_max_blocks, probe_blocks
@@ -178,17 +186,18 @@ def ivf_calls(g):
     chunks = [Chunk(f"c{j}", "doc", "", 0) for j in range(rows)]
     for tier, name, k in (("bfloat16", "ivf_topk_dma", 10), ("int8", "ivf_topk_int8_dma", 10),
                           ("int4", "ivf_topk_int4_dma", 64)):
-        index = DeviceVectorIndex(d, IndexConfig(kind="ivf", storage_dtype=tier, **IVF_SETTINGS),
-                                  device="cuda")
+        cfg = ivf_index_config(tier)
+        br = cfg.block_rows
+        index = DeviceVectorIndex(d, cfg, device="cuda")
         index.reserve(rows)
         for i, v in enumerate(vecs):
             index.add(chunks[i * batch : (i + 1) * batch], v)
         index.build_ivf()
-        st, total = index._ivf, index.capacity // IVF_SETTINGS["block_rows"]
+        st, total = index._ivf, index.capacity // br
         x, b = index._vectors, index._bias
         extra = () if tier == "bfloat16" else (index._scales,)
         fn = getattr(ivf, name)
-        for label, margin in (("adaptive", IVF_SETTINGS["ivf_adaptive_margin"]), ("fixed", 0.0)):
+        for label, margin in (("adaptive", cfg.ivf_adaptive_margin), ("fixed", 0.0)):
             kw = ({"adaptive_margin": margin, "min_probe": min(index.config.ivf_min_probe,
                                                                st.n_probe)} if margin else {})
             ids, nv = probe_blocks(q, st.centroids, st.cluster_block_start,
@@ -198,20 +207,20 @@ def ivf_calls(g):
                                    max_blocks=plan_max_blocks(st, qn, total), **kw)
             args = (q, x, *extra, b, ids, nv, k)
             yield (f"{name} k={k} ({label} plan, L2 cold)",
-                   lambda args=args: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
+                   lambda args=args: fn(*args, block_rows=br),
                    int(nv), fn, args)
             if tier != "int4":  # the per-block merged call (ops path) on the same plan
                 blocks = ivf.ivf_topk if tier == "bfloat16" else ivf.ivf_topk_int8
                 yield (f"{blocks.__name__} merged k={k} ({label} plan, L2 cold)",
                        lambda args=args, blocks=blocks: blocks(
-                           *args, block_rows=IVF_SETTINGS["block_rows"]),
+                           *args, block_rows=br),
                        int(nv), blocks, args)
             # and the DMA entry at the other tiers' k (64: the register lists
             # of 33 <= k <= 64; int4 at 10)
             k2 = 10 if k == 64 else 64
             args2 = (*args[:-1], k2)
             yield (f"{name} k={k2} ({label} plan, L2 cold)",
-                   lambda args=args2: fn(*args, block_rows=IVF_SETTINGS["block_rows"]),
+                   lambda args=args2: fn(*args, block_rows=br),
                    int(nv), fn, args2)
         del index, x, b, extra
         torch.cuda.empty_cache()

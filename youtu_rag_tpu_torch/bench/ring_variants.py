@@ -341,10 +341,7 @@ def measure(tree: str, tiers: list[str], shapes: list[str], variants: bool) -> d
                                 lambda n_cta=n_cta: variant_call(as_is, q, x, xs, bias, k, width,
                                                                  n_cta), cold=cold)
                 res["wrapper"] = held_ms(lambda: wrapper(q, x, *extra, bias, k), cold=cold)
-                try:
-                    desc, call = smoke.library_call(lib_tier, q, x, *(extra or (None,)), bias, k)
-                except RuntimeError as e:  # chip_smoke.py pads int8 queries to 32 rows
-                    desc, call = f"none: {e}", None
+                desc, call = smoke.library_call(lib_tier, q, x, *(extra or (None,)), bias, k)
                 res["library"] = None if call is None else held_ms(call, cold=cold)
                 res["library_call"] = desc
                 res["bound_ms"] = smoke.bound(lib_tier, "sxm", rows, width, qn, k)[0]

@@ -39,10 +39,27 @@ Facts of the JAX index that this one copies on purpose: ``compact()`` (and
 int4-dequantized vectors, so after either the re-rank sees int4 precision
 only; ``nbytes()`` leaves out the scales.
 
-Not ported (ROADMAP Queue A 9): AOT tier warming and the append pacing
-probe. The array updates that JAX writes as donated jit kernels are in-place tensor
-writes here; searches run under the index lock and on the same stream, so
-a search never observes half an append.
+Tier warm-up (JAX's next-tier warming): where JAX compiles XLA executables
+ahead of a growth, this index pays ahead what a first search at a new
+capacity pays on the card. ``add`` calls ``ensure_tier_ready(cap)`` before
+a growth, with no lock held: it builds (if need be) and loads the tier's
+kernel library (``ops.topk.load_kernel``) and, where placeholders at
+``cap`` rows fit beside the live tensors (``_warm_memory_ok``), launches
+each signature the index has searched with (JAX's ``_seen_sigs``: query
+bucket, k, backend) through the tier's brute wrapper on placeholder
+tensors (JAX's ``_jit_warm``). From 75 % full a daemon thread builds and
+loads the library for the doubled capacity and launches nothing, as JAX's
+thread compiles and dispatches nothing. As in JAX only the brute scan
+launches (an IVF plan depends on the data). An append bucket has no kernel
+of its own here (an append is a tensor write), but it still starts the
+thread, as in JAX: during a fill that thread is what loads the library
+before the index's first search. A CPU index builds and launches nothing:
+it records the items as warmed.
+
+Not ported (ROADMAP Queue A 9): the append pacing probe. The array updates
+that JAX writes as donated jit kernels are in-place tensor writes here;
+searches run under the index lock and on the same stream, so a search
+never observes half an append.
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ from ..ops.ivf import ivf_topk_dma, ivf_topk_int4_dma, ivf_topk_int8_dma
 from ..ops.precision import f32_matmul
 from ..ops.topk import (
     NEG_INF,
+    load_kernel,
     topk_int4_pruned,
     topk_int8_pruned,
     topk_pruned,
@@ -145,6 +163,13 @@ class DeviceVectorIndex:
         self._ivf_tune_counter = 0
         self._ivf_recall_est: float | None = None
         self._ivf_tune_streak = 0  # consecutive comfortable observations
+        # next-tier warming, as the JAX index keeps it: the signatures searches
+        # ran with, the append buckets, and the (capacity, item) pairs warmed or
+        # being warmed; items are ("sig", sig) / ("bucket", n)
+        self._seen_sigs: set[tuple] = set()  # (q_rows, k, backend)
+        self._seen_buckets: set[int] = set()
+        self._warmed: set[tuple] = set()
+        self._warm_stats = {"tiers": 0, "kernels": 0}
 
     # -- placement ---------------------------------------------------------
     #
@@ -216,9 +241,106 @@ class DeviceVectorIndex:
         self.capacity = new_cap
 
     def reserve(self, total_rows: int) -> None:
-        """Pre-allocate capacity for a known build size."""
+        """Pre-allocate capacity for a known build size, so appends while
+        serving never pay a growth."""
         with self._lock:
             self._grow(total_rows)
+
+    # -- next-tier warming -------------------------------------------------
+
+    def _warm_items(self) -> list[tuple]:
+        return [("sig", s) for s in self._seen_sigs] + [("bucket", b) for b in self._seen_buckets]
+
+    def _maybe_warm_next_tier(self) -> None:
+        """Called under the lock after an append or a new search signature:
+        from 75 % full, warm the doubled capacity in a daemon thread. Each
+        (capacity, item) pair warms once, so a signature first seen after
+        the trigger still warms."""
+        if self.size * 4 < self.capacity * 3:
+            return
+        self._schedule_warm(self.capacity * 2)
+
+    def _schedule_warm(self, cap: int) -> None:
+        todo = [it for it in self._warm_items() if (cap, it) not in self._warmed]
+        if not todo:
+            return
+        self._warmed.update((cap, it) for it in todo)
+        threading.Thread(target=self._warm_in_thread, args=(cap, todo), daemon=True,
+                         name=f"yrt-warm-{cap}").start()
+
+    def _warm_in_thread(self, cap: int, items: list[tuple]) -> None:
+        """The background warm: the library only, as JAX's thread compiles
+        and dispatches nothing. A failure is logged here and changes nothing
+        a search does."""
+        try:
+            self._warm_tier(cap, items)
+        except Exception:  # noqa: BLE001 - warming must never break serving
+            logger.exception("tier warm failed (capacity %d)", cap)
+
+    def ensure_tier_ready(self, cap: int) -> None:
+        """Pay now, on the calling thread and stream with no lock held, what
+        the first search at capacity ``cap`` would pay: ``add`` calls it
+        before a growth, so no query waits on a build or a first launch
+        under the index lock. Never raises: a failure is logged."""
+        with self._lock:  # snapshot: searches add signatures concurrently
+            items = self._warm_items()
+        try:
+            self._warm_tier(cap, items, quiet=True)
+            self._launch_warm(cap)
+        except Exception:  # noqa: BLE001 - warming must never break ingest
+            logger.exception("tier warm failed (capacity %d)", cap)
+
+    def _warm_memory_ok(self, cap: int) -> bool:
+        """Can placeholders at ``cap`` rows coexist with the live tensors?
+        Free device memory counts what PyTorch's allocator holds cached but
+        unused, as ``_should_stage_reorder`` does. A CPU index: yes (host
+        RAM, as JAX answers for its CPU backend)."""
+        if self.device.type != "cuda":
+            return True
+        itemsize = torch.empty((), dtype=self._store_dtype).element_size()
+        per_row = self._vec_cols * itemsize + 4 + (4 if self._quant else 0)
+        if self._store_dtype == torch.float32:
+            per_row += self.d_pad * 2  # the bf16 copy the brute scan reads
+        free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return 1.2 * cap * per_row < free
+
+    def _warm_tier(self, cap: int, items: list[tuple], quiet: bool = False) -> None:
+        """Warm ``items`` at capacity ``cap``: on the card, the tier's kernel
+        library, built from source if need be, and loaded (JAX's
+        lower+compile); then mark them warmed. Launches nothing. Raises what
+        a build or a load raises."""
+        if self.device.type == "cuda":
+            load_kernel(self._brute_kernel())
+        for it in items:
+            self._warmed.add((cap, it))
+        self._warm_stats["kernels"] += len(items)
+        self._warm_stats["tiers"] += 1
+        if not quiet:
+            logger.info("warmed tier %d (%d items)", cap, len(items))
+
+    def _launch_warm(self, cap: int) -> None:
+        """JAX's ``_jit_warm``, on the writer before a growth: where
+        placeholders at ``cap`` rows fit beside the live tensors
+        (``_warm_memory_ok``), one launch of each seen signature through the
+        tier's brute wrapper on them (zero rows, ``NEG_INF`` bias), dropped
+        after; the wrapper counts these launches as it counts a search's. A
+        CPU index launches nothing."""
+        if self.device.type != "cuda":
+            return
+        with self._lock:
+            sigs = list(self._seen_sigs)
+        if not sigs:
+            return
+        if not self._warm_memory_ok(cap):
+            logger.info("tier warm at %d rows skips its launches (memory headroom)", cap)
+            return
+        dev = self.device
+        v = torch.zeros((cap, self._vec_cols), dtype=self._store_dtype, device=dev)
+        b = torch.full((cap,), NEG_INF, dtype=torch.float32, device=dev)
+        sc = torch.zeros(cap, dtype=torch.float32, device=dev) if self._quant else None
+        for qn, k, _ in sigs:
+            self._run_brute(torch.zeros((qn, self.d_pad), device=dev), v, sc, b, k)
 
     def add(self, chunks: list[Chunk], embeddings: np.ndarray) -> list[int]:
         """Append chunks with their embeddings; returns assigned rows.
@@ -274,9 +396,19 @@ class DeviceVectorIndex:
         dev_bias = torch.from_numpy(bpad).to(self.device)
         dev_scales = torch.from_numpy(spad).to(self.device) if self._quant else None
 
+        # growth ahead? warm the next tier now, on this writer thread with no
+        # lock held: searches meanwhile run on the current tensors
         slice_rows = self.config.append_slice_rows or bucket
         with self._lock:
-            self._grow(self.size + bucket)  # one jump to the final capacity
+            new_cap = self.capacity
+            while new_cap < self.size + bucket:
+                new_cap *= 2
+            if len(self._seen_buckets) < 16:
+                self._seen_buckets.add(min(bucket, slice_rows))
+        if new_cap > self.capacity:
+            self.ensure_tier_ready(new_cap)
+            with self._lock:
+                self._grow(new_cap)  # one jump to the warmed capacity
 
         # -- sliced commits ------------------------------------------------
         rows: list[int] = []
@@ -311,6 +443,7 @@ class DeviceVectorIndex:
                 # chunk; the next append's start overwrites them
                 self.size += real
                 self.live_count += real
+                self._maybe_warm_next_tier()
             offset += s_n
         return rows
 
@@ -557,6 +690,12 @@ class DeviceVectorIndex:
                     ]
                     hb[keep] = 0.0
                     bias = bias + self._host_bias(hb)
+            new_sig = False
+            if backend != "pallas_interpret" and len(self._seen_sigs) < 8:
+                # the raw backend, as JAX records it
+                sig = (queries.shape[0], k_req, backend)
+                new_sig = sig not in self._seen_sigs
+                self._seen_sigs.add(sig)
             scores, rows = self._run_search(queries, vectors, self._scales, bias, k_req)
             # reference capture, not a copy: structural mutations replace
             # the list; add() appends and delete() writes None, both benign
@@ -589,6 +728,12 @@ class DeviceVectorIndex:
                     continue
                 hits.append((chunk, float(s)))
             out.append(hits)
+        if new_sig:
+            # a signature first seen past the 75 % trigger still warms; the
+            # thread starts once this search is done, since a warm started
+            # before its launch slowed the search itself (PERF.md §6)
+            with self._lock:
+                self._maybe_warm_next_tier()
         return out
 
     def _host_rerank_candidates(self, qpad, scores, rows, hq8, hs8, k: int):
@@ -637,12 +782,17 @@ class DeviceVectorIndex:
                 return _residual_rerank(queries, cand, bias, s2, r2, k)
         return self._run_ivf_search(queries, vectors, scales, bias, k)
 
+    def _brute_kernel(self):
+        """The storage tier's brute top-k wrapper."""
+        if self._quant:
+            return topk_int4_pruned if self._int4 else topk_int8_pruned
+        return topk_pruned
+
     def _run_brute(self, queries, vectors, scales, bias, k: int):
         """The storage tier's brute kernel over every row. f32 storage is
         searched in bf16, as the JAX kernels cast it."""
         if self._quant:
-            kernel = topk_int4_pruned if self._int4 else topk_int8_pruned
-            return kernel(queries, vectors, scales, bias, k)
+            return self._brute_kernel()(queries, vectors, scales, bias, k)
         x = vectors if vectors.dtype == torch.bfloat16 else vectors.to(torch.bfloat16)
         return topk_pruned(queries, x, bias, k)
 

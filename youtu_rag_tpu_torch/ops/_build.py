@@ -27,7 +27,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -90,8 +91,16 @@ def build(name: str, verbose: bool = False) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    A build holds its own source's lock only: a launch from a library
+    already loaded never waits behind another source's build (the index's
+    tier warm-up builds in a background thread)."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is None:
             path = library_path(name)
@@ -99,3 +108,8 @@ def load(name: str) -> ctypes.CDLL:
                 build(name)
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def is_loaded(name: str) -> bool:
+    """Whether this process has loaded ``csrc/<name>.cu``'s library."""
+    return name in _loaded

@@ -485,6 +485,13 @@ def _tma_library(entry: str) -> ctypes.CDLL:
     return lib
 
 
+def load_kernel(fn) -> None:
+    """Build (if need be) and load the ring library that holds ``fn``'s
+    entry, every entry of it typed: what a first launch of the wrapper
+    ``fn`` would pay before launching. The index's tier warm-up calls it."""
+    _tma_library(_TMA_ENTRY[fn.__name__])
+
+
 def _tma_error(lib: ctypes.CDLL, entry: str, err: int) -> RuntimeError:
     return RuntimeError(f"{entry} failed: CUDA error {err} "
                         f"({lib.ivf_topk_error_string(err).decode()})")

@@ -216,6 +216,16 @@ class ShardedVectorIndex(DeviceVectorIndex):
         self._ivf_frozen_min = 0
         self._ivf_local_blocks = 0
 
+    # next-tier warming would launch the single-device brute scan on one
+    # [capacity, d] placeholder; a search here runs one launch per shard on
+    # its rows (on a group mesh, this process's rows only), so neither the
+    # launches nor their memory match: no-ops, as in the JAX index
+    def _maybe_warm_next_tier(self) -> None:
+        return
+
+    def ensure_tier_ready(self, cap: int) -> None:
+        return
+
     # -- placement -------------------------------------------------------
 
     @property
